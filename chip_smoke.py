@@ -23,9 +23,45 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 5. skew   — 1,048,576 Zipf(1.1) keys under capacityFactor 0.5: the first
             attempt overflows, the regrow delivers; checked against the
             oracle as well.
+6. segreduce_kernel — the segment-reduce kernel against its plain PyTorch
+            version on the card: widths {3, 6, 25} x shards {1, 8} x
+            all-unique keys / one key over a whole shard / runs crossing
+            block edges / empty / all-sentinel shards x int32 and float32
+            x sum_words from 0 through a carry split to all. Bit-exact
+            for int32 and every carried lane; float32 sums within n *
+            2**-24 * sum|v| of each n-row run (sequential float32
+            summation's bound).
+7. combine — ``read(h, combine="sum")``: 10,485,760 records from 64
+            maps, int64 keys uniform over 2,097,152 ids, values int32[4]
+            (a count lane of 1 and three random lanes), 200 partitions, 8
+            shards, ``a2a.impl=pallas``, ``read.mergeImpl=auto``. Every
+            partition's keys must be unique, sorted and its own, and
+            every sum must equal a numpy int32-wrapping oracle exactly.
+8. combine_f32 — the HiBench Aggregation shape (``SELECT sourceIP,
+            SUM(adRevenue) FROM uservisits GROUP BY sourceIP``):
+            4,194,304 rows, Zipf(1.2) keys, float32[2] values (adRevenue
+            uniform in [0, 1000) summed, a per-key constant lane carried,
+            ``combine_sum_words=1``). Carried lane exact; sums within
+            2**-20 * sum + (rows + 1) * 2**-50 * sum|v| of a float64
+            oracle.
+9. ordered — TeraSort proper: the main phase's records, bounds from a
+            ReservoirSampler over the written keys, ``partitioner="range"``
+            and ``read(h, ordered=True)``. The concatenated partitions must
+            be globally non-decreasing and each partition's (key, value)
+            multiset must equal the oracle's.
+10. segreduce_at_main_shapes — the sorted input the combine read gave
+            the segment-reduce kernel, rebuilt from the same staging and
+            plan: kernel, plain version, one ``index_add_`` of the
+            valid rows over precomputed run ids, and the byte bound.
+
+They run in the order card, build, kernel, segreduce_kernel, main (with
+its profiled read), kernel_at_main_shapes, ordered, skew, combine,
+segreduce_at_main_shapes, combine_f32.
 
 Each path runs with the kernel launch counts set to 0 just before it and
-read just after; a path whose kernel never launched fails. The last two
+read just after; a path whose kernel never launched fails (main and skew:
+the segment move; combine and combine_f32: the segment move and the
+segment reduce; ordered: the segment move). The last two
 lines of standard output are the ``kernels`` JSON object and the
 ``{"ok": true, "device": ...}`` object.
 """
@@ -47,6 +83,12 @@ VALUE_WORDS = 23           # 90-byte payload, padded to whole int32 words
 SKEW_RECORDS = 1_048_576
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TPU_KERNEL = "sparkucx_tpu/ops/pallas/ragged_a2a.py:133"
+SEG_TPU_KERNEL = "sparkucx_tpu/ops/pallas/segmented.py:377"
+COMBINE_IDS = 2_097_152
+COMBINE_VALUE_WORDS = 4
+F32_RECORDS = 4_194_304
+SEG_R = 16                 # partitions of the segreduce_kernel cases
+SEG_PATTERNS = ("unique", "one_key", "crossing", "empty", "sentinel")
 
 
 def log(msg: str) -> None:
@@ -166,10 +208,16 @@ def make_records(n: int, zipf: bool, seed: int):
     return keys, values
 
 
-def check_against_oracle(parts, keys, values, R: int) -> None:
-    """parts[r] = (keys, values) served for partition r."""
+def hash_pid(keys, R: int):
     from sparkucx_tpu_torch.shuffle.writer import hash32_np
-    pid = (hash32_np(keys) % np.uint32(R)).astype(np.int64)
+    return (hash32_np(keys) % np.uint32(R)).astype(np.int64)
+
+
+def check_against_oracle(parts, keys, values, R: int, pid=None) -> None:
+    """parts[r] = (keys, values) served for partition r; ``pid`` the
+    oracle's partition of every record (default: the hash partitioner)."""
+    if pid is None:
+        pid = hash_pid(keys, R)
     order = np.lexsort((values[:, 0], keys, pid))
     bounds = np.concatenate([[0], np.cumsum(np.bincount(pid, minlength=R))])
     for r in range(R):
@@ -185,8 +233,10 @@ def check_against_oracle(parts, keys, values, R: int) -> None:
             raise AssertionError(f"partition {r}: rows differ from oracle")
 
 
-def write_maps(svc, sid: int, keys, values, num_maps: int):
-    h = svc.register_shuffle(sid, num_maps, PARTITIONS)
+def write_maps(svc, sid: int, keys, values, num_maps: int,
+               partitioner: str = "hash", bounds=None):
+    h = svc.register_shuffle(sid, num_maps, PARTITIONS, partitioner,
+                             bounds=bounds)
     per = -(-keys.shape[0] // num_maps)
     for m in range(num_maps):
         sl = slice(m * per, min((m + 1) * per, keys.shape[0]))
@@ -194,12 +244,12 @@ def write_maps(svc, sid: int, keys, values, num_maps: int):
     return h
 
 
-def drive_read(svc, h):
-    """read() + partition(r) for every r; returns (parts, read_ms,
-    views_ms)."""
+def drive_read(svc, h, **read_kw):
+    """read(**read_kw) + partition(r) for every r; returns (parts,
+    read_ms, views_ms)."""
     import torch
     t0 = time.perf_counter()
-    res = svc.read(h)
+    res = svc.read(h, **read_kw)
     torch.cuda.synchronize()
     read_ms = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
@@ -208,7 +258,7 @@ def drive_read(svc, h):
     return parts, read_ms, views_ms
 
 
-def profiled_read(svc, h) -> dict:
+def profiled_read(svc, h, **read_kw) -> dict:
     """One more read + views under torch.profiler: device busy time by
     kernel and the device's idle share of the wall (profiler on, so the
     wall is longer than the unprofiled reads above)."""
@@ -216,7 +266,7 @@ def profiled_read(svc, h) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        parts, read_ms, views_ms = drive_read(svc, h)
+        parts, read_ms, views_ms = drive_read(svc, h, **read_kw)
     del parts
     # device-side activities only (kernels, memcpy, memset); busy time is
     # the union of their intervals, so overlap is not counted twice
@@ -331,6 +381,398 @@ def kernel_at_main_shapes(keys, values, rep, dev) -> dict:
     }
     return out
 
+# -- segment-reduce kernel phase ---------------------------------------------
+def _seg_shard(rng, cap: int, width: int, pattern: str, dtype: str):
+    """One shard's (rows [cap, W], part [cap]) sorted by (partition, key):
+    all-unique keys with a sentinel tail; one key over every row (a run
+    longer than any block); runs of 1..600 rows across block edges; an
+    empty shard (zero rows, all sentinel); an all-sentinel shard whose
+    rows hold data the reduce must ignore."""
+    rows = rng.integers(-(1 << 31), 1 << 31, (cap, width)).astype(np.int32)
+    if dtype == "float32":
+        rows[:, 2:] = rng.standard_normal((cap, width - 2)).astype(
+            np.float32).view(np.int32)
+    part = np.full(cap, SEG_R, np.int32)
+    if pattern == "empty":
+        return np.zeros_like(rows), part
+    if pattern == "sentinel":
+        return rows, part
+    n_real = cap - cap // 7 if pattern == "unique" else cap
+    if pattern == "unique":
+        keys = rng.choice(1 << 40, n_real, replace=False).astype(np.int64)
+        p = rng.integers(0, SEG_R, n_real)
+    elif pattern == "one_key":
+        keys = np.full(n_real, -(1 << 35) - 3, np.int64)
+        p = np.full(n_real, 3)
+    else:
+        keys = np.repeat(rng.integers(-(1 << 40), 1 << 40, n_real),
+                         rng.integers(1, 600, n_real))[:n_real]
+        p = keys % SEG_R                   # a key lives in one partition
+    order = np.lexsort((keys, p))
+    rows[:n_real, :2] = keys[order].view(np.int32).reshape(n_real, 2)
+    part[:n_real] = p[order]
+    return rows, part
+
+
+def run_tolerance(rows, part, sum_words: int) -> np.ndarray:
+    """[P, cap, sum_words]: for output row j (run j), n * 2**-24 * sum|v|
+    over the run's n rows — the bound of sequential float32 summation
+    (the kernel adds a run in row order in float32; the plain version
+    adds in float64 and rounds once)."""
+    P, cap, _ = rows.shape
+    key = rows[..., :2].copy().view(np.int64)[..., 0]
+    tol = np.zeros((P, cap, sum_words))
+    for p in range(P):
+        valid = part[p] < SEG_R
+        start = valid.copy()
+        start[1:] &= (key[p, 1:] != key[p, :-1]) | (part[p, 1:]
+                                                    != part[p, :-1])
+        run = (np.cumsum(start) - 1)[valid]
+        v = np.abs(rows[p, :, 2:2 + sum_words].copy().view(np.float32)
+                   .astype(np.float64))[valid]
+        n = np.bincount(run, minlength=cap)[:cap]
+        for c in range(sum_words):
+            tol[p, :, c] = n * 2.0 ** -24 * np.bincount(
+                run, weights=v[:, c], minlength=cap)[:cap]
+    return tol
+
+
+def segreduce_kernel_phase(dev) -> dict:
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(SEED + 3)
+    n, f32_err = 0, 0.0
+    for width in (3, 6, 25):
+        for P in (1, 8):
+            cap = 2000 if P == 8 else 5000
+            for i, pattern in enumerate(SEG_PATTERNS):
+                # with 8 shards the others cycle through the other patterns
+                pats = [SEG_PATTERNS[(i + s) % len(SEG_PATTERNS)]
+                        for s in range(P)]
+                for dtype in ("int32", "float32"):
+                    shards = [_seg_shard(rng, cap, width, q, dtype)
+                              for q in pats]
+                    rows_np = np.stack([x[0] for x in shards])
+                    part_np = np.stack([x[1] for x in shards])
+                    rows = torch.from_numpy(rows_np).to(dev)
+                    part = torch.from_numpy(part_np).to(dev)
+                    fa = dtype == "float32"
+                    vw = width - 2
+                    for sw in sorted({0, vw // 2, vw}):
+                        kr, kp, kn = sg.segment_reduce_kernel(
+                            rows, part, SEG_R, sw, fa)
+                        pr, pp, pn = sg.segment_reduce_plain(
+                            rows, part, SEG_R, sw, fa)
+                        torch.cuda.synchronize()
+                        tag = (f"width={width} P={P} {pattern} {dtype} "
+                               f"sum_words={sw}")
+                        if not (torch.equal(kn, pn) and torch.equal(kp, pp)):
+                            raise AssertionError(f"{tag}: n_out/part differ")
+                        exact = [0, 1] + list(range(2 + sw, width))
+                        if not torch.equal(kr[..., exact], pr[..., exact]):
+                            raise AssertionError(f"{tag}: keys/carry differ")
+                        if not fa and not torch.equal(kr, pr):
+                            raise AssertionError(f"{tag}: sums differ")
+                        if fa and sw:
+                            got = kr[..., 2:2 + sw].contiguous().view(
+                                torch.float32).double().cpu().numpy()
+                            want = pr[..., 2:2 + sw].contiguous().view(
+                                torch.float32).double().cpu().numpy()
+                            diff = np.abs(got - want)
+                            if (diff > run_tolerance(rows_np, part_np,
+                                                     sw)).any():
+                                raise AssertionError(
+                                    f"{tag}: float sums outside tolerance")
+                            f32_err = max(f32_err, float(diff.max()))
+                        n += 1
+    return {"cases": n, "f32_max_abs_err": f32_err}
+
+
+# -- combine and ordered reads -----------------------------------------------
+def make_combine_records(n: int, seed: int):
+    """(keys int64 [n] uniform over COMBINE_IDS ids, both signs and both
+    key words; values int32 [n, 4]: a count lane of 1, three random)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, COMBINE_IDS, n)
+    keys = (ids - COMBINE_IDS // 2) * 1_000_000_007
+    values = np.empty((n, COMBINE_VALUE_WORDS), np.int32)
+    values[:, 0] = 1
+    values[:, 1:] = rng.integers(-(1 << 31), 1 << 31,
+                                 size=(n, COMBINE_VALUE_WORDS - 1),
+                                 dtype=np.int64)
+    return keys, values
+
+
+def make_uservisits(n: int, seed: int):
+    """(sourceIP keys int64 Zipf(1.2), values float32 [n, 2]: adRevenue
+    uniform in [0, 1000), then a per-key constant lane)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.zipf(1.2, n).astype(np.int64)
+    values = np.empty((n, 2), np.float32)
+    values[:, 0] = rng.uniform(0, 1000, n)
+    values[:, 1] = (keys % 65521).astype(np.float32)
+    return keys, values
+
+
+def group_oracle(keys, values):
+    """(unique keys, float64/int64 per-key sums, per-key row counts)."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    wide = np.float64 if values.dtype.kind == "f" else np.int64
+    sums = np.add.reduceat(values[order].astype(wide), starts, axis=0)
+    counts = np.diff(np.r_[starts, sk.size])
+    return sk[starts], sums, counts
+
+
+def combined_rows(parts, R: int, pid_of):
+    """Check every partition's keys are unique, ascending and its own;
+    return (keys, values) of all partitions in key order."""
+    ks, vs = [], []
+    for r in range(R):
+        gk, gv = parts[r]
+        if gk.size and (np.diff(gk) <= 0).any():
+            raise AssertionError(f"partition {r}: keys not unique+sorted")
+        if gk.size and (pid_of(gk) != r).any():
+            raise AssertionError(f"partition {r}: holds another's keys")
+        ks.append(gk)
+        vs.append(gv)
+    k, v = np.concatenate(ks), np.concatenate(vs)
+    o = np.argsort(k, kind="stable")
+    return k[o], v[o]
+
+
+def device_read(svc, h, dev, kernels, **read_kw):
+    """One measured read: launch counts and peak memory reset just
+    before, every kernel of ``kernels`` must have launched."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.reset_launch_counts()
+    parts, read_ms, views_ms = drive_read(svc, h, **read_kw)
+    launches = {k: counted(k) for k in kernels}
+    counts = backend.launch_counts()
+    return parts, {"read_ms": read_ms, "views_ms": views_ms,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": launches, "all_launches": counts}
+
+
+def warm_read(svc, sid: int, keys, values, **read_kw) -> None:
+    """A small read of the same kind first (not counted, not timed)."""
+    drive_read(svc, write_maps(svc, sid, keys, values, 8), **read_kw)
+    svc.unregister_shuffle(sid)
+
+
+def combine_phase(dev, conf) -> tuple:
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    t = time.perf_counter()
+    keys, values = make_combine_records(RECORDS, SEED + 4)
+    gen_s = time.perf_counter() - t
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        wk, wv = make_combine_records(1 << 16, SEED + 5)
+        warm_read(svc, 10, wk, wv, combine="sum")
+        h = write_maps(svc, 11, keys, values, MAPS)
+        parts, stats = device_read(svc, h, dev, (KERNEL_NAME, SEG),
+                                   combine="sum")
+        rep = svc.report(11)
+        # steady state: the same read again, then once under the profiler
+        _, read2_ms, views2_ms = drive_read(svc, h, combine="sum")
+        rep2 = svc.report(11)
+        prof = profiled_read(svc, h, combine="sum")
+        svc.unregister_shuffle(11)
+    if rep.kernel != "pallas":
+        raise AssertionError(f"combine read ran kernel tier {rep.kernel}")
+    t = time.perf_counter()
+    uk, sums, _ = group_oracle(keys, values)
+    gk, gv = combined_rows(parts, PARTITIONS,
+                           lambda k: hash_pid(k, PARTITIONS))
+    want = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+        raise AssertionError("combine: keys or sums differ from the oracle")
+    check_s = time.perf_counter() - t
+    part_rows = [int(parts[r][0].shape[0]) for r in range(PARTITIONS)]
+    out = {"phase": "combine", "records": RECORDS, "maps": MAPS,
+           "partitions": PARTITIONS, "shards": SHARDS, "impl": rep.impl,
+           "kernel": rep.kernel, "rows_out": int(uk.size),
+           "retries": rep.retries, "plan_bucket": rep.plan_bucket,
+           "pack_ms": rep.pack_ms, "dispatch_ms": rep.dispatch_ms,
+           "group_ms": rep.group_ms, **stats, "read2_ms": read2_ms,
+           "views2_ms": views2_ms, "read2_pack_ms": rep2.pack_ms,
+           "read2_dispatch_ms": rep2.dispatch_ms, "gen_s": gen_s,
+           "oracle_s": check_s, "ok": True}
+    return out, prof, rep, keys, values, part_rows
+
+
+def combine_f32_phase(dev, conf) -> dict:
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    keys, values = make_uservisits(F32_RECORDS, SEED + 6)
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        wk, wv = make_uservisits(1 << 16, SEED + 7)
+        warm_read(svc, 12, wk, wv, combine="sum", combine_sum_words=1)
+        h = write_maps(svc, 13, keys, values, MAPS)
+        parts, stats = device_read(svc, h, dev, (KERNEL_NAME, SEG),
+                                   combine="sum", combine_sum_words=1)
+        rep = svc.report(13)
+        _, read2_ms, views2_ms = drive_read(svc, h, combine="sum",
+                                            combine_sum_words=1)
+        svc.unregister_shuffle(13)
+    if rep.kernel != "pallas":
+        raise AssertionError(f"combine_f32 read ran kernel {rep.kernel}")
+    uk, sums, counts = group_oracle(keys, values)
+    gk, gv = combined_rows(parts, PARTITIONS,
+                           lambda k: hash_pid(k, PARTITIONS))
+    if not np.array_equal(gk, uk):
+        raise AssertionError("combine_f32: keys differ from the oracle")
+    if not np.array_equal(gv[:, 1], (uk % 65521).astype(np.float32)):
+        raise AssertionError("combine_f32: the carried lane changed")
+    # map-side float64 prefix differences (each off by at most 2**-53 of
+    # the running prefix per row) rounded to float32, then at most 8
+    # shard partials added in float32 by the kernel
+    total = float(np.abs(values[:, 0].astype(np.float64)).sum())
+    tol = 2.0 ** -20 * sums[:, 0] + (counts + 1) * 2.0 ** -50 * total
+    err = np.abs(gv[:, 0].astype(np.float64) - sums[:, 0])
+    if (err > tol).any():
+        raise AssertionError(f"combine_f32: sums outside tolerance "
+                             f"(worst {float((err / tol).max())} x tol)")
+    return {"phase": "combine_f32", "records": F32_RECORDS,
+            "rows_out": int(uk.size), "hot_key_rows": int(counts.max()),
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / sums[:, 0]).max()),
+            "retries": rep.retries, "plan_bucket": rep.plan_bucket,
+            "kernel": rep.kernel, **stats, "read2_ms": read2_ms,
+            "views2_ms": views2_ms, "ok": True}
+
+
+def ordered_phase(dev, conf, keys, values) -> tuple:
+    """TeraSort proper over the main phase's records."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.partition import ReservoirSampler
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    sampler = ReservoirSampler(capacity=1 << 16, seed=SEED)
+    per = -(-keys.shape[0] // MAPS)
+    for m in range(MAPS):
+        sampler.add(keys[m * per:(m + 1) * per])
+    bounds = sampler.bounds(PARTITIONS)
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 14, keys, values, MAPS, "range", bounds)
+        parts, stats = device_read(svc, h, dev, (KERNEL_NAME,),
+                                   ordered=True)
+        rep = svc.report(14)
+        prof = profiled_read(svc, h, ordered=True)
+        svc.unregister_shuffle(14)
+    if stats["all_launches"].get(SEG, 0):
+        raise AssertionError("the ordered read ran the segment reduce")
+    t = time.perf_counter()
+    allk = np.concatenate([parts[r][0] for r in range(PARTITIONS)])
+    if allk.size != keys.size or (np.diff(allk) < 0).any():
+        raise AssertionError("ordered: partitions not globally sorted")
+    del allk
+    pid = np.searchsorted(bounds, keys, side="right").astype(np.int64)
+    check_against_oracle(parts, keys, values, PARTITIONS, pid=pid)
+    sizes = np.bincount(pid, minlength=PARTITIONS)
+    return {"phase": "ordered", "records": int(keys.size),
+            "impl": rep.impl, "retries": rep.retries,
+            "plan_bucket": rep.plan_bucket,
+            "partition_rows_min_max": [int(sizes.min()), int(sizes.max())],
+            **stats, "oracle_s": time.perf_counter() - t, "ok": True}, prof
+
+
+def segreduce_at_main_shapes(keys, values, rep, part_rows, dev) -> dict:
+    """Rebuild the sorted input the combine read gave the segment-reduce
+    kernel (same staging, plan, segment move, densify and keysort), check
+    kernel == plain == one index_add_ over precomputed run ids, and time
+    all three beside the byte bound."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.aggregate import keysort_rows
+    from sparkucx_tpu_torch.ops.partition import (counts_from_sorted,
+                                                  words_to_key)
+    from sparkucx_tpu_torch.shuffle.plan import ShufflePlan
+    from sparkucx_tpu_torch.shuffle.reader import (densified_receive,
+                                                   pack_rows)
+    cap_in, cap_out = rep.plan_bucket
+    cap_out *= 2 ** rep.retries
+    vw = COMBINE_VALUE_WORDS
+    width = 2 + vw
+    per = -(-keys.shape[0] // MAPS)
+    rows = np.zeros((SHARDS, cap_in, width), np.int32)
+    nvalid = np.zeros(SHARDS, np.int32)
+    for m in range(MAPS):                      # map_id % P, map order
+        p = m % SHARDS
+        sl = slice(m * per, min((m + 1) * per, keys.shape[0]))
+        n = sl.stop - sl.start
+        pack_rows(keys[sl], values[sl], width,
+                  out=rows[p, nvalid[p]:nvalid[p] + n])
+        nvalid[p] += n
+    plan = ShufflePlan(SHARDS, PARTITIONS, cap_in, cap_out, "pallas",
+                       combine="sum", combine_words=vw,
+                       combine_dtype=np.dtype(np.int32).str,
+                       kernel_impl="pallas")
+    out, pkey, ovf = densified_receive(
+        plan, torch.from_numpy(rows).to(dev), torch.from_numpy(nvalid).to(dev))
+    if bool(ovf):
+        raise AssertionError("combine shapes overflow on replay")
+    spart, srows, _ = keysort_rows(out, pkey, out.shape[1], PARTITIONS)
+    del out, pkey
+    P, cap, _ = srows.shape
+
+    def kernel():
+        return sg.segment_reduce_kernel(srows, spart, PARTITIONS, vw, False)
+
+    def plain():
+        return sg.segment_reduce_plain(srows, spart, PARTITIONS, vw, False)
+
+    # the library call: one index_add_ of the valid rows' summed lanes
+    # into their run slots (run ids and the valid-row selection are
+    # precomputed, outside the timed call)
+    valid = spart < PARTITIONS
+    key = words_to_key(srows[..., 0], srows[..., 1])
+    same = torch.zeros_like(valid)
+    same[:, 1:] = (key[:, 1:] == key[:, :-1]) & (spart[:, 1:]
+                                                 == spart[:, :-1])
+    run = torch.cumsum(valid & ~same, dim=1) - 1
+    base = torch.arange(P, device=dev)[:, None] * cap
+    dest = (run + base)[valid]
+    lanes = srows[..., 2:2 + vw][valid].contiguous()
+    acc = torch.zeros((P * cap, vw), dtype=torch.int32, device=dev)
+    del key, same, run, base, valid
+
+    def library():
+        return acc.index_add_(0, dest, lanes)
+
+    kr, kp, kn = kernel()
+    pr, pp, pn = plain()
+    library()
+    torch.cuda.synchronize()
+    err = int((kr.long() - pr.long()).abs().max())
+    if err or not (torch.equal(kn, pn) and torch.equal(kp, pp)):
+        raise AssertionError(f"segment reduce disagrees at main shapes "
+                             f"(err {err})")
+    if not torch.equal(acc.reshape(P, cap, vw), kr[..., 2:]):
+        raise AssertionError("index_add_ disagrees with the kernel")
+    pcounts = counts_from_sorted(kp, PARTITIONS).sum(dim=0)
+    if pcounts.cpu().tolist() != part_rows:
+        raise AssertionError("replayed input is not the combine read's")
+    n_out = int(kn.sum())
+    del kr, kp, pr, pp
+    bytes_in = P * cap * (width + 1) * 4
+    bytes_out = n_out * width * 4
+    return {
+        "kernel_ms": median_ms(kernel),
+        "plain_ms": median_ms(plain, reps=5, warmup=1),
+        "library_ms": median_ms(library),
+        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
+        # the zero tail (rows past n_out) written as well
+        "bound_full_output_ms": 2 * bytes_in / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "input_shape": [P, cap, width],
+        "valid_rows": int((spart < PARTITIONS).sum()), "n_out": n_out,
+        "bytes_in": bytes_in, "bytes_out": bytes_out}
+
 
 def main() -> int:
     try:
@@ -350,6 +792,7 @@ def main() -> int:
         log(f"chip_smoke: the port package is not beside this script: {e}")
         return 2
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG_KERNEL
 
     dev = card_device()
     print(card_line(), flush=True)      # "<name>, <power limit>"
@@ -367,6 +810,11 @@ def main() -> int:
     t = time.perf_counter()
     cases = kernel_phase(dev)
     print(json.dumps({"phase": "kernel", "cases": cases, "ok": True,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
+    t = time.perf_counter()
+    seg_cases = segreduce_kernel_phase(dev)
+    print(json.dumps({"phase": "segreduce_kernel", **seg_cases, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
 
     # -- main path: TeraSort records, 200 partitions, 8 shards -----------
@@ -420,6 +868,13 @@ def main() -> int:
 
     kt = kernel_at_main_shapes(keys, values, rep, dev)
     print(json.dumps({"phase": "kernel_at_main_shapes", **kt}), flush=True)
+
+    # -- ordered: TeraSort proper (range partitioner, sorted partitions) --
+    t = time.perf_counter()
+    od, oprof = ordered_phase(dev, conf, keys, values)
+    print(json.dumps({**od, "seconds": time.perf_counter() - t}),
+          flush=True)
+    print(json.dumps({"phase": "ordered_profile", **oprof}), flush=True)
     del keys, values
 
     # -- skew + regrow: Zipf(1.1), capacityFactor 0.5 --------------------
@@ -441,13 +896,36 @@ def main() -> int:
         "read_ms": sread_ms, "views_ms": sviews_ms,
         "launches": skew_launches, "ok": True}), flush=True)
 
+    # -- combine: group-by-sum through the segment-reduce kernel ---------
+    comb_conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+                 "spark.shuffle.tpu.read.mergeImpl": "auto"}
+    t = time.perf_counter()
+    cb, cprof, crep, ck, cv, part_rows = combine_phase(dev, comb_conf)
+    print(json.dumps({**cb, "seconds": time.perf_counter() - t}), flush=True)
+    print(json.dumps({"phase": "combine_profile", **cprof}), flush=True)
+    seg_launches = cb["launches"][SEG_KERNEL]
+    st = segreduce_at_main_shapes(ck, cv, crep, part_rows, dev)
+    print(json.dumps({"phase": "segreduce_at_main_shapes", **st}),
+          flush=True)
+    del ck, cv
+
+    t = time.perf_counter()
+    cf = combine_f32_phase(dev, comb_conf)
+    print(json.dumps({**cf, "seconds": time.perf_counter() - t}), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/ragged_a2a.cu",
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
-        "bound_by": "bytes", "library_ms": kt["library_ms"]}]}),
+        "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
+        "name": SEG_KERNEL, "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
+        "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
+        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": "bytes", "library_ms": st["library_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

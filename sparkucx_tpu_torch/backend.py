@@ -49,6 +49,10 @@ SIGNATURES = {
     # width, blocks_per_pair, stream -> cudaError_t
     "sxt_ragged_a2a": (ctypes.c_int,
                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # rows, part, out_rows, out_part, n_out, block_counts, block_base,
+    # P, cap, width, nblk, num_parts, sum_words, float_acc, stream
+    # -> cudaError_t
+    "sxt_segment_reduce": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
     "sxt_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,12 +1,14 @@
-"""The ``spark.shuffle.tpu.*`` keys the plain read consumes.
+"""The ``spark.shuffle.tpu.*`` keys the ported read paths consume.
 
 The same key strings as the JAX package's conf, so one flat dict drives
-both packages. Only the keys the plain read path reads are typed here;
-every other key in the mapping is carried (``get``) but not interpreted —
-a conf written for the full JAX surface passes through unchanged.
+both packages. Only the keys the ported reads (plain, combine, ordered)
+use are typed here; every other key in the mapping is carried (``get``)
+but not interpreted — a conf written for the full JAX surface passes
+through unchanged.
 
 Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
-``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``network.timeoutMs``.
+``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``a2a.combineCompaction``,
+``read.mergeImpl``, ``network.timeoutMs``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,18 @@ ALLOWED_IMPLS = ("auto", "dense", "gather", "pallas")
 # the stable order, the others accept the unstable one.
 SORT_METHODS = ("auto", "argsort", "multisort", "multisort8", "counting")
 
-PARTITIONERS = ("hash", "direct")
+PARTITIONERS = ("hash", "direct", "range")
+
+# read.mergeImpl values (the JAX package's set). 'pallas' names the
+# hand-written CUDA segment-reduce kernel (csrc/segment_reduce.cu, the
+# counterpart of the JAX package's Pallas kernel), 'jnp' the torch-op
+# formulation (ops/aggregate.combine_rows); auto resolves per device
+# (ops/segmented.resolve_kernel_impl).
+MERGE_IMPLS = ("auto", "jnp", "pallas")
+
+# a2a.combineCompaction values: two formulations of combine_rows' end-row
+# compaction with bit-identical results (ops/aggregate.combine_rows).
+COMPACTIONS = ("stable", "unstable")
 
 # a2a.capBucketGrowth bounds
 CAP_BUCKET_GROWTH_RANGE = (1.05, 4.0)
@@ -61,8 +74,8 @@ class ShuffleConf:
     ``SPARKUCX_TPU_*`` environment overlay unless ``use_env=False``."""
 
     _TYPED_PROPS = ("a2a_impl", "capacity_factor", "cap_buckets",
-                    "cap_bucket_growth", "sort_impl",
-                    "connection_timeout_ms")
+                    "cap_bucket_growth", "sort_impl", "combine_compaction",
+                    "read_merge_impl", "connection_timeout_ms")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -134,6 +147,29 @@ class ShuffleConf:
     def sort_impl(self) -> str:
         """Destination-sort order contract (see SORT_METHODS)."""
         return validate_sort_impl(self._get("a2a.sortImpl", "auto"))
+
+    @property
+    def combine_compaction(self) -> str:
+        """combine_rows end-row compaction formulation: stable |
+        unstable (bit-identical results)."""
+        v = self._get("a2a.combineCompaction", "stable")
+        if v not in COMPACTIONS:
+            raise ValueError(f"{PREFIX}a2a.combineCompaction={v!r}: want "
+                             f"one of {COMPACTIONS}")
+        return v
+
+    @property
+    def read_merge_impl(self) -> str:
+        """How the combine read's reduce-side segment reduce runs: auto
+        (the CUDA kernel on the card, the torch-op formulation on the
+        CPU), jnp (the torch-op formulation) or pallas (the kernel on
+        the card, its plain version on the CPU)."""
+        v = self._get("read.mergeImpl", "auto")
+        if v not in MERGE_IMPLS:
+            raise ValueError(f"{PREFIX}read.mergeImpl={v!r}: want one of "
+                             f"{MERGE_IMPLS} (pallas = the hand-written CUDA "
+                             f"segment reduce, jnp = torch ops)")
+        return v
 
     @property
     def connection_timeout_ms(self) -> int:

@@ -1,0 +1,198 @@
+// Segment reduce over (partition, key)-sorted rows for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// sparkucx_tpu/ops/pallas/segmented.py::_segreduce_blocked_kernel with
+// wire_words=0 (the receive-side combine of a multi-shard combine read).
+// Per logical shard p, independently, over rows [P, cap, W] int32 sorted
+// by (partition, key) with part [P, cap] int32 (sentinel num_parts on
+// invalid rows, which sort last):
+//   - a row starts a run iff it is valid and its (part, key_hi, key_lo)
+//     differs from the row before it (row 0 compares against nothing);
+//   - run j's output row j carries the key lanes and every lane after
+//     2 + sum_words from the run's first row; its sum_words lanes are the
+//     run's sums (uint32 ring sums, or float32 sums in row order);
+//   - n_out[p] is the number of runs; rows at and past it are zero with
+//     part num_parts.
+//
+// The TPU kernel walks its grid in order and carries the open run across
+// tiles in scratch memory, with one-hot matmuls for the per-tile sums.
+// Blocks on Hopper run in parallel with nothing carried between them, so
+// the design is three passes on the caller's stream:
+//   1. count_starts: each thread flags one row; __syncthreads_count gives
+//      the block's run-start count;
+//   2. scan_counts: one block per shard scans the block counts (warp
+//      shuffles) into each block's first output slot, and n_out;
+//   3. emit_runs: the thread that owns a run's first row ranks it in its
+//      block (ballot + popc), walks to the run's end summing, and writes
+//      slot block_base + rank; threads whose row index is >= n_out write
+//      the zero tail. A run of any length is right; on the combine path
+//      map-side combine leaves runs of at most P rows, so walks are short.
+//
+// Bound: bytes. The least traffic is reading rows and part once,
+// P*cap*(W+1)*4 bytes, and writing the n_out run rows, P*n_out*W*4 bytes,
+// at 3.35 TB/s (the zero tail adds P*(cap-n_out)*(W+1)*4 written bytes).
+// Pass 3 re-reads the key and part words pass 1 read (from L2 at these
+// sizes), and a run's owner reads its rows one thread at a time, so the
+// design trades coalescing for simplicity.
+//
+// Plain C interface (no PyTorch headers): the wrapper passes device
+// pointers, the scratch it allocated and the current stream, and raises on
+// a non-zero return.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;       // rows per block, passes 1 and 3
+constexpr int kScanThreads = 1024;  // pass 2
+constexpr int kWarps = kScanThreads / 32;
+
+__device__ __forceinline__ bool same_run(const int* __restrict__ rows,
+                                         const int* __restrict__ part,
+                                         long long a, long long b,
+                                         int width) {
+  return part[a] == part[b] && rows[a * width] == rows[b * width] &&
+         rows[a * width + 1] == rows[b * width + 1];
+}
+
+__device__ __forceinline__ bool run_start(const int* __restrict__ rows,
+                                          const int* __restrict__ part,
+                                          long long i, int width,
+                                          int num_parts) {
+  if (part[i] >= num_parts) return false;   // sentinel rows never count
+  return i == 0 || !same_run(rows, part, i, i - 1, width);
+}
+
+__global__ void __launch_bounds__(kThreads)
+count_starts(const int* __restrict__ rows, const int* __restrict__ part,
+             int* __restrict__ block_counts, long long cap, int width,
+             int num_parts, int nblk) {
+  const long long p = blockIdx.y;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int* r = rows + p * cap * width;
+  const int* pt = part + p * cap;
+  const int flag = i < cap && run_start(r, pt, i, width, num_parts);
+  const int n = __syncthreads_count(flag);
+  if (threadIdx.x == 0) block_counts[p * nblk + blockIdx.x] = n;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan_counts(const int* __restrict__ block_counts, int* __restrict__ block_base,
+            int* __restrict__ n_out, int nblk) {
+  __shared__ int warp_sums[kWarps];
+  const long long p = blockIdx.x;
+  const int* in = block_counts + p * nblk;
+  int* out = block_base + p * nblk;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < nblk; base += kScanThreads) {
+    const int i = base + threadIdx.x;
+    const int v = i < nblk ? in[i] : 0;
+    int x = v;                                 // inclusive scan in the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {                           // scan of the warp totals
+      int w = warp_sums[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    const int excl = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+    if (i < nblk) out[i] = carry + excl;
+    carry += warp_sums[kWarps - 1];
+    __syncthreads();                           // warp_sums is reused
+  }
+  if (threadIdx.x == 0) n_out[p] = carry;
+}
+
+__global__ void __launch_bounds__(kThreads)
+emit_runs(const int* __restrict__ rows, const int* __restrict__ part,
+          int* __restrict__ out_rows, int* __restrict__ out_part,
+          const int* __restrict__ block_base, const int* __restrict__ n_out,
+          long long cap, int width, int num_parts, int sum_words,
+          int float_acc, int nblk) {
+  __shared__ int warp_counts[kThreads / 32];
+  const long long p = blockIdx.y;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int* r = rows + p * cap * width;
+  const int* pt = part + p * cap;
+  int* orow = out_rows + p * cap * width;
+  int* opart = out_part + p * cap;
+  const bool start = i < cap && run_start(r, pt, i, width, num_parts);
+
+  // rank of this run start among the block's starts
+  const unsigned mask = __ballot_sync(0xffffffffu, start);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_counts[warp] = __popc(mask);
+  __syncthreads();
+  int rank = __popc(mask & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) rank += warp_counts[w];
+
+  if (i < cap && i >= n_out[p]) {              // the zero tail
+    for (int c = 0; c < width; ++c) orow[i * width + c] = 0;
+    opart[i] = num_parts;
+  }
+  if (!start) return;
+
+  long long end = i + 1;
+  while (end < cap && same_run(r, pt, end, i, width)) ++end;
+  const long long slot = block_base[p * nblk + blockIdx.x] + rank;
+  const int* first = r + i * width;
+  int* dst = orow + slot * width;
+  dst[0] = first[0];
+  dst[1] = first[1];
+  for (int c = 2; c < 2 + sum_words; ++c) {
+    if (float_acc) {
+      float s = 0.0f;
+      for (long long j = i; j < end; ++j) {
+        s += __int_as_float(r[j * width + c]);
+      }
+      dst[c] = __float_as_int(s);
+    } else {
+      uint32_t s = 0;                          // wraps mod 2^32
+      for (long long j = i; j < end; ++j) s += (uint32_t)r[j * width + c];
+      dst[c] = (int)s;
+    }
+  }
+  for (int c = 2 + sum_words; c < width; ++c) dst[c] = first[c];
+  opart[slot] = pt[i];
+}
+
+}  // namespace
+
+extern "C" int sxt_segment_reduce(const int* rows, const int* part,
+                                  int* out_rows, int* out_part, int* n_out,
+                                  int* block_counts, int* block_base,
+                                  int num_shards, int cap, int width,
+                                  int nblk, int num_parts, int sum_words,
+                                  int float_acc, void* stream) {
+  if (num_shards <= 0 || cap <= 0 || width < 2 || sum_words < 0 ||
+      sum_words > width - 2 || (long long)nblk * kThreads < cap ||
+      (long long)(nblk - 1) * kThreads >= cap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nblk, num_shards);
+  count_starts<<<grid, kThreads, 0, s>>>(rows, part, block_counts, cap,
+                                         width, num_parts, nblk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_counts<<<num_shards, kScanThreads, 0, s>>>(block_counts, block_base,
+                                                  n_out, nblk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit_runs<<<grid, kThreads, 0, s>>>(rows, part, out_rows, out_part,
+                                      block_base, n_out, cap, width,
+                                      num_parts, sum_words, float_acc, nblk);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,6 @@
-"""Map-side routing on tensors: the mixing hash, destination sorts and
-segment counts of the JAX package's ``ops/partition.py``.
+"""Map-side routing on tensors: the mixing hash, the range partitioner,
+destination sorts and segment counts of the JAX package's
+``ops/partition.py``.
 
 Every function here is batched over a leading shard dimension: rows are
 ``[B, cap, W]`` int32, per-row ids ``[B, cap]``, valid counts ``[B]`` —
@@ -10,7 +11,7 @@ sorts last.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +43,104 @@ def hash32(keys: torch.Tensor) -> torch.Tensor:
 def hash_partition(keys: torch.Tensor, num_partitions: int) -> torch.Tensor:
     """keys -> reduce-partition id in [0, num_partitions), int32."""
     return (hash32(keys) % num_partitions).to(torch.int32)
+
+
+def words_to_key(key_lo: torch.Tensor, key_hi: torch.Tensor) -> torch.Tensor:
+    """The signed int64 key from its two int32 transport words [lo, hi]
+    (lexicographic (hi signed, lo unsigned) order IS signed int64
+    order)."""
+    return (key_hi.to(torch.int64) << 32) | (key_lo.to(torch.int64) & _MASK32)
+
+
+def range_partition_words(key_lo: torch.Tensor, key_hi: torch.Tensor,
+                          bounds) -> torch.Tensor:
+    """Range partition of int64 keys held as transport words: partition
+    = #(b <= key) over the sorted int64 split points ``bounds`` (signed
+    compare). The JAX package counts it by a broadcast compare, O(n*R);
+    a binary search over the rebuilt key gives the same ids in
+    O(n log R). int32 ids, the shape of ``key_lo``."""
+    b = torch.as_tensor(np.asarray(bounds, dtype=np.int64),
+                        device=key_lo.device)
+    key = words_to_key(key_lo, key_hi)
+    if b.numel() == 0:
+        return torch.zeros(key.shape, dtype=torch.int32, device=key.device)
+    return torch.searchsorted(b, key.contiguous(), right=True) \
+        .to(torch.int32)
+
+
+def range_partition(keys: Union[np.ndarray, torch.Tensor], bounds):
+    """keys -> partition via sorted split points (TeraSort's range
+    partitioner: partition r holds keys in [bounds[r-1], bounds[r]), so
+    concatenating key-sorted partitions gives a globally sorted
+    sequence). numpy in, numpy out; a tensor stays a tensor."""
+    if isinstance(keys, np.ndarray):
+        return np.searchsorted(np.asarray(bounds, dtype=np.int64), keys,
+                               side="right").astype(np.int32)
+    b = torch.as_tensor(np.asarray(bounds, dtype=np.int64),
+                        device=keys.device)
+    return torch.searchsorted(b, keys.to(torch.int64).contiguous(),
+                              right=True).to(torch.int32)
+
+
+def sample_bounds(keys, num_partitions: int) -> np.ndarray:
+    """Host-side quantile split points for range partitioning."""
+    qs = np.linspace(0, 1, num_partitions + 1)[1:-1]
+    return np.quantile(np.asarray(keys), qs).astype(np.asarray(keys).dtype)
+
+
+class ReservoirSampler:
+    """Streaming uniform sample of a key stream (vectorized Algorithm R)
+    — Spark's RangePartitioner sketch at O(capacity) memory. The first
+    ``capacity`` keys fill the reservoir; each later key replaces a
+    uniform slot with probability capacity / seen_so_far."""
+
+    def __init__(self, capacity: int = 4096, seed: int = 0):
+        if capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {capacity}")
+        self.capacity = int(capacity)
+        self.seen = 0
+        self._rng = np.random.default_rng(seed)
+        self._buf: Optional[np.ndarray] = None   # dtype of the first keys
+
+    def add(self, keys) -> None:
+        """Fold one chunk of keys (1-D array) into the reservoir."""
+        keys = np.asarray(keys)
+        if keys.ndim != 1:
+            raise ValueError("reservoir keys must be 1-D")
+        if keys.size == 0:
+            return
+        if self._buf is None:
+            self._buf = np.empty(self.capacity, dtype=keys.dtype)
+        n = keys.shape[0]
+        fill = min(self.capacity - self.seen, n) \
+            if self.seen < self.capacity else 0
+        if fill > 0:
+            self._buf[self.seen:self.seen + fill] = keys[:fill]
+        tail = keys[fill:]
+        if tail.size:
+            # tail item i is the (seen + fill + i + 1)-th of the stream
+            ranks = self.seen + fill + 1 \
+                + np.arange(tail.size, dtype=np.float64)
+            accept = self._rng.random(tail.size) < (self.capacity / ranks)
+            idx = np.flatnonzero(accept)
+            if idx.size:
+                slots = self._rng.integers(0, self.capacity, size=idx.size)
+                # later duplicates win a slot: sequential Algorithm R's
+                # last-write order
+                self._buf[slots] = tail[idx]
+        self.seen += n
+
+    def sample(self) -> np.ndarray:
+        """The reservoir's filled prefix."""
+        if self._buf is None:
+            return np.zeros(0, dtype=np.int64)
+        return self._buf[:min(self.seen, self.capacity)]
+
+    def bounds(self, num_partitions: int) -> np.ndarray:
+        """Split points for :func:`range_partition` from the reservoir."""
+        if self.seen == 0:
+            raise ValueError("cannot derive bounds from an empty stream")
+        return sample_bounds(self.sample(), num_partitions)
 
 
 def counts_from_sorted(sorted_key: torch.Tensor,

@@ -1,0 +1,247 @@
+"""Segment reduce over sorted rows — the reduce half of the JAX
+package's ``ops/pallas/segmented.py``, the receive-side combine of a
+multi-shard combine read.
+
+:func:`segment_reduce_rows` reduces each run of equal (partition, key)
+in a (partition, key)-sorted buffer to one row: the leading ``sum_words``
+value words are summed (int32 ring sums, or float32), the other words
+are carried from the run's first row. Two impls, named as in the JAX
+package's ``read.mergeImpl``:
+
+* ``pallas`` — :func:`segment_reduce`: the hand-written CUDA kernel
+  (``csrc/segment_reduce.cu``) for a CUDA tensor, its plain PyTorch
+  version (:func:`segment_reduce_plain`) for a CPU tensor — the
+  counterpart of the JAX package's interpret mode. Nothing else chooses
+  between them; a CUDA tensor never reaches the plain version here.
+* ``jnp`` — the torch-op formulation, :func:`~sparkucx_tpu_torch.ops.
+  aggregate.combine_rows`, which sorts internally and accepts any order.
+
+Rows carry the reader's int32 format (cols 0, 1 = int64 key as [lo, hi]);
+partition ids arrive as a lane of their own, the sentinel ``num_parts``
+marking invalid rows, which sort last. Output rows past the run count
+are zero with the sentinel partition, so the two impls agree on the
+whole buffer. The merge half (``merge_rows``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sparkucx_tpu_torch import backend
+from sparkucx_tpu_torch.config import MERGE_IMPLS
+from sparkucx_tpu_torch.ops.aggregate import (KEY_WORDS, combine_rows,
+                                              is_float_dtype)
+from sparkucx_tpu_torch.ops.partition import counts_from_sorted, words_to_key
+
+KERNEL_NAME = "segment_reduce"
+_THREADS = 256          # rows per block of the kernel (csrc/segment_reduce.cu)
+
+
+def pallas_reduce_supported(val_dtype) -> bool:
+    """The kernel sums whole int32 transport words, so only 4-byte value
+    dtypes ride it; a sub-word schema (int8/16, float16) packs several
+    values per word and keeps the torch-op path."""
+    return np.dtype(val_dtype).itemsize == 4
+
+
+def resolve_kernel_impl(requested: str, device: torch.device, *,
+                        combine_dtype=None) -> Tuple[str, Optional[str]]:
+    """Resolve ``read.mergeImpl`` to what runs -> ``(impl, reason)``.
+
+    * ``jnp``    — always honoured.
+    * ``auto``   — ``pallas`` on a CUDA device, ``jnp`` on the CPU (not a
+      fallback: auto never offers the kernel off the card, as the JAX
+      package's auto never offers it off the TPU).
+    * ``pallas`` — honoured on both devices (on the CPU the wrapper runs
+      the kernel's plain version, the counterpart of interpret mode).
+
+    Where pallas was offered, a sub-word combine dtype resolves ``jnp``
+    with reason ``'subword_dtype'``, the reference's own gate; ``reason``
+    is non-None exactly then, and the caller counts and reports it."""
+    if requested == "jnp":
+        return "jnp", None
+    if requested not in MERGE_IMPLS:
+        raise ValueError(
+            f"unknown kernel impl {requested!r}; want one of {MERGE_IMPLS}")
+    if requested == "auto" and device.type != "cuda":
+        return "jnp", None
+    if combine_dtype is not None and not pallas_reduce_supported(
+            np.dtype(combine_dtype)):
+        return "jnp", "subword_dtype"
+    return "pallas", None
+
+
+def _mask_past_n(rows_out: torch.Tensor, part: torch.Tensor,
+                 n: torch.Tensor, num_parts: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero the rows at and past ``n`` (per shard) and give them the
+    sentinel partition — the combine contract for the unused tail."""
+    cap = rows_out.shape[1]
+    live = torch.arange(cap, device=n.device)[None, :] < n.reshape(-1, 1)
+    rows_out = rows_out.masked_fill(~live.unsqueeze(-1), 0)
+    part = torch.where(live, part, torch.full_like(part, num_parts))
+    return rows_out, part
+
+
+def _drop_sentinel_group(n: torch.Tensor, part: torch.Tensor,
+                         num_parts: int) -> torch.Tensor:
+    """``combine_rows`` counts the zeroed sentinel rows (part ==
+    num_parts) as one more group whenever the buffer holds any; its row
+    sorts last, so correcting ``n`` is a subtraction. Keeps the jnp
+    impl's ``n`` equal to the kernel's, which never counts sentinels."""
+    has_pad = (part >= num_parts).any(dim=1).to(n.dtype)
+    return torch.clamp(n - has_pad, min=0)
+
+
+def _check_inputs(rows: torch.Tensor, part: torch.Tensor,
+                  sum_words: int) -> None:
+    if rows.dim() != 3 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be [P, cap, W] int32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if part.dtype != torch.int32 or tuple(part.shape) != tuple(
+            rows.shape[:2]):
+        raise ValueError(f"part must be [P, cap] int32 matching rows, got "
+                         f"{tuple(part.shape)} {part.dtype}")
+    if not 0 <= sum_words <= rows.shape[2] - KEY_WORDS:
+        raise ValueError(f"sum_words={sum_words} out of [0, "
+                         f"{rows.shape[2] - KEY_WORDS}] for width "
+                         f"{rows.shape[2]}")
+
+
+def segment_reduce_plain(rows: torch.Tensor, part: torch.Tensor,
+                         num_parts: int, sum_words: int, float_acc: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The plain PyTorch version of the kernel, for CPU tensors and as
+    the kernel's reference: run starts by comparison with the previous
+    row, run ids by a prefix sum, sums by ``index_add_`` (int64, wrapped
+    to int32; or float64, rounded once to float32), the run's first row
+    as its representative. Returns (rows_out ``[P, cap, W]``, part_out
+    ``[P, cap]``, n_out ``[P]``)."""
+    _check_inputs(rows, part, sum_words)
+    P, cap, W = rows.shape
+    dev = rows.device
+    valid = part < num_parts
+    key = words_to_key(rows[..., 0], rows[..., 1])
+    same = torch.zeros((P, cap), dtype=torch.bool, device=dev)
+    same[:, 1:] = (key[:, 1:] == key[:, :-1]) & (part[:, 1:] == part[:, :-1])
+    start = valid & ~same
+    n_out = start.sum(dim=1, dtype=torch.int32)
+    run = torch.cumsum(start, dim=1) - 1                # run id of each row
+    # flat destination of every row's contribution; sentinel rows go to a
+    # dump row past the end
+    base = torch.arange(P, device=dev)[:, None] * cap
+    dump = P * cap
+    dest = torch.where(valid, run + base, dump).reshape(-1)
+    first = torch.where(start, run + base, dump).reshape(-1)
+
+    # (the dump row takes many writes; it is dropped)
+    out = torch.zeros((P * cap + 1, W), dtype=torch.int32, device=dev)
+    out.index_copy_(0, first, rows.reshape(-1, W))
+    out_part = torch.full((P * cap + 1,), num_parts, dtype=torch.int32,
+                          device=dev)
+    out_part.index_copy_(0, first, part.reshape(-1))
+    if sum_words:
+        lanes = rows[..., KEY_WORDS:KEY_WORDS + sum_words].reshape(
+            -1, sum_words)
+        if float_acc:
+            acc = lanes.view(torch.float32).to(torch.float64)
+        else:
+            acc = lanes.to(torch.int64)
+        sums = torch.zeros((P * cap + 1, sum_words), dtype=acc.dtype,
+                           device=dev)
+        sums.index_add_(0, dest, acc)
+        if float_acc:
+            words = sums.to(torch.float32).view(torch.int32)
+        else:
+            words = (torch.remainder(sums + (1 << 31), 1 << 32)
+                     - (1 << 31)).to(torch.int32)
+        out[:, KEY_WORDS:KEY_WORDS + sum_words] = words
+    rows_out = out[:-1].reshape(P, cap, W)
+    part_out = out_part[:-1].reshape(P, cap)
+    rows_out, part_out = _mask_past_n(rows_out, part_out, n_out, num_parts)
+    return rows_out, part_out, n_out
+
+
+def segment_reduce_kernel(rows: torch.Tensor, part: torch.Tensor,
+                          num_parts: int, sum_words: int, float_acc: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Launch the CUDA segment reduce on the current stream (no host
+    synchronisation). Same contract as :func:`segment_reduce_plain`."""
+    _check_inputs(rows, part, sum_words)
+    dev = rows.device
+    if dev.type != "cuda" or part.device != dev:
+        raise ValueError(f"segment_reduce_kernel needs CUDA tensors on one "
+                         f"device, got {dev} and {part.device}")
+    if not (rows.is_contiguous() and part.is_contiguous()):
+        raise ValueError("rows and part must be contiguous")
+    P, cap, W = rows.shape
+    out_rows = torch.empty((P, cap, W), dtype=torch.int32, device=dev)
+    out_part = torch.empty((P, cap), dtype=torch.int32, device=dev)
+    n_out = torch.zeros((P,), dtype=torch.int32, device=dev)
+    if P == 0 or cap == 0:
+        return out_rows, out_part, n_out
+    backend.check_sm90(dev)
+    lib = backend.kernel_library()
+    nblk = -(-cap // _THREADS)
+    block_counts = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    block_base = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sxt_segment_reduce(
+            rows.data_ptr(), part.data_ptr(), out_rows.data_ptr(),
+            out_part.data_ptr(), n_out.data_ptr(), block_counts.data_ptr(),
+            block_base.data_ptr(), P, cap, W, nblk, num_parts, sum_words,
+            int(bool(float_acc)), stream)
+    backend.check_launch(KERNEL_NAME, rc)
+    backend.count_launch(KERNEL_NAME)
+    return out_rows, out_part, n_out
+
+
+def segment_reduce(rows: torch.Tensor, part: torch.Tensor, num_parts: int,
+                   sum_words: int, float_acc: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel for a CUDA tensor, its plain version for a CPU one."""
+    fn = segment_reduce_kernel if rows.is_cuda else segment_reduce_plain
+    return fn(rows, part, num_parts, sum_words, float_acc)
+
+
+def segment_reduce_rows(rows: torch.Tensor, part: torch.Tensor,
+                        num_parts: int, val_words: int, val_dtype,
+                        op: str = "sum", sum_words: int = 0,
+                        compaction: str = "stable", *, impl: str = "jnp"
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """One row per distinct (partition, key) of each shard: sum the
+    leading ``sum_words`` value words (0 = the whole value row), carry
+    the rest.
+
+    rows ``[P, cap, W]`` int32 and part ``[P, cap]`` int32 (sentinel
+    ``num_parts`` on invalid rows). ``impl='pallas'`` needs them sorted
+    by (partition, key); ``impl='jnp'`` sorts internally.
+
+    Returns (rows_out ``[P, cap, W]``, pcounts ``[P, num_parts]``, n_out
+    ``[P]``); n_out never counts sentinel rows."""
+    if op != "sum":
+        raise ValueError(f"unknown combiner {op!r}")
+    vdt = np.dtype(val_dtype)
+    if impl == "jnp":
+        ro, pc, n = combine_rows(rows, part, rows.shape[1], num_parts,
+                                 val_words, vdt, op, sum_words=sum_words,
+                                 compaction=compaction)
+        return ro, pc, _drop_sentinel_group(n, part, num_parts)
+    if impl != "pallas":
+        raise ValueError(f"unknown reduce impl {impl!r}; want jnp|pallas")
+    if not pallas_reduce_supported(vdt):
+        raise ValueError(
+            f"the segment-reduce kernel needs a 4-byte value dtype, got "
+            f"{vdt} — use impl='jnp' (pallas_reduce_supported gates)")
+    sw = sum_words if sum_words > 0 else val_words
+    rows_out, part_out, n = segment_reduce(
+        rows, part.to(torch.int32).contiguous(), num_parts, sw,
+        float_acc=is_float_dtype(vdt))
+    return rows_out, counts_from_sorted(part_out, num_parts), n

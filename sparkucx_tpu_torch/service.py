@@ -3,7 +3,8 @@ conf mapping, so an engine drives shuffles without touching any internal
 constructor.
 
 Only the raw IO format is ported: ``write`` takes int64 keys and optional
-value rows, ``read`` returns the partition view. A conf that names
+value rows, ``read`` returns the partition view (plain, combined by key
+or key-ordered). A conf that names
 ``spark.shuffle.tpu.io.format`` other than ``raw`` is refused (the Arrow
 codec is a later slice of the port).
 """
@@ -41,10 +42,11 @@ class ShuffleService:
         return self.node.device
 
     def register_shuffle(self, shuffle_id: int, num_maps: int,
-                         num_partitions: int,
-                         partitioner: str = "hash") -> ShuffleHandle:
+                         num_partitions: int, partitioner: str = "hash",
+                         bounds=None) -> ShuffleHandle:
         return self.manager.register_shuffle(shuffle_id, num_maps,
-                                             num_partitions, partitioner)
+                                             num_partitions, partitioner,
+                                             bounds)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
         self.manager.unregister_shuffle(shuffle_id)
@@ -60,12 +62,22 @@ class ShuffleService:
         """Incremental writer for multi-batch map tasks."""
         return self.manager.get_writer(handle, map_id)
 
-    def read(self, handle: ShuffleHandle, timeout: Optional[float] = None):
-        return self.manager.read(handle, timeout=timeout)
+    def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
+             combine: Optional[str] = None, ordered: bool = False,
+             combine_sum_words: int = 0):
+        """The partition view (see :meth:`ShuffleManager.read` for
+        ``combine`` / ``ordered``)."""
+        return self.manager.read(handle, timeout=timeout, combine=combine,
+                                 ordered=ordered,
+                                 combine_sum_words=combine_sum_words)
 
     def submit(self, handle: ShuffleHandle,
-               timeout: Optional[float] = None):
-        return self.manager.submit(handle, timeout=timeout)
+               timeout: Optional[float] = None,
+               combine: Optional[str] = None, ordered: bool = False,
+               combine_sum_words: int = 0):
+        return self.manager.submit(handle, timeout=timeout, combine=combine,
+                                   ordered=ordered,
+                                   combine_sum_words=combine_sum_words)
 
     def report(self, shuffle_id: int):
         return self.manager.report(shuffle_id)

@@ -1,6 +1,7 @@
 """The shuffle manager — register / write / read / report for one node.
 
-Single-process plain reads: committed map outputs are assigned to the P
+Single-process reads (plain, ``combine="sum"``, ``ordered=True``):
+committed map outputs are assigned to the P
 logical shards round-robin by map id (``map_id % P``), packed into one
 page-locked ``[P, cap_in, W]`` int32 buffer, copied to the device in one
 transfer and exchanged by :mod:`sparkucx_tpu_torch.shuffle.reader`. A
@@ -27,16 +28,20 @@ import torch
 from sparkucx_tpu_torch.config import PARTITIONERS, ShuffleConf
 from sparkucx_tpu_torch.meta.registry import ShuffleEntry
 from sparkucx_tpu_torch.meta.segments import validate_row_sizes
+from sparkucx_tpu_torch.ops.aggregate import check_combinable
 from sparkucx_tpu_torch.ops.partition import blocked_partition_map
+from sparkucx_tpu_torch.ops.segmented import resolve_kernel_impl
 from sparkucx_tpu_torch.runtime.node import Node
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
-                                             make_plan, ragged_layout)
+                                             check_bounds, make_plan,
+                                             ragged_layout)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS, PendingShuffle,
                                                ShuffleReaderResult,
                                                pack_rows, submit_shuffle,
                                                value_words)
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.metrics import C_KERNEL_FALLBACK, labeled
 
 log = get_logger("shuffle.manager")
 
@@ -56,6 +61,13 @@ class ExchangeReport:
     partitioner: str
     device: str = ""
     impl: str = ""
+    # read.mergeImpl as resolved for a combine or ordered read
+    # (plan.kernel_impl), as the JAX package reports it: "pallas" = the
+    # CUDA segment-reduce kernel (its plain version on a CPU device),
+    # "jnp" = the torch-op formulation. Only a combine read runs a
+    # reduce; plain reads say jnp. A pallas ask that reports jnp was
+    # gated (the C_KERNEL_FALLBACK counter carries the reason).
+    kernel: str = "jnp"
     plan_ms: float = 0.0
     pack_ms: float = 0.0
     dispatch_ms: float = 0.0
@@ -87,6 +99,7 @@ class ShuffleHandle:
     num_partitions: int
     entry: ShuffleEntry = field(repr=False)
     partitioner: str = "hash"
+    bounds: Optional[tuple] = None
 
     def __post_init__(self):
         if self.num_maps <= 0 or self.num_partitions <= 0:
@@ -107,24 +120,35 @@ class ShuffleManager:
         self._cap_hints: Dict[tuple, float] = {}
         self._reports: "OrderedDict[int, ExchangeReport]" = OrderedDict()
         self._pack_pool: Optional[ThreadPoolExecutor] = None
+        self._warned: set = set()
         self._lock = threading.Lock()
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
-                         num_partitions: int,
-                         partitioner: str = "hash") -> ShuffleHandle:
+                         num_partitions: int, partitioner: str = "hash",
+                         bounds=None) -> ShuffleHandle:
         """Allocate the metadata table for a shuffle. ``partitioner``:
         'hash' groups by key hash, 'direct' treats keys as partition
-        ids."""
+        ids, 'range' routes the int64 key through the sorted split points
+        ``bounds`` (``num_partitions - 1`` of them; Spark's
+        RangePartitioner). Bounds are validated here, before any map
+        publishes a size row computed from them."""
         if partitioner not in PARTITIONERS:
             raise ValueError(f"unknown partitioner {partitioner!r}; want "
                              f"one of {PARTITIONERS}")
+        if bounds is not None:
+            bounds = check_bounds(bounds, num_partitions)
+        # every handle invariant holds BEFORE the registry is touched: a
+        # later failure would leave a dead entry that blocks the retry
+        if (partitioner == "range") != (bounds is not None):
+            raise ValueError(
+                "partitioner='range' requires bounds (and only it)")
         entry = self.node.registry.register(shuffle_id, num_maps,
                                             num_partitions, partitioner)
         with self._lock:
             self._writers[shuffle_id] = {}
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
-                             partitioner)
+                             partitioner, bounds)
 
     def get_writer(self, handle: ShuffleHandle,
                    map_id: int) -> MapOutputWriter:
@@ -133,7 +157,8 @@ class ShuffleManager:
         if not (0 <= map_id < handle.num_maps):
             raise IndexError(
                 f"mapId {map_id} out of range [0,{handle.num_maps})")
-        w = MapOutputWriter(handle.entry, map_id, handle.partitioner)
+        w = MapOutputWriter(handle.entry, map_id, handle.partitioner,
+                            handle.bounds)
         with self._lock:
             ws = self._writers.get(handle.shuffle_id)
             if ws is None:
@@ -184,33 +209,49 @@ class ShuffleManager:
         return rep
 
     # -- reads ------------------------------------------------------------
-    def read(self, handle: ShuffleHandle,
-             timeout: Optional[float] = None) -> ShuffleReaderResult:
+    def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
+             combine: Optional[str] = None, ordered: bool = False,
+             combine_sum_words: int = 0) -> ShuffleReaderResult:
         """Run the whole exchange and return the partition view. Blocks
-        until every map output is published (``network.timeoutMs``)."""
+        until every map output is published (``network.timeoutMs``).
+
+        ``combine="sum"`` combines by key on both sides of the exchange:
+        each partition holds ONE row per distinct key, key-sorted, its
+        leading ``combine_sum_words`` value words summed (0 = all) and
+        the rest carried. ``ordered=True`` serves every partition
+        key-sorted (with a range partitioner, the concatenated partitions
+        are globally sorted). combine implies ordered output."""
         t0 = time.perf_counter()
         try:
-            return self.submit(handle, timeout).result()
+            return self.submit(handle, timeout, combine=combine,
+                               ordered=ordered,
+                               combine_sum_words=combine_sum_words).result()
         finally:
             m = self.node.metrics
             m.inc("shuffle.read.ms", (time.perf_counter() - t0) * 1e3)
             m.inc("shuffle.read.count", 1)
 
     def submit(self, handle: ShuffleHandle,
-               timeout: Optional[float] = None) -> PendingShuffle:
+               timeout: Optional[float] = None,
+               combine: Optional[str] = None, ordered: bool = False,
+               combine_sum_words: int = 0) -> PendingShuffle:
         """Plan + pack on the host and dispatch the exchange without
-        waiting for it; ``result()`` on the returned handle blocks."""
+        waiting for it; ``result()`` on the returned handle blocks. The
+        read options are :meth:`read`'s."""
         timeout = timeout if timeout is not None \
             else self.conf.connection_timeout_ms / 1e3
         rep = self._new_report(handle)
         try:
-            return self._submit_local_staged(handle, timeout, rep)
+            return self._submit_local_staged(handle, timeout, rep, combine,
+                                             ordered, combine_sum_words)
         except BaseException as e:
             rep.error = rep.error or repr(e)[:300]
             raise
 
     def _submit_local_staged(self, handle: ShuffleHandle, timeout: float,
-                             rep: ExchangeReport) -> PendingShuffle:
+                             rep: ExchangeReport, combine: Optional[str],
+                             ordered: bool,
+                             combine_sum_words: int) -> PendingShuffle:
         if not handle.entry.wait_complete(timeout):
             raise TimeoutError(
                 f"shuffle {handle.shuffle_id}: only "
@@ -242,8 +283,11 @@ class ShuffleManager:
 
         t_plan = time.perf_counter()
         plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
-                         self.node.device, partitioner=handle.partitioner)
+                         self.node.device, partitioner=handle.partitioner,
+                         bounds=handle.bounds)
         plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
+        plan = self._decorated_plan(plan, combine, ordered, has_vals,
+                                    val_tail, val_dtype, combine_sum_words)
         rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
 
         width = KEY_WORDS + (value_words(val_tail, val_dtype)
@@ -298,6 +342,7 @@ class ShuffleManager:
                        part_rows: np.ndarray) -> None:
         layout = ragged_layout(plan, nvalid, width)
         rep.impl = layout.impl
+        rep.kernel = plan.kernel_impl
         rep.payload_bytes = layout.payload_bytes
         rep.wire_bytes = layout.wire_bytes
         rep.pad_ratio = layout.pad_ratio
@@ -307,6 +352,52 @@ class ShuffleManager:
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
+
+    # -- read options -----------------------------------------------------
+    def _decorated_plan(self, plan: ShufflePlan, combine: Optional[str],
+                        ordered: bool, has_vals: bool, val_tail, val_dtype,
+                        combine_sum_words: int = 0) -> ShufflePlan:
+        """Validate the combine/ordered read options and stamp them on
+        the plan. combine implies ordered output, so it takes precedence;
+        ``combine_sum_words`` > 0 sums only that many leading value words
+        and carries the rest per key."""
+        if combine:
+            check_combinable(val_tail if has_vals else None,
+                             val_dtype if has_vals else None, combine)
+            vw = value_words(val_tail, val_dtype)
+            if combine_sum_words < 0 or combine_sum_words > vw:
+                raise ValueError(
+                    f"combine_sum_words={combine_sum_words} out of "
+                    f"[0, {vw}] for this value schema")
+            return self._stamp_kernel(dataclasses.replace(
+                plan, combine=combine, combine_words=vw,
+                combine_dtype=np.dtype(val_dtype).str,
+                combine_sum_words=combine_sum_words))
+        if ordered:
+            return self._stamp_kernel(dataclasses.replace(plan, ordered=True))
+        return plan
+
+    def _stamp_kernel(self, plan: ShufflePlan) -> ShufflePlan:
+        """Resolve ``read.mergeImpl`` for a combine/ordered plan
+        (ops/segmented.resolve_kernel_impl) and stamp it: the step
+        branches on ``plan.kernel_impl`` and the report names it. An ask
+        for the kernel that resolves to jnp counts into
+        C_KERNEL_FALLBACK with its reason."""
+        impl, reason = resolve_kernel_impl(
+            self.conf.read_merge_impl, self.node.device,
+            combine_dtype=plan.combine_dtype or None)
+        if reason is not None:
+            m = self.node.metrics
+            m.inc(C_KERNEL_FALLBACK, 1.0)
+            m.inc(labeled(C_KERNEL_FALLBACK, reason=reason), 1.0)
+            with self._lock:
+                first = reason not in self._warned
+                self._warned.add(reason)
+            if first:
+                log.warning("read.mergeImpl=%s resolves to jnp on this "
+                            "read: %s (the report's 'kernel' field names "
+                            "what ran)", self.conf.read_merge_impl, reason)
+        return dataclasses.replace(plan, kernel_impl=impl)
 
     # -- capacity hints ---------------------------------------------------
     @staticmethod

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -45,6 +46,24 @@ class ShufflePlan:
     partitioner: str = "hash"
     max_retries: int = 4
     sort_impl: str = "auto"
+    # combine-by-key (ops/aggregate.py): None or "sum", applied map-side
+    # before the segment move and reduce-side after it
+    combine: Optional[str] = None
+    combine_words: int = 0     # value width in int32 words (combine only)
+    combine_dtype: str = ""    # np.dtype.str of the value (combine only)
+    # value words the combiner SUMS; the rest are CARRIED per key. 0 sums
+    # the whole value row.
+    combine_sum_words: int = 0
+    combine_compaction: str = "stable"
+    # partitions come back key-sorted (signed int64 order); implied by
+    # combine, whose output is key-sorted already
+    ordered: bool = False
+    # sorted int64 split points of partitioner="range"
+    bounds: Optional[Tuple[int, ...]] = None
+    # the combine read's reduce-side impl, RESOLVED (never 'auto'):
+    # 'pallas' = the CUDA segment-reduce kernel (its plain version on a
+    # CPU device), 'jnp' = the torch-op formulation
+    kernel_impl: str = "jnp"
 
     def grown(self) -> "ShufflePlan":
         """Next plan after an overflow: double the receive capacity."""
@@ -83,11 +102,23 @@ def bucket_cap_conf(cap: int, conf: ShuffleConf) -> int:
     return bucket_cap(cap, conf.cap_bucket_growth)
 
 
+def check_bounds(bounds, num_partitions: int) -> Tuple[int, ...]:
+    """``num_partitions - 1`` sorted int64 split points, as a tuple."""
+    b = np.asarray(bounds, dtype=np.int64)
+    if b.shape != (num_partitions - 1,) or (np.diff(b) < 0).any():
+        raise ValueError(
+            f"range bounds must be {num_partitions - 1} sorted int64 split "
+            f"points, got shape {b.shape}")
+    return tuple(int(x) for x in b)
+
+
 def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
-              conf: ShuffleConf, device, partitioner: str = "hash"
-              ) -> ShufflePlan:
+              conf: ShuffleConf, device, partitioner: str = "hash",
+              bounds=None) -> ShufflePlan:
     """Capacities from per-shard staged row counts; the impl resolved for
-    ``device`` (backend.resolve_a2a_impl)."""
+    ``device`` (backend.resolve_a2a_impl). ``bounds`` are the range
+    partitioner's split points as :func:`check_bounds` returned them at
+    registration."""
     if partitioner not in PARTITIONERS:
         raise ValueError(f"unknown partitioner {partitioner!r}; want one "
                          f"of {PARTITIONERS}")
@@ -101,7 +132,8 @@ def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
         num_shards=num_shards, num_partitions=num_partitions,
         cap_in=cap_in, cap_out=cap_out,
         impl=resolve_a2a_impl(conf.a2a_impl, device, num_shards),
-        partitioner=partitioner, sort_impl=conf.sort_impl)
+        partitioner=partitioner, sort_impl=conf.sort_impl, bounds=bounds,
+        combine_compaction=conf.combine_compaction)
 
 
 def wire_row_words(plan: ShufflePlan, width: int) -> int:

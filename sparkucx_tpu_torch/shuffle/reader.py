@@ -1,4 +1,4 @@
-"""Reduce-side reader — the plain read's device step and its host views.
+"""Reduce-side reader — the exchange step and its host views.
 
 One step over all P logical shards at once (the JAX package runs the same
 step per device under ``shard_map``; here the shard is a leading tensor
@@ -10,6 +10,13 @@ dimension):
              [P, R] per-sender count matrix (no receive-side sort: the
              blocked partition->shard map is monotone, so partition order
              IS shard order and every delivered segment arrives grouped)
+
+Read modes: the plain read serves the delivered segments as they are.
+``combine`` sums rows per (partition, key) before the exchange
+(map-side) and after it (reduce-side: the segment-reduce kernel or the
+torch-op ``combine_rows``); ``ordered`` key-sorts every partition after
+the exchange. Both serve one run per partition, so their seg matrix is
+each shard's own ``[1, R]`` count row (``[P, 1, R]`` in all).
 
 Row format: ``[key_lo, key_hi, value_words...]`` int32, built on the host
 by bit views (:func:`pack_rows`). Routing reads ``key_lo``, which is what
@@ -28,12 +35,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkucx_tpu_torch.config import PARTITIONERS
+from sparkucx_tpu_torch.ops.aggregate import combine_rows, keysort_rows
 from sparkucx_tpu_torch.ops.partition import (blocked_partition_map,
                                               destination_sort,
                                               hash_partition,
-                                              partition_major_sort_aligned)
+                                              partition_major_sort_aligned,
+                                              range_partition_words)
 from sparkucx_tpu_torch.ops.ragged_a2a import (align_rows, chunk_rows_for,
                                                ragged_a2a)
+from sparkucx_tpu_torch.ops.segmented import segment_reduce_rows
 from sparkucx_tpu_torch.shuffle.alltoall import ragged_shuffle
 from sparkucx_tpu_torch.shuffle.plan import ShufflePlan, wire_row_words
 from sparkucx_tpu_torch.utils.logging import get_logger
@@ -53,15 +64,46 @@ def _device_bounds(num_partitions: int, num_shards: int) -> np.ndarray:
 
 def _make_part_fn(plan: ShufflePlan, R: int):
     """The partitioner over ``[P, cap, W]`` rows: 'direct' keys are
-    partition ids, 'hash' hashes ``key_lo``."""
-    if plan.partitioner not in ("hash", "direct"):
-        raise ValueError(f"partitioner {plan.partitioner!r} is not ported")
+    partition ids, 'hash' hashes ``key_lo``, 'range' searches the int64
+    key in ``plan.bounds``."""
+    if plan.partitioner not in PARTITIONERS:
+        raise ValueError(f"unknown partitioner {plan.partitioner!r}")
 
     def part_fn(rows: torch.Tensor) -> torch.Tensor:
         if plan.partitioner == "direct":
             return torch.clamp(rows[..., 0], 0, R - 1)
+        if plan.partitioner == "range":
+            return range_partition_words(rows[..., 0], rows[..., 1],
+                                         plan.bounds)
         return hash_partition(rows[..., 0], R)
     return part_fn
+
+
+def _combine(plan: ShufflePlan, rows: torch.Tensor, part: torch.Tensor,
+             num_valid):
+    """``combine_rows`` with the plan's value schema."""
+    return combine_rows(rows, part, num_valid, plan.num_partitions,
+                        plan.combine_words, np.dtype(plan.combine_dtype),
+                        plan.combine, sum_words=plan.combine_sum_words,
+                        compaction=plan.combine_compaction)
+
+
+def _reduce_side_combine(plan: ShufflePlan, rows: torch.Tensor,
+                         part: torch.Tensor, num_valid):
+    """Merge the received rows per (partition, key): one keysort, then
+    the segment-reduce kernel (``kernel_impl == 'pallas'``), or the
+    torch-op ``combine_rows``. Returns (rows_out, pcounts ``[P, R]``)."""
+    R = plan.num_partitions
+    if plan.kernel_impl == "pallas":
+        spart, srows, _ = keysort_rows(rows, part, num_valid, R)
+        rows_out, pcounts, _ = segment_reduce_rows(
+            srows, spart, R, plan.combine_words,
+            np.dtype(plan.combine_dtype), plan.combine,
+            sum_words=plan.combine_sum_words,
+            compaction=plan.combine_compaction, impl="pallas")
+    else:
+        rows_out, pcounts, _ = _combine(plan, rows, part, num_valid)
+    return rows_out, pcounts
 
 
 def _dev_counts(rcounts: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
@@ -78,8 +120,10 @@ def _dev_counts(rcounts: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
 
 def step_body(plan: ShufflePlan):
     """The exchange step: ``step(payload [P, cap_in, W], nvalid [P])`` ->
-    (rows ``[P, cap, W]``, seg ``[P, R]`` per-sender partition counts,
-    total ``[P]`` delivered rows, overflow 0-d bool).
+    (rows ``[P, cap, W]``, seg, total ``[P]`` delivered rows, overflow
+    0-d bool). seg is ``[P, R]`` per-sender partition counts on a plain
+    read and each shard's own ``[P, 1, R]`` counts on a combine or
+    ordered read.
 
     PARTITION-MAJOR: the send side sorts by global reduce-partition id;
     the blocked map is monotone, so this groups rows by destination shard
@@ -87,14 +131,42 @@ def step_body(plan: ShufflePlan):
     if plan.impl == "pallas":
         return _pallas_step_body(plan)
     R = plan.num_partitions
-    bounds = _device_bounds(R, plan.num_shards)
+    Pn = plan.num_shards
+    bounds = _device_bounds(R, Pn)
     part_fn = _make_part_fn(plan, R)
 
     def step(payload: torch.Tensor, nvalid: torch.Tensor):
-        send, rcounts = destination_sort(payload, part_fn(payload), nvalid,
-                                         R, method=plan.sort_impl)
+        part = part_fn(payload)
+        if plan.combine:
+            # map-side combine: one row per distinct (partition, key)
+            # enters the exchange; its (partition, key) order keeps the
+            # send buffer grouped by destination
+            send, rcounts, _ = _combine(plan, payload, part, nvalid)
+        elif plan.ordered and Pn == 1:
+            # one sender: delivered rows keep send order, so the key sort
+            # runs on the (smaller) send buffer
+            _, send, rcounts = keysort_rows(payload, part, nvalid, R)
+        else:
+            send, rcounts = destination_sort(payload, part, nvalid, R,
+                                             method=plan.sort_impl)
         r = ragged_shuffle(send, _dev_counts(rcounts, bounds),
                            out_capacity=plan.cap_out, impl=plan.impl)
+        if plan.combine or plan.ordered:
+            if Pn == 1:
+                # one sender: the send side already holds one key-sorted
+                # run per partition
+                return r.data, rcounts.reshape(1, 1, R), r.total, \
+                    r.overflow
+            out_part = part_fn(r.data)
+            if plan.combine:
+                rows_out, pcounts = _reduce_side_combine(plan, r.data,
+                                                         out_part, r.total)
+                total = pcounts.sum(dim=1, dtype=torch.int32)
+            else:
+                _, rows_out, pcounts = keysort_rows(r.data, out_part,
+                                                    r.total, R)
+                total = r.total
+            return rows_out, pcounts.reshape(Pn, 1, R), total, r.overflow
         # every receiver needs every sender's partition counts to locate
         # its runs: the [P, R] matrix is the stacked per-shard rows
         return r.data, rcounts, r.total, r.overflow
@@ -108,16 +180,70 @@ def _pallas_step_body(plan: ShufflePlan):
     delivered segments are still partition-sorted and readers locate runs
     by prefix sums with chunk-aligned segment starts
     (``_RunIndex(align_chunk=...)``). Whether the kernel or its plain
-    version runs follows from the payload's device alone."""
+    version runs follows from the payload's device alone.
+
+    Combine/ordered: the receive buffer is densified on the device —
+    :func:`densified_receive` gives its pad rows the sentinel partition
+    R, then one keysort (and, for combine, the reduce) leaves one
+    key-sorted run per partition, served with ``align_chunk=0``."""
+    R = plan.num_partitions
+    Pn = plan.num_shards
+
     def step(payload: torch.Tensor, nvalid: torch.Tensor):
-        srows, rcounts, dev_counts, cap_eff = aligned_send(plan, payload,
-                                                           nvalid)
-        out, recv_real, _, total_al = ragged_a2a(srows, dev_counts,
-                                                 out_capacity=cap_eff)
-        total = recv_real.sum(dim=1, dtype=torch.int32)
-        return out, rcounts, total, (total_al < 0).any()
+        if not (plan.combine or plan.ordered):
+            srows, rcounts, dev_counts, cap_eff = aligned_send(
+                plan, payload, nvalid)
+            out, recv_real, _, total_al = ragged_a2a(
+                srows, dev_counts, out_capacity=cap_eff)
+            total = recv_real.sum(dim=1, dtype=torch.int32)
+            return out, rcounts, total, (total_al < 0).any()
+        out, pkey, ovf = densified_receive(plan, payload, nvalid)
+        cap_eff = out.shape[1]
+        if plan.combine:
+            rows_out, pcounts = _reduce_side_combine(plan, out, pkey,
+                                                     cap_eff)
+        else:
+            _, rows_out, pcounts = keysort_rows(out, pkey, cap_eff, R)
+        # the total from pcounts: sentinel groups never count
+        total = pcounts.sum(dim=1, dtype=torch.int32)
+        return rows_out, pcounts.reshape(Pn, 1, R), total, ovf
 
     return step
+
+
+def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
+                      nvalid: torch.Tensor):
+    """The segment move of a combine or ordered read, up to the receive
+    side's grouping: map-side combine (combine reads), the aligned sort,
+    the move, then every row outside a segment's real prefix gets the
+    sentinel partition R. Returns (received rows ``[P, cap_eff, W]``,
+    their partitions ``[P, cap_eff]`` with R on pad rows, overflow 0-d
+    bool)."""
+    R = plan.num_partitions
+    Pn = plan.num_shards
+    part_fn = _make_part_fn(plan, R)
+    if plan.combine:
+        # map-side combine first: one row per distinct (partition, key)
+        # enters the move; the aligned sort re-lays the combined rows out
+        comb, _, n_c = _combine(plan, payload, part_fn(payload), nvalid)
+        srows, _, dev_counts, cap_eff = aligned_send(plan, comb, n_c)
+    else:
+        srows, _, dev_counts, cap_eff = aligned_send(plan, payload, nvalid)
+    out, recv_real, recv_off, total_al = ragged_a2a(
+        srows, dev_counts, out_capacity=cap_eff)
+    # row k belongs to the last segment whose aligned start is <= k (an
+    # empty segment shares its start with the next), and is real iff it
+    # lies inside that segment's real prefix
+    idx = torch.arange(cap_eff, dtype=torch.int32, device=out.device)
+    idx = idx.expand(Pn, cap_eff).contiguous()
+    seg_i = torch.clamp(
+        torch.searchsorted(recv_off.contiguous(), idx, right=True) - 1,
+        0, Pn - 1)
+    valid = (idx - torch.gather(recv_off, 1, seg_i)) \
+        < torch.gather(recv_real, 1, seg_i)
+    pkey = torch.where(valid, part_fn(out),
+                       torch.full_like(idx, R))
+    return out, pkey, (total_al < 0).any()
 
 
 def aligned_send(plan: ShufflePlan, payload: torch.Tensor,
@@ -232,12 +358,14 @@ class _RunIndex:
 
 def max_recv_rows(seg: np.ndarray, part_to_shard: np.ndarray,
                   num_shards: int) -> int:
-    """Max over shards of delivered rows, from the [NS, R] seg matrix."""
+    """Max over shards of delivered rows, from the shared ``[NS, R]`` seg
+    matrix or the per-shard ``[P, 1, R]`` one."""
     best = 0
     for s in range(num_shards):
         r_lo = int(np.searchsorted(part_to_shard, s, "left"))
         r_hi = int(np.searchsorted(part_to_shard, s, "right"))
-        best = max(best, int(seg[:, r_lo:r_hi].sum()))
+        m = seg if seg.ndim == 2 else seg[s]
+        best = max(best, int(m[:, r_lo:r_hi].sum()))
     return best
 
 
@@ -252,7 +380,7 @@ class ShuffleReaderResult:
         self.num_partitions = num_partitions
         self._part_to_shard = part_to_shard
         self._rows = rows                      # [P, cap, W] (or per-shard)
-        self._seg = seg_counts                 # [P, R]
+        self._seg = seg_counts                 # [P, R] or [P, 1, R]
         self._val_shape = val_shape
         self._val_dtype = val_dtype
         self._align_chunk = align_chunk
@@ -264,15 +392,19 @@ class ShuffleReaderResult:
         self.cap_out_used: Optional[int] = None
         self.recv_rows_needed: Optional[int] = None
 
-    def _seg_matrix(self) -> np.ndarray:
-        return self._seg
+    def _seg_matrix(self, shard: int) -> np.ndarray:
+        """The count matrix shard's runs are indexed by: the shared
+        ``[P, R]`` per-sender matrix, or its own ``[1, R]`` row of a
+        ``[P, 1, R]`` per-shard matrix."""
+        return self._seg if self._seg.ndim == 2 else self._seg[shard]
 
     def _runs(self, shard: int) -> _RunIndex:
         ri = self._runidx.get(shard)
         if ri is None:
             r_lo = int(np.searchsorted(self._part_to_shard, shard, "left"))
             r_hi = int(np.searchsorted(self._part_to_shard, shard, "right"))
-            ri = _RunIndex(self._seg_matrix(), r_lo, r_hi, self._align_chunk)
+            ri = _RunIndex(self._seg_matrix(shard), r_lo, r_hi,
+                           self._align_chunk)
             self._runidx[shard] = ri
         return ri
 
@@ -330,12 +462,12 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         self.d2h_bytes = 0
         self._lock = threading.Lock()
 
-    def _seg_matrix(self) -> np.ndarray:
+    def _seg_matrix(self, shard: int) -> np.ndarray:
         with self._lock:
             if self._seg is None:
                 self._seg = self._seg_dev.cpu().numpy()
                 self._seg_dev = None
-        return self._seg
+        return super()._seg_matrix(shard)
 
     def _materialize(self) -> list:
         with self._lock:
@@ -452,19 +584,23 @@ class PendingShuffle:
         R = self._plan.num_partitions
         Pn = self._plan.num_shards
         p2s = blocked_partition_map(R, Pn)
+        plan = self._plan
         align_chunk = 0
-        if self._plan.impl == "pallas":
+        if plan.impl == "pallas" and not (plan.combine or plan.ordered):
+            # only the plain read keeps the chunk-aligned layout
             align_chunk = chunk_rows_for(
-                wire_row_words(self._plan, rows_out.shape[2]))
+                wire_row_words(plan, rows_out.shape[2]))
         res = LazyShuffleReaderResult(R, p2s, rows_out, seg,
                                       self._val_shape, self._val_dtype,
                                       align_chunk=align_chunk,
                                       metrics=self._metrics)
         # the PLAN capacity, not the chunk-inflated buffer size
         res.cap_out_used = self._plan.cap_out
-        if self._plan.impl != "pallas":
-            # true delivered rows (the aligned layout consumes slack)
-            res.recv_rows_needed = max_recv_rows(res._seg_matrix(), p2s, Pn)
+        if not (plan.combine or plan.impl == "pallas"):
+            # true delivered rows (the aligned layout consumes slack; a
+            # combine's counts are post-merge)
+            res._seg_matrix(0)                  # pulls the whole matrix
+            res.recv_rows_needed = max_recv_rows(res._seg, p2s, Pn)
         return res
 
 

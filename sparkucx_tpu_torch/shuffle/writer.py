@@ -37,10 +37,11 @@ class MapOutputWriter:
     """Writer for one map task's output (one row of the segment table)."""
 
     def __init__(self, entry: ShuffleEntry, map_id: int,
-                 partitioner: str = "hash"):
+                 partitioner: str = "hash", bounds=None):
         self.entry = entry
         self.map_id = map_id
         self.partitioner = partitioner
+        self.bounds = bounds
         self._keys: List[np.ndarray] = []
         self._values: List[np.ndarray] = []
         self._val_tail: Optional[Tuple[int, ...]] = None
@@ -127,6 +128,10 @@ class MapOutputWriter:
                     f"direct partitioner: keys must be partition ids in "
                     f"[0, {num_partitions}); got e.g. {bad.tolist()}")
             return keys.astype(np.int64)
+        if self.partitioner == "range":
+            # host twin of ops/partition.range_partition_words
+            return np.searchsorted(np.asarray(self.bounds, dtype=np.int64),
+                                   keys, side="right").astype(np.int64)
         return (hash32_np(keys) % np.uint32(num_partitions)).astype(np.int64)
 
     def materialize(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:

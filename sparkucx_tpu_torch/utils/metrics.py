@@ -1,7 +1,8 @@
-"""Counters and a wall timer — the subset of the metrics plane the plain
-read increments (``shuffle.read.ms``, ``shuffle.read.count``,
-``shuffle.rows``, ``shuffle.bytes``, ``shuffle.retries`` and the D2H
-byte counter :data:`C_D2H`)."""
+"""Counters and a wall timer — the subset of the metrics plane the ported
+reads increment (``shuffle.read.ms``, ``shuffle.read.count``,
+``shuffle.rows``, ``shuffle.bytes``, ``shuffle.retries``, the D2H byte
+counter :data:`C_D2H` and the kernel-fallback counter
+:data:`C_KERNEL_FALLBACK`)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,17 @@ from typing import Dict
 
 # payload bytes a reader result pulled device-to-host
 C_D2H = "shuffle.read.d2h.bytes"
+# combine reads whose read.mergeImpl offered the kernel but resolved to
+# the torch-op path; labeled(C_KERNEL_FALLBACK, reason=...) counts by reason
+C_KERNEL_FALLBACK = "shuffle.kernel.fallback.count"
+
+
+def labeled(name: str, **labels) -> str:
+    """Labeled-metric identity ``name{k="v",...}`` (sorted keys)."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return f"{name}{{{inner}}}"
 
 
 class Timer:

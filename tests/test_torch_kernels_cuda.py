@@ -119,3 +119,183 @@ def test_plain_read_on_card(card, impl):
         assert launched == 0 and rep.impl == "dense"
     else:
         assert launched == rep.retries + 1 and rep.impl == "pallas"
+
+
+# -- segment reduce -----------------------------------------------------------
+SEG_R = 16
+SEG_PATTERNS = ("unique", "one_key", "crossing", "empty", "sentinel")
+
+
+def _segreduce_shard(rng, cap, width, pattern, dtype):
+    """One shard's (rows [cap, W], part [cap]) sorted by (partition, key):
+    all-unique keys with a sentinel tail; one key over every row (a run
+    longer than any block); runs of 1..600 rows across block edges; an
+    empty shard (zero rows, all sentinel); an all-sentinel shard whose
+    rows hold data the reduce must ignore."""
+    rows = rng.integers(-(1 << 31), 1 << 31, (cap, width)).astype(np.int32)
+    if dtype == "float32":
+        rows[:, 2:] = rng.standard_normal((cap, width - 2)).astype(
+            np.float32).view(np.int32)
+    part = np.full(cap, SEG_R, np.int32)
+    if pattern == "empty":
+        return np.zeros_like(rows), part
+    if pattern == "sentinel":
+        return rows, part
+    n_real = cap - cap // 7 if pattern == "unique" else cap
+    if pattern == "unique":
+        keys = rng.choice(1 << 40, n_real, replace=False).astype(np.int64)
+    elif pattern == "one_key":
+        keys = np.full(n_real, -(1 << 35) - 3, np.int64)
+    else:
+        keys = np.repeat(rng.integers(-(1 << 40), 1 << 40, n_real),
+                         rng.integers(1, 600, n_real))[:n_real]
+    p = (rng.integers(0, SEG_R, n_real) if pattern != "one_key"
+         else np.full(n_real, 3))
+    if pattern == "crossing":              # a key lives in one partition
+        p = (keys % SEG_R).astype(np.int64)
+    order = np.lexsort((keys, p))
+    rows[:n_real, :2] = keys[order].view(np.int32).reshape(n_real, 2)
+    part[:n_real] = p[order]
+    return rows, part
+
+
+def _segreduce_case(rng, P, cap, width, pattern, dtype):
+    """[P, cap, W] rows and [P, cap] part; with P > 1 the other shards
+    cycle through the other patterns."""
+    pats = [SEG_PATTERNS[(SEG_PATTERNS.index(pattern) + i)
+                         % len(SEG_PATTERNS)] for i in range(P)]
+    shards = [_segreduce_shard(rng, cap, width, q, dtype) for q in pats]
+    return (np.stack([s[0] for s in shards]),
+            np.stack([s[1] for s in shards]))
+
+
+def _float_tolerance(rows, part, sum_words):
+    """Per output row: n * 2**-24 * sum|v| over the run — the bound of
+    sequential float32 summation of n terms (the kernel adds a run in row
+    order in float32; the plain version adds in float64 and rounds
+    once)."""
+    from sparkucx_tpu_torch.ops.partition import words_to_key
+    P, cap, _ = rows.shape
+    tol = np.zeros((P, cap, sum_words))
+    key = words_to_key(torch.from_numpy(rows[..., 0]),
+                       torch.from_numpy(rows[..., 1])).numpy()
+    for p in range(P):
+        valid = part[p] < SEG_R
+        start = valid.copy()
+        start[1:] &= (key[p, 1:] != key[p, :-1]) | (part[p, 1:]
+                                                    != part[p, :-1])
+        run = np.cumsum(start) - 1
+        v = np.abs(rows[p, :, 2:2 + sum_words].copy().view(np.float32)
+                   .astype(np.float64))
+        n = np.bincount(run[valid], minlength=cap)[:cap]
+        for c in range(sum_words):
+            s = np.bincount(run[valid], weights=v[valid, c],
+                            minlength=cap)[:cap]
+            tol[p, :, c] = n * 2.0 ** -24 * s
+    return tol
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("P", [1, 8])
+@pytest.mark.parametrize("width", [3, 6, 25])
+@pytest.mark.parametrize("pattern", SEG_PATTERNS)
+def test_segment_reduce_kernel_matches_plain(card, pattern, width, P, dtype):
+    """Bit-exact for int32 ring sums, carried lanes, n_out and the zero
+    tail; float32 sums within the sequential-summation bound of each run.
+    Every sum_words from 0 (all carried) through a carry split to the
+    whole value row."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(width * 100 + P * 10 + len(pattern))
+    cap = 2000 if P == 8 else 5000
+    rows_np, part_np = _segreduce_case(rng, P, cap, width, pattern, dtype)
+    rows = torch.from_numpy(rows_np).to(card)
+    part = torch.from_numpy(part_np).to(card)
+    vw = width - 2
+    for sw in sorted({0, vw // 2, vw}):
+        fa = dtype == "float32"
+        before = backend.launch_counts().get(sg.KERNEL_NAME, 0)
+        kr, kp, kn = sg.segment_reduce(rows, part, SEG_R, sw, fa)
+        torch.cuda.synchronize()
+        assert backend.launch_counts()[sg.KERNEL_NAME] == before + 1
+        pr, pp, pn = sg.segment_reduce_plain(rows, part, SEG_R, sw, fa)
+        assert torch.equal(kn, pn) and torch.equal(kp, pp)
+        exact = [0, 1] + list(range(2 + sw, width))
+        assert torch.equal(kr[..., exact], pr[..., exact]), f"sw={sw}"
+        if not fa:
+            assert torch.equal(kr, pr), f"sw={sw}"
+        elif sw:
+            got = kr[..., 2:2 + sw].cpu().view(torch.float32).double()
+            want = pr[..., 2:2 + sw].cpu().view(torch.float32).double()
+            tol = _float_tolerance(rows_np, part_np, sw)
+            assert ((got - want).abs().numpy() <= tol).all(), f"sw={sw}"
+
+
+def test_segment_reduce_kernel_refuses_bad_input(card):
+    """The wrapper rejects what the kernel does not take, and a launch the
+    C entry point refuses raises through check_launch."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rows = torch.zeros((2, 300, 4), dtype=torch.int32, device=card)
+    part = torch.zeros((2, 300), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                  # sum_words > W - 2
+        sg.segment_reduce_kernel(rows, part, 4, 3, False)
+    with pytest.raises(ValueError):                  # part shape
+        sg.segment_reduce_kernel(rows, part[:, :10], 4, 1, False)
+    with pytest.raises(ValueError):                  # int64 rows
+        sg.segment_reduce_kernel(rows.long(), part, 4, 1, False)
+    with pytest.raises(ValueError):                  # not contiguous
+        sg.segment_reduce_kernel(rows.transpose(0, 1), part.t(), 4, 1,
+                                 False)
+    lib = backend.kernel_library()
+    scratch = torch.zeros(8, dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    rc = lib.sxt_segment_reduce(        # nblk 1 cannot cover 300 rows
+        rows.data_ptr(), part.data_ptr(), rows.data_ptr(), part.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr(), scratch.data_ptr(),
+        2, 300, 4, 1, 4, 1, 0, stream)
+    with pytest.raises(RuntimeError, match="segment_reduce launch failed"):
+        backend.check_launch(sg.KERNEL_NAME, rc)
+
+
+@pytest.mark.parametrize("merge", ["auto", "pallas", "jnp"])
+def test_combine_and_ordered_reads_on_card(card, merge):
+    """combine="sum" through connect() on the card runs the segment-reduce
+    kernel (auto/pallas) and matches a numpy int32-wrapping oracle; the
+    ordered range read is globally sorted."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.partition import ReservoirSampler
+    R, M = 24, 5
+    rng = np.random.default_rng(11)
+    keys = [rng.integers(-5000, 5000, 4000).astype(np.int64) * 977
+            for _ in range(M)]
+    vals = [rng.integers(-(1 << 31), 1 << 31, (4000, 3)).astype(np.int32)
+            for _ in range(M)]
+    k, v = np.concatenate(keys), np.concatenate(vals)
+    with connect({"spark.shuffle.tpu.read.mergeImpl": merge},
+                 use_env=False) as svc:
+        h = svc.register_shuffle(0, M, R)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        before = backend.launch_counts().get(sg.KERNEL_NAME, 0)
+        res = svc.read(h, combine="sum")
+        launched = backend.launch_counts().get(sg.KERNEL_NAME, 0) - before
+        part = hash32_np(k) % R
+        for r in range(R):
+            gk, gv = res.partition(r)
+            uk, inv = np.unique(k[part == r], return_inverse=True)
+            want = np.zeros((uk.size, 3), np.int64)
+            np.add.at(want, inv, v[part == r].astype(np.int64))
+            assert np.array_equal(gk, uk), f"partition {r}"
+            assert np.array_equal(gv, want.astype(np.int32)), f"part {r}"
+        rep = svc.report(0)
+        assert rep.kernel == ("jnp" if merge == "jnp" else "pallas")
+        assert launched == (0 if merge == "jnp" else rep.retries + 1)
+
+        s = ReservoirSampler(512, seed=1)
+        for kk in keys:
+            s.add(kk)
+        h2 = svc.register_shuffle(1, M, R, "range", bounds=s.bounds(R))
+        for m in range(M):
+            svc.write(h2, m, keys[m], vals[m])
+        res = svc.read(h2, ordered=True)
+        got = np.concatenate([res.partition(r)[0] for r in range(R)])
+        assert np.array_equal(got, np.sort(k))

@@ -153,3 +153,74 @@ def test_partition_major_sort_aligned(case):
         assert not ts[off + n:off + aligned].any(), f"device {d} pad"
         off += aligned
     assert off <= ts.shape[0]
+
+
+I64 = np.iinfo(np.int64)
+RANGE_EDGE_KEYS = np.array([I64.min, I64.min + 1, -(1 << 32) - 1, -(1 << 32),
+                            -(1 << 31), -1, 0, 1, (1 << 31) - 1, 1 << 31,
+                            (1 << 32) - 1, 1 << 32, I64.max - 1, I64.max],
+                           dtype=np.int64)
+
+
+@pytest.mark.parametrize("bounds_kind", ["extremes", "random", "dups",
+                                         "empty"])
+def test_range_partition_words_matches_reference(bounds_kind):
+    """#(b <= key) over signed int64, exact: the port's binary search over
+    the rebuilt key against np.searchsorted and against the reference's
+    broadcast word compare, at the int64 extremes and across the 32-bit
+    word seams."""
+    rng = np.random.default_rng(len(bounds_kind))
+    keys = np.concatenate([RANGE_EDGE_KEYS, rng.integers(
+        I64.min, I64.max, 3000, dtype=np.int64)])
+    if bounds_kind == "extremes":
+        bounds = RANGE_EDGE_KEYS.copy()
+    elif bounds_kind == "random":
+        bounds = np.sort(rng.integers(I64.min, I64.max, 40, dtype=np.int64))
+    elif bounds_kind == "dups":          # repeated split points: empty ranges
+        bounds = np.sort(np.repeat(keys[rng.integers(0, keys.size, 6)], 3))
+    else:
+        bounds = np.zeros(0, np.int64)
+    words = keys.view(np.int32).reshape(-1, 2)
+    got = tport.range_partition_words(torch.from_numpy(words[:, 0].copy()),
+                                      torch.from_numpy(words[:, 1].copy()),
+                                      bounds).numpy()
+    want = np.searchsorted(bounds, keys, side="right")
+    np.testing.assert_array_equal(got, want)
+    jw = np.asarray(jref.range_partition_words(
+        jnp.asarray(words[:, 0]), jnp.asarray(words[:, 1]), bounds))
+    np.testing.assert_array_equal(got, jw)
+    # the numpy and tensor forms of range_partition agree with both
+    np.testing.assert_array_equal(tport.range_partition(keys, bounds), want)
+    np.testing.assert_array_equal(
+        tport.range_partition(torch.from_numpy(keys), bounds).numpy(), want)
+    np.testing.assert_array_equal(
+        tport.range_partition(keys, bounds),
+        jref.range_partition(keys, bounds))
+
+
+@pytest.mark.parametrize("chunks", [(10,), (3000,), (100, 4000, 7, 0, 900)])
+def test_reservoir_sampler_matches_reference(chunks):
+    """The same seed and the same chunking give the same reservoir and the
+    same split points in both packages."""
+    rng = np.random.default_rng(sum(chunks))
+    t, j = tport.ReservoirSampler(256, seed=7), jref.ReservoirSampler(256, 7)
+    for n in chunks:
+        k = rng.integers(I64.min, I64.max, n, dtype=np.int64)
+        t.add(k)
+        j.add(k)
+    assert t.seen == j.seen
+    np.testing.assert_array_equal(t.sample(), j.sample())
+    np.testing.assert_array_equal(t.bounds(9), j.bounds(9))
+    np.testing.assert_array_equal(tport.sample_bounds(t.sample(), 5),
+                                  jref.sample_bounds(j.sample(), 5))
+
+
+def test_reservoir_sampler_rejects_bad_input():
+    with pytest.raises(ValueError):
+        tport.ReservoirSampler(0)
+    s = tport.ReservoirSampler(4)
+    with pytest.raises(ValueError):
+        s.bounds(3)                      # nothing seen yet
+    with pytest.raises(ValueError):
+        s.add(np.zeros((2, 2), np.int64))
+    assert s.sample().size == 0
