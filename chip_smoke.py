@@ -53,17 +53,47 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             the segment-reduce kernel, rebuilt from the same staging and
             plan: kernel, plain version, one ``index_add_`` of the
             valid rows over precomputed run ids, and the byte bound.
+11. merge_kernel — the merge-path kernel against its plain PyTorch
+            version on the card: widths {3, 6, 25} x shards {1, 8} x
+            interleaved / all of A before B / equal keys on both sides
+            (ties take A) / one side empty / all sentinel / keys whose lo
+            high bit or hi sign differ / sizes off the block tile / an
+            ``out_cap`` below ca + cb. Bit-exact on every row and
+            partition id.
+12. waved_ordered — the ordered phase's TeraSort records and bounds with
+            ``a2a.impl=dense``, ``a2a.waveRows=262144``,
+            ``a2a.waveDepth=2`` (1,310,720 rows per shard: 5 waves).
+            ``read(h, ordered=True, sink="device")`` must report 5 waves,
+            the device sink, a merge wall and no D2H, and launch the
+            merge kernel exactly 4 times (the fold: a sort-free seed from
+            wave 0, then one merge per wave); its ``host_view()`` must be
+            globally sorted and equal the oracle's multisets. Then the
+            same read with ``sink="host"`` (the host cross-wave merge),
+            held to the same oracle, and one profiled device-sink read.
+13. merge_at_main_shapes — the inputs of waved_ordered's last fold step
+            (the accumulator and wave 4, captured from one more read):
+            kernel, plain version, ``merge_rows(impl="jnp")`` (two
+            ``torch.sort`` calls and a row gather: no single PyTorch call
+            merges) and the byte bound, with and without the out_cap cut.
+14. waved_combine — the combine phase's records with the waved conf and
+            ``read.mergeImpl=auto``: ``read(h, combine="sum",
+            sink="device")`` launches the merge kernel 4 times and the
+            segment reduce at least 9 (5 waves + 4 fold steps); every sum
+            equals the int32-wrapping oracle, on the device sink's host
+            view and on the host sink (``combine_packed_rows``).
 
-They run in the order card, build, kernel, segreduce_kernel, main (with
-its profiled read), kernel_at_main_shapes, ordered, skew, combine,
-segreduce_at_main_shapes, combine_f32.
+They run in the order card, build, kernel, segreduce_kernel,
+merge_kernel, main (with its profiled read), kernel_at_main_shapes,
+ordered, waved_ordered, merge_at_main_shapes, skew, combine,
+segreduce_at_main_shapes, waved_combine, combine_f32.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
 the segment move; combine and combine_f32: the segment move and the
-segment reduce; ordered: the segment move). The last two
-lines of standard output are the ``kernels`` JSON object and the
-``{"ok": true, "device": ...}`` object.
+segment reduce; ordered: the segment move; waved_ordered: the merge;
+waved_combine: the merge and the segment reduce). The last two lines of
+standard output are the ``kernels`` JSON object and the ``{"ok": true,
+"device": ...}`` object.
 """
 
 import json
@@ -89,6 +119,26 @@ COMBINE_VALUE_WORDS = 4
 F32_RECORDS = 4_194_304
 SEG_R = 16                 # partitions of the segreduce_kernel cases
 SEG_PATTERNS = ("unique", "one_key", "crossing", "empty", "sentinel")
+MERGE_TPU_KERNEL = "sparkucx_tpu/ops/pallas/segmented.py:238"
+WAVE_ROWS = 262_144
+WAVE_CONF = {"spark.shuffle.tpu.a2a.impl": "dense",
+             "spark.shuffle.tpu.a2a.waveRows": str(WAVE_ROWS),
+             "spark.shuffle.tpu.a2a.waveDepth": "2"}
+MERGE_PATTERNS = ("interleaved", "a_before_b", "ties", "a_empty", "b_empty",
+                  "all_sentinel", "sign_bits", "ragged", "out_cap")
+# (ca, na, cb, nb) of shard 0: capacities and valid rows of A and B
+MERGE_SIZES = {"interleaved": (3000, 2900, 2000, 1800),
+               "a_before_b": (2048, 2048, 1024, 1000),
+               "ties": (2600, 2500, 2600, 2400),
+               "a_empty": (512, 0, 3000, 2990), "b_empty": (3000, 3000, 0, 0),
+               "all_sentinel": (1000, 0, 1500, 0),
+               "sign_bits": (2000, 1900, 1800, 1700),
+               "ragged": (2561, 2561, 5119, 3000),
+               "out_cap": (3000, 2900, 2000, 1800)}
+SIGN_KEYS = np.array([0, 1, -1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 1 << 32,
+                      -(1 << 32), (1 << 32) + 0x80000000, -(1 << 31),
+                      -(1 << 31) - 1, 1 << 62, -(1 << 62), -(1 << 63),
+                      (1 << 63) - 1], dtype=np.int64)
 
 
 def log(msg: str) -> None:
@@ -268,6 +318,15 @@ def profiled_read(svc, h, **read_kw) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         parts, read_ms, views_ms = drive_read(svc, h, **read_kw)
     del parts
+    wall = read_ms + views_ms
+    return {"wall_ms": wall, "read_ms": read_ms, "views_ms": views_ms,
+            **device_busy(prof, wall)}
+
+
+def device_busy(prof, wall: float) -> dict:
+    """Device busy time in a profiled window of ``wall`` ms, its idle
+    share and the top device activities by name."""
+    import torch
     # device-side activities only (kernels, memcpy, memset); busy time is
     # the union of their intervals, so overlap is not counted twice
     spans, by_name = [], {}
@@ -284,10 +343,8 @@ def profiled_read(svc, h, **read_kw) -> dict:
             busy_us += e - max(s, end)
             end = e
     busy = busy_us / 1e3
-    wall = read_ms + views_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall, "read_ms": read_ms, "views_ms": views_ms,
-            "device_busy_ms": busy,
+    return {"device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall) if busy else None,
             "top_device_ms": dict(top)}
 
@@ -647,17 +704,22 @@ def combine_f32_phase(dev, conf) -> dict:
             "views2_ms": views2_ms, "ok": True}
 
 
-def ordered_phase(dev, conf, keys, values) -> tuple:
-    """TeraSort proper over the main phase's records."""
-    from sparkucx_tpu_torch import connect
+def terasort_bounds(keys) -> np.ndarray:
+    """Range bounds from a ReservoirSampler over every map's keys."""
     from sparkucx_tpu_torch.ops.partition import ReservoirSampler
-    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
-    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
     sampler = ReservoirSampler(capacity=1 << 16, seed=SEED)
     per = -(-keys.shape[0] // MAPS)
     for m in range(MAPS):
         sampler.add(keys[m * per:(m + 1) * per])
-    bounds = sampler.bounds(PARTITIONS)
+    return sampler.bounds(PARTITIONS)
+
+
+def ordered_phase(dev, conf, keys, values) -> tuple:
+    """TeraSort proper over the main phase's records."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    bounds = terasort_bounds(keys)
     with connect(conf, num_shards=SHARDS, use_env=False) as svc:
         h = write_maps(svc, 14, keys, values, MAPS, "range", bounds)
         parts, stats = device_read(svc, h, dev, (KERNEL_NAME,),
@@ -774,6 +836,327 @@ def segreduce_at_main_shapes(keys, values, rep, part_rows, dev) -> dict:
         "bytes_in": bytes_in, "bytes_out": bytes_out}
 
 
+# -- merge-path kernel phase -------------------------------------------------
+def _merge_side(rng, cap: int, n: int, width: int, pattern: str, side: str):
+    """One shard's side of a merge: [cap, W] rows sorted by (partition,
+    key) with [cap] partition ids, zero rows and the sentinel past n."""
+    if pattern == "a_before_b":
+        lo, hi = (0, SEG_R // 2) if side == "a" else (SEG_R // 2, SEG_R)
+        keys = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+        parts = rng.integers(lo, hi, n)
+    elif pattern == "ties":                # few keys: equal rows both sides
+        keys = rng.integers(-40, 40, n).astype(np.int64) * (1 << 33)
+        parts = (keys >> 33) % SEG_R
+    elif pattern == "sign_bits":
+        keys, parts = rng.choice(SIGN_KEYS, n), rng.integers(0, 3, n)
+    else:
+        keys = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+        parts = rng.integers(0, SEG_R, n)
+    order = np.lexsort((keys, parts))
+    rows = np.zeros((cap, width), np.int32)
+    part = np.full(cap, SEG_R, np.int32)
+    if n:
+        rows[:n, :2] = keys[order].view(np.int32).reshape(n, 2)
+        rows[:n, 2:] = rng.integers(-(1 << 31), 1 << 31, (n, width - 2))
+        part[:n] = parts[order]
+    return rows, part
+
+
+def merge_kernel_phase(dev) -> int:
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(SEED + 8)
+    n = 0
+    for width in (3, 6, 25):
+        for P in (1, 8):
+            for pattern in MERGE_PATTERNS:
+                ca, na, cb, nb = MERGE_SIZES[pattern]
+                sides = []
+                for side, cap, nv in (("a", ca, na), ("b", cb, nb)):
+                    got = [_merge_side(rng, cap, max(0, nv - 37 * p) if nv
+                                       else 0, width, pattern, side)
+                           for p in range(P)]
+                    sides += [torch.from_numpy(np.stack([g[0] for g in got]))
+                              .to(dev),
+                              torch.from_numpy(np.stack([g[1] for g in got]))
+                              .to(dev)]
+                out_cap = (ca + cb) // 2 + 3 if pattern == "out_cap" \
+                    else None
+                kr, kp = sg.merge_kernel(*sides, out_cap)
+                pr, pp = sg.merge_plain(*sides, out_cap)
+                torch.cuda.synchronize()
+                if not (torch.equal(kr, pr) and torch.equal(kp, pp)):
+                    raise AssertionError(f"merge width={width} P={P} "
+                                         f"{pattern}: kernel != plain")
+                n += 1
+    return n
+
+
+# -- waved reads and the device merge fold -----------------------------------
+def waved_read(svc, h, dev, **read_kw) -> tuple:
+    """One measured waved read with the device sink: launch counts and
+    peak memory reset just before; then its host view. Returns (parts,
+    stats, report)."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.read(h, sink="device", **read_kw)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    launches = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rep = svc.report(h.shuffle_id)
+    d2h_before = rep.d2h_bytes
+    t1 = time.perf_counter()
+    hv = res.host_view()
+    parts = [hv.partition(r) for r in range(PARTITIONS)]
+    views_ms = (time.perf_counter() - t1) * 1e3
+    # (a CPU view costs no copy, so only the card counts D2H bytes)
+    if not (rep.waves == 5 and rep.sink == "device" and rep.merge_ms > 0
+            and d2h_before == 0
+            and (rep.d2h_bytes > 0 or dev.type != "cuda")):
+        raise AssertionError(
+            f"waved device read: waves={rep.waves} sink={rep.sink} "
+            f"merge_ms={rep.merge_ms} d2h before/after host_view="
+            f"{d2h_before}/{rep.d2h_bytes}")
+    return parts, {"read_ms": read_ms, "views_ms": views_ms,
+                   "merge_ms": rep.merge_ms, "pack_ms": rep.pack_ms,
+                   "wave_pack_hidden_ms": rep.wave_pack_hidden_ms,
+                   "wave_timeline": rep.wave_timeline,
+                   "d2h_before_host_view": d2h_before,
+                   "d2h_after_host_view": rep.d2h_bytes,
+                   "peak_device_bytes": peak, "launches": launches,
+                   "plan_bucket": rep.plan_bucket,
+                   "wave_payload_rows": rep.wave_payload_rows}, rep
+
+
+def host_waved_read(svc, h, **read_kw) -> tuple:
+    """The same waved read with the host sink (the host cross-wave
+    merge); the merge kernel must not run."""
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME
+    backend.reset_launch_counts()
+    parts, read_ms, views_ms = drive_read(svc, h, sink="host", **read_kw)
+    rep = svc.report(h.shuffle_id)
+    if rep.waves != 5 or rep.sink != "host" or \
+            backend.launch_counts().get(MERGE_KERNEL_NAME, 0):
+        raise AssertionError("host-sink waved read ran the device fold")
+    return parts, {"read_ms": read_ms, "views_ms": views_ms,
+                   "d2h_bytes": rep.d2h_bytes,
+                   "wave_pack_hidden_ms": rep.wave_pack_hidden_ms,
+                   "wave_timeline": rep.wave_timeline}
+
+
+def profiled_device_read(svc, h, **read_kw) -> dict:
+    """One more device-sink read under torch.profiler (the read alone,
+    no host view): device busy time and idle share of its wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = svc.read(h, sink="device", **read_kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    res.close()
+    return {"wall_ms": wall, **device_busy(prof, wall)}
+
+
+def capture_last_merge(svc, h, name: str, **read_kw) -> dict:
+    """One more device-sink read whose fold step calls of
+    ``reader.<name>`` (``merge_rows`` for an ordered fold,
+    ``merge_reduce_rows`` for a combine fold) are recorded: returns the
+    arguments of the last one (the accumulator and the last wave, as the
+    fold gave them)."""
+    from sparkucx_tpu_torch.shuffle import reader as rd
+    box, orig = {}, getattr(rd, name)
+
+    def capture(*args, **kw):
+        box["args"], box["kw"] = args, kw
+        return orig(*args, **kw)
+
+    setattr(rd, name, capture)
+    try:
+        svc.read(h, sink="device", **read_kw).close()
+    finally:
+        setattr(rd, name, orig)
+    if "args" not in box:
+        raise AssertionError(f"the device fold never called {name}")
+    return box
+
+
+def combine_fold_step_check(captured) -> dict:
+    """The last fold step of waved_combine at its own shapes: the merge
+    kernel bit-exact against merge_plain on the step's inputs, then the
+    segment-reduce kernel exact against its plain version on the merged
+    rows (int32 sums)."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    a, ap, b, bp, num_parts, val_words, val_dtype = captured["args"][:7]
+    if np.dtype(val_dtype) != np.int32:
+        raise AssertionError(f"waved combine folds {val_dtype}, not int32")
+    kw = captured["kw"]
+    a, ap, b, bp = (t.contiguous() for t in (a, ap, b, bp))
+    out_cap = kw["out_cap"]
+    sw = kw.get("sum_words", 0) or val_words
+    mr, mp = sg.merge_kernel(a, ap, b, bp, out_cap)
+    pr, pp = sg.merge_plain(a, ap, b, bp, out_cap)
+    torch.cuda.synchronize()
+    merge_err = int((mr.long() - pr.long()).abs().max())
+    if merge_err or not torch.equal(mp, pp):
+        raise AssertionError(f"combine fold merge: kernel != plain "
+                             f"(err {merge_err})")
+    del pr, pp
+    kr, kp, kn = sg.segment_reduce_kernel(mr, mp, num_parts, sw, False)
+    sr, sp, sn = sg.segment_reduce_plain(mr, mp, num_parts, sw, False)
+    torch.cuda.synchronize()
+    seg_err = int((kr.long() - sr.long()).abs().max())
+    if seg_err or not (torch.equal(kp, sp) and torch.equal(kn, sn)):
+        raise AssertionError(f"combine fold segment reduce: kernel != "
+                             f"plain (err {seg_err})")
+    return {"a_shape": list(a.shape), "b_shape": list(b.shape),
+            "out_cap": out_cap, "sum_words": sw,
+            "merged_valid_rows": int((mp < num_parts).sum()),
+            "reduced_rows": int(kn.sum()), "merge_max_abs_err": merge_err,
+            "segment_reduce_max_abs_err": seg_err}
+
+
+def check_sorted_oracle(parts, keys, values, pid, sink: str) -> None:
+    allk = np.concatenate([parts[r][0] for r in range(PARTITIONS)])
+    if allk.size != keys.size or (np.diff(allk) < 0).any():
+        raise AssertionError(f"waved ordered ({sink}): not globally sorted")
+    del allk
+    check_against_oracle(parts, keys, values, PARTITIONS, pid=pid)
+
+
+def waved_ordered_phase(dev, keys, values) -> tuple:
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME
+    bounds = terasort_bounds(keys)
+    pid = np.searchsorted(bounds, keys, side="right").astype(np.int64)
+    with connect(WAVE_CONF, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 20, keys, values, MAPS, "range", bounds)
+        parts, stats, rep = waved_read(svc, h, dev, ordered=True)
+        launches = stats["launches"]
+        if launches.get(MERGE_KERNEL_NAME, 0) != 4 or \
+                launches.get(KERNEL_NAME, 0):
+            raise AssertionError(f"waved ordered launches {launches}")
+        t = time.perf_counter()
+        check_sorted_oracle(parts, keys, values, pid, "device")
+        del parts
+        hparts, hstats = host_waved_read(svc, h, ordered=True)
+        check_sorted_oracle(hparts, keys, values, pid, "host")
+        del hparts
+        oracle_s = time.perf_counter() - t
+        prof = profiled_device_read(svc, h, ordered=True)
+        captured = capture_last_merge(svc, h, "merge_rows", ordered=True)
+        svc.unregister_shuffle(20)
+    return {"phase": "waved_ordered", "records": int(keys.size),
+            "waves": rep.waves, "wave_rows": rep.wave_rows,
+            "impl": rep.impl, "kernel": rep.kernel,
+            "retries": rep.retries, "device": stats, "host": hstats,
+            "oracle_s": oracle_s, "ok": True}, prof, captured
+
+
+def merge_at_main_shapes(captured, dev) -> dict:
+    """The last fold step of waved_ordered: kernel, plain version,
+    merge_rows(impl="jnp") and the byte bound at its shapes."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    a, ap, b, bp, num_parts = captured["args"]
+    out_cap = captured["kw"]["out_cap"]
+    P, ca, W = a.shape
+    cb = b.shape[1]
+
+    def kernel():
+        return sg.merge_kernel(a, ap, b, bp, out_cap)
+
+    def plain():
+        return sg.merge_plain(a, ap, b, bp, out_cap)
+
+    def library():
+        return sg.merge_rows(a, ap, b, bp, num_parts, impl="jnp",
+                             out_cap=out_cap)
+
+    kr, kp = kernel()
+    pr, pp = plain()
+    lr, lp, _ = library()
+    torch.cuda.synchronize()
+    err = int((kr.long() - pr.long()).abs().max())
+    if err or not torch.equal(kp, pp):
+        raise AssertionError(f"merge disagrees at main shapes (err {err})")
+    if not (torch.equal(kr[..., :2], lr[..., :2]) and torch.equal(kp, lp)):
+        raise AssertionError("merge_rows(impl='jnp') disagrees on keys")
+    valid = int((kp < num_parts).sum())
+    del kr, kp, pr, pp, lr, lp
+    # every output row comes from exactly one input row: the function
+    # must read out_cap rows per shard and write as many
+    row = (W + 1) * 4
+    bytes_out = P * out_cap * row
+    bytes_in = bytes_out
+    both_in = P * (ca + cb) * row
+    return {
+        "kernel_ms": median_ms(kernel),
+        "plain_ms": median_ms(plain, reps=5, warmup=1),
+        "library_ms": median_ms(library),
+        "library_calls": "merge_rows(impl='jnp'): torch.sort of the keys, "
+                         "a stable torch.sort of the partitions, row "
+                         "gathers (no single PyTorch call merges)",
+        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
+        # labelled alternatives: reading both buffers whole, and that
+        # with all ca+cb rows written (no out_cap cut)
+        "bound_reads_both_buffers_ms":
+            (both_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
+        "bound_no_out_cap_cut_ms": 2 * both_in / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "a_shape": [P, ca, W], "b_shape": [P, cb, W],
+        "out_cap": out_cap, "valid_rows": valid,
+        "bytes_in": bytes_in, "bytes_out": bytes_out}
+
+
+def waved_combine_phase(dev, keys, values) -> dict:
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME
+    conf = dict(WAVE_CONF)
+    conf["spark.shuffle.tpu.read.mergeImpl"] = "auto"
+    uk, sums, _ = group_oracle(keys, values)
+    want = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 21, keys, values, MAPS)
+        parts, stats, rep = waved_read(svc, h, dev, combine="sum")
+        launches = stats["launches"]
+        if launches.get(MERGE_KERNEL_NAME, 0) != 4 or \
+                launches.get(SEG, 0) < 9:
+            raise AssertionError(f"waved combine launches {launches}")
+        t = time.perf_counter()
+        gk, gv = combined_rows(parts, PARTITIONS,
+                               lambda k: hash_pid(k, PARTITIONS))
+        if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+            raise AssertionError("waved combine (device): sums differ")
+        del parts
+        hparts, hstats = host_waved_read(svc, h, combine="sum")
+        gk, gv = combined_rows(hparts, PARTITIONS,
+                               lambda k: hash_pid(k, PARTITIONS))
+        if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+            raise AssertionError("waved combine (host): sums differ")
+        del hparts
+        oracle_s = time.perf_counter() - t
+        captured = capture_last_merge(svc, h, "merge_reduce_rows",
+                                      combine="sum")
+        svc.unregister_shuffle(21)
+    if rep.kernel != "pallas":
+        raise AssertionError(f"waved combine ran kernel tier {rep.kernel}")
+    fold = combine_fold_step_check(captured)
+    del captured
+    return {"phase": "waved_combine", "records": int(keys.size),
+            "waves": rep.waves, "kernel": rep.kernel, "rows_out": int(uk.size),
+            "retries": rep.retries, "device": stats, "host": hstats,
+            "fold_step_check": fold, "oracle_s": oracle_s, "ok": True}
+
+
 def main() -> int:
     try:
         import torch
@@ -793,6 +1176,8 @@ def main() -> int:
         return 2
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
     from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG_KERNEL
+    from sparkucx_tpu_torch.ops.segmented import \
+        MERGE_KERNEL_NAME as MERGE_KERNEL
 
     dev = card_device()
     print(card_line(), flush=True)      # "<name>, <power limit>"
@@ -816,6 +1201,12 @@ def main() -> int:
     seg_cases = segreduce_kernel_phase(dev)
     print(json.dumps({"phase": "segreduce_kernel", **seg_cases, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
+
+    t = time.perf_counter()
+    merge_cases = merge_kernel_phase(dev)
+    print(json.dumps({"phase": "merge_kernel", "cases": merge_cases,
+                      "ok": True, "seconds": time.perf_counter() - t}),
+          flush=True)
 
     # -- main path: TeraSort records, 200 partitions, 8 shards -----------
     conf = {"spark.shuffle.tpu.a2a.impl": "pallas"}
@@ -875,7 +1266,19 @@ def main() -> int:
     print(json.dumps({**od, "seconds": time.perf_counter() - t}),
           flush=True)
     print(json.dumps({"phase": "ordered_profile", **oprof}), flush=True)
+
+    # -- waved_ordered: TeraSort in 5 waves, folded on the device --------
+    t = time.perf_counter()
+    wo, woprof, captured = waved_ordered_phase(dev, keys, values)
+    print(json.dumps({**wo, "seconds": time.perf_counter() - t}),
+          flush=True)
+    print(json.dumps({"phase": "waved_ordered_profile", **woprof}),
+          flush=True)
+    merge_launches = wo["device"]["launches"][MERGE_KERNEL]
     del keys, values
+    mt = merge_at_main_shapes(captured, dev)
+    del captured
+    print(json.dumps({"phase": "merge_at_main_shapes", **mt}), flush=True)
 
     # -- skew + regrow: Zipf(1.1), capacityFactor 0.5 --------------------
     skew_conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
@@ -894,7 +1297,9 @@ def main() -> int:
         "phase": "skew", "records": SKEW_RECORDS, "retries": srep.retries,
         "plan_bucket": srep.plan_bucket, "skew_ratio": srep.skew_ratio,
         "read_ms": sread_ms, "views_ms": sviews_ms,
-        "launches": skew_launches, "ok": True}), flush=True)
+        "pack_ms": srep.pack_ms, "dispatch_ms": srep.dispatch_ms,
+        "group_ms": srep.group_ms, "launches": skew_launches, "ok": True}),
+        flush=True)
 
     # -- combine: group-by-sum through the segment-reduce kernel ---------
     comb_conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
@@ -906,6 +1311,11 @@ def main() -> int:
     seg_launches = cb["launches"][SEG_KERNEL]
     st = segreduce_at_main_shapes(ck, cv, crep, part_rows, dev)
     print(json.dumps({"phase": "segreduce_at_main_shapes", **st}),
+          flush=True)
+
+    t = time.perf_counter()
+    wc = waved_combine_phase(dev, ck, cv)
+    print(json.dumps({**wc, "seconds": time.perf_counter() - t}),
           flush=True)
     del ck, cv
 
@@ -925,7 +1335,13 @@ def main() -> int:
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-        "bound_by": "bytes", "library_ms": st["library_ms"]}]}),
+        "bound_by": "bytes", "library_ms": st["library_ms"]}, {
+        "name": MERGE_KERNEL, "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/merge_path.cu",
+        "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
+        "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
+        "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
+        "bound_by": "bytes", "library_ms": mt["library_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,9 @@ SIGNATURES = {
     # P, cap, width, nblk, num_parts, sum_words, float_acc, stream
     # -> cudaError_t
     "sxt_segment_reduce": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
+    # a_rows, a_part, b_rows, b_part, out_rows, out_part, P, ca, cb,
+    # out_cap, width, stream -> cudaError_t
+    "sxt_merge_path": (ctypes.c_int, [_P] * 6 + [_I] * 5 + [_P]),
     "sxt_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -8,7 +8,8 @@ through unchanged.
 
 Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``a2a.combineCompaction``,
-``read.mergeImpl``, ``network.timeoutMs``.
+``a2a.waveRows``, ``a2a.waveDepth``, ``read.mergeImpl``, ``read.sink``,
+``network.timeoutMs``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,18 @@ COMPACTIONS = ("stable", "unstable")
 # a2a.capBucketGrowth bounds
 CAP_BUCKET_GROWTH_RANGE = (1.05, 4.0)
 
+# a2a.waveDepth bounds: 1 = serial waves (bounded memory, no overlap);
+# past ~8 the pinned-block working set grows without hiding more latency
+# (the pipeline has three stages: pack, exchange, drain)
+WAVE_DEPTH_RANGE = (1, 8)
+
+# read.sink values (the JAX package's set): 'host' drains each result to
+# numpy partition views, 'device' keeps the partitions in device tensors
+# handed to a consumer (reader.DeviceShuffleReaderResult), 'auto' is host
+# unless a read asks for the device sink (read(sink="device")).
+ALLOWED_SINKS = ("host", "device", "auto")
+READ_SINK_KEY = PREFIX + "read.sink"
+
 
 def _norm(key: str) -> str:
     """Case/punctuation-insensitive key form ('a2a.capacityFactor',
@@ -62,6 +75,16 @@ def validate_impl(impl: str, conf_key: str = PREFIX + "a2a.impl") -> str:
     return impl
 
 
+def validate_sink(sink: str, conf_key: str = READ_SINK_KEY) -> str:
+    if sink not in ALLOWED_SINKS:
+        raise ValueError(
+            f"{conf_key}={sink!r}: want one of {ALLOWED_SINKS} (host = "
+            f"drain results to the host, device = partitions stay in device "
+            f"tensors handed to a consumer, auto = device when the read "
+            f"asks for it)")
+    return sink
+
+
 def validate_sort_impl(v: str) -> str:
     if v not in SORT_METHODS:
         raise ValueError(
@@ -75,7 +98,8 @@ class ShuffleConf:
 
     _TYPED_PROPS = ("a2a_impl", "capacity_factor", "cap_buckets",
                     "cap_bucket_growth", "sort_impl", "combine_compaction",
-                    "read_merge_impl", "connection_timeout_ms")
+                    "wave_rows", "wave_depth", "read_merge_impl",
+                    "read_sink", "connection_timeout_ms")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -106,6 +130,9 @@ class ShuffleConf:
 
     def _get(self, short: str, default) -> str:
         return self.get(PREFIX + short, str(default))
+
+    def get_int(self, short: str, default: int) -> int:
+        return int(self._get(short, default))
 
     def get_bool(self, short: str, default: bool) -> bool:
         v = self._get(short, default).strip().lower()
@@ -159,6 +186,29 @@ class ShuffleConf:
         return v
 
     @property
+    def wave_rows(self) -> int:
+        """Wave-pipelined read: split the staged rows into waves of at
+        most this many rows per shard and pack wave i+1 on the host while
+        wave i's exchange runs on the device. 0 (default) = single-shot.
+        An overflow regrows and re-runs only the offending wave
+        (shuffle/manager.PendingWaveShuffle)."""
+        v = self.get_int("a2a.waveRows", 0)
+        if v < 0:
+            raise ValueError(f"{PREFIX}a2a.waveRows={v}: want >= 0 (0 = off)")
+        return v
+
+    @property
+    def wave_depth(self) -> int:
+        """Waves in flight at once (and recycled pinned pack blocks the
+        pipeline holds); 2 (default) is the classic depth-2 pipeline, 1
+        runs the waves one after another."""
+        v = self.get_int("a2a.waveDepth", 2)
+        lo, hi = WAVE_DEPTH_RANGE
+        if not lo <= v <= hi:
+            raise ValueError(f"{PREFIX}a2a.waveDepth={v}: want {lo}..{hi}")
+        return v
+
+    @property
     def read_merge_impl(self) -> str:
         """How the combine read's reduce-side segment reduce runs: auto
         (the CUDA kernel on the card, the torch-op formulation on the
@@ -170,6 +220,15 @@ class ShuffleConf:
                              f"{MERGE_IMPLS} (pallas = the hand-written CUDA "
                              f"segment reduce, jnp = torch ops)")
         return v
+
+    @property
+    def read_sink(self) -> str:
+        """Where a completed exchange lands: host (numpy partition
+        views), device (partitions stay in device tensors handed to a
+        consumer; ordered and combine waved reads merge on the device) or
+        auto (default: host unless the read asks for the device sink).
+        The manager resolves it per read (``_resolve_sink``)."""
+        return validate_sink(self._get("read.sink", "auto"))
 
     @property
     def connection_timeout_ms(self) -> int:

@@ -79,8 +79,10 @@ def _lane_dtype(vdt: np.dtype) -> torch.dtype:
 
 def _valid_mask(num_valid, B: int, cap: int,
                 device: torch.device) -> torch.Tensor:
-    nv = torch.as_tensor(num_valid, device=device).reshape(-1, 1)
     idx = torch.arange(cap, device=device)
+    if isinstance(num_valid, int):       # no host-to-device copy
+        return (idx < num_valid).expand(B, cap)
+    nv = torch.as_tensor(num_valid, device=device).reshape(-1, 1)
     return (idx[None, :] < nv).expand(B, cap)
 
 
@@ -177,7 +179,8 @@ def combine_rows(rows: torch.Tensor, part: torch.Tensor, num_valid,
     n_out = is_start.sum(dim=1, dtype=torch.int32)
     nxt_start = torch.ones((B, cap), dtype=torch.bool, device=dev)
     nxt_start[:, :-1] = is_start[:, 1:]
-    nv = torch.as_tensor(num_valid, device=dev).reshape(-1, 1)
+    nv = num_valid if isinstance(num_valid, int) else \
+        torch.as_tensor(num_valid, device=dev).reshape(-1, 1)
     idx = torch.arange(cap, device=dev)
     is_end = valid & (nxt_start | (idx[None, :] == nv - 1))
 

@@ -52,6 +52,18 @@ def words_to_key(key_lo: torch.Tensor, key_hi: torch.Tensor) -> torch.Tensor:
     return (key_hi.to(torch.int64) << 32) | (key_lo.to(torch.int64) & _MASK32)
 
 
+def to_device(array, device: torch.device,
+              dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """A small host array as a tensor on ``device`` without waiting for
+    the device: a copy from pageable memory to a CUDA device first waits
+    for all earlier work on the stream (which would serialise a waved
+    read's pipeline); a pinned, non-blocking copy is queued behind it."""
+    t = torch.as_tensor(np.asarray(array), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def range_partition_words(key_lo: torch.Tensor, key_hi: torch.Tensor,
                           bounds) -> torch.Tensor:
     """Range partition of int64 keys held as transport words: partition
@@ -59,8 +71,7 @@ def range_partition_words(key_lo: torch.Tensor, key_hi: torch.Tensor,
     compare). The JAX package counts it by a broadcast compare, O(n*R);
     a binary search over the rebuilt key gives the same ids in
     O(n log R). int32 ids, the shape of ``key_lo``."""
-    b = torch.as_tensor(np.asarray(bounds, dtype=np.int64),
-                        device=key_lo.device)
+    b = to_device(np.asarray(bounds, dtype=np.int64), key_lo.device)
     key = words_to_key(key_lo, key_hi)
     if b.numel() == 0:
         return torch.zeros(key.shape, dtype=torch.int32, device=key.device)
@@ -76,8 +87,7 @@ def range_partition(keys: Union[np.ndarray, torch.Tensor], bounds):
     if isinstance(keys, np.ndarray):
         return np.searchsorted(np.asarray(bounds, dtype=np.int64), keys,
                                side="right").astype(np.int32)
-    b = torch.as_tensor(np.asarray(bounds, dtype=np.int64),
-                        device=keys.device)
+    b = to_device(np.asarray(bounds, dtype=np.int64), keys.device)
     return torch.searchsorted(b, keys.to(torch.int64).contiguous(),
                               right=True).to(torch.int32)
 
@@ -232,16 +242,15 @@ def partition_major_sort_aligned(
     rcounts = hist[:, :num_parts]
     cum = torch.zeros((B, num_parts + 1), dtype=torch.int32, device=dev)
     cum[:, 1:] = torch.cumsum(rcounts, dim=1, dtype=torch.int32)
-    b_hi = torch.as_tensor(bounds[1:], device=dev)
-    b_lo = torch.as_tensor(bounds[:-1], device=dev)
+    b_hi = to_device(bounds[1:], dev)
+    b_lo = to_device(bounds[:-1], dev)
     dev_counts = cum[:, b_hi] - cum[:, b_lo]                  # [B, P]
     pad_per = (-dev_counts) % chunk
 
     # an empty device range keeps its own start as "last partition", so
     # its dummies still sort between its neighbours
-    last_part = torch.as_tensor(
-        np.maximum(bounds[1:] - 1, bounds[:-1]).astype(np.int32),
-        device=dev)
+    last_part = to_device(np.maximum(bounds[1:] - 1, bounds[:-1]), dev,
+                          torch.int32)
     slot = torch.arange(pad_rows, dtype=torch.int64, device=dev)
     blk = slot // chunk
     within = (slot % chunk).to(torch.int32)

@@ -1,6 +1,7 @@
-"""Segment reduce over sorted rows — the reduce half of the JAX
-package's ``ops/pallas/segmented.py``, the receive-side combine of a
-multi-shard combine read.
+"""Segment reduce and merge over sorted rows — the port of the JAX
+package's ``ops/pallas/segmented.py``: the receive-side combine of a
+multi-shard combine read, and the device fold of a waved ordered or
+combine read (``shuffle/reader.device_merge_fold``).
 
 :func:`segment_reduce_rows` reduces each run of equal (partition, key)
 in a (partition, key)-sorted buffer to one row: the leading ``sum_words``
@@ -20,7 +21,17 @@ Rows carry the reader's int32 format (cols 0, 1 = int64 key as [lo, hi]);
 partition ids arrive as a lane of their own, the sentinel ``num_parts``
 marking invalid rows, which sort last. Output rows past the run count
 are zero with the sentinel partition, so the two impls agree on the
-whole buffer. The merge half (``merge_rows``) is not ported yet.
+whole buffer.
+
+:func:`merge_rows` merges two (partition, key)-sorted buffers, ties
+taking the first: ``pallas`` is :func:`merge` (the merge-path kernel,
+``csrc/merge_path.cu``, on a CUDA tensor; :func:`merge_plain` on a CPU
+tensor), ``jnp`` one ``keysort_rows`` over the concatenation.
+:func:`merge_reduce_rows` is a merge followed by the segment reduce.
+Both are batched over the leading shard dimension (one kernel launch per
+call, not one per shard) and take ``out_cap``: only output rows
+``[0, out_cap)`` are produced, so a fold whose valid rows fit its
+accumulator never materialises the sentinel tail.
 """
 
 from __future__ import annotations
@@ -33,10 +44,13 @@ import torch
 from sparkucx_tpu_torch import backend
 from sparkucx_tpu_torch.config import MERGE_IMPLS
 from sparkucx_tpu_torch.ops.aggregate import (KEY_WORDS, combine_rows,
-                                              is_float_dtype)
-from sparkucx_tpu_torch.ops.partition import counts_from_sorted, words_to_key
+                                              is_float_dtype, keysort_rows)
+from sparkucx_tpu_torch.ops.partition import (_gather_rows,
+                                              counts_from_sorted,
+                                              words_to_key)
 
 KERNEL_NAME = "segment_reduce"
+MERGE_KERNEL_NAME = "merge_path"
 _THREADS = 256          # rows per block of the kernel (csrc/segment_reduce.cu)
 
 
@@ -245,3 +259,156 @@ def segment_reduce_rows(rows: torch.Tensor, part: torch.Tensor,
         rows, part.to(torch.int32).contiguous(), num_parts, sw,
         float_acc=is_float_dtype(vdt))
     return rows_out, counts_from_sorted(part_out, num_parts), n
+
+
+# -- merge -------------------------------------------------------------------
+
+def _check_merge_inputs(a_rows: torch.Tensor, a_part: torch.Tensor,
+                        b_rows: torch.Tensor, b_part: torch.Tensor,
+                        out_cap: Optional[int]) -> int:
+    """Validate the two sides of a merge; returns the resolved
+    ``out_cap`` (default ``ca + cb``)."""
+    for name, rows, part in (("a", a_rows, a_part), ("b", b_rows, b_part)):
+        if rows.dim() != 3 or rows.dtype != torch.int32:
+            raise ValueError(f"{name}_rows must be [P, cap, W] int32, got "
+                             f"{tuple(rows.shape)} {rows.dtype}")
+        if part.dtype != torch.int32 or tuple(part.shape) != tuple(
+                rows.shape[:2]):
+            raise ValueError(f"{name}_part must be [P, cap] int32 matching "
+                             f"its rows, got {tuple(part.shape)} "
+                             f"{part.dtype}")
+    if a_rows.shape[0] != b_rows.shape[0] or a_rows.shape[2] != \
+            b_rows.shape[2] or a_rows.shape[2] < KEY_WORDS:
+        raise ValueError(f"a and b must share P and a width >= {KEY_WORDS}: "
+                         f"{tuple(a_rows.shape)} vs {tuple(b_rows.shape)}")
+    n = a_rows.shape[1] + b_rows.shape[1]
+    out_cap = n if out_cap is None else int(out_cap)
+    if not 0 <= out_cap <= n:
+        raise ValueError(f"out_cap={out_cap} out of [0, {n}]")
+    return out_cap
+
+
+def merge_plain(a_rows: torch.Tensor, a_part: torch.Tensor,
+                b_rows: torch.Tensor, b_part: torch.Tensor,
+                out_cap: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the merge kernel, for CPU tensors and
+    as the kernel's reference: a STABLE sort of the concatenation
+    ``[a; b]`` by (partition, signed int64 key). For sorted inputs that
+    is the merge with ties taking ``a`` (an ``a`` row precedes every
+    equal ``b`` row, and each side keeps its own order). Returns (rows
+    ``[P, out_cap, W]``, part ``[P, out_cap]``)."""
+    out_cap = _check_merge_inputs(a_rows, a_part, b_rows, b_part, out_cap)
+    cat = torch.cat([a_rows, b_rows], dim=1)
+    pcat = torch.cat([a_part, b_part], dim=1)
+    key = words_to_key(cat[..., 0], cat[..., 1])
+    _, by_key = torch.sort(key, dim=1, stable=True)
+    _, by_part = torch.sort(torch.gather(pcat, 1, by_key), dim=1,
+                            stable=True)
+    order = torch.gather(by_key, 1, by_part)[:, :out_cap]
+    return _gather_rows(cat, order), torch.gather(pcat, 1, order)
+
+
+def merge_kernel(a_rows: torch.Tensor, a_part: torch.Tensor,
+                 b_rows: torch.Tensor, b_part: torch.Tensor,
+                 out_cap: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA merge-path kernel on the current stream (no host
+    synchronisation), one launch for all shards. Same contract as
+    :func:`merge_plain`."""
+    out_cap = _check_merge_inputs(a_rows, a_part, b_rows, b_part, out_cap)
+    dev = a_rows.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (a_part, b_rows, b_part)):
+        raise ValueError(f"merge_kernel needs CUDA tensors on one device, "
+                         f"got {dev}")
+    if not all(t.is_contiguous() for t in (a_rows, a_part, b_rows, b_part)):
+        raise ValueError("merge inputs must be contiguous")
+    P, ca, W = a_rows.shape
+    cb = b_rows.shape[1]
+    out_rows = torch.empty((P, out_cap, W), dtype=torch.int32, device=dev)
+    out_part = torch.empty((P, out_cap), dtype=torch.int32, device=dev)
+    if P == 0 or out_cap == 0:
+        return out_rows, out_part
+    backend.check_sm90(dev)
+    lib = backend.kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sxt_merge_path(
+            a_rows.data_ptr(), a_part.data_ptr(), b_rows.data_ptr(),
+            b_part.data_ptr(), out_rows.data_ptr(), out_part.data_ptr(),
+            P, ca, cb, out_cap, W, stream)
+    backend.check_launch(MERGE_KERNEL_NAME, rc)
+    backend.count_launch(MERGE_KERNEL_NAME)
+    return out_rows, out_part
+
+
+def merge(a_rows: torch.Tensor, a_part: torch.Tensor, b_rows: torch.Tensor,
+          b_part: torch.Tensor, out_cap: Optional[int] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel for a CUDA tensor, its plain version for a CPU one."""
+    fn = merge_kernel if a_rows.is_cuda else merge_plain
+    return fn(a_rows, a_part, b_rows, b_part, out_cap)
+
+
+def merge_rows(a_rows: torch.Tensor, a_part: torch.Tensor,
+               b_rows: torch.Tensor, b_part: torch.Tensor, num_parts: int,
+               *, impl: str = "jnp", out_cap: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge two partition-major key-sorted buffers of every shard.
+
+    a_rows/b_rows ``[P, ca, W]`` / ``[P, cb, W]`` int32, each sorted by
+    (partition, signed int64 key) with invalid rows last; a_part/b_part
+    ``[P, ca]`` / ``[P, cb]`` int32, sentinel ``num_parts`` on invalid
+    rows.
+
+    Returns (rows ``[P, out_cap, W]``, part ``[P, out_cap]``, pcounts
+    ``[P, num_parts]``); pcounts counts real partitions only. Valid rows
+    are bit-exact across impls (up to the order of equal keys under
+    ``jnp``, whose sort is unstable); rows past the valid total keep the
+    sentinel partition, zero when the inputs' invalid rows are zero."""
+    out_cap = _check_merge_inputs(a_rows, a_part, b_rows, b_part, out_cap)
+    if impl == "jnp":
+        cat = torch.cat([a_rows, b_rows], dim=1)
+        pcat = torch.cat([a_part, b_part], dim=1)
+        spart, srows, _ = keysort_rows(cat, pcat, cat.shape[1], num_parts)
+        rows = srows[:, :out_cap].contiguous()
+        part = spart[:, :out_cap].contiguous()
+    elif impl == "pallas":
+        rows, part = merge(a_rows.contiguous(), a_part.contiguous(),
+                           b_rows.contiguous(), b_part.contiguous(), out_cap)
+    else:
+        raise ValueError(f"unknown merge impl {impl!r}; want jnp|pallas")
+    return rows, part, counts_from_sorted(part, num_parts)
+
+
+def merge_reduce_rows(a_rows: torch.Tensor, a_part: torch.Tensor,
+                      b_rows: torch.Tensor, b_part: torch.Tensor,
+                      num_parts: int, val_words: int, val_dtype,
+                      op: str = "sum", sum_words: int = 0,
+                      compaction: str = "stable", *, impl: str = "jnp",
+                      out_cap: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge two combined buffers and re-reduce by key — one fold step of
+    a waved combine read (a key in both inputs has one row in each; the
+    reduce leaves one). ``jnp``: one ``combine_rows`` over the
+    concatenation; ``pallas``: the merge, then the segment reduce.
+
+    Returns (rows_out ``[P, out_cap, W]``, pcounts ``[P, num_parts]``,
+    n_out ``[P]``)."""
+    out_cap = _check_merge_inputs(a_rows, a_part, b_rows, b_part, out_cap)
+    if impl == "jnp":
+        if op != "sum":
+            raise ValueError(f"unknown combiner {op!r}")
+        cat = torch.cat([a_rows, b_rows], dim=1)
+        pcat = torch.cat([a_part, b_part], dim=1)
+        ro, pc, n = combine_rows(cat, pcat, cat.shape[1], num_parts,
+                                 val_words, np.dtype(val_dtype), op,
+                                 sum_words=sum_words, compaction=compaction)
+        return (ro[:, :out_cap].contiguous(), pc,
+                _drop_sentinel_group(n, pcat, num_parts))
+    rows, part, _ = merge_rows(a_rows, a_part, b_rows, b_part, num_parts,
+                               impl=impl, out_cap=out_cap)
+    return segment_reduce_rows(rows, part, num_parts, val_words, val_dtype,
+                               op, sum_words=sum_words,
+                               compaction=compaction, impl=impl)

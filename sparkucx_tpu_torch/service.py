@@ -4,7 +4,7 @@ constructor.
 
 Only the raw IO format is ported: ``write`` takes int64 keys and optional
 value rows, ``read`` returns the partition view (plain, combined by key
-or key-ordered). A conf that names
+or key-ordered), or the device result under ``sink="device"``. A conf that names
 ``spark.shuffle.tpu.io.format`` other than ``raw`` is refused (the Arrow
 codec is a later slice of the port).
 """
@@ -64,20 +64,23 @@ class ShuffleService:
 
     def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
              combine: Optional[str] = None, ordered: bool = False,
-             combine_sum_words: int = 0):
-        """The partition view (see :meth:`ShuffleManager.read` for
-        ``combine`` / ``ordered``)."""
+             combine_sum_words: int = 0, sink: Optional[str] = None):
+        """The partition view, or with ``sink="device"`` the device result
+        (see :meth:`ShuffleManager.read` for ``combine`` / ``ordered`` /
+        ``sink``)."""
         return self.manager.read(handle, timeout=timeout, combine=combine,
                                  ordered=ordered,
-                                 combine_sum_words=combine_sum_words)
+                                 combine_sum_words=combine_sum_words,
+                                 sink=sink)
 
     def submit(self, handle: ShuffleHandle,
                timeout: Optional[float] = None,
                combine: Optional[str] = None, ordered: bool = False,
-               combine_sum_words: int = 0):
+               combine_sum_words: int = 0, sink: Optional[str] = None):
         return self.manager.submit(handle, timeout=timeout, combine=combine,
                                    ordered=ordered,
-                                   combine_sum_words=combine_sum_words)
+                                   combine_sum_words=combine_sum_words,
+                                   sink=sink)
 
     def report(self, shuffle_id: int):
         return self.manager.report(shuffle_id)

@@ -9,6 +9,18 @@ receive-capacity overflow regrows the plan inside ``result()``; the
 manager remembers the skew factor that worked per shuffle shape
 (:meth:`ShuffleManager._apply_cap_hint`), so the next same-shape read
 starts there.
+
+Waved reads (``a2a.waveRows`` > 0, more than one wave, not under the
+segment-move kernel): :class:`PendingWaveShuffle` packs wave i+1 while
+wave i's exchange runs and wave i-1 drains, with every wave on one plan
+(``plan.wave_step_plan``); an overflow regrows and re-runs only that
+wave.
+
+Sinks (``read.sink`` / ``read(sink=)``, :meth:`ShuffleManager.
+_resolve_sink`): the host sink serves numpy partition views; the device
+sink keeps the partitions in device tensors
+(``reader.DeviceShuffleReaderResult``), and folds the waves of an ordered
+or combine waved read on the device (``reader.device_merge_fold``).
 """
 
 from __future__ import annotations
@@ -17,7 +29,7 @@ import dataclasses
 import threading
 import time
 import weakref
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -25,7 +37,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from sparkucx_tpu_torch.config import PARTITIONERS, ShuffleConf
+from sparkucx_tpu_torch.config import (PARTITIONERS, ShuffleConf,
+                                       validate_sink)
 from sparkucx_tpu_torch.meta.registry import ShuffleEntry
 from sparkucx_tpu_torch.meta.segments import validate_row_sizes
 from sparkucx_tpu_torch.ops.aggregate import check_combinable
@@ -34,14 +47,20 @@ from sparkucx_tpu_torch.ops.segmented import resolve_kernel_impl
 from sparkucx_tpu_torch.runtime.node import Node
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              check_bounds, make_plan,
-                                             ragged_layout)
-from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS, PendingShuffle,
-                                               ShuffleReaderResult,
-                                               pack_rows, submit_shuffle,
-                                               value_words)
+                                             ragged_layout, wave_count,
+                                             wave_payload_rows,
+                                             wave_step_plan)
+from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
+                                               DeviceShuffleReaderResult,
+                                               WavedShuffleReaderResult,
+                                               device_merge_fold,
+                                               drain_wave_result, pack_rows,
+                                               submit_shuffle, value_words)
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
-from sparkucx_tpu_torch.utils.metrics import C_KERNEL_FALLBACK, labeled
+from sparkucx_tpu_torch.utils.metrics import (C_KERNEL_FALLBACK,
+                                              C_SINK_FALLBACK, H_WAVE_GAP,
+                                              labeled)
 
 log = get_logger("shuffle.manager")
 
@@ -80,6 +99,26 @@ class ExchangeReport:
     skew_ratio: float = 0.0
     retries: int = 0
     plan_bucket: List[int] = field(default_factory=list)
+    # waved reads (a2a.waveRows): the wave count and size, the real rows
+    # each wave moved, and one timeline entry per wave: {wave, rows,
+    # pack_start_ms, pack_ms, dispatch_ms, hidden, forced_ms, wait_ms,
+    # retries}, times from the read's start. ``hidden`` is measured: the
+    # pack finished while the previous wave's exchange was still running
+    # on the device (its event not yet reached). 0 / empty = single-shot.
+    waves: int = 0
+    wave_rows: int = 0
+    wave_payload_rows: List[int] = field(default_factory=list)
+    wave_pack_hidden_ms: float = 0.0
+    wave_timeline: List[Dict] = field(default_factory=list)
+    # the RESOLVED sink ("host" | "device"), and the payload bytes this
+    # read's result pulled device-to-host so far (a lazy result drains on
+    # first touch, so the figure grows after the read; 0 on the device
+    # sink until host_view())
+    sink: str = "host"
+    d2h_bytes: int = 0
+    # waved ordered/combine device reads: wall of the device merge fold
+    # (reader.device_merge_fold, synchronised); 0.0 otherwise
+    merge_ms: float = 0.0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
@@ -118,6 +157,9 @@ class ShuffleManager:
         self._writers: Dict[int, Dict[int, MapOutputWriter]] = {}
         # learned skew factors keyed by shuffle shape (see _learn_cap)
         self._cap_hints: Dict[tuple, float] = {}
+        # waved reads: the wave cap_out that worked, keyed by (shape,
+        # wave cap_in)
+        self._wave_cap_hints: Dict[tuple, int] = {}
         self._reports: "OrderedDict[int, ExchangeReport]" = OrderedDict()
         self._pack_pool: Optional[ThreadPoolExecutor] = None
         self._warned: set = set()
@@ -211,7 +253,7 @@ class ShuffleManager:
     # -- reads ------------------------------------------------------------
     def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
              combine: Optional[str] = None, ordered: bool = False,
-             combine_sum_words: int = 0) -> ShuffleReaderResult:
+             combine_sum_words: int = 0, sink: Optional[str] = None):
         """Run the whole exchange and return the partition view. Blocks
         until every map output is published (``network.timeoutMs``).
 
@@ -220,12 +262,18 @@ class ShuffleManager:
         leading ``combine_sum_words`` value words summed (0 = all) and
         the rest carried. ``ordered=True`` serves every partition
         key-sorted (with a range partitioner, the concatenated partitions
-        are globally sorted). combine implies ordered output."""
+        are globally sorted). combine implies ordered output.
+
+        ``sink="device"`` keeps the partitions in device tensors and
+        returns a ``DeviceShuffleReaderResult`` (``consume`` /
+        ``host_view``); ``"host"`` or ``None`` under the default conf
+        returns the numpy partition view (see :meth:`_resolve_sink`)."""
         t0 = time.perf_counter()
         try:
             return self.submit(handle, timeout, combine=combine,
                                ordered=ordered,
-                               combine_sum_words=combine_sum_words).result()
+                               combine_sum_words=combine_sum_words,
+                               sink=sink).result()
         finally:
             m = self.node.metrics
             m.inc("shuffle.read.ms", (time.perf_counter() - t0) * 1e3)
@@ -234,24 +282,28 @@ class ShuffleManager:
     def submit(self, handle: ShuffleHandle,
                timeout: Optional[float] = None,
                combine: Optional[str] = None, ordered: bool = False,
-               combine_sum_words: int = 0) -> PendingShuffle:
+               combine_sum_words: int = 0, sink: Optional[str] = None):
         """Plan + pack on the host and dispatch the exchange without
         waiting for it; ``result()`` on the returned handle blocks. The
-        read options are :meth:`read`'s."""
+        read options are :meth:`read`'s. A waved read packs and
+        dispatches its waves inside ``result()``."""
         timeout = timeout if timeout is not None \
             else self.conf.connection_timeout_ms / 1e3
+        sink = self._resolve_sink(sink, combine, ordered)
         rep = self._new_report(handle)
+        rep.sink = sink
         try:
             return self._submit_local_staged(handle, timeout, rep, combine,
-                                             ordered, combine_sum_words)
+                                             ordered, combine_sum_words,
+                                             sink)
         except BaseException as e:
             rep.error = rep.error or repr(e)[:300]
             raise
 
     def _submit_local_staged(self, handle: ShuffleHandle, timeout: float,
                              rep: ExchangeReport, combine: Optional[str],
-                             ordered: bool,
-                             combine_sum_words: int) -> PendingShuffle:
+                             ordered: bool, combine_sum_words: int,
+                             sink: str = "host"):
         if not handle.entry.wait_complete(timeout):
             raise TimeoutError(
                 f"shuffle {handle.shuffle_id}: only "
@@ -288,12 +340,19 @@ class ShuffleManager:
         plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
         plan = self._decorated_plan(plan, combine, ordered, has_vals,
                                     val_tail, val_dtype, combine_sum_words)
+        plan = dataclasses.replace(plan, sink=sink)
         rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
 
         width = KEY_WORDS + (value_words(val_tail, val_dtype)
                              if has_vals else 0)
         self._report_volume(rep, plan, nvalid, width,
                             part_rows=table.sizes.sum(axis=0))
+        if self.conf.wave_rows > 0 and self._waves_eligible(plan):
+            W = wave_count(nvalid, self.conf.wave_rows)
+            if W > 1:
+                return self._submit_waved(
+                    handle, shard_outputs, nvalid, plan, width, has_vals,
+                    val_tail if has_vals else None, val_dtype, rep, W)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
                                             width, has_vals)
@@ -318,6 +377,7 @@ class ShuffleManager:
             if result is None:
                 rep.error = rep.error or "exchange failed"
                 return
+            self._arm_d2h(result, rep)
             self._learn_cap(handle, result, total_rows)
             self.node.metrics.inc("shuffle.rows", float(total_rows))
             self.node.metrics.inc("shuffle.bytes",
@@ -352,6 +412,115 @@ class ShuffleManager:
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
+
+    def _arm_d2h(self, result, rep: ExchangeReport) -> None:
+        """Join a result's device-to-host payload pulls onto its report:
+        a lazy result drains on first touch, after the read, so
+        ``rep.d2h_bytes`` keeps growing on the live report. A device
+        result arms its wave views, so a ``host_view()`` drain is charged
+        to the read that made it."""
+        def cb(n, _rep=rep):
+            _rep.d2h_bytes += int(n)
+        views = result.wave_views() if isinstance(
+            result, DeviceShuffleReaderResult) else [result]
+        for v in views:
+            v._d2h_cb = cb
+
+    # -- sinks ------------------------------------------------------------
+    def _note_sink_fallback(self, mode: str, reason: str) -> None:
+        """A read that asked for the device sink landed on the host."""
+        m = self.node.metrics
+        m.inc(C_SINK_FALLBACK, 1.0)
+        m.inc(labeled(C_SINK_FALLBACK, mode=mode, reason=reason), 1.0)
+
+    def _resolve_sink(self, requested: Optional[str],
+                      combine: Optional[str] = None,
+                      ordered: bool = False) -> str:
+        """The sink this read runs from the per-read ask and the
+        ``read.sink`` conf; the report's ``sink`` names it. Conf ``auto``
+        (the default): host unless the read asks for the device; conf
+        ``device``: device unless the read asks for the host; conf
+        ``host`` pins the host, and a per-read device ask under it lands
+        on the host, warned once and counted in
+        ``shuffle.sink.fallback.count`` (reason ``conf_pins_host``). The
+        device sink holds for every read mode, waved or not."""
+        if requested is not None:
+            validate_sink(requested, conf_key="read(sink=...)")
+            if requested == "auto":
+                requested = None
+        mode = "combine" if combine else ("ordered" if ordered else "plain")
+        conf = self.conf.read_sink
+        want = requested
+        if want is None:
+            want = "device" if conf == "device" else "host"
+        elif want == "device" and conf == "host":
+            with self._lock:
+                first = "conf_pins_host" not in self._warned
+                self._warned.add("conf_pins_host")
+            if first:
+                log.warning("read(sink='device') under read.sink=host: the "
+                            "conf pins the host drain; set read.sink=auto "
+                            "(or device) to honour per-read device sinks")
+            self._note_sink_fallback(mode, "conf_pins_host")
+            want = "host"
+        return want
+
+    # -- waved reads (a2a.waveRows) ----------------------------------------
+    def _waves_eligible(self, plan: ShufflePlan) -> bool:
+        """Whether a2a.waveRows applies to this read: not under the
+        segment-move kernel (``a2a.impl=pallas``, which ``auto`` resolves
+        to on CUDA), whose chunk-aligned move stays single-shot, as in
+        the JAX package."""
+        if plan.impl == "pallas":
+            log.info("a2a.waveRows set with impl='pallas': single-shot "
+                     "read (the segment-move kernel runs unwaved)")
+            return False
+        return True
+
+    @staticmethod
+    def _set_wave_wire(rep: ExchangeReport, wplan: ShufflePlan, wave_sizes,
+                       width: int) -> None:
+        """Waved wire accounting: the per-wave layout costs under the
+        (current) wave plan, over the whole payload."""
+        wire = sum(
+            ragged_layout(wplan, np.asarray([int(s)]), width).wire_bytes
+            for s in wave_sizes)
+        rep.wire_bytes = int(wire)
+        rep.pad_ratio = round(wire / rep.payload_bytes, 6) \
+            if rep.payload_bytes else 0.0
+
+    def _submit_waved(self, handle: ShuffleHandle, slot_outputs,
+                      nvalid: np.ndarray, plan: ShufflePlan, width: int,
+                      has_vals: bool, val_tail, val_dtype,
+                      rep: ExchangeReport,
+                      num_waves: int) -> "PendingWaveShuffle":
+        """The pending handle of a waved read; the packs run inside its
+        ``result()``, overlapped with the waves' exchanges."""
+        wave_rows = self.conf.wave_rows
+        outer = dataclasses.replace(plan, wave_rows=wave_rows,
+                                    num_waves=num_waves)
+        wplan = wave_step_plan(outer, self.conf)
+        with self._lock:
+            hint = self._wave_cap_hints.get(
+                (self._cap_key(handle), wplan.cap_in), 0)
+        if hint > wplan.cap_out:
+            # a same-shape read already settled its wave capacity
+            wplan = dataclasses.replace(wplan, cap_out=hint)
+        wave_sizes = wave_payload_rows(nvalid, wave_rows, num_waves)
+        rep.waves = num_waves
+        rep.wave_rows = wave_rows
+        rep.wave_payload_rows = [int(x) for x in wave_sizes]
+        rep.plan_bucket = [int(wplan.cap_in), int(wplan.cap_out)]
+        self._set_wave_wire(rep, wplan, wave_sizes, width)
+        depth = max(1, min(self.conf.wave_depth, num_waves))
+        log.info("wave-pipelined read: shuffle %d, %d waves x %d rows/shard "
+                 "(depth %d, wave plan cap_in=%d cap_out=%d)",
+                 handle.shuffle_id, num_waves, wave_rows, depth,
+                 wplan.cap_in, wplan.cap_out)
+        return PendingWaveShuffle(self, handle, outer, wplan, depth,
+                                  slot_outputs, width, has_vals, val_tail,
+                                  val_dtype, rep, int(nvalid.sum()),
+                                  wave_sizes)
 
     # -- read options -----------------------------------------------------
     def _decorated_plan(self, plan: ShufflePlan, combine: Optional[str],
@@ -511,3 +680,250 @@ class ShuffleManager:
                     max_workers=self.node.num_shards,
                     thread_name_prefix="sxt-pack")
             return self._pack_pool
+
+
+def _slice_slot_outputs(slot_outputs, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of each slot's concatenated staged sequence, as
+    views into the writers' arrays: one wave's share of the map outputs.
+    Returns (sliced slot outputs, per-slot row counts)."""
+    out, counts = [], []
+    for outs in slot_outputs:
+        sliced = []
+        off = 0
+        for keys, values in outs:
+            n = keys.shape[0]
+            s, e = max(lo - off, 0), min(hi - off, n)
+            if s < e:
+                sliced.append((keys[s:e],
+                               None if values is None else values[s:e]))
+            off += n
+        out.append(sliced)
+        counts.append(sum(int(k.shape[0]) for k, _ in sliced))
+    return out, np.asarray(counts, dtype=np.int64)
+
+
+class PendingWaveShuffle:
+    """Handle of a WAVE-PIPELINED read (``a2a.waveRows``).
+
+    ``result()`` drives a depth-D pipeline over the staged map outputs:
+    wave i+1 is packed into a pinned pool block on the host while wave
+    i's exchange runs on the device's stream and wave i-1 drains. It
+    keeps these invariants:
+
+    * every wave dispatches the same plan (``wave_step_plan``);
+    * an overflow regrows and re-runs ONLY the offending wave (its
+      ``PendingShuffle`` retry loop), and later waves start at the grown
+      capacity;
+    * at most ``depth`` waves are in flight, so pinned staging holds at
+      most ``depth`` wave blocks; a block goes back to the pool once its
+      wave's ``result()`` has waited on the overflow flag, which follows
+      the block's H2D copy on the stream.
+
+    On the host sink each drained wave is pulled to the host at once
+    (``drain_wave_result``) and the result is a
+    ``WavedShuffleReaderResult``. On the device sink the waves stay on the
+    device; an ordered or combine read folds them into one merged view
+    (``reader.device_merge_fold``). ``done()`` is False until
+    ``result()`` ran."""
+
+    def __init__(self, mgr: ShuffleManager, handle: ShuffleHandle,
+                 outer_plan: ShufflePlan, wave_plan: ShufflePlan,
+                 depth: int, slot_outputs, width: int, has_vals: bool,
+                 val_tail, val_dtype, rep: ExchangeReport, local_rows: int,
+                 wave_sizes: np.ndarray):
+        self._mgr = mgr
+        self._handle = handle
+        self._outer_plan = outer_plan
+        self._wave_plan = wave_plan
+        self._depth = depth
+        self._slot_outputs = slot_outputs
+        self._width = width
+        self._has_vals = has_vals
+        self._val_tail = val_tail
+        self._val_dtype = val_dtype
+        self._rep = rep
+        self._local_rows = local_rows
+        self._wave_sizes = np.asarray(wave_sizes, dtype=np.int64)
+        self._num_waves = outer_plan.num_waves
+        self._wave_rows = outer_plan.wave_rows
+        self._result = None
+        self._dead = False
+
+    def done(self) -> bool:
+        return self._result is not None or self._dead
+
+    def result(self):
+        if self._result is not None:
+            return self._result
+        if self._dead:
+            raise RuntimeError(
+                "wave exchange handle is dead: a previous result() failed "
+                "and its buffers were released; re-submit the shuffle")
+        try:
+            res = self._drive()
+        except BaseException as e:
+            self._dead = True
+            self._rep.error = self._rep.error or repr(e)[:300]
+            raise
+        self._result = res
+        return res
+
+    # -- the pipeline ------------------------------------------------------
+    def _drive(self):
+        mgr = self._mgr
+        rep = self._rep
+        t_read0 = time.perf_counter()
+        inflight: deque = deque()            # (wave index, pending)
+        timeline: List[Dict] = []
+        wave_results: List = [None] * self._num_waves
+        retries_total = 0
+        pack_total = dispatch_total = pack_hidden = 0.0
+        try:
+            for i in range(self._num_waves):
+                while len(inflight) >= self._depth:
+                    retries_total += self._drain_oldest(
+                        inflight, wave_results, timeline, t_read0)
+                oldest = inflight[0][1] if inflight else None
+                t0 = time.perf_counter()
+                sliced, wnv = _slice_slot_outputs(
+                    self._slot_outputs, i * self._wave_rows,
+                    (i + 1) * self._wave_rows)
+                shard_rows, buf = mgr._pack_shards(
+                    sliced, self._wave_plan.cap_in, self._width,
+                    self._has_vals)
+                t1 = time.perf_counter()
+                if i == self._num_waves - 1:
+                    self._slot_outputs = None     # last pack done
+                if not rep._t_dispatched:
+                    rep._t_dispatched = t1
+                try:
+                    pending = self._dispatch_wave(shard_rows, wnv, buf)
+                except BaseException:
+                    # no pending owns the pinned block yet
+                    mgr.node.pool.put(buf)
+                    raise
+                t2 = time.perf_counter()
+                # measured, not assumed: the pack counts as hidden only if
+                # the oldest in-flight exchange was still running on the
+                # device when it finished (partial overlap counts as not
+                # hidden, so the hidden total is a lower bound)
+                hidden = oldest is not None and not oldest.done()
+                pack_ms = (t1 - t0) * 1e3
+                pack_total += pack_ms
+                if hidden:
+                    pack_hidden += pack_ms
+                dispatch_total += (t2 - t1) * 1e3
+                timeline.append({
+                    "wave": i, "rows": int(wnv.sum()),
+                    "pack_start_ms": round((t0 - t_read0) * 1e3, 3),
+                    "pack_ms": round(pack_ms, 3),
+                    "dispatch_ms": round((t2 - t1) * 1e3, 3),
+                    "hidden": hidden,
+                    "forced_ms": 0.0, "wait_ms": 0.0, "retries": 0})
+                inflight.append((i, pending))
+            while inflight:
+                retries_total += self._drain_oldest(
+                    inflight, wave_results, timeline, t_read0)
+        except BaseException:
+            # settle every in-flight wave first: its on_done returns its
+            # pinned block to the pool
+            while inflight:
+                _, p = inflight.popleft()
+                try:
+                    p.result()
+                except Exception:
+                    pass
+            raise
+        finally:
+            self._slot_outputs = None
+        outer = self._outer_plan
+        if outer.sink == "device":
+            views = [w.wave_views()[0] for w in wave_results]
+            res = DeviceShuffleReaderResult(views, outer, self._val_tail,
+                                            self._val_dtype)
+            if (outer.combine or outer.ordered) and len(views) > 1:
+                t_merge = time.perf_counter()
+                merged = device_merge_fold(res, mgr.conf)
+                if merged._rows_dev.is_cuda:
+                    # an honest wall: the waves' exchanges are done (each
+                    # overflow check waited on them), so this is the fold
+                    torch.cuda.synchronize(merged._rows_dev.device)
+                rep.merge_ms = (time.perf_counter() - t_merge) * 1e3
+                res = DeviceShuffleReaderResult(
+                    [merged], outer, self._val_tail, self._val_dtype)
+            mgr._arm_d2h(res, rep)
+        else:
+            res = WavedShuffleReaderResult(wave_results, outer,
+                                           self._val_tail, self._val_dtype)
+        self._finalize(timeline, retries_total, pack_total, pack_hidden,
+                       dispatch_total)
+        return res
+
+    def _dispatch_wave(self, shard_rows, wnv: np.ndarray, buf):
+        mgr = self._mgr
+        pool = mgr.node.pool
+
+        def on_done(result, _b=buf):
+            # the pool hands this block to a later wave's pack
+            pool.put(_b)
+
+        return submit_shuffle(self._wave_plan, shard_rows, wnv,
+                              self._val_tail, self._val_dtype,
+                              mgr.node.device, on_done=on_done,
+                              metrics=mgr.node.metrics)
+
+    def _drain_oldest(self, inflight, wave_results, timeline,
+                      t_read0: float) -> int:
+        """Force the oldest in-flight wave: its result (the overflow retry
+        loop runs inside), then, on the host sink, its rows to the host,
+        freeing its device buffers. Returns the wave's retry count."""
+        i, pending = inflight.popleft()
+        t0 = time.perf_counter()
+        res = pending.result()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        self._mgr._arm_d2h(res, self._rep)
+        if self._outer_plan.sink != "device":
+            drain_wave_result(res)
+        entry = timeline[i]
+        entry["forced_ms"] = round((t0 - t_read0) * 1e3, 3)
+        entry["wait_ms"] = round(wait_ms, 3)
+        retries = int(pending._attempt)
+        entry["retries"] = retries
+        wave_results[i] = res
+        used = res.cap_out_used
+        if used and int(used) > self._wave_plan.cap_out:
+            # this wave overflowed and grew: later waves start there
+            self._wave_plan = dataclasses.replace(self._wave_plan,
+                                                  cap_out=int(used))
+        return retries
+
+    def _finalize(self, timeline, retries_total: int, pack_total: float,
+                  pack_hidden: float, dispatch_total: float) -> None:
+        mgr = self._mgr
+        rep = self._rep
+        rep.pack_ms = pack_total
+        rep.dispatch_ms = dispatch_total
+        rep.wave_pack_hidden_ms = round(pack_hidden, 3)
+        rep.wave_timeline = timeline
+        rep.retries = retries_total
+        if rep._t_dispatched:
+            rep.group_ms = (time.perf_counter() - rep._t_dispatched) * 1e3
+        # the wire under the FINAL wave plan (a regrow raised cap_out for
+        # the waves behind it)
+        mgr._set_wave_wire(rep, self._wave_plan, self._wave_sizes,
+                           self._width)
+        rep.completed = True
+        metrics = mgr.node.metrics
+        metrics.inc("shuffle.rows", float(self._local_rows))
+        metrics.inc("shuffle.bytes",
+                    float(self._local_rows) * self._width * 4)
+        if retries_total:
+            metrics.inc("shuffle.retries", float(retries_total))
+        # pack time the previous wave's exchange did not cover
+        for k in range(1, len(timeline)):
+            metrics.observe(H_WAVE_GAP, max(
+                0.0, timeline[k]["pack_ms"] - timeline[k - 1]["wait_ms"]))
+        with mgr._lock:
+            key = (mgr._cap_key(self._handle), self._wave_plan.cap_in)
+            if self._wave_plan.cap_out > mgr._wave_cap_hints.get(key, 0):
+                mgr._wave_cap_hints[key] = self._wave_plan.cap_out

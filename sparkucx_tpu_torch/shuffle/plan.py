@@ -4,6 +4,13 @@
 * ``cap_out`` — per-shard receive rows = balanced share x capacityFactor
 * retry — the exchange reports overflow on any shard; the reader doubles
   ``cap_out`` and re-runs, at most ``max_retries`` times.
+* waves — a waved read (``a2a.waveRows``) dispatches every wave with ONE
+  plan, :func:`wave_step_plan`, whose capacities follow from the wave
+  size alone; the outer plan records the split (``wave_rows``,
+  ``num_waves``).
+
+The JAX package's ``merge_family`` keys its compiled-step cache; eager
+PyTorch compiles nothing per shape, so it has no counterpart here.
 
 Capacities are multiples of 8 rows and, with ``a2a.capBuckets`` on (the
 default), rounded up onto a geometric ladder, exactly as in the JAX
@@ -64,6 +71,15 @@ class ShufflePlan:
     # 'pallas' = the CUDA segment-reduce kernel (its plain version on a
     # CPU device), 'jnp' = the torch-op formulation
     kernel_impl: str = "jnp"
+    # read sink, RESOLVED by the manager (never 'auto'): 'host' drains the
+    # result to numpy views, 'device' keeps it in device tensors
+    # (reader.DeviceShuffleReaderResult)
+    sink: str = "host"
+    # a waved read's OUTER plan carries the split: rows per shard per
+    # wave and the wave count. The plan each wave dispatches
+    # (wave_step_plan) keeps both at their defaults.
+    wave_rows: int = 0
+    num_waves: int = 1
 
     def grown(self) -> "ShufflePlan":
         """Next plan after an overflow: double the receive capacity."""
@@ -185,3 +201,43 @@ def ragged_layout(plan: ShufflePlan, shard_rows,
                         payload_rows=payload, wire_rows=wire,
                         payload_bytes=payload_bytes, wire_bytes=wire_bytes,
                         pad_ratio=pad)
+
+
+def wave_payload_rows(shard_rows: np.ndarray, wave_rows: int,
+                      num_waves: int) -> np.ndarray:
+    """[W] real rows each wave moves over all shards: wave i takes rows
+    ``[i*wave_rows, (i+1)*wave_rows)`` of every shard's staged sequence."""
+    rows = np.asarray(shard_rows, dtype=np.int64)
+    out = np.zeros(num_waves, dtype=np.int64)
+    for i in range(num_waves):
+        out[i] = int(np.clip(rows - i * int(wave_rows), 0,
+                             int(wave_rows)).sum())
+    return out
+
+
+def wave_count(shard_rows: np.ndarray, wave_rows: int) -> int:
+    """Waves a staged row distribution splits into at ``wave_rows`` rows
+    per shard per wave: ceil(max staged rows / wave_rows), at least 1.
+    Every shard runs the same count (a lighter shard's trailing waves are
+    empty)."""
+    if wave_rows <= 0:
+        return 1
+    mx = int(np.max(shard_rows, initial=0))
+    return max(1, -(-mx // int(wave_rows)))
+
+
+def wave_step_plan(plan: ShufflePlan,
+                   conf: Optional[ShuffleConf] = None) -> ShufflePlan:
+    """The plan ONE wave of a waved read dispatches: ``cap_in`` is the
+    (bucketed) wave size, ``cap_out`` the wave size times
+    capacityFactor, both independent of the read's total rows and wave
+    count; the wave fields go back to their defaults."""
+    conf = conf or ShuffleConf(use_env=False)
+    if plan.wave_rows <= 0:
+        raise ValueError("wave_step_plan needs a plan with wave_rows > 0")
+    cap_in = bucket_cap_conf(_round_up(plan.wave_rows), conf)
+    cap_out = bucket_cap_conf(
+        _round_up(int(np.ceil(plan.wave_rows * conf.capacity_factor))),
+        conf)
+    return dataclasses.replace(plan, cap_in=cap_in, cap_out=cap_out,
+                               wave_rows=0, num_waves=1)

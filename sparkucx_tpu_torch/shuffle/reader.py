@@ -25,6 +25,17 @@ agree.
 
 Overflow: the step flags a capacity overflow on any shard; the pending
 handle doubles ``cap_out`` and re-runs (bounded by ``plan.max_retries``).
+
+Sinks: a host read serves :class:`LazyShuffleReaderResult` (numpy views,
+one D2H on first touch); a device read (``plan.sink == "device"``) serves
+:class:`DeviceShuffleReaderResult`, whose partitions stay in device
+tensors until a consumer takes them (``consume``) or asks for the host
+view. A waved read (manager.PendingWaveShuffle) composes its per-wave
+results: :class:`WavedShuffleReaderResult` on the host, where ordered and
+combine partitions merge across waves in numpy (:func:`merge_sorted_rows`,
+:func:`combine_packed_rows`), or, on the device sink, one merged device
+view from :func:`device_merge_fold`, a fold of merge-path merges (and
+segment reduces) over the wave buffers.
 """
 
 from __future__ import annotations
@@ -35,18 +46,22 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sparkucx_tpu_torch.config import PARTITIONERS
+from sparkucx_tpu_torch.config import PARTITIONERS, ShuffleConf
 from sparkucx_tpu_torch.ops.aggregate import combine_rows, keysort_rows
 from sparkucx_tpu_torch.ops.partition import (blocked_partition_map,
                                               destination_sort,
                                               hash_partition,
                                               partition_major_sort_aligned,
-                                              range_partition_words)
+                                              range_partition_words,
+                                              to_device)
 from sparkucx_tpu_torch.ops.ragged_a2a import (align_rows, chunk_rows_for,
                                                ragged_a2a)
-from sparkucx_tpu_torch.ops.segmented import segment_reduce_rows
+from sparkucx_tpu_torch.ops.segmented import (merge_reduce_rows, merge_rows,
+                                              resolve_kernel_impl,
+                                              segment_reduce_rows)
 from sparkucx_tpu_torch.shuffle.alltoall import ragged_shuffle
-from sparkucx_tpu_torch.shuffle.plan import ShufflePlan, wire_row_words
+from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
+                                             wire_row_words)
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import C_D2H
 
@@ -113,8 +128,8 @@ def _dev_counts(rcounts: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
     cum = torch.zeros((P, rcounts.shape[1] + 1), dtype=torch.int32,
                       device=rcounts.device)
     cum[:, 1:] = torch.cumsum(rcounts, dim=1, dtype=torch.int32)
-    hi = torch.as_tensor(bounds[1:], dtype=torch.int64, device=cum.device)
-    lo = torch.as_tensor(bounds[:-1], dtype=torch.int64, device=cum.device)
+    hi = to_device(bounds[1:], cum.device)
+    lo = to_device(bounds[:-1], cum.device)
     return cum[:, hi] - cum[:, lo]
 
 
@@ -448,7 +463,11 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
     pulls the seg matrix, then copies each shard's occupied prefix (the
     runs' extent, not the whole receive capacity) into ONE page-locked
     host buffer and drops the device tensors; later calls are host
-    slicing. On a CPU device the "copy" is a view."""
+    slicing. On a CPU device the "copy" is a view.
+
+    On a CUDA device the copies run on a side stream that waits only for
+    ``_ready_event`` (recorded after the step that made the tensors), or,
+    without one, for the work queued so far on the current stream."""
 
     def __init__(self, num_partitions: int, part_to_shard: np.ndarray,
                  rows_dev: torch.Tensor, seg_dev: torch.Tensor,
@@ -457,15 +476,45 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                          val_shape, val_dtype, align_chunk)
         self._rows_dev = rows_dev
         self._seg_dev = seg_dev
+        # per-shard delivered rows [P], on the device: the device sink's
+        # valid-row bound (set by the pending handle)
+        self._totals_dev: Optional[torch.Tensor] = None
         self._metrics = metrics
         self._shards: Optional[list] = None
         self.d2h_bytes = 0
+        # the manager's hook onto the owning read's report (d2h bytes)
+        self._d2h_cb = None
+        self._ready_event: Optional["torch.cuda.Event"] = None
         self._lock = threading.Lock()
+
+    def _to_host(self, copy_into) -> None:
+        """Run ``copy_into()`` (non-blocking D2H copies) on a side stream
+        (from PyTorch's pool) once the tensors are ready, and wait for it
+        alone: on the compute stream the copy would also wait for every
+        exchange queued after this result's (a waved read's later
+        waves)."""
+        dev = self._rows_dev.device if self._rows_dev is not None \
+            else self._seg_dev.device
+        stream = torch.cuda.Stream(dev)
+        if self._ready_event is not None:
+            stream.wait_event(self._ready_event)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            copy_into()
+        stream.synchronize()
 
     def _seg_matrix(self, shard: int) -> np.ndarray:
         with self._lock:
             if self._seg is None:
-                self._seg = self._seg_dev.cpu().numpy()
+                seg = self._seg_dev
+                if seg.device.type == "cpu":
+                    self._seg = seg.numpy()
+                else:
+                    host = torch.empty(seg.shape, dtype=seg.dtype,
+                                       pin_memory=True)
+                    self._to_host(lambda: host.copy_(seg, non_blocking=True))
+                    self._seg = host.numpy()
                 self._seg_dev = None
         return super()._seg_matrix(shard)
 
@@ -486,12 +535,15 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                 width = dev.shape[2]
                 buf = torch.empty((sum(ext), width), dtype=dev.dtype,
                                   pin_memory=True)
-                off = 0
-                for p in range(P):
-                    buf[off:off + ext[p]].copy_(dev[p, :ext[p]],
-                                                non_blocking=True)
-                    off += ext[p]
-                torch.cuda.current_stream(dev.device).synchronize()
+
+                def copy_into():
+                    off = 0
+                    for p in range(P):
+                        buf[off:off + ext[p]].copy_(dev[p, :ext[p]],
+                                                    non_blocking=True)
+                        off += ext[p]
+
+                self._to_host(copy_into)
                 host = buf.numpy()
                 shards, off = [], 0
                 for p in range(P):
@@ -500,12 +552,362 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                 self.d2h_bytes = int(buf.numel()) * 4
                 if self._metrics is not None:
                     self._metrics.inc(C_D2H, float(self.d2h_bytes))
+                if self._d2h_cb is not None:
+                    self._d2h_cb(self.d2h_bytes)
             self._shards = shards
             self._rows_dev = None         # free the device buffer
             return shards
 
+    def with_rows(self, rows_dev: torch.Tensor) -> "LazyShuffleReaderResult":
+        """A new view over replacement rows ``[P, cap, W]`` with this
+        view's seg matrix and layout: the after-consume check of the
+        device sink (a consumer that passes the rows through hands its
+        output here)."""
+        with self._lock:
+            out = LazyShuffleReaderResult(
+                self.num_partitions, self._part_to_shard, rows_dev,
+                self._seg_dev, self._val_shape, self._val_dtype,
+                self._align_chunk, self._metrics)
+            if self._seg_dev is None:
+                out._seg = self._seg
+            out._d2h_cb = self._d2h_cb
+            # replacement rows come from the consumer's stream: no event
+        return out
+
     def _shard_rows(self, shard: int) -> np.ndarray:
         return self._materialize()[shard]
+
+
+def merge_sorted_rows(blocks) -> np.ndarray:
+    """Merge per-wave key-sorted packed row blocks into one key-sorted
+    block (host): one stable argsort over the concatenation restores the
+    ``ordered`` contract across waves (key order only; the order of equal
+    keys is unspecified, as on the device)."""
+    rows = np.concatenate(blocks)
+    keys = np.ascontiguousarray(
+        rows[:, :KEY_WORDS]).view(np.int64).ravel()
+    return rows[np.argsort(keys, kind="stable")]
+
+
+def combine_packed_rows(blocks, val_words_n: int, val_dtype,
+                        sum_words: int = 0) -> np.ndarray:
+    """Merge per-wave COMBINED packed row blocks by key (host): a key
+    that appeared in several waves has one row per wave here, and this
+    pass sums them. Integer sums wrap at the dtype's width, floats
+    accumulate in float32; ``sum_words`` transport words are summed
+    (0 = all), the rest is carried from one row of the key."""
+    rows = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
+    n = rows.shape[0]
+    if n == 0:
+        return rows
+    keys = np.ascontiguousarray(
+        rows[:, :KEY_WORDS]).view(np.int64).ravel()
+    order = np.argsort(keys, kind="stable")
+    rows = rows[order]
+    keys = keys[order]
+    starts_mask = np.empty(n, dtype=bool)
+    starts_mask[0] = True
+    np.not_equal(keys[1:], keys[:-1], out=starts_mask[1:])
+    starts = np.flatnonzero(starts_mask)
+    out = rows[starts].copy()
+    vdt = np.dtype(val_dtype)
+    sw = sum_words if sum_words > 0 else val_words_n
+    if sw:
+        vals = np.ascontiguousarray(
+            rows[:, KEY_WORDS:KEY_WORDS + sw]).view(vdt)
+        acc_dt = np.float32 if np.issubdtype(vdt, np.floating) \
+            else np.int64
+        acc = np.add.reduceat(vals.astype(acc_dt), starts,
+                              axis=0).astype(vdt)
+        out[:, KEY_WORDS:KEY_WORDS + sw] = \
+            np.ascontiguousarray(acc).view(np.int32)
+    return out
+
+
+# -- the device cross-wave merge (read.sink=device, ordered/combine) --------
+
+def merge_step_body(plan: ShufflePlan, acc_cap: int, wave_cap: int,
+                    merge_impl: str):
+    """One fold step of the device cross-wave merge: ``step(acc_rows
+    [P, acc_cap, W], acc_n [P], wave_rows [P, wave_cap, W], wave_n [P])``
+    -> (rows ``[P, acc_cap, W]``, pcounts ``[P, R]``, total ``[P]``). A
+    key-sorted merge for ``ordered``, merge + segment reduce for
+    ``combine``. Validity is sentinel-encoded (partition R on rows at and
+    past each side's count), because the two sides' valid rows do not
+    form one prefix. The output keeps ``acc_cap`` rows: the capacity
+    comes from every wave's delivered totals (:func:`device_merge_fold`),
+    so every valid row fits."""
+    R = plan.num_partitions
+    part_fn = _make_part_fn(plan, R)
+
+    def _parts(rows: torch.Tensor, n: torch.Tensor, cap: int):
+        live = torch.arange(cap, device=rows.device)[None, :] \
+            < n.reshape(-1, 1)
+        return torch.where(live, part_fn(rows).to(torch.int32),
+                           torch.full_like(live, R, dtype=torch.int32))
+
+    def step(acc_rows, acc_n, wave_rows, wave_n):
+        pa = _parts(acc_rows, acc_n, acc_cap)
+        pw = _parts(wave_rows, wave_n, wave_cap)
+        if plan.combine:
+            rows_out, pcounts, _ = merge_reduce_rows(
+                acc_rows, pa, wave_rows, pw, R, plan.combine_words,
+                np.dtype(plan.combine_dtype), plan.combine,
+                sum_words=plan.combine_sum_words,
+                compaction=plan.combine_compaction, impl=merge_impl,
+                out_cap=acc_cap)
+        else:
+            rows_out, _, pcounts = merge_rows(
+                acc_rows, pa, wave_rows, pw, R, impl=merge_impl,
+                out_cap=acc_cap)
+        # real rows only: sentinel groups never count
+        total = pcounts.sum(dim=1, dtype=torch.int32)
+        return rows_out, pcounts, total
+
+    return step
+
+
+def _seed_acc(rows: torch.Tensor, acc_cap: int) -> torch.Tensor:
+    """The fold's first step: wave 0's rows are already partition-major
+    key-sorted (the exchange step merged within the wave) and its seg is
+    the accumulator's counts, so seeding is a pad with zero rows or a
+    cut to ``acc_cap`` (its valid rows are a prefix and fit), no merge."""
+    P, cap, W = rows.shape
+    if acc_cap <= cap:
+        return rows[:, :acc_cap].contiguous()
+    return torch.cat([rows, rows.new_zeros(P, acc_cap - cap, W)], dim=1)
+
+
+def resolve_merge_impl(conf: ShuffleConf, plan: ShufflePlan,
+                       device: torch.device) -> str:
+    """``read.mergeImpl`` against what this plan's fold runs on
+    ``device``, through :func:`~sparkucx_tpu_torch.ops.segmented.
+    resolve_kernel_impl`: auto is the kernels on CUDA and the torch ops
+    on the CPU; a combine whose value dtype is not a 4-byte lane takes
+    the torch ops either way."""
+    impl, reason = resolve_kernel_impl(
+        conf.read_merge_impl, device,
+        combine_dtype=plan.combine_dtype or None)
+    if reason is not None:
+        log.info("read.mergeImpl=%s resolves to jnp for this fold: %s",
+                 conf.read_merge_impl, reason)
+    return impl
+
+
+def device_merge_fold(res: "DeviceShuffleReaderResult",
+                      conf: ShuffleConf) -> "LazyShuffleReaderResult":
+    """Fold a multi-wave ordered or combine DEVICE result into ONE merged
+    device view, through the result's own ``consume`` chain, so each
+    wave's buffers are dropped as the fold takes them (no payload D2H).
+
+    The accumulator's capacity is the largest per-shard sum of delivered
+    rows over all waves (one ``[P]`` pull per wave: metadata, not
+    payload), on the cap-bucket ladder."""
+    plan = res._plan
+    Pn = plan.num_shards
+    R = plan.num_partitions
+    views = res.wave_views()
+    totals = np.stack([v._totals_dev.cpu().numpy() for v in views])
+    need = int(totals.sum(axis=0).max()) if totals.size else 0
+    acc_cap = bucket_cap_conf(max(8, -(-need // 8) * 8), conf)
+    merge_impl = resolve_merge_impl(conf, plan, views[0]._rows_dev.device)
+    # wave 0's seg is the accumulator's first counts: take it before
+    # consume drops the view's buffers
+    seg = {"seg": views[0]._seg_dev}
+
+    def fold(carry, rows, tot):
+        if carry is None:
+            return _seed_acc(rows, acc_cap), tot
+        acc_rows, acc_n = carry
+        step = merge_step_body(plan, acc_cap, rows.shape[1], merge_impl)
+        acc_rows, pcounts, acc_n = step(acc_rows, acc_n, rows, tot)
+        seg["seg"] = pcounts.reshape(Pn, 1, R)
+        return acc_rows, acc_n
+
+    acc_rows, acc_n = res.consume(fold, None)
+    view = LazyShuffleReaderResult(
+        R, blocked_partition_map(R, Pn), acc_rows, seg["seg"],
+        res._val_shape, res._val_dtype, metrics=views[0]._metrics)
+    view._totals_dev = acc_n
+    return view
+
+
+def drain_wave_result(res: LazyShuffleReaderResult) -> None:
+    """Drain one completed wave of a host-sink waved read: pull its seg
+    matrix and its rows to the host NOW, which drops the wave's device
+    buffers, so the waves behind it have the device memory."""
+    res._materialize()
+
+
+class WavedShuffleReaderResult(ShuffleReaderResult):
+    """Host view over the W per-wave results of a wave-pipelined read.
+    Each wave was a whole exchange over a slice of the staged rows, so
+    partition r is the union of its rows in every wave:
+
+    * plain    — the waves' runs concatenate in wave order;
+    * ordered  — the per-wave key-sorted runs merge by key
+                 (:func:`merge_sorted_rows`);
+    * combine  — the per-wave combined rows merge by key, summed and
+                 carried lanes as in the device combine
+                 (:func:`combine_packed_rows`).
+
+    A merged partition block is cached, so a repeated ``partition(r)``
+    merges once."""
+
+    def __init__(self, wave_results, plan: ShufflePlan, val_shape,
+                 val_dtype):
+        if not wave_results:
+            raise ValueError("waved result needs at least one wave")
+        super().__init__(plan.num_partitions,
+                         wave_results[0]._part_to_shard, None, None,
+                         val_shape, val_dtype)
+        self._waves = list(wave_results)
+        self._plan = plan
+        self.waves = len(wave_results)
+
+    def wave_results(self):
+        """The per-wave results, in wave order."""
+        return list(self._waves)
+
+    def _partition_block(self, r: int, shard: int) -> np.ndarray:
+        got = self._block_cache.get(r)
+        if got is not None:
+            return got
+        blocks = [b for b in (w._partition_block(r, shard)
+                              for w in self._waves) if b.shape[0]]
+        if not blocks:
+            return self._waves[0]._partition_block(r, shard)
+        if len(blocks) == 1:
+            block = blocks[0]
+        elif self._plan.combine:
+            block = combine_packed_rows(
+                blocks, self._plan.combine_words,
+                np.dtype(self._plan.combine_dtype),
+                self._plan.combine_sum_words)
+        elif self._plan.ordered:
+            block = merge_sorted_rows(blocks)
+        else:
+            block = np.concatenate(blocks)
+        self._block_cache[r] = block
+        return block
+
+    def release_partition(self, r: int) -> None:
+        """Drop partition r's merged block AND each wave's own cached
+        block of it."""
+        super().release_partition(r)
+        for w in self._waves:
+            w.release_partition(r)
+
+
+class DeviceShuffleReaderResult:
+    """Device-resident result of one read (``read.sink=device``): each
+    wave's receive buffer stays the ``[P, cap, W]`` device tensor the step
+    produced (a single-shot read is one wave), with no payload D2H.
+
+    :meth:`consume` hands the waves to a consumer in wave order, dropping
+    this result's own references to a wave before the call, so the
+    consumer holds the only ones and a fold need not keep every wave
+    resident. :meth:`host_view` is the way back to the numpy partition
+    contract: over the live buffers it pulls (and counts) the D2H this
+    sink defers; over consumer-returned rows (``wave_rows=``) it reads
+    what the consumer passed through. ``partition`` fails closed."""
+
+    sink = "device"
+
+    def __init__(self, views, plan: ShufflePlan, val_shape, val_dtype):
+        if not views:
+            raise ValueError("device result needs at least one wave view")
+        self._views: Optional[list] = list(views)
+        self._plan = plan
+        self._val_shape = val_shape
+        self._val_dtype = val_dtype
+        self.num_partitions = plan.num_partitions
+        self.waves = len(views)
+        self.consumed = False
+        # the manager's capacity learning sees the plan capacity of a
+        # single-shot read, as from the lazy result
+        self.cap_out_used: Optional[int] = plan.cap_out if self.waves == 1 \
+            else None
+        self.recv_rows_needed: Optional[int] = None
+
+    def wave_views(self):
+        """The per-wave device views, in wave order."""
+        return list(self._views or [])
+
+    def _live_views(self) -> list:
+        if self.consumed or self._views is None:
+            raise RuntimeError(
+                "device result already consumed or closed: its buffers "
+                "went to the consumer; re-read the shuffle, or keep the "
+                "consumer's outputs")
+        return self._views
+
+    def device_rows(self, wave: int = 0) -> torch.Tensor:
+        """Wave ``wave``'s receive buffer, ``[P, cap, W]`` int32 in the
+        packed transport format (keys + bit-cast value lanes)."""
+        return self._live_views()[wave]._rows_dev
+
+    def device_totals(self, wave: int = 0) -> torch.Tensor:
+        """Wave ``wave``'s delivered rows per shard, ``[P]`` int32: rows
+        at and past it are invalid."""
+        return self._live_views()[wave]._totals_dev
+
+    def consume(self, fn, carry=None):
+        """``carry = fn(carry, rows, totals)`` per wave, in wave order;
+        this result drops its references to a wave before handing it
+        over. Returns the final carry. A second consume raises."""
+        views = self._live_views()
+        try:
+            for v in views:
+                with v._lock:
+                    rows, totals = v._rows_dev, v._totals_dev
+                    v._rows_dev = None
+                    v._totals_dev = None
+                if rows is None:
+                    raise RuntimeError("device wave buffers already taken")
+                carry = fn(carry, rows, totals)
+                del rows, totals
+        except BaseException:
+            # the remaining waves' buffers must not stay pinned by a
+            # consumer that died mid-fold
+            self._views = None
+            raise
+        finally:
+            self.consumed = True
+        return carry
+
+    def host_view(self, wave_rows=None):
+        """A host-readable result. Without arguments: over the live device
+        buffers (pays and counts the D2H; invalid after :meth:`consume`).
+        With ``wave_rows`` (one ``[P, cap, W]`` tensor per wave): over
+        consumer-returned rows, valid any time."""
+        if wave_rows is None:
+            views = list(self._live_views())
+        else:
+            base = self._views or []
+            if len(wave_rows) != len(base):
+                raise ValueError(f"wave_rows has {len(wave_rows)} entries "
+                                 f"for {len(base)} waves")
+            views = [v.with_rows(r) for v, r in zip(base, wave_rows)]
+        if len(views) == 1:
+            return views[0]
+        return WavedShuffleReaderResult(views, self._plan, self._val_shape,
+                                        self._val_dtype)
+
+    def partition(self, r: int):
+        raise RuntimeError(
+            "device-sink results hold their partitions in device memory: "
+            "consume() them, or host_view() for the numpy contract (which "
+            "pays the D2H this sink defers); a numpy consumer should "
+            "read(sink='host')")
+
+    def partitions(self):
+        self.partition(0)
+
+    def close(self) -> None:
+        """Drop the device buffers without consuming them."""
+        self.consumed = True
+        self._views = None
 
 
 class PendingShuffle:
@@ -530,14 +932,24 @@ class PendingShuffle:
         if not isinstance(shard_rows, torch.Tensor):
             shard_rows = torch.from_numpy(shard_rows)
         self._rows = shard_rows.to(device, non_blocking=True)
-        self._nvalid = torch.as_tensor(
-            np.asarray(shard_nvalid, dtype=np.int32)).to(device)
+        # a pageable copy would wait for all earlier work on the stream
+        # (a waved read's previous wave); a pinned one stays asynchronous
+        nvalid = torch.from_numpy(np.asarray(shard_nvalid, dtype=np.int32))
+        if device.type == "cuda":
+            nvalid = nvalid.pin_memory()
+        self._nvalid = nvalid.to(device, non_blocking=True)
         self._dispatch()
 
     def _dispatch(self) -> None:
         self._out = step_body(self._plan)(self._rows, self._nvalid)
         self._event = None
         if self._device.type == "cuda":
+            # the overflow flag travels to pinned memory behind the step,
+            # so result() waits for THIS step's event, not for the whole
+            # stream (which also holds a waved read's later waves)
+            self._ovf_host = torch.empty((), dtype=torch.bool,
+                                         pin_memory=True)
+            self._ovf_host.copy_(self._out[3], non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(self._device))
 
@@ -565,10 +977,13 @@ class PendingShuffle:
         if cb is not None:
             cb(res)
 
-    def _result_inner(self) -> LazyShuffleReaderResult:
+    def _result_inner(self):
         while True:
-            rows_out, seg, _total, ovf = self._out
-            if not bool(ovf):          # host read: waits for the step
+            rows_out, seg, total, ovf = self._out
+            if self._event is not None:
+                self._event.synchronize()      # waits for the step alone
+                ovf = self._ovf_host
+            if not bool(ovf):
                 break
             if self._attempt >= self._plan.max_retries:
                 raise RuntimeError(
@@ -596,6 +1011,13 @@ class PendingShuffle:
                                       metrics=self._metrics)
         # the PLAN capacity, not the chunk-inflated buffer size
         res.cap_out_used = self._plan.cap_out
+        res._totals_dev = total
+        res._ready_event = self._event
+        if plan.sink == "device":
+            # the partitions stay in the device tensors above: no drain,
+            # not even the seg matrix's (deferred to host_view)
+            return DeviceShuffleReaderResult([res], plan, self._val_shape,
+                                             self._val_dtype)
         if not (plan.combine or plan.impl == "pallas"):
             # true delivered rows (the aligned layout consumes slack; a
             # combine's counts are post-merge)

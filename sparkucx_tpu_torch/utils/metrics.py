@@ -1,8 +1,9 @@
 """Counters and a wall timer — the subset of the metrics plane the ported
 reads increment (``shuffle.read.ms``, ``shuffle.read.count``,
 ``shuffle.rows``, ``shuffle.bytes``, ``shuffle.retries``, the D2H byte
-counter :data:`C_D2H` and the kernel-fallback counter
-:data:`C_KERNEL_FALLBACK`)."""
+counter :data:`C_D2H`, the kernel-fallback counter
+:data:`C_KERNEL_FALLBACK`, the sink-fallback counter
+:data:`C_SINK_FALLBACK`) and the wave-gap histogram :data:`H_WAVE_GAP`."""
 
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ C_D2H = "shuffle.read.d2h.bytes"
 # combine reads whose read.mergeImpl offered the kernel but resolved to
 # the torch-op path; labeled(C_KERNEL_FALLBACK, reason=...) counts by reason
 C_KERNEL_FALLBACK = "shuffle.kernel.fallback.count"
+# reads that asked for the device sink but landed on the host;
+# labeled(C_SINK_FALLBACK, mode=..., reason=...) counts by read mode/reason
+C_SINK_FALLBACK = "shuffle.sink.fallback.count"
+# waved reads: per wave after the first, the pack time the previous wave's
+# exchange did not cover (ms); sustained positive gaps mean the device
+# waits on the host pack
+H_WAVE_GAP = "shuffle.wave.gap_ms"
 
 
 def labeled(name: str, **labels) -> str:
@@ -45,6 +53,7 @@ class Metrics:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = defaultdict(float)
+        self._histograms: Dict[str, Dict[str, float]] = {}
 
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -57,3 +66,21 @@ class Metrics:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._counters)
+
+    def observe(self, name: str, value: float) -> None:
+        """Add one observation to the named histogram (count, sum, min,
+        max)."""
+        value = float(value)
+        with self._lock:
+            h = self._histograms.setdefault(
+                name, {"count": 0.0, "sum": 0.0, "min": value, "max": value})
+            h["count"] += 1
+            h["sum"] += value
+            h["min"] = min(h["min"], value)
+            h["max"] = max(h["max"], value)
+
+    def histogram(self, name: str) -> Dict[str, float]:
+        """The named histogram's summary ({} before its first
+        observation)."""
+        with self._lock:
+            return dict(self._histograms.get(name, {}))

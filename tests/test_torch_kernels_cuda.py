@@ -17,6 +17,7 @@ import torch
 from sparkucx_tpu_torch import backend, connect
 from sparkucx_tpu_torch.ops import ragged_a2a as ra
 from sparkucx_tpu_torch.shuffle.writer import hash32_np
+from torch_merge_cases import MERGE_PATTERNS, merge_case
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +300,99 @@ def test_combine_and_ordered_reads_on_card(card, merge):
         res = svc.read(h2, ordered=True)
         got = np.concatenate([res.partition(r)[0] for r in range(R)])
         assert np.array_equal(got, np.sort(k))
+
+
+# -- merge path ---------------------------------------------------------------
+@pytest.mark.parametrize("P", [1, 8])
+@pytest.mark.parametrize("width", [3, 6, 25])
+@pytest.mark.parametrize("pattern", MERGE_PATTERNS)
+def test_merge_kernel_matches_plain(card, pattern, width, P):
+    """Bit-exact on every output row and partition id, ties taking the
+    first side, for every pattern of ``torch_merge_cases`` (an ``out_cap``
+    below ca + cb included)."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(MERGE_PATTERNS.index(pattern) * 100
+                                + width * 10 + P)
+    a, ap, b, bp, out_cap = (x if x is None or isinstance(x, int)
+                             else torch.from_numpy(x).to(card)
+                             for x in merge_case(rng, P, width, pattern))
+    before = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0)
+    kr, kp = sg.merge(a, ap, b, bp, out_cap)
+    torch.cuda.synchronize()
+    launched = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0) - before
+    assert launched == (1 if kr.shape[1] else 0)
+    pr, pp = sg.merge_plain(a, ap, b, bp, out_cap)
+    assert torch.equal(kr, pr) and torch.equal(kp, pp)
+
+
+def test_merge_kernel_refuses_bad_input(card):
+    from sparkucx_tpu_torch.ops import segmented as sg
+    a = torch.zeros((2, 300, 4), dtype=torch.int32, device=card)
+    pa = torch.zeros((2, 300), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                  # CPU tensor
+        sg.merge_kernel(a.cpu(), pa.cpu(), a.cpu(), pa.cpu())
+    with pytest.raises(ValueError):                  # not contiguous
+        sg.merge_kernel(a[:, ::2], pa[:, ::2], a, pa)
+    with pytest.raises(ValueError):                  # out_cap > ca + cb
+        sg.merge_kernel(a, pa, a, pa, 601)
+    lib = backend.kernel_library()
+    stream = torch.cuda.current_stream(card).cuda_stream
+    rc = lib.sxt_merge_path(a.data_ptr(), pa.data_ptr(), a.data_ptr(),
+                            pa.data_ptr(), a.data_ptr(), pa.data_ptr(), 2,
+                            300, 300, 601, 4, stream)
+    with pytest.raises(RuntimeError, match="merge_path launch failed"):
+        backend.check_launch(sg.MERGE_KERNEL_NAME, rc)
+
+
+@pytest.mark.parametrize("mode", ["ordered", "combine"])
+def test_waved_device_fold_on_card(card, mode):
+    """A waved ordered or combine read with the device sink folds its
+    waves through the merge kernel, one launch per wave after the first,
+    and its host view matches a numpy oracle."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.partition import ReservoirSampler
+    R, M = 24, 8
+    rng = np.random.default_rng(17)
+    space = 3000 if mode == "combine" else 1 << 40
+    keys = [rng.integers(-space, space, 4000).astype(np.int64) * 977
+            for _ in range(M)]
+    vals = [rng.integers(-(1 << 31), 1 << 31, (4000, 3)).astype(np.int32)
+            for _ in range(M)]
+    k, v = np.concatenate(keys), np.concatenate(vals)
+    conf = {"spark.shuffle.tpu.a2a.impl": "dense",
+            "spark.shuffle.tpu.a2a.waveRows": "1024"}
+    with connect(conf, use_env=False) as svc:
+        bounds = None
+        if mode == "ordered":
+            s = ReservoirSampler(1024, seed=1)
+            for kk in keys:
+                s.add(kk)
+            bounds = s.bounds(R)
+        h = svc.register_shuffle(0, M, R, "range" if bounds is not None
+                                 else "hash", bounds=bounds)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        before = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0)
+        kw = {"combine": "sum"} if mode == "combine" else {"ordered": True}
+        res = svc.read(h, sink="device", **kw)
+        launched = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0) \
+            - before
+        rep = svc.report(0)
+        assert rep.waves == 4 and launched == rep.waves - 1
+        assert rep.sink == "device" and rep.d2h_bytes == 0
+        assert rep.merge_ms > 0
+        hv = res.host_view()
+        parts = [hv.partition(r) for r in range(R)]
+        assert rep.d2h_bytes > 0
+    if mode == "ordered":
+        got = np.concatenate([p[0] for p in parts])
+        assert np.array_equal(got, np.sort(k))
+        return
+    part = hash32_np(k) % R
+    for r in range(R):
+        gk, gv = parts[r]
+        uk, inv = np.unique(k[part == r], return_inverse=True)
+        want = np.zeros((uk.size, 3), np.int64)
+        np.add.at(want, inv, v[part == r].astype(np.int64))
+        assert np.array_equal(gk, uk), f"partition {r}"
+        assert np.array_equal(gv, want.astype(np.int32)), f"partition {r}"
