@@ -80,20 +80,52 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             sink="device")`` launches the merge kernel 4 times and the
             segment reduce at least 9 (5 waves + 4 fold steps); every sum
             equals the int32-wrapping oracle, on the device sink's host
-            view and on the host sink (``combine_packed_rows``).
+            view and on the host sink (``combine_packed_rows``). Then
+            waved_combine_lossless: the host-sink read again under
+            ``a2a.wire=lossless``, bit-identical to the raw one, with
+            ``lossless_bytes`` > 0.
+15. quant_kernel — the int8 quantize kernel against its plain version on
+            the same uniforms, byte for byte: rows {1, 389, 4099, 16411}
+            x widths {1, 3, 4, 128, 1000} x normal / zero rows /
+            magnitudes 1e-30..1e30 / values rounding onto 127.
+16. wire_reduce_kernel — the fused dequant segment reduce against its
+            plain version: wire widths {1, 4, 7, 128} x shards {1, 8} x
+            the segreduce_kernel patterns x a sum/carry split; keys,
+            partitions, n_out and carried lanes exact, float32 sums within
+            n * 2**-24 * sum|v| of each n-row run.
+17. int8 — a DLRM-style embedding-gradient shuffle (MLPerf DLRM-DCNv2 on
+            Criteo 1TB: embedding dimension 128, Zipf(1.05) over the
+            40,000,000 ids of its largest table), 2,097,152 float32[128]
+            rows from 64 maps, 200 partitions, 8 shards, each read on
+            ``a2a.wire=int8`` and, for the wall and the wire bytes, on
+            the raw wire: int8_plain (``a2a.impl=pallas``; keys in the
+            same places as the raw read, every value within amax/127 of
+            its raw row), int8_combine (``combine="sum"``, the fused
+            reduce) and waved_int8_combine (``a2a.impl=dense``, 5 waves,
+            device sink). Combine sums are held to one quantization step
+            of every map-side partial they add (plus 2**-20 of each) of a
+            float64 oracle, and the mean signed error to within 5
+            standard errors of 0. Launches: quantize 1 and ragged_a2a 1;
+            + segment_reduce_wire 1; quantize 5, segment_reduce_wire 5,
+            merge_path 4, segment_reduce 4.
+18. quant_at_main_shapes, wire_reduce_at_main_shapes — the quantize and
+            fused-reduce inputs of one more int8_combine read (captured):
+            kernel, plain version, library yardstick and byte bound.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
 ordered, waved_ordered, merge_at_main_shapes, skew, combine,
-segreduce_at_main_shapes, waved_combine, combine_f32.
+segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
+quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
+wire_reduce_at_main_shapes.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
 the segment move; combine and combine_f32: the segment move and the
 segment reduce; ordered: the segment move; waved_ordered: the merge;
-waved_combine: the merge and the segment reduce). The last two lines of
-standard output are the ``kernels`` JSON object and the ``{"ok": true,
-"device": ...}`` object.
+waved_combine: the merge and the segment reduce; the int8 paths: their
+launch counts exactly). The last two lines of standard output are the
+``kernels`` JSON object and the ``{"ok": true, "device": ...}`` object.
 """
 
 import json
@@ -135,6 +167,14 @@ MERGE_SIZES = {"interleaved": (3000, 2900, 2000, 1800),
                "sign_bits": (2000, 1900, 1800, 1700),
                "ragged": (2561, 2561, 5119, 3000),
                "out_cap": (3000, 2900, 2000, 1800)}
+QUANT_TPU_KERNEL = "sparkucx_tpu/ops/pallas/quant.py:25"
+QUANT_KINDS = ("normal", "zero_rows", "magnitudes", "saturate")
+# the int8 cells: DLRM-style embedding gradients (MLPerf DLRM-DCNv2 on
+# Criteo 1TB: embedding dimension 128, tables capped at 40M rows)
+INT8_RECORDS = 2_097_152
+EMB_DIM = 128
+EMB_IDS = 40_000_000
+INT8_WAVE_ROWS = 52_429    # 262,144 staged rows per shard -> 5 waves
 SIGN_KEYS = np.array([0, 1, -1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 1 << 32,
                       -(1 << 32), (1 << 32) + 0x80000000, -(1 << 31),
                       -(1 << 31) - 1, 1 << 62, -(1 << 62), -(1 << 63),
@@ -1142,11 +1182,32 @@ def waved_combine_phase(dev, keys, values) -> dict:
                                lambda k: hash_pid(k, PARTITIONS))
         if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
             raise AssertionError("waved combine (host): sums differ")
-        del hparts
         oracle_s = time.perf_counter() - t
         captured = capture_last_merge(svc, h, "merge_reduce_rows",
                                       combine="sum")
         svc.unregister_shuffle(21)
+    # waved_combine_lossless: the host-sink read again with the drained
+    # waves held compressed; its partitions must equal the raw read's bit
+    # for bit
+    conf["spark.shuffle.tpu.a2a.wire"] = "lossless"
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 22, keys, values, MAPS)
+        lparts, lstats = host_waved_read(svc, h, combine="sum")
+        lrep = svc.report(22)
+        svc.unregister_shuffle(22)
+    for r in range(PARTITIONS):
+        if not (np.array_equal(lparts[r][0], hparts[r][0])
+                and np.array_equal(lparts[r][1], hparts[r][1])):
+            raise AssertionError(f"waved combine (lossless): partition {r} "
+                                 f"differs from the raw read")
+    if lrep.wire != "lossless" or lrep.lossless_bytes <= 0:
+        raise AssertionError(f"lossless read: wire {lrep.wire}, "
+                             f"lossless_bytes {lrep.lossless_bytes}")
+    del hparts, lparts
+    lossless = {"phase": "waved_combine_lossless", **lstats,
+                "lossless_bytes": lrep.lossless_bytes,
+                "payload_bytes": lrep.payload_bytes,
+                "raw_host_read_ms": hstats["read_ms"], "ok": True}
     if rep.kernel != "pallas":
         raise AssertionError(f"waved combine ran kernel tier {rep.kernel}")
     fold = combine_fold_step_check(captured)
@@ -1154,7 +1215,544 @@ def waved_combine_phase(dev, keys, values) -> dict:
     return {"phase": "waved_combine", "records": int(keys.size),
             "waves": rep.waves, "kernel": rep.kernel, "rows_out": int(uk.size),
             "retries": rep.retries, "device": stats, "host": hstats,
-            "fold_step_check": fold, "oracle_s": oracle_s, "ok": True}
+            "fold_step_check": fold, "oracle_s": oracle_s,
+            "ok": True}, lossless
+
+
+# -- int8 wire: the quantize and fused dequant-reduce kernels ----------------
+def quant_values(rng, n: int, w: int, kind: str) -> np.ndarray:
+    """[n, w] float32: normal; with zero rows; rows at their own scale
+    from 1e-30 to 1e30; or lanes near the float32 maximum (x / scale
+    lands on 127)."""
+    x = rng.standard_normal((n, w)).astype(np.float32)
+    if kind == "magnitudes":
+        x = (x * 10.0 ** rng.uniform(-30, 30, (n, 1))).astype(np.float32)
+        x[::5] *= (10.0 ** rng.uniform(-4, 4, (1, w))).astype(np.float32)
+    if kind in ("zero_rows", "magnitudes"):
+        x[::7] = 0.0
+        x[3::11, 0] = -0.0
+    if kind == "saturate":
+        x[:, 0] = np.float32(3.4e38) * np.sign(x[:, 0] + 1e-9)
+        x[:, -1] = np.nextafter(x[:, 0], np.float32(0))
+    return x
+
+
+def quant_kernel_phase(dev) -> int:
+    """The quantize kernel against its plain version on the same
+    uniforms: q and scale byte for byte."""
+    import torch
+    from sparkucx_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(SEED + 9)
+    n_cases = 0
+    for n in (1, 389, 4099, 16411):
+        for w in (1, 3, 4, 128, 1000):
+            for kind in QUANT_KINDS:
+                x = torch.from_numpy(quant_values(rng, n, w, kind)).to(dev)
+                u = torch.from_numpy(rng.random((n, w), dtype=np.float32)) \
+                    .to(dev)
+                kq, ks = tq.quantize_kernel(x, u)
+                pq, ps = tq.quantize_plain(x, u)
+                torch.cuda.synchronize()
+                if not (torch.equal(kq, pq) and torch.equal(
+                        ks.view(torch.int32), ps.view(torch.int32))):
+                    raise AssertionError(f"quantize n={n} w={w} {kind}: "
+                                         f"kernel bytes != plain")
+                n_cases += 1
+    return n_cases
+
+
+def wire_rows_case(rng, cap: int, ww: int, pattern: str, sum_words: int):
+    """One shard of int8 wire rows [cap, 2 + ceil(ww/4) + 1] sorted by
+    (partition, key), [cap] partitions (sentinel SEG_R past the valid
+    rows) and the [cap, ww] float32 values they decode to; carried
+    lanes' bytes are a constant of the key, scales vary per row."""
+    qw = -(-ww // 4)
+    rows = np.zeros((cap, 2 + qw + 1), np.int32)
+    part = np.full(cap, SEG_R, np.int32)
+    vals = np.zeros((cap, ww), np.float32)
+    if pattern == "empty":
+        return rows, part, vals
+    n = cap - cap // 7 if pattern == "unique" else cap
+    if pattern == "unique":
+        keys = rng.choice(1 << 40, n, replace=False).astype(np.int64)
+    elif pattern == "one_key":
+        keys = np.full(n, -(1 << 35) - 3, np.int64)
+    else:
+        keys = np.repeat(rng.integers(-(1 << 40), 1 << 40, n),
+                         rng.integers(1, 600, n))[:n]
+    if pattern == "sentinel":
+        rows[:, :2] = rng.integers(-9, 9, (cap, 2))
+        return rows, part, vals
+    p = (keys % SEG_R).astype(np.int32)
+    order = np.lexsort((keys, p))
+    keys, p = keys[order], p[order]
+    q = rng.integers(-127, 128, (n, ww)).astype(np.int8)
+    sw = sum_words or ww
+    q[:, sw:] = ((keys * 7 + 3)[:, None] % 255 - 127).astype(np.int8)
+    scale = np.exp(rng.normal(0, 3, n)).astype(np.float32)
+    qb = np.zeros((n, 4 * qw), np.int8)
+    qb[:, :ww] = q
+    rows[:n, :2] = keys.view(np.int32).reshape(n, 2)
+    rows[:n, 2:2 + qw] = qb.view(np.int32)
+    rows[:n, 2 + qw] = scale.view(np.int32)
+    part[:n] = p
+    vals[:n] = q.astype(np.float32) * scale[:, None]
+    return rows, part, vals
+
+
+def wire_run_tolerance(vals, part, rows, sum_words: int) -> np.ndarray:
+    """run_tolerance over decoded values: n * 2**-24 * sum|v| per run."""
+    full = np.zeros(part.shape + (2 + vals.shape[2],), np.int32)
+    full[..., :2] = rows[..., :2]
+    full[..., 2:] = vals.view(np.int32)
+    return run_tolerance(full, part, sum_words)
+
+
+def wire_reduce_kernel_phase(dev) -> dict:
+    """The fused dequant segment reduce against its plain version: keys,
+    partitions, n_out and carried lanes exact; float32 sums within the
+    sequential-summation bound of each run."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(SEED + 10)
+    n, f32_err = 0, 0.0
+    for ww in (1, 4, 7, 128):
+        for P in (1, 8):
+            cap = 1500 if P == 8 else 5000
+            for i, pattern in enumerate(SEG_PATTERNS):
+                pats = [SEG_PATTERNS[(i + s) % len(SEG_PATTERNS)]
+                        for s in range(P)]
+                for sw in sorted({ww, max(1, ww // 2)}):
+                    shards = [wire_rows_case(rng, cap, ww, q, sw)
+                              for q in pats]
+                    rows_np = np.stack([x[0] for x in shards])
+                    part_np = np.stack([x[1] for x in shards])
+                    vals_np = np.stack([x[2] for x in shards])
+                    rows = torch.from_numpy(rows_np).to(dev)
+                    part = torch.from_numpy(part_np).to(dev)
+                    width = 2 + ww
+                    kr, kp, kn = sg.segment_reduce_wire_kernel(
+                        rows, part, SEG_R, width, ww, sw)
+                    pr, pp, pn = sg.segment_reduce_wire_plain(
+                        rows, part, SEG_R, width, ww, sw)
+                    torch.cuda.synchronize()
+                    tag = f"wire ww={ww} P={P} {pattern} sum_words={sw}"
+                    if not (torch.equal(kn, pn) and torch.equal(kp, pp)):
+                        raise AssertionError(f"{tag}: n_out/part differ")
+                    exact = [0, 1] + list(range(2 + sw, width))
+                    if not torch.equal(kr[..., exact], pr[..., exact]):
+                        raise AssertionError(f"{tag}: keys/carry differ")
+                    got = kr[..., 2:2 + sw].contiguous().view(
+                        torch.float32).double().cpu().numpy()
+                    want = pr[..., 2:2 + sw].contiguous().view(
+                        torch.float32).double().cpu().numpy()
+                    diff = np.abs(got - want)
+                    if (diff > wire_run_tolerance(vals_np, part_np, rows_np,
+                                                  sw)).any():
+                        raise AssertionError(f"{tag}: sums outside bound")
+                    f32_err = max(f32_err, float(diff.max()))
+                    n += 1
+    return {"cases": n, "f32_max_abs_err": f32_err}
+
+
+# -- int8 reads: a DLRM-style embedding-gradient shuffle ---------------------
+def make_embedding_grads(n: int, seed: int):
+    """(embedding row ids int64 [n], Zipf(1.05) over EMB_IDS ids, spread
+    over the id space by a multiplicative hash; gradient rows float32
+    [n, EMB_DIM])."""
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(np.arange(1, EMB_IDS + 1, dtype=np.float64) ** -1.05)
+    cdf /= cdf[-1]
+    rank = np.searchsorted(cdf, rng.random(n))
+    del cdf
+    ids = (rank.astype(np.int64) * 2654435761) % EMB_IDS
+    grads = rng.standard_normal((n, EMB_DIM), dtype=np.float32)
+    return ids, grads
+
+
+def staged_groups(n: int, wave_rows: int = 0) -> np.ndarray:
+    """For each record (written by write_maps over MAPS maps): its shard
+    (map % SHARDS), or with ``wave_rows`` its (wave, shard) as one id —
+    the groups a map-side combine sums separately."""
+    per = -(-n // MAPS)
+    i = np.arange(n, dtype=np.int64)
+    m = i // per
+    shard = m % SHARDS
+    if not wave_rows:
+        return shard
+    pos = (m // SHARDS) * per + (i - m * per)
+    return (pos // wave_rows) * SHARDS + shard
+
+
+def check_int8_combine(parts, keys, values, groups, tag: str, dev) -> dict:
+    """Keys unique, sorted and in their partition; every sum within one
+    quantization step of every map-side partial row it adds (each (key,
+    group) sum, ``groups`` from :func:`staged_groups`) plus 2**-20 of
+    each partial, for its float32 rounding and the float32 sums after the
+    exchange; and the mean signed error within 5 standard errors of 0
+    (stochastic rounding is unbiased). The float64 oracle sums run as
+    plain ``index_add_`` calls on the card."""
+    import torch
+    order = np.lexsort((groups, keys))
+    sk, sgr = keys[order], groups[order]
+    gnew = np.r_[True, (sk[1:] != sk[:-1]) | (sgr[1:] != sgr[:-1])]
+    rec_group = np.empty(keys.size, np.int64)
+    rec_group[order] = np.cumsum(gnew) - 1
+    gkeys = sk[gnew]
+    del order, sk, sgr
+    knew = np.r_[True, gkeys[1:] != gkeys[:-1]]
+    group_key = np.cumsum(knew) - 1
+    uk = gkeys[knew]
+    W = values.shape[1]
+    partial = torch.zeros((gkeys.size, W), dtype=torch.float64, device=dev)
+    partial.index_add_(0, torch.from_numpy(rec_group).to(dev),
+                       torch.from_numpy(values).to(dev).double())
+    gk_dev = torch.from_numpy(group_key).to(dev)
+    total = torch.zeros((uk.size, W), dtype=torch.float64, device=dev)
+    total.index_add_(0, gk_dev, partial)
+    step = partial.abs().amax(dim=1, keepdim=True) / 127.0 * (1 + 1e-5)
+    tol = torch.zeros_like(total)
+    tol.index_add_(0, gk_dev, step + 2.0 ** -20 * partial.abs())
+    del partial, step
+    gk, gv = combined_rows(parts, PARTITIONS,
+                           lambda k: hash_pid(k, PARTITIONS))
+    if not np.array_equal(gk, uk):
+        raise AssertionError(f"{tag}: keys differ from the oracle")
+    err = torch.from_numpy(gv).to(dev).double() - total
+    ratio = float((err.abs() / tol).max())
+    if ratio > 1:
+        raise AssertionError(f"{tag}: sums outside one quantization step "
+                             f"(worst {ratio} x tol)")
+    z = float(err.mean() / (err.std() / err.numel() ** 0.5))
+    if abs(z) > 5:
+        raise AssertionError(f"{tag}: biased rounding, mean error is {z} "
+                             f"standard errors from 0")
+    return {"rows_out": int(uk.size),
+            "max_abs_err": float(err.abs().max()),
+            "max_err_over_tol": ratio, "mean_err_z": z}
+
+
+def check_raw_multiset(parts, keys, values) -> None:
+    """Raw read: every partition holds exactly its (key, row) multiset."""
+    pid = hash_pid(keys, PARTITIONS)
+    vb = values.view(np.int32)
+    order = np.lexsort((vb[:, 1], vb[:, 0], keys, pid))
+    bounds = np.r_[0, np.cumsum(np.bincount(pid, minlength=PARTITIONS))]
+    for r in range(PARTITIONS):
+        gk, gv = parts[r]
+        want = order[bounds[r]:bounds[r + 1]]
+        if gk.shape[0] != want.size:
+            raise AssertionError(f"raw partition {r}: {gk.shape[0]} rows, "
+                                 f"oracle {want.size}")
+        gb = gv.view(np.int32)
+        o = np.lexsort((gb[:, 1], gb[:, 0], gk))
+        if not (np.array_equal(gk[o], keys[want])
+                and np.array_equal(gb[o], vb[want])):
+            raise AssertionError(f"raw partition {r}: rows differ")
+
+
+def check_int8_plain(parts, raw_parts) -> dict:
+    """int8 against the raw read of the same staging: the same keys in the
+    same places (the send sort orders rows by partition alone, stably),
+    every value within one quantization step of its raw row."""
+    worst = 0.0
+    for r in range(PARTITIONS):
+        gk, gv = parts[r]
+        rk, rv = raw_parts[r]
+        if not np.array_equal(gk, rk):
+            raise AssertionError(f"int8 partition {r}: keys or row order "
+                                 f"differ from the raw read")
+        step = np.abs(rv).max(axis=1, keepdims=True) / 127.0
+        err = np.abs(gv.astype(np.float64) - rv)
+        if (err > step * (1 + 1e-6)).any():
+            raise AssertionError(f"int8 partition {r}: a value is more "
+                                 f"than one quantization step off")
+        worst = max(worst, float((err / np.maximum(step, 1e-30)).max()))
+    return {"max_err_in_steps": worst}
+
+
+def int8_read(svc, h, dev, kernels, **read_kw):
+    """One measured read with the kernel counts reset just before; every
+    kernel of ``kernels`` must have launched."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.reset_launch_counts()
+    parts, read_ms, views_ms = drive_read(svc, h, **read_kw)
+    launches = {k: counted(k) for k in kernels}
+    rep = svc.report(h.shuffle_id)
+    return parts, {"read_ms": read_ms, "views_ms": views_ms,
+                   "pack_ms": rep.pack_ms, "dispatch_ms": rep.dispatch_ms,
+                   "group_ms": rep.group_ms, "wire": rep.wire,
+                   "payload_bytes": rep.payload_bytes,
+                   "wire_bytes": rep.wire_bytes, "pad_ratio": rep.pad_ratio,
+                   "wire_dequant_error": rep.wire_dequant_error,
+                   "retries": rep.retries, "plan_bucket": rep.plan_bucket,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": launches,
+                   "all_launches": backend.launch_counts()}, rep
+
+
+def expect_launches(tag: str, stats: dict, want: dict) -> None:
+    got = {k: stats["all_launches"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def capture_calls(targets, fn):
+    """Run ``fn()`` with each (module, name) of ``targets`` wrapped to
+    record the arguments of its last call; returns {name: (args, kw)}."""
+    box, saved = {}, []
+    for mod, name in targets:
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def capture(*args, _name=name, _orig=orig, **kw):
+            box[_name] = (args, kw)
+            return _orig(*args, **kw)
+
+        setattr(mod, name, capture)
+    try:
+        fn()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    missing = [n for _, n in targets if n not in box]
+    if missing:
+        raise AssertionError(f"the read never called {missing}")
+    return box
+
+
+def int8_phases(dev) -> tuple:
+    """int8_plain, int8_combine and waved_int8_combine over one DLRM-style
+    gradient shuffle, each beside the same read on the raw wire."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    from sparkucx_tpu_torch.shuffle import alltoall as at
+    from sparkucx_tpu_torch.shuffle import reader as rd
+    t = time.perf_counter()
+    keys, grads = make_embedding_grads(INT8_RECORDS, SEED + 11)
+    wk, wg = make_embedding_grads(1 << 14, SEED + 12)
+    gen_s = time.perf_counter() - t
+    out = {}
+
+    # -- int8_plain: the un-combined gradient all-to-all -----------------
+    def plain(wire: str, kernels):
+        conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+                "spark.shuffle.tpu.a2a.wire": wire}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            warm_read(svc, 30, wk, wg)
+            h = write_maps(svc, 31, keys, grads, MAPS)
+            parts, stats, rep = int8_read(svc, h, dev, kernels)
+            svc.unregister_shuffle(31)
+        return parts, stats, rep
+
+    raw_parts, raw_stats, _ = plain("raw", (A2A,))
+    check_raw_multiset(raw_parts, keys, grads)
+    parts, stats, rep = plain("int8", (tq.KERNEL_NAME, A2A))
+    expect_launches("int8_plain", stats, {tq.KERNEL_NAME: 1 + rep.retries,
+                                          A2A: 1 + rep.retries})
+    if rep.wire != "int8":
+        raise AssertionError(f"int8_plain ran the {rep.wire} wire")
+    t = time.perf_counter()
+    chk = check_int8_plain(parts, raw_parts)
+    del parts, raw_parts
+    out["int8_plain"] = {"phase": "int8_plain", "records": INT8_RECORDS,
+                         "value_lanes": EMB_DIM, "int8": stats,
+                         "raw": raw_stats, **chk,
+                         "oracle_s": time.perf_counter() - t, "ok": True}
+
+    # -- int8_combine: the same gradients summed per embedding row ---------
+    groups = staged_groups(INT8_RECORDS)
+
+    def combine(wire: str, kernels, capture: bool = False):
+        conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+                "spark.shuffle.tpu.a2a.wire": wire,
+                "spark.shuffle.tpu.read.mergeImpl": "auto"}
+        box = None
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            warm_read(svc, 32, wk, wg, combine="sum")
+            h = write_maps(svc, 33, keys, grads, MAPS)
+            parts, stats, rep = int8_read(svc, h, dev, kernels,
+                                          combine="sum")
+            if capture:
+                # one more read whose quantize and fused-reduce inputs are
+                # kept for the kernels' timing at these shapes
+                box = capture_calls(
+                    [(at, "quantize_rows"), (rd, "segment_reduce_wire_rows")],
+                    lambda: svc.read(h, combine="sum"))
+            svc.unregister_shuffle(33)
+        return parts, stats, rep, box
+
+    rparts, raw_cstats, _, _ = combine("raw", (A2A, sg.KERNEL_NAME))
+    del rparts
+    parts, cstats, crep, box = combine(
+        "int8", (tq.KERNEL_NAME, A2A, sg.WIRE_KERNEL_NAME), capture=True)
+    expect_launches("int8_combine", cstats, {
+        tq.KERNEL_NAME: 1 + crep.retries, A2A: 1 + crep.retries,
+        sg.WIRE_KERNEL_NAME: 1 + crep.retries, sg.KERNEL_NAME: 0})
+    if crep.kernel != "pallas" or crep.wire != "int8":
+        raise AssertionError(f"int8_combine ran {crep.wire}/{crep.kernel}")
+    t = time.perf_counter()
+    cchk = check_int8_combine(parts, keys, grads, groups, "int8_combine",
+                              dev)
+    part_rows = [int(parts[r][0].shape[0]) for r in range(PARTITIONS)]
+    del parts
+    out["int8_combine"] = {"phase": "int8_combine", "int8": cstats,
+                           "raw": raw_cstats, **cchk,
+                           "oracle_s": time.perf_counter() - t, "ok": True}
+
+    # -- waved_int8_combine: the combine as a streaming device-sink read ---
+    wgroups = staged_groups(INT8_RECORDS, INT8_WAVE_ROWS)
+
+    def waved(wire: str):
+        conf = {"spark.shuffle.tpu.a2a.impl": "dense",
+                "spark.shuffle.tpu.a2a.wire": wire,
+                "spark.shuffle.tpu.a2a.waveRows": str(INT8_WAVE_ROWS),
+                "spark.shuffle.tpu.a2a.waveDepth": "2",
+                "spark.shuffle.tpu.read.mergeImpl": "auto"}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = write_maps(svc, 34, keys, grads, MAPS)
+            parts, stats, rep = waved_read(svc, h, dev, combine="sum")
+            svc.unregister_shuffle(34)
+        return parts, stats, rep
+
+    rparts, raw_wstats, raw_wrep = waved("raw")
+    del rparts
+    parts, wstats, wrep = waved("int8")
+    want = {tq.KERNEL_NAME: 5, sg.WIRE_KERNEL_NAME: 5,
+            sg.MERGE_KERNEL_NAME: 4, sg.KERNEL_NAME: 4}
+    got = {k: wstats["launches"].get(k, 0) for k in want}
+    if got != want or wrep.wire != "int8":
+        raise AssertionError(f"waved_int8_combine launches {got}, "
+                             f"expected {want} (wire {wrep.wire})")
+    t = time.perf_counter()
+    wchk = check_int8_combine(parts, keys, grads, wgroups,
+                              "waved_int8_combine", dev)
+    del parts
+    for st, r in ((wstats, wrep), (raw_wstats, raw_wrep)):
+        st.update({"wire_bytes": r.wire_bytes, "pad_ratio": r.pad_ratio,
+                   "wire_dequant_error": r.wire_dequant_error})
+    out["waved_int8_combine"] = {
+        "phase": "waved_int8_combine", "waves": wrep.waves,
+        "wave_rows": INT8_WAVE_ROWS, "int8": wstats, "raw": raw_wstats,
+        **wchk, "oracle_s": time.perf_counter() - t, "ok": True}
+    out["gen_s"] = gen_s
+    return out, box, part_rows, cstats
+
+
+def quant_at_main_shapes(box) -> dict:
+    """The quantize call of int8_combine's send buffer, with its own
+    uniforms: kernel == plain byte for byte, both timed beside the byte
+    bound."""
+    import torch
+    from sparkucx_tpu_torch.ops import quant as tq
+    (x, u), _ = box["quantize_rows"]
+    x, u = x.contiguous(), u.contiguous()
+    kq, ks = tq.quantize_kernel(x, u)
+    pq, ps = tq.quantize_plain(x, u)
+    torch.cuda.synchronize()
+    diff = int((kq.int() - pq.int()).abs().max())
+    if diff or not torch.equal(ks.view(torch.int32), ps.view(torch.int32)):
+        raise AssertionError(f"quantize disagrees at main shapes "
+                             f"(q err {diff})")
+    del kq, ks, pq, ps
+    n, w = x.shape
+    moved = 4 * n * w + 4 * n * w + n * w + 4 * n
+    return {
+        "kernel_ms": median_ms(lambda: tq.quantize_kernel(x, u)),
+        "plain_ms": median_ms(lambda: tq.quantize_plain(x, u), reps=5,
+                              warmup=1),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes per-row "
+                        "stochastic int8 rounding",
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved,
+        "max_abs_err": diff, "shape": [n, w]}
+
+
+def wire_reduce_at_main_shapes(box, part_rows, dev) -> dict:
+    """The fused reduce of int8_combine at its own input (the keysorted
+    wire rows the read handed it): kernel against plain (keys, partitions
+    and n_out exact; sums within n * 2**-24 * sum|v| per run), one
+    index_add_ of the dequantized sum lanes into precomputed run slots
+    as the library yardstick, and the byte bound."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.partition import (counts_from_sorted,
+                                                  words_to_key)
+    from sparkucx_tpu_torch.shuffle.alltoall import wire_unpack_rows
+    (rows, part, num_parts, width, ww), kw = box["segment_reduce_wire_rows"]
+    sw = kw.get("sum_words", 0) or ww
+    rows, part = rows.contiguous(), part.to(torch.int32).contiguous()
+    P, cap, w_in = rows.shape
+
+    def kernel():
+        return sg.segment_reduce_wire_kernel(rows, part, num_parts, width,
+                                             ww, sw)
+
+    def plain():
+        return sg.segment_reduce_wire_plain(rows, part, num_parts, width,
+                                            ww, sw)
+
+    kr, kp, kn = kernel()
+    pr, pp, pn = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(kn, pn) and torch.equal(kp, pp)
+            and torch.equal(kr[..., :2], pr[..., :2])
+            and torch.equal(kr[..., 2 + sw:], pr[..., 2 + sw:])):
+        raise AssertionError("fused reduce: keys, partitions, n_out or "
+                             "carried lanes differ at main shapes")
+    if counts_from_sorted(kp, num_parts).sum(dim=0).cpu().tolist() \
+            != part_rows:
+        raise AssertionError("captured input is not the int8 combine's")
+    # run ids of the sorted input, the run tolerance and the yardstick's
+    # inputs, all outside the timed calls
+    valid = part < num_parts
+    key = words_to_key(rows[..., 0], rows[..., 1])
+    same = torch.zeros_like(valid)
+    same[:, 1:] = (key[:, 1:] == key[:, :-1]) & (part[:, 1:] == part[:, :-1])
+    run = torch.cumsum(valid & ~same, dim=1) - 1
+    dest = (run + torch.arange(P, device=dev)[:, None] * cap)[valid]
+    del key, same, run
+    lanes = wire_unpack_rows(rows, width, ww)[..., 2:2 + sw][valid] \
+        .contiguous().view(torch.float32)
+    nrun = torch.zeros(P * cap, dtype=torch.float64, device=dev)
+    nrun.index_add_(0, dest, torch.ones_like(dest, dtype=torch.float64))
+    sabs = torch.zeros((P * cap, sw), dtype=torch.float64, device=dev)
+    sabs.index_add_(0, dest, lanes.abs().double())
+    tol = (nrun[:, None] * 2.0 ** -24 * sabs).reshape(P, cap, sw)
+    del nrun, sabs
+    got = kr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    want = pr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    diff = (got - want).abs()
+    if bool((diff > tol).any()):
+        raise AssertionError("fused reduce: sums outside the sequential "
+                             "summation bound at main shapes")
+    err = float(diff.max())
+    n_out = int(kn.sum())
+    del kr, kp, pr, pp, got, want, diff, tol
+    acc = torch.zeros((P * cap, sw), dtype=torch.float32, device=dev)
+
+    def library():
+        return acc.index_add_(0, dest, lanes)
+
+    bytes_in = P * cap * (w_in + 1) * 4
+    bytes_out = n_out * width * 4
+    return {
+        "kernel_ms": median_ms(kernel),
+        "plain_ms": median_ms(plain, reps=5, warmup=1),
+        "library_ms": median_ms(library),
+        "library_calls": "index_add_ of the dequantized sum lanes of the "
+                         "valid rows into precomputed run slots",
+        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
+        "bound_full_output_ms": (bytes_in + P * cap * (width + 1) * 4)
+        / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err, "input_shape": [P, cap, w_in],
+        "valid_rows": int(valid.sum()), "n_out": n_out,
+        "bytes_in": bytes_in, "bytes_out": bytes_out}
+
 
 
 def main() -> int:
@@ -1178,6 +1776,9 @@ def main() -> int:
     from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG_KERNEL
     from sparkucx_tpu_torch.ops.segmented import \
         MERGE_KERNEL_NAME as MERGE_KERNEL
+    from sparkucx_tpu_torch.ops.quant import KERNEL_NAME as QUANT_KERNEL
+    from sparkucx_tpu_torch.ops.segmented import \
+        WIRE_KERNEL_NAME as WIRE_KERNEL
 
     dev = card_device()
     print(card_line(), flush=True)      # "<name>, <power limit>"
@@ -1314,14 +1915,42 @@ def main() -> int:
           flush=True)
 
     t = time.perf_counter()
-    wc = waved_combine_phase(dev, ck, cv)
+    wc, wl = waved_combine_phase(dev, ck, cv)
     print(json.dumps({**wc, "seconds": time.perf_counter() - t}),
           flush=True)
+    print(json.dumps(wl), flush=True)
     del ck, cv
 
     t = time.perf_counter()
     cf = combine_f32_phase(dev, comb_conf)
     print(json.dumps({**cf, "seconds": time.perf_counter() - t}), flush=True)
+
+    # -- int8 wire: the two kernels, then a DLRM-style embedding-gradient
+    # shuffle (after every earlier phase, which run as they did before)
+    t = time.perf_counter()
+    quant_cases = quant_kernel_phase(dev)
+    print(json.dumps({"phase": "quant_kernel", "cases": quant_cases,
+                      "ok": True, "seconds": time.perf_counter() - t}),
+          flush=True)
+
+    t = time.perf_counter()
+    wire_cases = wire_reduce_kernel_phase(dev)
+    print(json.dumps({"phase": "wire_reduce_kernel", **wire_cases,
+                      "ok": True, "seconds": time.perf_counter() - t}),
+          flush=True)
+
+    t = time.perf_counter()
+    i8, box, i8_part_rows, i8_stats = int8_phases(dev)
+    for name in ("int8_plain", "int8_combine", "waved_int8_combine"):
+        print(json.dumps(i8[name]), flush=True)
+    print(json.dumps({"phase": "int8", "gen_s": i8["gen_s"],
+                      "seconds": time.perf_counter() - t}), flush=True)
+    qt = quant_at_main_shapes(box)
+    print(json.dumps({"phase": "quant_at_main_shapes", **qt}), flush=True)
+    wt = wire_reduce_at_main_shapes(box, i8_part_rows, dev)
+    del box
+    print(json.dumps({"phase": "wire_reduce_at_main_shapes", **wt}),
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -1341,7 +1970,21 @@ def main() -> int:
         "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
-        "bound_by": "bytes", "library_ms": mt["library_ms"]}]}),
+        "bound_by": "bytes", "library_ms": mt["library_ms"]}, {
+        "name": QUANT_KERNEL, "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/quant.cu",
+        "replaces": QUANT_TPU_KERNEL,
+        "launches": i8_stats["launches"][QUANT_KERNEL],
+        "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
+        "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
+        "bound_by": "bytes", "library_ms": qt["library_ms"]}, {
+        "name": WIRE_KERNEL, "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": SEG_TPU_KERNEL,
+        "launches": i8_stats["launches"][WIRE_KERNEL],
+        "max_abs_err": wt["max_abs_err"], "ms": wt["kernel_ms"],
+        "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
+        "bound_by": "bytes", "library_ms": wt["library_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,12 @@ SIGNATURES = {
     # P, cap, width, nblk, num_parts, sum_words, float_acc, stream
     # -> cudaError_t
     "sxt_segment_reduce": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
+    # rows (wire format), part, out_rows, out_part, n_out, block_counts,
+    # block_base, P, cap, wire_words, nblk, num_parts, sum_words, stream
+    # -> cudaError_t
+    "sxt_segment_reduce_wire": (ctypes.c_int, [_P] * 7 + [_I] * 6 + [_P]),
+    # x, u, q, scale, n, width, stream -> cudaError_t
+    "sxt_quantize": (ctypes.c_int, [_P] * 4 + [_I] * 2 + [_P]),
     # a_rows, a_part, b_rows, b_part, out_rows, out_part, P, ca, cb,
     # out_cap, width, stream -> cudaError_t
     "sxt_merge_path": (ctypes.c_int, [_P] * 6 + [_I] * 5 + [_P]),

@@ -8,7 +8,8 @@ through unchanged.
 
 Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``a2a.combineCompaction``,
-``a2a.waveRows``, ``a2a.waveDepth``, ``read.mergeImpl``, ``read.sink``,
+``a2a.waveRows``, ``a2a.waveDepth``, ``a2a.wire``,
+``a2a.wireErrorSampleRows``, ``read.mergeImpl``, ``read.sink``,
 ``network.timeoutMs``.
 """
 
@@ -59,6 +60,14 @@ WAVE_DEPTH_RANGE = (1, 8)
 ALLOWED_SINKS = ("host", "device", "auto")
 READ_SINK_KEY = PREFIX + "read.sink"
 
+# a2a.wire values (the JAX package's set): 'raw' moves exact int32 lanes;
+# 'int8' moves float32 value lanes as stochastically rounded int8 plus
+# one float32 scale per row (keys stay exact; shuffle/alltoall.
+# wire_pack_rows); 'lossless' re-encodes drained host blocks of a waved
+# read as byte planes + deflate (shuffle/wire.py), bit-exact.
+ALLOWED_WIRES = ("raw", "int8", "lossless")
+A2A_WIRE_KEY = PREFIX + "a2a.wire"
+
 
 def _norm(key: str) -> str:
     """Case/punctuation-insensitive key form ('a2a.capacityFactor',
@@ -85,6 +94,16 @@ def validate_sink(sink: str, conf_key: str = READ_SINK_KEY) -> str:
     return sink
 
 
+def validate_wire(wire: str, conf_key: str = A2A_WIRE_KEY) -> str:
+    if wire not in ALLOWED_WIRES:
+        raise ValueError(
+            f"{conf_key}={wire!r}: want one of {ALLOWED_WIRES} (raw = "
+            f"exact int32 lanes, int8 = quantized float value lanes + a "
+            f"per-row scale, lossless = host-side byte-plane compression "
+            f"of drained wave blocks)")
+    return wire
+
+
 def validate_sort_impl(v: str) -> str:
     if v not in SORT_METHODS:
         raise ValueError(
@@ -98,7 +117,8 @@ class ShuffleConf:
 
     _TYPED_PROPS = ("a2a_impl", "capacity_factor", "cap_buckets",
                     "cap_bucket_growth", "sort_impl", "combine_compaction",
-                    "wave_rows", "wave_depth", "read_merge_impl",
+                    "wave_rows", "wave_depth", "a2a_wire",
+                    "wire_error_sample_rows", "read_merge_impl",
                     "read_sink", "connection_timeout_ms")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
@@ -206,6 +226,26 @@ class ShuffleConf:
         lo, hi = WAVE_DEPTH_RANGE
         if not lo <= v <= hi:
             raise ValueError(f"{PREFIX}a2a.waveDepth={v}: want {lo}..{hi}")
+        return v
+
+    @property
+    def a2a_wire(self) -> str:
+        """Wire tier, orthogonal to ``a2a.impl``: raw (default), int8
+        (float32 value lanes quantized per row around the exchange; needs
+        a float32 value schema and more than one shard, else the read
+        runs raw and its report says so) or lossless (drained blocks of a
+        waved host-sink read held compressed until first touch)."""
+        return validate_wire(self._get("a2a.wire", "raw"))
+
+    @property
+    def wire_error_sample_rows(self) -> int:
+        """Staged rows an int8 read samples to estimate its
+        dequantization error (``ExchangeReport.wire_dequant_error``);
+        0 turns the estimate off."""
+        v = self.get_int("a2a.wireErrorSampleRows", 256)
+        if v < 0:
+            raise ValueError(f"{PREFIX}a2a.wireErrorSampleRows={v}: want "
+                             f">= 0 (0 = off)")
         return v
 
     @property

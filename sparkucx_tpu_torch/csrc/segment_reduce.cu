@@ -1,8 +1,10 @@
 // Segment reduce over (partition, key)-sorted rows for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
-// sparkucx_tpu/ops/pallas/segmented.py::_segreduce_blocked_kernel with
-// wire_words=0 (the receive-side combine of a multi-shard combine read).
+// sparkucx_tpu/ops/pallas/segmented.py::_segreduce_blocked_kernel, in both
+// its modes: wire_words=0 (sxt_segment_reduce, the receive-side combine of
+// a multi-shard combine read) and wire_words>0 (sxt_segment_reduce_wire,
+// the int8-dequant-fused reduce of an a2a.wire=int8 combine read, below).
 // Per logical shard p, independently, over rows [P, cap, W] int32 sorted
 // by (partition, key) with part [P, cap] int32 (sentinel num_parts on
 // invalid rows, which sort last):
@@ -34,6 +36,18 @@
 // Pass 3 re-reads the key and part words pass 1 read (from L2 at these
 // sizes), and a run's owner reads its rows one thread at a time, so the
 // design trades coalescing for simplicity.
+//
+// The fused mode (sxt_segment_reduce_wire) takes rows in the int8 wire
+// format, [key lo, key hi, packed int8 x ceil(ww/4), f32 scale], and writes
+// full-width rows [key lo, key hi, ww float32 lanes]. Passes 1-2 read only
+// the key lanes and the partition, which sit where they sit in raw rows,
+// so they run unchanged on the narrower input stride. In pass 3 the run's
+// owner dequantizes each lane (int8 times the row's scale: one rounded
+// product), sums the first sum_words lanes in float32 in row order and
+// carries the others from the run's first row. Bound: bytes again; the
+// input is read at its wire width (2 + ceil(ww/4) + 1 lanes) and the
+// output written at full width, so the least traffic is
+// P*cap*(W_in+1)*4 read + n_out*(2+ww)*4 written.
 //
 // Plain C interface (no PyTorch headers): the wrapper passes device
 // pointers, the scratch it allocated and the current stream, and raises on
@@ -114,20 +128,36 @@ scan_counts(const int* __restrict__ block_counts, int* __restrict__ block_base,
   if (threadIdx.x == 0) n_out[p] = carry;
 }
 
+// Value lane j of a wire row: byte j % 4 of word 2 + j / 4, sign-extended,
+// times the row's float32 scale (lane 2 + qw) — one rounded product, as
+// wire_unpack_rows computes it (__fmul_rn keeps a later add from fusing
+// into it).
+__device__ __forceinline__ float dequant(const int* __restrict__ row, int j,
+                                         int qw) {
+  const int b = (row[2 + (j >> 2)] >> (8 * (j & 3))) & 0xFF;
+  return __fmul_rn(static_cast<float>((b ^ 0x80) - 0x80),
+                   __int_as_float(row[2 + qw]));
+}
+
+// kWire = false: rows and output share the width (wire_words unused).
+// kWire = true: input rows are int8 wire rows of width_in = 2 + qw + 1
+// lanes; the output is full width = 2 + wire_words, float32 sums over
+// the dequantized lanes.
+template <bool kWire>
 __global__ void __launch_bounds__(kThreads)
 emit_runs(const int* __restrict__ rows, const int* __restrict__ part,
           int* __restrict__ out_rows, int* __restrict__ out_part,
           const int* __restrict__ block_base, const int* __restrict__ n_out,
-          long long cap, int width, int num_parts, int sum_words,
-          int float_acc, int nblk) {
+          long long cap, int width_in, int width, int num_parts,
+          int sum_words, int float_acc, int wire_words, int nblk) {
   __shared__ int warp_counts[kThreads / 32];
   const long long p = blockIdx.y;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int* r = rows + p * cap * width;
+  const int* r = rows + p * cap * width_in;
   const int* pt = part + p * cap;
   int* orow = out_rows + p * cap * width;
   int* opart = out_part + p * cap;
-  const bool start = i < cap && run_start(r, pt, i, width, num_parts);
+  const bool start = i < cap && run_start(r, pt, i, width_in, num_parts);
 
   // rank of this run start among the block's starts
   const unsigned mask = __ballot_sync(0xffffffffu, start);
@@ -145,27 +175,66 @@ emit_runs(const int* __restrict__ rows, const int* __restrict__ part,
   if (!start) return;
 
   long long end = i + 1;
-  while (end < cap && same_run(r, pt, end, i, width)) ++end;
+  while (end < cap && same_run(r, pt, end, i, width_in)) ++end;
   const long long slot = block_base[p * nblk + blockIdx.x] + rank;
-  const int* first = r + i * width;
+  const int* first = r + i * width_in;
   int* dst = orow + slot * width;
   dst[0] = first[0];
   dst[1] = first[1];
-  for (int c = 2; c < 2 + sum_words; ++c) {
-    if (float_acc) {
+  if constexpr (kWire) {
+    const int qw = (wire_words + 3) / 4;
+    for (int c = 0; c < sum_words; ++c) {
       float s = 0.0f;
-      for (long long j = i; j < end; ++j) {
-        s += __int_as_float(r[j * width + c]);
-      }
-      dst[c] = __float_as_int(s);
-    } else {
-      uint32_t s = 0;                          // wraps mod 2^32
-      for (long long j = i; j < end; ++j) s += (uint32_t)r[j * width + c];
-      dst[c] = (int)s;
+      for (long long j = i; j < end; ++j) s += dequant(r + j * width_in, c, qw);
+      dst[2 + c] = __float_as_int(s);
     }
+    for (int c = sum_words; c < wire_words; ++c) {
+      dst[2 + c] = __float_as_int(dequant(first, c, qw));
+    }
+  } else {
+    for (int c = 2; c < 2 + sum_words; ++c) {
+      if (float_acc) {
+        float s = 0.0f;
+        for (long long j = i; j < end; ++j) {
+          s += __int_as_float(r[j * width + c]);
+        }
+        dst[c] = __float_as_int(s);
+      } else {
+        uint32_t s = 0;                        // wraps mod 2^32
+        for (long long j = i; j < end; ++j) s += (uint32_t)r[j * width + c];
+        dst[c] = (int)s;
+      }
+    }
+    for (int c = 2 + sum_words; c < width; ++c) dst[c] = first[c];
   }
-  for (int c = 2 + sum_words; c < width; ++c) dst[c] = first[c];
   opart[slot] = pt[i];
+}
+
+// The three passes on one stream; width_in == width unless kWire.
+template <bool kWire>
+int launch(const int* rows, const int* part, int* out_rows, int* out_part,
+           int* n_out, int* block_counts, int* block_base, int num_shards,
+           int cap, int width_in, int width, int nblk, int num_parts,
+           int sum_words, int float_acc, int wire_words, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nblk, num_shards);
+  count_starts<<<grid, kThreads, 0, s>>>(rows, part, block_counts, cap,
+                                         width_in, num_parts, nblk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_counts<<<num_shards, kScanThreads, 0, s>>>(block_counts, block_base,
+                                                  n_out, nblk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit_runs<kWire><<<grid, kThreads, 0, s>>>(
+      rows, part, out_rows, out_part, block_base, n_out, cap, width_in,
+      width, num_parts, sum_words, float_acc, wire_words, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_grid(int num_shards, int cap, int nblk) {
+  return num_shards <= 0 || cap <= 0 || (long long)nblk * kThreads < cap ||
+         (long long)(nblk - 1) * kThreads >= cap;
 }
 
 }  // namespace
@@ -176,23 +245,31 @@ extern "C" int sxt_segment_reduce(const int* rows, const int* part,
                                   int num_shards, int cap, int width,
                                   int nblk, int num_parts, int sum_words,
                                   int float_acc, void* stream) {
-  if (num_shards <= 0 || cap <= 0 || width < 2 || sum_words < 0 ||
-      sum_words > width - 2 || (long long)nblk * kThreads < cap ||
-      (long long)(nblk - 1) * kThreads >= cap) {
+  if (bad_grid(num_shards, cap, nblk) || width < 2 || sum_words < 0 ||
+      sum_words > width - 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nblk, num_shards);
-  count_starts<<<grid, kThreads, 0, s>>>(rows, part, block_counts, cap,
-                                         width, num_parts, nblk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_counts<<<num_shards, kScanThreads, 0, s>>>(block_counts, block_base,
-                                                  n_out, nblk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  emit_runs<<<grid, kThreads, 0, s>>>(rows, part, out_rows, out_part,
-                                      block_base, n_out, cap, width,
-                                      num_parts, sum_words, float_acc, nblk);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(rows, part, out_rows, out_part, n_out, block_counts,
+                       block_base, num_shards, cap, width, width, nblk,
+                       num_parts, sum_words, float_acc, 0, stream);
+}
+
+// The int8-dequant-fused mode (a2a.wire=int8 combine reads): rows are
+// [P, cap, 2 + ceil(wire_words / 4) + 1] wire rows, the output
+// [P, cap, 2 + wire_words] full-width rows with float32 sums.
+extern "C" int sxt_segment_reduce_wire(const int* rows, const int* part,
+                                       int* out_rows, int* out_part,
+                                       int* n_out, int* block_counts,
+                                       int* block_base, int num_shards,
+                                       int cap, int wire_words, int nblk,
+                                       int num_parts, int sum_words,
+                                       void* stream) {
+  if (bad_grid(num_shards, cap, nblk) || wire_words <= 0 || sum_words < 0 ||
+      sum_words > wire_words) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int width_in = 2 + (wire_words + 3) / 4 + 1;
+  return launch<true>(rows, part, out_rows, out_part, n_out, block_counts,
+                      block_base, num_shards, cap, width_in, 2 + wire_words,
+                      nblk, num_parts, sum_words, 1, wire_words, stream);
 }

@@ -23,6 +23,12 @@ marking invalid rows, which sort last. Output rows past the run count
 are zero with the sentinel partition, so the two impls agree on the
 whole buffer.
 
+:func:`segment_reduce_wire_rows` is the same reduce over rows still in
+the ``a2a.wire=int8`` wire format: each value is dequantized (int8 times
+the row's scale) before the float32 sums, and the output is full width
+(the fused kernel, ``sxt_segment_reduce_wire``, on a CUDA tensor;
+:func:`segment_reduce_wire_plain` on a CPU tensor).
+
 :func:`merge_rows` merges two (partition, key)-sorted buffers, ties
 taking the first: ``pallas`` is :func:`merge` (the merge-path kernel,
 ``csrc/merge_path.cu``, on a CUDA tensor; :func:`merge_plain` on a CPU
@@ -48,8 +54,11 @@ from sparkucx_tpu_torch.ops.aggregate import (KEY_WORDS, combine_rows,
 from sparkucx_tpu_torch.ops.partition import (_gather_rows,
                                               counts_from_sorted,
                                               words_to_key)
+from sparkucx_tpu_torch.shuffle.alltoall import (int8_wire_words,
+                                                 wire_unpack_rows)
 
 KERNEL_NAME = "segment_reduce"
+WIRE_KERNEL_NAME = "segment_reduce_wire"
 MERGE_KERNEL_NAME = "merge_path"
 _THREADS = 256          # rows per block of the kernel (csrc/segment_reduce.cu)
 
@@ -258,6 +267,124 @@ def segment_reduce_rows(rows: torch.Tensor, part: torch.Tensor,
     rows_out, part_out, n = segment_reduce(
         rows, part.to(torch.int32).contiguous(), num_parts, sw,
         float_acc=is_float_dtype(vdt))
+    return rows_out, counts_from_sorted(part_out, num_parts), n
+
+
+# -- the int8-dequant-fused reduce -------------------------------------------
+
+def _check_wire_inputs(rows: torch.Tensor, part: torch.Tensor, width: int,
+                       wire_words: int, sum_words: int) -> None:
+    """The JAX package's two shape checks, then the tensor checks."""
+    if wire_words <= 0:
+        raise ValueError("the fused dequant reduce needs wire_words > 0 "
+                         "(a2a.wire=int8 plans only)")
+    if width != KEY_WORDS + wire_words:
+        raise ValueError(
+            f"the fused dequant reduce needs the wire tier to cover the "
+            f"whole value row (width == 2 + wire_words), got width="
+            f"{width}, wire_words={wire_words}")
+    w_in = KEY_WORDS + int8_wire_words(wire_words)
+    if rows.dim() != 3 or rows.shape[2] != w_in:
+        raise ValueError(
+            f"wire rows must be [P, cap, {w_in}] (2 exact key lanes + "
+            f"packed int8 + scale), got {tuple(rows.shape)}")
+    _check_inputs(rows, part, 0)
+    if not 0 <= sum_words <= wire_words:
+        raise ValueError(f"sum_words={sum_words} out of [0, {wire_words}]")
+
+
+def segment_reduce_wire_plain(rows: torch.Tensor, part: torch.Tensor,
+                              num_parts: int, width: int, wire_words: int,
+                              sum_words: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The plain PyTorch version of the fused kernel: ``wire_unpack_rows``
+    (one rounded product per value), then :func:`segment_reduce_plain`
+    with float sums over the leading ``sum_words`` lanes. Returns
+    (rows_out ``[P, cap, width]``, part_out ``[P, cap]``, n_out ``[P]``)."""
+    _check_wire_inputs(rows, part, width, wire_words, sum_words)
+    full = wire_unpack_rows(rows, width, wire_words)
+    return segment_reduce_plain(full, part, num_parts, sum_words, True)
+
+
+def segment_reduce_wire_kernel(rows: torch.Tensor, part: torch.Tensor,
+                               num_parts: int, width: int, wire_words: int,
+                               sum_words: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Launch the fused dequant segment reduce on the current stream (no
+    host synchronisation). Same contract as
+    :func:`segment_reduce_wire_plain`."""
+    _check_wire_inputs(rows, part, width, wire_words, sum_words)
+    dev = rows.device
+    if dev.type != "cuda" or part.device != dev:
+        raise ValueError(f"segment_reduce_wire_kernel needs CUDA tensors on "
+                         f"one device, got {dev} and {part.device}")
+    if not (rows.is_contiguous() and part.is_contiguous()):
+        raise ValueError("rows and part must be contiguous")
+    P, cap, _ = rows.shape
+    out_rows = torch.empty((P, cap, width), dtype=torch.int32, device=dev)
+    out_part = torch.empty((P, cap), dtype=torch.int32, device=dev)
+    n_out = torch.zeros((P,), dtype=torch.int32, device=dev)
+    if P == 0 or cap == 0:
+        return out_rows, out_part, n_out
+    backend.check_sm90(dev)
+    lib = backend.kernel_library()
+    nblk = -(-cap // _THREADS)
+    block_counts = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    block_base = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sxt_segment_reduce_wire(
+            rows.data_ptr(), part.data_ptr(), out_rows.data_ptr(),
+            out_part.data_ptr(), n_out.data_ptr(), block_counts.data_ptr(),
+            block_base.data_ptr(), P, cap, wire_words, nblk, num_parts,
+            sum_words, stream)
+    backend.check_launch(WIRE_KERNEL_NAME, rc)
+    backend.count_launch(WIRE_KERNEL_NAME)
+    return out_rows, out_part, n_out
+
+
+def segment_reduce_wire(rows: torch.Tensor, part: torch.Tensor,
+                        num_parts: int, width: int, wire_words: int,
+                        sum_words: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel for a CUDA tensor, its plain version for a CPU
+    one."""
+    fn = segment_reduce_wire_kernel if rows.is_cuda \
+        else segment_reduce_wire_plain
+    return fn(rows, part, num_parts, width, wire_words, sum_words)
+
+
+def segment_reduce_wire_rows(rows: torch.Tensor, part: torch.Tensor,
+                             num_parts: int, width: int, wire_words: int,
+                             sum_words: int = 0, *, impl: str = "jnp"
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The segment reduce of an int8 combine read over rows still in the
+    wire format (``[P, cap, 2 + int8_wire_words(wire_words)]`` int32, key
+    lanes exact), to full-width rows ``[P, cap, width]`` with float32
+    sums over the leading ``sum_words`` dequantized lanes (0 = all) and
+    the others carried, dequantized, from a run's first row.
+
+    ``jnp``: ``wire_unpack_rows`` then ``combine_rows`` (any order);
+    ``pallas``: :func:`segment_reduce_wire` (input sorted by (partition,
+    key)). The wire tier only quantizes whole float32 value rows, so
+    ``width == 2 + wire_words``. Returns (rows_out, pcounts ``[P, R]``,
+    n_out ``[P]``) as :func:`segment_reduce_rows`."""
+    if impl not in ("jnp", "pallas"):
+        raise ValueError(f"unknown reduce impl {impl!r}; want jnp|pallas")
+    sw = sum_words if sum_words > 0 else wire_words
+    _check_wire_inputs(rows, part, width, wire_words, sw)
+    if impl == "jnp":
+        full = wire_unpack_rows(rows, width, wire_words)
+        ro, pc, n = combine_rows(full, part, full.shape[1], num_parts,
+                                 wire_words, np.dtype(np.float32), "sum",
+                                 sum_words=sum_words)
+        return ro, pc, _drop_sentinel_group(n, part, num_parts)
+    rows_out, part_out, n = segment_reduce_wire(
+        rows, part.to(torch.int32).contiguous(), num_parts, width,
+        wire_words, sw)
     return rows_out, counts_from_sorted(part_out, num_parts), n
 
 

@@ -15,23 +15,117 @@ from row 0, zero past the valid total — the JAX package's
 
 The chunk-aligned hand-kernel transport ('pallas') does not ride this
 contract; the reader dispatches it (``reader._pallas_step_body``).
+
+The int8 wire format (``a2a.wire=int8``) is defined here too:
+:func:`wire_pack_rows` narrows the float32 value lanes of ``[P, cap, W]``
+rows to int8 plus one float32 scale lane per row, and
+:func:`wire_unpack_rows` expands them back; the key lanes stay exact.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from sparkucx_tpu_torch.config import ALLOWED_IMPLS, validate_impl
 from sparkucx_tpu_torch.meta.segments import exchange_plan
+from sparkucx_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
 # the impls ragged_shuffle dispatches itself
 IMPLS = ("local", "dense", "gather")
 
-__all__ = ["ALLOWED_IMPLS", "IMPLS", "ShuffleResult", "ragged_shuffle",
-           "select_impl", "validate_impl"]
+# distinct noise streams one step may draw from one base seed (forward
+# dispatch, forward combine, spare, backward), as in the JAX package
+WIRE_SEED_STREAMS = 4
+
+__all__ = ["ALLOWED_IMPLS", "IMPLS", "ShuffleResult", "WIRE_SEED_STREAMS",
+           "int8_wire_words", "ragged_shuffle", "select_impl",
+           "validate_impl", "wire_noise_seed", "wire_pack_rows",
+           "wire_uniforms", "wire_unpack_rows"]
+
+
+def wire_noise_seed(seed: int, stream: int) -> int:
+    """Noise stream ``stream`` (< WIRE_SEED_STREAMS) of a base step seed,
+    in the int32 ring: no two int8 moves of one step share a rounding
+    noise realization."""
+    return int((int(seed) * WIRE_SEED_STREAMS + int(stream)) & 0x7FFFFFFF)
+
+
+def int8_wire_words(value_words: int) -> int:
+    """int32 lanes ``value_words`` float32 lanes cost on the int8 wire:
+    the int8 values packed four to a word, plus one float32 scale."""
+    return -(-int(value_words) // 4) + 1
+
+
+def wire_uniforms(shape, seeds: Sequence[int],
+                  device: torch.device) -> torch.Tensor:
+    """The rounding noise of one int8 exchange: ``[P, cap, wire_words]``
+    float32 uniforms in [0, 1), shard ``p`` drawn from its own
+    ``torch.Generator`` seeded with ``seeds[p]``."""
+    P = int(shape[0])
+    if len(seeds) != P:
+        raise ValueError(f"{len(seeds)} seeds for {P} shards")
+    u = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    for p in range(P):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(seeds[p]))
+        torch.rand(tuple(shape[1:]), generator=g, out=u[p])
+    return u
+
+
+def wire_pack_rows(rows: torch.Tensor, wire_words: int,
+                   u: torch.Tensor) -> torch.Tensor:
+    """Narrow the trailing ``wire_words`` float32-bit-pattern lanes of
+    ``[..., W]`` int32 rows to the int8 wire format:
+    ``[..., W - wire_words + int8_wire_words(wire_words)]`` = the head
+    lanes copied exactly, the int8 values padded to a multiple of 4 with
+    zero bytes and viewed as int32 (byte ``j % 4`` of word ``j // 4``,
+    little-endian: the bytes of the JAX package's bitcast), then the
+    row's float32 scale bits. ``u`` is ``[..., wire_words]`` (see
+    :func:`wire_uniforms`)."""
+    lead, width = tuple(rows.shape[:-1]), rows.shape[-1]
+    head = width - wire_words
+    if wire_words <= 0 or head < 0:
+        raise ValueError(f"wire_words={wire_words} out of (0, {width}]")
+    n = 1
+    for d in lead:
+        n *= int(d)
+    vals = rows[..., head:].reshape(n, wire_words).contiguous() \
+        .view(torch.float32)
+    q, scale = quantize_rows(vals, u.reshape(n, wire_words))
+    pad = (-wire_words) % 4
+    if pad:
+        q = torch.cat([q, q.new_zeros((n, pad))], dim=1)
+    qi = q.view(torch.int32)
+    si = scale.view(torch.int32)
+    out = torch.cat([rows[..., :head].reshape(n, head), qi, si], dim=1)
+    return out.reshape(lead + (out.shape[1],))
+
+
+def wire_unpack_rows(rows: torch.Tensor, width: int,
+                     wire_words: int) -> torch.Tensor:
+    """Inverse of :func:`wire_pack_rows` up to the rounding noise:
+    ``[..., W']`` wire rows -> ``[..., width]`` rows whose value lanes
+    hold ``int8 * scale`` as float32 bits. Zero wire rows (transport pad)
+    decode to zero rows."""
+    lead = tuple(rows.shape[:-1])
+    head = width - wire_words
+    qw = -(-wire_words // 4)
+    if rows.shape[-1] != head + qw + 1:
+        raise ValueError(f"wire rows are {rows.shape[-1]} lanes; width "
+                         f"{width} with wire_words={wire_words} packs to "
+                         f"{head + qw + 1}")
+    n = 1
+    for d in lead:
+        n *= int(d)
+    flat = rows.reshape(n, rows.shape[-1])
+    q = flat[:, head:head + qw].contiguous().view(torch.int8)[:, :wire_words]
+    scale = flat[:, head + qw:].contiguous().view(torch.float32)
+    vals = dequantize_rows(q, scale).view(torch.int32)
+    out = torch.cat([flat[:, :head], vals], dim=1)
+    return out.reshape(lead + (width,))
 
 
 @dataclass

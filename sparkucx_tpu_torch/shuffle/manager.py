@@ -21,6 +21,12 @@ _resolve_sink`): the host sink serves numpy partition views; the device
 sink keeps the partitions in device tensors
 (``reader.DeviceShuffleReaderResult``), and folds the waves of an ordered
 or combine waved read on the device (``reader.device_merge_fold``).
+
+Wire tiers (``a2a.wire``, :meth:`ShuffleManager._resolve_wire`): int8
+quantizes float32 value lanes around the exchange, with noise seeded by
+the manager's exchange sequence number (each wave and each overflow retry
+draws its own); lossless compresses the drained blocks of a waved host
+read. The report's ``wire`` names the tier that ran.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from sparkucx_tpu_torch.ops.segmented import resolve_kernel_impl
 from sparkucx_tpu_torch.runtime.node import Node
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              check_bounds, make_plan,
-                                             ragged_layout, wave_count,
-                                             wave_payload_rows,
+                                             plan_takes_seed, ragged_layout,
+                                             wave_count, wave_payload_rows,
                                              wave_step_plan)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                DeviceShuffleReaderResult,
@@ -56,6 +62,7 @@ from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                device_merge_fold,
                                                drain_wave_result, pack_rows,
                                                submit_shuffle, value_words)
+from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_KERNEL_FALLBACK,
@@ -119,9 +126,20 @@ class ExchangeReport:
     # waved ordered/combine device reads: wall of the device merge fold
     # (reader.device_merge_fold, synchronised); 0.0 otherwise
     merge_ms: float = 0.0
+    # the wire tier that RAN ("raw" | "int8" | "lossless"; an int8 ask the
+    # read cannot honour runs raw). int8: ``wire_bytes`` above counts the
+    # narrowed rows and ``wire_dequant_error`` is the sampled relative
+    # RMS error of a round-to-nearest int8 pass over staged values
+    # (a2a.wireErrorSampleRows; 0.0 when off). lossless: the compressed
+    # bytes of the drained waves (0 on a single-shot or device read).
+    wire: str = "raw"
+    wire_dequant_error: float = 0.0
+    lossless_bytes: int = 0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
+    # the manager's exchange sequence number: the int8 noise base
+    _seq: int = field(default=0, repr=False)
 
     def to_dict(self) -> Dict:
         return {f.name: getattr(self, f.name)
@@ -164,6 +182,8 @@ class ShuffleManager:
         self._pack_pool: Optional[ThreadPoolExecutor] = None
         self._warned: set = set()
         self._lock = threading.Lock()
+        # one number per read: the int8 wire's noise base
+        self._exchange_seq = 0
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
@@ -244,6 +264,8 @@ class ShuffleManager:
                              handle.num_partitions, handle.partitioner,
                              device=str(self.node.device))
         with self._lock:
+            self._exchange_seq += 1
+            rep._seq = self._exchange_seq
             self._reports[handle.shuffle_id] = rep
             self._reports.move_to_end(handle.shuffle_id)
             while len(self._reports) > REPORT_CAPACITY:
@@ -339,20 +361,22 @@ class ShuffleManager:
                          bounds=handle.bounds)
         plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
         plan = self._decorated_plan(plan, combine, ordered, has_vals,
-                                    val_tail, val_dtype, combine_sum_words)
-        plan = dataclasses.replace(plan, sink=sink)
+                                    val_tail, val_dtype, combine_sum_words,
+                                    sink=sink)
         rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
 
         width = KEY_WORDS + (value_words(val_tail, val_dtype)
                              if has_vals else 0)
         self._report_volume(rep, plan, nvalid, width,
                             part_rows=table.sizes.sum(axis=0))
+        self._estimate_wire_error(rep, plan, shard_outputs)
         if self.conf.wave_rows > 0 and self._waves_eligible(plan):
             W = wave_count(nvalid, self.conf.wave_rows)
             if W > 1:
                 return self._submit_waved(
                     handle, shard_outputs, nvalid, plan, width, has_vals,
                     val_tail if has_vals else None, val_dtype, rep, W)
+        self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
                                             width, has_vals)
@@ -389,7 +413,7 @@ class ShuffleManager:
             pending = submit_shuffle(
                 plan, rows, nvalid, val_tail if has_vals else None,
                 val_dtype, self.node.device, on_done=on_done,
-                metrics=self.node.metrics)
+                metrics=self.node.metrics, wire_seed=rep._seq)
         except BaseException:
             self.node.pool.put(stage_buf)
             raise
@@ -402,6 +426,7 @@ class ShuffleManager:
                        part_rows: np.ndarray) -> None:
         layout = ragged_layout(plan, nvalid, width)
         rep.impl = layout.impl
+        rep.wire = layout.wire
         rep.kernel = plan.kernel_impl
         rep.payload_bytes = layout.payload_bytes
         rep.wire_bytes = layout.wire_bytes
@@ -412,6 +437,29 @@ class ShuffleManager:
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
+
+    def _estimate_wire_error(self, rep: ExchangeReport, plan: ShufflePlan,
+                             slot_outputs) -> None:
+        """An int8 read's ``wire_dequant_error``: the first
+        ``a2a.wireErrorSampleRows`` staged value rows (shard by shard, in
+        map order) through ``shuffle/wire.estimate_dequant_error``."""
+        limit = self.conf.wire_error_sample_rows
+        if not plan_takes_seed(plan) or limit <= 0:
+            return
+        sample, left = [], limit
+        for outs in slot_outputs:
+            for _keys, vals in outs:
+                if left <= 0:
+                    break
+                if vals is None or not vals.shape[0]:
+                    continue
+                take = min(left, vals.shape[0])
+                sample.append(np.asarray(vals[:take], dtype=np.float32)
+                              .reshape(take, -1))
+                left -= take
+        if sample:
+            rep.wire_dequant_error = round(estimate_dequant_error(
+                np.concatenate(sample), sample_rows=limit), 6)
 
     def _arm_d2h(self, result, rep: ExchangeReport) -> None:
         """Join a result's device-to-host payload pulls onto its report:
@@ -454,11 +502,8 @@ class ShuffleManager:
         if want is None:
             want = "device" if conf == "device" else "host"
         elif want == "device" and conf == "host":
-            with self._lock:
-                first = "conf_pins_host" not in self._warned
-                self._warned.add("conf_pins_host")
-            if first:
-                log.warning("read(sink='device') under read.sink=host: the "
+            self._warn_once("conf_pins_host",
+                            "read(sink='device') under read.sink=host: the "
                             "conf pins the host drain; set read.sink=auto "
                             "(or device) to honour per-read device sinks")
             self._note_sink_fallback(mode, "conf_pins_host")
@@ -522,14 +567,70 @@ class ShuffleManager:
                                   val_dtype, rep, int(nvalid.sum()),
                                   wave_sizes)
 
+    # -- wire tiers -------------------------------------------------------
+    def _warn_once(self, key: str, msg: str, *args) -> None:
+        with self._lock:
+            first = key not in self._warned
+            self._warned.add(key)
+        if first:
+            log.warning(msg, *args)
+
+    def _resolve_wire(self, plan: ShufflePlan, has_vals: bool, val_tail,
+                      val_dtype) -> tuple:
+        """The (wire, wire_words) pair a read runs from the ``a2a.wire``
+        conf: int8 needs float32 value lanes (keys and integer payloads
+        stay exact) and a real exchange between shards; a read without
+        them runs raw, logged with the reason. lossless fits any schema.
+        (The JAX package's strip-sorted path, which also resolves raw,
+        has no counterpart here.)"""
+        wire = self.conf.a2a_wire
+        if wire != "int8":
+            return wire, 0
+        reason = None
+        if plan.num_shards == 1:
+            reason = "one shard: no exchange between shards"
+        elif not has_vals:
+            reason = "keys-only payload (key lanes stay exact)"
+        elif np.dtype(val_dtype) != np.float32:
+            reason = (f"value dtype {np.dtype(val_dtype).str} is not "
+                      f"float32 (integer lanes stay exact)")
+        if reason is not None:
+            log.info("a2a.wire=int8 resolves to raw for this read: %s",
+                     reason)
+            return "raw", 0
+        return "int8", value_words(val_tail, val_dtype)
+
+    def _note_inert_lossless(self, plan: ShufflePlan) -> None:
+        """Warn once that ``a2a.wire=lossless`` does nothing on a read
+        that runs single-shot (the codec runs on the wave drain path):
+        such reads report ``lossless_bytes=0``."""
+        if plan.wire == "lossless":
+            self._warn_once(
+                "lossless_single_shot",
+                "a2a.wire=lossless on a single-shot read: the codec runs on "
+                "the wave drain path only (set spark.shuffle.tpu.a2a."
+                "waveRows); such reads report lossless_bytes=0")
+
     # -- read options -----------------------------------------------------
     def _decorated_plan(self, plan: ShufflePlan, combine: Optional[str],
                         ordered: bool, has_vals: bool, val_tail, val_dtype,
-                        combine_sum_words: int = 0) -> ShufflePlan:
-        """Validate the combine/ordered read options and stamp them on
-        the plan. combine implies ordered output, so it takes precedence;
+                        combine_sum_words: int = 0,
+                        sink: str = "host") -> ShufflePlan:
+        """Validate the combine/ordered read options and stamp them, the
+        sink and the resolved wire tier (:meth:`_resolve_wire`) on the
+        plan. combine implies ordered output, so it takes precedence;
         ``combine_sum_words`` > 0 sums only that many leading value words
         and carries the rest per key."""
+        wire, wire_words = self._resolve_wire(plan, has_vals, val_tail,
+                                              val_dtype)
+        plan = dataclasses.replace(plan, wire=wire, wire_words=wire_words,
+                                   sink=sink)
+        if sink == "device" and wire == "lossless":
+            self._warn_once(
+                "lossless_device",
+                "a2a.wire=lossless with a device sink: the codec is "
+                "host-only (it runs on the drain path) and will not run; "
+                "device-sink reads report lossless_bytes=0")
         if combine:
             check_combinable(val_tail if has_vals else None,
                              val_dtype if has_vals else None, combine)
@@ -559,13 +660,10 @@ class ShuffleManager:
             m = self.node.metrics
             m.inc(C_KERNEL_FALLBACK, 1.0)
             m.inc(labeled(C_KERNEL_FALLBACK, reason=reason), 1.0)
-            with self._lock:
-                first = reason not in self._warned
-                self._warned.add(reason)
-            if first:
-                log.warning("read.mergeImpl=%s resolves to jnp on this "
-                            "read: %s (the report's 'kernel' field names "
-                            "what ran)", self.conf.read_merge_impl, reason)
+            self._warn_once(reason, "read.mergeImpl=%s resolves to jnp on "
+                            "this read: %s (the report's 'kernel' field "
+                            "names what ran)", self.conf.read_merge_impl,
+                            reason)
         return dataclasses.replace(plan, kernel_impl=impl)
 
     # -- capacity hints ---------------------------------------------------
@@ -748,6 +846,7 @@ class PendingWaveShuffle:
         self._wave_rows = outer_plan.wave_rows
         self._result = None
         self._dead = False
+        self._lossless_bytes = 0      # compressed bytes of drained waves
 
     def done(self) -> bool:
         return self._result is not None or self._dead
@@ -797,7 +896,7 @@ class PendingWaveShuffle:
                 if not rep._t_dispatched:
                     rep._t_dispatched = t1
                 try:
-                    pending = self._dispatch_wave(shard_rows, wnv, buf)
+                    pending = self._dispatch_wave(shard_rows, wnv, buf, i)
                 except BaseException:
                     # no pending owns the pinned block yet
                     mgr.node.pool.put(buf)
@@ -859,9 +958,13 @@ class PendingWaveShuffle:
                        dispatch_total)
         return res
 
-    def _dispatch_wave(self, shard_rows, wnv: np.ndarray, buf):
+    def _dispatch_wave(self, shard_rows, wnv: np.ndarray, buf,
+                       wave_i: int):
         mgr = self._mgr
         pool = mgr.node.pool
+        # int8 noise base of this wave: the exchange sequence number
+        # spaces reads, the wave index the waves of one read
+        wseed = (self._rep._seq * 100_003 + wave_i) & 0x7FFFFFFF
 
         def on_done(result, _b=buf):
             # the pool hands this block to a later wave's pack
@@ -870,7 +973,7 @@ class PendingWaveShuffle:
         return submit_shuffle(self._wave_plan, shard_rows, wnv,
                               self._val_tail, self._val_dtype,
                               mgr.node.device, on_done=on_done,
-                              metrics=mgr.node.metrics)
+                              metrics=mgr.node.metrics, wire_seed=wseed)
 
     def _drain_oldest(self, inflight, wave_results, timeline,
                       t_read0: float) -> int:
@@ -884,6 +987,12 @@ class PendingWaveShuffle:
         self._mgr._arm_d2h(res, self._rep)
         if self._outer_plan.sink != "device":
             drain_wave_result(res)
+            if self._wave_plan.wire == "lossless":
+                # the lossless tier: the drained wave waits on the host
+                # for the composed result, so it waits compressed
+                ex = self._mgr._executor() if self._mgr.node.num_shards > 1 \
+                    else None
+                self._lossless_bytes += res.compress_host_blocks(ex)[1]
         entry = timeline[i]
         entry["forced_ms"] = round((t0 - t_read0) * 1e3, 3)
         entry["wait_ms"] = round(wait_ms, 3)
@@ -912,6 +1021,7 @@ class PendingWaveShuffle:
         # the waves behind it)
         mgr._set_wave_wire(rep, self._wave_plan, self._wave_sizes,
                            self._width)
+        rep.lossless_bytes = int(self._lossless_bytes)
         rep.completed = True
         metrics = mgr.node.metrics
         metrics.inc("shuffle.rows", float(self._local_rows))

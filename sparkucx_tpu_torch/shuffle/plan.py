@@ -30,6 +30,7 @@ from sparkucx_tpu_torch.backend import resolve_a2a_impl
 from sparkucx_tpu_torch.config import (CAP_BUCKET_GROWTH_RANGE,
                                        PARTITIONERS, ShuffleConf)
 from sparkucx_tpu_torch.ops.ragged_a2a import chunk_rows_for
+from sparkucx_tpu_torch.shuffle.alltoall import int8_wire_words
 
 # hard ceiling on a bucketed capacity (int32 plan arithmetic)
 CAP_BUCKET_CEILING = (1 << 31) - 8
@@ -80,6 +81,13 @@ class ShufflePlan:
     # (wave_step_plan) keeps both at their defaults.
     wave_rows: int = 0
     num_waves: int = 1
+    # wire tier (a2a.wire), RESOLVED by the manager: 'int8' quantizes the
+    # trailing ``wire_words`` float32 value lanes around the exchange
+    # (keys stay exact), 'lossless' compresses drained host blocks of a
+    # waved read, 'raw' moves the rows as they are
+    wire: str = "raw"
+    # float32 value lanes the int8 wire narrows; 0 on the other tiers
+    wire_words: int = 0
 
     def grown(self) -> "ShufflePlan":
         """Next plan after an overflow: double the receive capacity."""
@@ -152,10 +160,21 @@ def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
         combine_compaction=conf.combine_compaction)
 
 
+def plan_takes_seed(plan: ShufflePlan) -> bool:
+    """Whether this plan's step draws rounding noise: the int8 wire tier
+    is active. Every dispatch site asks this one predicate."""
+    return plan.wire == "int8" and plan.wire_words > 0
+
+
 def wire_row_words(plan: ShufflePlan, width: int) -> int:
-    """int32 lanes one row costs on the wire — ``width`` on the raw wire,
-    the only wire tier this port has."""
-    return int(width)
+    """int32 lanes one row costs on the wire: ``width`` on the raw and
+    lossless tiers; on int8 the exact head lanes, the packed int8 value
+    lanes and the scale lane (``alltoall.int8_wire_words``). The
+    accounting, the segment move's chunk and the step's transport width
+    all read this."""
+    if not plan_takes_seed(plan):
+        return int(width)
+    return int(width) - plan.wire_words + int8_wire_words(plan.wire_words)
 
 
 @dataclass(frozen=True)
@@ -172,6 +191,12 @@ class RaggedLayout:
     payload_bytes: int
     wire_bytes: int
     pad_ratio: float
+    # the wire tier; ``wire_row_bytes`` is one row's cost on it (narrower
+    # than width*4 on int8, so an int8 pad_ratio can sit below 1.0) and
+    # ``scale_bytes`` the int8 scale lanes inside ``wire_bytes``
+    wire: str = "raw"
+    wire_row_bytes: int = 0
+    scale_bytes: int = 0
 
 
 def ragged_layout(plan: ShufflePlan, shard_rows,
@@ -180,7 +205,8 @@ def ragged_layout(plan: ShufflePlan, shard_rows,
     port runs: local moves the payload, dense ships P*P segments padded to
     cap_out, gather replicates every cap_in send buffer to all P shards,
     and the chunk-aligned segment move ships at most the payload plus
-    (chunk - 1) pad rows per (sender, peer) pair."""
+    (chunk - 1) pad rows per (sender, peer) pair, each row at its wire
+    cost (:func:`wire_row_words`)."""
     payload = int(np.sum(np.asarray(shard_rows, dtype=np.int64)))
     P = plan.num_shards
     row_w = wire_row_words(plan, width)
@@ -197,10 +223,12 @@ def ragged_layout(plan: ShufflePlan, shard_rows,
     payload_bytes = payload * width * 4
     wire_bytes = wire * row_w * 4
     pad = round(wire_bytes / payload_bytes, 6) if payload_bytes else 0.0
+    scale = wire * 4 if plan_takes_seed(plan) else 0
     return RaggedLayout(impl=plan.impl, num_shards=P, width=width,
                         payload_rows=payload, wire_rows=wire,
                         payload_bytes=payload_bytes, wire_bytes=wire_bytes,
-                        pad_ratio=pad)
+                        pad_ratio=pad, wire=plan.wire,
+                        wire_row_bytes=row_w * 4, scale_bytes=scale)
 
 
 def wave_payload_rows(shard_rows: np.ndarray, wave_rows: int,
@@ -231,7 +259,8 @@ def wave_step_plan(plan: ShufflePlan,
     """The plan ONE wave of a waved read dispatches: ``cap_in`` is the
     (bucketed) wave size, ``cap_out`` the wave size times
     capacityFactor, both independent of the read's total rows and wave
-    count; the wave fields go back to their defaults."""
+    count; the wave fields go back to their defaults and every other
+    field (the wire tier included) is kept."""
     conf = conf or ShuffleConf(use_env=False)
     if plan.wave_rows <= 0:
         raise ValueError("wave_step_plan needs a plan with wave_rows > 0")

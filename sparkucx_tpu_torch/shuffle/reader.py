@@ -26,6 +26,15 @@ agree.
 Overflow: the step flags a capacity overflow on any shard; the pending
 handle doubles ``cap_out`` and re-runs (bounded by ``plan.max_retries``).
 
+Wire tiers (``plan.wire``): on ``int8`` the step quantizes the float32
+value lanes of the send buffer (``alltoall.wire_pack_rows``, rounding
+noise from per-shard seeds, :func:`wire_shard_seeds`), moves the narrower
+wire rows and dequantizes on receive — or, for a multi-shard combine read
+under the segment-reduce kernel, keysorts the wire rows and hands them to
+the fused dequant reduce (``ops/segmented.segment_reduce_wire_rows``).
+``lossless`` leaves the step alone: a waved host read compresses its
+drained blocks (:meth:`LazyShuffleReaderResult.compress_host_blocks`).
+
 Sinks: a host read serves :class:`LazyShuffleReaderResult` (numpy views,
 one D2H on first touch); a device read (``plan.sink == "device"``) serves
 :class:`DeviceShuffleReaderResult`, whose partitions stay in device
@@ -41,7 +50,7 @@ segment reduces) over the wave buffers.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,10 +67,17 @@ from sparkucx_tpu_torch.ops.ragged_a2a import (align_rows, chunk_rows_for,
                                                ragged_a2a)
 from sparkucx_tpu_torch.ops.segmented import (merge_reduce_rows, merge_rows,
                                               resolve_kernel_impl,
-                                              segment_reduce_rows)
-from sparkucx_tpu_torch.shuffle.alltoall import ragged_shuffle
+                                              segment_reduce_rows,
+                                              segment_reduce_wire_rows)
+from sparkucx_tpu_torch.shuffle.alltoall import (ShuffleResult,
+                                                 ragged_shuffle,
+                                                 wire_pack_rows,
+                                                 wire_uniforms,
+                                                 wire_unpack_rows)
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
-                                             wire_row_words)
+                                             plan_takes_seed, wire_row_words)
+from sparkucx_tpu_torch.shuffle.wire import (LosslessBlock, decode_block,
+                                             encode_block)
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import C_D2H
 
@@ -103,13 +119,74 @@ def _combine(plan: ShufflePlan, rows: torch.Tensor, part: torch.Tensor,
                         compaction=plan.combine_compaction)
 
 
+def wire_shard_seeds(plan: ShufflePlan,
+                     base_seed: int) -> Optional[List[int]]:
+    """The per-shard noise seeds of one int8 exchange, ``(base * P +
+    shard) & 0x7FFFFFFF`` for every shard (the JAX package's
+    ``seeded_nvalid`` arithmetic, which carries them in the staged count
+    lane; here they travel as a host list beside the counts). None when
+    the plan draws no noise."""
+    if not plan_takes_seed(plan):
+        return None
+    P = plan.num_shards
+    return [int((int(base_seed) * P + p) & 0x7FFFFFFF) for p in range(P)]
+
+
+def _wire_pack(plan: ShufflePlan, send: torch.Tensor,
+               seeds: Optional[Sequence[int]]) -> torch.Tensor:
+    """The int8 send buffer: the value lanes of ``send`` ``[P, cap, W]``
+    quantized with fresh uniforms drawn from ``seeds`` (freed once
+    packed)."""
+    if seeds is None:
+        raise ValueError("an int8 wire step needs per-shard noise seeds")
+    P, cap, _ = send.shape
+    u = wire_uniforms((P, cap, plan.wire_words), seeds, send.device)
+    return wire_pack_rows(send, plan.wire_words, u)
+
+
+def _wire_ragged_shuffle(plan: ShufflePlan, send: torch.Tensor,
+                         sizes: torch.Tensor, seeds, unpack: bool = True):
+    """One dense-contract exchange on the plan's wire tier: int8 packs the
+    value lanes before ``ragged_shuffle`` and, with ``unpack``,
+    dequantizes after it (without, the caller gets the wire rows — the
+    fused reduce's input); every other tier is ``ragged_shuffle``
+    itself."""
+    if not plan_takes_seed(plan):
+        return ragged_shuffle(send, sizes, out_capacity=plan.cap_out,
+                              impl=plan.impl)
+    width = send.shape[2]
+    r = ragged_shuffle(_wire_pack(plan, send, seeds), sizes,
+                       out_capacity=plan.cap_out, impl=plan.impl)
+    if not unpack:
+        return r
+    return ShuffleResult(wire_unpack_rows(r.data, width, plan.wire_words),
+                         r.recv_sizes, r.total, r.overflow)
+
+
+def _fused_wire_reduce(plan: ShufflePlan, width: int) -> bool:
+    """int8 combine under the segment-reduce kernel with the wire covering
+    the whole value row: the received rows stay in the wire format and
+    the fused dequant reduce consumes them (the JAX package's ``fused``
+    condition; the dense step also needs more than one shard)."""
+    return bool(plan.combine and plan_takes_seed(plan)
+                and plan.kernel_impl == "pallas"
+                and width == KEY_WORDS + plan.wire_words)
+
+
 def _reduce_side_combine(plan: ShufflePlan, rows: torch.Tensor,
-                         part: torch.Tensor, num_valid):
+                         part: torch.Tensor, num_valid, width: int):
     """Merge the received rows per (partition, key): one keysort, then
-    the segment-reduce kernel (``kernel_impl == 'pallas'``), or the
-    torch-op ``combine_rows``. Returns (rows_out, pcounts ``[P, R]``)."""
+    the segment-reduce kernel (``kernel_impl == 'pallas'``; the fused
+    dequant reduce when ``rows`` are int8 wire rows narrower than the
+    logical ``width``), or the torch-op ``combine_rows``. Returns
+    (rows_out, pcounts ``[P, R]``)."""
     R = plan.num_partitions
-    if plan.kernel_impl == "pallas":
+    if rows.shape[2] != width:
+        spart, swire, _ = keysort_rows(rows, part, num_valid, R)
+        rows_out, pcounts, _ = segment_reduce_wire_rows(
+            swire, spart, R, width, plan.wire_words,
+            sum_words=plan.combine_sum_words, impl="pallas")
+    elif plan.kernel_impl == "pallas":
         spart, srows, _ = keysort_rows(rows, part, num_valid, R)
         rows_out, pcounts, _ = segment_reduce_rows(
             srows, spart, R, plan.combine_words,
@@ -134,11 +211,13 @@ def _dev_counts(rcounts: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
 
 
 def step_body(plan: ShufflePlan):
-    """The exchange step: ``step(payload [P, cap_in, W], nvalid [P])`` ->
-    (rows ``[P, cap, W]``, seg, total ``[P]`` delivered rows, overflow
-    0-d bool). seg is ``[P, R]`` per-sender partition counts on a plain
-    read and each shard's own ``[P, 1, R]`` counts on a combine or
-    ordered read.
+    """The exchange step: ``step(payload [P, cap_in, W], nvalid [P],
+    seeds=None)`` -> (rows ``[P, cap, W]``, seg, total ``[P]`` delivered
+    rows, overflow 0-d bool). seg is ``[P, R]`` per-sender partition
+    counts on a plain read and each shard's own ``[P, 1, R]`` counts on a
+    combine or ordered read. ``seeds`` are the per-shard noise seeds of
+    an int8 plan (:func:`wire_shard_seeds`); the rows come back full
+    width on every tier.
 
     PARTITION-MAJOR: the send side sorts by global reduce-partition id;
     the blocked map is monotone, so this groups rows by destination shard
@@ -150,8 +229,9 @@ def step_body(plan: ShufflePlan):
     bounds = _device_bounds(R, Pn)
     part_fn = _make_part_fn(plan, R)
 
-    def step(payload: torch.Tensor, nvalid: torch.Tensor):
+    def step(payload: torch.Tensor, nvalid: torch.Tensor, seeds=None):
         part = part_fn(payload)
+        width = payload.shape[2]
         if plan.combine:
             # map-side combine: one row per distinct (partition, key)
             # enters the exchange; its (partition, key) order keeps the
@@ -164,8 +244,9 @@ def step_body(plan: ShufflePlan):
         else:
             send, rcounts = destination_sort(payload, part, nvalid, R,
                                              method=plan.sort_impl)
-        r = ragged_shuffle(send, _dev_counts(rcounts, bounds),
-                           out_capacity=plan.cap_out, impl=plan.impl)
+        fused = Pn > 1 and _fused_wire_reduce(plan, width)
+        r = _wire_ragged_shuffle(plan, send, _dev_counts(rcounts, bounds),
+                                 seeds, unpack=not fused)
         if plan.combine or plan.ordered:
             if Pn == 1:
                 # one sender: the send side already holds one key-sorted
@@ -174,8 +255,8 @@ def step_body(plan: ShufflePlan):
                     r.overflow
             out_part = part_fn(r.data)
             if plan.combine:
-                rows_out, pcounts = _reduce_side_combine(plan, r.data,
-                                                         out_part, r.total)
+                rows_out, pcounts = _reduce_side_combine(
+                    plan, r.data, out_part, r.total, width)
                 total = pcounts.sum(dim=1, dtype=torch.int32)
             else:
                 _, rows_out, pcounts = keysort_rows(r.data, out_part,
@@ -204,19 +285,26 @@ def _pallas_step_body(plan: ShufflePlan):
     R = plan.num_partitions
     Pn = plan.num_shards
 
-    def step(payload: torch.Tensor, nvalid: torch.Tensor):
+    def step(payload: torch.Tensor, nvalid: torch.Tensor, seeds=None):
+        width = payload.shape[2]
         if not (plan.combine or plan.ordered):
             srows, rcounts, dev_counts, cap_eff = aligned_send(
                 plan, payload, nvalid)
+            if plan_takes_seed(plan):
+                srows = _wire_pack(plan, srows, seeds)
             out, recv_real, _, total_al = ragged_a2a(
                 srows, dev_counts, out_capacity=cap_eff)
+            if plan_takes_seed(plan):
+                out = wire_unpack_rows(out, width, plan.wire_words)
             total = recv_real.sum(dim=1, dtype=torch.int32)
             return out, rcounts, total, (total_al < 0).any()
-        out, pkey, ovf = densified_receive(plan, payload, nvalid)
+        out, pkey, ovf = densified_receive(
+            plan, payload, nvalid, seeds,
+            unpack=not _fused_wire_reduce(plan, width))
         cap_eff = out.shape[1]
         if plan.combine:
             rows_out, pcounts = _reduce_side_combine(plan, out, pkey,
-                                                     cap_eff)
+                                                     cap_eff, width)
         else:
             _, rows_out, pcounts = keysort_rows(out, pkey, cap_eff, R)
         # the total from pcounts: sentinel groups never count
@@ -227,16 +315,18 @@ def _pallas_step_body(plan: ShufflePlan):
 
 
 def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
-                      nvalid: torch.Tensor):
+                      nvalid: torch.Tensor, seeds=None, unpack: bool = True):
     """The segment move of a combine or ordered read, up to the receive
     side's grouping: map-side combine (combine reads), the aligned sort,
-    the move, then every row outside a segment's real prefix gets the
-    sentinel partition R. Returns (received rows ``[P, cap_eff, W]``,
-    their partitions ``[P, cap_eff]`` with R on pad rows, overflow 0-d
-    bool)."""
+    on the int8 wire the pack, the move (and, with ``unpack``, the
+    dequantize), then every row outside a segment's real prefix gets the
+    sentinel partition R. Returns (received rows ``[P, cap_eff, W]`` —
+    wire rows when an int8 plan is not unpacked —, their partitions
+    ``[P, cap_eff]`` with R on pad rows, overflow 0-d bool)."""
     R = plan.num_partitions
     Pn = plan.num_shards
     part_fn = _make_part_fn(plan, R)
+    width = payload.shape[2]
     if plan.combine:
         # map-side combine first: one row per distinct (partition, key)
         # enters the move; the aligned sort re-lays the combined rows out
@@ -244,8 +334,14 @@ def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
         srows, _, dev_counts, cap_eff = aligned_send(plan, comb, n_c)
     else:
         srows, _, dev_counts, cap_eff = aligned_send(plan, payload, nvalid)
+    if plan_takes_seed(plan):
+        # the pack follows the chunk-aligned sort: pad and dummy rows
+        # quantize to zero values with scale 1.0
+        srows = _wire_pack(plan, srows, seeds)
     out, recv_real, recv_off, total_al = ragged_a2a(
         srows, dev_counts, out_capacity=cap_eff)
+    if plan_takes_seed(plan) and unpack:
+        out = wire_unpack_rows(out, width, plan.wire_words)
     # row k belongs to the last segment whose aligned start is <= k (an
     # empty segment shares its start with the next), and is real iff it
     # lies inside that segment's real prefix
@@ -256,6 +352,7 @@ def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
         0, Pn - 1)
     valid = (idx - torch.gather(recv_off, 1, seg_i)) \
         < torch.gather(recv_real, 1, seg_i)
+    # (the partitioner reads only the key lanes, exact in wire rows too)
     pkey = torch.where(valid, part_fn(out),
                        torch.full_like(idx, R))
     return out, pkey, (total_al < 0).any()
@@ -575,7 +672,48 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         return out
 
     def _shard_rows(self, shard: int) -> np.ndarray:
-        return self._materialize()[shard]
+        shards = self._materialize()
+        got = shards[shard]
+        if isinstance(got, LosslessBlock):
+            with self._lock:
+                got = shards[shard]
+                if isinstance(got, LosslessBlock):
+                    # a2a.wire=lossless parked this shard compressed; the
+                    # first touch restores the exact bytes and keeps them
+                    got = decode_block(got)
+                    shards[shard] = got
+        return got
+
+    def compress_host_blocks(self, executor=None) -> Tuple[int, int]:
+        """``a2a.wire=lossless``: re-encode every host-resident shard
+        block as byte planes + deflate (``shuffle/wire.encode_block``),
+        fanned over ``executor`` when given; a block decodes on its first
+        touch (:meth:`_shard_rows`). Returns (raw bytes, compressed
+        bytes) of what was encoded, (0, 0) when nothing is on the host
+        yet."""
+        with self._lock:
+            shards = self._shards
+            todo = [] if shards is None else [
+                (p, a) for p, a in enumerate(shards)
+                if isinstance(a, np.ndarray)]
+        if not todo:
+            return 0, 0
+
+        def enc(item):
+            p, a = item
+            return p, encode_block(a)
+
+        done = list(executor.map(enc, todo)) if executor is not None \
+            else [enc(t) for t in todo]
+        raw = comp = 0
+        with self._lock:
+            for p, blk in done:
+                # a view a consumer already holds keeps its base alive;
+                # the block restores the same bytes on the next touch
+                shards[p] = blk
+                raw += blk.raw_bytes
+                comp += blk.nbytes
+        return raw, comp
 
 
 def merge_sorted_rows(blocks) -> np.ndarray:
@@ -918,8 +1056,12 @@ class PendingShuffle:
 
     def __init__(self, plan: ShufflePlan, shard_rows: np.ndarray,
                  shard_nvalid: np.ndarray, val_shape, val_dtype,
-                 device: torch.device, on_done=None, metrics=None):
+                 device: torch.device, on_done=None, metrics=None,
+                 wire_seed: int = 0):
         self._plan = plan
+        # int8 noise base: attempt k of the overflow retry loop draws from
+        # wire_seed + k, so a re-run gets fresh rounding noise
+        self._wire_seed = int(wire_seed)
         self._val_shape = val_shape
         self._val_dtype = val_dtype
         self._device = device
@@ -941,7 +1083,9 @@ class PendingShuffle:
         self._dispatch()
 
     def _dispatch(self) -> None:
-        self._out = step_body(self._plan)(self._rows, self._nvalid)
+        seeds = wire_shard_seeds(self._plan,
+                                 self._wire_seed + self._attempt)
+        self._out = step_body(self._plan)(self._rows, self._nvalid, seeds)
         self._event = None
         if self._device.type == "cuda":
             # the overflow flag travels to pinned memory behind the step,
@@ -1030,20 +1174,24 @@ def submit_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,
                    shard_nvalid: np.ndarray,
                    val_shape: Optional[Tuple[int, ...]], val_dtype,
                    device: torch.device, on_done=None,
-                   metrics=None) -> PendingShuffle:
+                   metrics=None, wire_seed: int = 0) -> PendingShuffle:
     """Dispatch the exchange without blocking.
 
     shard_rows   — [P, cap_in, width] fused int32 rows per shard
-    shard_nvalid — [P] valid row counts"""
+    shard_nvalid — [P] valid row counts
+    wire_seed    — int8 noise base (the manager passes its exchange
+                   sequence number)"""
     return PendingShuffle(plan, shard_rows, shard_nvalid, val_shape,
                           val_dtype, device, on_done=on_done,
-                          metrics=metrics)
+                          metrics=metrics, wire_seed=wire_seed)
 
 
 def read_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,
                  shard_nvalid: np.ndarray,
                  val_shape: Optional[Tuple[int, ...]], val_dtype,
-                 device: torch.device) -> ShuffleReaderResult:
+                 device: torch.device,
+                 wire_seed: int = 0) -> ShuffleReaderResult:
     """Blocking exchange with overflow retry (submit + result)."""
     return submit_shuffle(plan, shard_rows, shard_nvalid, val_shape,
-                          val_dtype, device).result()
+                          val_dtype, device,
+                          wire_seed=wire_seed).result()

@@ -38,7 +38,14 @@ def test_imports_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 16
+    assert int(r.stdout.strip()) >= 22
+
+
+def test_scan_covers_the_wire_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"ops/quant.py", "shuffle/wire.py", "shuffle/alltoall.py",
+            "ops/segmented.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -18,6 +18,10 @@ from sparkucx_tpu_torch import backend, connect
 from sparkucx_tpu_torch.ops import ragged_a2a as ra
 from sparkucx_tpu_torch.shuffle.writer import hash32_np
 from torch_merge_cases import MERGE_PATTERNS, merge_case
+from torch_wire_cases import PATTERNS as WIRE_PATTERNS
+from torch_wire_cases import (QUANT_KINDS, quant_values, runs, sum_tolerance,
+                              wire_case)
+from torch_wire_cases import R as WIRE_R
 
 pytestmark = pytest.mark.cuda
 
@@ -396,3 +400,169 @@ def test_waved_device_fold_on_card(card, mode):
         np.add.at(want, inv, v[part == r].astype(np.int64))
         assert np.array_equal(gk, uk), f"partition {r}"
         assert np.array_equal(gv, want.astype(np.int32)), f"partition {r}"
+
+
+# -- int8 wire: quantize and the fused dequant segment reduce ----------------
+
+
+@pytest.mark.parametrize("n", [1, 389, 4099])
+@pytest.mark.parametrize("w", [1, 3, 4, 128, 1000])
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+def test_quantize_kernel_bytes_equal_plain(card, kind, w, n):
+    """The kernel's q and scale bytes equal the plain version's on the
+    same uniforms: rows off the 8-rows-per-block grid, zero rows, widths
+    below and above one warp, magnitudes from 1e-30 to 1e30, values
+    rounding onto 127."""
+    from sparkucx_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(n * 7 + w)
+    x = torch.from_numpy(quant_values(rng, n, w, kind)).to(card)
+    u = torch.from_numpy(rng.random((n, w), dtype=np.float32)).to(card)
+    before = backend.launch_counts().get(tq.KERNEL_NAME, 0)
+    kq, ks = tq.quantize_kernel(x, u)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[tq.KERNEL_NAME] == before + 1
+    pq, ps = tq.quantize_plain(x, u)
+    assert torch.equal(kq, pq)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(tq.quantize(x, u)[0], kq)
+
+
+def test_quantize_kernel_refuses_bad_input(card):
+    from sparkucx_tpu_torch.ops import quant as tq
+    x = torch.randn(64, 8, device=card)
+    u = torch.rand(64, 8, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.quantize_kernel(x.cpu(), u.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.quantize_kernel(x.t(), u.t())
+    with pytest.raises(ValueError, match="float32"):
+        tq.quantize_kernel(x.half(), u)
+    with pytest.raises(ValueError, match="shape"):
+        tq.quantize_kernel(x, u[:5])
+
+
+def _wire_kernel_vs_plain(card, rows, part, vals, ww, sum_words):
+    from sparkucx_tpu_torch.ops import segmented as sg
+    width = 2 + ww
+    sw = sum_words or ww
+    r = torch.from_numpy(rows).to(card)
+    p = torch.from_numpy(part).to(card)
+    before = backend.launch_counts().get(sg.WIRE_KERNEL_NAME, 0)
+    kr, kp, kn = sg.segment_reduce_wire_kernel(r, p, WIRE_R, width, ww, sw)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[sg.WIRE_KERNEL_NAME] == before + 1
+    pr, pp, pn = sg.segment_reduce_wire_plain(r.cpu(), p.cpu(), WIRE_R,
+                                              width, ww, sw)
+    kr, kp, kn = kr.cpu(), kp.cpu(), kn.cpu()
+    assert torch.equal(kn, pn) and torch.equal(kp, pp)
+    exact = [0, 1] + list(range(2 + sw, width))
+    assert torch.equal(kr[..., exact], pr[..., exact])
+    got = kr[..., 2:2 + sw].contiguous().view(torch.float32).double().numpy()
+    want = pr[..., 2:2 + sw].contiguous().view(torch.float32).double().numpy()
+    assert (np.abs(got - want) <= sum_tolerance(rows, part, vals, sw)).all()
+    # carried lanes: the run's first row, dequantized
+    for s, (run, valid) in enumerate(runs(rows, part)):
+        firsts = np.flatnonzero(valid & np.r_[True, run[1:] != run[:-1]])
+        assert np.array_equal(
+            kr[s, :firsts.size, 2 + sw:].contiguous().view(torch.float32)
+            .numpy(), vals[s, firsts, sw:])
+
+
+@pytest.mark.parametrize("P", [1, 8])
+@pytest.mark.parametrize("ww", [1, 4, 7, 128])
+@pytest.mark.parametrize("pattern", WIRE_PATTERNS)
+@pytest.mark.parametrize("split", ["all", "carry"])
+def test_wire_reduce_kernel_matches_plain(card, split, pattern, ww, P):
+    sum_words = 0 if split == "all" else max(1, ww // 2) if ww > 1 else 1
+    rows, part, vals = wire_case(ww * 10 + P, P, 700, ww, sum_words,
+                                 patterns=[pattern])
+    _wire_kernel_vs_plain(card, rows, part, vals, ww, sum_words)
+
+
+def test_wire_reduce_kernel_5000_row_run(card):
+    rows, part, vals = wire_case(5, 2, 6000, 6, 0, patterns=["huge"])
+    _wire_kernel_vs_plain(card, rows, part, vals, 6, 0)
+
+
+def test_wire_reduce_kernel_refuses_bad_input(card):
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rows = torch.zeros((2, 300, 2 + 2 + 1), dtype=torch.int32, device=card)
+    part = torch.full((2, 300), 5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        sg.segment_reduce_wire_kernel(rows.cpu(), part.cpu(), 5, 7, 5, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.segment_reduce_wire_kernel(rows.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), part, 5, 7, 5, 5)
+    with pytest.raises(ValueError, match="wire rows must be"):
+        sg.segment_reduce_wire_kernel(rows[..., :4].contiguous(), part, 5,
+                                      7, 5, 5)
+    with pytest.raises(ValueError, match="whole value row"):
+        sg.segment_reduce_wire_kernel(rows, part, 5, 8, 5, 5)
+
+
+@pytest.mark.parametrize("impl,mode", [("pallas", "plain"),
+                                       ("pallas", "combine"),
+                                       ("dense", "combine"),
+                                       ("dense", "ordered")])
+def test_int8_reads_on_card(card, impl, mode):
+    """a2a.wire=int8 through connect() on the card: the quantize kernel
+    runs once per exchange and a combine runs the fused reduce; keys are
+    exact and values within one step (combine: of each shard's
+    partial)."""
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops import segmented as sg
+    R, M = 24, 8
+    rng = np.random.default_rng(23)
+    space = 2000 if mode == "combine" else 1 << 40
+    keys = [rng.integers(-space, space, 3000).astype(np.int64) * 977
+            for _ in range(M)]
+    vals = [rng.standard_normal((3000, 16)).astype(np.float32)
+            for _ in range(M)]
+    k, v = np.concatenate(keys), np.concatenate(vals)
+    conf = {"spark.shuffle.tpu.a2a.impl": impl,
+            "spark.shuffle.tpu.a2a.wire": "int8"}
+    with connect(conf, use_env=False) as svc:
+        h = svc.register_shuffle(0, M, R)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        backend.reset_launch_counts()
+        kw = {"combine": "sum"} if mode == "combine" else (
+            {"ordered": True} if mode == "ordered" else {})
+        res = svc.read(h, **kw)
+        parts = [res.partition(r) for r in range(R)]
+        rep = svc.report(0)
+        counts = backend.launch_counts()
+    assert rep.wire == "int8" and rep.wire_dequant_error > 0
+    assert counts.get(tq.KERNEL_NAME, 0) == rep.retries + 1
+    assert counts.get(sg.WIRE_KERNEL_NAME, 0) == (
+        rep.retries + 1 if mode == "combine" else 0)
+    part = hash32_np(k) % R
+    if mode != "combine":
+        for r in range(R):
+            gk, gv = parts[r]
+            sel = np.flatnonzero(part == r)
+            o = np.argsort(k[sel], kind="stable")
+            og = np.argsort(gk, kind="stable")
+            assert np.array_equal(gk[og], k[sel][o])
+            want = v[sel][o]
+            step = np.abs(want).max(axis=1, keepdims=True) / 127.0
+            assert (np.abs(gv[og] - want) <= step * 1.000001).all()
+        return
+    shard = np.concatenate([np.full(3000, m % 8) for m in range(M)])
+    for r in range(R):
+        gk, gv = parts[r]
+        sel = part == r
+        uk = np.unique(k[sel])
+        assert np.array_equal(gk, uk), f"partition {r}"
+        tot = np.zeros((uk.size, 16))
+        tol = np.zeros((uk.size, 16))
+        for s in range(8):
+            ss = sel & (shard == s)
+            idx = np.searchsorted(uk, k[ss])
+            ps = np.zeros((uk.size, 16))
+            np.add.at(ps, idx, v[ss].astype(np.float64))
+            tot += ps
+            tol += np.abs(ps).max(axis=1, keepdims=True) / 127 * 1.00001 \
+                + 2.0 ** -20 * np.abs(ps)
+        assert (np.abs(gv - tot) <= tol).all(), f"partition {r}"
+
