@@ -111,20 +111,52 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 18. quant_at_main_shapes, wire_reduce_at_main_shapes — the quantize and
             fused-reduce inputs of one more int8_combine read (captured):
             kernel, plain version, library yardstick and byte bound.
+19. flash_kernels — the three flash-attention kernels (forward, dq, dk/dv)
+            against their plain versions on the card: T in {1, 33, 97,
+            130, 256, 1000} x D in {8, 32, 64, 128} x causal / not x BH
+            in {1, 6}, the backward kernels on the plain forward's lse and
+            delta. O within 1e-4 max|O| + 1e-6, lse within 1e-5 (1 +
+            |lse|), dq / dk / dv within 1e-3 max|g| + 1e-6.
+20. ulysses_attention — one attention layer of LLaMA-2-7B-32K
+            (togethercomputer/LLaMA-2-7B-32K: 32 heads of 128, full
+            multi-head K/V) over its 32,768-token context, causal, batch
+            1: 32,768 rows (key = position, 12,288 float32 lanes of fused
+            q|k|v, standard normal from the seed), 64 maps with positions
+            permuted across them, range partitions of 4,096 positions on
+            8 logical shards, ``a2a.impl=pallas``, ``read(h, ordered=True,
+            sink="device")`` consumed by ``ulysses_attention_consumer(8,
+            4096, 32, 128, causal=True)``. D2H 0, ragged_a2a 1 and
+            flash_fwd 1; the decoded q, k, v equal the written rows; O
+            within the forward tolerance of the plain forward. Then one
+            profiled read + consume.
+21. ulysses_attention_train — the same q, k, v as leaves through
+            ``ulysses_attention(q, k, v, 8, causal=True)`` and a backward
+            of a seeded random cotangent: flash_fwd, flash_dq, flash_dkv 1
+            each; dq, dk, dv within the grad tolerance of the plain
+            backward versions.
+22. ring_attention — the ring consumer at T = 8,192 (1,024 per shard,
+            same width) on one device-sink read, held against the Ulysses
+            consumer's O on the same rows.
+23. flash_at_main_shapes — each flash kernel at the ulysses_attention
+            shape ([32, 32768, 128], causal): kernel, plain version and
+            the SDPA yardstick (forward; the backward of the same call for
+            dq, dk, dv together), with the operation bound (float32 and
+            TF32) and the byte bound.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
 ordered, waved_ordered, merge_at_main_shapes, skew, combine,
 segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
 quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
-wire_reduce_at_main_shapes.
+wire_reduce_at_main_shapes, flash_kernels, ulysses_attention,
+ulysses_attention_train, ring_attention, flash_at_main_shapes.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
 the segment move; combine and combine_f32: the segment move and the
 segment reduce; ordered: the segment move; waved_ordered: the merge;
-waved_combine: the merge and the segment reduce; the int8 paths: their
-launch counts exactly). The last two lines of standard output are the
+waved_combine: the merge and the segment reduce; the int8 paths and the
+attention paths: their launch counts exactly). The last two lines of standard output are the
 ``kernels`` JSON object and the ``{"ok": true, "device": ...}`` object.
 """
 
@@ -175,6 +207,22 @@ INT8_RECORDS = 2_097_152
 EMB_DIM = 128
 EMB_IDS = 40_000_000
 INT8_WAVE_ROWS = 52_429    # 262,144 staged rows per shard -> 5 waves
+# the attention cells: one attention layer of LLaMA-2-7B-32K
+# (togethercomputer/LLaMA-2-7B-32K: 32 heads of 128, full multi-head K/V,
+# a 32,768-token context), causal, batch 1, over 8 logical sequence shards
+ATTN_HEADS = 32
+ATTN_HEAD_DIM = 128
+ATTN_TOKENS = 32_768
+ATTN_MAPS = 64
+RING_TOKENS = 8_192        # the ring consumer's depth (1,024 per shard)
+FLASH_T = (1, 33, 97, 130, 256, 1000)
+FLASH_D = (8, 32, 64, 128)
+FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
+FLASH_TPU_KERNELS = {
+    "flash_fwd": "sparkucx_tpu/ops/pallas/flash_attention.py:56",
+    "flash_dq": "sparkucx_tpu/ops/pallas/flash_attention.py:145",
+    "flash_dkv": "sparkucx_tpu/ops/pallas/flash_attention.py:186"}
 SIGN_KEYS = np.array([0, 1, -1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 1 << 32,
                       -(1 << 32), (1 << 32) + 0x80000000, -(1 << 31),
                       -(1 << 31) - 1, 1 << 62, -(1 << 62), -(1 << 63),
@@ -1755,6 +1803,433 @@ def wire_reduce_at_main_shapes(box, part_rows, dev) -> dict:
 
 
 
+# -- attention: Ulysses and ring on the device sink, the flash kernels ------
+def attention_constants() -> dict:
+    return {"heads": ATTN_HEADS, "head_dim": ATTN_HEAD_DIM,
+            "tokens": ATTN_TOKENS, "shards": SHARDS}
+
+
+def flash_close(got, want, tol, what: str) -> float:
+    """Max |got - want|; raises where it exceeds ``tol`` (a number or a
+    tensor broadcast against the difference)."""
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: max error {float(err.max())} beyond "
+                             f"its tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def out_tol(want) -> float:
+    """O: 1e-4 of the largest |O| plus 1e-6."""
+    return 1e-4 * float(want.abs().max()) + 1e-6 if want.numel() else 1e-6
+
+
+def grad_tol(want, plain_err: float = 0.0) -> float:
+    """dq, dk, dv: 1e-3 of the largest |grad| plus the larger of 1e-5 and
+    four times ``plain_err``, the plain version's own distance from a
+    float64 reference on the same inputs (where a gradient vanishes,
+    both float32 versions hold only the rounding of dP - delta: 2e-6 to
+    5e-6 from float64 at D = 128)."""
+    big = float(want.abs().max()) if want.numel() else 0.0
+    return 1e-3 * big + max(1e-5, 4.0 * plain_err)
+
+
+def float64_grads(q, k, v, g, causal: bool, scale: float):
+    """(dq, dk, dv) of [BH, T, D] attention in float64, by autograd
+    through reference_attention: the truth the plain versions are
+    measured against."""
+    import torch
+    from sparkucx_tpu_torch.ops.attention import reference_attention
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    o = reference_attention(*(x[None] for x in leaves), causal=causal,
+                            scale=scale)[0]
+    return torch.autograd.grad(o, leaves, g.double())
+
+
+def flash_kernels_phase(dev) -> dict:
+    """Each flash kernel against its plain version on the card: T in
+    FLASH_T x D in FLASH_D x causal / not x BH in {1, 6}; the backward
+    kernels on the plain forward's lse and delta. Tolerances: O within
+    1e-4 max|O| + 1e-6, lse within 1e-5 (1 + |lse|), grads within
+    :func:`grad_tol` of the plain version's, with the plain version's own
+    distance from float64 measured per case."""
+    import torch
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    n = 0
+    worst = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0,
+             "plain_vs_float64": 0.0}
+    for bh in (1, 6):
+        for causal in (False, True):
+            for d in FLASH_D:
+                for t in FLASH_T:
+                    gen = torch.Generator(device=dev).manual_seed(
+                        SEED + bh * 100_003 + t * 1009 + d * 7 + causal)
+                    q, k, v, g = (torch.randn((bh, t, d), generator=gen,
+                                              device=dev) for _ in range(4))
+                    scale = d ** -0.5
+                    ko, klse = tfa.flash_fwd_kernel(q, k, v, causal, scale)
+                    po, plse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+                    delta = (g * po).sum(dim=-1)
+                    kdq = tfa.flash_dq_kernel(q, k, v, g, plse, delta,
+                                              causal, scale)
+                    kdk, kdv = tfa.flash_dkv_kernel(q, k, v, g, plse, delta,
+                                                    causal, scale)
+                    torch.cuda.synchronize()
+                    pdq = tfa.flash_dq_plain(q, k, v, g, plse, delta, causal,
+                                             scale)
+                    pdk, pdv = tfa.flash_dkv_plain(q, k, v, g, plse, delta,
+                                                   causal, scale)
+                    truth = float64_grads(q, k, v, g, causal, scale)
+                    tag = f"flash bh={bh} t={t} d={d} causal={causal}"
+                    worst["fwd"] = max(worst["fwd"], flash_close(
+                        ko, po, out_tol(po), tag + " O"))
+                    worst["lse"] = max(worst["lse"], flash_close(
+                        klse, plse, 1e-5 * (1 + plse.abs()), tag + " lse"))
+                    for got, want, exact, name in (
+                            (kdq, pdq, truth[0], "dq"),
+                            (kdk, pdk, truth[1], "dk"),
+                            (kdv, pdv, truth[2], "dv")):
+                        pe = float((want.double() - exact).abs().max())
+                        worst["plain_vs_float64"] = max(
+                            worst["plain_vs_float64"], pe)
+                        key = "dq" if name == "dq" else "dkv"
+                        worst[key] = max(worst[key], flash_close(
+                            got, want, grad_tol(want, pe), f"{tag} {name}"))
+                    n += 1
+    return {"cases": n, "max_abs_err": worst,
+            "tolerance": "O 1e-4*max|O|+1e-6; lse 1e-5*(1+|lse|); grads "
+                         "1e-3*max|g|+max(1e-5, 4*|plain-float64|)"}
+
+
+def stage_qkv(svc, sid: int, tokens: int, seed: int):
+    """Write ``tokens`` rows (key = global position, value = fused
+    ``q|k|v`` float32 [3 * heads * head_dim], standard normal) from
+    ATTN_MAPS map tasks, positions permuted across maps; range partitions
+    of ``tokens / SHARDS`` positions, one per logical shard."""
+    rng = np.random.default_rng(seed)
+    lanes = 3 * ATTN_HEADS * ATTN_HEAD_DIM
+    qkv = rng.standard_normal((tokens, lanes), dtype=np.float32)
+    pos = rng.permutation(tokens)
+    t = tokens // SHARDS
+    h = svc.register_shuffle(sid, ATTN_MAPS, SHARDS, "range",
+                             bounds=[t * (i + 1) for i in range(SHARDS - 1)])
+    per = tokens // ATTN_MAPS
+    for m in range(ATTN_MAPS):
+        sel = pos[m * per:(m + 1) * per]
+        svc.write(h, m, sel.astype(np.int64), qkv[sel])
+    return h, qkv
+
+
+def global_qkv(qkv, dev):
+    """The written rows as q, k, v ``[1, heads, tokens, head_dim]`` on the
+    card (what the decode must restore)."""
+    import torch
+    x = torch.from_numpy(qkv).to(dev).view(
+        qkv.shape[0], 3, ATTN_HEADS, ATTN_HEAD_DIM)
+    return tuple(x[:, i].permute(1, 0, 2)[None].contiguous()
+                 for i in range(3))
+
+
+def profiled_consume(svc, h, step) -> dict:
+    """One more device-sink read + consume under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = svc.read(h, ordered=True, sink="device")
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        out = res.consume(lambda c, rows, totals: step(rows, totals))
+        torch.cuda.synchronize()
+        consume_ms = (time.perf_counter() - t1) * 1e3
+    del out
+    wall = read_ms + consume_ms
+    return {"wall_ms": wall, "read_ms": read_ms, "consume_ms": consume_ms,
+            **device_busy(prof, wall)}
+
+
+def ulysses_phase(dev) -> tuple:
+    """One attention layer of LLaMA-2-7B-32K (32 heads x 128, its 32,768
+    token context, causal) fed by a range-partitioned device-sink read of
+    fused q|k|v rows and consumed by the Ulysses consumer: D2H 0,
+    ragged_a2a 1 and flash_fwd 1; the decoded q, k, v equal the written
+    rows and O is within 1e-4 max|O| + 1e-6 of the plain forward."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.parallel.ring import decode_qkv_rows, unshard_seq
+    from sparkucx_tpu_torch.parallel.ulysses import \
+        ulysses_attention_consumer
+    t_shard = ATTN_TOKENS // SHARDS
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas"}
+    t = time.perf_counter()
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h, qkv = stage_qkv(svc, 40, ATTN_TOKENS, SEED + 40)
+        write_s = time.perf_counter() - t
+        step = ulysses_attention_consumer(SHARDS, t_shard, ATTN_HEADS,
+                                          ATTN_HEAD_DIM, causal=True)
+        box = {}
+
+        def consume(carry, rows, totals):
+            t0 = time.perf_counter()
+            out = step(rows, totals)
+            torch.cuda.synchronize()
+            box["step_ms"] = (time.perf_counter() - t0) * 1e3
+            box["qkv"] = decode_qkv_rows(rows, totals, t_shard, ATTN_HEADS,
+                                         ATTN_HEAD_DIM)
+            return out
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = svc.read(h, ordered=True, sink="device")
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        out = res.consume(consume)
+        launches = backend.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        rep = svc.report(40)
+        expect_launches("ulysses_attention", {"all_launches": launches},
+                        {KERNEL_NAME: 1, tfa.FWD_KERNEL_NAME: 1})
+        if rep.d2h_bytes != 0 or rep.sink != "device":
+            raise AssertionError(f"ulysses_attention: sink {rep.sink}, "
+                                 f"d2h {rep.d2h_bytes}")
+        prof = profiled_consume(svc, h, step)
+        svc.unregister_shuffle(40)
+    q, k, v = (unshard_seq(x) for x in box.pop("qkv"))
+    for got, want, name in zip((q, k, v), global_qkv(qkv, dev), "qkv"):
+        if not torch.equal(got, want):
+            raise AssertionError(f"ulysses_attention: decoded {name} differs "
+                                 f"from the written rows")
+    del qkv
+    H, T, D = ATTN_HEADS, ATTN_TOKENS, ATTN_HEAD_DIM
+    scale = D ** -0.5
+    t = time.perf_counter()
+    po, plse = tfa.flash_fwd_plain(q.reshape(H, T, D), k.reshape(H, T, D),
+                                   v.reshape(H, T, D), True, scale)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    if tuple(out.shape) != (1, H, T, D) or not bool(out.isfinite().all()):
+        raise AssertionError(f"ulysses_attention: O {tuple(out.shape)} "
+                             f"not finite or misshapen")
+    err = flash_close(out.reshape(H, T, D), po, out_tol(po),
+                      "ulysses_attention O")
+    stats = {
+        "phase": "ulysses_attention", **attention_constants(),
+        "tokens_per_shard": t_shard, "maps": ATTN_MAPS, "causal": True,
+        "row_width": 2 + 3 * H * D,
+        "payload_bytes": rep.payload_bytes, "impl": rep.impl,
+        "plan_bucket": rep.plan_bucket, "retries": rep.retries,
+        "read_ms": read_ms, "consume_ms": box["step_ms"],
+        "pack_ms": rep.pack_ms, "dispatch_ms": rep.dispatch_ms,
+        "group_ms": rep.group_ms, "d2h_bytes": rep.d2h_bytes,
+        "peak_device_bytes": peak, "launches": launches,
+        "max_abs_err": err, "max_abs_out": float(po.abs().max()),
+        "plain_forward_s": plain_s, "write_s": write_s, "ok": True}
+    prof = {"phase": "ulysses_attention_profile", **prof}
+    return stats, prof, (q, k, v), (po, plse)
+
+
+def ulysses_train_phase(dev, qkv, fwd_ref) -> tuple:
+    """The same q, k, v as leaves through ulysses_attention(causal=True)
+    and a backward of a fixed random cotangent: flash_fwd, flash_dq and
+    flash_dkv once each; O, dq, dk, dv held against the plain versions."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from sparkucx_tpu_torch.parallel.ulysses import ulysses_attention
+    H, T, D = ATTN_HEADS, ATTN_TOKENS, ATTN_HEAD_DIM
+    scale = D ** -0.5
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    cot = torch.randn(qkv[0].shape, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ulysses_attention(*leaves, SHARDS, causal=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    out.backward(cot)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t1) * 1e3
+    launches = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect_launches("ulysses_attention_train",
+                    {"all_launches": launches},
+                    {tfa.FWD_KERNEL_NAME: 1, tfa.DQ_KERNEL_NAME: 1,
+                     tfa.DKV_KERNEL_NAME: 1})
+    po, plse = fwd_ref
+    flat = [x.detach().reshape(H, T, D) for x in qkv]
+    gf = cot.reshape(H, T, D)
+    delta = (gf * po).sum(dim=-1)
+    t = time.perf_counter()
+    pdq = tfa.flash_dq_plain(*flat, gf, plse, delta, True, scale)
+    pdk, pdv = tfa.flash_dkv_plain(*flat, gf, plse, delta, True, scale)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    errs = {"O": flash_close(out.detach().reshape(H, T, D), po, out_tol(po),
+                             "train O")}
+    for leaf, want, name in zip(leaves, (pdq, pdk, pdv), ("dq", "dk", "dv")):
+        errs[name] = flash_close(leaf.grad.reshape(H, T, D), want,
+                                 grad_tol(want), f"train {name}")
+    del leaves, out
+    return {"phase": "ulysses_attention_train", **attention_constants(),
+            "causal": True, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "peak_device_bytes": peak, "launches": launches,
+            "max_abs_err": errs, "plain_backward_s": plain_s,
+            "ok": True}, cot, (pdq, pdk, pdv)
+
+
+def ring_phase(dev) -> dict:
+    """The ring consumer at T = 8,192 (1,024 tokens per shard, same width)
+    on one device-sink read, held against the Ulysses consumer's O on the
+    same rows."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.parallel.ring import ring_attention_consumer
+    from sparkucx_tpu_torch.parallel.ulysses import \
+        ulysses_attention_consumer
+    t_shard = RING_TOKENS // SHARDS
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas"}
+    ring = ring_attention_consumer(SHARDS, t_shard, ATTN_HEADS,
+                                   ATTN_HEAD_DIM, causal=True)
+    uly = ulysses_attention_consumer(SHARDS, t_shard, ATTN_HEADS,
+                                     ATTN_HEAD_DIM, causal=True)
+    box = {}
+
+    def consume(carry, rows, totals):
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        box["ring"] = ring(rows, totals)
+        torch.cuda.synchronize()
+        box["ring_ms"] = (time.perf_counter() - t0) * 1e3
+        box["ring_launches"] = backend.launch_counts()
+        t1 = time.perf_counter()
+        box["ulysses"] = uly(rows, totals)
+        torch.cuda.synchronize()
+        box["ulysses_ms"] = (time.perf_counter() - t1) * 1e3
+
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h, qkv = stage_qkv(svc, 42, RING_TOKENS, SEED + 42)
+        res = svc.read(h, ordered=True, sink="device")
+        res.consume(consume)
+        rep = svc.report(42)
+        svc.unregister_shuffle(42)
+    if rep.d2h_bytes != 0:
+        raise AssertionError("ring_attention: the read paid a D2H")
+    o_ring, o_uly = box["ring"], box["ulysses"]
+    if not bool(o_ring.isfinite().all()):
+        raise AssertionError("ring_attention: O not finite")
+    err = flash_close(o_ring, o_uly, out_tol(o_uly),
+                      "ring_attention O against Ulysses")
+    return {"phase": "ring_attention", "heads": ATTN_HEADS,
+            "head_dim": ATTN_HEAD_DIM, "tokens": RING_TOKENS,
+            "shards": SHARDS, "causal": True, "ring_ms": box["ring_ms"],
+            "ulysses_ms": box["ulysses_ms"],
+            "ring_launches": box["ring_launches"], "max_abs_err": err,
+            "ok": True}
+
+
+def flash_bounds(H: int, T: int, D: int, causal: bool) -> dict:
+    """Least times for the function (not the kernels' recomputation):
+    4 D flops per live (q, k) pair forward, 10 D backward
+    (FlashAttention-2's accounting), split 2 D to dq's product and 8 D to
+    dk/dv (S, dP, dV, dK), at the float32 rate outside the tensor cores;
+    the TF32 figure a tensor-core design would target; and the byte
+    bounds (each input read once, each output written once)."""
+    pairs = H * T * (T + 1) // 2 if causal else H * T * T
+    mat = H * T * D * 4
+    row = H * T * 4
+    flops = {"flash_fwd": 4 * D * pairs, "flash_dq": 2 * D * pairs,
+             "flash_dkv": 8 * D * pairs}
+    byts = {"flash_fwd": 3 * mat + mat + row,
+            "flash_dq": 4 * mat + 2 * row + mat,
+            "flash_dkv": 4 * mat + 2 * row + 2 * mat}
+    out = {}
+    for name in flops:
+        op_ms = flops[name] / FP32_FLOPS_PER_S * 1e3
+        byte_ms = byts[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = {"flops": flops[name], "bytes": byts[name],
+                     "bound_ms": max(op_ms, byte_ms),
+                     "bound_by": "operations" if op_ms >= byte_ms
+                     else "bytes",
+                     "bound_tf32_ms": flops[name] / TF32_FLOPS_PER_S * 1e3,
+                     "bound_bytes_ms": byte_ms}
+    out["backward_flops"] = 10 * D * pairs
+    out["backward_bound_ms"] = 10 * D * pairs / FP32_FLOPS_PER_S * 1e3
+    return out
+
+
+def flash_at_main_shapes(dev, qkv, cot, fwd_ref, bwd_ref) -> dict:
+    """The three kernels at the ulysses_attention shape ([32, 32768, 128],
+    causal): kernel, plain version and the SDPA yardstick
+    (memory-efficient backend, float32; its backward for dq/dk/dv
+    together), CUDA-event medians (7 forward, 3 backward and plain), with
+    the bounds of :func:`flash_bounds`."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    H, T, D = ATTN_HEADS, ATTN_TOKENS, ATTN_HEAD_DIM
+    scale = D ** -0.5
+    q, k, v = (x.detach().reshape(H, T, D).contiguous() for x in qkv)
+    g = cot.reshape(H, T, D).contiguous()
+    po, plse = fwd_ref
+    delta = (g * po).sum(dim=-1)
+    ko, klse = tfa.flash_fwd_kernel(q, k, v, True, scale)
+    kdq = tfa.flash_dq_kernel(q, k, v, g, plse, delta, True, scale)
+    kdk, kdv = tfa.flash_dkv_kernel(q, k, v, g, plse, delta, True, scale)
+    torch.cuda.synchronize()
+    pdq, pdk, pdv = bwd_ref            # the plain backward on these inputs
+    err = {"flash_fwd": flash_close(ko, po, out_tol(po), "main-shape O"),
+           "lse": flash_close(klse, plse, 1e-5 * (1 + plse.abs()),
+                              "main-shape lse"),
+           "flash_dq": flash_close(kdq, pdq, grad_tol(pdq), "main-shape dq"),
+           "flash_dkv": max(
+               flash_close(kdk, pdk, grad_tol(pdk), "main-shape dk"),
+               flash_close(kdv, pdv, grad_tol(pdv), "main-shape dv"))}
+    del ko, klse, kdq, kdk, kdv, pdq, pdk, pdv, bwd_ref
+    ms = {
+        "flash_fwd": median_ms(lambda: tfa.flash_fwd_kernel(
+            q, k, v, True, scale), reps=7, warmup=1),
+        "flash_dq": median_ms(lambda: tfa.flash_dq_kernel(
+            q, k, v, g, plse, delta, True, scale), reps=3, warmup=1),
+        "flash_dkv": median_ms(lambda: tfa.flash_dkv_kernel(
+            q, k, v, g, plse, delta, True, scale), reps=3, warmup=1)}
+    plain_ms = {
+        "flash_fwd": median_ms(lambda: tfa.flash_fwd_plain(
+            q, k, v, True, scale), reps=3, warmup=0),
+        "flash_dq": median_ms(lambda: tfa.flash_dq_plain(
+            q, k, v, g, plse, delta, True, scale), reps=3, warmup=0),
+        "flash_dkv": median_ms(lambda: tfa.flash_dkv_plain(
+            q, k, v, g, plse, delta, True, scale), reps=3, warmup=0)}
+    # the yardstick: one SDPA call on the same inputs ([1, H, T, D])
+    lib = {"name": "scaled_dot_product_attention(is_causal=True), "
+                   "EFFICIENT_ATTENTION backend, float32; backward: "
+                   "autograd.grad of that call for dq, dk, dv together"}
+    leaves = [x[None].clone().requires_grad_() for x in (q, k, v)]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lo = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        lib["max_abs_diff_vs_plain"] = float((lo[0].detach() - po).abs().max())
+        lib["forward_ms"] = median_ms(
+            lambda: F.scaled_dot_product_attention(*leaves, is_causal=True),
+            reps=7, warmup=1)
+        lib["backward_ms"] = median_ms(lambda: torch.autograd.grad(
+            lo, leaves, g[None], retain_graph=True), reps=3, warmup=1)
+    del lo, leaves
+    bounds = flash_bounds(H, T, D, True)
+    return {"shape": [H, T, D], "causal": True, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library": lib, "bounds": bounds,
+            "max_abs_err": err,
+            "backward_kernel_ms": ms["flash_dq"] + ms["flash_dkv"],
+            "reps": {"forward": 7, "backward": 3, "plain": 3}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1952,6 +2427,48 @@ def main() -> int:
     print(json.dumps({"phase": "wire_reduce_at_main_shapes", **wt}),
           flush=True)
 
+    # -- attention: the flash kernels, then one LLaMA-2-7B-32K attention
+    # layer through the device sink (after every earlier phase)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    fk = flash_kernels_phase(dev)
+    print(json.dumps({"phase": "flash_kernels", **fk, "ok": True,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
+    t = time.perf_counter()
+    ua, uprof, qkv, fwd_ref = ulysses_phase(dev)
+    print(json.dumps({**ua, "seconds": time.perf_counter() - t}), flush=True)
+    print(json.dumps(uprof), flush=True)
+
+    t = time.perf_counter()
+    ut, cot, bwd_ref = ulysses_train_phase(dev, qkv, fwd_ref)
+    print(json.dumps({**ut, "seconds": time.perf_counter() - t}), flush=True)
+
+    t = time.perf_counter()
+    ra = ring_phase(dev)
+    print(json.dumps({**ra, "seconds": time.perf_counter() - t}), flush=True)
+
+    t = time.perf_counter()
+    fm = flash_at_main_shapes(dev, qkv, cot, fwd_ref, bwd_ref)
+    del qkv, cot, fwd_ref, bwd_ref
+    print(json.dumps({"phase": "flash_at_main_shapes", **fm,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    flash_launches = {**ua["launches"], **{
+        k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
+    flash_entries = [{
+        "name": name, "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/flash_attention.cu",
+        "replaces": FLASH_TPU_KERNELS[name],
+        "launches": flash_launches[name],
+        "max_abs_err": fm["max_abs_err"][name], "ms": fm["kernel_ms"][name],
+        "plain_ms": fm["plain_ms"][name],
+        "bound_ms": fm["bounds"][name]["bound_ms"],
+        "bound_by": fm["bounds"][name]["bound_by"],
+        "library_ms": fm["library"]["forward_ms"] if name == "flash_fwd"
+        else fm["library"]["backward_ms"]}
+        for name in ("flash_fwd", "flash_dq", "flash_dkv")]
+
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/ragged_a2a.cu",
@@ -1984,8 +2501,8 @@ def main() -> int:
         "launches": i8_stats["launches"][WIRE_KERNEL],
         "max_abs_err": wt["max_abs_err"], "ms": wt["kernel_ms"],
         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
-        "bound_by": "bytes", "library_ms": wt["library_ms"]}]}),
-        flush=True)
+        "bound_by": "bytes", "library_ms": wt["library_ms"]},
+        *flash_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

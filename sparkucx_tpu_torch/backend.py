@@ -43,8 +43,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C symbol -> (restype, argtypes). Pointers and the stream are c_void_p
 # (a bare Python int would be passed as a 32-bit int and cut).
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
+    # q, k, v, o, lse, BH, T, D, causal, scale, stream -> cudaError_t
+    "sxt_flash_fwd": (ctypes.c_int, [_P] * 5 + [_I] * 4 + [_F, _P]),
+    # q, k, v, g, lse, delta, dq, BH, T, D, causal, scale, stream
+    # -> cudaError_t
+    "sxt_flash_dq": (ctypes.c_int, [_P] * 7 + [_I] * 4 + [_F, _P]),
+    # q, k, v, g, lse, delta, dk, dv, BH, T, D, causal, scale, stream
+    # -> cudaError_t
+    "sxt_flash_dkv": (ctypes.c_int, [_P] * 8 + [_I] * 4 + [_F, _P]),
     # send, out, in_off, in_sz, out_off, overflow, P, cap_in, cap_out,
     # width, blocks_per_pair, stream -> cudaError_t
     "sxt_ragged_a2a": (ctypes.c_int,

@@ -90,3 +90,25 @@ def test_auto_impl_resolution():
     with pytest.raises(ValueError):
         resolve_a2a_impl("native", cpu, 8)
 
+
+
+def test_carry_across_defaults_to_the_card(monkeypatch):
+    """interop.from_reference follows the device rule: the card unless
+    the caller asks for the CPU, and a raise without either."""
+    import numpy as np
+    from sparkucx_tpu_torch import interop
+    from sparkucx_tpu_torch.meta.segments import SegmentTable
+    blob = SegmentTable(np.ones((2, 3), np.uint64)).pack()
+    rows = np.arange(8, dtype=np.int32).reshape(2, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.from_reference(blob, 2, 3, rows)
+    _, t = interop.from_reference(blob, 2, 3, rows, device="cpu")
+    assert t.device.type == "cpu" and t.tolist() == rows.tolist()
+
+
+def test_scan_covers_the_attention_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"ops/attention.py", "ops/flash_attention.py",
+            "parallel/ring.py", "parallel/ulysses.py"} <= names

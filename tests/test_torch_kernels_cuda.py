@@ -17,6 +17,10 @@ import torch
 from sparkucx_tpu_torch import backend, connect
 from sparkucx_tpu_torch.ops import ragged_a2a as ra
 from sparkucx_tpu_torch.shuffle.writer import hash32_np
+from torch_attention_cases import (FLASH_BH, FLASH_D, FLASH_T,
+                                   flash_inputs, flash_seed, float64_grads,
+                                   grad_tolerance, lse_tolerance,
+                                   out_tolerance, qkv_rows)
 from torch_merge_cases import MERGE_PATTERNS, merge_case
 from torch_wire_cases import PATTERNS as WIRE_PATTERNS
 from torch_wire_cases import (QUANT_KINDS, quant_values, runs, sum_tolerance,
@@ -566,3 +570,146 @@ def test_int8_reads_on_card(card, impl, mode):
                 + 2.0 ** -20 * np.abs(ps)
         assert (np.abs(gv - tot) <= tol).all(), f"partition {r}"
 
+
+
+# -- flash attention: forward, dq and dk/dv ----------------------------------
+def _close(got, want, tol, what):
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), f"{what}: max error {float(err.max())}"
+
+
+@pytest.mark.parametrize("bh", FLASH_BH)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", FLASH_D)
+@pytest.mark.parametrize("t", FLASH_T)
+def test_flash_kernels_match_plain(card, t, d, causal, bh):
+    """Each of the three kernels against its plain version on the same
+    inputs (the backward kernels on the plain forward's lse and delta),
+    within the tolerances of ``torch_attention_cases``."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    q, k, v, g = (torch.from_numpy(x).to(card) for x in
+                  flash_inputs(flash_seed(bh, t, d, causal), bh, t, d))
+    scale = d ** -0.5
+    before = backend.launch_counts()
+    ko, klse = tfa.flash_fwd(q, k, v, causal, scale)
+    po, plse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    _close(ko, po, out_tolerance(po.cpu().numpy()), "O")
+    _close(klse, plse, torch.from_numpy(lse_tolerance(plse.cpu().numpy()))
+           .to(card), "lse")
+    delta = (g * po).sum(dim=-1)
+    kdq = tfa.flash_dq(q, k, v, g, plse, delta, causal, scale)
+    kdk, kdv = tfa.flash_dkv(q, k, v, g, plse, delta, causal, scale)
+    torch.cuda.synchronize()
+    after = backend.launch_counts()
+    for name in (tfa.FWD_KERNEL_NAME, tfa.DQ_KERNEL_NAME,
+                 tfa.DKV_KERNEL_NAME):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name
+    pdq = tfa.flash_dq_plain(q, k, v, g, plse, delta, causal, scale)
+    pdk, pdv = tfa.flash_dkv_plain(q, k, v, g, plse, delta, causal, scale)
+    _, truth = float64_grads(q, k, v, g, causal, scale)
+    for got, want, exact, what in ((kdq, pdq, truth[0], "dq"),
+                                   (kdk, pdk, truth[1], "dk"),
+                                   (kdv, pdv, truth[2], "dv")):
+        plain_err = float((want.double() - exact).abs().max())
+        _close(got, want, grad_tolerance(want.cpu().numpy(), plain_err),
+               what)
+
+
+def test_flash_kernels_refuse_bad_input(card):
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    x = torch.randn(2, 70, 32, device=card)
+    r = torch.zeros(2, 70, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd_kernel(x.cpu(), x.cpu(), x.cpu(), True, 0.2)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.flash_fwd_kernel(x.double(), x.double(), x.double(), True, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = x.transpose(0, 1).contiguous().transpose(0, 1)
+        tfa.flash_fwd_kernel(y, y, y, True, 0.2)
+    with pytest.raises(ValueError, match="exceeds"):
+        z = torch.zeros(1, 8, 160, device=card)
+        tfa.flash_fwd_kernel(z, z, z, False, 0.1)
+    with pytest.raises(ValueError, match="row input"):
+        tfa.flash_dq_kernel(x, x, x, x, r[:, :5].contiguous(), r,
+                            True, 0.2)
+    lib = backend.kernel_library()
+    stream = torch.cuda.current_stream(card).cuda_stream
+    rc = lib.sxt_flash_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                           x.data_ptr(), r.data_ptr(), 2, 70, 24, 1, 0.2,
+                           stream)                     # no D=24 build
+    with pytest.raises(RuntimeError, match="flash_fwd launch failed"):
+        backend.check_launch(tfa.FWD_KERNEL_NAME, rc)
+    # a head dim between the compiled ones pads up and stays right
+    w = torch.randn(3, 50, 24, device=card)
+    ko, klse = tfa.flash_fwd(w, w, w, True, 0.2)
+    po, plse = tfa.flash_fwd_plain(w, w, w, True, 0.2)
+    assert ko.shape == w.shape
+    _close(ko, po, out_tolerance(po.cpu().numpy()), "O (D=24)")
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_ulysses_attention_grads_on_card(card, impl):
+    """ulysses_attention on CUDA tensors runs one launch of each kernel
+    and matches the plain versions (impl="interpret") on the same card
+    tensors, output and grads."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from sparkucx_tpu_torch.parallel.ulysses import ulysses_attention
+    rng = np.random.default_rng(31)
+    xs = [torch.from_numpy(rng.standard_normal((1, 8, 256, 64)).astype(
+        np.float32)).to(card) for _ in range(4)]
+    cot = xs.pop()
+    results = {}
+    for which in (impl, "interpret"):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        backend.reset_launch_counts()
+        out = ulysses_attention(*leaves, 4, causal=True, impl=which)
+        grads = torch.autograd.grad((cot * out).sum(), leaves)
+        torch.cuda.synchronize()
+        results[which] = (out.detach(), grads, backend.launch_counts())
+    out, grads, counts = results[impl]
+    assert counts == {tfa.FWD_KERNEL_NAME: 1, tfa.DQ_KERNEL_NAME: 1,
+                      tfa.DKV_KERNEL_NAME: 1}
+    pout, pgrads, pcounts = results["interpret"]
+    assert pcounts == {}
+    _close(out, pout, out_tolerance(pout.cpu().numpy()), "O")
+    for a, b in zip(grads, pgrads):
+        _close(a, b, grad_tolerance(b.cpu().numpy()), "grad")
+
+
+@pytest.mark.parametrize("which", ["ring", "ulysses"])
+def test_attention_consumers_on_card(card, which):
+    """A range-partitioned device-sink read on the card feeds the
+    consumer with no D2H; the Ulysses consumer launches the forward kernel
+    once; both match reference_attention."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from sparkucx_tpu_torch.ops.attention import reference_attention
+    from sparkucx_tpu_torch.parallel.ring import ring_attention_consumer
+    from sparkucx_tpu_torch.parallel.ulysses import \
+        ulysses_attention_consumer
+    P, heads, hd, t = 8, 8, 16, 48
+    qkv, pos = qkv_rows(41, heads, hd, P * t)
+    make = ring_attention_consumer if which == "ring" \
+        else ulysses_attention_consumer
+    step = make(P, t, heads, hd, causal=True)
+    with connect({"spark.shuffle.tpu.a2a.impl": "pallas"},
+                 use_env=False) as svc:
+        h = svc.register_shuffle(0, 6, P, "range",
+                                 bounds=[t * (i + 1) for i in range(P - 1)])
+        per = P * t // 6
+        for m in range(6):
+            sel = pos[m * per:(m + 1) * per]
+            svc.write(h, m, sel.astype(np.int64),
+                      qkv[sel].reshape(len(sel), -1))
+        res = svc.read(h, ordered=True, sink="device")
+        backend.reset_launch_counts()
+        out = res.consume(lambda c, rows, totals: step(rows, totals))
+        torch.cuda.synchronize()
+        counts = backend.launch_counts()
+        assert svc.report(0).d2h_bytes == 0
+    assert out.device.type == "cuda"
+    assert counts.get(tfa.FWD_KERNEL_NAME, 0) == (0 if which == "ring"
+                                                  else 1)
+    q, k, v = (torch.from_numpy(qkv[:, i].transpose(1, 0, 2)[None].copy())
+               for i in range(3))
+    ref = reference_attention(q, k, v, causal=True)
+    _close(out.cpu(), ref, out_tolerance(ref.numpy()), "O")

@@ -102,7 +102,8 @@ def test_interop_from_reference(as_bytes):
     blob = jref.SegmentTable(sizes).pack()
     rows = rng.integers(-100, 100, size=(2, 16, 4)).astype(np.int32)
     table, t = interop.from_reference(
-        blob, 3, 5, rows.tobytes() if as_bytes else rows, width=4)
+        blob, 3, 5, rows.tobytes() if as_bytes else rows, width=4,
+        device="cpu")
     np.testing.assert_array_equal(table.sizes, sizes)
     np.testing.assert_array_equal(t.numpy().reshape(rows.shape), rows)
     conf = interop.conf_from_dict(
