@@ -51,8 +51,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             multiset must equal the oracle's.
 10. segreduce_at_main_shapes — the sorted input the combine read gave
             the segment-reduce kernel, rebuilt from the same staging and
-            plan: kernel, plain version, one ``index_add_`` of the
-            valid rows over precomputed run ids, and the byte bound.
+            plan: kernel (twice, bit-identical), its zero-tail pass alone
+            (``emit_ms`` = the whole less the tail), plain version, one
+            ``index_add_`` of the valid rows over precomputed run ids,
+            and the byte bounds without and with the zero tail.
 11. merge_kernel — the merge-path kernel against its plain PyTorch
             version on the card: widths {3, 6, 25} x shards {1, 8} x
             interleaved / all of A before B / equal keys on both sides
@@ -110,7 +112,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             merge_path 4, segment_reduce 4.
 18. quant_at_main_shapes, wire_reduce_at_main_shapes — the quantize and
             fused-reduce inputs of one more int8_combine read (captured):
-            kernel, plain version, library yardstick and byte bound.
+            kernel, plain version, library yardstick and byte bound (the
+            fused reduce as segreduce_at_main_shapes: twice, the tail
+            alone, both bounds).
+18b. default_conf — 393,216 TeraSort records, 64 maps, 200 partitions, 8
+            shards: under the default conf (``a2a.impl=auto``) with
+            ``a2a.waveRows=12288`` a ``sink="device"`` read must report
+            4 waves and ``impl == "dense"`` and its host view equal the
+            oracle; under ``a2a.impl=pallas`` a plain ``sink="device"``
+            read (ragged_a2a 1, D2H 0) must hold each shard's rows for its
+            partitions, exactly, in ``device_rows()[p, :totals[p]]``.
 19. flash_kernels — the three flash-attention kernels (forward, dq, dk/dv)
             against their plain versions on the card: T in {1, 33, 97,
             130, 256, 1000} x D in {8, 32, 64, 128} x causal / not x BH
@@ -148,7 +159,7 @@ merge_kernel, main (with its profiled read), kernel_at_main_shapes,
 ordered, waved_ordered, merge_at_main_shapes, skew, combine,
 segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
 quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
-wire_reduce_at_main_shapes, flash_kernels, ulysses_attention,
+wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes.
 
 Each path runs with the kernel launch counts set to 0 just before it and
@@ -156,7 +167,8 @@ read just after; a path whose kernel never launched fails (main and skew:
 the segment move; combine and combine_f32: the segment move and the
 segment reduce; ordered: the segment move; waved_ordered: the merge;
 waved_combine: the merge and the segment reduce; the int8 paths and the
-attention paths: their launch counts exactly). The last two lines of standard output are the
+attention paths: their launch counts exactly; default_conf's pallas
+read: the segment move). The last two lines of standard output are the
 ``kernels`` JSON object and the ``{"ok": true, "device": ...}`` object.
 """
 
@@ -178,6 +190,9 @@ SKEW_RECORDS = 1_048_576
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TPU_KERNEL = "sparkucx_tpu/ops/pallas/ragged_a2a.py:133"
 SEG_TPU_KERNEL = "sparkucx_tpu/ops/pallas/segmented.py:377"
+KERNEL_A2A = "ragged_a2a"
+DEFAULT_RECORDS = 393_216  # default_conf: 49,152 rows per shard
+DEFAULT_WAVE_ROWS = 12_288  # ... in 4 waves
 COMBINE_IDS = 2_097_152
 COMBINE_VALUE_WORDS = 4
 F32_RECORDS = 4_194_304
@@ -905,23 +920,113 @@ def segreduce_at_main_shapes(keys, values, rep, part_rows, dev) -> dict:
                              f"(err {err})")
     if not torch.equal(acc.reshape(P, cap, vw), kr[..., 2:]):
         raise AssertionError("index_add_ disagrees with the kernel")
+    again = kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(again, (kr, kp, kn))):
+        raise AssertionError("two launches of the segment reduce differ")
+    del again
     pcounts = counts_from_sorted(kp, PARTITIONS).sum(dim=0)
     if pcounts.cpu().tolist() != part_rows:
         raise AssertionError("replayed input is not the combine read's")
+    valid = int((spart < PARTITIONS).sum())
     n_out = int(kn.sum())
-    del kr, kp, pr, pp
-    bytes_in = P * cap * (width + 1) * 4
-    bytes_out = n_out * width * 4
-    return {
-        "kernel_ms": median_ms(kernel),
-        "plain_ms": median_ms(plain, reps=5, warmup=1),
-        "library_ms": median_ms(library),
-        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
-        # the zero tail (rows past n_out) written as well
-        "bound_full_output_ms": 2 * bytes_in / HBM_BYTES_PER_S * 1e3,
-        "max_abs_err": err, "input_shape": [P, cap, width],
-        "valid_rows": int((spart < PARTITIONS).sum()), "n_out": n_out,
-        "bytes_in": bytes_in, "bytes_out": bytes_out}
+    del pr, pp
+    times = reduce_times(kernel, plain, library, kr, kp, kn, PARTITIONS)
+    return {**times, **reduce_bounds(P, cap, width, width, valid, n_out,
+                                     times),
+            "max_abs_err": err, "input_shape": [P, cap, width],
+            "valid_rows": valid, "n_out": n_out}
+
+
+def reduce_times(kernel, plain, library, out_rows, out_part, n_out,
+                 num_parts) -> dict:
+    """Medians of the whole kernel (tile pass + tail), its tail pass alone
+    (in place on the kernel's own output), the plain version and the
+    library call, each one call between CUDA events; ``emit_ms`` is the
+    whole less the tail. Beside them, the whole in back-to-back calls and
+    each pass's device time from the profiler."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+
+    def tail():
+        sg.segment_reduce_tail_kernel(out_rows, out_part, n_out, num_parts)
+
+    kernel_ms = median_ms(kernel)
+    tail_ms = median_ms(tail)
+    library_ms = median_ms(library)
+    dev = device_kernel_ms(kernel, ("reduce_tiles", "zero_tail"))
+    return {"kernel_ms": kernel_ms, "tail_ms": tail_ms,
+            "back_to_back_ms": back_to_back_ms(kernel),
+            "emit_ms": kernel_ms - tail_ms,
+            "plain_ms": median_ms(plain, reps=5, warmup=1),
+            "library_ms": library_ms,
+            "factor_vs_library": kernel_ms / library_ms,
+            "emit_factor_vs_library": (kernel_ms - tail_ms) / library_ms,
+            "device_ms": dev,
+            "device_emit_factor_vs_library": dev["reduce_tiles"]
+            / library_ms}
+
+
+def device_kernel_ms(fn, names, calls: int = 5) -> dict:
+    """Device time per call of each kernel whose name holds one of
+    ``names``, over ``calls`` calls of ``fn`` under torch.profiler (the
+    CUDA-event times above also hold the wrapper's host work whenever
+    the device waits for it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {name: [] for name in names}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in evt.name:
+                spans[name].append((evt.time_range.end
+                                    - evt.time_range.start) / 1e3)
+    if not all(spans.values()):
+        raise AssertionError(f"the profiler saw no launch of {names}")
+    # the mean over the launches the trace holds (it may hold fewer than
+    # were made), and how many that is
+    return {**{name: float(np.mean(v)) for name, v in spans.items()},
+            "launches_seen": {name: len(v) for name, v in spans.items()}}
+
+
+def back_to_back_ms(fn, calls: int = 10) -> float:
+    """CUDA events around ``calls`` calls in a row, over the count
+    (median of 3): the host queues the next call while the device runs
+    this one, so the wrapper's host work hides behind the kernel."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return median_ms(run, reps=3, warmup=1) / calls
+
+
+def reduce_bounds(P: int, cap: int, width_in: int, width: int, valid: int,
+                  n_out: int, times: dict) -> dict:
+    """The segment reduce's byte bounds at 3.35 TB/s. What this input
+    needs: every row's partition and every valid row's words read once,
+    the n_out run rows and their partitions written (``bound_ms``); with
+    the zero tail, rows n_out..cap and their partitions written as well
+    (``bound_full_output_ms``). ``bound_all_input_ms`` counts every row's
+    words read, sentinel rows' too (the bound PRs 2-5 reported)."""
+    bytes_in = P * cap * 4 + valid * width_in * 4
+    bytes_out = n_out * (width + 1) * 4
+    bytes_tail = (P * cap - n_out) * (width + 1) * 4
+    bound = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+    full = (bytes_in + bytes_out + bytes_tail) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": bound, "bound_full_output_ms": full,
+            "bound_all_input_ms": (P * cap * (width_in + 1) * 4
+                                   + n_out * width * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "emit_share_of_bound": bound / times["emit_ms"],
+            "share_of_full_bound": full / times["kernel_ms"],
+            "bytes_in": bytes_in, "bytes_out": bytes_out,
+            "bytes_tail": bytes_tail}
 
 
 # -- merge-path kernel phase -------------------------------------------------
@@ -1746,12 +1851,16 @@ def wire_reduce_at_main_shapes(box, part_rows, dev) -> dict:
 
     kr, kp, kn = kernel()
     pr, pp, pn = plain()
+    again = kernel()
     torch.cuda.synchronize()
     if not (torch.equal(kn, pn) and torch.equal(kp, pp)
             and torch.equal(kr[..., :2], pr[..., :2])
             and torch.equal(kr[..., 2 + sw:], pr[..., 2 + sw:])):
         raise AssertionError("fused reduce: keys, partitions, n_out or "
                              "carried lanes differ at main shapes")
+    if not all(torch.equal(a, b) for a, b in zip(again, (kr, kp, kn))):
+        raise AssertionError("two launches of the fused reduce differ")
+    del again
     if counts_from_sorted(kp, num_parts).sum(dim=0).cpu().tolist() \
             != part_rows:
         raise AssertionError("captured input is not the int8 combine's")
@@ -1780,26 +1889,85 @@ def wire_reduce_at_main_shapes(box, part_rows, dev) -> dict:
                              "summation bound at main shapes")
     err = float(diff.max())
     n_out = int(kn.sum())
-    del kr, kp, pr, pp, got, want, diff, tol
+    nvalid = int(valid.sum())
+    del pr, pp, got, want, diff, tol, valid
     acc = torch.zeros((P * cap, sw), dtype=torch.float32, device=dev)
 
     def library():
         return acc.index_add_(0, dest, lanes)
 
-    bytes_in = P * cap * (w_in + 1) * 4
-    bytes_out = n_out * width * 4
-    return {
-        "kernel_ms": median_ms(kernel),
-        "plain_ms": median_ms(plain, reps=5, warmup=1),
-        "library_ms": median_ms(library),
-        "library_calls": "index_add_ of the dequantized sum lanes of the "
-                         "valid rows into precomputed run slots",
-        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
-        "bound_full_output_ms": (bytes_in + P * cap * (width + 1) * 4)
-        / HBM_BYTES_PER_S * 1e3,
-        "max_abs_err": err, "input_shape": [P, cap, w_in],
-        "valid_rows": int(valid.sum()), "n_out": n_out,
-        "bytes_in": bytes_in, "bytes_out": bytes_out}
+    times = reduce_times(kernel, plain, library, kr, kp, kn, num_parts)
+    return {**times, **reduce_bounds(P, cap, w_in, width, nvalid, n_out,
+                                     times),
+            "library_calls": "index_add_ of the dequantized sum lanes of "
+                             "the valid rows into precomputed run slots",
+            "max_abs_err": err, "input_shape": [P, cap, w_in],
+            "valid_rows": nvalid, "n_out": n_out}
+
+
+def default_conf_phase(dev) -> dict:
+    """Under the default conf (``a2a.impl=auto``) a waved device-sink
+    read keeps its waves on the dense exchange; under an explicit
+    ``a2a.impl=pallas`` a plain device-sink read hands each shard's
+    delivered rows over as the prefix ``device_totals`` gives, which
+    decodes exactly to the rows written for that shard's partitions."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.partition import blocked_partition_map
+    keys, values = make_records(DEFAULT_RECORDS, zipf=False, seed=SEED + 9)
+    out = {"phase": "default_conf", "records": DEFAULT_RECORDS}
+    with connect({"spark.shuffle.tpu.a2a.waveRows":
+                  str(DEFAULT_WAVE_ROWS)}, num_shards=SHARDS,
+                 use_env=False) as svc:
+        h = write_maps(svc, 40, keys, values, MAPS)
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = svc.read(h, sink="device")
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        rep = svc.report(40)
+        launches = backend.launch_counts()
+        if not (rep.waves > 1 and rep.impl == "dense" and rep.d2h_bytes == 0
+                and res.waves == rep.waves):
+            raise AssertionError(f"default-conf waved read: waves="
+                                 f"{rep.waves} impl={rep.impl}")
+        hv = res.host_view()
+        check_against_oracle([hv.partition(r) for r in range(PARTITIONS)],
+                             keys, values, PARTITIONS)
+        out["waved_device"] = {"waves": rep.waves, "impl": rep.impl,
+                               "read_ms": read_ms, "launches": launches}
+    with connect({"spark.shuffle.tpu.a2a.impl": "pallas"},
+                 num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 41, keys, values, MAPS)
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = svc.read(h, sink="device")
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        launches = {KERNEL_A2A: counted(KERNEL_A2A)}
+        rep = svc.report(41)
+        if rep.impl != "pallas" or rep.d2h_bytes != 0:
+            raise AssertionError(f"explicit pallas device read: impl="
+                                 f"{rep.impl} d2h={rep.d2h_bytes}")
+        rows = res.device_rows().cpu().numpy()
+        totals = res.device_totals().cpu().numpy()
+        res.close()
+    shard_of = blocked_partition_map(PARTITIONS, SHARDS)[
+        hash_pid(keys, PARTITIONS)]
+    for p in range(SHARDS):
+        got = rows[p, :totals[p]]
+        gk = got[:, :2].copy().view(np.int64)[:, 0]
+        sel = np.flatnonzero(shard_of == p)
+        o = np.lexsort((got[:, 2], gk))
+        want = sel[np.lexsort((values[sel, 0], keys[sel]))]
+        if not (np.array_equal(gk[o], keys[want])
+                and np.array_equal(got[o, 2:], values[want])):
+            raise AssertionError(f"shard {p}: the device_totals prefix is "
+                                 f"not the rows written for it")
+    out["pallas_device"] = {"impl": rep.impl, "read_ms": read_ms,
+                            "launches": launches,
+                            "totals": [int(x) for x in totals]}
+    return {**out, "ok": True}
 
 
 
@@ -2427,6 +2595,11 @@ def main() -> int:
     print(json.dumps({"phase": "wire_reduce_at_main_shapes", **wt}),
           flush=True)
 
+    t = time.perf_counter()
+    dc = default_conf_phase(dev)
+    print(json.dumps({**dc, "seconds": time.perf_counter() - t}),
+          flush=True)
+
     # -- attention: the flash kernels, then one LLaMA-2-7B-32K attention
     # layer through the device sink (after every earlier phase)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: fp32
@@ -2481,6 +2654,8 @@ def main() -> int:
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_full_output_ms": st["bound_full_output_ms"],
+        "emit_ms": st["emit_ms"], "tail_ms": st["tail_ms"],
         "bound_by": "bytes", "library_ms": st["library_ms"]}, {
         "name": MERGE_KERNEL, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/merge_path.cu",
@@ -2501,6 +2676,8 @@ def main() -> int:
         "launches": i8_stats["launches"][WIRE_KERNEL],
         "max_abs_err": wt["max_abs_err"], "ms": wt["kernel_ms"],
         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
+        "bound_full_output_ms": wt["bound_full_output_ms"],
+        "emit_ms": wt["emit_ms"], "tail_ms": wt["tail_ms"],
         "bound_by": "bytes", "library_ms": wt["library_ms"]},
         *flash_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,14 +57,17 @@ SIGNATURES = {
     # width, blocks_per_pair, stream -> cudaError_t
     "sxt_ragged_a2a": (ctypes.c_int,
                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # rows, part, out_rows, out_part, n_out, block_counts, block_base,
-    # P, cap, width, nblk, num_parts, sum_words, float_acc, stream
+    # width_in -> rows per tile (0: a row does not fit shared memory)
+    "sxt_segment_reduce_tile_rows": (ctypes.c_int, [_I]),
+    # rows, part, out_rows, out_part, n_out, scratch, P, cap, width,
+    # num_parts, sum_words, float_acc, stream -> cudaError_t
+    "sxt_segment_reduce": (ctypes.c_int, [_P] * 6 + [_I] * 6 + [_P]),
+    # rows (wire format), part, out_rows, out_part, n_out, scratch, P, cap,
+    # wire_words, num_parts, sum_words, stream -> cudaError_t
+    "sxt_segment_reduce_wire": (ctypes.c_int, [_P] * 6 + [_I] * 5 + [_P]),
+    # out_rows, out_part, n_out, P, cap, width, num_parts, stream
     # -> cudaError_t
-    "sxt_segment_reduce": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
-    # rows (wire format), part, out_rows, out_part, n_out, block_counts,
-    # block_base, P, cap, wire_words, nblk, num_parts, sum_words, stream
-    # -> cudaError_t
-    "sxt_segment_reduce_wire": (ctypes.c_int, [_P] * 7 + [_I] * 6 + [_P]),
+    "sxt_segment_reduce_tail": (ctypes.c_int, [_P] * 3 + [_I] * 4 + [_P]),
     # x, u, q, scale, n, width, stream -> cudaError_t
     "sxt_quantize": (ctypes.c_int, [_P] * 4 + [_I] * 2 + [_P]),
     # a_rows, a_part, b_rows, b_part, out_rows, out_part, P, ca, cb,
@@ -113,18 +116,24 @@ def check_sm90(device: torch.device) -> None:
             f"the kernels are built for sm_90a (H100/H200)")
 
 
-def resolve_a2a_impl(impl: str, device: torch.device,
-                     num_shards: int) -> str:
-    """Resolve ``a2a.impl``: under ``auto`` the hand kernel ('pallas') on
-    CUDA; on an explicit CPU device the torch-op exchange the JAX package
-    picks on its CPU backend ('local' for one shard, else 'dense').
-    Explicit values pass through validated."""
+def resolve_a2a_impl(impl: str, device: torch.device, num_shards: int,
+                     waved: bool = False, sink: str = "host") -> str:
+    """Resolve ``a2a.impl``. Explicit values pass through validated.
+    ``auto`` resolves as the JAX package's ``ragged_shuffle`` does
+    ('local' for one shard, else the dense exchange), with one exception:
+    on CUDA a single-shot host-sink read (``waved`` false: no
+    ``a2a.waveRows``) takes the hand kernel ('pallas'), whose
+    chunk-aligned move gives the same partitions. A waved read keeps its
+    waves, and a device-sink read keeps its valid rows a prefix of each
+    shard, as under the reference's ``auto``."""
     validate_impl(impl)
     if impl != "auto":
         return impl
-    if device.type == "cuda":
+    if num_shards == 1:
+        return "local"
+    if device.type == "cuda" and not waved and sink == "host":
         return "pallas"
-    return "local" if num_shards == 1 else "dense"
+    return "dense"
 
 
 def count_launch(name: str) -> None:

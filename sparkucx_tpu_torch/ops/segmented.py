@@ -42,6 +42,7 @@ accumulator never materialises the sentinel tail.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -60,7 +61,6 @@ from sparkucx_tpu_torch.shuffle.alltoall import (int8_wire_words,
 KERNEL_NAME = "segment_reduce"
 WIRE_KERNEL_NAME = "segment_reduce_wire"
 MERGE_KERNEL_NAME = "merge_path"
-_THREADS = 256          # rows per block of the kernel (csrc/segment_reduce.cu)
 
 
 def pallas_reduce_supported(val_dtype) -> bool:
@@ -189,6 +189,65 @@ def segment_reduce_plain(rows: torch.Tensor, part: torch.Tensor,
     return rows_out, part_out, n_out
 
 
+def _check_card(name: str, rows: torch.Tensor, part: torch.Tensor) -> None:
+    dev = rows.device
+    if dev.type != "cuda" or part.device != dev:
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{dev} and {part.device}")
+    if not (rows.is_contiguous() and part.is_contiguous()):
+        raise ValueError("rows and part must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_rows(width_in: int) -> int:
+    tile = backend.kernel_library().sxt_segment_reduce_tile_rows(width_in)
+    if tile <= 0:
+        raise ValueError(f"rows of {width_in} words do not fit the segment-"
+                         f"reduce kernel's shared-memory tile")
+    return tile
+
+
+def _reduce_scratch(rows: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scratch, n_out), zeroed by one fill: the kernel's chained-scan
+    scratch (one 64-bit status word per tile of every shard, then the
+    tile counter) and, behind it, the ``[P]`` int32 run counts the
+    kernel raises."""
+    P, cap, width_in = rows.shape
+    words = P * -(-cap // _tile_rows(width_in)) + 1
+    buf = torch.zeros(words + -(-P // 2), dtype=torch.int64,
+                      device=rows.device)
+    return buf[:words], buf[words:].view(torch.int32)[:P]
+
+
+def segment_reduce_tail_kernel(out_rows: torch.Tensor,
+                               out_part: torch.Tensor, n_out: torch.Tensor,
+                               num_parts: int) -> None:
+    """The kernels' zero-tail pass alone, in place on the current stream:
+    rows at and past ``n_out[p]`` of ``out_rows [P, cap, W]`` zeroed and
+    their ``out_part`` set to ``num_parts`` (what :func:`_mask_past_n`
+    does). Both reduce wrappers run it after their tile pass; it is
+    exposed to time it and test it on its own, and counts no launch."""
+    _check_card("segment_reduce_tail_kernel", out_rows, out_part)
+    P, cap, W = out_rows.shape
+    if (out_rows.dtype != torch.int32 or out_part.dtype != torch.int32
+            or tuple(out_part.shape) != (P, cap)
+            or n_out.dtype != torch.int32 or tuple(n_out.shape) != (P,)
+            or n_out.device != out_rows.device):
+        raise ValueError("want int32 out_rows [P, cap, W], out_part [P, cap] "
+                         "and n_out [P] on one device")
+    if P == 0 or cap == 0 or W == 0:
+        return
+    backend.check_sm90(out_rows.device)
+    lib = backend.kernel_library()
+    with torch.cuda.device(out_rows.device):
+        stream = torch.cuda.current_stream(out_rows.device).cuda_stream
+        rc = lib.sxt_segment_reduce_tail(
+            out_rows.data_ptr(), out_part.data_ptr(), n_out.data_ptr(), P,
+            cap, W, num_parts, stream)
+    backend.check_launch(KERNEL_NAME + "_tail", rc)
+
+
 def segment_reduce_kernel(rows: torch.Tensor, part: torch.Tensor,
                           num_parts: int, sum_words: int, float_acc: bool
                           ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -196,30 +255,23 @@ def segment_reduce_kernel(rows: torch.Tensor, part: torch.Tensor,
     """Launch the CUDA segment reduce on the current stream (no host
     synchronisation). Same contract as :func:`segment_reduce_plain`."""
     _check_inputs(rows, part, sum_words)
+    _check_card("segment_reduce_kernel", rows, part)
     dev = rows.device
-    if dev.type != "cuda" or part.device != dev:
-        raise ValueError(f"segment_reduce_kernel needs CUDA tensors on one "
-                         f"device, got {dev} and {part.device}")
-    if not (rows.is_contiguous() and part.is_contiguous()):
-        raise ValueError("rows and part must be contiguous")
     P, cap, W = rows.shape
     out_rows = torch.empty((P, cap, W), dtype=torch.int32, device=dev)
     out_part = torch.empty((P, cap), dtype=torch.int32, device=dev)
-    n_out = torch.zeros((P,), dtype=torch.int32, device=dev)
     if P == 0 or cap == 0:
-        return out_rows, out_part, n_out
+        return out_rows, out_part, torch.zeros((P,), dtype=torch.int32,
+                                               device=dev)
     backend.check_sm90(dev)
     lib = backend.kernel_library()
-    nblk = -(-cap // _THREADS)
-    block_counts = torch.empty((P, nblk), dtype=torch.int32, device=dev)
-    block_base = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    scratch, n_out = _reduce_scratch(rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sxt_segment_reduce(
             rows.data_ptr(), part.data_ptr(), out_rows.data_ptr(),
-            out_part.data_ptr(), n_out.data_ptr(), block_counts.data_ptr(),
-            block_base.data_ptr(), P, cap, W, nblk, num_parts, sum_words,
-            int(bool(float_acc)), stream)
+            out_part.data_ptr(), n_out.data_ptr(), scratch.data_ptr(), P,
+            cap, W, num_parts, sum_words, int(bool(float_acc)), stream)
     backend.check_launch(KERNEL_NAME, rc)
     backend.count_launch(KERNEL_NAME)
     return out_rows, out_part, n_out
@@ -316,30 +368,23 @@ def segment_reduce_wire_kernel(rows: torch.Tensor, part: torch.Tensor,
     host synchronisation). Same contract as
     :func:`segment_reduce_wire_plain`."""
     _check_wire_inputs(rows, part, width, wire_words, sum_words)
+    _check_card("segment_reduce_wire_kernel", rows, part)
     dev = rows.device
-    if dev.type != "cuda" or part.device != dev:
-        raise ValueError(f"segment_reduce_wire_kernel needs CUDA tensors on "
-                         f"one device, got {dev} and {part.device}")
-    if not (rows.is_contiguous() and part.is_contiguous()):
-        raise ValueError("rows and part must be contiguous")
     P, cap, _ = rows.shape
     out_rows = torch.empty((P, cap, width), dtype=torch.int32, device=dev)
     out_part = torch.empty((P, cap), dtype=torch.int32, device=dev)
-    n_out = torch.zeros((P,), dtype=torch.int32, device=dev)
     if P == 0 or cap == 0:
-        return out_rows, out_part, n_out
+        return out_rows, out_part, torch.zeros((P,), dtype=torch.int32,
+                                               device=dev)
     backend.check_sm90(dev)
     lib = backend.kernel_library()
-    nblk = -(-cap // _THREADS)
-    block_counts = torch.empty((P, nblk), dtype=torch.int32, device=dev)
-    block_base = torch.empty((P, nblk), dtype=torch.int32, device=dev)
+    scratch, n_out = _reduce_scratch(rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sxt_segment_reduce_wire(
             rows.data_ptr(), part.data_ptr(), out_rows.data_ptr(),
-            out_part.data_ptr(), n_out.data_ptr(), block_counts.data_ptr(),
-            block_base.data_ptr(), P, cap, wire_words, nblk, num_parts,
-            sum_words, stream)
+            out_part.data_ptr(), n_out.data_ptr(), scratch.data_ptr(), P,
+            cap, wire_words, num_parts, sum_words, stream)
     backend.check_launch(WIRE_KERNEL_NAME, rc)
     backend.count_launch(WIRE_KERNEL_NAME)
     return out_rows, out_part, n_out

@@ -358,7 +358,7 @@ class ShuffleManager:
         t_plan = time.perf_counter()
         plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
                          self.node.device, partitioner=handle.partitioner,
-                         bounds=handle.bounds)
+                         bounds=handle.bounds, sink=sink)
         plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
         plan = self._decorated_plan(plan, combine, ordered, has_vals,
                                     val_tail, val_dtype, combine_sum_words,
@@ -512,9 +512,9 @@ class ShuffleManager:
 
     # -- waved reads (a2a.waveRows) ----------------------------------------
     def _waves_eligible(self, plan: ShufflePlan) -> bool:
-        """Whether a2a.waveRows applies to this read: not under the
-        segment-move kernel (``a2a.impl=pallas``, which ``auto`` resolves
-        to on CUDA), whose chunk-aligned move stays single-shot, as in
+        """Whether a2a.waveRows applies to this read: not under an
+        explicit ``a2a.impl=pallas`` (``auto`` never resolves to it on a
+        waved read), whose chunk-aligned move stays single-shot, as in
         the JAX package."""
         if plan.impl == "pallas":
             log.info("a2a.waveRows set with impl='pallas': single-shot "

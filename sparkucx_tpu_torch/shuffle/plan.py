@@ -138,10 +138,11 @@ def check_bounds(bounds, num_partitions: int) -> Tuple[int, ...]:
 
 def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
               conf: ShuffleConf, device, partitioner: str = "hash",
-              bounds=None) -> ShufflePlan:
+              bounds=None, sink: str = "host") -> ShufflePlan:
     """Capacities from per-shard staged row counts; the impl resolved for
-    ``device`` (backend.resolve_a2a_impl). ``bounds`` are the range
-    partitioner's split points as :func:`check_bounds` returned them at
+    ``device``, the read's sink and whether ``conf`` waves it
+    (backend.resolve_a2a_impl). ``bounds`` are the range partitioner's
+    split points as :func:`check_bounds` returned them at
     registration."""
     if partitioner not in PARTITIONERS:
         raise ValueError(f"unknown partitioner {partitioner!r}; want one "
@@ -155,7 +156,8 @@ def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
     return ShufflePlan(
         num_shards=num_shards, num_partitions=num_partitions,
         cap_in=cap_in, cap_out=cap_out,
-        impl=resolve_a2a_impl(conf.a2a_impl, device, num_shards),
+        impl=resolve_a2a_impl(conf.a2a_impl, device, num_shards,
+                              waved=conf.wave_rows > 0, sink=sink),
         partitioner=partitioner, sort_impl=conf.sort_impl, bounds=bounds,
         combine_compaction=conf.combine_compaction)
 

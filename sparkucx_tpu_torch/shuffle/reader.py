@@ -39,9 +39,11 @@ Sinks: a host read serves :class:`LazyShuffleReaderResult` (numpy views,
 one D2H on first touch); a device read (``plan.sink == "device"``) serves
 :class:`DeviceShuffleReaderResult`, whose partitions stay in device
 tensors until a consumer takes them (``consume``) or asks for the host
-view. A waved read (manager.PendingWaveShuffle) composes its per-wave
-results: :class:`WavedShuffleReaderResult` on the host, where ordered and
-combine partitions merge across waves in numpy (:func:`merge_sorted_rows`,
+view; every shard's delivered rows are a prefix of its buffer (under the
+segment move, :func:`compact_received` makes them so). A waved read
+(manager.PendingWaveShuffle) composes its per-wave results:
+:class:`WavedShuffleReaderResult` on the host, where ordered and combine
+partitions merge across waves in numpy (:func:`merge_sorted_rows`,
 :func:`combine_packed_rows`), or, on the device sink, one merged device
 view from :func:`device_merge_fold`, a fold of merge-path merges (and
 segment reduces) over the wave buffers.
@@ -57,7 +59,8 @@ import torch
 
 from sparkucx_tpu_torch.config import PARTITIONERS, ShuffleConf
 from sparkucx_tpu_torch.ops.aggregate import combine_rows, keysort_rows
-from sparkucx_tpu_torch.ops.partition import (blocked_partition_map,
+from sparkucx_tpu_torch.ops.partition import (_gather_rows,
+                                              blocked_partition_map,
                                               destination_sort,
                                               hash_partition,
                                               partition_major_sort_aligned,
@@ -292,8 +295,12 @@ def _pallas_step_body(plan: ShufflePlan):
                 plan, payload, nvalid)
             if plan_takes_seed(plan):
                 srows = _wire_pack(plan, srows, seeds)
-            out, recv_real, _, total_al = ragged_a2a(
+            out, recv_real, recv_off, total_al = ragged_a2a(
                 srows, dev_counts, out_capacity=cap_eff)
+            if plan.sink == "device":
+                # a device consumer reads rows[p, :total[p]]; host views
+                # keep the chunk-aligned layout
+                out = compact_received(out, recv_real, recv_off)
             if plan_takes_seed(plan):
                 out = wire_unpack_rows(out, width, plan.wire_words)
             total = recv_real.sum(dim=1, dtype=torch.int32)
@@ -312,6 +319,23 @@ def _pallas_step_body(plan: ShufflePlan):
         return rows_out, pcounts.reshape(Pn, 1, R), total, ovf
 
     return step
+
+
+def compact_received(out: torch.Tensor, recv_real: torch.Tensor,
+                     recv_off: torch.Tensor) -> torch.Tensor:
+    """The segment move's receive buffer ``[P, cap, W]`` with each shard's
+    real rows made a prefix, sender after sender: one row gather driven by
+    the device counts (``recv_real[p, s]`` real rows of sender s at the
+    aligned offset ``recv_off[p, s]``), no host synchronisation. Rows past
+    a shard's total keep what the buffer held there."""
+    Pn, cap, _ = out.shape
+    idx = torch.arange(cap, dtype=torch.int32, device=out.device)
+    idx = idx.expand(Pn, cap).contiguous()
+    ends = torch.cumsum(recv_real, dim=1, dtype=torch.int32)
+    seg = torch.clamp(torch.searchsorted(ends, idx, right=True), max=Pn - 1)
+    src = idx - torch.gather(ends - recv_real, 1, seg) \
+        + torch.gather(recv_off, 1, seg)
+    return _gather_rows(out, torch.where(idx < ends[:, -1:], src, idx))
 
 
 def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
@@ -986,7 +1010,8 @@ class DeviceShuffleReaderResult:
         return self._live_views()[wave]._rows_dev
 
     def device_totals(self, wave: int = 0) -> torch.Tensor:
-        """Wave ``wave``'s delivered rows per shard, ``[P]`` int32: rows
+        """Wave ``wave``'s delivered rows per shard, ``[P]`` int32: shard
+        p's delivered rows are ``device_rows(wave)[p, :totals[p]]``, rows
         at and past it are invalid."""
         return self._live_views()[wave]._totals_dev
 
@@ -1145,8 +1170,9 @@ class PendingShuffle:
         p2s = blocked_partition_map(R, Pn)
         plan = self._plan
         align_chunk = 0
-        if plan.impl == "pallas" and not (plan.combine or plan.ordered):
-            # only the plain read keeps the chunk-aligned layout
+        if plan.impl == "pallas" and not (plan.combine or plan.ordered
+                                          or plan.sink == "device"):
+            # only the plain host-sink read keeps the chunk-aligned layout
             align_chunk = chunk_rows_for(
                 wire_row_words(plan, rows_out.shape[2]))
         res = LazyShuffleReaderResult(R, p2s, rows_out, seg,

@@ -16,6 +16,7 @@ import torch
 
 from sparkucx_tpu_torch import backend, connect
 from sparkucx_tpu_torch.ops import ragged_a2a as ra
+from sparkucx_tpu_torch.ops.partition import blocked_partition_map
 from sparkucx_tpu_torch.shuffle.writer import hash32_np
 from torch_attention_cases import (FLASH_BH, FLASH_D, FLASH_T,
                                    flash_inputs, flash_seed, float64_grads,
@@ -255,14 +256,249 @@ def test_segment_reduce_kernel_refuses_bad_input(card):
         sg.segment_reduce_kernel(rows.transpose(0, 1), part.t(), 4, 1,
                                  False)
     lib = backend.kernel_library()
-    scratch = torch.zeros(8, dtype=torch.int32, device=card)
+    scratch = torch.zeros(8, dtype=torch.int64, device=card)
     stream = torch.cuda.current_stream(card).cuda_stream
-    rc = lib.sxt_segment_reduce(        # nblk 1 cannot cover 300 rows
+    rc = lib.sxt_segment_reduce(        # sum_words 3 > width 4 - 2
         rows.data_ptr(), part.data_ptr(), rows.data_ptr(), part.data_ptr(),
-        scratch.data_ptr(), scratch.data_ptr(), scratch.data_ptr(),
-        2, 300, 4, 1, 4, 1, 0, stream)
+        scratch.data_ptr(), scratch.data_ptr(), 2, 300, 4, 4, 3, 0, stream)
     with pytest.raises(RuntimeError, match="segment_reduce launch failed"):
         backend.check_launch(sg.KERNEL_NAME, rc)
+    assert lib.sxt_segment_reduce_tile_rows(0) == 0
+    assert lib.sxt_segment_reduce_tile_rows(1 << 20) == 0
+
+
+TILE_CASES = ("unaligned_cap", "edge_runs", "multi_tile_run", "all_sentinel",
+              "all_unique", "uneven_chains")
+
+
+def _tile_rows(width_in: int) -> int:
+    return backend.kernel_library().sxt_segment_reduce_tile_rows(width_in)
+
+
+def _run_lengths(rng, case: str, T: int, shard: int):
+    """(run lengths, cap) of one shard for a tile-edge case, ``T`` being
+    the kernel's rows per tile: caps off every multiple of T and of 4,
+    runs ending exactly on tile edges, a run over three tiles, no valid
+    row, every row its own run, and shards whose chains hold different
+    run counts."""
+    cap = 3 * T + 3
+    if case == "unaligned_cap":
+        cap = 2 * T + 3
+        return list(rng.integers(1, 10, cap)), cap
+    if case == "edge_runs":
+        return [T - 5, 5, T, 3, T - 3], cap
+    if case == "multi_tile_run":
+        return [T - 3, 2 * T + 9, 5, 1], cap
+    if case == "all_sentinel":
+        return [], cap
+    if case == "all_unique":
+        return [1] * cap, cap
+    return ([[1] * cap, [cap], [], list(rng.integers(1, 40, cap))]
+            [shard % 4], cap)
+
+
+def _runs_shard(rng, lengths, cap, width, dtype, num_parts):
+    """rows [cap, W] and part [cap] of one shard sorted by (partition,
+    key): run r of ``lengths[r]`` rows has its own key (both key words
+    vary), partitions non-decreasing over the runs, the rows past the
+    runs sentinel; the lengths are cut to ``cap`` rows."""
+    lengths = np.asarray(lengths, np.int64)
+    lengths = lengths[np.cumsum(lengths) <= cap]
+    n, nr = int(lengths.sum()), lengths.size
+    rows = rng.integers(-(1 << 31), 1 << 31, (cap, width)).astype(np.int32)
+    if dtype == "float32":
+        rows[:, 2:] = rng.standard_normal((cap, width - 2)).astype(
+            np.float32).view(np.int32)
+    part = np.full(cap, num_parts, np.int32)
+    keys = (np.arange(nr, dtype=np.int64) - nr // 2) * ((1 << 33) + 7)
+    rows[:n, :2] = np.repeat(keys, lengths).view(np.int32).reshape(n, 2)
+    part[:n] = np.repeat(np.arange(nr) * num_parts // max(nr, 1), lengths)
+    return rows, part
+
+
+def _tile_case(seed, case, width, dtype, T, num_parts=SEG_R):
+    rng = np.random.default_rng(seed)
+    P = 4 if case == "uneven_chains" else 3
+    shards = []
+    for p in range(P):
+        lengths, cap = _run_lengths(rng, case, T, p)
+        shards.append(_runs_shard(rng, lengths, cap, width, dtype,
+                                  num_parts))
+    return (np.stack([s[0] for s in shards]),
+            np.stack([s[1] for s in shards]))
+
+
+def _check_segment_reduce(card, rows_np, part_np, sw, fa):
+    """The kernel against its plain version: n_out, partitions, keys,
+    carried lanes and int32 sums bit-exact; float32 sums within the
+    sequential-summation bound of each run."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rows = torch.from_numpy(rows_np).to(card)
+    part = torch.from_numpy(part_np).to(card)
+    before = backend.launch_counts().get(sg.KERNEL_NAME, 0)
+    kr, kp, kn = sg.segment_reduce(rows, part, SEG_R, sw, fa)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[sg.KERNEL_NAME] == before + 1
+    pr, pp, pn = sg.segment_reduce_plain(rows, part, SEG_R, sw, fa)
+    assert torch.equal(kn, pn) and torch.equal(kp, pp)
+    width = rows_np.shape[2]
+    exact = [0, 1] + list(range(2 + sw, width))
+    assert torch.equal(kr[..., exact], pr[..., exact]), f"sw={sw}"
+    if not fa:
+        assert torch.equal(kr, pr), f"sw={sw}"
+    elif sw:
+        got = kr[..., 2:2 + sw].cpu().view(torch.float32).double()
+        want = pr[..., 2:2 + sw].cpu().view(torch.float32).double()
+        tol = _float_tolerance(rows_np, part_np, sw)
+        assert ((got - want).abs().numpy() <= tol).all(), f"sw={sw}"
+    return kn.cpu()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("width", [3, 6, 25])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_segment_reduce_kernel_tile_edges(card, case, width, dtype):
+    T = _tile_rows(width)
+    rows, part = _tile_case(width * 31 + len(case), case, width, dtype, T)
+    vw = width - 2
+    for sw in sorted({0, vw // 2, vw}):
+        n = _check_segment_reduce(card, rows, part, sw, dtype == "float32")
+    cap = rows.shape[1]
+    if case == "all_sentinel":
+        assert not n.any()
+    elif case == "all_unique":
+        assert (n == cap).all()
+    elif case == "edge_runs":
+        assert (n == 5).all()
+    elif case == "uneven_chains":
+        assert n[0] == cap and n[1] == 1 and n[2] == 0
+
+
+def _wire_runs_case(seed, case, ww, T):
+    """Wire rows [P, cap, 2 + ceil(ww/4) + 1], part and the float32 values
+    they decode to, over the run lengths of :func:`_run_lengths`."""
+    rng = np.random.default_rng(seed)
+    qw = -(-ww // 4)
+    P = 4 if case == "uneven_chains" else 3
+    rows, part, vals = [], [], []
+    for p in range(P):
+        lengths, cap = _run_lengths(rng, case, T, p)
+        r, pt = _runs_shard(rng, lengths, cap, 2 + qw + 1, "int32", WIRE_R)
+        q = rng.integers(-127, 128, (cap, 4 * qw)).astype(np.int8)
+        q[:, ww:] = 0
+        scale = np.exp(rng.normal(0, 3, cap)).astype(np.float32)
+        r[:, 2:2 + qw] = q.view(np.int32)
+        r[:, 2 + qw] = scale.view(np.int32)
+        v = q[:, :ww].astype(np.float32) * scale[:, None]
+        v[pt >= WIRE_R] = 0.0
+        rows.append(r)
+        part.append(pt)
+        vals.append(v)
+    return np.stack(rows), np.stack(part), np.stack(vals)
+
+
+@pytest.mark.parametrize("ww", [4, 7, 128])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_wire_reduce_kernel_tile_edges(card, case, ww):
+    T = _tile_rows(2 + -(-ww // 4) + 1)
+    rows, part, vals = _wire_runs_case(ww * 17 + len(case), case, ww, T)
+    for sum_words in sorted({0, max(1, ww // 2)}):
+        _wire_kernel_vs_plain(card, rows, part, vals, ww, sum_words)
+
+
+@pytest.mark.parametrize("mode", ["int32", "float32", "wire"])
+def test_segment_reduce_kernel_is_deterministic(card, mode):
+    """Two launches on one input give the same bits: float sums run in
+    row order, whatever order the tiles are taken in."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    if mode == "wire":
+        T = _tile_rows(2 + 32 + 1)
+        r, p, _ = _wire_runs_case(7, "unaligned_cap", 128, T)
+        rows, part = torch.from_numpy(r).to(card), torch.from_numpy(p).to(card)
+
+        def run():
+            return sg.segment_reduce_wire_kernel(rows, part, WIRE_R, 130, 128,
+                                                 128)
+    else:
+        T = _tile_rows(6)
+        r, p = _tile_case(8, "uneven_chains", 6, mode, T)
+        rows, part = torch.from_numpy(r).to(card), torch.from_numpy(p).to(card)
+
+        def run():
+            return sg.segment_reduce_kernel(rows, part, SEG_R, 4,
+                                            mode == "float32")
+    first = run()
+    for _ in range(3):
+        again = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("width", [1, 3, 6, 130])
+def test_segment_reduce_tail_matches_mask(card, width):
+    """The tail pass alone equals ``_mask_past_n`` on the same buffers:
+    n_out from 0 to cap, caps and widths off the 16-byte grid."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rng = np.random.default_rng(width)
+    P, cap = 5, 1031
+    rows = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (
+        P, cap, width)).astype(np.int32)).to(card)
+    part = torch.from_numpy(rng.integers(0, 9, (P, cap)).astype(
+        np.int32)).to(card)
+    n_out = torch.tensor([0, 1, 517, cap - 1, cap], dtype=torch.int32,
+                         device=card)
+    want_rows, want_part = sg._mask_past_n(rows, part, n_out, 9)
+    got_rows, got_part = rows.clone(), part.clone()
+    before = backend.launch_counts().get(sg.KERNEL_NAME, 0)
+    sg.segment_reduce_tail_kernel(got_rows, got_part, n_out, 9)
+    torch.cuda.synchronize()
+    assert backend.launch_counts().get(sg.KERNEL_NAME, 0) == before
+    assert torch.equal(got_rows, want_rows)
+    assert torch.equal(got_part, want_part)
+
+
+def test_default_conf_keeps_waves_and_prefixes_on_card(card):
+    """Under the default ``a2a.impl=auto`` a waved read keeps its waves on
+    the dense exchange and a plain device-sink read resolves to dense; an
+    explicit ``pallas`` plain device-sink read hands consumers each
+    shard's delivered rows as a prefix."""
+    R, M = 16, 8
+    rng = np.random.default_rng(41)
+    keys = [rng.integers(-(1 << 40), 1 << 40, 3000).astype(np.int64)
+            for _ in range(M)]
+    vals = [rng.integers(0, 1 << 30, (3000, 3)).astype(np.int32)
+            for _ in range(M)]
+    k = np.concatenate(keys)
+    with connect({"spark.shuffle.tpu.a2a.waveRows": "1000"},
+                 use_env=False) as svc:
+        h = svc.register_shuffle(0, M, R)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        res = svc.read(h)
+        rep = svc.report(0)
+        assert rep.waves > 1 and rep.impl == "dense"
+        assert sum(res.partition(r)[0].size for r in range(R)) == k.size
+    with connect({}, use_env=False) as svc:
+        h = svc.register_shuffle(1, M, R)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        svc.read(h, sink="device").close()
+        assert svc.report(1).impl == "dense"
+    with connect({"spark.shuffle.tpu.a2a.impl": "pallas"},
+                 use_env=False) as svc:
+        h = svc.register_shuffle(2, M, R)
+        for m in range(M):
+            svc.write(h, m, keys[m], vals[m])
+        res = svc.read(h, sink="device")
+        rows = res.device_rows().cpu().numpy()
+        totals = res.device_totals().cpu().numpy()
+        assert svc.report(2).impl == "pallas"
+        assert svc.report(2).d2h_bytes == 0
+        res.close()
+    shard_of = blocked_partition_map(R, 8)[hash32_np(k) % R]
+    for p in range(8):
+        got = rows[p, :totals[p], :2].copy().view(np.int64)[:, 0]
+        assert sorted(got.tolist()) == sorted(k[shard_of == p].tolist())
 
 
 @pytest.mark.parametrize("merge", ["auto", "pallas", "jnp"])
