@@ -18,35 +18,67 @@
 //
 // Bound: operations. At the main path's shape ([32, 32768, 128], causal)
 // the forward needs 4 * D flops per live (q, k) pair and the backward 10 * D
-// (FlashAttention-2's accounting), 8.8e12 and 2.2e13 flops, against about
-// 2 GB of traffic: at the card's float32 rate outside the tensor cores
-// (67 TFLOP/s) that is 131 ms and 328 ms, against 0.64 ms for the bytes.
-// The design therefore keeps every operand of the inner products in
-// shared memory and registers and reads each tile from device memory once
-// per use; it computes in float32 on CUDA cores, as the reference does.
-// Tensor cores (TF32 wgmma, TMA-fed pipelines) are later work.
+// (FlashAttention-2's accounting: 2 * D in dq's product, 8 * D in dk/dv's
+// S, dP, dV and dK), 8.8e12 and 2.2e13 flops, against about 2 GB of
+// traffic (0.64 ms). Float32-accurate products on the tensor cores take
+// three TF32 products each (split-TF32, below), so their rate is a third
+// of TF32's 495 TFLOP/s: 165 TFLOP/s, and the bounds are 53.3 ms forward,
+// 26.7 ms dq and 106.6 ms dk/dv (at the float32 rate outside the tensor
+// cores, 67 TFLOP/s: 131, 66 and 263 ms). The kernels recompute S and dP
+// (dq does 6 * D per pair, dk/dv 8 * D), as the reference's do.
 //
-// Design: 128 threads per block, 64-row Q and K tiles. Thread t owns rows
+// Forward (flash_fwd): float32 on CUDA cores. 128 threads per block,
+// 64-row Q and K tiles, one block per (bh, Q tile). Thread t owns rows
 // 8 * (t / 16) .. +7 of a 64 x 64 score tile and its columns
 // 4 * (t % 16) .. +3, so the 16 threads of one row group sit in one
 // half-warp and a row's max and sum are shuffles within it. Tiles that the
 // inner products walk along D are stored transposed ([D][64 + 4] floats),
 // so a thread reads its 8 rows and 4 columns as three 16-byte loads per
 // step of D; the 64 x 64 probability tile goes through shared memory,
-// transposed, for the products with V, dO, K and Q, where a thread owns
-// output columns t % 16 + 16 * c.
-//   forward: one block per (bh, Q tile); the running max, sum and the O
-//     accumulator stay in registers; K then V share one shared buffer;
-//     causal K tiles above the diagonal are skipped.
-//   dq: the same nest; dP = dO V^T first, then S = Q K^T with K kept for
-//     dq += dS K.
-//   dk/dv: one block per (bh, K tile) holding K and V, looping over the Q
-//     tiles at or below the diagonal; P^T then dS^T pass through shared
-//     memory for dv += P^T dO and dk += dS^T Q.
-// Shared memory at D = 128: forward 87,040 B, dq 121,856 B, dk/dv
-// 156,672 B; above the 48 KB default, so each launch opts in first.
-// Blocks run heaviest first under causal masking (the longest K or Q
-// loop), so the tail of the grid is short.
+// transposed, for the product with V, where a thread owns output columns
+// t % 16 + 16 * c. The running max, sum and the O accumulator stay in
+// registers; K then V share one shared buffer (87,040 B at D = 128);
+// causal K tiles above the diagonal are skipped.
+//
+// Backward (flash_dq, flash_dkv): every product on the tensor cores with
+// mma.sync m16n8k8 TF32, in split-TF32 (3xTF32, the scheme of CUTLASS's
+// fast float32 products that PyTorch's memory-efficient SDPA uses): each
+// operand x is split in registers, at its fragment load, into big = x
+// rounded to TF32 and small = x - big, which the tensor core reads
+// truncated to TF32, and a b = a_big b_big + a_small b_big + a_big b_small.
+// The tensor core cuts each sum into its accumulator toward zero, so
+// products added into a large running sum lose their low bits the same way
+// each time: dP's cross terms, where dS = P (dP - delta) cancels when a
+// gradient vanishes, go to an accumulator of their own, and dq sums each
+// streamed tile's products from zero before one rounded float32 addition.
+// dk/dv has no registers to spare for that and adds straight into its
+// accumulators, so dk and dv drift further from float32 sums as T grows
+// (at the main shape about 100 times SDPA's distance from the plain
+// version, a fifth of the tolerance). Scale, exp, masks and dS stay
+// float32 on CUDA cores. FlashAttention-2's layout: 256 threads, 8 warps
+// that each own 16 rows of a resident 128-row tile (Q and dO in dq; K and
+// V in dk/dv), streaming 32-row tiles of the other side (K and V; Q, dO,
+// lse and delta) through a two-stage ring of 16-byte cp.async copies, so
+// tile j + 1 lands while tile j is multiplied; 4 warps a block would leave
+// one warp to each of the SM's schedulers. A fragments and the B fragments
+// of S and dP load with ldmatrix. S and P (S^T and P^T) stay in
+// accumulator registers: an accumulator tile serves as the A operand of
+// the next product when that product's B rows are taken in the order 2t,
+// 2t + 1 (load_b_perm), so no value moves between lanes. Shared rows are
+// D + 4 floats, which puts every fragment load on 32 distinct banks. One
+// block per (bh, 128-row tile); dq owns Q rows and loops over the K tiles
+// at or below them, dk/dv owns K rows and loops over the Q tiles at or
+// after them; each output element has one writer and no atomics, so two
+// launches give the same bits. Under the causal mask a warp skips a
+// streamed tile that lies wholly on the masked side of its 16 rows, and
+// blocks run heaviest first. Shared memory at D = 128: dq 202,752 B,
+// dk/dv 203,264 B, one block per SM; both opt in above 48 KB.
+//
+// Measured at [32, 32768, 128] causal (flash_bench.py on an NVIDIA H100
+// 80GB HBM3 at a 700 W power limit): dq 238.0 ms and dk/dv 304.4 ms, 542.4
+// ms together against 578.1 ms for SDPA's float32 backward in the same run
+// (the float32 CUDA-core kernels they replace: 613.5 and 794.7 ms); 11% and
+// 35% of their split-TF32 bounds. PERF.md's kernel table has the rest.
 //
 // Plain C interface (no PyTorch headers): the wrapper passes device
 // pointers and the current stream, and raises on a non-zero return.
@@ -275,152 +307,457 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -- the backward: split-TF32 products on the tensor cores -------------------
+// mma.sync m16n8k8 (TF32 in, float32 accumulate). Fragments, with
+// g = lane / 4 and t = lane % 4: A (16 x 8, row-major) holds (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) holds (t, g) and
+// (t + 4, g); the accumulator C (16 x 8) holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1). The tensor core reads a TF32 operand from
+// a 32-bit register and ignores its low 13 bits.
+
+constexpr int kBwdThreads = 256;  // 8 warps, 16 resident rows each
+constexpr int kRes = 128;         // resident rows: Q (dq), K and V (dk/dv)
+constexpr int kStr = 32;          // streamed rows a stage: K and V (dq),
+                                  // Q and dO (dk/dv)
+
+// Row-major tiles of the backward: rows of D + 4 floats. The pad of 4 puts
+// the 32 lanes of every fragment load below on 32 distinct banks.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct RowTile {
+  static constexpr int kLd = D + 4;
+};
+
+// x = big + small: big = x rounded to TF32 (to nearest, ties away from
+// zero: adding half of the dropped unit before the tensor core truncates),
+// small = x - big, which the tensor core truncates to TF32; |x - big -
+// small| <= 2^-21 |x|. The split happens at the fragment load, in
+// registers, in three integer/float operations.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.big[0], f.small[0]);
+  split(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in split-TF32 (3xTF32): the two cross terms, then big * big
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// The tensor core cuts each sum it adds into an accumulator toward zero,
+// so products added into a large running sum lose their low bits, the
+// same way each time. Two remedies, one for each kind of sum:
+// dP, where dS = P (dP - delta) cancels when a gradient vanishes, sums its
+// cross terms in an accumulator of their own (dP = hi + lo) ...
+__device__ __forceinline__ void mma3_lo(float (&hi)[4], float (&lo)[4],
+                                        const FragA& a, const FragB& b) {
+  mma_tf32(lo, a.small, b.big);
+  mma_tf32(lo, a.big, b.small);
+  mma_tf32(hi, a.big, b.big);
+}
+
+// ... and dQ, summed over every streamed tile, takes each tile's products
+// from zero and adds them to its running sum with one rounded float32
+// addition (add_tile_product, below). dK and dV add straight into theirs
+// (flash_dkv says why), so their distance from float32 sums grows with T.
+
+__device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// ldmatrix moves four 8 x 8 blocks of 16-bit values, each 8 x 4 of 32-bit
+// ones, lane l receiving block i's (l / 4, l % 4) in r[i] as m16n8k8's TF32
+// fragments hold them; lanes 8i .. 8i + 7 address block i's rows.
+// A: rows m0 .. m0 + 15, columns k0 .. k0 + 7 of a row-major tile
+template <int Ld>
+__device__ __forceinline__ FragA load_a(const float* x, int m0, int k0,
+                                        int lane) {
+  const int blk = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(x + (m0 + (lane & 7) + (blk & 1) * 8) * Ld + k0 + (blk >> 1) * 4,
+          r);
+  return frag_a(__uint_as_float(r[0]), __uint_as_float(r[1]),
+                __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// B[k][n] = x[n0 + n][k0 + k] for two adjacent column blocks (n0 and
+// n0 + 8): the tile's rows are the product's columns (S = Q K^T takes K so)
+template <int Ld>
+__device__ __forceinline__ void load_b_t2(const float* x, int n0, int k0,
+                                          int lane, FragB& b0, FragB& b1) {
+  const int blk = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(x + (n0 + (lane & 7) + (blk >> 1) * 8) * Ld + k0 + (blk & 1) * 4,
+          r);
+  b0 = frag_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  b1 = frag_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// B[k][n] = x[k0 + perm(k)][n0 + n] with perm(t) = 2t, perm(t + 4) = 2t + 1:
+// the row order that lets an accumulator tile serve as A (frag_acc)
+template <int Ld>
+__device__ __forceinline__ FragB load_b_perm(const float* x, int k0, int n0,
+                                             int g, int t) {
+  const float* p = x + (k0 + 2 * t) * Ld + n0 + g;
+  return frag_b(p[0], p[Ld]);
+}
+
+// An accumulator tile (16 x 8 of C) as the A operand of a product over its
+// 8 columns, in load_b_perm's order: no data moves between lanes
+__device__ __forceinline__ FragA frag_acc(const float (&c)[4]) {
+  return frag_a(c[0], c[2], c[1], c[3]);
+}
+
+// acc (16 x D) += c x[0 .. kStr - 1][0 .. D - 1], where c (16 x kStr) is a
+// tile of accumulators serving as A: each 16 x 8 output block sums the
+// tile's kStr / 8 steps from zero and is then added to acc
+template <int D, int Ld>
+__device__ __forceinline__ void add_tile_product(
+    float (&acc)[D / 8][4], const float (&c)[kStr / 8][4], const float* x,
+    int g, int t) {
+  FragA a[kStr / 8];
+#pragma unroll
+  for (int kk = 0; kk < kStr / 8; ++kk) a[kk] = frag_acc(c[kk]);
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    float sum[4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kStr / 8; ++kk) {
+      mma3(sum, a[kk], load_b_perm<Ld>(x, 8 * kk, 8 * nn, g, t));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] += sum[e];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0 + R - 1 of a [T, D] row-major matrix into a RowTile, as
+// 16-byte asynchronous copies; rows past T fill with zeros.
+template <int D, int R>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int r0, int T) {
+  constexpr int kVec = D / 4;
+  for (int e = threadIdx.x; e < R * kVec; e += kBwdThreads) {
+    const int r = e / kVec;
+    const int c = (e % kVec) * 4;
+    const bool in = r0 + r < T;
+    cp_async16(dst + r * RowTile<D>::kLd + c,
+               src + (long long)(in ? r0 + r : 0) * D + c, in);
+  }
+}
+
+// Entries r0 .. r0 + R - 1 of two [T] rows (lse, delta) into a[] and b[];
+// zeros past T.
+template <int R>
+__device__ __forceinline__ void stage_entries(float* a, const float* src_a,
+                                              float* b, const float* src_b,
+                                              int r0, int T) {
+  const int r = threadIdx.x & (R - 1);
+  if (threadIdx.x < 2 * R) {
+    const bool in = r0 + r < T;
+    const long long at = in ? r0 + r : 0;
+    if (threadIdx.x < R) {
+      cp_async4(a + r, src_a + at, in);
+    } else {
+      cp_async4(b + r, src_b + at, in);
+    }
+  }
+}
+
+// Rows r and r + 8 of a warp's [16, D] accumulator to out (row-major
+// [T, D]), rows < T.
+template <int D>
+__device__ __forceinline__ void store_acc(float* out, int r, int T,
+                                          const float (&acc)[D / 8][4],
+                                          int t) {
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    const int col = 8 * nn + 2 * t;
+    if (r < T) {
+      *reinterpret_cast<float2*>(out + (long long)r * D + col) =
+          make_float2(acc[nn][0], acc[nn][1]);
+    }
+    if (r + 8 < T) {
+      *reinterpret_cast<float2*>(out + (long long)(r + 8) * D + col) =
+          make_float2(acc[nn][2], acc[nn][3]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {   // Q, dO, two stages of K and V
+  return (2 * kRes + 4 * kStr) * RowTile<D>::kLd * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // K, V, two stages of Q, dO, lse, delta
+  return ((2 * kRes + 4 * kStr) * RowTile<D>::kLd + 4 * kStr) *
+         sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_dq(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, const float* __restrict__ g,
          const float* __restrict__ lse, const float* __restrict__ delta,
          float* __restrict__ dq, int bh_count, int T, int causal,
          float scale) {
+  constexpr int kRow = RowTile<D>::kLd, kN = D / 8;
+  constexpr int kStrTile = kStr * kRow;
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // [D][kLd]
-  float* Gt = Qt + D * kLd;                      // [D][kLd]
-  float* KVt = Gt + D * kLd;                     // Vt, then Kt [D][kLd]
-  float* St = KVt + D * kLd;                     // dS^T [kB][kLd]
-  const int nt = (T + kB - 1) / kB;
+  float* Qs = reinterpret_cast<float*>(smem4);   // resident Q tile
+  float* Gs = Qs + kRes * kRow;                  // resident dO tile
+  float* ring = Gs + kRes * kRow;                // 2 stages of K, V
+  const int nt = (T + kRes - 1) / kRes;
   const int tile = nt - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = (long long)bh * T * D;
-  const int q0 = tile * kB;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const int q0 = tile * kRes;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;        // the warp's Q rows
+  const int row0 = q0 + m0 + gr, row1 = row0 + 8;
+  const long long rbase = (long long)bh * T;
+  const float l0 = row0 < T ? lse[rbase + row0] : 0.f;
+  const float l1 = row1 < T ? lse[rbase + row1] : 0.f;
+  const float d0 = row0 < T ? delta[rbase + row0] : 0.f;
+  const float d1 = row1 < T ? delta[rbase + row1] : 0.f;
 
-  load_t<D>(Qt, q + base, q0, T, 1.f);
-  load_t<D>(Gt, g + base, q0, T, 1.f);
-  float lr[kRows], dr[kRows], one[kRows];
-  float acc[kRows][Cols<D>::kPer];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + tr * kRows + i;
-    lr[i] = row < T ? lse[(long long)bh * T + row] : 0.f;
-    dr[i] = row < T ? delta[(long long)bh * T + row] : 0.f;
-    one[i] = 1.f;
-#pragma unroll
-    for (int c = 0; c < Cols<D>::kPer; ++c) acc[i][c] = 0.f;
-  }
-  const int nk = causal ? tile + 1 : nt;
+  stage_tile<D, kRes>(Qs, q + base, q0, T);
+  stage_tile<D, kRes>(Gs, g + base, q0, T);
+  stage_tile<D, kStr>(ring, k + base, 0, T);
+  stage_tile<D, kStr>(ring + kStrTile, v + base, 0, T);
+  cp_commit();
+  float acc[kN][4] = {};
+  // keys at or below the tile's last row under the causal mask
+  const int kend = causal ? min(T, q0 + kRes) : T;
+  const int nk = (kend + kStr - 1) / kStr;
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kB;
-    __syncthreads();                 // the last tile's K and dS are spent
-    load_t<D>(KVt, v + base, k0, T, 1.f);
-    __syncthreads();
-    float dp[kRows][kCols] = {};
-    mm_tt<D>(Gt, KVt, dp);
-    __syncthreads();                 // V reads done
-    load_t<D>(KVt, k + base, k0, T, 1.f);
-    __syncthreads();
-    float s[kRows][kCols] = {};
-    mm_tt<D>(Qt, KVt, s);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + tr * kRows + i;
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const int col = k0 + tc * kCols + jj;
-        const bool live = col < T && row < T && !(causal && col > row);
-        const float p = live ? expf(scale * s[i][jj] - lr[i]) : 0.f;
-        St[(tc * kCols + jj) * kLd + tr * kRows + i] =
-            p * (dp[i][jj] - dr[i]) * scale;
-      }
+    const float* Ks = ring + (j & 1) * 2 * kStrTile;
+    const float* Vs = Ks + kStrTile;
+    if (j + 1 < nk) {                // tile j + 1 in flight during tile j
+      float* nxt = ring + ((j + 1) & 1) * 2 * kStrTile;
+      stage_tile<D, kStr>(nxt, k + base, (j + 1) * kStr, T);
+      stage_tile<D, kStr>(nxt + kStrTile, v + base, (j + 1) * kStr, T);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();                 // dS complete
-    mm_pv<D>(St, KVt, 1, kLd, acc);  // K[k][n] at Kt[n][k]
+    __syncthreads();
+    const int k0 = j * kStr;
+    // a warp whose rows all lie above this tile's keys has nothing to add
+    if (!causal || k0 <= q0 + m0 + 15) {
+      // S = Q K^T and dP = dO V^T, the warp's 16 rows by 32 keys
+      float s[kStr / 8][4] = {}, dp[kStr / 8][4] = {};
+      float lo[kStr / 8][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kN; ++kk) {
+        const FragA qa = load_a<kRow>(Qs, m0, 8 * kk, lane);
+        const FragA ga = load_a<kRow>(Gs, m0, 8 * kk, lane);
+#pragma unroll
+        for (int nn = 0; nn < kStr / 8; nn += 2) {
+          FragB kb[2], vb[2];
+          load_b_t2<kRow>(Ks, 8 * nn, 8 * kk, lane, kb[0], kb[1]);
+          load_b_t2<kRow>(Vs, 8 * nn, 8 * kk, lane, vb[0], vb[1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mma3(s[nn + h], qa, kb[h]);
+            mma3_lo(dp[nn + h], lo[nn + h], ga, vb[h]);
+          }
+        }
+      }
+      // dS = P (dP - delta) scale, over S's registers
+#pragma unroll
+      for (int nn = 0; nn < kStr / 8; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1;
+          const int col = k0 + 8 * nn + 2 * tc + (e & 1);
+          const bool live = col < T && row < T && !(causal && col > row);
+          const float p =
+              live ? expf(scale * s[nn][e] - (e < 2 ? l0 : l1)) : 0.f;
+          s[nn][e] = p * (dp[nn][e] + lo[nn][e] - (e < 2 ? d0 : d1)) * scale;
+        }
+      }
+      add_tile_product<D, kRow>(acc, s, Ks, gr, tc);  // dQ += dS K
+    }
+    __syncthreads();                 // this stage is free for tile j + 2
   }
-  store_rows<D>(dq + base, q0, T, acc, one);
+  store_acc<D>(dq + base, row0, T, acc, tc);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ g,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dk, float* __restrict__ dv, int bh_count,
           int T, int causal, float scale) {
+  constexpr int kRow = RowTile<D>::kLd, kN = D / 8;
+  constexpr int kStrTile = kStr * kRow;
+  constexpr int kStage = 2 * kStrTile + 2 * kStr;  // Q, dO, lse, delta
   extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);   // [D][kLd]
-  float* Vt = Kt + D * kLd;                      // [D][kLd]
-  float* Qt = Vt + D * kLd;                      // [D][kLd]
-  float* Gt = Qt + D * kLd;                      // [D][kLd]
-  float* St = Gt + D * kLd;                      // P^T, then dS^T [kB][kLd]
-  const int nt = (T + kB - 1) / kB;
+  float* Ks = reinterpret_cast<float*>(smem4);   // resident K tile
+  float* Vs = Ks + kRes * kRow;                  // resident V tile
+  float* ring = Vs + kRes * kRow;                // 2 stages
   const int tile = static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const long long base = (long long)bh * T * D;
-  const int k0 = tile * kB;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const long long rbase = (long long)bh * T;
+  const int k0 = tile * kRes;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;        // the warp's keys
+  const int key0 = k0 + m0 + gr, key1 = key0 + 8;
 
-  load_t<D>(Kt, k + base, k0, T, 1.f);
-  load_t<D>(Vt, v + base, k0, T, 1.f);
-  float acc_k[kRows][Cols<D>::kPer], acc_v[kRows][Cols<D>::kPer];
-  float one[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    one[i] = 1.f;
-#pragma unroll
-    for (int c = 0; c < Cols<D>::kPer; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-  }
-  for (int j = causal ? tile : 0; j < nt; ++j) {
-    const int q0 = j * kB;
-    __syncthreads();                 // the last tile's Q, dO and dS are spent
-    load_t<D>(Qt, q + base, q0, T, 1.f);
-    load_t<D>(Gt, g + base, q0, T, 1.f);
-    __syncthreads();
-    float lq[kCols], dl[kCols];
-#pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) {
-      const int qr = q0 + tc * kCols + jj;
-      lq[jj] = qr < T ? lse[(long long)bh * T + qr] : 0.f;
-      dl[jj] = qr < T ? delta[(long long)bh * T + qr] : 0.f;
+  auto stage = [&](int j, float* dst) {
+    stage_tile<D, kStr>(dst, q + base, j * kStr, T);
+    stage_tile<D, kStr>(dst + kStrTile, g + base, j * kStr, T);
+    stage_entries<kStr>(dst + 2 * kStrTile, lse + rbase,
+                          dst + 2 * kStrTile + kStr, delta + rbase,
+                          j * kStr, T);
+  };
+  // queries at or after the tile's first key under the causal mask
+  const int first = causal ? k0 / kStr : 0;
+  const int nq = (T + kStr - 1) / kStr;
+  stage_tile<D, kRes>(Ks, k + base, k0, T);
+  stage_tile<D, kRes>(Vs, v + base, k0, T);
+  stage(first, ring);
+  cp_commit();
+  float acc_k[kN][4] = {}, acc_v[kN][4] = {};
+  for (int j = first; j < nq; ++j) {
+    const int it = j - first;
+    const float* Qs = ring + (it & 1) * kStage;
+    const float* Gs = Qs + kStrTile;
+    const float* Ls = Gs + kStrTile;
+    const float* Ds = Ls + kStr;
+    if (j + 1 < nq) {                // tile j + 1 in flight during tile j
+      stage(j + 1, ring + ((it + 1) & 1) * kStage);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    {
-      float s[kRows][kCols] = {};
-      mm_tt<D>(Kt, Qt, s);           // s[i][jj]: key 8 tr + i, query 4 tc + jj
+    __syncthreads();
+    const int q0 = j * kStr;
+    // a warp whose keys all lie after this tile's queries has nothing to add
+    if (!causal || k0 + m0 <= q0 + kStr - 1) {
+      // S^T = K Q^T and dP^T = V dO^T, the warp's 16 keys by 32 queries
+      float s[kStr / 8][4] = {}, dp[kStr / 8][4] = {};
+      float lo[kStr / 8][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kN; ++kk) {
+        const FragA ka = load_a<kRow>(Ks, m0, 8 * kk, lane);
+        const FragA va = load_a<kRow>(Vs, m0, 8 * kk, lane);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int key = k0 + tr * kRows + i;
+        for (int nn = 0; nn < kStr / 8; nn += 2) {
+          FragB qb[2], gb[2];
+          load_b_t2<kRow>(Qs, 8 * nn, 8 * kk, lane, qb[0], qb[1]);
+          load_b_t2<kRow>(Gs, 8 * nn, 8 * kk, lane, gb[0], gb[1]);
 #pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) {
-          const int qr = q0 + tc * kCols + jj;
+          for (int h = 0; h < 2; ++h) {
+            mma3(s[nn + h], ka, qb[h]);
+            mma3_lo(dp[nn + h], lo[nn + h], va, gb[h]);
+          }
+        }
+      }
+      // P^T over S^T's registers, dS^T = P^T (dP^T - delta) scale over
+      // dP^T's
+#pragma unroll
+      for (int nn = 0; nn < kStr / 8; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? key0 : key1;
+          const int c = 8 * nn + 2 * tc + (e & 1);
+          const int qr = q0 + c;
           const bool live = key < T && qr < T && !(causal && key > qr);
-          St[(tc * kCols + jj) * kLd + tr * kRows + i] =
-              live ? expf(scale * s[i][jj] - lq[jj]) : 0.f;
+          const float p = live ? expf(scale * s[nn][e] - Ls[c]) : 0.f;
+          s[nn][e] = p;
+          dp[nn][e] = p * (dp[nn][e] + lo[nn][e] - Ds[c]) * scale;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, straight into the accumulators:
+      // summing each tile from zero, as dq does, leaves dk/dv too few
+      // registers for its loads and products in flight (16% slower)
+#pragma unroll
+      for (int kk = 0; kk < kStr / 8; ++kk) {
+        const FragA pa = frag_acc(s[kk]);
+        const FragA da = frag_acc(dp[kk]);
+#pragma unroll
+        for (int nn = 0; nn < kN; ++nn) {
+          mma3(acc_v[nn], pa,
+               load_b_perm<kRow>(Gs, 8 * kk, 8 * nn, gr, tc));
+          mma3(acc_k[nn], da,
+               load_b_perm<kRow>(Qs, 8 * kk, 8 * nn, gr, tc));
         }
       }
     }
-    float ds[kRows][kCols] = {};
-    mm_tt<D>(Vt, Gt, ds);            // dP^T
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const float p = St[(tc * kCols + jj) * kLd + tr * kRows + i];
-        ds[i][jj] = p * (ds[i][jj] - dl[jj]) * scale;
-      }
-    }
-    __syncthreads();                 // P^T complete
-    mm_pv<D>(St, Gt, 1, kLd, acc_v); // dO[q][n] at Gt[n][q]
-    __syncthreads();                 // P^T reads done
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        St[(tc * kCols + jj) * kLd + tr * kRows + i] = ds[i][jj];
-      }
-    }
-    __syncthreads();                 // dS^T complete
-    mm_pv<D>(St, Qt, 1, kLd, acc_k); // Q[q][n] at Qt[n][q]
+    __syncthreads();                 // this stage is free for tile j + 2
   }
-  store_rows<D>(dk + base, k0, T, acc_k, one);
-  store_rows<D>(dv + base, k0, T, acc_v, one);
+  store_acc<D>(dk + base, key0, T, acc_k, tc);
+  store_acc<D>(dv + base, key0, T, acc_v, tc);
 }
 
 template <typename K>
@@ -431,9 +768,10 @@ cudaError_t opt_in(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-bool bad_grid(int bh, int T, long long* blocks) {
+// One block per (bh, tile of `rows` rows).
+bool bad_grid(int bh, int T, int rows, long long* blocks) {
   if (bh <= 0 || T <= 0) return true;
-  *blocks = (long long)((T + kB - 1) / kB) * bh;
+  *blocks = (long long)((T + rows - 1) / rows) * bh;
   return *blocks > 0x7fffffffLL;
 }
 
@@ -442,7 +780,7 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        float* o, float* lse, int bh, int T, int causal,
                        float scale, cudaStream_t s) {
   long long blocks;
-  if (bad_grid(bh, T, &blocks)) return cudaErrorInvalidValue;
+  if (bad_grid(bh, T, kB, &blocks)) return cudaErrorInvalidValue;
   const size_t smem = (2 * D * kLd + kB * kLd) * sizeof(float);
   cudaError_t e = opt_in(flash_fwd<D>, smem);
   if (e != cudaSuccess) return e;
@@ -457,11 +795,11 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       float* dq, int bh, int T, int causal, float scale,
                       cudaStream_t s) {
   long long blocks;
-  if (bad_grid(bh, T, &blocks)) return cudaErrorInvalidValue;
-  const size_t smem = (3 * D * kLd + kB * kLd) * sizeof(float);
+  if (bad_grid(bh, T, kRes, &blocks)) return cudaErrorInvalidValue;
+  const size_t smem = dq_smem_bytes<D>();
   cudaError_t e = opt_in(flash_dq<D>, smem);
   if (e != cudaSuccess) return e;
-  flash_dq<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+  flash_dq<D><<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
       q, k, v, g, lse, delta, dq, bh, T, causal, scale);
   return cudaGetLastError();
 }
@@ -472,11 +810,11 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        float* dk, float* dv, int bh, int T, int causal,
                        float scale, cudaStream_t s) {
   long long blocks;
-  if (bad_grid(bh, T, &blocks)) return cudaErrorInvalidValue;
-  const size_t smem = (4 * D * kLd + kB * kLd) * sizeof(float);
+  if (bad_grid(bh, T, kRes, &blocks)) return cudaErrorInvalidValue;
+  const size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = opt_in(flash_dkv<D>, smem);
   if (e != cudaSuccess) return e;
-  flash_dkv<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+  flash_dkv<D><<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
       q, k, v, g, lse, delta, dk, dv, bh, T, causal, scale);
   return cudaGetLastError();
 }

@@ -814,14 +814,11 @@ def _close(got, want, tol, what):
     assert bool((err <= tol).all()), f"{what}: max error {float(err.max())}"
 
 
-@pytest.mark.parametrize("bh", FLASH_BH)
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", FLASH_D)
-@pytest.mark.parametrize("t", FLASH_T)
-def test_flash_kernels_match_plain(card, t, d, causal, bh):
+def _check_flash_case(card, bh, t, d, causal):
     """Each of the three kernels against its plain version on the same
     inputs (the backward kernels on the plain forward's lse and delta),
-    within the tolerances of ``torch_attention_cases``."""
+    within the tolerances of ``torch_attention_cases``; one launch of
+    each."""
     from sparkucx_tpu_torch.ops import flash_attention as tfa
     q, k, v, g = (torch.from_numpy(x).to(card) for x in
                   flash_inputs(flash_seed(bh, t, d, causal), bh, t, d))
@@ -849,6 +846,41 @@ def test_flash_kernels_match_plain(card, t, d, causal, bh):
         plain_err = float((want.double() - exact).abs().max())
         _close(got, want, grad_tolerance(want.cpu().numpy(), plain_err),
                what)
+
+
+@pytest.mark.parametrize("bh", FLASH_BH)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", FLASH_D)
+@pytest.mark.parametrize("t", FLASH_T)
+def test_flash_kernels_match_plain(card, t, d, causal, bh):
+    _check_flash_case(card, bh, t, d, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_many_tiles(card, causal):
+    """65 tiles of 64 rows with the last one 3 rows deep, at the widest
+    head dim: the backward kernels' two-stage copy ring turns over many
+    times and the tile edge falls inside a fragment."""
+    _check_flash_case(card, 2, 4099, 128, causal)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_is_deterministic(card, causal, d):
+    """dq and dk/dv are bit-identical over two launches: every output
+    element has one writer block and a fixed order of products."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    q, k, v, g = (torch.from_numpy(x).to(card) for x in
+                  flash_inputs(flash_seed(3, 517, d, causal), 3, 517, d))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, causal, scale)
+    delta = (g * o).sum(dim=-1)
+    runs = [(tfa.flash_dq(q, k, v, g, lse, delta, causal, scale),
+             *tfa.flash_dkv(q, k, v, g, lse, delta, causal, scale))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernels_refuse_bad_input(card):

@@ -67,3 +67,39 @@ def qkv_rows(seed: int, heads: int, head_dim: int, total: int):
     rng = np.random.default_rng(seed)
     qkv = rng.standard_normal((total, 3, heads, head_dim)).astype(np.float32)
     return qkv, rng.permutation(total)
+
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32`` on a float32 tensor: round to nearest, ties away
+    from zero, on the low 13 mantissa bits (which come out zero). Adding
+    half of the dropped unit to the sign-magnitude bit pattern rounds the
+    magnitude up at a tie whatever the sign."""
+    import torch
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x):
+    """What the tensor core reads from a float32 register as a TF32
+    operand: the low 13 mantissa bits dropped (toward zero)."""
+    import torch
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x):
+    """The backward kernels' split of a float32 operand, (big, small), both
+    TF32: big = x rounded to nearest, small = x - big as the tensor core
+    reads it (truncated), as in CUTLASS's fast float32 products."""
+    big = tf32_round(x)
+    return big, tf32_truncate(x - big)
+
+
+def mm_split_tf32(a, b):
+    """``a @ b`` as the backward kernels take it on the tensor cores:
+    a_big b_big + a_small b_big + a_big b_small (3xTF32; the cross terms
+    summed apart, as the kernels sum dP's). A TF32 x TF32 product is exact
+    in float32, so on the CPU each of the three is a float32 product of
+    the split operands, summed in float32."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    return ab @ bb + (as_ @ bb + ab @ bs)
