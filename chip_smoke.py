@@ -154,7 +154,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             the SDPA yardstick (forward; the backward of the same call for
             dq, dk, dv together), with the operation bound (split-TF32,
             and beside it float32 outside the tensor cores and TF32) and
-            the byte bound; ``backward_vs_sdpa`` = (dq + dk/dv) / SDPA's
+            the byte bound; ``forward_vs_sdpa`` = the forward kernel /
+            SDPA's forward, ``backward_vs_sdpa`` = (dq + dk/dv) / SDPA's
             backward.
 
 They run in the order card, build, kernel, segreduce_kernel,
@@ -2008,7 +2009,7 @@ def grad_tol(want, plain_err: float = 0.0) -> float:
 
 
 def float64_grads(q, k, v, g, causal: bool, scale: float):
-    """(dq, dk, dv) of [BH, T, D] attention in float64, by autograd
+    """O and (dq, dk, dv) of [BH, T, D] attention in float64, by autograd
     through reference_attention: the truth the plain versions are
     measured against."""
     import torch
@@ -2016,7 +2017,7 @@ def float64_grads(q, k, v, g, causal: bool, scale: float):
     leaves = [x.double().requires_grad_() for x in (q, k, v)]
     o = reference_attention(*(x[None] for x in leaves), causal=causal,
                             scale=scale)[0]
-    return torch.autograd.grad(o, leaves, g.double())
+    return o.detach(), torch.autograd.grad(o, leaves, g.double())
 
 
 def flash_kernels_phase(dev) -> dict:
@@ -2052,7 +2053,7 @@ def flash_kernels_phase(dev) -> dict:
                                              scale)
                     pdk, pdv = tfa.flash_dkv_plain(q, k, v, g, plse, delta,
                                                    causal, scale)
-                    truth = float64_grads(q, k, v, g, causal, scale)
+                    _, truth = float64_grads(q, k, v, g, causal, scale)
                     tag = f"flash bh={bh} t={t} d={d} causal={causal}"
                     worst["fwd"] = max(worst["fwd"], flash_close(
                         ko, po, out_tol(po), tag + " O"))
@@ -2314,7 +2315,7 @@ def flash_bounds(H: int, T: int, D: int, causal: bool) -> dict:
     (FlashAttention-2's accounting), split 2 D to dq's product and 8 D to
     dk/dv (S, dP, dV, dK). ``bound_ms`` takes the operations at the
     split-TF32 rate (a third of the TF32 tensor-core rate: the rate at
-    which the card computes float32-accurate products, which the backward
+    which the card computes float32-accurate products, which the three
     kernels use), or the bytes (each input read once, each output written
     once) where those take longer; beside it, the operations at the
     float32 rate outside the tensor cores and at the single-pass TF32
@@ -2414,6 +2415,7 @@ def flash_at_main_shapes(dev, qkv, cot, fwd_ref, bwd_ref) -> dict:
     return {"shape": [H, T, D], "causal": True, "kernel_ms": ms,
             "plain_ms": plain_ms, "library": lib, "bounds": bounds,
             "max_abs_err": err,
+            "forward_vs_sdpa": ms["flash_fwd"] / lib["forward_ms"],
             "backward_kernel_ms": ms["flash_dq"] + ms["flash_dkv"],
             "backward_vs_sdpa": (ms["flash_dq"] + ms["flash_dkv"])
             / lib["backward_ms"],

@@ -11,13 +11,16 @@ calls after one warm-up call. q, k, v and the cotangent come from a
 seeded generator on the card; lse from the forward kernel, delta =
 rowsum(dO * O).
 
-``--errors`` adds, at that shape, the largest distance of dq, dk and dv
-from the plain versions (on the plain forward's lse and delta) beside
-SDPA's distance from the same plain versions. ``--cases`` adds, for a few
-small cases (the vanishing gradient at T = 1 among them), each backward
-kernel's and the plain version's largest distance from float64, and the
-card tests' tolerance (1e-3 max|g| + max(1e-5, 4 x the plain version's
-distance from float64)).
+``--errors`` adds, at that shape, the largest distance of O and lse from
+the plain forward and of dq, dk and dv from the plain backward (on the
+plain forward's lse and delta), beside SDPA's distance (O, dq, dk, dv)
+from the same plain versions, with the tolerances (O: 1e-4 max|O| +
+1e-6; lse: the largest |error| / (1e-5 (1 + |lse|)), at most 1).
+``--cases`` adds, for a few small cases (the vanishing gradient at T = 1
+among them), each kernel's (forward: O and lse; backward: dq, dk, dv) and
+the plain version's largest distance from float64 (O and the gradients),
+and the card tests' tolerances (grads: 1e-3 max|g| + max(1e-5, 4 x the
+plain version's distance from float64)).
 
 ``--root`` names the checkout whose ``sparkucx_tpu_torch`` is imported
 (default: this script's directory), so two versions of the kernels can be
@@ -35,7 +38,8 @@ import time
 
 import numpy as np
 
-from chip_smoke import card_line, float64_grads, grad_tol, median_ms
+from chip_smoke import (card_line, float64_grads, grad_tol, median_ms,
+                        out_tol)
 
 H, T, D = 32, 32_768, 128
 SEED = 20261017
@@ -48,19 +52,31 @@ def max_err(got, want) -> float:
     return float((got - want).abs().max())
 
 
+def lse_ratio(got, want) -> float:
+    """The largest |got - want| / (1e-5 (1 + |want|)): at most 1 within
+    the lse tolerance."""
+    return float(((got - want).abs() / (1e-5 * (1 + want.abs()))).max())
+
+
 def main_shape_errors(tfa, q, k, v, g, scale) -> dict:
-    """dq, dk, dv: the kernels' and SDPA's largest distance from the plain
-    versions, and the main-shape tolerance 1e-3 max|g| + 1e-5."""
+    """O and lse: the forward kernel's largest distance from the plain
+    forward (SDPA's O beside it); dq, dk, dv: the kernels' and SDPA's
+    largest distance from the plain versions, and the main-shape
+    tolerance 1e-3 max|g| + 1e-5."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     po, plse = tfa.flash_fwd_plain(q, k, v, True, scale)
+    ko, klse = tfa.flash_fwd_kernel(q, k, v, True, scale)
+    out = {"O": {"kernel": max_err(ko, po), "tolerance": out_tol(po)},
+           "lse": {"kernel": max_err(klse, plse),
+                   "kernel_over_tolerance": lse_ratio(klse, plse)}}
+    del ko, klse
     delta = (g * po).sum(dim=-1)
     plain = (tfa.flash_dq_plain(q, k, v, g, plse, delta, True, scale),
              *tfa.flash_dkv_plain(q, k, v, g, plse, delta, True, scale))
     kern = (tfa.flash_dq_kernel(q, k, v, g, plse, delta, True, scale),
             *tfa.flash_dkv_kernel(q, k, v, g, plse, delta, True, scale))
-    out = {}
     for name, got, want in zip(("dq", "dk", "dv"), kern, plain):
         out[name] = {"kernel": max_err(got, want),
                      "tolerance": grad_tol(want)}
@@ -68,6 +84,7 @@ def main_shape_errors(tfa, q, k, v, g, scale) -> dict:
     leaves = [x[None].clone().requires_grad_() for x in (q, k, v)]
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         lo = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        out["O"]["sdpa"] = max_err(lo[0].detach(), po)
         lib = torch.autograd.grad(lo, leaves, g[None])
     for name, got, want in zip(("dq", "dk", "dv"), lib, plain):
         out[name]["sdpa"] = max_err(got[0], want)
@@ -75,8 +92,8 @@ def main_shape_errors(tfa, q, k, v, g, scale) -> dict:
 
 
 def case_errors(tfa, dev) -> list:
-    """Per small case: each backward kernel's and the plain version's
-    largest distance from float64, and the card tests' tolerance."""
+    """Per small case: each kernel's and the plain version's largest
+    distance from float64, and the card tests' tolerances."""
     import torch
     rows = []
     for bh, t, d, causal in CASES:
@@ -86,6 +103,7 @@ def case_errors(tfa, dev) -> list:
             (bh, t, d)).astype(np.float32)).to(dev) for _ in range(4))
         scale = d ** -0.5
         po, plse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+        ko, klse = tfa.flash_fwd_kernel(q, k, v, causal, scale)
         delta = (g * po).sum(dim=-1)
         kern = (tfa.flash_dq_kernel(q, k, v, g, plse, delta, causal, scale),
                 *tfa.flash_dkv_kernel(q, k, v, g, plse, delta, causal,
@@ -93,8 +111,14 @@ def case_errors(tfa, dev) -> list:
         plain = (tfa.flash_dq_plain(q, k, v, g, plse, delta, causal, scale),
                  *tfa.flash_dkv_plain(q, k, v, g, plse, delta, causal,
                                       scale))
-        truth = float64_grads(q, k, v, g, causal, scale)
-        row = {"bh": bh, "t": t, "d": d, "causal": causal}
+        o64, truth = float64_grads(q, k, v, g, causal, scale)
+        row = {"bh": bh, "t": t, "d": d, "causal": causal,
+               "O": {"kernel_vs_plain": max_err(ko, po),
+                     "tolerance": out_tol(po),
+                     "kernel_vs_float64": max_err(ko.double(), o64),
+                     "plain_vs_float64": max_err(po.double(), o64)},
+               "lse": {"kernel_vs_plain": max_err(klse, plse),
+                       "kernel_over_tolerance": lse_ratio(klse, plse)}}
         for name, got, want, exact in zip(("dq", "dk", "dv"), kern, plain,
                                           truth):
             plain_err = max_err(want.double(), exact)

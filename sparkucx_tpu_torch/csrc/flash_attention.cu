@@ -27,58 +27,59 @@
 // cores, 67 TFLOP/s: 131, 66 and 263 ms). The kernels recompute S and dP
 // (dq does 6 * D per pair, dk/dv 8 * D), as the reference's do.
 //
-// Forward (flash_fwd): float32 on CUDA cores. 128 threads per block,
-// 64-row Q and K tiles, one block per (bh, Q tile). Thread t owns rows
-// 8 * (t / 16) .. +7 of a 64 x 64 score tile and its columns
-// 4 * (t % 16) .. +3, so the 16 threads of one row group sit in one
-// half-warp and a row's max and sum are shuffles within it. Tiles that the
-// inner products walk along D are stored transposed ([D][64 + 4] floats),
-// so a thread reads its 8 rows and 4 columns as three 16-byte loads per
-// step of D; the 64 x 64 probability tile goes through shared memory,
-// transposed, for the product with V, where a thread owns output columns
-// t % 16 + 16 * c. The running max, sum and the O accumulator stay in
-// registers; K then V share one shared buffer (87,040 B at D = 128);
-// causal K tiles above the diagonal are skipped.
-//
-// Backward (flash_dq, flash_dkv): every product on the tensor cores with
-// mma.sync m16n8k8 TF32, in split-TF32 (3xTF32, the scheme of CUTLASS's
-// fast float32 products that PyTorch's memory-efficient SDPA uses): each
-// operand x is split in registers, at its fragment load, into big = x
-// rounded to TF32 and small = x - big, which the tensor core reads
-// truncated to TF32, and a b = a_big b_big + a_small b_big + a_big b_small.
-// The tensor core cuts each sum into its accumulator toward zero, so
-// products added into a large running sum lose their low bits the same way
-// each time: dP's cross terms, where dS = P (dP - delta) cancels when a
-// gradient vanishes, go to an accumulator of their own, and dq sums each
-// streamed tile's products from zero before one rounded float32 addition.
-// dk/dv has no registers to spare for that and adds straight into its
-// accumulators, so dk and dv drift further from float32 sums as T grows
-// (at the main shape about 100 times SDPA's distance from the plain
-// version, a fifth of the tolerance). Scale, exp, masks and dS stay
-// float32 on CUDA cores. FlashAttention-2's layout: 256 threads, 8 warps
-// that each own 16 rows of a resident 128-row tile (Q and dO in dq; K and
-// V in dk/dv), streaming 32-row tiles of the other side (K and V; Q, dO,
-// lse and delta) through a two-stage ring of 16-byte cp.async copies, so
-// tile j + 1 lands while tile j is multiplied; 4 warps a block would leave
-// one warp to each of the SM's schedulers. A fragments and the B fragments
-// of S and dP load with ldmatrix. S and P (S^T and P^T) stay in
-// accumulator registers: an accumulator tile serves as the A operand of
-// the next product when that product's B rows are taken in the order 2t,
+// All three kernels take every product on the tensor cores with mma.sync
+// m16n8k8 TF32, in split-TF32 (3xTF32, the scheme of CUTLASS's fast float32
+// products that PyTorch's memory-efficient SDPA uses): each operand x is
+// split in registers, at its fragment load, into big = x rounded to TF32
+// and small = x - big, which the tensor core reads truncated to TF32, and
+// a b = a_big b_big + a_small b_big + a_big b_small. The tensor core cuts
+// each sum into its accumulator toward zero, so products added into a large
+// running sum lose their low bits the same way each time: the cross terms
+// of dP (where dS = P (dP - delta) cancels when a gradient vanishes) and of
+// the forward's S go to an accumulator of their own, and the forward's O
+// and dq sum each streamed tile's products from zero before one rounded
+// float32 addition. dk/dv has
+// no registers to spare for that and adds straight into its accumulators,
+// so dk and dv drift further from float32 sums as T grows (at the main
+// shape about 100 times SDPA's distance from the plain version, a fifth of
+// the tolerance). Scale, exp, masks, the online softmax and dS stay float32
+// on CUDA cores. FlashAttention-2's layout: 256 threads, 8 warps that each
+// own 16 rows of a resident 128-row tile (Q in the forward; Q and dO in dq;
+// K and V in dk/dv), streaming 32-row tiles of the other side (K and V; Q,
+// dO, lse and delta; the forward 64-row tiles of K and V) through a
+// two-stage ring of 16-byte cp.async copies, so tile j + 1 lands while
+// tile j is multiplied; 4 warps a block would leave one warp to each of
+// the SM's schedulers. A fragments and the B fragments of S and dP load
+// with ldmatrix. S and P (S^T and P^T) stay in
+// accumulator registers: an accumulator tile serves as the A operand of the
+// next product when that product's B rows are taken in the order 2t,
 // 2t + 1 (load_b_perm), so no value moves between lanes. Shared rows are
 // D + 4 floats, which puts every fragment load on 32 distinct banks. One
-// block per (bh, 128-row tile); dq owns Q rows and loops over the K tiles
-// at or below them, dk/dv owns K rows and loops over the Q tiles at or
-// after them; each output element has one writer and no atomics, so two
-// launches give the same bits. Under the causal mask a warp skips a
-// streamed tile that lies wholly on the masked side of its 16 rows, and
-// blocks run heaviest first. Shared memory at D = 128: dq 202,752 B,
-// dk/dv 203,264 B, one block per SM; both opt in above 48 KB.
+// block per (bh, 128-row tile); the forward and dq own Q rows and loop over
+// the K tiles at or below them, dk/dv owns K rows and loops over the Q
+// tiles at or after them; each output element has one writer and no
+// atomics, so two launches give the same bits. Under the causal mask a warp
+// skips a streamed tile that lies wholly on the masked side of its 16 rows,
+// masks are applied only on tiles that cross the diagonal or the T edge,
+// and blocks run heaviest first.
+//
+// Forward (flash_fwd): the resident Q tile is multiplied by scale in
+// float32 once it lands, as the reference scales q before its product;
+// per 64-key stage S = (q scale) K^T with its cross terms summed apart,
+// then the online softmax (running max m and sum l of rows g and g + 8 in
+// each lane, quad shuffles for a row's max and sum, the reference's
+// dead-row rule), acc *= alpha, and O += P V with P as the A operand in
+// place, each 32-key half summed from zero. 64-row stages (against 32)
+// halve the barriers and Q's fragment loads per key: 10% less time.
+// Shared memory at D = 128: forward, dq 202,752 B, dk/dv 203,264 B, one
+// block per SM; all opt in above 48 KB.
 //
 // Measured at [32, 32768, 128] causal (flash_bench.py on an NVIDIA H100
-// 80GB HBM3 at a 700 W power limit): dq 238.0 ms and dk/dv 304.4 ms, 542.4
-// ms together against 578.1 ms for SDPA's float32 backward in the same run
-// (the float32 CUDA-core kernels they replace: 613.5 and 794.7 ms); 11% and
-// 35% of their split-TF32 bounds. PERF.md's kernel table has the rest.
+// 80GB HBM3 at a 700 W power limit): forward 162.7 ms against 182.2 ms for
+// SDPA's float32 forward in the same run (the float32 CUDA-core kernel it
+// replaces: 355.5 ms); dq 240.2 ms and dk/dv 304.3 ms, 544.5 ms together
+// against 576.2 ms for SDPA's float32 backward; 33%, 11% and 35% of their
+// split-TF32 bounds. PERF.md's kernel table has the rest.
 //
 // Plain C interface (no PyTorch headers): the wrapper passes device
 // pointers and the current stream, and raises on a non-zero return.
@@ -89,225 +90,9 @@
 
 namespace {
 
-constexpr int kB = 64;            // rows of a Q tile and of a K tile
-constexpr int kThreads = 128;
-constexpr int kLd = kB + 4;       // row of a transposed tile (16 B aligned)
-constexpr int kRows = 8;          // score rows per thread
-constexpr int kCols = 4;          // score columns per thread
 constexpr float kNegInf = -1e30f;
 
-template <int D>
-struct Cols {
-  static constexpr int kPer = (D + 15) / 16;   // output columns per thread
-};
-
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows r0 .. r0 + 63 of a [T, D] row-major matrix into dst[d * kLd + r],
-// times mul; rows past T load as zeros.
-template <int D>
-__device__ __forceinline__ void load_t(float* dst, const float* src, int r0,
-                                       int T, float mul) {
-  constexpr int kVec = D / 4;
-  for (int e = threadIdx.x; e < kB * kVec; e += kThreads) {
-    const int r = e / kVec;
-    const int d = (e % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) {
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * D + d);
-    }
-    dst[(d + 0) * kLd + r] = x.x * mul;
-    dst[(d + 1) * kLd + r] = x.y * mul;
-    dst[(d + 2) * kLd + r] = x.z * mul;
-    dst[(d + 3) * kLd + r] = x.w * mul;
-  }
-}
-
-// Rows r0 .. r0 + 63 into dst[r * D + d] (row-major).
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int T) {
-  constexpr int kVec = D / 4;
-  for (int e = threadIdx.x; e < kB * kVec; e += kThreads) {
-    const int r = e / kVec;
-    const int d = (e % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) {
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * D + d);
-    }
-    *reinterpret_cast<float4*>(dst + r * D + d) = x;
-  }
-}
-
-// s[i][j] += sum_d At[d][8 tr + i] * Bt[d][4 tc + j]
-template <int D>
-__device__ __forceinline__ void mm_tt(const float* At, const float* Bt,
-                                      float (&s)[kRows][kCols]) {
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const float* a_col = At + tr * kRows;
-  const float* b_col = Bt + tc * kCols;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a_col + d * kLd);
-    const float4 a1 = *reinterpret_cast<const float4*>(a_col + d * kLd + 4);
-    const float4 b4 = *reinterpret_cast<const float4*>(b_col + d * kLd);
-    const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[kCols] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-  }
-}
-
-// acc[i][c] += sum_k Pt[k][8 tr + i] * X(k, tc + 16 c), X(k, n) at
-// X[k * sk + n * sn]
-template <int D>
-__device__ __forceinline__ void mm_pv(const float* Pt, const float* X, int sk,
-                                      int sn,
-                                      float (&acc)[kRows][Cols<D>::kPer]) {
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const float* p_col = Pt + tr * kRows;
-#pragma unroll 2
-  for (int k = 0; k < kB; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(p_col + k * kLd);
-    const float4 a1 = *reinterpret_cast<const float4*>(p_col + k * kLd + 4);
-    const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int c = 0; c < Cols<D>::kPer; ++c) {
-      const int n = tc + 16 * c;
-      if (D % 16 == 0 || n < D) {
-        const float x = X[k * sk + n * sn];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(a[i], x, acc[i][c]);
-      }
-    }
-  }
-}
-
-// Rows of a [kB, D] accumulator to out (row-major [T, D]), rows < T.
-template <int D>
-__device__ __forceinline__ void store_rows(
-    float* out, int r0, int T, float (&acc)[kRows][Cols<D>::kPer],
-    float (&div)[kRows]) {
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = r0 + tr * kRows + i;
-    if (r >= T) continue;
-#pragma unroll
-    for (int c = 0; c < Cols<D>::kPer; ++c) {
-      const int n = tc + 16 * c;
-      if (D % 16 == 0 || n < D) out[(long long)r * D + n] = acc[i][c] / div[i];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int bh_count, int T, int causal,
-          float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // [D][kLd], q * scale
-  float* KV = Qt + D * kLd;                      // Kt [D][kLd] / V [kB][D]
-  float* Pt = KV + D * kLd;                      // [kB][kLd]
-  const int nt = (T + kB - 1) / kB;
-  const int tile = nt - 1 - static_cast<int>(blockIdx.x / bh_count);
-  const int bh = static_cast<int>(blockIdx.x % bh_count);
-  const long long base = (long long)bh * T * D;
-  const int q0 = tile * kB;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-
-  load_t<D>(Qt, q + base, q0, T, scale);
-  float acc[kRows][Cols<D>::kPer];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < Cols<D>::kPer; ++c) acc[i][c] = 0.f;
-  }
-  const int nk = causal ? tile + 1 : nt;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kB;
-    __syncthreads();                 // the last tile's V and P are spent
-    load_t<D>(KV, k + base, k0, T, 1.f);
-    __syncthreads();
-    float s[kRows][kCols] = {};
-    mm_tt<D>(Qt, KV, s);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + tr * kRows + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const int col = k0 + tc * kCols + jj;
-        if (col >= T || (causal && col > row)) s[i][jj] = kNegInf;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      mx = group_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const bool dead = m_new <= kNegInf / 2;
-      const float m_safe = dead ? 0.f : m_new;
-      const float alpha = dead ? 1.f : expf(m[i] - m_safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const float p = dead ? 0.f : expf(s[i][jj] - m_safe);
-        s[i][jj] = p;
-        sum += p;
-      }
-      sum = group_sum(sum);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < Cols<D>::kPer; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        Pt[(tc * kCols + jj) * kLd + tr * kRows + i] = s[i][jj];
-      }
-    }
-    __syncthreads();                 // K reads done, P complete
-    load_rows<D>(KV, v + base, k0, T);
-    __syncthreads();
-    mm_pv<D>(Pt, KV, D, 1, acc);
-  }
-  float denom[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) denom[i] = l[i] <= 0.f ? 1.f : l[i];
-  store_rows<D>(o + base, q0, T, acc, denom);
-  if (tc == 0) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + tr * kRows + i;
-      if (row < T) {
-        lse[(long long)bh * T + row] =
-            l[i] <= 0.f ? 0.f : m[i] + logf(denom[i]);
-      }
-    }
-  }
-}
-
-// -- the backward: split-TF32 products on the tensor cores -------------------
+// -- split-TF32 products on the tensor cores ----------------------------------
 // mma.sync m16n8k8 (TF32 in, float32 accumulate). Fragments, with
 // g = lane / 4 and t = lane % 4: A (16 x 8, row-major) holds (g, t),
 // (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) holds (t, g) and
@@ -315,13 +100,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 // (g + 8, 2t), (g + 8, 2t + 1). The tensor core reads a TF32 operand from
 // a 32-bit register and ignores its low 13 bits.
 
-constexpr int kBwdThreads = 256;  // 8 warps, 16 resident rows each
-constexpr int kRes = 128;         // resident rows: Q (dq), K and V (dk/dv)
-constexpr int kStr = 32;          // streamed rows a stage: K and V (dq),
-                                  // Q and dO (dk/dv)
+constexpr int kThreads = 256;     // 8 warps, 16 resident rows each
+constexpr int kRes = 128;         // resident rows: Q (forward, dq), K and V
+                                  // (dk/dv)
+constexpr int kStr = 32;          // streamed rows a stage: K and V (dq; the
+                                  // forward takes two), Q and dO (dk/dv)
 
-// Row-major tiles of the backward: rows of D + 4 floats. The pad of 4 puts
-// the 32 lanes of every fragment load below on 32 distinct banks.
+// Row-major tiles: rows of D + 4 floats. The pad of 4 puts the 32 lanes of
+// every fragment load below on 32 distinct banks.
 template <int D>
 struct RowTile {
   static constexpr int kLd = D + 4;
@@ -382,8 +168,9 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
 // The tensor core cuts each sum it adds into an accumulator toward zero,
 // so products added into a large running sum lose their low bits, the
 // same way each time. Two remedies, one for each kind of sum:
-// dP, where dS = P (dP - delta) cancels when a gradient vanishes, sums its
-// cross terms in an accumulator of their own (dP = hi + lo) ...
+// dP, where dS = P (dP - delta) cancels when a gradient vanishes, and the
+// forward's S, which sets lse, sum their cross terms in an accumulator of
+// their own (dP = hi + lo) ...
 __device__ __forceinline__ void mma3_lo(float (&hi)[4], float (&lo)[4],
                                         const FragA& a, const FragB& b) {
   mma_tf32(lo, a.small, b.big);
@@ -391,10 +178,11 @@ __device__ __forceinline__ void mma3_lo(float (&hi)[4], float (&lo)[4],
   mma_tf32(hi, a.big, b.big);
 }
 
-// ... and dQ, summed over every streamed tile, takes each tile's products
-// from zero and adds them to its running sum with one rounded float32
-// addition (add_tile_product, below). dK and dV add straight into theirs
-// (flash_dkv says why), so their distance from float32 sums grows with T.
+// ... and O and dQ, summed over every streamed tile, take each tile's
+// products from zero and add them to their running sums with one rounded
+// float32 addition (add_tile_product, below). dK and dV add straight into
+// theirs (flash_dkv says why), so their distance from float32 sums grows
+// with T.
 
 __device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -498,12 +286,30 @@ template <int D, int R>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                                            int r0, int T) {
   constexpr int kVec = D / 4;
-  for (int e = threadIdx.x; e < R * kVec; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < R * kVec; e += kThreads) {
     const int r = e / kVec;
     const int c = (e % kVec) * 4;
     const bool in = r0 + r < T;
     cp_async16(dst + r * RowTile<D>::kLd + c,
                src + (long long)(in ? r0 + r : 0) * D + c, in);
+  }
+}
+
+// x *= mul over a RowTile of R rows that stage_tile filled: each thread
+// scales the 16-byte chunks it copied itself, which cp.async.wait_group has
+// made visible to it, so no barrier comes between.
+template <int D, int R>
+__device__ __forceinline__ void scale_tile(float* x, float mul) {
+  constexpr int kVec = D / 4;
+  for (int e = threadIdx.x; e < R * kVec; e += kThreads) {
+    float4* p = reinterpret_cast<float4*>(x + (e / kVec) * RowTile<D>::kLd +
+                                          (e % kVec) * 4);
+    float4 y = *p;
+    y.x *= mul;
+    y.y *= mul;
+    y.z *= mul;
+    y.w *= mul;
+    *p = y;
   }
 }
 
@@ -546,6 +352,11 @@ __device__ __forceinline__ void store_acc(float* out, int r, int T,
 }
 
 template <int D>
+constexpr size_t fwd_smem_bytes() {  // Q, two stages of 64-row K and V
+  return (kRes + 8 * kStr) * RowTile<D>::kLd * sizeof(float);
+}
+
+template <int D>
 constexpr size_t dq_smem_bytes() {   // Q, dO, two stages of K and V
   return (2 * kRes + 4 * kStr) * RowTile<D>::kLd * sizeof(float);
 }
@@ -557,7 +368,179 @@ constexpr size_t dkv_smem_bytes() {  // K, V, two stages of Q, dO, lse, delta
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int bh_count, int T, int causal,
+          float scale) {
+  constexpr int kRow = RowTile<D>::kLd, kN = D / 8;
+  constexpr int kKeys = 2 * kStr;                // streamed rows a stage
+  constexpr int kKeyTile = kKeys * kRow;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // resident Q tile, * scale
+  float* ring = Qs + kRes * kRow;                // 2 stages of K, V
+  const int nt = (T + kRes - 1) / kRes;
+  const int tile = nt - 1 - static_cast<int>(blockIdx.x / bh_count);
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const long long base = (long long)bh * T * D;
+  const int q0 = tile * kRes;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tc = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;        // the warp's Q rows
+  const int row0 = q0 + m0 + gr, row1 = row0 + 8;
+
+  stage_tile<D, kRes>(Qs, q + base, q0, T);
+  cp_commit();
+  stage_tile<D, kKeys>(ring, k + base, 0, T);
+  stage_tile<D, kKeys>(ring + kKeyTile, v + base, 0, T);
+  cp_commit();
+  cp_wait<1>();                      // Q has landed: q * scale in float32,
+  scale_tile<D, kRes>(Qs, scale);    // before any product, as the reference
+  float acc[kN][4] = {};
+  // running max and sum of rows gr (h = 0) and gr + 8 (h = 1)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // keys at or below the tile's last row under the causal mask
+  const int kend = causal ? min(T, q0 + kRes) : T;
+  const int nk = (kend + kKeys - 1) / kKeys;
+  const bool rows_in = q0 + m0 < T;  // else the warp has nothing to store
+  for (int j = 0; j < nk; ++j) {
+    const float* Ks = ring + (j & 1) * 2 * kKeyTile;
+    const float* Vs = Ks + kKeyTile;
+    if (j + 1 < nk) {                // tile j + 1 in flight during tile j
+      float* nxt = ring + ((j + 1) & 1) * 2 * kKeyTile;
+      stage_tile<D, kKeys>(nxt, k + base, (j + 1) * kKeys, T);
+      stage_tile<D, kKeys>(nxt + kKeyTile, v + base, (j + 1) * kKeys, T);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * kKeys;
+    // a warp whose rows all lie above this tile's keys has nothing to add
+    if (rows_in && (!causal || k0 <= q0 + m0 + 15)) {
+      // S = (Q scale) K^T, the warp's 16 rows by 64 keys in two halves of
+      // 32 (s[c]: keys k0 + 32c ..), cross terms summed apart
+      float s[2][kStr / 8][4] = {}, lo[2][kStr / 8][4] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < kN; ++kk) {
+        const FragA qa = load_a<kRow>(Qs, m0, 8 * kk, lane);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int nn = 0; nn < kStr / 8; nn += 2) {
+            FragB kb[2];
+            load_b_t2<kRow>(Ks, kStr * c + 8 * nn, 8 * kk, lane, kb[0],
+                            kb[1]);
+            mma3_lo(s[c][nn], lo[c][nn], qa, kb[0]);
+            mma3_lo(s[c][nn + 1], lo[c][nn + 1], qa, kb[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int nn = 0; nn < kStr / 8; ++nn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][nn][e] += lo[c][nn][e];
+        }
+      }
+      // masks only on a tile that crosses the T edge or the warp's diagonal
+      if (k0 + kKeys > T || (causal && k0 + kKeys - 1 > q0 + m0)) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int nn = 0; nn < kStr / 8; ++nn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = e < 2 ? row0 : row1;
+              const int col = k0 + kStr * c + 8 * nn + 2 * tc + (e & 1);
+              if (col >= T || (causal && col > row)) s[c][nn][e] = kNegInf;
+            }
+          }
+        }
+      }
+      // the online softmax over S's registers: row gr + 8h holds entries
+      // 2h and 2h + 1 of each column block, its other columns sit in the
+      // three other lanes of the quad
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int nn = 0; nn < kStr / 8; ++nn) {
+            mx = fmaxf(mx, fmaxf(s[c][nn][2 * h], s[c][nn][2 * h + 1]));
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h], mx);
+        const bool dead = m_new <= kNegInf / 2;   // no live key yet
+        const float m_safe = dead ? 0.f : m_new;
+        alpha[h] = dead ? 1.f : expf(m_run[h] - m_safe);
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int nn = 0; nn < kStr / 8; ++nn) {
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              const float p = dead ? 0.f : expf(s[c][nn][e] - m_safe);
+              s[c][nn][e] = p;
+              sum += p;
+            }
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[h] = l_run[h] * alpha[h] + sum;
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int nn = 0; nn < kN; ++nn) {
+        acc[nn][0] *= alpha[0];
+        acc[nn][1] *= alpha[0];
+        acc[nn][2] *= alpha[1];
+        acc[nn][3] *= alpha[1];
+      }
+      add_tile_product<D, kRow>(acc, s[0], Vs, gr, tc);   // O += P V
+      // the second half lies wholly above the warp's rows on the diagonal
+      if (!causal || k0 + kStr <= q0 + m0 + 15) {
+        add_tile_product<D, kRow>(acc, s[1], Vs + kStr * kRow, gr, tc);
+      }
+    }
+    __syncthreads();                 // this stage is free for tile j + 2
+  }
+  // O = acc / l and lse = m + log(l); a row with no live key (l = 0) gets
+  // O = 0 and lse = 0, as the reference's
+  float denom[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) denom[h] = l_run[h] <= 0.f ? 1.f : l_run[h];
+#pragma unroll
+  for (int nn = 0; nn < kN; ++nn) {
+    acc[nn][0] /= denom[0];
+    acc[nn][1] /= denom[0];
+    acc[nn][2] /= denom[1];
+    acc[nn][3] /= denom[1];
+  }
+  store_acc<D>(o + base, row0, T, acc, tc);
+  if (tc == 0) {
+    const long long rbase = (long long)bh * T;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+      if (row < T) {
+        lse[rbase + row] =
+            l_run[h] <= 0.f ? 0.f : m_run[h] + logf(denom[h]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, const float* __restrict__ g,
          const float* __restrict__ lse, const float* __restrict__ delta,
@@ -649,7 +632,7 @@ flash_dq(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ g,
           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -780,8 +763,8 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        float* o, float* lse, int bh, int T, int causal,
                        float scale, cudaStream_t s) {
   long long blocks;
-  if (bad_grid(bh, T, kB, &blocks)) return cudaErrorInvalidValue;
-  const size_t smem = (2 * D * kLd + kB * kLd) * sizeof(float);
+  if (bad_grid(bh, T, kRes, &blocks)) return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes<D>();
   cudaError_t e = opt_in(flash_fwd<D>, smem);
   if (e != cudaSuccess) return e;
   flash_fwd<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
@@ -799,7 +782,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t e = opt_in(flash_dq<D>, smem);
   if (e != cudaSuccess) return e;
-  flash_dq<D><<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
+  flash_dq<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
       q, k, v, g, lse, delta, dq, bh, T, causal, scale);
   return cudaGetLastError();
 }
@@ -814,7 +797,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = opt_in(flash_dkv<D>, smem);
   if (e != cudaSuccess) return e;
-  flash_dkv<D><<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
+  flash_dkv<D><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
       q, k, v, g, lse, delta, dk, dv, bh, T, causal, scale);
   return cudaGetLastError();
 }

@@ -858,9 +858,10 @@ def test_flash_kernels_match_plain(card, t, d, causal, bh):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernels_many_tiles(card, causal):
-    """65 tiles of 64 rows with the last one 3 rows deep, at the widest
-    head dim: the backward kernels' two-stage copy ring turns over many
-    times and the tile edge falls inside a fragment."""
+    """33 resident tiles of 128 rows and 129 streamed tiles of 32, the
+    last of each 3 rows deep, at the widest head dim: every kernel's
+    two-stage copy ring turns over many times and the tile edge falls
+    inside a fragment."""
     _check_flash_case(card, 2, 4099, 128, causal)
 
 
@@ -881,6 +882,53 @@ def test_flash_backward_is_deterministic(card, causal, d):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_is_deterministic(card, causal, d):
+    """O and lse are bit-identical over two launches of the forward: each
+    output element has one writer and a fixed order of products."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    q, k, v, _ = (torch.from_numpy(x).to(card) for x in
+                  flash_inputs(flash_seed(3, 517, d, causal), 3, 517, d))
+    scale = d ** -0.5
+    runs = [tfa.flash_fwd(q, k, v, causal, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [1, 130, 4099])
+def test_flash_forward_lse_feeds_backward(card, t, causal):
+    """The training path's composition: dq, dk and dv from the kernel
+    forward's own O (through delta) and lse stay within
+    ``grad_tolerance`` of the plain backward on the plain forward's; the
+    backward kernels recompute S as q k^T times scale where the forward
+    took (q scale) k^T, so P = exp(scale S - lse) carries both kernels'
+    rounding."""
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    d = 128
+    q, k, v, g = (torch.from_numpy(x).to(card) for x in
+                  flash_inputs(flash_seed(2, t, d, causal), 2, t, d))
+    scale = d ** -0.5
+    ko, klse = tfa.flash_fwd(q, k, v, causal, scale)
+    kdelta = (g * ko).sum(dim=-1)
+    kdq = tfa.flash_dq(q, k, v, g, klse, kdelta, causal, scale)
+    kdk, kdv = tfa.flash_dkv(q, k, v, g, klse, kdelta, causal, scale)
+    torch.cuda.synchronize()
+    po, plse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    pdelta = (g * po).sum(dim=-1)
+    pdq = tfa.flash_dq_plain(q, k, v, g, plse, pdelta, causal, scale)
+    pdk, pdv = tfa.flash_dkv_plain(q, k, v, g, plse, pdelta, causal, scale)
+    _, truth = float64_grads(q, k, v, g, causal, scale)
+    for got, want, exact, what in ((kdq, pdq, truth[0], "dq"),
+                                   (kdk, pdk, truth[1], "dk"),
+                                   (kdv, pdv, truth[2], "dv")):
+        plain_err = float((want.double() - exact).abs().max())
+        _close(got, want, grad_tolerance(want.cpu().numpy(), plain_err),
+               what)
 
 
 def test_flash_kernels_refuse_bad_input(card):
