@@ -56,12 +56,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             ``index_add_`` of the valid rows over precomputed run ids,
             and the byte bounds without and with the zero tail.
 11. merge_kernel — the merge-path kernel against its plain PyTorch
-            version on the card: widths {3, 6, 25} x shards {1, 8} x
-            interleaved / all of A before B / equal keys on both sides
+            version on the card: widths {2, 3, 6, 25, 130} x shards {1, 8}
+            x interleaved / all of A before B / equal keys on both sides
             (ties take A) / one side empty / all sentinel / keys whose lo
             high bit or hi sign differ / sizes off the block tile / an
-            ``out_cap`` below ca + cb. Bit-exact on every row and
-            partition id.
+            ``out_cap`` below ca + cb / A-only and B-only runs several
+            tiles long / odd capacities (no shard base on the 16-byte
+            grid) / sides at storage offsets of 1-3 words / an ``out_cap``
+            inside a later tile. Bit-exact on every row and partition id.
 12. waved_ordered — the ordered phase's TeraSort records and bounds with
             ``a2a.impl=dense``, ``a2a.waveRows=262144``,
             ``a2a.waveDepth=2`` (1,310,720 rows per shard: 5 waves).
@@ -76,14 +78,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             (the accumulator and wave 4, captured from one more read):
             kernel, plain version, ``merge_rows(impl="jnp")`` (two
             ``torch.sort`` calls and a row gather: no single PyTorch call
-            merges) and the byte bound, with and without the out_cap cut.
+            merges) and the byte bound, with and without the out_cap cut;
+            the kernel also 10 calls in a row, each of its two passes'
+            device time (the split pre-pass, the staged tiles) and the
+            host time of a call on an idle device.
 14. waved_combine — the combine phase's records with the waved conf and
             ``read.mergeImpl=auto``: ``read(h, combine="sum",
             sink="device")`` launches the merge kernel 4 times and the
             segment reduce at least 9 (5 waves + 4 fold steps); every sum
             equals the int32-wrapping oracle, on the device sink's host
-            view and on the host sink (``combine_packed_rows``). Then
-            waved_combine_lossless: the host-sink read again under
+            view and on the host sink (``combine_packed_rows``). The
+            fold's last step (captured from one more read) holds the
+            merge kernel bit for bit against ``merge_plain`` and the
+            segment reduce against its plain version at its own W = 6
+            shapes, with the merge's time, device time per pass, byte
+            bound and share of it. Then waved_combine_lossless: the host-sink read again under
             ``a2a.wire=lossless``, bit-identical to the raw one, with
             ``lossless_bytes`` > 0.
 15. quant_kernel — the int8 quantize kernel against its plain version on
@@ -109,7 +118,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             float64 oracle, and the mean signed error to within 5
             standard errors of 0. Launches: quantize 1 and ragged_a2a 1;
             + segment_reduce_wire 1; quantize 5, segment_reduce_wire 5,
-            merge_path 4, segment_reduce 4.
+            merge_path 4, segment_reduce 4. The waved read's last fold
+            step (captured from one more read) holds the merge kernel bit
+            for bit against ``merge_plain`` on its full-width rows (W =
+            130) with its time, byte bound and share, as waved_combine's.
 18. quant_at_main_shapes, wire_reduce_at_main_shapes — the quantize and
             fused-reduce inputs of one more int8_combine read (captured):
             kernel, plain version, library yardstick and byte bound (the
@@ -203,12 +215,21 @@ F32_RECORDS = 4_194_304
 SEG_R = 16                 # partitions of the segreduce_kernel cases
 SEG_PATTERNS = ("unique", "one_key", "crossing", "empty", "sentinel")
 MERGE_TPU_KERNEL = "sparkucx_tpu/ops/pallas/segmented.py:238"
+# the merge's two passes (the split pre-pass, the staged tiles) by name
+MERGE_DEVICE_KERNELS = ("merge_splits", "merge_tiles")
 WAVE_ROWS = 262_144
 WAVE_CONF = {"spark.shuffle.tpu.a2a.impl": "dense",
              "spark.shuffle.tpu.a2a.waveRows": str(WAVE_ROWS),
              "spark.shuffle.tpu.a2a.waveDepth": "2"}
 MERGE_PATTERNS = ("interleaved", "a_before_b", "ties", "a_empty", "b_empty",
-                  "all_sentinel", "sign_bits", "ragged", "out_cap")
+                  "all_sentinel", "sign_bits", "ragged", "out_cap",
+                  "long_runs", "misaligned", "offset", "out_cap_mid")
+MERGE_WIDTHS = (2, 3, 6, 25, 130)
+# long_runs: the merged order alternates A-only and B-only runs of these
+# lengths (A first): several of the kernel's tiles long, and 1-3 rows
+MERGE_RUNS = (15000, 11000, 3, 21000, 7000, 1, 13000)
+MERGE_OFFSET_WORDS = (1, 2, 3, 1)   # offset: storage offsets of the sides
+MERGE_OUT_CAP_MID = 15240  # inside a tile of 1024, 512 and 98 rows
 # (ca, na, cb, nb) of shard 0: capacities and valid rows of A and B
 MERGE_SIZES = {"interleaved": (3000, 2900, 2000, 1800),
                "a_before_b": (2048, 2048, 1024, 1000),
@@ -217,7 +238,13 @@ MERGE_SIZES = {"interleaved": (3000, 2900, 2000, 1800),
                "all_sentinel": (1000, 0, 1500, 0),
                "sign_bits": (2000, 1900, 1800, 1700),
                "ragged": (2561, 2561, 5119, 3000),
-               "out_cap": (3000, 2900, 2000, 1800)}
+               "out_cap": (3000, 2900, 2000, 1800),
+               "long_runs": (sum(MERGE_RUNS[0::2]) + 5, sum(MERGE_RUNS[0::2]),
+                             sum(MERGE_RUNS[1::2]) + 2,
+                             sum(MERGE_RUNS[1::2])),
+               "misaligned": (2571, 2500, 1311, 1240),
+               "offset": (3001, 2900, 2003, 1800),
+               "out_cap_mid": (13000, 12500, 9000, 8500)}
 QUANT_TPU_KERNEL = "sparkucx_tpu/ops/pallas/quant.py:25"
 QUANT_KINDS = ("normal", "zero_rows", "magnitudes", "saturate")
 # the int8 cells: DLRM-style embedding gradients (MLPerf DLRM-DCNv2 on
@@ -1002,6 +1029,21 @@ def device_kernel_ms(fn, names, calls: int = 5) -> dict:
             "launches_seen": {name: len(v) for name, v in spans.items()}}
 
 
+def host_ms(fn, reps: int = 7) -> float:
+    """Median host wall of one call on an idle device: the wrapper's
+    checks, allocations and launches, which a lone call between CUDA
+    events makes the device wait for."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def back_to_back_ms(fn, calls: int = 10) -> float:
     """CUDA events around ``calls`` calls in a row, over the count
     (median of 3): the host queues the next call while the device runs
@@ -1036,21 +1078,26 @@ def reduce_bounds(P: int, cap: int, width_in: int, width: int, valid: int,
 
 
 # -- merge-path kernel phase -------------------------------------------------
-def _merge_side(rng, cap: int, n: int, width: int, pattern: str, side: str):
-    """One shard's side of a merge: [cap, W] rows sorted by (partition,
-    key) with [cap] partition ids, zero rows and the sentinel past n."""
+def _merge_keys(rng, n: int, pattern: str, side: str):
+    """Keys and partitions of n rows of one side (any order)."""
     if pattern == "a_before_b":
         lo, hi = (0, SEG_R // 2) if side == "a" else (SEG_R // 2, SEG_R)
-        keys = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
-        parts = rng.integers(lo, hi, n)
-    elif pattern == "ties":                # few keys: equal rows both sides
+        return (rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+                rng.integers(lo, hi, n))
+    if pattern == "ties":                  # few keys: equal rows both sides
         keys = rng.integers(-40, 40, n).astype(np.int64) * (1 << 33)
-        parts = (keys >> 33) % SEG_R
-    elif pattern == "sign_bits":
-        keys, parts = rng.choice(SIGN_KEYS, n), rng.integers(0, 3, n)
-    else:
-        keys = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
-        parts = rng.integers(0, SEG_R, n)
+        return keys, (keys >> 33) % SEG_R
+    if pattern == "sign_bits":
+        return rng.choice(SIGN_KEYS, n), rng.integers(0, 3, n)
+    return (rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+            rng.integers(0, SEG_R, n))
+
+
+def _merge_side(rng, cap: int, width: int, keys, parts):
+    """One shard's side of a merge: [cap, W] rows sorted by (partition,
+    key) with [cap] partition ids, zero rows and the sentinel past the
+    len(keys) valid rows."""
+    n = len(keys)
     order = np.lexsort((keys, parts))
     rows = np.zeros((cap, width), np.int32)
     part = np.full(cap, SEG_R, np.int32)
@@ -1061,26 +1108,53 @@ def _merge_side(rng, cap: int, n: int, width: int, pattern: str, side: str):
     return rows, part
 
 
+def _merge_runs(rng, na: int, nb: int):
+    """long_runs: keys and partitions of both sides, one sorted sequence
+    cut into MERGE_RUNS taken by A and B in turn; partitions change at a
+    few points inside runs."""
+    total = sum(MERGE_RUNS)
+    keys = np.sort(rng.integers(-(1 << 40), 1 << 40, total).astype(np.int64))
+    parts = np.arange(total) * SEG_R // total
+    side = np.repeat(np.arange(len(MERGE_RUNS)) % 2, MERGE_RUNS)
+    return [(keys[idx], parts[idx]) for idx in
+            (np.flatnonzero(side == 0)[:na], np.flatnonzero(side == 1)[:nb])]
+
+
+def _on_card(x: np.ndarray, dev, off: int = 0):
+    """x on the card as a contiguous view at storage offset ``off``."""
+    import torch
+    buf = torch.empty(x.size + off, dtype=torch.int32, device=dev)
+    view = buf[off:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view
+
+
 def merge_kernel_phase(dev) -> int:
     import torch
     from sparkucx_tpu_torch.ops import segmented as sg
     rng = np.random.default_rng(SEED + 8)
     n = 0
-    for width in (3, 6, 25):
+    for width in MERGE_WIDTHS:
         for P in (1, 8):
             for pattern in MERGE_PATTERNS:
                 ca, na, cb, nb = MERGE_SIZES[pattern]
-                sides = []
-                for side, cap, nv in (("a", ca, na), ("b", cb, nb)):
-                    got = [_merge_side(rng, cap, max(0, nv - 37 * p) if nv
-                                       else 0, width, pattern, side)
-                           for p in range(P)]
-                    sides += [torch.from_numpy(np.stack([g[0] for g in got]))
-                              .to(dev),
-                              torch.from_numpy(np.stack([g[1] for g in got]))
-                              .to(dev)]
-                out_cap = (ca + cb) // 2 + 3 if pattern == "out_cap" \
-                    else None
+                shards = []
+                for p in range(P):
+                    n_a, n_b = (max(0, v - 37 * p) if v else 0
+                                for v in (na, nb))
+                    kps = (_merge_runs(rng, n_a, n_b)
+                           if pattern == "long_runs" else
+                           [_merge_keys(rng, n_a, pattern, "a"),
+                            _merge_keys(rng, n_b, pattern, "b")])
+                    shards.append([_merge_side(rng, cap, width, *kp)
+                                   for cap, kp in zip((ca, cb), kps)])
+                offs = MERGE_OFFSET_WORDS if pattern == "offset" \
+                    else (0,) * 4
+                sides = [_on_card(np.stack([s[i // 2][i % 2]
+                                            for s in shards]), dev, off)
+                         for i, off in enumerate(offs)]
+                out_cap = {"out_cap": (ca + cb) // 2 + 3,
+                           "out_cap_mid": MERGE_OUT_CAP_MID}.get(pattern)
                 kr, kp = sg.merge_kernel(*sides, out_cap)
                 pr, pp = sg.merge_plain(*sides, out_cap)
                 torch.cuda.synchronize()
@@ -1200,14 +1274,9 @@ def combine_fold_step_check(captured) -> dict:
     a, ap, b, bp = (t.contiguous() for t in (a, ap, b, bp))
     out_cap = kw["out_cap"]
     sw = kw.get("sum_words", 0) or val_words
+    merge = merge_fold_step(a, ap, b, bp, out_cap, num_parts,
+                            "combine fold")
     mr, mp = sg.merge_kernel(a, ap, b, bp, out_cap)
-    pr, pp = sg.merge_plain(a, ap, b, bp, out_cap)
-    torch.cuda.synchronize()
-    merge_err = int((mr.long() - pr.long()).abs().max())
-    if merge_err or not torch.equal(mp, pp):
-        raise AssertionError(f"combine fold merge: kernel != plain "
-                             f"(err {merge_err})")
-    del pr, pp
     kr, kp, kn = sg.segment_reduce_kernel(mr, mp, num_parts, sw, False)
     sr, sp, sn = sg.segment_reduce_plain(mr, mp, num_parts, sw, False)
     torch.cuda.synchronize()
@@ -1215,11 +1284,44 @@ def combine_fold_step_check(captured) -> dict:
     if seg_err or not (torch.equal(kp, sp) and torch.equal(kn, sn)):
         raise AssertionError(f"combine fold segment reduce: kernel != "
                              f"plain (err {seg_err})")
-    return {"a_shape": list(a.shape), "b_shape": list(b.shape),
-            "out_cap": out_cap, "sum_words": sw,
-            "merged_valid_rows": int((mp < num_parts).sum()),
-            "reduced_rows": int(kn.sum()), "merge_max_abs_err": merge_err,
+    return {"sum_words": sw, "merge": merge, "reduced_rows": int(kn.sum()),
+            "merge_max_abs_err": merge["max_abs_err"],
             "segment_reduce_max_abs_err": seg_err}
+
+
+def merge_fold_step(a, ap, b, bp, out_cap: int, num_parts: int,
+                    what: str) -> dict:
+    """One captured fold step's merge at its own shapes: the kernel
+    bit-exact against merge_plain on every output row and partition id
+    (the rows past the valid total included), its time (one call between
+    CUDA events; 10 calls in a row; each pass's device time from
+    torch.profiler) and the byte bound: out_cap rows of W + 1 words read
+    and written per shard."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    P, ca, W = a.shape
+
+    def kernel():
+        return sg.merge_kernel(a, ap, b, bp, out_cap)
+
+    kr, kp = kernel()
+    pr, pp = sg.merge_plain(a, ap, b, bp, out_cap)
+    torch.cuda.synchronize()
+    err = int((kr.long() - pr.long()).abs().max())
+    if err or not torch.equal(kp, pp):
+        raise AssertionError(f"{what} merge: kernel != plain (err {err})")
+    valid = int((kp < num_parts).sum())
+    del kr, kp, pr, pp
+    bound = 2 * P * out_cap * (W + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    kernel_ms = median_ms(kernel)
+    return {"a_shape": [P, ca, W], "b_shape": list(b.shape),
+            "out_cap": out_cap, "a_valid_rows": int((ap < num_parts).sum()),
+            "b_valid_rows": int((bp < num_parts).sum()),
+            "valid_rows": valid, "max_abs_err": err, "kernel_ms": kernel_ms,
+            "back_to_back_ms": back_to_back_ms(kernel),
+            "device_ms": device_kernel_ms(kernel, MERGE_DEVICE_KERNELS),
+            "host_ms": host_ms(kernel), "bound_ms": bound,
+            "share_of_bound": bound / kernel_ms}
 
 
 def check_sorted_oracle(parts, keys, values, pid, sink: str) -> None:
@@ -1297,14 +1399,19 @@ def merge_at_main_shapes(captured, dev) -> dict:
     bytes_out = P * out_cap * row
     bytes_in = bytes_out
     both_in = P * (ca + cb) * row
+    kernel_ms = median_ms(kernel)
+    bound = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
     return {
-        "kernel_ms": median_ms(kernel),
+        "kernel_ms": kernel_ms, "share_of_bound": bound / kernel_ms,
+        "back_to_back_ms": back_to_back_ms(kernel),
+        "device_ms": device_kernel_ms(kernel, MERGE_DEVICE_KERNELS),
+        "host_ms": host_ms(kernel),
         "plain_ms": median_ms(plain, reps=5, warmup=1),
         "library_ms": median_ms(library),
         "library_calls": "merge_rows(impl='jnp'): torch.sort of the keys, "
                          "a stable torch.sort of the partitions, row "
                          "gathers (no single PyTorch call merges)",
-        "bound_ms": (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound,
         # labelled alternatives: reading both buffers whole, and that
         # with all ca+cb rows written (no out_cap cut)
         "bound_reads_both_buffers_ms":
@@ -1766,21 +1873,27 @@ def int8_phases(dev) -> tuple:
     # -- waved_int8_combine: the combine as a streaming device-sink read ---
     wgroups = staged_groups(INT8_RECORDS, INT8_WAVE_ROWS)
 
-    def waved(wire: str):
+    def waved(wire: str, capture: bool = False):
         conf = {"spark.shuffle.tpu.a2a.impl": "dense",
                 "spark.shuffle.tpu.a2a.wire": wire,
                 "spark.shuffle.tpu.a2a.waveRows": str(INT8_WAVE_ROWS),
                 "spark.shuffle.tpu.a2a.waveDepth": "2",
                 "spark.shuffle.tpu.read.mergeImpl": "auto"}
+        box = None
         with connect(conf, num_shards=SHARDS, use_env=False) as svc:
             h = write_maps(svc, 34, keys, grads, MAPS)
             parts, stats, rep = waved_read(svc, h, dev, combine="sum")
+            if capture:
+                # one more read whose last fold step is kept: the merge
+                # of full-width rows (2 key words + EMB_DIM float32 lanes)
+                box = capture_last_merge(svc, h, "merge_reduce_rows",
+                                         combine="sum")
             svc.unregister_shuffle(34)
-        return parts, stats, rep
+        return parts, stats, rep, box
 
-    rparts, raw_wstats, raw_wrep = waved("raw")
+    rparts, raw_wstats, raw_wrep, _ = waved("raw")
     del rparts
-    parts, wstats, wrep = waved("int8")
+    parts, wstats, wrep, fold_box = waved("int8", capture=True)
     want = {tq.KERNEL_NAME: 5, sg.WIRE_KERNEL_NAME: 5,
             sg.MERGE_KERNEL_NAME: 4, sg.KERNEL_NAME: 4}
     got = {k: wstats["launches"].get(k, 0) for k in want}
@@ -1794,10 +1907,17 @@ def int8_phases(dev) -> tuple:
     for st, r in ((wstats, wrep), (raw_wstats, raw_wrep)):
         st.update({"wire_bytes": r.wire_bytes, "pad_ratio": r.pad_ratio,
                    "wire_dequant_error": r.wire_dequant_error})
+    oracle_s = time.perf_counter() - t
+    a, ap, b, bp, num_parts = fold_box["args"][:5]
+    if a.shape[2] != 2 + EMB_DIM:
+        raise AssertionError(f"int8 fold merges rows of {a.shape[2]} words")
+    fold = merge_fold_step(a, ap, b, bp, fold_box["kw"]["out_cap"],
+                           num_parts, "int8 combine fold")
+    del a, ap, b, bp, fold_box
     out["waved_int8_combine"] = {
         "phase": "waved_int8_combine", "waves": wrep.waves,
         "wave_rows": INT8_WAVE_ROWS, "int8": wstats, "raw": raw_wstats,
-        **wchk, "oracle_s": time.perf_counter() - t, "ok": True}
+        **wchk, "fold_step_check": fold, "oracle_s": oracle_s, "ok": True}
     out["gen_s"] = gen_s
     return out, box, part_rows, cstats
 

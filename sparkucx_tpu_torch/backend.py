@@ -70,9 +70,15 @@ SIGNATURES = {
     "sxt_segment_reduce_tail": (ctypes.c_int, [_P] * 3 + [_I] * 4 + [_P]),
     # x, u, q, scale, n, width, stream -> cudaError_t
     "sxt_quantize": (ctypes.c_int, [_P] * 4 + [_I] * 2 + [_P]),
-    # a_rows, a_part, b_rows, b_part, out_rows, out_part, P, ca, cb,
-    # out_cap, width, stream -> cudaError_t
-    "sxt_merge_path": (ctypes.c_int, [_P] * 6 + [_I] * 5 + [_P]),
+    # width -> rows per merge tile (the splits scratch: P * (ceil(out_cap
+    # / T) + 1) int32 words)
+    "sxt_merge_tile_rows": (ctypes.c_int, [_I]),
+    # a_rows, a_part, b_rows, b_part, splits, P, ca, cb, out_cap, width,
+    # stream -> cudaError_t
+    "sxt_merge_splits": (ctypes.c_int, [_P] * 5 + [_I] * 5 + [_P]),
+    # a_rows, a_part, b_rows, b_part, out_rows, out_part, splits, P, ca,
+    # cb, out_cap, width, stream -> cudaError_t
+    "sxt_merge_path": (ctypes.c_int, [_P] * 7 + [_I] * 5 + [_P]),
     "sxt_error_string": (ctypes.c_char_p, [_I]),
 }
 

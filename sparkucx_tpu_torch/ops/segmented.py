@@ -486,8 +486,8 @@ def merge_kernel(a_rows: torch.Tensor, a_part: torch.Tensor,
                  out_cap: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA merge-path kernel on the current stream (no host
-    synchronisation), one launch for all shards. Same contract as
-    :func:`merge_plain`."""
+    synchronisation): the split pre-pass, then the merge, each one launch
+    for all shards. Same contract as :func:`merge_plain`."""
     out_cap = _check_merge_inputs(a_rows, a_part, b_rows, b_part, out_cap)
     dev = a_rows.device
     if dev.type != "cuda" or any(t.device != dev
@@ -498,18 +498,28 @@ def merge_kernel(a_rows: torch.Tensor, a_part: torch.Tensor,
         raise ValueError("merge inputs must be contiguous")
     P, ca, W = a_rows.shape
     cb = b_rows.shape[1]
-    out_rows = torch.empty((P, out_cap, W), dtype=torch.int32, device=dev)
-    out_part = torch.empty((P, out_cap), dtype=torch.int32, device=dev)
     if P == 0 or out_cap == 0:
-        return out_rows, out_part
+        return (torch.empty((P, out_cap, W), dtype=torch.int32, device=dev),
+                torch.empty((P, out_cap), dtype=torch.int32, device=dev))
     backend.check_sm90(dev)
     lib = backend.kernel_library()
+    # the merge-path split of every tile boundary, from the pre-pass, which
+    # is launched first so that the output allocations overlap it
+    splits = torch.empty(P * (-(-out_cap // lib.sxt_merge_tile_rows(W)) + 1),
+                         dtype=torch.int32, device=dev)
+    ptrs = (a_rows.data_ptr(), a_part.data_ptr(), b_rows.data_ptr(),
+            b_part.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sxt_merge_path(
-            a_rows.data_ptr(), a_part.data_ptr(), b_rows.data_ptr(),
-            b_part.data_ptr(), out_rows.data_ptr(), out_part.data_ptr(),
-            P, ca, cb, out_cap, W, stream)
+        rc = lib.sxt_merge_splits(*ptrs, splits.data_ptr(), P, ca, cb,
+                                  out_cap, W, stream)
+        backend.check_launch(MERGE_KERNEL_NAME, rc)
+        out_rows = torch.empty((P, out_cap, W), dtype=torch.int32,
+                               device=dev)
+        out_part = torch.empty((P, out_cap), dtype=torch.int32, device=dev)
+        rc = lib.sxt_merge_path(*ptrs, out_rows.data_ptr(),
+                                out_part.data_ptr(), splits.data_ptr(), P,
+                                ca, cb, out_cap, W, stream)
     backend.check_launch(MERGE_KERNEL_NAME, rc)
     backend.count_launch(MERGE_KERNEL_NAME)
     return out_rows, out_part

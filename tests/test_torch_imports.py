@@ -1,6 +1,7 @@
 """The port stands alone: it imports with JAX and the JAX package
-blocked, no module of it (nor chip_smoke.py, nor flash_bench.py) imports
-either, and its entry points refuse to drop to the CPU on their own."""
+blocked, no module of it (nor chip_smoke.py, flash_bench.py or
+merge_bench.py) imports either, and its entry points refuse to drop to
+the CPU on their own."""
 
 import ast
 import os
@@ -17,7 +18,8 @@ PKG = ROOT / "sparkucx_tpu_torch"
 
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "flash_bench.py"]
+                                        ROOT / "flash_bench.py",
+                                        ROOT / "merge_bench.py"]
 
 
 def test_imports_with_jax_blocked():

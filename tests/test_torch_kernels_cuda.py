@@ -22,7 +22,8 @@ from torch_attention_cases import (FLASH_BH, FLASH_D, FLASH_T,
                                    flash_inputs, flash_seed, float64_grads,
                                    grad_tolerance, lse_tolerance,
                                    out_tolerance, qkv_rows)
-from torch_merge_cases import MERGE_PATTERNS, merge_case
+from torch_merge_cases import (MERGE_PATTERNS, MERGE_WIDTHS, OFFSET_WORDS,
+                               merge_case)
 from torch_wire_cases import PATTERNS as WIRE_PATTERNS
 from torch_wire_cases import (QUANT_KINDS, quant_values, runs, sum_tolerance,
                               wire_case)
@@ -547,19 +548,36 @@ def test_combine_and_ordered_reads_on_card(card, merge):
 
 
 # -- merge path ---------------------------------------------------------------
+def _merge_inputs(pattern, width, P, seed, card):
+    """``merge_case`` on the card; under ``offset`` each side tensor is a
+    contiguous view at a storage offset of 1-3 words, as on the host."""
+    *sides, out_cap = merge_case(np.random.default_rng(seed), P, width,
+                                 pattern)
+    out = []
+    for x, off in zip(sides, OFFSET_WORDS):
+        off = off if pattern == "offset" else 0
+        buf = torch.empty(x.size + off, dtype=torch.int32, device=card)
+        view = buf[off:].view(x.shape)
+        view.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+        assert view.is_contiguous() and view.storage_offset() == off
+        out.append(view)
+    return (*out, out_cap)
+
+
+# 1031: rows wider than the staged kernel takes (one row per block)
 @pytest.mark.parametrize("P", [1, 8])
-@pytest.mark.parametrize("width", [3, 6, 25])
+@pytest.mark.parametrize("width", MERGE_WIDTHS + (1031,))
 @pytest.mark.parametrize("pattern", MERGE_PATTERNS)
 def test_merge_kernel_matches_plain(card, pattern, width, P):
     """Bit-exact on every output row and partition id, ties taking the
-    first side, for every pattern of ``torch_merge_cases`` (an ``out_cap``
-    below ca + cb included)."""
+    first side, for every pattern of ``torch_merge_cases``: an ``out_cap``
+    below ca + cb (in the first tile and inside a later one), runs of one
+    side longer than a tile, shard bases and storage offsets off the
+    16-byte grid included."""
     from sparkucx_tpu_torch.ops import segmented as sg
-    rng = np.random.default_rng(MERGE_PATTERNS.index(pattern) * 100
-                                + width * 10 + P)
-    a, ap, b, bp, out_cap = (x if x is None or isinstance(x, int)
-                             else torch.from_numpy(x).to(card)
-                             for x in merge_case(rng, P, width, pattern))
+    a, ap, b, bp, out_cap = _merge_inputs(
+        pattern, width, P, MERGE_PATTERNS.index(pattern) * 1000
+        + width * 10 + P, card)
     before = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0)
     kr, kp = sg.merge(a, ap, b, bp, out_cap)
     torch.cuda.synchronize()
@@ -567,6 +585,26 @@ def test_merge_kernel_matches_plain(card, pattern, width, P):
     assert launched == (1 if kr.shape[1] else 0)
     pr, pp = sg.merge_plain(a, ap, b, bp, out_cap)
     assert torch.equal(kr, pr) and torch.equal(kp, pp)
+
+
+def test_merge_tile_rows(card):
+    """Rows per merge tile: about 50 KB of staged rows, at most 1024; one
+    row (no staging) above 800 words; 0 for a width the kernel refuses."""
+    lib = backend.kernel_library()
+    got = [lib.sxt_merge_tile_rows(w) for w in (1, 2, 6, 25, 130, 800, 801)]
+    assert got == [0, 1024, 1024, 512, 98, 16, 1]
+
+
+@pytest.mark.parametrize("width", [6, 25, 130])
+def test_merge_kernel_is_deterministic(card, width):
+    """Two launches on the same inputs are bit-identical."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    a, ap, b, bp, out_cap = _merge_inputs("long_runs", width, 8, width,
+                                          card)
+    first = sg.merge_kernel(a, ap, b, bp, out_cap)
+    second = sg.merge_kernel(a, ap, b, bp, out_cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_merge_kernel_refuses_bad_input(card):
@@ -582,8 +620,13 @@ def test_merge_kernel_refuses_bad_input(card):
     lib = backend.kernel_library()
     stream = torch.cuda.current_stream(card).cuda_stream
     rc = lib.sxt_merge_path(a.data_ptr(), pa.data_ptr(), a.data_ptr(),
-                            pa.data_ptr(), a.data_ptr(), pa.data_ptr(), 2,
-                            300, 300, 601, 4, stream)
+                            pa.data_ptr(), a.data_ptr(), pa.data_ptr(),
+                            pa.data_ptr(), 2, 300, 300, 601, 4, stream)
+    with pytest.raises(RuntimeError, match="merge_path launch failed"):
+        backend.check_launch(sg.MERGE_KERNEL_NAME, rc)
+    rc = lib.sxt_merge_splits(a.data_ptr(), pa.data_ptr(), a.data_ptr(),
+                              pa.data_ptr(), pa.data_ptr(), 2, 300, 300,
+                              600, 1, stream)             # width 1
     with pytest.raises(RuntimeError, match="merge_path launch failed"):
         backend.check_launch(sg.MERGE_KERNEL_NAME, rc)
 

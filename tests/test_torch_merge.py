@@ -19,8 +19,8 @@ import torch
 
 from sparkucx_tpu.ops.pallas import segmented as jseg
 from sparkucx_tpu_torch.ops import segmented as tseg
-from torch_merge_cases import (MERGE_PATTERNS, R, combined_case,
-                               merge_case)
+from torch_merge_cases import (MERGE_PATTERNS, MERGE_WIDTHS, R,
+                               combined_case, merge_case)
 
 
 P = 2
@@ -48,7 +48,7 @@ def _case(pattern, width):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "jnp"])
-@pytest.mark.parametrize("width", [3, 6])
+@pytest.mark.parametrize("width", MERGE_WIDTHS)
 @pytest.mark.parametrize("pattern", MERGE_PATTERNS)
 def test_merge_rows_matches_reference(pattern, width, impl):
     a_rows, a_part, b_rows, b_part, out_cap, ref = _case(pattern, width)

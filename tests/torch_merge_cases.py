@@ -13,7 +13,22 @@ import numpy as np
 R = 7
 
 MERGE_PATTERNS = ("interleaved", "a_before_b", "ties", "a_empty", "b_empty",
-                  "all_sentinel", "sign_bits", "ragged", "out_cap")
+                  "all_sentinel", "sign_bits", "ragged", "out_cap",
+                  "long_runs", "misaligned", "offset", "out_cap_mid")
+
+# widths of the merge cases: 2 (keys only) to 130 (2 key words + 128
+# float32 lanes, the int8 combine fold's full-width rows)
+MERGE_WIDTHS = (2, 3, 6, 25, 130)
+
+# "offset": every side tensor is a contiguous view at these storage offsets
+# (words) into a larger buffer, so no base is 16-byte aligned
+OFFSET_WORDS = (1, 2, 3, 1)
+
+# "long_runs": the merged order alternates between A-only and B-only runs
+# of these lengths (A first), longer than a tile of every width's merge
+# kernel at the first, shorter at the others, so tile boundaries fall
+# inside runs and at their ends
+LONG_RUNS = (1500, 1100, 3, 2100, 700, 1, 1300)
 
 # keys whose lo word has its high bit set or clear and whose hi word is
 # negative or not: signed int64 order must hold across all of them
@@ -28,7 +43,15 @@ _SIZES = {"interleaved": (300, 280, 200, 150), "a_before_b": (300, 300, 300,
           299), "ties": (260, 250, 260, 240), "a_empty": (64, 0, 300, 290),
           "b_empty": (300, 300, 0, 0), "all_sentinel": (100, 0, 150, 0),
           "sign_bits": (200, 190, 180, 170), "ragged": (257, 257, 511, 300),
-          "out_cap": (300, 280, 200, 150)}
+          "out_cap": (300, 280, 200, 150),
+          "long_runs": (sum(LONG_RUNS[0::2]) + 5, sum(LONG_RUNS[0::2]),
+                        sum(LONG_RUNS[1::2]) + 2, sum(LONG_RUNS[1::2])),
+          "misaligned": (257, 250, 131, 124), "offset": (301, 290, 203, 190),
+          "out_cap_mid": (1300, 1250, 900, 850)}
+
+# "out_cap_mid": the cut falls inside a tile at every width's tile rows
+# (1024, 512, 98 and 1 for widths up to 12, 25, 130 and above 800)
+OUT_CAP_MID = 1524
 
 
 def _side(rng, cap: int, n: int, width: int, keys, parts):
@@ -40,6 +63,23 @@ def _side(rng, cap: int, n: int, width: int, keys, parts):
         rows[:n, 2:] = rng.integers(-(1 << 31), 1 << 31, (n, width - 2))
         part[:n] = parts[order]
     return rows, part
+
+
+def _long_runs(rng, na: int, nb: int):
+    """Keys and partitions of both sides of ``long_runs``: one sorted
+    sequence cut into runs of ``LONG_RUNS`` taken by A and B in turn (a
+    shard's shorter sides cut the last runs short); partitions split the
+    sequence at a few points, inside runs."""
+    total = sum(LONG_RUNS)
+    keys = np.sort(rng.integers(-(1 << 40), 1 << 40, total).astype(
+        np.int64))
+    parts = np.arange(total) * R // total
+    side = np.repeat(np.arange(len(LONG_RUNS)) % 2, LONG_RUNS)
+    out = []
+    for s, n in ((0, na), (1, nb)):
+        idx = np.flatnonzero(side == s)[:n]
+        out.append((keys[idx], parts[idx]))
+    return out
 
 
 def _keys_parts(rng, pattern: str, n: int, side: str):
@@ -63,15 +103,33 @@ def merge_case(rng, P: int, width: int, pattern: str):
     ca, na, cb, nb = _SIZES[pattern]
     sides = {"a": ([], []), "b": ([], [])}
     for p in range(P):
-        for side, cap, n in (("a", ca, na), ("b", cb, nb)):
-            n = max(0, n - 3 * p) if n else 0
-            keys, parts = _keys_parts(rng, pattern, n, side)
+        n_a, n_b = (max(0, n - 3 * p) if n else 0 for n in (na, nb))
+        runs = _long_runs(rng, n_a, n_b) if pattern == "long_runs" \
+            else None
+        for s, (side, cap, n) in enumerate((("a", ca, n_a),
+                                            ("b", cb, n_b))):
+            keys, parts = runs[s] if runs else _keys_parts(rng, pattern, n,
+                                                            side)
             rows, part = _side(rng, cap, n, width, keys, parts)
             sides[side][0].append(rows)
             sides[side][1].append(part)
-    out_cap = (ca + cb) // 2 + 3 if pattern == "out_cap" else None
-    return (np.stack(sides["a"][0]), np.stack(sides["a"][1]),
-            np.stack(sides["b"][0]), np.stack(sides["b"][1]), out_cap)
+    out_cap = {"out_cap": (ca + cb) // 2 + 3,
+               "out_cap_mid": OUT_CAP_MID}.get(pattern)
+    arrays = [np.stack(sides["a"][0]), np.stack(sides["a"][1]),
+              np.stack(sides["b"][0]), np.stack(sides["b"][1])]
+    if pattern == "offset":
+        arrays = [with_storage_offset(x, off)
+                  for x, off in zip(arrays, OFFSET_WORDS)]
+    return (*arrays, out_cap)
+
+
+def with_storage_offset(x: np.ndarray, off: int) -> np.ndarray:
+    """A C-contiguous copy of ``x`` that starts ``off`` elements into a
+    larger buffer."""
+    buf = np.empty(x.size + off, x.dtype)
+    view = buf[off:].reshape(x.shape)
+    view[...] = x
+    return view
 
 
 def combined_case(rng, P: int, width: int, dtype: str, sum_words: int):
