@@ -170,13 +170,31 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             SDPA's forward, ``backward_vs_sdpa`` = (dq + dk/dv) / SDPA's
             backward.
 
+24. workloads — every analytics runner of ``sparkucx_tpu_torch.workloads``
+            on one ``connect(num_shards=8)`` under the default conf
+            (``a2a.impl=auto``: the segment move for every read,
+            ``read.mergeImpl=auto``: the segment reduce for every combine
+            read), one after another at the sizes of ``WORKLOAD_RUNS``:
+            TeraSort range and direct (10,485,760 keys, 64 maps, 200
+            partitions), GroupBy, WordCount over ids and over text,
+            PageRank (web-Google's 875,713 vertices and 5,105,039 edges,
+            10 iterations), ALS (MovieLens-1M's shape, rank 10, 10
+            iterations), SparkTC (100 vertices, 200 edges, to the
+            fixpoint), q23, the skewed join and the varchar join. Each
+            runner's own oracle decides; one JSON line per runner (its
+            result, wall, reads, retries, launches, rows/s, peak device
+            memory, the staging pool's held bytes). The segment move must
+            launch once per read attempt (reads + retries) and the
+            segment reduce once per combine-read attempt.
+
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
 ordered, waved_ordered, merge_at_main_shapes, skew, combine,
 segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
 quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
 wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
-ulysses_attention_train, ring_attention, flash_at_main_shapes.
+ulysses_attention_train, ring_attention, flash_at_main_shapes,
+workloads.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -184,8 +202,10 @@ the segment move; combine and combine_f32: the segment move and the
 segment reduce; ordered: the segment move; waved_ordered: the merge;
 waved_combine: the merge and the segment reduce; the int8 paths and the
 attention paths: their launch counts exactly; default_conf's pallas
-read: the segment move). The last two lines of standard output are the
-``kernels`` JSON object and the ``{"ok": true, "device": ...}`` object.
+read: the segment move; workloads: per runner, the segment move and the
+segment reduce exactly as above). The last two lines of standard output
+are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
+object.
 """
 
 import json
@@ -336,7 +356,11 @@ def kernel_phase(dev) -> int:
     from sparkucx_tpu_torch.ops import ragged_a2a as ra
     rng = np.random.default_rng(SEED)
     n = 0
-    for width in (1, 10, 25):
+    # 2-10: the workloads' rows (2: TeraSort's key-only range read; 3:
+    # WordCount's, PageRank's and q23's; 4: the join's and ALS's; 6:
+    # GroupBy's and SparkTC's; 9: the varchar join's; 10: WordCount over
+    # text); 1, 10 and 25 as the main path's phases
+    for width in (1, 2, 3, 4, 6, 9, 10, 25):
         chunk = ra.chunk_rows_for(width)
         for P in (1, 8):
             for kind in ("even", "skewed", "onehot", "zero",
@@ -607,7 +631,8 @@ def _seg_shard(rng, cap: int, width: int, pattern: str, dtype: str):
     return rows, part
 
 
-def run_tolerance(rows, part, sum_words: int) -> np.ndarray:
+def run_tolerance(rows, part, sum_words: int,
+                  num_parts: int = SEG_R) -> np.ndarray:
     """[P, cap, sum_words]: for output row j (run j), n * 2**-24 * sum|v|
     over the run's n rows — the bound of sequential float32 summation
     (the kernel adds a run in row order in float32; the plain version
@@ -616,7 +641,7 @@ def run_tolerance(rows, part, sum_words: int) -> np.ndarray:
     key = rows[..., :2].copy().view(np.int64)[..., 0]
     tol = np.zeros((P, cap, sum_words))
     for p in range(P):
-        valid = part[p] < SEG_R
+        valid = part[p] < num_parts
         start = valid.copy()
         start[1:] &= (key[p, 1:] != key[p, :-1]) | (part[p, 1:]
                                                     != part[p, :-1])
@@ -635,7 +660,7 @@ def segreduce_kernel_phase(dev) -> dict:
     from sparkucx_tpu_torch.ops import segmented as sg
     rng = np.random.default_rng(SEED + 3)
     n, f32_err = 0, 0.0
-    for width in (3, 6, 25):
+    for width in (3, 6, 10, 25):
         for P in (1, 8):
             cap = 2000 if P == 8 else 5000
             for i, pattern in enumerate(SEG_PATTERNS):
@@ -651,34 +676,47 @@ def segreduce_kernel_phase(dev) -> dict:
                     part = torch.from_numpy(part_np).to(dev)
                     fa = dtype == "float32"
                     vw = width - 2
-                    for sw in sorted({0, vw // 2, vw}):
-                        kr, kp, kn = sg.segment_reduce_kernel(
+                    # one summed word beside carried ones: the word
+                    # counts of WordCount over text (width 10)
+                    for sw in sorted({0, 1, vw // 2, vw}):
+                        got = sg.segment_reduce_kernel(
                             rows, part, SEG_R, sw, fa)
-                        pr, pp, pn = sg.segment_reduce_plain(
-                            rows, part, SEG_R, sw, fa)
-                        torch.cuda.synchronize()
                         tag = (f"width={width} P={P} {pattern} {dtype} "
                                f"sum_words={sw}")
-                        if not (torch.equal(kn, pn) and torch.equal(kp, pp)):
-                            raise AssertionError(f"{tag}: n_out/part differ")
-                        exact = [0, 1] + list(range(2 + sw, width))
-                        if not torch.equal(kr[..., exact], pr[..., exact]):
-                            raise AssertionError(f"{tag}: keys/carry differ")
-                        if not fa and not torch.equal(kr, pr):
-                            raise AssertionError(f"{tag}: sums differ")
-                        if fa and sw:
-                            got = kr[..., 2:2 + sw].contiguous().view(
-                                torch.float32).double().cpu().numpy()
-                            want = pr[..., 2:2 + sw].contiguous().view(
-                                torch.float32).double().cpu().numpy()
-                            diff = np.abs(got - want)
-                            if (diff > run_tolerance(rows_np, part_np,
-                                                     sw)).any():
-                                raise AssertionError(
-                                    f"{tag}: float sums outside tolerance")
-                            f32_err = max(f32_err, float(diff.max()))
+                        f32_err = max(f32_err, check_segment_reduce(
+                            tag, (rows, part, SEG_R, sw, fa), got))
                         n += 1
     return {"cases": n, "f32_max_abs_err": f32_err}
+
+
+def check_segment_reduce(tag: str, args, got) -> float:
+    """Hold the kernel's (rows, part, n_out) for ``args`` = (rows, part,
+    num_parts, sum_words, float_acc) against the plain version on the
+    same inputs: counts, partitions, keys and carried words exact; integer
+    sums exact; float32 sums within :func:`run_tolerance`. Returns the
+    float sums' largest difference (0 for integer sums)."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    rows, part, num_parts, sw, fa = args
+    kr, kp, kn = got
+    pr, pp, pn = sg.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kn, pn) and torch.equal(kp, pp)):
+        raise AssertionError(f"{tag}: n_out/part differ")
+    exact = [0, 1] + list(range(2 + sw, rows.shape[2]))
+    if not torch.equal(kr[..., exact], pr[..., exact]):
+        raise AssertionError(f"{tag}: keys/carry differ")
+    if not fa and not torch.equal(kr, pr):
+        raise AssertionError(f"{tag}: sums differ")
+    if not (fa and sw):
+        return 0.0
+    k = kr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    p = pr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    diff = (k - p).abs().cpu().numpy()
+    if (diff > run_tolerance(rows.cpu().numpy(), part.cpu().numpy(), sw,
+                             num_parts)).any():
+        raise AssertionError(f"{tag}: float sums outside tolerance")
+    return float(diff.max()) if diff.size else 0.0
 
 
 # -- combine and ordered reads -----------------------------------------------
@@ -2542,6 +2580,265 @@ def flash_at_main_shapes(dev, qkv, cot, fwd_ref, bwd_ref) -> dict:
             "reps": {"forward": 7, "backward": 3, "plain": 3}}
 
 
+# -- workloads: the analytics runners under the default conf --------------
+# (name, module under workloads/, runner, arguments): the widths of each
+# source, its scale cut to one card (PERF.md section 4 lists the cuts)
+WORKLOAD_RUNS = [
+    ("terasort_range", "terasort", "run_terasort",
+     dict(mode="range", num_mappers=64, rows_per_mapper=163_840,
+          num_partitions=200)),
+    ("terasort_direct", "terasort", "run_terasort",
+     dict(mode="direct", num_mappers=64, rows_per_mapper=163_840,
+          num_partitions=200)),
+    ("groupby", "groupby", "run_groupby",
+     dict(num_mappers=64, pairs_per_mapper=163_840, num_partitions=200,
+          key_space=2_097_152, value_width=4)),
+    ("wordcount", "wordcount", "run_wordcount",
+     dict(num_mappers=64, words_per_mapper=163_840, vocab=1000,
+          num_partitions=200)),
+    ("wordcount_text", "wordcount", "run_wordcount_text",
+     dict(num_mappers=64, words_per_mapper=65_536, num_partitions=200)),
+    ("pagerank", "pagerank", "run_pagerank",
+     dict(num_vertices=875_713, num_edges=5_105_039, num_mappers=64,
+          num_partitions=200, iterations=10)),
+    ("als", "als", "run_als",
+     dict(num_users=6040, num_items=3706, num_ratings=1_000_209, rank=10,
+          iterations=10, reg=0.1, num_mappers=64, num_partitions=200)),
+    ("tc", "tc", "run_tc",
+     dict(num_vertices=100, num_edges=200, max_iters=200)),
+    ("q23", "q23", "run_q23",
+     dict(num_mappers=64, sales_rows=10_485_760, probe_rows=10_485_760,
+          item_space=204_000, frequency_threshold=100,
+          num_partitions=200)),
+    ("join", "join", "run_join",
+     dict(num_mappers=64, build_rows=2_621_440, probe_rows=10_485_760,
+          key_space=2_097_152, num_partitions=200)),
+    ("join_varchar", "join", "run_join_varchar",
+     dict(num_mappers=64, build_rows=1_048_576, probe_rows=4_194_304,
+          vocab_size=1_000_000, num_partitions=200)),
+]
+
+
+class ReadTally:
+    """Counts a manager's reads while installed: reads, combine reads,
+    the overflow retries of each kind (``report(sid).retries``), the rows
+    they moved, the impls they ran and the wall spent inside them."""
+
+    def __init__(self, manager):
+        self.manager = manager
+        self.reads = self.combine_reads = 0
+        self.retries = self.combine_retries = 0
+        self.rows = 0
+        self.read_s = 0.0
+        self.impls = set()
+
+    def __enter__(self) -> "ReadTally":
+        inner = self.manager.read
+
+        def read(handle, *args, **kw):
+            t0 = time.perf_counter()
+            res = inner(handle, *args, **kw)
+            self.read_s += time.perf_counter() - t0
+            rep = self.manager.report(handle.shuffle_id)
+            self.reads += 1
+            self.retries += rep.retries
+            if kw.get("combine"):
+                self.combine_reads += 1
+                self.combine_retries += rep.retries
+            self.rows += rep.rows_global
+            self.impls.add(rep.impl)
+            return res
+
+        self.manager.read = read
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.manager.read
+
+
+def _card_copy(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_card_copy(t) for t in x)
+    return x
+
+
+class KernelCapture:
+    """While installed, keeps device copies of the inputs and the output
+    of the first and the last launch of the segment move (B.1) and of the
+    segment reduce (B.3); :meth:`check` then holds each against its plain
+    version on the same inputs, at the shapes the run gave the kernel.
+    The copies are made on the stream right after the launch; they add
+    their bytes to the device peak and no launch to the counts."""
+
+    def __init__(self):
+        self.calls = {}            # kernel name -> [first, last] (args, out)
+
+    def __enter__(self) -> "KernelCapture":
+        from sparkucx_tpu_torch.ops import ragged_a2a as ra
+        from sparkucx_tpu_torch.ops import segmented as sg
+        self._saved = []
+        for mod, attr, name in ((ra, "ragged_a2a_kernel", ra.KERNEL_NAME),
+                                (sg, "segment_reduce_kernel",
+                                 sg.KERNEL_NAME)):
+            orig = getattr(mod, attr)
+            self._saved.append((mod, attr, orig))
+
+            def launch(*args, _orig=orig, _name=name):
+                out = _orig(*args)
+                seen = self.calls.setdefault(_name, [])
+                seen[1:] = []
+                seen.append((_card_copy(args), _card_copy(out)))
+                return out
+
+            setattr(mod, attr, launch)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+
+    def nbytes(self) -> int:
+        import torch
+        return sum(t.numel() * t.element_size()
+                   for calls in self.calls.values() for args, out in calls
+                   for t in (*args, *out) if isinstance(t, torch.Tensor))
+
+    def check(self, tag: str) -> dict:
+        """{kernel: {calls, widths, rows, max_abs_err}}: ``calls`` is the
+        number of captured launches held against the plain version (an
+        overflowed segment move writes nothing and is not compared),
+        ``rows`` the largest send or input row count among them."""
+        from sparkucx_tpu_torch.ops import ragged_a2a as ra
+        out = {}
+        for name, calls in self.calls.items():
+            n, widths, rows, err = 0, set(), 0, 0.0
+            for i, (args, got) in enumerate(calls):
+                what = f"{tag}: {name} launch {'first last'.split()[i]}"
+                if name == ra.KERNEL_NAME:
+                    if bool(args[4]):
+                        continue
+                    err = max(err, check_segment_move(what, args, got))
+                else:
+                    err = max(err, check_segment_reduce(what, args, got))
+                n += 1
+                widths.add(int(args[0].shape[2]))
+                rows = max(rows, int(args[0].shape[1]))
+            if not n:
+                raise AssertionError(f"{tag}: no launch of {name} was "
+                                     "compared with its plain version")
+            out[name] = {"calls": n, "widths": sorted(widths), "rows": rows,
+                         "max_abs_err": err}
+        self.calls.clear()
+        return out
+
+
+def check_segment_move(tag: str, args, got) -> int:
+    """Hold the segment move's output for ``args`` = (send, in_off, in_sz,
+    out_off, overflow, out_capacity) against the plain version: every row
+    a segment covers (each receiver's aligned prefix) exactly equal."""
+    import torch
+    from sparkucx_tpu_torch.ops import ragged_a2a as ra
+    plain = ra.ragged_a2a_plain(*args)
+    torch.cuda.synchronize()
+    total = args[2].sum(dim=0).tolist()     # aligned rows per receiver
+    for q, t in enumerate(total):
+        if not torch.equal(got[q, :t], plain[q, :t]):
+            raise AssertionError(f"{tag}: receiver {q} differs from the "
+                                 "plain version")
+    return 0
+
+
+def workload_input_rows(fn: str, kw: dict, result: dict) -> int:
+    """The rows of the job's input: records, words, edges, ratings, or
+    both fact tables / join sides."""
+    if fn in ("run_pagerank", "run_tc"):
+        return result["edges"]
+    if fn == "run_als":
+        return kw["num_ratings"]
+    if fn == "run_q23":
+        return kw["sales_rows"] + kw["probe_rows"]
+    if fn in ("run_join", "run_join_varchar"):
+        return kw["build_rows"] + kw["probe_rows"]
+    if fn.startswith("run_wordcount"):
+        return result["total_words"]
+    return result["rows"]
+
+
+def workloads_phase(dev) -> dict:
+    """Every analytics runner on one ``connect(num_shards=8)`` under the
+    default conf, one after another; each runner's own oracle decides.
+    Each runner gets a manager of its own over the service's node, as a
+    separate job would, so the receive capacity one job learned does not
+    spare the next its overflow (the join's hot keys must regrow). The
+    runner runs under torch.profiler, whose device activities give the
+    device's busy time and idle share of the runner's wall.
+    Launch rule: the segment move runs once per read attempt (reads +
+    overflow retries) and the segment reduce once per combine-read
+    attempt, so nothing ran a plain version. The first and the last
+    launch of each kernel in a runner are then held against the plain
+    version on the same inputs (:class:`KernelCapture`)."""
+    import importlib
+
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as reduce
+    from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    with connect(num_shards=SHARDS, use_env=False) as svc:
+        for name, module, fn, kw in WORKLOAD_RUNS:
+            run = getattr(importlib.import_module(
+                f"sparkucx_tpu_torch.workloads.{module}"), fn)
+            manager = ShuffleManager(svc.node, svc.conf)
+            torch.cuda.reset_peak_memory_stats(dev)
+            # device activities only: no host op is recorded, so the
+            # tracing adds no per-op cost to the runner's host work
+            with ReadTally(manager) as tally, KernelCapture() as capture, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                backend.reset_launch_counts()
+                t0 = time.perf_counter()
+                result = run(manager, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = backend.launch_counts()
+            manager.stop()
+            peak = torch.cuda.max_memory_allocated(dev)
+            captured = capture.nbytes()
+            checks = capture.check(f"workload {name}")
+            launches = {move: counts.get(move, 0),
+                        reduce: counts.get(reduce, 0)}
+            want = {move: tally.reads + tally.retries,
+                    reduce: tally.combine_reads + tally.combine_retries}
+            if launches != want or not tally.reads:
+                raise AssertionError(
+                    f"workload {name}: launches {launches}, want {want} "
+                    f"({tally.reads} reads, {tally.retries} retries)")
+            if set(checks) != {k for k, v in launches.items() if v}:
+                raise AssertionError(f"workload {name}: checked {checks}, "
+                                     f"launched {launches}")
+            rows = workload_input_rows(fn, kw, result)
+            line = {
+                "phase": "workload", "name": name, "args": kw,
+                "result": result, "wall_s": wall, "reads": tally.reads,
+                "combine_reads": tally.combine_reads,
+                "retries": tally.retries, "launches": launches,
+                "rows_per_s": rows / wall, "input_rows": rows,
+                "shuffled_rows": tally.rows, "read_s": tally.read_s,
+                "impls": sorted(tally.impls),
+                **device_busy(prof, wall * 1e3),
+                "kernel_checks": checks,
+                "peak_device_bytes": peak, "captured_bytes": captured,
+                "pool_held_bytes": sum(
+                    b.numel() for b in svc.node.pool._free)}
+            print(json.dumps(line), flush=True)
+            out[name] = line
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2771,6 +3068,15 @@ def main() -> int:
     del qkv, cot, fwd_ref, bwd_ref
     print(json.dumps({"phase": "flash_at_main_shapes", **fm,
                       "seconds": time.perf_counter() - t}), flush=True)
+    # -- workloads: every analytics runner through the default conf
+    t = time.perf_counter()
+    wl = workloads_phase(dev)
+    wl_launches = {k: sum(w["launches"][k] for w in wl.values())
+                   for k in (KERNEL_NAME, SEG_KERNEL)}
+    print(json.dumps({"phase": "workloads", "runners": list(wl),
+                      "launches": wl_launches, "ok": True,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -2792,12 +3098,14 @@ def main() -> int:
         "name": KERNEL_NAME, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/ragged_a2a.cu",
         "replaces": TPU_KERNEL, "launches": launches,
+        "workload_launches": wl_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
         "name": SEG_KERNEL, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
+        "workload_launches": wl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
         "bound_full_output_ms": st["bound_full_output_ms"],

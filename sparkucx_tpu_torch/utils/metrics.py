@@ -3,7 +3,9 @@ reads increment (``shuffle.read.ms``, ``shuffle.read.count``,
 ``shuffle.rows``, ``shuffle.bytes``, ``shuffle.retries``, the D2H byte
 counter :data:`C_D2H`, the kernel-fallback counter
 :data:`C_KERNEL_FALLBACK`, the sink-fallback counter
-:data:`C_SINK_FALLBACK`) and the wave-gap histogram :data:`H_WAVE_GAP`."""
+:data:`C_SINK_FALLBACK`), the wave-gap histogram :data:`H_WAVE_GAP` and
+the workload counters :data:`C_WORKLOAD_ROWS` and
+:data:`C_WORKLOAD_PHASE_MS`."""
 
 from __future__ import annotations
 
@@ -24,6 +26,11 @@ C_SINK_FALLBACK = "shuffle.sink.fallback.count"
 # exchange did not cover (ms); sustained positive gaps mean the device
 # waits on the host pack
 H_WAVE_GAP = "shuffle.wave.gap_ms"
+# rows a workload run emitted or verified, and its per-phase walls (ms);
+# both carry labeled twins {workload=...} / {workload=..., phase=...}
+# (workloads.PhaseWalls.publish)
+C_WORKLOAD_ROWS = "workload.rows"
+C_WORKLOAD_PHASE_MS = "workload.phase.ms"
 
 
 def labeled(name: str, **labels) -> str:

@@ -115,3 +115,30 @@ def test_scan_covers_the_attention_modules():
              if PKG in p.parents}
     assert {"ops/attention.py", "ops/flash_attention.py",
             "parallel/ring.py", "parallel/ulysses.py"} <= names
+
+
+def test_scan_covers_the_workload_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"io/varlen.py", "shuffle/integrity.py", "workloads/__init__.py",
+            "workloads/terasort.py", "workloads/groupby.py",
+            "workloads/wordcount.py", "workloads/pagerank.py",
+            "workloads/als.py", "workloads/tc.py", "workloads/q23.py",
+            "workloads/join.py", "workloads/graphs.py"} <= names
+
+
+def test_workload_runner_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['sparkucx_tpu'] = None\n"
+            "from sparkucx_tpu_torch.workloads.wordcount import "
+            "run_wordcount_text\n"
+            "from sparkucx_tpu_torch.io.varlen import hash_bytes64\n"
+            "print(hash_bytes64(['a'])[0])\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    # FNV-1a 64 of b"a", as a signed int64
+    assert int(r.stdout) == 0xAF63DC4C8601EC8C - (1 << 64)

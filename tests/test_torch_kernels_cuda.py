@@ -28,6 +28,8 @@ from torch_wire_cases import PATTERNS as WIRE_PATTERNS
 from torch_wire_cases import (QUANT_KINDS, quant_values, runs, sum_tolerance,
                               wire_case)
 from torch_wire_cases import R as WIRE_R
+from torch_workload_cases import (COMBINE_RUNNERS, WORKLOAD_CASES,
+                                  check_same_result, runner)
 
 pytestmark = pytest.mark.cuda
 
@@ -1072,3 +1074,32 @@ def test_attention_consumers_on_card(card, which):
                for i in range(3))
     ref = reference_attention(q, k, v, causal=True)
     _close(out.cpu(), ref, out_tolerance(ref.numpy()), "O")
+
+
+# -- analytics workloads: every runner under the default conf ----------------
+@pytest.mark.parametrize("case", WORKLOAD_CASES, ids=lambda c: c[0])
+def test_workload_runner_on_card(card, case):
+    """Each workload runner at its test size on the card under the default
+    conf: its own oracle passes, the result equals the same call's on the
+    CPU, every read runs the segment move (launched once per read attempt:
+    reads + overflow retries) and every combine read the segment reduce
+    (once per combine-read attempt)."""
+    from chip_smoke import ReadTally
+    from sparkucx_tpu_torch.ops import segmented as sg
+    _, module, fn, kw = case
+    run = runner("sparkucx_tpu_torch", module, fn)
+    with connect(num_shards=8, use_env=False) as svc:
+        with ReadTally(svc.manager) as tally:
+            before = backend.launch_counts()
+            got = run(svc.manager, **kw)
+            after = backend.launch_counts()
+    with connect(device="cpu", num_shards=8, use_env=False) as svc:
+        want = run(svc.manager, **kw)
+    check_same_result(fn, got, want)
+    launched = {k: after.get(k, 0) - before.get(k, 0)
+                for k in (ra.KERNEL_NAME, sg.KERNEL_NAME)}
+    assert tally.reads > 0 and tally.impls == {"pallas"}
+    assert launched == {
+        ra.KERNEL_NAME: tally.reads + tally.retries,
+        sg.KERNEL_NAME: tally.combine_reads + tally.combine_retries}
+    assert (tally.combine_reads > 0) == (fn in COMBINE_RUNNERS)
