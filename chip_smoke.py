@@ -186,6 +186,37 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             memory, the staging pool's held bytes). The segment move must
             launch once per read attempt (reads + retries) and the
             segment reduce once per combine-read attempt.
+25. earlier_phases_memory_planes — every phase above, counted over
+            every node's metrics while it ran: no writer spilled
+            (``shuffle.spill.count`` 0) and no read waited for admission.
+26. spill — main's records written by 64 maps in chunks of 8,192 rows
+            under ``spill.threshold=4m`` (about four spills a map, every
+            byte to sealed files), then read plain under the default conf
+            (the segment move, packing from the mapped files) and held
+            against the oracle; write wall, spill bytes and count, the
+            read and its pack time beside main's, and a second read.
+27. admission — two device-sink ``ordered=True`` reads of main's
+            shuffle under main's conf (submit A, submit B, consume A, B's
+            result; the segment move twice) with no cap, then under
+            ``a2a.maxBytesInFlight`` of one read's
+            ``_exchange_footprint``: B must defer until A is consumed and
+            the capped pair's device peak fall below the uncapped pair's;
+            each consumer checks its rows, key sum and order on the
+            device. Then waved_ordered's device-sink read under that cap:
+            its reservation beside its measured peak.
+28. pipelines — ``terasort_pipeline``, ``groupby_pipeline`` (device
+            sink with one warm read, then host sink) and ``join_pipeline``
+            at 10,485,760 rows with a budget of a tenth of each dataset's
+            bytes, under the conf ``run_workload`` derives from it, each on
+            its own node under device-activity tracing: the report (oracle
+            verdict, rows, per-phase walls, rounds, waves), spill and
+            forced spills, the pool's peak against the budget and its
+            bytes in use after (0), the launches of the segment move, the
+            merge and the segment reduce (the groupby device arm: one
+            segment reduce per wave and a merge plus a segment reduce per
+            fold step; the first and the last launch of each held against
+            the plain versions), zero D2H on the device arm, the device's
+            idle share.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -194,7 +225,7 @@ segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
 quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
 wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
-workloads.
+workloads, earlier_phases_memory_planes, spill, admission, pipelines.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -203,15 +234,19 @@ segment reduce; ordered: the segment move; waved_ordered: the merge;
 waved_combine: the merge and the segment reduce; the int8 paths and the
 attention paths: their launch counts exactly; default_conf's pallas
 read: the segment move; workloads: per runner, the segment move and the
-segment reduce exactly as above). The last two lines of standard output
+segment reduce exactly as above; spill and admission's pairs: the segment
+move; pipelines: per pipeline, the three counts exactly as above). The
+last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2666,12 +2701,16 @@ def _card_copy(x):
 
 
 class KernelCapture:
-    """While installed, keeps device copies of the inputs and the output
-    of the first and the last launch of the segment move (B.1) and of the
-    segment reduce (B.3); :meth:`check` then holds each against its plain
-    version on the same inputs, at the shapes the run gave the kernel.
-    The copies are made on the stream right after the launch; they add
-    their bytes to the device peak and no launch to the counts."""
+    """While installed, keeps a device copy of the inputs and the output
+    of the first launch of the segment move (B.1), the merge (B.2) and
+    the segment reduce (B.3), and references to those of the latest
+    launch; :meth:`check` then holds the first and the last launch
+    against the plain version on the same inputs, at the shapes the run
+    gave the kernel. The first launch's copy is made on the stream right
+    after it and adds its bytes (:meth:`nbytes`) to the device peak; a
+    later launch is not copied, so the run's copy traffic is one launch
+    a kernel, and its tensors live until the next launch or the check.
+    No launch is added to the counts."""
 
     def __init__(self):
         self.calls = {}            # kernel name -> [first, last] (args, out)
@@ -2682,15 +2721,18 @@ class KernelCapture:
         self._saved = []
         for mod, attr, name in ((ra, "ragged_a2a_kernel", ra.KERNEL_NAME),
                                 (sg, "segment_reduce_kernel",
-                                 sg.KERNEL_NAME)):
+                                 sg.KERNEL_NAME),
+                                (sg, "merge_kernel", sg.MERGE_KERNEL_NAME)):
             orig = getattr(mod, attr)
             self._saved.append((mod, attr, orig))
 
             def launch(*args, _orig=orig, _name=name):
                 out = _orig(*args)
                 seen = self.calls.setdefault(_name, [])
-                seen[1:] = []
-                seen.append((_card_copy(args), _card_copy(out)))
+                if seen:
+                    seen[1:] = [(args, out)]
+                else:
+                    seen.append((_card_copy(args), _card_copy(out)))
                 return out
 
             setattr(mod, attr, launch)
@@ -2701,9 +2743,10 @@ class KernelCapture:
             setattr(mod, attr, orig)
 
     def nbytes(self) -> int:
+        """Bytes of the first launches' copies."""
         import torch
         return sum(t.numel() * t.element_size()
-                   for calls in self.calls.values() for args, out in calls
+                   for calls in self.calls.values() for args, out in calls[:1]
                    for t in (*args, *out) if isinstance(t, torch.Tensor))
 
     def check(self, tag: str) -> dict:
@@ -2712,6 +2755,7 @@ class KernelCapture:
         overflowed segment move writes nothing and is not compared),
         ``rows`` the largest send or input row count among them."""
         from sparkucx_tpu_torch.ops import ragged_a2a as ra
+        from sparkucx_tpu_torch.ops import segmented as sg
         out = {}
         for name, calls in self.calls.items():
             n, widths, rows, err = 0, set(), 0, 0.0
@@ -2721,6 +2765,8 @@ class KernelCapture:
                     if bool(args[4]):
                         continue
                     err = max(err, check_segment_move(what, args, got))
+                elif name == sg.MERGE_KERNEL_NAME:
+                    check_merge(what, args, got)
                 else:
                     err = max(err, check_segment_reduce(what, args, got))
                 n += 1
@@ -2749,6 +2795,18 @@ def check_segment_move(tag: str, args, got) -> int:
             raise AssertionError(f"{tag}: receiver {q} differs from the "
                                  "plain version")
     return 0
+
+
+def check_merge(tag: str, args, got) -> None:
+    """Hold the merge kernel's (rows, part) for ``args`` = (a_rows,
+    a_part, b_rows, b_part, out_cap) against ``merge_plain``: every row
+    and partition id bit for bit."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    want = sg.merge_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{tag}: differs from merge_plain")
 
 
 def workload_input_rows(fn: str, kw: dict, result: dict) -> int:
@@ -2832,10 +2890,365 @@ def workloads_phase(dev) -> dict:
                 **device_busy(prof, wall * 1e3),
                 "kernel_checks": checks,
                 "peak_device_bytes": peak, "captured_bytes": captured,
-                "pool_held_bytes": sum(
-                    b.numel() for b in svc.node.pool._free)}
+                "pool_held_bytes": svc.node.pool.stats()["free_bytes"]}
             print(json.dumps(line), flush=True)
             out[name] = line
+    return out
+
+
+# -- the memory planes: spill, admission, external-memory pipelines -------
+SPILL_THRESHOLD = "4m"
+SPILL_CHUNK_ROWS = 8_192   # 20 writes a map: a spill after every 6 (4 a map)
+RECORD_WORDS = 2 + VALUE_WORDS       # int64 key + the payload words
+RECORD_BYTES = 4 * RECORD_WORDS
+# (name, module, function, budget bytes = dataset bytes / 10, arguments):
+# main's row count; the groupby and join shapes of wl_groupby and wl_join
+# (key space 2,097,152); groupby in chunks of 24,576 rows, so each map's
+# last 16,384 rows stay staged below its spill threshold and the pool
+# valve engages as well
+PIPELINE_RUNS = [
+    ("terasort", "terasort", "terasort_pipeline", 10_485_760 * 8 // 10,
+     dict(total_rows=10_485_760, num_mappers=64, num_partitions=200)),
+    ("groupby_device", "groupby", "groupby_pipeline", 10_485_760 * 24 // 10,
+     dict(total_rows=10_485_760, num_mappers=64, num_partitions=200,
+          key_space=2_097_152, value_width=4, sink="device", warm_reads=1,
+          chunk_rows=24_576)),
+    ("groupby_host", "groupby", "groupby_pipeline", 10_485_760 * 24 // 10,
+     dict(total_rows=10_485_760, num_mappers=64, num_partitions=200,
+          key_space=2_097_152, value_width=4, sink="host", warm_reads=0,
+          chunk_rows=24_576)),
+    ("join", "join", "join_pipeline", 10_485_760 * 16 // 10,
+     dict(total_rows=10_485_760, num_mappers=64, num_partitions=200,
+          key_space=2_097_152)),
+]
+
+
+class PlaneTally:
+    """While installed, counts over every node's metrics the spills
+    (``shuffle.spill.count`` / ``.bytes``) and the reads whose admission
+    waited (``shuffle.admit.wait_ms`` observations above 0);
+    :meth:`cut` files what was counted since the previous cut under a
+    phase's name."""
+
+    KEYS = ("spill_count", "spill_bytes", "deferred_reads")
+
+    def __init__(self):
+        self.totals = dict.fromkeys(self.KEYS, 0.0)
+        self.phases = {}
+        self._mark = dict(self.totals)
+
+    def install(self) -> "PlaneTally":
+        from sparkucx_tpu_torch.utils import metrics as mt
+        self._saved = inc, observe = mt.Metrics.inc, mt.Metrics.observe
+        totals = self.totals
+
+        def counting_inc(m, name, value=1.0):
+            if name == mt.C_SPILL_COUNT:
+                totals["spill_count"] += value
+            elif name == mt.C_SPILL_BYTES:
+                totals["spill_bytes"] += value
+            inc(m, name, value)
+
+        def counting_observe(m, name, value):
+            if name == mt.H_ADMIT_WAIT and value > 0:
+                totals["deferred_reads"] += 1
+            observe(m, name, value)
+
+        mt.Metrics.inc, mt.Metrics.observe = counting_inc, counting_observe
+        return self
+
+    def uninstall(self) -> None:
+        from sparkucx_tpu_torch.utils import metrics as mt
+        mt.Metrics.inc, mt.Metrics.observe = self._saved
+
+    def cut(self, phase: str) -> None:
+        self.phases[phase] = {k: self.totals[k] - self._mark[k]
+                              for k in self.KEYS}
+        self._mark = dict(self.totals)
+
+
+def spill_phase(dev, keys, values, spill_dir: str) -> dict:
+    """main's records written under ``spill.threshold=4m`` in chunks of
+    8,192 rows, then read plain on the default conf (the segment move)
+    and held against the oracle; a second read beside it."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.utils.metrics import C_SPILL_BYTES, C_SPILL_COUNT
+    conf = {"spark.shuffle.tpu.spill.threshold": SPILL_THRESHOLD,
+            "spark.shuffle.tpu.spill.dir": spill_dir}
+    n = keys.shape[0]
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        t = time.perf_counter()
+        h = svc.register_shuffle(40, MAPS, PARTITIONS)
+        per = -(-n // MAPS)
+        for m in range(MAPS):
+            lo, hi = m * per, min((m + 1) * per, n)
+            w = svc.writer(h, m)
+            for c in range(lo, hi, SPILL_CHUNK_ROWS):
+                e = min(c + SPILL_CHUNK_ROWS, hi)
+                w.write(keys[c:e], values[c:e])
+            w.commit(PARTITIONS)
+        write_s = time.perf_counter() - t
+        mets = svc.node.metrics
+        spill_bytes = int(mets.get(C_SPILL_BYTES))
+        spill_count = int(mets.get(C_SPILL_COUNT))
+        pool_after_write = svc.node.pool.stats()
+        parts, stats = device_read(svc, h, dev, (KERNEL_NAME,))
+        rep = svc.report(40)
+        t = time.perf_counter()
+        check_against_oracle(parts, keys, values, PARTITIONS)
+        oracle_s = time.perf_counter() - t
+        del parts
+        parts, read2_ms, views2_ms = drive_read(svc, h)
+        del parts
+        rep2 = svc.report(40)
+        svc.unregister_shuffle(40)
+        left = os.listdir(spill_dir)
+    if spill_bytes != n * RECORD_BYTES or spill_count < 3 * MAPS:
+        raise AssertionError(f"spill: {spill_bytes} B in {spill_count} "
+                             f"spills, want {n * RECORD_BYTES} B in about "
+                             f"{4 * MAPS}")
+    if pool_after_write["in_use_bytes"] or left:
+        raise AssertionError(f"spill: pool {pool_after_write} after the "
+                             f"writes, files left {left[:4]}")
+    return {"phase": "spill", "records": n, "maps": MAPS,
+            "threshold": SPILL_THRESHOLD, "chunk_rows": SPILL_CHUNK_ROWS,
+            "write_s": write_s, "spill_bytes": spill_bytes,
+            "spill_count": spill_count,
+            "pool_after_write": pool_after_write, "impl": rep.impl,
+            **stats, "pack_ms": rep.pack_ms, "group_ms": rep.group_ms,
+            "read2_ms": read2_ms, "views2_ms": views2_ms,
+            "read2_pack_ms": rep2.pack_ms, "oracle_s": oracle_s,
+            "ok": True}
+
+
+def _key_checksum(carry, rows, totals):
+    """Consumer of one device-sink ordered read: (rows delivered, the
+    int64 sum of their keys, whether a shard's valid keys ever
+    decrease)."""
+    import torch
+    cap = rows.shape[1]
+    valid = torch.arange(cap, device=rows.device)[None, :] < totals[:, None]
+    k = rows[:, :, :2].contiguous().view(torch.int64)[..., 0]
+    out = (totals.sum(), torch.where(valid, k, 0).sum(),
+           ((k[:, 1:] < k[:, :-1]) & valid[:, 1:]).any())
+    return out if carry is None else tuple(a + b for a, b in zip(carry, out))
+
+
+def one_read_footprint(rep, width: int) -> int:
+    """``ShuffleManager._exchange_footprint`` of a single-shot read from
+    its report's plan bucket: the pinned pack buffer plus the device
+    send and receive buffers."""
+    from types import SimpleNamespace
+
+    from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+    cap_in, cap_out = rep.plan_bucket
+    plan = SimpleNamespace(cap_in=cap_in, cap_out=cap_out, num_shards=SHARDS)
+    return ShuffleManager._exchange_footprint(plan, width,
+                                              SHARDS * cap_in * width * 4)
+
+
+def admission_pair(dev, keys, values, bounds, cap: int) -> dict:
+    """Submit A, submit B, consume A, then B's result and its consume:
+    two device-sink ``ordered=True`` reads of main's shuffle under main's
+    conf (the segment move) and ``a2a.maxBytesInFlight=cap`` (0: no cap).
+    Returns the reservations, B's wait, the device peak over the pair and
+    the segment move's launches."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",       # main's conf
+            "spark.shuffle.tpu.a2a.maxBytesInFlight": str(cap)}
+    want_sum = int(keys.sum())
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        m = svc.manager
+        h = write_maps(svc, 41, keys, values, MAPS, "range", bounds)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        pa = svc.submit(h, ordered=True, sink="device")
+        rep_a, held_a = svc.report(41), m._inflight_bytes
+        pb = svc.submit(h, ordered=True, sink="device")
+        rep_b, held_ab = svc.report(41), m._inflight_bytes
+        got = [pa.result().consume(_key_checksum)]
+        held_after_a = m._inflight_bytes
+        got.append(pb.result().consume(_key_checksum))
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = counted(KERNEL_NAME)
+        held_end = m._inflight_bytes
+        svc.unregister_shuffle(41)
+    for tag, (nrows, ksum, unsorted) in zip("AB", got):
+        if (int(nrows), int(ksum), bool(unsorted)) != (keys.shape[0],
+                                                       want_sum, False):
+            raise AssertionError(f"admission read {tag}: {int(nrows)} rows, "
+                                 f"key sum {int(ksum)} (want {want_sum}), "
+                                 f"unsorted {bool(unsorted)}")
+    width = RECORD_WORDS
+    return {"cap": cap, "impl": rep_a.impl,
+            "footprint": [one_read_footprint(r, width)
+                          for r in (rep_a, rep_b)],
+            "reserved_after_submit_a": held_a,
+            "reserved_after_submit_b": held_ab,
+            "reserved_after_consume_a": held_after_a,
+            "reserved_at_end": held_end,
+            "b_deferred": bool(cap) and held_ab == held_a,
+            "admit_wait_ms": [rep_a.admit_wait_ms, rep_b.admit_wait_ms],
+            "pair_wall_ms": wall_ms, "peak_device_bytes": peak,
+            "launches": {KERNEL_NAME: launches}}
+
+
+def admission_phase(dev, keys, values) -> dict:
+    """The pair with no cap, then under a cap of one read's footprint (B
+    must defer until A is consumed, and the pair's device peak must fall
+    below the uncapped pair's); then waved_ordered's device-sink read
+    under that cap: its reservation beside its measured peak."""
+    import torch
+    from sparkucx_tpu_torch import connect
+    bounds = terasort_bounds(keys)
+    free = admission_pair(dev, keys, values, bounds, 0)
+    cap = free["footprint"][0]
+    capped = admission_pair(dev, keys, values, bounds, cap)
+    if free["reserved_after_submit_b"] or free["admit_wait_ms"] != [0, 0]:
+        raise AssertionError(f"uncapped pair reserved or waited: {free}")
+    if any(list(p["launches"].values()) != [2] for p in (free, capped)):
+        raise AssertionError("admission: each pair must launch the segment "
+                             "move twice")
+    if not (capped["reserved_after_submit_a"] == cap
+            and capped["b_deferred"]
+            and capped["reserved_after_consume_a"] == 0
+            and capped["admit_wait_ms"][1] > 0
+            and capped["reserved_at_end"] == 0):
+        raise AssertionError(f"capped pair: B did not defer behind A and "
+                             f"release: {capped}")
+    if not capped["peak_device_bytes"] < free["peak_device_bytes"]:
+        raise AssertionError(f"capped pair peak {capped['peak_device_bytes']}"
+                             f" not below {free['peak_device_bytes']}")
+    wconf = {**WAVE_CONF, "spark.shuffle.tpu.a2a.maxBytesInFlight": str(cap)}
+    with connect(wconf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 42, keys, values, MAPS, "range", bounds)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = svc.read(h, ordered=True, sink="device")
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = svc.manager._inflight_bytes
+        rep = svc.report(42)
+        nrows, ksum, unsorted = res.consume(_key_checksum)
+        released = svc.manager._inflight_bytes == 0
+        svc.unregister_shuffle(42)
+    if not (rep.waves == 5 and reserved > 0 and released
+            and int(nrows) == keys.shape[0] and int(ksum) == int(keys.sum())
+            and not bool(unsorted)):
+        raise AssertionError(f"waved admission: waves {rep.waves}, reserved "
+                             f"{reserved}, released {released}")
+    width = RECORD_WORDS
+    depth = int(WAVE_CONF["spark.shuffle.tpu.a2a.waveDepth"])
+    cap_in, cap_out = rep.plan_bucket
+    stage = depth * SHARDS * cap_in * width * 4
+    return {"phase": "admission", "records": int(keys.shape[0]),
+            "gap_bytes": free["peak_device_bytes"]
+            - capped["peak_device_bytes"],
+            "capped": capped, "uncapped": free,
+            "waved_ordered": {
+                "cap": cap, "waves": rep.waves, "plan_bucket": rep.plan_bucket,
+                "reserved": reserved, "reserved_stage_bytes": stage,
+                "reserved_device_bytes": reserved - stage,
+                "peak_device_bytes": peak,
+                "device_term_over_peak": (reserved - stage) / peak,
+                "admit_wait_ms": rep.admit_wait_ms, "merge_ms": rep.merge_ms},
+            "ok": True}
+
+
+def pipelines_phase(dev, spill_root: str) -> dict:
+    """Each external-memory pipeline at its cell's size under the conf
+    ``run_workload`` derives from its budget (dataset bytes / 10), on
+    its own ``connect(num_shards=8)``, under device-activity tracing.
+    Launch rule: the waved reads run ``dense``, so no segment move; a
+    combine read launches the segment reduce once per wave attempt and,
+    on the device sink, the merge and the segment reduce once per fold
+    step (waves - 1). The first and the last launch of each kernel are
+    held against the plain versions (:class:`KernelCapture`)."""
+    import importlib
+
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as reduce
+    from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME as merge
+    from sparkucx_tpu_torch.workloads import workload_conf_overrides
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, module, fn, budget, kw in PIPELINE_RUNS:
+        run = getattr(importlib.import_module(
+            f"sparkucx_tpu_torch.workloads.{module}"), fn)
+        spill_dir = os.path.join(spill_root, name)
+        conf = {**workload_conf_overrides(budget, num_shards=SHARDS),
+                "spark.shuffle.tpu.spill.dir": spill_dir}
+        extra = {"run_dir": os.path.join(spill_root, "runs")} \
+            if module == "terasort" else {}
+        pinned_before = \
+            torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            torch.cuda.reset_peak_memory_stats(dev)
+            with ReadTally(svc.manager) as tally, \
+                    KernelCapture() as capture, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                backend.reset_launch_counts()
+                t0 = time.perf_counter()
+                rep = run(svc.manager, budget_bytes=budget, **kw, **extra)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                counts = backend.launch_counts()
+            pool = svc.node.pool.stats()
+            free_cap = svc.node.pool.max_free_bytes
+            peak = torch.cuda.max_memory_allocated(dev)
+        # page-locked bytes torch holds (in use or cached) before the node
+        # and after its close: what the pipeline left pinned
+        pinned = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        captured = capture.nbytes()
+        checks = capture.check(f"pipeline {name}")
+        launches = {k: counts.get(k, 0) for k in (move, merge, reduce)}
+        W = rep.waves
+        device_fold = kw.get("sink") == "device"
+        want = {move: 0, merge: 0, reduce: 0}
+        if tally.combine_reads:
+            want[reduce] = tally.combine_reads * (
+                2 * W - 1 if device_fold else W) + tally.combine_retries
+            want[merge] = tally.combine_reads * (W - 1) if device_fold else 0
+        if launches != want:
+            raise AssertionError(f"pipeline {name}: launches {launches}, "
+                                 f"want {want} ({tally.reads} reads, "
+                                 f"{W} waves, {tally.retries} retries)")
+        if set(checks) != {k for k, v in launches.items() if v}:
+            raise AssertionError(f"pipeline {name}: checked {checks}, "
+                                 f"launched {launches}")
+        if not (rep.oracle_ok and rep.spill_bytes > 0
+                and rep.extra["forced_spills"] > 0
+                and pool["in_use_bytes"] == 0 and W > 1
+                and pool["free_bytes"] <= free_cap
+                and rep.rows_in == kw["total_rows"]
+                and rep.extra.get("d2h_bytes", 0) == 0):
+            raise AssertionError(f"pipeline {name}: {rep.to_json(None)}; "
+                                 f"pool {pool}")
+        line = {"phase": "pipeline", "name": name, "args": kw,
+                "budget_bytes": budget, "conf": conf,
+                "report": rep.to_dict(), "wall_s": wall,
+                "reads": tally.reads, "retries": tally.retries,
+                "impls": sorted(tally.impls), "launches": launches,
+                "kernel_checks": checks,
+                "pool_peak_bytes": rep.pool_peak_bytes,
+                "pool_peak_over_budget": rep.pool_peak_bytes / budget,
+                "pool_after": pool, "pool_free_cap": free_cap,
+                "pinned_before_bytes": pinned_before,
+                "pinned_after_close_bytes": pinned,
+                "peak_device_bytes": peak, "captured_bytes": captured,
+                "rows_per_s": kw["total_rows"] / wall,
+                **device_busy(prof, wall * 1e3)}
+        print(json.dumps(line), flush=True)
+        out[name] = line
     return out
 
 
@@ -2876,23 +3289,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {line.strip()}")
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
+    # spills and deferred reads of every earlier phase (all must be 0)
+    planes = PlaneTally().install()
 
     t = time.perf_counter()
     cases = kernel_phase(dev)
     print(json.dumps({"phase": "kernel", "cases": cases, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("kernel")
     t = time.perf_counter()
     seg_cases = segreduce_kernel_phase(dev)
     print(json.dumps({"phase": "segreduce_kernel", **seg_cases, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("segreduce_kernel")
     t = time.perf_counter()
     merge_cases = merge_kernel_phase(dev)
     print(json.dumps({"phase": "merge_kernel", "cases": merge_cases,
                       "ok": True, "seconds": time.perf_counter() - t}),
           flush=True)
 
+    planes.cut("merge_kernel")
     # -- main path: TeraSort records, 200 partitions, 8 shards -----------
     conf = {"spark.shuffle.tpu.a2a.impl": "pallas"}
     t = time.perf_counter()
@@ -2942,9 +3360,14 @@ def main() -> int:
         "ok": True}), flush=True)
     print(json.dumps({"phase": "main_profile", **prof}), flush=True)
 
+    planes.cut("main")
+    main_line = {"main_write_s": write_s, "main_read_ms": read_ms,
+                 "main_pack_ms": rep.pack_ms, "main_read2_ms": read2_ms,
+                 "main_read2_pack_ms": rep2.pack_ms}
     kt = kernel_at_main_shapes(keys, values, rep, dev)
     print(json.dumps({"phase": "kernel_at_main_shapes", **kt}), flush=True)
 
+    planes.cut("kernel_at_main_shapes")
     # -- ordered: TeraSort proper (range partitioner, sorted partitions) --
     t = time.perf_counter()
     od, oprof = ordered_phase(dev, conf, keys, values)
@@ -2952,6 +3375,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"phase": "ordered_profile", **oprof}), flush=True)
 
+    planes.cut("ordered")
     # -- waved_ordered: TeraSort in 5 waves, folded on the device --------
     t = time.perf_counter()
     wo, woprof, captured = waved_ordered_phase(dev, keys, values)
@@ -2961,10 +3385,12 @@ def main() -> int:
           flush=True)
     merge_launches = wo["device"]["launches"][MERGE_KERNEL]
     del keys, values
+    planes.cut("waved_ordered")
     mt = merge_at_main_shapes(captured, dev)
     del captured
     print(json.dumps({"phase": "merge_at_main_shapes", **mt}), flush=True)
 
+    planes.cut("merge_at_main_shapes")
     # -- skew + regrow: Zipf(1.1), capacityFactor 0.5 --------------------
     skew_conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
                  "spark.shuffle.tpu.a2a.capacityFactor": "0.5"}
@@ -2986,6 +3412,7 @@ def main() -> int:
         "group_ms": srep.group_ms, "launches": skew_launches, "ok": True}),
         flush=True)
 
+    planes.cut("skew")
     # -- combine: group-by-sum through the segment-reduce kernel ---------
     comb_conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
                  "spark.shuffle.tpu.read.mergeImpl": "auto"}
@@ -2994,10 +3421,12 @@ def main() -> int:
     print(json.dumps({**cb, "seconds": time.perf_counter() - t}), flush=True)
     print(json.dumps({"phase": "combine_profile", **cprof}), flush=True)
     seg_launches = cb["launches"][SEG_KERNEL]
+    planes.cut("combine")
     st = segreduce_at_main_shapes(ck, cv, crep, part_rows, dev)
     print(json.dumps({"phase": "segreduce_at_main_shapes", **st}),
           flush=True)
 
+    planes.cut("segreduce_at_main_shapes")
     t = time.perf_counter()
     wc, wl = waved_combine_phase(dev, ck, cv)
     print(json.dumps({**wc, "seconds": time.perf_counter() - t}),
@@ -3005,10 +3434,12 @@ def main() -> int:
     print(json.dumps(wl), flush=True)
     del ck, cv
 
+    planes.cut("waved_combine")
     t = time.perf_counter()
     cf = combine_f32_phase(dev, comb_conf)
     print(json.dumps({**cf, "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("combine_f32")
     # -- int8 wire: the two kernels, then a DLRM-style embedding-gradient
     # shuffle (after every earlier phase, which run as they did before)
     t = time.perf_counter()
@@ -3017,30 +3448,36 @@ def main() -> int:
                       "ok": True, "seconds": time.perf_counter() - t}),
           flush=True)
 
+    planes.cut("quant_kernel")
     t = time.perf_counter()
     wire_cases = wire_reduce_kernel_phase(dev)
     print(json.dumps({"phase": "wire_reduce_kernel", **wire_cases,
                       "ok": True, "seconds": time.perf_counter() - t}),
           flush=True)
 
+    planes.cut("wire_reduce_kernel")
     t = time.perf_counter()
     i8, box, i8_part_rows, i8_stats = int8_phases(dev)
     for name in ("int8_plain", "int8_combine", "waved_int8_combine"):
         print(json.dumps(i8[name]), flush=True)
     print(json.dumps({"phase": "int8", "gen_s": i8["gen_s"],
                       "seconds": time.perf_counter() - t}), flush=True)
+    planes.cut("int8")
     qt = quant_at_main_shapes(box)
     print(json.dumps({"phase": "quant_at_main_shapes", **qt}), flush=True)
+    planes.cut("quant_at_main_shapes")
     wt = wire_reduce_at_main_shapes(box, i8_part_rows, dev)
     del box
     print(json.dumps({"phase": "wire_reduce_at_main_shapes", **wt}),
           flush=True)
 
+    planes.cut("wire_reduce_at_main_shapes")
     t = time.perf_counter()
     dc = default_conf_phase(dev)
     print(json.dumps({**dc, "seconds": time.perf_counter() - t}),
           flush=True)
 
+    planes.cut("default_conf")
     # -- attention: the flash kernels, then one LLaMA-2-7B-32K attention
     # layer through the device sink (after every earlier phase)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: fp32
@@ -3050,24 +3487,29 @@ def main() -> int:
     print(json.dumps({"phase": "flash_kernels", **fk, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("flash_kernels")
     t = time.perf_counter()
     ua, uprof, qkv, fwd_ref = ulysses_phase(dev)
     print(json.dumps({**ua, "seconds": time.perf_counter() - t}), flush=True)
     print(json.dumps(uprof), flush=True)
 
+    planes.cut("ulysses_attention")
     t = time.perf_counter()
     ut, cot, bwd_ref = ulysses_train_phase(dev, qkv, fwd_ref)
     print(json.dumps({**ut, "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("ulysses_attention_train")
     t = time.perf_counter()
     ra = ring_phase(dev)
     print(json.dumps({**ra, "seconds": time.perf_counter() - t}), flush=True)
 
+    planes.cut("ring_attention")
     t = time.perf_counter()
     fm = flash_at_main_shapes(dev, qkv, cot, fwd_ref, bwd_ref)
     del qkv, cot, fwd_ref, bwd_ref
     print(json.dumps({"phase": "flash_at_main_shapes", **fm,
                       "seconds": time.perf_counter() - t}), flush=True)
+    planes.cut("flash_at_main_shapes")
     # -- workloads: every analytics runner through the default conf
     t = time.perf_counter()
     wl = workloads_phase(dev)
@@ -3076,6 +3518,38 @@ def main() -> int:
     print(json.dumps({"phase": "workloads", "runners": list(wl),
                       "launches": wl_launches, "ok": True,
                       "seconds": time.perf_counter() - t}), flush=True)
+    planes.cut("workloads")
+    planes.uninstall()
+    spilled = {ph: c for ph, c in planes.phases.items() if any(c.values())}
+    print(json.dumps({"phase": "earlier_phases_memory_planes",
+                      "phases": planes.phases, "ok": not spilled}),
+          flush=True)
+    if spilled:
+        raise AssertionError(f"earlier phases spilled or deferred: {spilled}")
+
+    # -- the memory planes: spill, admission, the external-memory
+    # pipelines (after every earlier phase, on main's records again)
+    spill_root = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+        t = time.perf_counter()
+        sp = spill_phase(dev, keys, values, os.path.join(spill_root, "spill"))
+        print(json.dumps({**sp, **main_line,
+                          "seconds": time.perf_counter() - t}), flush=True)
+        t = time.perf_counter()
+        ad = admission_phase(dev, keys, values)
+        print(json.dumps({**ad, "seconds": time.perf_counter() - t}),
+              flush=True)
+        del keys, values
+        t = time.perf_counter()
+        pl = pipelines_phase(dev, spill_root)
+        pl_launches = {k: sum(p["launches"][k] for p in pl.values())
+                       for k in (KERNEL_NAME, MERGE_KERNEL, SEG_KERNEL)}
+        print(json.dumps({"phase": "pipelines", "runs": list(pl),
+                          "launches": pl_launches, "ok": True,
+                          "seconds": time.perf_counter() - t}), flush=True)
+    finally:
+        shutil.rmtree(spill_root, ignore_errors=True)
 
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
@@ -3099,6 +3573,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/ragged_a2a.cu",
         "replaces": TPU_KERNEL, "launches": launches,
         "workload_launches": wl_launches[KERNEL_NAME],
+        "pipeline_launches": pl_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -3106,6 +3581,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
         "workload_launches": wl_launches[SEG_KERNEL],
+        "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
         "bound_full_output_ms": st["bound_full_output_ms"],
@@ -3114,6 +3590,7 @@ def main() -> int:
         "name": MERGE_KERNEL, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/merge_path.cu",
         "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
+        "pipeline_launches": pl_launches[MERGE_KERNEL],
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
         "bound_by": "bytes", "library_ms": mt["library_ms"]}, {

@@ -9,13 +9,17 @@ through unchanged.
 Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``a2a.combineCompaction``,
 ``a2a.waveRows``, ``a2a.waveDepth``, ``a2a.wire``,
-``a2a.wireErrorSampleRows``, ``read.mergeImpl``, ``read.sink``,
-``network.timeoutMs``.
+``a2a.wireErrorSampleRows``, ``a2a.maxBytesInFlight``,
+``read.mergeImpl``, ``read.sink``, ``network.timeoutMs``,
+``spill.threshold``, ``spill.dir``. Byte sizes parse as the JAX
+package's do (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
 from __future__ import annotations
 
 import os
+import re
+import tempfile
 from typing import Dict, Mapping, Optional
 
 PREFIX = "spark.shuffle.tpu."
@@ -69,6 +73,22 @@ ALLOWED_WIRES = ("raw", "int8", "lossless")
 A2A_WIRE_KEY = PREFIX + "a2a.wire"
 
 
+_SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgGtT]?)i?[bB]?\s*$")
+_SIZE_MULT = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def parse_bytes(text) -> int:
+    """Parse '4m', '1k', '300', '2GiB' into a byte count (SparkConf's
+    getSizeAsBytes units)."""
+    if isinstance(text, int):
+        return text
+    m = _SIZE_RE.match(str(text))
+    if not m:
+        raise ValueError(f"cannot parse byte size: {text!r}")
+    value, unit = m.groups()
+    return int(float(value) * _SIZE_MULT[unit.lower()])
+
+
 def _norm(key: str) -> str:
     """Case/punctuation-insensitive key form ('a2a.capacityFactor',
     'A2A_CAPACITYFACTOR' and 'a2a.capacityfactor' collide)."""
@@ -119,7 +139,8 @@ class ShuffleConf:
                     "cap_bucket_growth", "sort_impl", "combine_compaction",
                     "wave_rows", "wave_depth", "a2a_wire",
                     "wire_error_sample_rows", "read_merge_impl",
-                    "read_sink", "connection_timeout_ms")
+                    "read_sink", "connection_timeout_ms",
+                    "spill_threshold", "max_bytes_in_flight")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -153,6 +174,9 @@ class ShuffleConf:
 
     def get_int(self, short: str, default: int) -> int:
         return int(self._get(short, default))
+
+    def get_bytes(self, short: str, default) -> int:
+        return parse_bytes(self._get(short, default))
 
     def get_bool(self, short: str, default: bool) -> bool:
         v = self._get(short, default).strip().lower()
@@ -274,3 +298,38 @@ class ShuffleConf:
     def connection_timeout_ms(self) -> int:
         """How long a read waits for every map output to be published."""
         return int(self._get("network.timeoutMs", 120_000))
+
+    @property
+    def spill_threshold(self) -> int:
+        """Staged bytes per map writer before its batches move to disk
+        files (0 disables): past it a writer appends to sealed, mmapped
+        spill files (``shuffle/writer.SpillFiles``), so its host staging
+        stays bounded by this threshold instead of the output's size."""
+        v = self.get_bytes("spill.threshold", "256m")
+        if v < 0:
+            raise ValueError(f"{PREFIX}spill.threshold={v}: want >= 0 "
+                             f"(0 = off)")
+        return v
+
+    @property
+    def spill_dir(self) -> str:
+        """Directory of the spill files. Default: a per-process directory
+        under the system temp directory."""
+        return self._get(
+            "spill.dir",
+            os.path.join(tempfile.gettempdir(),
+                         f"sparkucx_tpu_torch_spill_{os.getpid()}"))
+
+    @property
+    def max_bytes_in_flight(self) -> int:
+        """Cap on the summed footprint (pinned pack buffers + estimated
+        device send and receive buffers) of the exchanges in flight at
+        once; 0 (default) = no cap. A submit over the cap is deferred
+        and dispatches in ``result()`` once earlier exchanges release
+        (FIFO); one exchange larger than the cap is admitted when
+        nothing else is in flight (``ShuffleManager._make_admitter``)."""
+        v = self.get_bytes("a2a.maxBytesInFlight", 0)
+        if v < 0:
+            raise ValueError(f"{PREFIX}a2a.maxBytesInFlight={v}: want >= 0 "
+                             f"(0 = off)")
+        return v

@@ -27,6 +27,14 @@ quantizes float32 value lanes around the exchange, with noise seeded by
 the manager's exchange sequence number (each wave and each overflow retry
 draws its own); lossless compresses the drained blocks of a waved host
 read. The report's ``wire`` names the tier that ran.
+
+Admission (``a2a.maxBytesInFlight``, :meth:`ShuffleManager.
+_make_admitter`): each exchange reserves an estimate of the pinned and
+device bytes it holds; a submit over the cap is deferred (FIFO) and
+dispatches in ``result()`` once earlier exchanges release. A host-sink
+read releases when its result settles (waved: when the last wave
+drained); a device-sink read holds its reservation until the result is
+consumed, closed or drained by ``host_view()``.
 """
 
 from __future__ import annotations
@@ -65,9 +73,10 @@ from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
 from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
-from sparkucx_tpu_torch.utils.metrics import (C_KERNEL_FALLBACK,
-                                              C_SINK_FALLBACK, H_WAVE_GAP,
-                                              labeled)
+from sparkucx_tpu_torch.utils.metrics import (C_ADMIT_BYTES,
+                                              C_KERNEL_FALLBACK,
+                                              C_SINK_FALLBACK, H_ADMIT_WAIT,
+                                              H_WAVE_GAP, labeled)
 
 log = get_logger("shuffle.manager")
 
@@ -135,6 +144,10 @@ class ExchangeReport:
     wire: str = "raw"
     wire_dequant_error: float = 0.0
     lossless_bytes: int = 0
+    # a2a.maxBytesInFlight: the wall this read's reservation waited in
+    # the deferral queue (0 for an immediate grant or no cap); group_ms
+    # includes it when the dispatch was deferred
+    admit_wait_ms: float = 0.0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
@@ -184,6 +197,12 @@ class ShuffleManager:
         self._lock = threading.Lock()
         # one number per read: the int8 wire's noise base
         self._exchange_seq = 0
+        # a2a.maxBytesInFlight: bytes reserved by exchanges in flight, and
+        # the FIFO of deferred reservations' tickets
+        self._inflight_cv = threading.Condition()
+        self._inflight_bytes = 0
+        self._admit_queue: deque = deque()
+        self._admit_ticket = 0
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
@@ -219,8 +238,11 @@ class ShuffleManager:
         if not (0 <= map_id < handle.num_maps):
             raise IndexError(
                 f"mapId {map_id} out of range [0,{handle.num_maps})")
-        w = MapOutputWriter(handle.entry, map_id, handle.partitioner,
-                            handle.bounds)
+        w = MapOutputWriter(handle.entry, map_id, self.node.pool,
+                            handle.partitioner, handle.bounds,
+                            spill_dir=self.conf.spill_dir,
+                            spill_threshold=self.conf.spill_threshold,
+                            metrics=self.node.metrics)
         with self._lock:
             ws = self._writers.get(handle.shuffle_id)
             if ws is None:
@@ -375,7 +397,8 @@ class ShuffleManager:
             if W > 1:
                 return self._submit_waved(
                     handle, shard_outputs, nvalid, plan, width, has_vals,
-                    val_tail if has_vals else None, val_dtype, rep, W)
+                    val_tail if has_vals else None, val_dtype, rep, W,
+                    timeout)
         self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
@@ -384,9 +407,19 @@ class ShuffleManager:
 
         total_rows = int(nvalid.sum())
         pending_box = {}
+        # a non-blocking reservation at dispatch; over the cap the
+        # exchange is deferred and dispatches inside result()
+        admit, release_admitted = self._make_admitter(
+            plan, width, rows.numel() * 4, timeout, rep)
 
         def on_done(result):
             self.node.pool.put(stage_buf)
+            if isinstance(result, DeviceShuffleReaderResult):
+                # the receive buffers stay on the device until the
+                # consumer takes them
+                result._release_hbm = release_admitted
+            else:
+                release_admitted()
             ref = pending_box.get("pending")
             pend = ref() if ref is not None else None
             retries = pend._attempt if pend is not None else 0
@@ -413,9 +446,10 @@ class ShuffleManager:
             pending = submit_shuffle(
                 plan, rows, nvalid, val_tail if has_vals else None,
                 val_dtype, self.node.device, on_done=on_done,
-                metrics=self.node.metrics, wire_seed=rep._seq)
+                metrics=self.node.metrics, wire_seed=rep._seq, admit=admit)
         except BaseException:
             self.node.pool.put(stage_buf)
+            release_admitted()
             raise
         pending_box["pending"] = weakref.ref(pending)
         rep.dispatch_ms = (time.perf_counter() - rep._t_dispatched) * 1e3
@@ -473,6 +507,117 @@ class ShuffleManager:
             result, DeviceShuffleReaderResult) else [result]
         for v in views:
             v._d2h_cb = cb
+
+    # -- admission (a2a.maxBytesInFlight) ---------------------------------
+    @staticmethod
+    def _exchange_footprint(plan: ShufflePlan, width: int,
+                            stage_bytes: int) -> int:
+        """Approximate bytes a pending exchange holds until it settles:
+        the pinned pack buffer plus the device send and receive row
+        matrices. An estimate: the cap is backpressure, not a ledger."""
+        device = (plan.cap_in + plan.cap_out) * width * 4 * plan.num_shards
+        return int(stage_bytes) + int(device)
+
+    def _fits_inflight_locked(self, nbytes: int, ticket=None) -> bool:
+        """Whether a reservation may be granted now (under the lock). A
+        submit-time attempt (``ticket`` None) yields to every deferred
+        one, so a later submit never takes capacity freed for a queued
+        exchange; a queued ticket is granted only at the head of the
+        FIFO. An exchange bigger than the cap is admitted when nothing
+        is in flight, so it cannot deadlock itself."""
+        if ticket is None:
+            if self._admit_queue:
+                return False
+        elif self._admit_queue[0] != ticket:
+            return False
+        cap = self.conf.max_bytes_in_flight
+        return not (self._inflight_bytes
+                    and self._inflight_bytes + nbytes > cap)
+
+    def _grant_inflight_locked(self, nbytes: int, waited_ms: float) -> None:
+        self._inflight_bytes += nbytes
+        self.node.metrics.inc(C_ADMIT_BYTES, float(nbytes))
+        self.node.metrics.observe(H_ADMIT_WAIT, waited_ms)
+
+    def _release_inflight(self, nbytes: int) -> None:
+        if nbytes <= 0:
+            return
+        with self._inflight_cv:
+            self._inflight_bytes -= nbytes
+            self._inflight_cv.notify_all()
+
+    def _make_admitter(self, plan: ShufflePlan, width: int,
+                       stage_bytes: int, timeout: Optional[float],
+                       report: Optional[ExchangeReport] = None):
+        """(admit, release) for one exchange. ``admit(block)`` goes to the
+        pending handle (None when the cap is off): ``admit(False)`` grants
+        or enqueues and returns whether it granted; ``admit(True)`` waits
+        at the head of the queue until the reservation fits, or raises
+        ``TimeoutError`` after ``timeout`` seconds. ``release()`` is
+        idempotent, and takes a still-queued ticket out of the queue.
+        The JAX package's tenant quotas and fair-share order are not
+        ported: the queue is FIFO."""
+        if self.conf.max_bytes_in_flight <= 0:
+            return None, lambda: None
+        nbytes = self._exchange_footprint(plan, width, stage_bytes)
+        state = {"reserved": 0, "ticket": None, "queued_at": 0.0}
+
+        def admit(block: bool) -> bool:
+            with self._inflight_cv:
+                if not block:
+                    if self._fits_inflight_locked(nbytes):
+                        self._grant_inflight_locked(nbytes, 0.0)
+                        state["reserved"] = nbytes
+                        return True
+                    ticket = self._admit_ticket
+                    self._admit_ticket += 1
+                    self._admit_queue.append(ticket)
+                    state["ticket"] = ticket
+                    state["queued_at"] = time.perf_counter()
+                    log.info("submit deferred by maxBytesInFlight=%d (in "
+                             "flight %d B, requesting %d B, queue depth "
+                             "%d)", self.conf.max_bytes_in_flight,
+                             self._inflight_bytes, nbytes,
+                             len(self._admit_queue))
+                    return False
+                ticket = state["ticket"]
+                deadline = None if timeout is None \
+                    else time.monotonic() + timeout
+                while not self._fits_inflight_locked(nbytes, ticket):
+                    if deadline is not None:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            raise TimeoutError(
+                                f"deferred exchange waited {timeout}s: "
+                                f"{self._inflight_bytes} B in flight "
+                                f"exceeds a2a.maxBytesInFlight="
+                                f"{self.conf.max_bytes_in_flight} and no "
+                                f"exchange completed — resolve earlier "
+                                f"submits or raise the cap")
+                        self._inflight_cv.wait(min(remaining, 1.0))
+                    else:
+                        self._inflight_cv.wait(1.0)
+                self._admit_queue.popleft()
+                state["ticket"] = None
+                waited = (time.perf_counter() - state["queued_at"]) * 1e3
+                self._grant_inflight_locked(nbytes, waited)
+                state["reserved"] = nbytes
+                if report is not None:
+                    report.admit_wait_ms += waited
+                self._inflight_cv.notify_all()
+                return True
+
+        def release() -> None:
+            with self._inflight_cv:
+                if state["ticket"] is not None:
+                    # abandoned while queued: unblock those behind it
+                    self._admit_queue.remove(state["ticket"])
+                    state["ticket"] = None
+                    self._inflight_cv.notify_all()
+                n, state["reserved"] = state["reserved"], 0
+            self._release_inflight(n)
+
+        return admit, release
 
     # -- sinks ------------------------------------------------------------
     def _note_sink_fallback(self, mode: str, reason: str) -> None:
@@ -537,8 +682,8 @@ class ShuffleManager:
     def _submit_waved(self, handle: ShuffleHandle, slot_outputs,
                       nvalid: np.ndarray, plan: ShufflePlan, width: int,
                       has_vals: bool, val_tail, val_dtype,
-                      rep: ExchangeReport,
-                      num_waves: int) -> "PendingWaveShuffle":
+                      rep: ExchangeReport, num_waves: int,
+                      timeout: Optional[float]) -> "PendingWaveShuffle":
         """The pending handle of a waved read; the packs run inside its
         ``result()``, overlapped with the waves' exchanges."""
         wave_rows = self.conf.wave_rows
@@ -558,6 +703,19 @@ class ShuffleManager:
         rep.plan_bucket = [int(wplan.cap_in), int(wplan.cap_out)]
         self._set_wave_wire(rep, wplan, wave_sizes, width)
         depth = max(1, min(self.conf.wave_depth, num_waves))
+        # admission: ``depth`` pinned wave blocks plus the device buffers
+        # of ``depth`` waves on the host sink (a wave holds its send and
+        # receive matrices until it drains), of every wave on the device
+        # sink (no wave drains); _make_admitter adds one wave's device
+        # term itself
+        block_bytes = len(slot_outputs) * wplan.cap_in * width * 4
+        device_wave = (wplan.cap_in + wplan.cap_out) * width * 4 \
+            * wplan.num_shards
+        hbm_waves = num_waves if wplan.sink == "device" else depth
+        admit, release_admitted = self._make_admitter(
+            wplan, width,
+            depth * block_bytes + (hbm_waves - 1) * device_wave,
+            timeout, rep)
         log.info("wave-pipelined read: shuffle %d, %d waves x %d rows/shard "
                  "(depth %d, wave plan cap_in=%d cap_out=%d)",
                  handle.shuffle_id, num_waves, wave_rows, depth,
@@ -565,7 +723,7 @@ class ShuffleManager:
         return PendingWaveShuffle(self, handle, outer, wplan, depth,
                                   slot_outputs, width, has_vals, val_tail,
                                   val_dtype, rep, int(nvalid.sum()),
-                                  wave_sizes)
+                                  wave_sizes, admit, release_admitted)
 
     # -- wire tiers -------------------------------------------------------
     def _warn_once(self, key: str, msg: str, *args) -> None:
@@ -828,7 +986,8 @@ class PendingWaveShuffle:
                  outer_plan: ShufflePlan, wave_plan: ShufflePlan,
                  depth: int, slot_outputs, width: int, has_vals: bool,
                  val_tail, val_dtype, rep: ExchangeReport, local_rows: int,
-                 wave_sizes: np.ndarray):
+                 wave_sizes: np.ndarray, admit=None,
+                 release_admitted=lambda: None):
         self._mgr = mgr
         self._handle = handle
         self._outer_plan = outer_plan
@@ -847,6 +1006,8 @@ class PendingWaveShuffle:
         self._result = None
         self._dead = False
         self._lossless_bytes = 0      # compressed bytes of drained waves
+        self._admit = admit
+        self._release_admitted = release_admitted
 
     def done(self) -> bool:
         return self._result is not None or self._dead
@@ -862,6 +1023,7 @@ class PendingWaveShuffle:
             res = self._drive()
         except BaseException as e:
             self._dead = True
+            self._release_admitted()
             self._rep.error = self._rep.error or repr(e)[:300]
             raise
         self._result = res
@@ -877,6 +1039,8 @@ class PendingWaveShuffle:
         wave_results: List = [None] * self._num_waves
         retries_total = 0
         pack_total = dispatch_total = pack_hidden = 0.0
+        if self._admit is not None and not self._admit(False):
+            self._admit(True)             # waits until capacity frees
         try:
             for i in range(self._num_waves):
                 while len(inflight) >= self._depth:
@@ -951,7 +1115,10 @@ class PendingWaveShuffle:
                 res = DeviceShuffleReaderResult(
                     [merged], outer, self._val_tail, self._val_dtype)
             mgr._arm_d2h(res, rep)
+            res._release_hbm = self._release_admitted
         else:
+            # every wave drained: the device buffers are gone
+            self._release_admitted()
             res = WavedShuffleReaderResult(wave_results, outer,
                                            self._val_tail, self._val_dtype)
         self._finalize(timeline, retries_total, pack_total, pack_hidden,

@@ -606,6 +606,9 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         # the manager's hook onto the owning read's report (d2h bytes)
         self._d2h_cb = None
         self._ready_event: Optional["torch.cuda.Event"] = None
+        # fired once when the materialize drops the device rows (a device
+        # result's host_view() hands its admission release to it)
+        self._on_device_free = None
         self._lock = threading.Lock()
 
     def _to_host(self, copy_into) -> None:
@@ -677,7 +680,10 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                     self._d2h_cb(self.d2h_bytes)
             self._shards = shards
             self._rows_dev = None         # free the device buffer
-            return shards
+            freed, self._on_device_free = self._on_device_free, None
+        if freed is not None:
+            freed()
+        return shards
 
     def with_rows(self, rows_dev: torch.Tensor) -> "LazyShuffleReaderResult":
         """A new view over replacement rows ``[P, cap, W]`` with this
@@ -991,6 +997,10 @@ class DeviceShuffleReaderResult:
         self.cap_out_used: Optional[int] = plan.cap_out if self.waves == 1 \
             else None
         self.recv_rows_needed: Optional[int] = None
+        # the manager's a2a.maxBytesInFlight release: this result's
+        # receive buffers stay on the device until consume(), close() or
+        # the host_view() drain, so the reservation frees there
+        self._release_hbm = None
 
     def wave_views(self):
         """The per-wave device views, in wave order."""
@@ -1037,6 +1047,7 @@ class DeviceShuffleReaderResult:
             raise
         finally:
             self.consumed = True
+            self._fire_release()
         return carry
 
     def host_view(self, wave_rows=None):
@@ -1046,6 +1057,19 @@ class DeviceShuffleReaderResult:
         consumer-returned rows, valid any time."""
         if wave_rows is None:
             views = list(self._live_views())
+            # the admission release moves to the drain: once every view
+            # dropped its device rows, the reservation frees
+            left = [len(views)]
+            lock = threading.Lock()
+
+            def one_freed():
+                with lock:
+                    left[0] -= 1
+                    last = left[0] == 0
+                if last:
+                    self._fire_release()
+            for v in views:
+                v._on_device_free = one_freed
         else:
             base = self._views or []
             if len(wave_rows) != len(base):
@@ -1068,21 +1092,41 @@ class DeviceShuffleReaderResult:
         self.partition(0)
 
     def close(self) -> None:
-        """Drop the device buffers without consuming them."""
+        """Drop the device buffers without consuming them (and release
+        their admission reservation)."""
         self.consumed = True
         self._views = None
+        self._fire_release()
+
+    def _fire_release(self) -> None:
+        cb, self._release_hbm = self._release_hbm, None
+        if cb is not None:
+            cb()
+
+    def __del__(self):
+        try:
+            self._fire_release()
+        except Exception:
+            pass
 
 
 class PendingShuffle:
     """Handle of a dispatched exchange. ``done()`` polls without blocking;
     ``result()`` blocks, runs the overflow-retry loop and returns a
     :class:`LazyShuffleReaderResult`. ``on_done(result_or_None)`` fires
-    exactly once."""
+    exactly once.
+
+    ``admit`` is None (no ``a2a.maxBytesInFlight`` cap) or the manager's
+    ``admit(block) -> bool``: when the non-blocking attempt at submit
+    fails, the exchange is deferred — no H2D copy, no dispatch,
+    ``done()`` False — and ``result()`` waits for the capacity, then
+    dispatches (a blocking submit would deadlock a caller that resolves
+    its handles in order)."""
 
     def __init__(self, plan: ShufflePlan, shard_rows: np.ndarray,
                  shard_nvalid: np.ndarray, val_shape, val_dtype,
                  device: torch.device, on_done=None, metrics=None,
-                 wire_seed: int = 0):
+                 wire_seed: int = 0, admit=None):
         self._plan = plan
         # int8 noise base: attempt k of the overflow retry loop draws from
         # wire_seed + k, so a re-run gets fresh rounding noise
@@ -1090,21 +1134,35 @@ class PendingShuffle:
         self._val_shape = val_shape
         self._val_dtype = val_dtype
         self._device = device
-        self._on_done = on_done
         self._metrics = metrics
         self._attempt = 0
         self._result: Optional[LazyShuffleReaderResult] = None
-        # one H2D copy from the (page-locked) pack buffer; the buffer
-        # stays owned by on_done until the exchange settles
+        self._event = None
+        # the staged rows stay owned by on_done until the exchange settles
         if not isinstance(shard_rows, torch.Tensor):
             shard_rows = torch.from_numpy(shard_rows)
-        self._rows = shard_rows.to(device, non_blocking=True)
+        self._host = (shard_rows, shard_nvalid)
+        self._admit_cb = None
+        if admit is None or admit(False):
+            self._start()
+        else:
+            self._admit_cb = admit       # deferred: dispatch in result()
+        # armed last: a dispatch failure above leaves the cleanup to the
+        # caller, never to this half-built handle
+        self._on_done = on_done
+
+    def _start(self) -> None:
+        """One H2D copy from the (page-locked) pack buffer, then the
+        first dispatch."""
+        shard_rows, shard_nvalid = self._host
+        self._host = None
+        self._rows = shard_rows.to(self._device, non_blocking=True)
         # a pageable copy would wait for all earlier work on the stream
         # (a waved read's previous wave); a pinned one stays asynchronous
         nvalid = torch.from_numpy(np.asarray(shard_nvalid, dtype=np.int32))
-        if device.type == "cuda":
+        if self._device.type == "cuda":
             nvalid = nvalid.pin_memory()
-        self._nvalid = nvalid.to(device, non_blocking=True)
+        self._nvalid = nvalid.to(self._device, non_blocking=True)
         self._dispatch()
 
     def _dispatch(self) -> None:
@@ -1123,13 +1181,22 @@ class PendingShuffle:
             self._event.record(torch.cuda.current_stream(self._device))
 
     def done(self) -> bool:
-        return self._result is not None or self._event is None \
-            or self._event.query()
+        if self._result is not None:
+            return True
+        if self._admit_cb is not None:
+            return False                 # deferred by maxBytesInFlight
+        return self._event is None or self._event.query()
 
     def result(self) -> LazyShuffleReaderResult:
         if self._result is not None:
             return self._result
         try:
+            if self._admit_cb is not None:
+                # deferred submit: wait for the capacity (TimeoutError
+                # when nothing frees it), then the first dispatch
+                admit, self._admit_cb = self._admit_cb, None
+                admit(True)
+                self._start()
             res = self._result_inner()
         except BaseException:
             self._notify(None)
@@ -1140,6 +1207,16 @@ class PendingShuffle:
         self._result = res
         self._notify(res)
         return res
+
+    def __del__(self):
+        # an abandoned deferred handle: nothing reached the device, so its
+        # pack buffer and its place in the admission queue are released
+        try:
+            if self._admit_cb is not None and self._result is None:
+                self._admit_cb = None
+                self._notify(None)
+        except Exception:
+            pass
 
     def _notify(self, res) -> None:
         cb, self._on_done = self._on_done, None
@@ -1200,8 +1277,10 @@ def submit_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,
                    shard_nvalid: np.ndarray,
                    val_shape: Optional[Tuple[int, ...]], val_dtype,
                    device: torch.device, on_done=None,
-                   metrics=None, wire_seed: int = 0) -> PendingShuffle:
-    """Dispatch the exchange without blocking.
+                   metrics=None, wire_seed: int = 0,
+                   admit=None) -> PendingShuffle:
+    """Dispatch the exchange without blocking (or defer it, see
+    :class:`PendingShuffle`'s ``admit``).
 
     shard_rows   — [P, cap_in, width] fused int32 rows per shard
     shard_nvalid — [P] valid row counts
@@ -1209,7 +1288,7 @@ def submit_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,
                    sequence number)"""
     return PendingShuffle(plan, shard_rows, shard_nvalid, val_shape,
                           val_dtype, device, on_done=on_done,
-                          metrics=metrics, wire_seed=wire_seed)
+                          metrics=metrics, wire_seed=wire_seed, admit=admit)
 
 
 def read_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,

@@ -5,7 +5,9 @@ counter :data:`C_D2H`, the kernel-fallback counter
 :data:`C_KERNEL_FALLBACK`, the sink-fallback counter
 :data:`C_SINK_FALLBACK`), the wave-gap histogram :data:`H_WAVE_GAP` and
 the workload counters :data:`C_WORKLOAD_ROWS` and
-:data:`C_WORKLOAD_PHASE_MS`."""
+:data:`C_WORKLOAD_PHASE_MS`, the spill counters :data:`C_SPILL_BYTES`
+and :data:`C_SPILL_COUNT`, and the admission counter
+:data:`C_ADMIT_BYTES` with its wait histogram :data:`H_ADMIT_WAIT`."""
 
 from __future__ import annotations
 
@@ -31,6 +33,15 @@ H_WAVE_GAP = "shuffle.wave.gap_ms"
 # (workloads.PhaseWalls.publish)
 C_WORKLOAD_ROWS = "workload.rows"
 C_WORKLOAD_PHASE_MS = "workload.phase.ms"
+# bytes the map writers moved from host staging to sealed spill files,
+# and the number of such moves (shuffle/writer.MapOutputWriter.
+# _flush_to_disk: threshold spills and budget-forced spills alike)
+C_SPILL_BYTES = "shuffle.spill.bytes"
+C_SPILL_COUNT = "shuffle.spill.count"
+# a2a.maxBytesInFlight: bytes of every granted reservation, and each
+# grant's wait in the deferral queue (ms; 0 for an immediate grant)
+C_ADMIT_BYTES = "shuffle.admit.bytes"
+H_ADMIT_WAIT = "shuffle.admit.wait_ms"
 
 
 def labeled(name: str, **labels) -> str:

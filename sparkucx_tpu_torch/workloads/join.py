@@ -7,17 +7,167 @@ breaks static provisioning: the hot partitions overflow their receive
 capacity and the exchange regrows. :func:`run_join` joins int64 keys with
 a Zipf-ish hot head; :func:`run_join_varchar` joins on string keys whose
 exact bytes ride beside a side marker. Both verify the join's output row
-count against a numpy oracle on the unshuffled data. The external-memory
-join pipeline is not ported yet.
+count against a numpy oracle on the unshuffled data.
+:func:`join_pipeline` is the external-memory repartition join: both sides
+ten times a memory budget, spilled at ingest, read as waved host reads
+and joined partition by partition.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+from sparkucx_tpu_torch.workloads import (MemoryBudget, PhaseWalls,
+                                          WorkloadReport, _program_count,
+                                          _spill_counters)
+
+
+def join_pipeline(manager: ShuffleManager, *,
+                  budget_bytes: int, scale: float = 1.0,
+                  total_rows: Optional[int] = None,
+                  num_mappers: int = 8, num_partitions: int = 32,
+                  key_space: int = 20000, hot_keys: int = 8,
+                  hot_fraction: float = 0.3, shuffle_id: int = 9400,
+                  seed: int = 0,
+                  chunk_rows: int = 65536) -> WorkloadReport:
+    """External-memory repartition join at ten times the budget: both
+    sides hash-partition on the join key through the shuffle (two
+    same-shaped exchanges), with chunked ingest and the pool valve on
+    both sides and a hot head of ``hot_keys`` keys owning
+    ``hot_fraction`` of each side's rows (the TPC-DS skew stressor). The
+    partition-local join streams partition by partition, releasing each
+    block behind itself (``release_partition``). The oracle is
+    O(key_space): per-key build and probe counts accumulated at ingest
+    give the exact output-row count. Returns a
+    :class:`~sparkucx_tpu_torch.workloads.WorkloadReport`."""
+    pool = manager.node.pool
+    metrics = manager.node.metrics
+    row_bytes = 8 + 8                  # key + [key_lo32, marker] lanes
+    if total_rows is None:
+        total_rows = max(2 * num_mappers * num_partitions,
+                         int(10.0 * scale * budget_bytes) // row_bytes)
+    side_rows = total_rows // 2        # equal sides: one plan shape
+    total_rows = side_rows * 2
+    rep = WorkloadReport("join", rows_in=total_rows,
+                         bytes_in=total_rows * row_bytes,
+                         budget_bytes=budget_bytes,
+                         backend=manager.node.device.type, oracle="exact")
+    walls = PhaseWalls("join", metrics)
+    budget = MemoryBudget(pool, budget_bytes)
+    pool.reset_peak_bytes()
+    spill_b0, spill_c0 = _spill_counters(metrics)
+    prog0 = _program_count()
+
+    rng = np.random.default_rng(seed)
+    truth = {1: np.zeros(key_space, dtype=np.int64),
+             2: np.zeros(key_space, dtype=np.int64)}
+
+    def gen_chunk(n: int) -> np.ndarray:
+        n_hot = int(n * hot_fraction)
+        keys = np.concatenate([
+            rng.integers(0, hot_keys, size=n_hot),
+            rng.integers(hot_keys, key_space, size=n - n_hot),
+        ]).astype(np.int64)
+        rng.shuffle(keys)
+        return keys
+
+    handles = {}
+    try:
+        with walls.phase("ingest"):
+            for marker, sid in ((1, shuffle_id), (2, shuffle_id + 1)):
+                h = manager.register_shuffle(sid, num_mappers,
+                                             num_partitions)
+                handles[marker] = h
+                writers = [manager.get_writer(h, m)
+                           for m in range(num_mappers)]
+                per_map = side_rows // num_mappers
+                for m in range(num_mappers):
+                    m_rows = per_map if m < num_mappers - 1 else \
+                        side_rows - per_map * (num_mappers - 1)
+                    for c0 in range(0, m_rows, chunk_rows):
+                        n = min(chunk_rows, m_rows - c0)
+                        keys = gen_chunk(n)
+                        truth[marker] += np.bincount(keys,
+                                                     minlength=key_space)
+                        vals = np.stack(
+                            [keys.astype(np.int32),
+                             np.full(n, marker, np.int32)], axis=1)
+                        writers[m].write(keys, vals)
+                        with walls.phase("spill"):
+                            budget.maybe_spill(writers)
+                for w in writers:
+                    w.commit(num_partitions)
+
+        with walls.phase("exchange"):
+            build_res = manager.read(handles[1], sink="host")
+            probe_res = manager.read(handles[2], sink="host")
+        rep.warm_programs = _program_count() - prog0
+        waves = 0
+        for sid in (shuffle_id, shuffle_id + 1):
+            rrep = manager.report(sid)
+            if rrep is not None:
+                waves = max(waves, int(rrep.waves or 0))
+        rep.waves = waves
+        rep.exchanges = 2
+
+        out_rows = 0
+        max_part = 0
+        with walls.phase("merge"):
+            for r in range(num_partitions):
+                bk, bv = build_res.partition(r)
+                pk, pv = probe_res.partition(r)
+                if bk.shape[0] and not (
+                        bv[:, 0] == bk.astype(np.int32)).all():
+                    raise AssertionError(f"partition {r}: build row "
+                                         f"corruption")
+                if pk.shape[0] and not (
+                        pv[:, 0] == pk.astype(np.int32)).all():
+                    raise AssertionError(f"partition {r}: probe row "
+                                         f"corruption")
+                bu, bc = np.unique(bk, return_counts=True)
+                pu, pc = np.unique(pk, return_counts=True)
+                _, bi, pi = np.intersect1d(bu, pu, assume_unique=True,
+                                           return_indices=True)
+                out_rows += int((bc[bi] * pc[pi]).sum())
+                max_part = max(max_part, bk.shape[0] + pk.shape[0])
+                # streaming emit: drop each partition's blocks behind us
+                build_res.release_partition(r)
+                probe_res.release_partition(r)
+
+        with walls.phase("emit"):
+            want = int((truth[1] * truth[2]).sum())
+            rep.oracle_ok = bool(out_rows == want)
+            rep.rows_out = out_rows
+        mean_part = total_rows / num_partitions
+        rep.extra = {
+            "output_rows": out_rows, "expected_rows": want,
+            "side_rows": side_rows, "key_space": key_space,
+            "hot_keys": hot_keys, "hot_fraction": hot_fraction,
+            "max_partition_rows": int(max_part),
+            "skew_ratio": round(max_part / mean_part, 2),
+            "num_mappers": num_mappers,
+            "num_partitions": num_partitions,
+            "probe_programs": rep.warm_programs,
+            "forced_spills": budget.forced_spills,
+            "forced_spill_bytes": budget.forced_bytes,
+        }
+    finally:
+        for sid in (shuffle_id, shuffle_id + 1):
+            manager.unregister_shuffle(sid)
+
+    walls.ms["ingest"] = max(0.0, walls.ms["ingest"] - walls.ms["spill"])
+    spill_b1, spill_c1 = _spill_counters(metrics)
+    rep.spill_bytes = spill_b1 - spill_b0
+    rep.spill_count = spill_c1 - spill_c0
+    rep.pool_peak_bytes = int(pool.stats()["peak_bytes"])
+    rep.programs = _program_count() - prog0
+    rep.phases = dict(walls.ms)
+    rep.finalize(total_rows)
+    walls.publish(total_rows)
+    return rep
 
 
 def _gen_side(rng, rows: int, key_space: int, hot_keys: int,

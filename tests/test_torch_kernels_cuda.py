@@ -1103,3 +1103,142 @@ def test_workload_runner_on_card(card, case):
         ra.KERNEL_NAME: tally.reads + tally.retries,
         sg.KERNEL_NAME: tally.combine_reads + tally.combine_retries}
     assert (tally.combine_reads > 0) == (fn in COMBINE_RUNNERS)
+
+
+# -- memory planes: spill, admission, the groupby pipeline's device arm ------
+def test_spilled_read_on_card(card, tmp_path):
+    """A spilled map output read plain under the default conf: the
+    segment move runs once, every partition's (key, value) multiset equals
+    the numpy oracle, and the writers' staging went back to the pool."""
+    rng = np.random.default_rng(41)
+    M, R, n = 8, 16, 6000
+    keys = rng.integers(-(1 << 62), 1 << 62, size=M * n, dtype=np.int64)
+    vals = rng.integers(-(1 << 31), 1 << 31, size=(M * n, 5)).astype(np.int32)
+    conf = {"spark.shuffle.tpu.spill.threshold": "64k",
+            "spark.shuffle.tpu.spill.dir": str(tmp_path)}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        h = svc.register_shuffle(1, M, R)
+        for m in range(M):
+            w = svc.writer(h, m)
+            for c in range(m * n, (m + 1) * n, 1000):
+                w.write(keys[c:c + 1000], vals[c:c + 1000])
+            w.commit(R)
+        assert svc.stats()["shuffle.spill.count"] >= M
+        assert svc.node.pool.stats()["in_use_bytes"] == 0
+        before = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+        res = svc.read(h)
+        assert backend.launch_counts()[ra.KERNEL_NAME] == before + 1
+        assert svc.report(1).impl == "pallas"
+        pid = (hash32_np(keys) % np.uint32(R)).astype(np.int64)
+        for r in range(R):
+            k, v = res.partition(r)
+            want = np.flatnonzero(pid == r)
+            got = sorted(zip(k.tolist(), map(bytes, v)))
+            assert got == sorted(zip(keys[want].tolist(),
+                                     map(bytes, vals[want])))
+        svc.unregister_shuffle(1)
+    assert not list(tmp_path.iterdir())
+
+
+def test_pinned_pool_trim_unpins_on_card(card):
+    """On a CUDA node the pool's buffers are page-locked; a ``put`` past
+    ``max_free_bytes`` drops the longest-free buffer and torch no longer
+    holds its pinned bytes, while the kept one is reused."""
+    from sparkucx_tpu_torch.runtime.node import HostStagingPool
+    pool = HostStagingPool(pinned=True)
+    pool.max_free_bytes = 48 << 20
+    a, b = pool.get(32 << 20), pool.get(24 << 20)
+    assert a.is_pinned() and b.is_pinned()
+    pool.put(a)
+    del a                                 # the pool's is the last reference
+    held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    pool.put(b)                           # 56 MiB free: a is dropped
+    st = pool.stats()
+    assert st["free"] == 1 and st["free_bytes"] == 24 << 20
+    assert torch.cuda.host_memory_stats()["allocated_bytes.current"] \
+        <= held - (32 << 20)
+    again = pool.get(20 << 20)
+    assert again.data_ptr() == b.data_ptr()
+    pool.put(again)
+    pool.close()
+
+
+@pytest.mark.parametrize("sink", ["host", "device"])
+def test_capped_submits_defer_and_release_on_card(card, sink):
+    """Under a cap of one exchange a second submit is deferred (no
+    reservation, not done) until the first releases — at its result on
+    the host sink, at its consume on the device sink — then completes;
+    nothing stays reserved."""
+    rng = np.random.default_rng(42)
+    cap = 1 << 10           # below one exchange: each is admitted alone
+    with connect({"spark.shuffle.tpu.a2a.maxBytesInFlight": str(cap)},
+                 num_shards=8, use_env=False) as svc:
+        m = svc.manager
+        hs, want = [], []
+        for sid in range(2):
+            k = rng.integers(0, 1 << 40, size=4000).astype(np.int64)
+            h = svc.register_shuffle(sid, 2, 8)
+            for mid in range(2):
+                svc.write(h, mid, k[mid * 2000:(mid + 1) * 2000])
+            hs.append(h)
+            want.append(np.sort(k))
+        pa = svc.submit(hs[0], sink=sink)
+        held = m._inflight_bytes
+        pb = svc.submit(hs[1], sink=sink)
+        assert held > 0 and m._inflight_bytes == held and not pb.done()
+        ra_ = pa.result()
+        if sink == "device":
+            assert m._inflight_bytes == held
+            ra_ = ra_.host_view()
+            for _ in ra_.partitions():
+                pass                       # the drain releases
+        assert m._inflight_bytes == 0
+        rb = pb.result()
+        if sink == "device":
+            rb = rb.host_view()
+        for res, w in ((ra_, want[0]), (rb, want[1])):
+            got = np.sort(np.concatenate([res.partition(r)[0]
+                                          for r in range(8)]))
+            np.testing.assert_array_equal(got, w)
+        assert m._inflight_bytes == 0
+        assert svc.report(1).admit_wait_ms > 0
+
+
+def test_groupby_pipeline_device_arm_on_card(card, tmp_path):
+    """The groupby pipeline's device arm at a small budget under the
+    default conf: every wave's combine runs the segment reduce, every fold
+    step the merge and the segment reduce, the first and the last launch
+    of each bit-equal to the plain version; no payload D2H; the report
+    equals the same call's on the CPU."""
+    from chip_smoke import KernelCapture, ReadTally
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.workloads.groupby import groupby_pipeline
+    conf = {"spark.shuffle.tpu.spill.threshold": "8192",
+            "spark.shuffle.tpu.a2a.waveRows": "512",
+            "spark.shuffle.tpu.spill.dir": str(tmp_path)}
+    kw = dict(budget_bytes=64 << 10, total_rows=4800, key_space=150,
+              num_partitions=8, chunk_rows=1024, sink="device",
+              warm_reads=1, shuffle_id=9512)
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        with ReadTally(svc.manager) as tally, KernelCapture() as capture:
+            before = backend.launch_counts()
+            rep = groupby_pipeline(svc.manager, **kw)
+            after = backend.launch_counts()
+        assert svc.node.pool.stats()["in_use_bytes"] == 0
+    checks = capture.check("groupby device arm")
+    with connect(conf, device="cpu", num_shards=8, use_env=False) as svc:
+        want = groupby_pipeline(svc.manager, **kw)
+    assert rep.oracle_ok and rep.extra["d2h_bytes"] == 0
+    for k in ("distinct_keys", "truth_distinct", "value_sum", "truth_sum"):
+        assert rep.extra[k] == want.extra[k], k
+    W = rep.waves
+    assert W >= 2 and tally.combine_reads == 2
+    launched = {k: after.get(k, 0) - before.get(k, 0)
+                for k in (ra.KERNEL_NAME, sg.MERGE_KERNEL_NAME,
+                          sg.KERNEL_NAME)}
+    assert launched == {
+        ra.KERNEL_NAME: 0,
+        sg.MERGE_KERNEL_NAME: 2 * (W - 1),
+        sg.KERNEL_NAME: 2 * (2 * W - 1) + tally.combine_retries}
+    assert set(checks) == {sg.MERGE_KERNEL_NAME, sg.KERNEL_NAME}
+    assert all(c["calls"] == 2 for c in checks.values())
