@@ -217,6 +217,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             fold step; the first and the last launch of each held against
             the plain versions), zero D2H on the device arm, the device's
             idle share.
+29. moe_train — the MoE layer of Switch-Base-8 (Fedus et al. 2021,
+            google/switch-base-8: d_model 768, expert FFN 3,072, 8
+            experts, top-1), capacity factor 2.0, 32,768 tokens a step (64
+            sequences of 512) on a dp=2 x ep=4 grid of logical shards, on
+            the raw and the int8 wire: the forward (its wall, and against
+            a float64 dense top-1 oracle on the card: raw within 2e-5 +
+            2e-4 |want|, int8 within 5% of max|want|), five Adam steps
+            (walls, losses finite and falling, peak device bytes), the
+            quantize launches (3 a step on the int8 wire: the dispatch,
+            the combine and the combine's backward, each one launch for
+            all 8 shards; the dispatch's backward does not run, since the
+            tokens are not differentiated; none on the raw wire), the first and last quantize
+            launch held byte for byte against ``quantize_plain``, and on
+            the raw wire the received rows whose recomputed expert differs
+            from the sender's (must be 0, with the initial and the
+            trained router).
+30. moe_dispatch — moe_train's tokens staged by their expert
+            (``partitioner="direct"``, 8 experts as partitions, 8 maps),
+            read with ``sink="device"`` under ``a2a.impl=pallas`` and
+            consumed by ``make_device_dispatch_step`` over 5 fresh reads
+            (read and consume walls, losses falling, D2H 0, the segment
+            move once a read, its first and last launch held against the
+            plain version), one device read under the default conf
+            (dense) and the host-staged arm (``host_staged_consume`` on a
+            host-sink read), both from the same weights as the first
+            pallas read and within 1e-5 of its loss.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -225,7 +251,8 @@ segreduce_at_main_shapes, waved_combine (+ lossless), combine_f32,
 quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
 wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
-workloads, earlier_phases_memory_planes, spill, admission, pipelines.
+workloads, earlier_phases_memory_planes, spill, admission, pipelines,
+moe_train, moe_dispatch.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -235,8 +262,9 @@ waved_combine: the merge and the segment reduce; the int8 paths and the
 attention paths: their launch counts exactly; default_conf's pallas
 read: the segment move; workloads: per runner, the segment move and the
 segment reduce exactly as above; spill and admission's pairs: the segment
-move; pipelines: per pipeline, the three counts exactly as above). The
-last two lines of standard output
+move; pipelines: per pipeline, the three counts exactly as above;
+moe_train: the quantize exactly as above; moe_dispatch: the segment move
+once a pallas read). The last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
@@ -301,6 +329,7 @@ MERGE_SIZES = {"interleaved": (3000, 2900, 2000, 1800),
                "offset": (3001, 2900, 2003, 1800),
                "out_cap_mid": (13000, 12500, 9000, 8500)}
 QUANT_TPU_KERNEL = "sparkucx_tpu/ops/pallas/quant.py:25"
+QUANT_DEVICE_KERNEL = "quantize_rows"   # csrc/quant.cu's kernel symbol
 QUANT_KINDS = ("normal", "zero_rows", "magnitudes", "saturate")
 # the int8 cells: DLRM-style embedding gradients (MLPerf DLRM-DCNv2 on
 # Criteo 1TB: embedding dimension 128, tables capped at 40M rows)
@@ -2702,9 +2731,9 @@ def _card_copy(x):
 
 class KernelCapture:
     """While installed, keeps a device copy of the inputs and the output
-    of the first launch of the segment move (B.1), the merge (B.2) and
-    the segment reduce (B.3), and references to those of the latest
-    launch; :meth:`check` then holds the first and the last launch
+    of the first launch of the segment move (B.1), the merge (B.2), the
+    segment reduce (B.3) and the quantize (B.5), and references to those
+    of the latest launch; :meth:`check` then holds the first and the last launch
     against the plain version on the same inputs, at the shapes the run
     gave the kernel. The first launch's copy is made on the stream right
     after it and adds its bytes (:meth:`nbytes`) to the device peak; a
@@ -2716,13 +2745,15 @@ class KernelCapture:
         self.calls = {}            # kernel name -> [first, last] (args, out)
 
     def __enter__(self) -> "KernelCapture":
+        from sparkucx_tpu_torch.ops import quant as tq
         from sparkucx_tpu_torch.ops import ragged_a2a as ra
         from sparkucx_tpu_torch.ops import segmented as sg
         self._saved = []
         for mod, attr, name in ((ra, "ragged_a2a_kernel", ra.KERNEL_NAME),
                                 (sg, "segment_reduce_kernel",
                                  sg.KERNEL_NAME),
-                                (sg, "merge_kernel", sg.MERGE_KERNEL_NAME)):
+                                (sg, "merge_kernel", sg.MERGE_KERNEL_NAME),
+                                (tq, "quantize_kernel", tq.KERNEL_NAME)):
             orig = getattr(mod, attr)
             self._saved.append((mod, attr, orig))
 
@@ -2754,6 +2785,7 @@ class KernelCapture:
         number of captured launches held against the plain version (an
         overflowed segment move writes nothing and is not compared),
         ``rows`` the largest send or input row count among them."""
+        from sparkucx_tpu_torch.ops import quant as tq
         from sparkucx_tpu_torch.ops import ragged_a2a as ra
         from sparkucx_tpu_torch.ops import segmented as sg
         out = {}
@@ -2767,11 +2799,13 @@ class KernelCapture:
                     err = max(err, check_segment_move(what, args, got))
                 elif name == sg.MERGE_KERNEL_NAME:
                     check_merge(what, args, got)
+                elif name == tq.KERNEL_NAME:
+                    check_quantize(what, args, got)
                 else:
                     err = max(err, check_segment_reduce(what, args, got))
                 n += 1
-                widths.add(int(args[0].shape[2]))
-                rows = max(rows, int(args[0].shape[1]))
+                widths.add(int(args[0].shape[-1]))
+                rows = max(rows, int(args[0].shape[-2]))
             if not n:
                 raise AssertionError(f"{tag}: no launch of {name} was "
                                      "compared with its plain version")
@@ -2807,6 +2841,18 @@ def check_merge(tag: str, args, got) -> None:
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"{tag}: differs from merge_plain")
+
+
+def check_quantize(tag: str, args, got) -> None:
+    """Hold the quantize kernel's (q, scale) for ``args`` = (x, u) against
+    ``quantize_plain``: byte for byte."""
+    import torch
+    from sparkucx_tpu_torch.ops import quant as tq
+    q, scale = tq.quantize_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], q) and torch.equal(
+            got[1].view(torch.int32), scale.view(torch.int32))):
+        raise AssertionError(f"{tag}: differs from quantize_plain")
 
 
 def workload_input_rows(fn: str, kw: dict, result: dict) -> int:
@@ -2921,6 +2967,352 @@ PIPELINE_RUNS = [
      dict(total_rows=10_485_760, num_mappers=64, num_partitions=200,
           key_space=2_097_152)),
 ]
+
+# the MoE cells: Switch-Base-8 (Fedus et al. 2021, arXiv:2101.03961; the
+# released google/switch-base-8: d_model 768, expert FFN 3,072, 8 experts,
+# top-1), capacity factor 2.0, 64 sequences of 512 tokens a step on a
+# dp=2 x ep=4 grid of logical shards
+MOE_D = 768
+MOE_H = 3072
+MOE_E = 8
+MOE_DP, MOE_EP = 2, 4
+MOE_TOKENS_PER_SHARD = 64 * 512 // (MOE_DP * MOE_EP)
+MOE_CF = 2.0
+MOE_STEPS = 5
+MOE_LR = 1e-3
+MOE_MAPS = 8
+MOE_DISPATCH_READS = 5
+# int8 forward against the float64 oracle: each of the two moves rounds a
+# value by at most one step (amax_row/127, 0.8% of its row's largest);
+# through the experts and wout this measured 1.8% of max|out| on the CPU
+# at these widths (512 tokens)
+MOE_INT8_TOL = 0.05
+# float64 routing may split a near-tie the other way from the model's
+# float32 routing: such tokens leave the comparison, at most this many
+MOE_ORACLE_FLIPS = 3
+
+
+def moe_config(wire: str):
+    from sparkucx_tpu_torch.models import moe as tm
+    return tm.MoEConfig(d_model=MOE_D, d_hidden=MOE_H, num_experts=MOE_E,
+                        tokens_per_shard=MOE_TOKENS_PER_SHARD,
+                        capacity_factor=MOE_CF, wire=wire)
+
+
+def moe_inputs(dev):
+    """(initial parameters, tokens x, targets y) on the card, from the
+    smoke's seed."""
+    import torch
+    from sparkucx_tpu_torch.models import moe as tm
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    params = tm.init_params(moe_config("raw"), g, dev)
+    B = MOE_DP * MOE_EP * MOE_TOKENS_PER_SHARD
+    x = torch.randn(B, MOE_D, generator=g, device=dev)
+    y = torch.randn(B, MOE_D, generator=g, device=dev) * 0.1
+    return params, x, y
+
+
+def moe_oracle(params, x):
+    """The dense top-1 MoE of tests/test_moe.py in float64 on the card,
+    each token through its own expert only: (output, expert ids)."""
+    import torch
+    import torch.nn.functional as F
+    p = {k: v.double() for k, v in params.items()}
+    xd = x.double()
+    logits = xd @ p["router"]
+    expert = torch.argmax(logits, dim=-1)
+    gate = torch.softmax(logits, dim=-1).gather(1, expert[:, None])[:, 0]
+    own = torch.zeros_like(xd)
+    for e in range(MOE_E):
+        idx = torch.nonzero(expert == e)[:, 0]
+        own[idx] = F.gelu(xd[idx] @ p["w1"][e], approximate="tanh") \
+            @ p["w2"][e]
+    return (own * gate[:, None]) @ p["wout"], expert
+
+
+def moe_forward_check(got, want, oracle_expert, model_expert,
+                      wire: str) -> dict:
+    """The forward against the float64 oracle on the tokens both route
+    alike: raw within 2e-5 + 2e-4 |want| (tests/test_moe.py's bound),
+    int8 within MOE_INT8_TOL of max|want|."""
+    import torch
+    same = oracle_expert == model_expert
+    flips = int((~same).sum())
+    err = (got.double() - want).abs()[same]
+    scale = float(want.abs().max())
+    max_err = float(err.max())
+    if wire == "raw":
+        worst = float((err / (2e-5 + 2e-4 * want.abs()[same])).max())
+        ok = worst <= 1.0
+    else:
+        worst = max_err / (MOE_INT8_TOL * scale)
+        ok = worst <= 1.0
+    if flips > MOE_ORACLE_FLIPS or not ok or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"moe_train {wire}: forward against the "
+                             f"oracle: max err {max_err} (worst/bound "
+                             f"{worst}), routing flips {flips}")
+    return {"max_abs_err": max_err, "max_abs_out": scale,
+            "err_over_bound": worst, "oracle_routing_flips": flips}
+
+
+def routing_disagreements(params, x, cfg, dp: int, ep: int) -> dict:
+    """Check of the raw wire's recomputed routing: dispatch ``x`` as the
+    model's forward does, move each token's sender-side expert id beside
+    it (an exact id exchange the model itself does not run), recompute
+    the expert on the received rows and count the received rows whose
+    expert differs; such a row would go to another expert or drop without
+    an error. ``{"rows": received rows, "disagree": n}``."""
+    import torch
+    from sparkucx_tpu_torch.models import moe as tm
+    from sparkucx_tpu_torch.shuffle.alltoall import exchange, group_shuffle
+    cap = cfg.recv_capacity
+    with torch.no_grad():
+        xs = x.reshape(dp, ep, cfg.tokens_per_shard, cfg.d_model)
+        _, expert, order, _, x_sorted, counts = tm._route(params, xs, cfg,
+                                                          ep)
+        recv = exchange(x_sorted, counts, cap, cfg.impl)
+        sent, recv_sizes, _ = group_shuffle(
+            torch.gather(expert.to(torch.int32), -1, order)[..., None],
+            counts, cap, cfg.impl)
+        again = torch.argmax(tm.router_logits(recv, params["router"]), -1)
+        valid = torch.arange(cap, device=x.device) \
+            < recv_sizes.sum(dim=-1, keepdim=True)
+        return {"rows": int(valid.sum()),
+                "disagree": int((valid & (again != sent[..., 0])).sum())}
+
+
+def traced_kernel_ms(prof, name: str) -> list:
+    """Device ms of each traced launch of the kernel whose symbol holds
+    ``name``, in launch order."""
+    import torch
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.name]
+    evts.sort(key=lambda e: e.time_range.start)
+    return [(e.time_range.end - e.time_range.start) / 1e3 for e in evts]
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def moe_train_phase(dev) -> tuple:
+    """Switch-Base-8's MoE layer trained on the dp x ep grid on each wire:
+    the forward against the float64 oracle, five Adam steps (walls,
+    losses, peak device bytes, quantize launches), the raw wire's
+    recomputed routing against the senders', and on the int8 wire the
+    first and last quantize launch held against ``quantize_plain``."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.models import moe as tm
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
+    from torch.profiler import ProfilerActivity, profile
+    params0, x, y = moe_inputs(dev)
+    want, oracle_expert = moe_oracle(params0, x)
+    with torch.no_grad():
+        model_expert = torch.argmax(tm.router_logits(x, params0["router"]),
+                                    dim=-1)
+    out = {"tokens": int(x.shape[0]), "grid": [MOE_DP, MOE_EP],
+           "d_model": MOE_D, "d_hidden": MOE_H, "experts": MOE_E,
+           "capacity_factor": MOE_CF,
+           "recv_capacity": moe_config("raw").recv_capacity}
+    for wire in ("raw", "int8"):
+        cfg = moe_config(wire)
+        with KernelCapture() as capture:
+            with torch.no_grad():
+                got, _ = _timed(lambda: tm.forward(params0, x, cfg, MOE_DP,
+                                                   MOE_EP))
+                fwd_ms = float(np.median([_timed(lambda: tm.forward(
+                    params0, x, cfg, MOE_DP, MOE_EP))[1] for _ in range(3)]))
+            check = moe_forward_check(got, want, oracle_expert,
+                                      model_expert, wire)
+            del got
+            init, step = tm.make_train_step(cfg, MOE_DP, MOE_EP, lr=MOE_LR,
+                                            device=dev)
+            params, opt = init(params0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            backend.reset_launch_counts()
+            losses, walls = [], []
+            for _ in range(MOE_STEPS):
+                (params, opt, loss), ms = _timed(
+                    lambda: step(params, opt, x, y))
+                losses.append(float(loss))
+                walls.append(ms)
+            counts = backend.launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+        # one more step under device-activity tracing: where its time goes
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_ms = _timed(lambda: step(params, opt, x, y))
+        # int8: the dispatch, the combine and the combine's backward, one
+        # launch each for all 8 shards; the dispatch's backward does not
+        # run (the tokens are not differentiated)
+        quant = counts.get(tq.KERNEL_NAME, 0)
+        want_quant = 3 * MOE_STEPS if cfg.wire_int8 else 0
+        if quant != want_quant or counts.get(move, 0):
+            raise AssertionError(f"moe_train {wire}: launches {counts}, "
+                                 f"want quantize {want_quant}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"moe_train {wire}: losses {losses}")
+        line = {"forward_ms": fwd_ms, "step_ms": float(np.median(walls)),
+                "step_walls_ms": walls, "losses": losses,
+                "peak_device_bytes": peak, "quantize_launches": quant,
+                "quantize_per_step": quant / MOE_STEPS,
+                "captured_bytes": capture.nbytes(), "forward": check,
+                "profiled_step": {"wall_ms": prof_ms,
+                                  **device_busy(prof, prof_ms)}}
+        if cfg.wire_int8:
+            # the dispatch (dp*ep*T rows), the combine (dp*ep*cap rows)
+            # and the combine's backward (dp*ep*T rows), each x d_model
+            # (the trace may hold fewer launches than were made)
+            q_ms = traced_kernel_ms(prof, QUANT_DEVICE_KERNEL)
+            B = MOE_DP * MOE_EP
+            line["profiled_step"]["quantize_device_ms"] = {
+                "rows": [B * MOE_TOKENS_PER_SHARD, B * cfg.recv_capacity,
+                         B * MOE_TOKENS_PER_SHARD],
+                "width": MOE_D, "ms": q_ms, "sum_ms": float(sum(q_ms))}
+        if cfg.wire_int8:
+            line["kernel_checks"] = capture.check("moe_train int8")
+        else:
+            # the receiver's recomputed expert against the sender's, with
+            # the initial and the trained router
+            line["routing"] = {
+                "initial": routing_disagreements(
+                    params0, x, cfg, MOE_DP, MOE_EP),
+                "trained": routing_disagreements(
+                    {k: v.detach() for k, v in params.items()}, x, cfg,
+                    MOE_DP, MOE_EP)}
+            bad = {k: v for k, v in line["routing"].items() if v["disagree"]}
+            if bad:
+                raise AssertionError(f"moe_train raw: received rows route "
+                                     f"to another expert: {bad}")
+        out[wire] = line
+        del params, opt, init, step
+    out["int8_quantize_launches"] = out["int8"]["quantize_launches"]
+    return out, params0, x
+
+
+def moe_dispatch_phase(dev, params0, x) -> dict:
+    """The read-path expert dispatch: the moe_train tokens staged by their
+    Switch-Base-8 expert (``partitioner="direct"``, 8 experts as
+    partitions, 8 maps), read with ``sink="device"`` under
+    ``a2a.impl=pallas`` (the segment move, compacted) and consumed by
+    ``make_device_dispatch_step`` over five fresh reads, then one read
+    under the default conf (dense) from the same weights, then the
+    host-staged arm on a host-sink read."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.models import moe as tm
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
+    from sparkucx_tpu_torch.utils.metrics import C_D2H, C_H2D
+    from torch.profiler import ProfilerActivity, profile
+    cfg = tm.MoEConfig(d_model=MOE_D, d_hidden=MOE_H, num_experts=MOE_E)
+    with torch.no_grad():
+        eids = torch.argmax(x @ params0["router"], dim=-1).cpu().numpy()
+    tokens = x.cpu().numpy()
+    width = 2 + MOE_D
+    steps = {}
+
+    def step_for(cap):
+        if cap not in steps:
+            steps[cap] = tm.make_device_dispatch_step(cfg, cap, SHARDS,
+                                                      device=dev)
+        return steps[cap]
+
+    def consume(res, params):
+        cap = int(res.device_rows().shape[1])
+        step = step_for(cap)[1]
+        return res.consume(lambda c, rows, totals: step(c[0], rows, totals),
+                           (params, None)), cap
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 41)
+    out = {"tokens": int(tokens.shape[0]), "maps": MOE_MAPS,
+           "partitions": MOE_E, "width": width,
+           "expert_rows": np.bincount(eids, minlength=MOE_E).tolist()}
+    sid = 60
+    pallas = {"spark.shuffle.tpu.a2a.impl": "pallas"}
+    with connect(pallas, num_shards=SHARDS, use_env=False) as svc:
+        h = svc.register_shuffle(sid, MOE_MAPS, MOE_E, partitioner="direct")
+        tm.stage_tokens_by_expert(svc.manager, h, tokens, eids)
+        metrics = svc.node.metrics
+        # warm the read's and the step's torch ops (not counted, not timed)
+        res = svc.read(h, sink="device")
+        w0 = step_for(int(res.device_rows().shape[1]))[0](g)
+        consume(res, w0)
+        d2h0 = metrics.get(C_D2H)
+        reads, consumes, losses, caps = [], [], [], []
+        params = w0
+        with KernelCapture() as capture:
+            backend.reset_launch_counts()
+            for _ in range(MOE_DISPATCH_READS):
+                res, ms = _timed(lambda: svc.read(h, sink="device"))
+                reads.append(ms)
+                ((params, loss), cap), ms = _timed(
+                    lambda: consume(res, params))
+                consumes.append(ms)
+                losses.append(float(loss))
+                caps.append(cap)
+            counts = backend.launch_counts()
+        d2h = metrics.get(C_D2H) - d2h0
+        rep = svc.report(sid)
+        captured = capture.nbytes()
+        checks = capture.check("moe_dispatch")
+        if counts.get(move, 0) != MOE_DISPATCH_READS or d2h:
+            raise AssertionError(f"moe_dispatch: launches {counts}, D2H "
+                                 f"{d2h}; want {MOE_DISPATCH_READS} "
+                                 f"segment moves and no D2H")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"moe_dispatch: losses {losses}")
+        # one more read and consume under device-activity tracing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_ms = _timed(lambda: consume(
+                svc.read(h, sink="device"), params))
+        profiled = {"wall_ms": prof_ms, **device_busy(prof, prof_ms)}
+        h2d0 = metrics.get(C_H2D)
+        rh, host_read_ms = _timed(lambda: svc.read(h, sink="host"))
+        (_, host_loss), host_ms = _timed(lambda: tm.host_staged_consume(
+            rh, step_for(caps[0])[1], w0, caps[0], width, SHARDS, metrics))
+        h2d = metrics.get(C_H2D) - h2d0
+        svc.unregister_shuffle(sid)
+    with connect(num_shards=SHARDS, use_env=False) as svc:
+        h = svc.register_shuffle(sid, MOE_MAPS, MOE_E, partitioner="direct")
+        tm.stage_tokens_by_expert(svc.manager, h, tokens, eids)
+        backend.reset_launch_counts()
+        dres, dense_read_ms = _timed(lambda: svc.read(h, sink="device"))
+        ((_, dense_loss), dense_cap), dense_ms = _timed(
+            lambda: consume(dres, w0))
+        dense_counts = backend.launch_counts()
+        dense_impl = svc.report(sid).impl
+        svc.unregister_shuffle(sid)
+    first = losses[0]
+    rel = {"host_staged": abs(float(host_loss) - first) / first,
+           "dense": abs(float(dense_loss) - first) / first}
+    if rel["host_staged"] > 1e-5 or rel["dense"] > 1e-5 or h2d <= 0 \
+            or dense_counts.get(move, 0) or dense_impl != "dense":
+        raise AssertionError(f"moe_dispatch: host-staged / dense first "
+                             f"loss off by {rel}, H2D {h2d}, dense read "
+                             f"{dense_impl} launches {dense_counts}")
+    out.update({
+        "pallas": {"impl": rep.impl, "read_ms": reads,
+                   "consume_ms": consumes, "losses": losses, "caps": caps,
+                   "d2h_bytes": d2h, "launches": counts.get(move, 0),
+                   "kernel_checks": checks, "captured_bytes": captured,
+                   "profiled_read_consume": profiled},
+        "dense": {"impl": dense_impl, "read_ms": dense_read_ms,
+                  "consume_ms": dense_ms, "cap": dense_cap,
+                  "loss": float(dense_loss)},
+        "host_staged": {"read_ms": host_read_ms, "consume_ms": host_ms,
+                        "loss": float(host_loss), "h2d_bytes": h2d},
+        "first_loss_rel_diff": rel})
+    return out
 
 
 class PlaneTally:
@@ -3551,6 +3943,19 @@ def main() -> int:
     finally:
         shutil.rmtree(spill_root, ignore_errors=True)
 
+    # -- the expert-parallel MoE: Switch-Base-8 trained on both wires,
+    # then dispatched through the read path (float32 products: TF32 is
+    # off since the attention phases)
+    t = time.perf_counter()
+    mo, moe_params, moe_x = moe_train_phase(dev)
+    print(json.dumps({"phase": "moe_train", **mo,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    t = time.perf_counter()
+    md = moe_dispatch_phase(dev, moe_params, moe_x)
+    del moe_params, moe_x
+    print(json.dumps({"phase": "moe_dispatch", **md,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -3574,6 +3979,7 @@ def main() -> int:
         "replaces": TPU_KERNEL, "launches": launches,
         "workload_launches": wl_launches[KERNEL_NAME],
         "pipeline_launches": pl_launches[KERNEL_NAME],
+        "moe_launches": md["pallas"]["launches"],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -3598,6 +4004,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/quant.cu",
         "replaces": QUANT_TPU_KERNEL,
         "launches": i8_stats["launches"][QUANT_KERNEL],
+        "moe_launches": mo["int8_quantize_launches"],
         "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
         "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": "bytes", "library_ms": qt["library_ms"]}, {

@@ -20,12 +20,22 @@ The int8 wire format (``a2a.wire=int8``) is defined here too:
 :func:`wire_pack_rows` narrows the float32 value lanes of ``[P, cap, W]``
 rows to int8 plus one float32 scale lane per row, and
 :func:`wire_unpack_rows` expands them back; the key lanes stay exact.
+
+The differentiable exchanges (the MoE dispatch and combine,
+``models/moe.py``) ride the same contract: :func:`exchange` moves float
+rows and its backward moves the cotangent under the transposed plan;
+:func:`exchange_quantized` moves them on the int8 wire (the quantize
+kernel through :func:`wire_pack_rows`), straight-through in the
+backward, which is itself an int8 move. Both also take a leading group
+axis, ``[G, P, cap, ...]`` with ``[G, P, P]`` sizes: G independent
+exchanges among P shards each (the data-parallel rows of an
+expert-parallel grid), whose int8 rows quantize in one launch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -41,7 +51,8 @@ IMPLS = ("local", "dense", "gather")
 WIRE_SEED_STREAMS = 4
 
 __all__ = ["ALLOWED_IMPLS", "IMPLS", "ShuffleResult", "WIRE_SEED_STREAMS",
-           "int8_wire_words", "ragged_shuffle", "select_impl",
+           "exchange", "exchange_quantized", "group_shuffle",
+           "int8_wire_words", "ragged_shuffle", "select_impl", "shared_uniforms",
            "validate_impl", "wire_noise_seed", "wire_pack_rows",
            "wire_uniforms", "wire_unpack_rows"]
 
@@ -252,3 +263,147 @@ def ragged_shuffle(data: torch.Tensor, sizes: torch.Tensor, *,
     if peer_capacity is None:
         peer_capacity = out_capacity
     return _a2a_dense(data, sizes, out_capacity, peer_capacity)
+
+
+# -- differentiable exchanges -------------------------------------------------
+# (seed, [n, w] shape of one shard's rows, device) -> [n, w] float32
+# uniforms that every shard of the move rounds with
+Uniforms = Callable[[int, tuple, torch.device], torch.Tensor]
+
+
+def shared_uniforms(seed: int, shape, device: torch.device) -> torch.Tensor:
+    """The rounding noise of one differentiable int8 move: ``[n, w]``
+    float32 uniforms from :func:`wire_uniforms` seeded with ``seed``. The
+    seed is the same on every shard (the JAX package replicates it), so
+    every shard rounds with these same uniforms."""
+    return wire_uniforms((1,) + tuple(shape), [seed], device)[0]
+
+
+def group_shuffle(data: torch.Tensor, sizes: torch.Tensor,
+                  out_capacity: int, impl: str = "auto"):
+    """:func:`ragged_shuffle` of each group of ``[G, P, cap, ...]`` rows
+    under its ``[G, P, P]`` sizes, G independent exchanges: (data ``[G, P,
+    out_capacity, ...]``, recv_sizes ``[G, P, P]``, overflow ``[G]``
+    bool)."""
+    rs = [ragged_shuffle(data[g], sizes[g], out_capacity=out_capacity,
+                         impl=impl) for g in range(data.shape[0])]
+    return (torch.stack([r.data for r in rs]),
+            torch.stack([r.recv_sizes for r in rs]),
+            torch.stack([r.overflow for r in rs]))
+
+
+def _poisoned(out: torch.Tensor, overflow: torch.Tensor) -> torch.Tensor:
+    """``out`` plus NaN in every group whose exchange overflowed (plus 0
+    elsewhere, as the JAX package adds it), on the device: no host sync."""
+    flag = overflow.reshape((-1,) + (1,) * (out.dim() - 1))
+    nan = torch.full((), float("nan"), dtype=out.dtype, device=out.device)
+    return out + torch.where(flag, nan, torch.zeros_like(nan))
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, sizes, out_capacity, impl):
+        out, recv, overflow = group_shuffle(data, sizes, out_capacity, impl)
+        ctx.save_for_backward(recv)
+        ctx.cap_in, ctx.impl = data.shape[2], impl
+        return _poisoned(out, overflow) if out.is_floating_point() else out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transposed plan: receiver p sends recv_sizes[p, s] rows back
+        # to sender s, landing in the sender's original layout
+        recv, = ctx.saved_tensors
+        gb, _, _ = group_shuffle(g.contiguous(), recv, ctx.cap_in, ctx.impl)
+        return gb, None, None, None
+
+
+def _grouped(data: torch.Tensor, sizes: torch.Tensor):
+    """(data, sizes, grouped?) with a group axis of 1 added to the plain
+    ``[P, cap, ...]`` / ``[P, P]`` form."""
+    if sizes.dim() == 2:
+        return data.unsqueeze(0), sizes.unsqueeze(0), False
+    if sizes.dim() != 3 or data.dim() < 3 \
+            or tuple(sizes.shape) != (data.shape[0], data.shape[1],
+                                      data.shape[1]):
+        raise ValueError(f"sizes {tuple(sizes.shape)} do not fit data "
+                         f"{tuple(data.shape)}: want [P, P] for [P, cap, ...]"
+                         f" or [G, P, P] for [G, P, cap, ...]")
+    return data, sizes, True
+
+
+def exchange(data: torch.Tensor, sizes: torch.Tensor, out_capacity: int,
+             impl: str = "auto") -> torch.Tensor:
+    """Differentiable ragged exchange (the JAX package's ``exchange``).
+
+    Forward: :func:`ragged_shuffle` of destination-grouped rows ``data``
+    ``[P, cap_in, ...]`` under ``sizes`` ``[P, P]``, returning the packed
+    receive buffers ``[P, out_capacity, ...]``; with a leading group axis
+    (``[G, P, cap_in, ...]``, ``[G, P, P]``) each group is its own
+    exchange. A float output of a group whose exchange overflowed is NaN
+    (no retry loop runs inside a training step, so the loss goes NaN);
+    integer payloads are never poisoned. Backward: the same move of the
+    cotangent under the transposed plan, back into each sender's layout;
+    sizes get no gradient."""
+    d, s, grouped = _grouped(data, sizes)
+    impl = select_impl(impl, d.shape[1])
+    out = _Exchange.apply(d, s, int(out_capacity), impl)
+    return out if grouped else out[0]
+
+
+def _quantized_move(data: torch.Tensor, sizes: torch.Tensor,
+                    out_capacity: int, impl: str, seed: int,
+                    uniforms: Uniforms):
+    """One int8-wire move of ``[G, P, n, w]`` float rows: every row packed
+    to int8 + a float32 scale (one quantize launch for all shards, the
+    uniforms for seed ``seed`` shared by every shard), moved, unpacked and
+    cast back to ``data``'s dtype; (rows, recv_sizes)."""
+    G, P, n, w = data.shape
+    rows = data.to(torch.float32).contiguous().view(torch.int32)
+    u = uniforms(int(seed), (n, w), data.device)
+    packed = wire_pack_rows(rows, w, u.expand(G, P, n, w))
+    moved, recv, overflow = group_shuffle(packed, sizes, out_capacity, impl)
+    out = wire_unpack_rows(moved, w, w).view(torch.float32)
+    return _poisoned(out, overflow).to(data.dtype), recv
+
+
+class _ExchangeQuantized(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, sizes, seed, out_capacity, impl, uniforms):
+        out, recv = _quantized_move(data, sizes, out_capacity, impl, seed,
+                                    uniforms)
+        ctx.save_for_backward(recv)
+        ctx.cap_in, ctx.impl, ctx.seed = data.shape[2], impl, seed
+        ctx.uniforms = uniforms
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # straight-through: the cotangent takes the transposed int8 move,
+        # on noise stream 3 of this move's seed
+        recv, = ctx.saved_tensors
+        gb, _ = _quantized_move(g, recv, ctx.cap_in, ctx.impl,
+                                wire_noise_seed(ctx.seed, 3), ctx.uniforms)
+        return gb, None, None, None, None, None
+
+
+def exchange_quantized(data: torch.Tensor, sizes: torch.Tensor, seed: int,
+                       out_capacity: int, impl: str = "auto",
+                       uniforms: Optional[Uniforms] = None) -> torch.Tensor:
+    """Differentiable ragged exchange on the int8 wire (the JAX package's
+    ``exchange_quantized``): :func:`exchange`'s contract for float rows
+    ``[P, cap_in, w]`` (or ``[G, P, cap_in, w]``), each row stochastically
+    rounded to int8 with a float32 scale (:func:`wire_pack_rows` with no
+    exact lanes), moved, and dequantized into ``data``'s dtype. ``seed``
+    picks the rounding noise (thread a step counter through it); the
+    backward is straight-through and moves the cotangent on the int8 wire
+    too, with noise ``wire_noise_seed(seed, 3)``. ``uniforms`` replaces
+    :func:`shared_uniforms` as the noise source (tests hand in another
+    package's draws with it)."""
+    d, s, grouped = _grouped(data, sizes)
+    if d.dim() != 4 or not d.is_floating_point():
+        raise ValueError(f"exchange_quantized moves float rows [P, cap, w],"
+                         f" got {tuple(data.shape)} {data.dtype}")
+    impl = select_impl(impl, d.shape[1])
+    out = _ExchangeQuantized.apply(d, s, int(seed), int(out_capacity), impl,
+                                   uniforms or shared_uniforms)
+    return out if grouped else out[0]

@@ -6,8 +6,11 @@ counter :data:`C_D2H`, the kernel-fallback counter
 :data:`C_SINK_FALLBACK`), the wave-gap histogram :data:`H_WAVE_GAP` and
 the workload counters :data:`C_WORKLOAD_ROWS` and
 :data:`C_WORKLOAD_PHASE_MS`, the spill counters :data:`C_SPILL_BYTES`
-and :data:`C_SPILL_COUNT`, and the admission counter
-:data:`C_ADMIT_BYTES` with its wait histogram :data:`H_ADMIT_WAIT`."""
+and :data:`C_SPILL_COUNT`, the admission counter
+:data:`C_ADMIT_BYTES` with its wait histogram :data:`H_ADMIT_WAIT`, and
+the MoE exchange counters (:data:`C_PAYLOAD_BYTES`, :data:`C_WIRE_BYTES`,
+:data:`C_MOE_EXCHANGES`, :data:`C_MOE_ROWS`) with the host-staged
+consumer's upload counter :data:`C_H2D`."""
 
 from __future__ import annotations
 
@@ -42,6 +45,16 @@ C_SPILL_COUNT = "shuffle.spill.count"
 # grant's wait in the deferral queue (ms; 0 for an immediate grant)
 C_ADMIT_BYTES = "shuffle.admit.bytes"
 H_ADMIT_WAIT = "shuffle.admit.wait_ms"
+# bytes a host-staged consumer re-uploaded host-to-device after draining a
+# host-sink read (models/moe.host_staged_consume): the round trip the
+# device sink removes
+C_H2D = "shuffle.consume.h2d.bytes"
+# the MoE model's dispatch and combine exchanges (models/moe.py): payload
+# bytes, the bytes at the wire tier's width, moves and rows moved
+C_PAYLOAD_BYTES = "shuffle.payload.bytes"
+C_WIRE_BYTES = "shuffle.wire.bytes"
+C_MOE_EXCHANGES = "moe.exchange.count"
+C_MOE_ROWS = "moe.exchange.rows"
 
 
 def labeled(name: str, **labels) -> str:

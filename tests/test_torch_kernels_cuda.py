@@ -1242,3 +1242,85 @@ def test_groupby_pipeline_device_arm_on_card(card, tmp_path):
         sg.KERNEL_NAME: 2 * (2 * W - 1) + tally.combine_retries}
     assert set(checks) == {sg.MERGE_KERNEL_NAME, sg.KERNEL_NAME}
     assert all(c["calls"] == 2 for c in checks.values())
+
+
+# -- the expert-parallel MoE (models/moe.py) ----------------------------------
+def _moe_case(wire: str, d: int = 64, h: int = 128, t: int = 64):
+    from sparkucx_tpu_torch.models import moe as tm
+    cfg = tm.MoEConfig(d_model=d, d_hidden=h, num_experts=8,
+                       tokens_per_shard=t, wire=wire)
+    g = torch.Generator().manual_seed(11)
+    params = tm.init_params(cfg, g, device="cpu")
+    x = torch.randn(8 * t, d, generator=g)
+    y = torch.randn(8 * t, d, generator=g) * 0.1
+    return tm, cfg, params, x, y
+
+
+def _moe_close(got, want, rel):
+    want = want.double()
+    err = (got.cpu().double() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("wire", ["raw", "int8"])
+def test_moe_forward_and_train_step_on_card_match_cpu(card, wire):
+    """The card's forward and one training step against the port on the
+    CPU from the same parameters and the same noise (the uniforms are
+    drawn on the CPU and handed to both)."""
+    from sparkucx_tpu_torch.shuffle.alltoall import shared_uniforms
+    tm, cfg, params, x, y = _moe_case(wire)
+
+    def noise(seed, shape, device):
+        return shared_uniforms(seed, shape, torch.device("cpu")).to(device)
+
+    outs, grads, losses = {}, {}, {}
+    for dev in (torch.device("cpu"), card):
+        p = {k: v.to(dev) for k, v in params.items()}
+        outs[dev.type] = tm.forward(p, x.to(dev), cfg, 2, 4, seed=2,
+                                    uniforms=noise)
+        init, step = tm.make_train_step(cfg, 2, 4, device=dev,
+                                        uniforms=noise)
+        p, opt = init(params)
+        p, opt, loss = step(p, opt, x.to(dev), y.to(dev))
+        losses[dev.type] = float(loss)
+        grads[dev.type] = {k: v.grad for k, v in p.items()}
+    torch.cuda.synchronize()
+    # int8: a value whose scaled fraction sits within the two devices'
+    # rounding of its uniform may round the other way, one step
+    # (amax/127 of its row) apart
+    rel = 1e-5 if wire == "raw" else 2e-2
+    _moe_close(outs["cuda"], outs["cpu"], rel)
+    assert abs(losses["cuda"] - losses["cpu"]) <= rel * losses["cpu"]
+    for k in tm.PARAM_NAMES:
+        _moe_close(grads["cuda"][k], grads["cpu"][k], max(rel, 1e-4))
+
+
+def test_moe_int8_step_launches_quantize_three_times(card):
+    """The dispatch, the combine and the combine's backward: one quantize
+    launch each for all eight shards (the dispatch's backward does not
+    run: the tokens are not differentiated), none of the segment move."""
+    from sparkucx_tpu_torch.ops import quant as tq
+    tm, cfg, params, x, y = _moe_case("int8")
+    init, step = tm.make_train_step(cfg, 2, 4, device=card)
+    p, opt = init(params)
+    before = backend.launch_counts()
+    for _ in range(2):
+        p, opt, loss = step(p, opt, x.to(card), y.to(card))
+    torch.cuda.synchronize()
+    after = backend.launch_counts()
+    assert after.get(tq.KERNEL_NAME, 0) - before.get(tq.KERNEL_NAME, 0) == 6
+    assert after.get(ra.KERNEL_NAME, 0) == before.get(ra.KERNEL_NAME, 0)
+    assert np.isfinite(float(loss))
+
+
+@pytest.mark.parametrize("t", [4096, 100, 16])
+def test_moe_routing_recompute_agrees_on_card(card, t):
+    """On the raw wire the receiver recomputes each row's expert: at
+    Switch-Base-8's width (d_model 768), at Switch-Base-8's 4,096 tokens
+    a shard and at small counts (where a library is likelier to split a
+    product's depth), no received row may disagree with its sender."""
+    from chip_smoke import routing_disagreements
+    tm, cfg, params, x, _ = _moe_case("raw", d=768, h=64, t=t)
+    p = {k: v.to(card) for k, v in params.items()}
+    chk = routing_disagreements(p, x.to(card), cfg, 2, 4)
+    assert chk["rows"] == x.shape[0] and chk["disagree"] == 0, chk
