@@ -243,6 +243,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             (dense) and the host-staged arm (``host_staged_consume`` on a
             host-sink read), both from the same weights as the first
             pallas read and within 1e-5 of its loss.
+31. transformer_train — the five-axis MoE transformer
+            (``models/transformer.py``) at Switch-Base-8's widths (vocab
+            32,128, d_model 768, 12 heads of 64, d_ff 3,072, 8 experts, 12
+            layers, 512-token sequences), 64 sequences a step, 2
+            microbatches, capacity factor 2.0, float32, remat on,
+            ``attn="ulysses"``, on ``make_mesh(8)`` (dp 1, pp 2, sp 2, tp
+            1, ep 2), tokens uniform from the seed: one forward through
+            the flash kernels against one through their plain versions
+            (the (layer, token) routing decisions that differ, each with a
+            top-2 logit gap below 1e-5 if any; logits within 2e-4 of
+            max|logits| on the positions no such decision reaches; flash_fwd
+            24 launches), five Adam steps at lr 1e-4 (losses finite, the
+            fifth below the first; flash_fwd 48, flash_dq 24 and flash_dkv
+            24 a step: the forward and remat's recompute, one each per
+            layer and microbatch), the first flash_dq and flash_dkv launch
+            of a step ([384, 512, 64]) against the plain backward
+            (``grad_tol``), the walls, the peak device bytes, one profiled
+            step and the one-hot expert products' FLOPs.
+32. transformer_mesh2 — the same widths at 2 layers on ``make_mesh(8,
+            order=("ep", "tp"))`` (dp 2, tp 2, ep 2), ring attention, in
+            float32 and in bfloat16: the forward against the trivial
+            grid's (float32 as transformer_train's check; bfloat16 with
+            the trivial grid's routing replayed, the grid's own differing
+            decisions below a gap of 2**-2, logits within 2e-2 of
+            max|logits|), then one training step (loss finite, master
+            parameters float32).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -252,7 +278,7 @@ quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
 wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
-moe_train, moe_dispatch.
+moe_train, moe_dispatch, transformer_train, transformer_mesh2.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -264,12 +290,14 @@ read: the segment move; workloads: per runner, the segment move and the
 segment reduce exactly as above; spill and admission's pairs: the segment
 move; pipelines: per pipeline, the three counts exactly as above;
 moe_train: the quantize exactly as above; moe_dispatch: the segment move
-once a pallas read). The last two lines of standard output
+once a pallas read; transformer_train: the three flash kernels exactly as
+above). The last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3315,6 +3343,364 @@ def moe_dispatch_phase(dev, params0, x) -> dict:
     return out
 
 
+# -- the five-axis MoE transformer (models/transformer.py) -------------------
+# Switch-Base-8's published widths (Fedus et al. 2021, arXiv:2101.03961;
+# google/switch-base-8), one stack's depth, Switch's 512-token inputs
+TF_VOCAB = 32128
+TF_D = 768
+TF_HEADS = 12
+TF_HEAD_DIM = 64
+TF_FF = 3072
+TF_EXPERTS = 8
+TF_LAYERS = 12
+TF_SEQ = 512
+TF_BATCH = 64              # sequences a step: 32,768 tokens
+TF_MICROBATCHES = 2
+TF_CF = 2.0
+TF_STEPS = 5
+# moe_train's lr 1e-3 raised the loss over five steps at this depth and
+# batch, under ring attention (no kernel) as under Ulysses (PERF.md
+# section 7); 1e-4 lowers it at every step
+TF_LR = 1e-4
+TF_MESH2_LAYERS = 2
+# kernels against their plain versions (and a grid against the trivial
+# one) in float32: a routing decision may differ only at a top-2 logit
+# gap below this, and the logits hold to 2e-4 of max|logits|
+# (tests/test_transformer.py's tolerance) where no such decision reaches
+TF_GAP = 1e-5
+TF_LOGIT_TOL = 2e-4
+# bfloat16 grid against the trivial grid, routed alike (the trivial
+# grid's decisions replayed). One rounding of every x_d moves a logit
+# sum_d x_d r_d by at most 2**-8 (bf16's unit roundoff) x sum_d |x_d r_d|,
+# about 0.07 at d_model 768 (unit-RMS x, router entries of 768**-0.5), so
+# a top-2 pair can move apart by 0.14 in each run: a decision of the
+# grid's own may differ from the trivial grid's below a gap of 2**-2. The
+# logits of the replayed routing, which differ by the roundings of the tp
+# partial sums, hold within 2e-2 of max|logits| (five bf16 steps of the
+# largest logit; tests/test_torch_transformer.py's BF16_TOL)
+TF_BF16_GAP = 2.0 ** -2
+TF_BF16_TOL = 2e-2
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def transformer_config(layers: int, attn: str, dtype: str = "float32"):
+    from sparkucx_tpu_torch.models import transformer as tt
+    return tt.TransformerConfig(
+        vocab=TF_VOCAB, d_model=TF_D, num_heads=TF_HEADS,
+        head_dim=TF_HEAD_DIM, d_ff=TF_FF, num_layers=layers,
+        num_experts=TF_EXPERTS, seq_len=TF_SEQ,
+        microbatches=TF_MICROBATCHES, capacity_factor=TF_CF, attn=attn,
+        remat=True, compute_dtype=dtype)
+
+
+def transformer_inputs(cfg, dev, seed: int):
+    """(parameters, tokens, targets) on the card from ``seed``: tokens
+    uniform over the vocabulary (no corpus is in the repository)."""
+    import torch
+    from sparkucx_tpu_torch.models import transformer as tt
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = tt.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (TF_BATCH, TF_SEQ + 1), generator=g,
+                         device=dev)
+    return params, toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+
+
+def transformer_routed_forward(params, tokens, mesh, cfg, impl=None,
+                               replay=None) -> dict:
+    """One forward without autograd that records every MoE layer's
+    routing: ``{"logits" [B, T, V], "experts" [L, B, T] (the expert each
+    (layer, token) chose), "gaps" [L, B, T] (its top-2 logit gap),
+    "replayed"}``. ``impl`` replaces the Ulysses path's flash impl for the
+    call (``"interpret"``: the kernels' plain versions); ``replay``
+    (another run's ``experts``) routes every token as that run did, while
+    ``experts`` still records this run's own choices."""
+    import torch
+    from sparkucx_tpu_torch.models import transformer as tt
+    g = tt.mesh_axis_sizes(mesh)
+    B, T = tokens.shape
+    L, M = cfg.num_layers, cfg.microbatches
+    dp, sp, ep = g["dp"], g["sp"], g["ep"]
+    mb, t, Ls = B // (dp * ep * M), T // sp, L // g["pp"]
+    shape = (L, dp * ep, M, mb, T)
+    experts = torch.empty(shape, dtype=torch.long, device=tokens.device)
+    gaps = torch.empty(shape, dtype=torch.float32, device=tokens.device)
+    if replay is not None:
+        replay = replay.reshape(shape)
+    calls = []
+    route0, impl0 = tt._route, tt.ULYSSES_IMPL
+
+    def to_global(a):        # [sp*dp, ep, mb*t] -> [dp*ep, mb, T]
+        return a.reshape(sp, dp, ep, mb, t).movedim(0, 3).reshape(
+            dp * ep, mb, T)
+
+    def to_shards(a):        # the inverse
+        return a.reshape(dp, ep, mb, sp, t).movedim(3, 0).reshape(
+            sp * dp, ep, mb * t)
+
+    def route(x, router, cfg_):
+        logits, expert, gate = route0(x, router, cfg_)
+        c = len(calls)
+        calls.append(c)
+        layer, m = (c // (M * Ls)) * Ls + c % Ls, (c // Ls) % M
+        top2 = torch.topk(logits, 2, dim=-1).values
+        experts[layer, :, m] = to_global(expert)
+        gaps[layer, :, m] = to_global(top2[..., 0] - top2[..., 1])
+        if replay is not None:
+            expert = to_shards(replay[layer, :, m])
+            gate = torch.gather(torch.softmax(logits, dim=-1), -1,
+                                expert[..., None])[..., 0].to(gate.dtype)
+        return logits, expert, gate
+
+    tt._route = route
+    if impl is not None:
+        tt.ULYSSES_IMPL = impl
+    try:
+        with torch.no_grad():
+            logits = tt.forward(params, tokens, mesh, cfg)
+    finally:
+        tt._route, tt.ULYSSES_IMPL = route0, impl0
+    if len(calls) != L * M:
+        raise AssertionError(f"{len(calls)} routing calls, want {L * M}")
+    return {"logits": logits, "experts": experts.reshape(L, B, T),
+            "gaps": gaps.reshape(L, B, T), "replayed": replay is not None}
+
+
+def transformer_routing_check(got, want, gap_limit: float, rel: float,
+                              what: str) -> dict:
+    """Hold ``got`` against ``want`` (two :func:`transformer_routed_forward`
+    results on the same parameters and tokens). Layer by layer, a
+    (layer, token) decision that differs while no earlier differing
+    decision reaches its position must have a top-2 logit gap (the larger
+    of the two runs') below ``gap_limit``; unless ``got`` replayed
+    ``want``'s routing, every position at or after a differing decision
+    in its sequence (causal attention carries it there) leaves the logit
+    check. The logits of the kept positions must be within ``rel`` of
+    max|want's logits|. Returns the counts and errors."""
+    import torch
+    differ = got["experts"] != want["experts"]
+    gap = torch.maximum(got["gaps"], want["gaps"])
+    tainted = torch.zeros(differ.shape[1:], dtype=torch.bool,
+                          device=differ.device)
+    first, worst = 0, 0.0
+    for layer in range(differ.shape[0]):
+        new = differ[layer] & ~tainted
+        if bool(new.any()):
+            first += int(new.sum())
+            worst = max(worst, float(gap[layer][new].max()))
+        if not got["replayed"]:
+            tainted |= torch.cummax(differ[layer].to(torch.int32),
+                                    dim=-1).values.bool()
+    keep = ~tainted
+    scale = float(want["logits"].abs().max())
+    err = (got["logits"] - want["logits"]).abs_().amax(dim=-1)
+    max_err = float(err[keep].max()) if bool(keep.any()) else 0.0
+    out = {"decisions": int(differ.numel()),
+           "disagree": int(differ.sum()), "disagree_first": first,
+           "max_disagree_gap": worst, "gap_limit": gap_limit,
+           "kept_positions": int(keep.sum()), "positions": int(keep.numel()),
+           "max_abs_err": max_err, "max_abs_logit": scale,
+           "tolerance": rel * scale}
+    finite = bool(torch.isfinite(got["logits"]).all())
+    if worst >= gap_limit or max_err > rel * scale or not finite:
+        raise AssertionError(f"{what}: {out}, logits finite {finite}")
+    return out
+
+
+def one_hot_flops(cfg, mesh, tokens: int) -> dict:
+    """FLOPs of one forward's one-hot expert products (w1 and w2): every
+    received row through every local expert, ``L * M * 2 * (2 * G * ep *
+    e_local * cap * D * F)`` with ``G * ep`` shards of ``n`` rows a
+    microbatch and ``cap = max(8, n * capacity_factor)``; every token is
+    received by one shard, so ``tokens`` rows are real and the rest of
+    each expert's batch multiplies zero rows."""
+    from sparkucx_tpu_torch.models import transformer as tt
+    g = tt.mesh_axis_sizes(mesh)
+    shards = g["dp"] * g["sp"] * g["ep"]
+    n = tokens // (shards * cfg.microbatches)
+    e_local = cfg.num_experts // g["ep"]
+    cap = max(8, int(n * cfg.capacity_factor))
+    per_row = 2 * 2 * cfg.d_model * cfg.d_ff
+    total = cfg.num_layers * cfg.microbatches * shards * e_local * cap \
+        * per_row
+    useful = cfg.num_layers * tokens * per_row
+    return {"rows_per_shard": n, "recv_capacity": cap, "e_local": e_local,
+            "forward_flops": total, "useful_flops": useful,
+            "zero_row_share": 1 - useful / total}
+
+
+def transformer_train_phase(dev) -> dict:
+    """The slice at full width: Switch-Base-8's widths at 12 layers,
+    attn="ulysses", remat on, float32, 64 sequences of 512 on
+    ``make_mesh(8)`` (dp 1, pp 2, sp 2, tp 1, ep 2). (a) The forward
+    through the flash kernels against the same forward through their
+    plain versions; (b) five Adam steps, losses finite and falling; (c)
+    the flash launches of each step; (d) the first captured flash_dq and
+    flash_dkv launch of a step against the plain backward; then the walls,
+    the peak device bytes, one profiled step and the one-hot products'
+    FLOPs."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.models import transformer as tt
+    from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from torch.profiler import ProfilerActivity, profile
+    cfg = transformer_config(TF_LAYERS, "ulysses")
+    mesh = tt.make_mesh(8)
+    g = tt.mesh_axis_sizes(mesh)
+    L, M = cfg.num_layers, cfg.microbatches
+    params0, x, y = transformer_inputs(cfg, dev, SEED + 50)
+    out = {"grid": g, "layers": L, "d_model": TF_D, "heads": TF_HEADS,
+           "head_dim": TF_HEAD_DIM, "d_ff": TF_FF, "experts": TF_EXPERTS,
+           "vocab": TF_VOCAB, "sequences": TF_BATCH, "seq_len": TF_SEQ,
+           "microbatches": M, "capacity_factor": TF_CF, "remat": True,
+           "dtype": "float32", "attn": "ulysses",
+           # [dp*ep*mb*H, T, Dh]: every shard's rows and heads in one call
+           "flash_shape": [TF_BATCH // M * TF_HEADS, TF_SEQ, TF_HEAD_DIM]}
+    # (a) kernels against their plain versions, routing and logits
+    backend.reset_launch_counts()
+    kern, fwd_ms = _timed(lambda: transformer_routed_forward(
+        params0, x, mesh, cfg))
+    fwd_counts = backend.launch_counts()
+    plain = transformer_routed_forward(params0, x, mesh, cfg,
+                                       impl="interpret")
+    out["forward_vs_plain"] = transformer_routing_check(
+        kern, plain, TF_GAP, TF_LOGIT_TOL, "transformer_train forward")
+    del kern, plain
+    if {k: fwd_counts.get(k, 0) for k in FLASH_KERNELS} != {
+            "flash_fwd": L * M, "flash_dq": 0, "flash_dkv": 0}:
+        raise AssertionError(f"transformer_train forward: launches "
+                             f"{fwd_counts}, want flash_fwd {L * M}")
+    with torch.no_grad():
+        out["forward_ms"] = [_timed(lambda: tt.forward(
+            params0, x, mesh, cfg))[1] for _ in range(2)]
+    out["routed_forward_ms"] = fwd_ms
+    # (b), (c): five Adam steps; (d) the first dq and dk/dv launch copied
+    init, step = tt.make_train_step(mesh, cfg, lr=TF_LR, device=dev)
+    params, opt = init(params0)
+    captured = {}
+    saved = [(name, getattr(tfa, name)) for name in
+             ("flash_dq_kernel", "flash_dkv_kernel")]
+
+    def capturing(name, orig):
+        def launch(*args):
+            got = orig(*args)
+            if name not in captured:
+                captured[name] = (_card_copy(args), _card_copy(got))
+            return got
+        return launch
+
+    for name, orig in saved:
+        setattr(tfa, name, capturing(name, orig))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        backend.reset_launch_counts()
+        losses, walls = [], []
+        for _ in range(TF_STEPS):
+            (params, opt, loss), ms = _timed(lambda: step(params, opt, x, y))
+            losses.append(float(loss))
+            walls.append(ms)
+        counts = backend.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for name, orig in saved:
+            setattr(tfa, name, orig)
+    # remat: the forward, then each layer's recompute in backward
+    per_step = {"flash_fwd": 2 * L * M, "flash_dq": L * M,
+                "flash_dkv": L * M}
+    if {k: counts.get(k, 0) for k in FLASH_KERNELS} != {
+            k: n * TF_STEPS for k, n in per_step.items()}:
+        raise AssertionError(f"transformer_train: flash launches {counts} "
+                             f"in {TF_STEPS} steps, want {per_step} a step")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"transformer_train: losses {losses}")
+    # (d) the captured backward launches against the plain versions
+    (q, k, v, gg, lse, delta, causal, scale), kdq = captured["flash_dq_kernel"]
+    kdk, kdv = captured["flash_dkv_kernel"][1]
+    pdq = tfa.flash_dq_plain(q, k, v, gg, lse, delta, causal, scale)
+    pdk, pdv = tfa.flash_dkv_plain(q, k, v, gg, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    # grad_tol's 1e-5 floor is set for unit cotangents; this one is the
+    # loss's (mean over 32,768 tokens), so the floor scales with it. Both
+    # versions are linear in (dO, delta): at a cotangent scaled by a power
+    # of two their outputs scale exactly, so this is grad_tol at unit scale
+    c = 2.0 ** round(math.log2(float(gg.abs().max())))
+    out["captured_backward"] = {
+        "shape": list(q.shape), "cotangent_scale": c,
+        **{name: {"max_abs_err": flash_close(
+            got, want, grad_tol(want / c) * c, f"transformer {name}"),
+            "max_abs": float(want.abs().max())}
+           for name, got, want in (("dq", kdq, pdq), ("dk", kdk, pdk),
+                                   ("dv", kdv, pdv))},
+        "tolerance": "grad_tol at the cotangent's scale c: "
+                     "1e-3*max|g| + 1e-5*c"}
+    if list(q.shape) != out["flash_shape"]:
+        raise AssertionError(f"transformer_train: flash at {list(q.shape)}"
+                             f", want {out['flash_shape']}")
+    del captured, q, k, v, gg, lse, delta, kdq, kdk, kdv, pdq, pdk, pdv
+    # one more step under device-activity tracing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_ms = _timed(lambda: step(params, opt, x, y))
+    flash_ms = {name: traced_kernel_ms(prof, name) for name in FLASH_KERNELS}
+    out.update({
+        "losses": losses, "step_walls_ms": walls,
+        "step_ms": float(np.median(walls)), "peak_device_bytes": peak,
+        "launches_per_step": per_step, "launches": counts,
+        "one_hot": one_hot_flops(cfg, mesh, TF_BATCH * TF_SEQ),
+        "profiled_step": {
+            "wall_ms": prof_ms, **device_busy(prof, prof_ms),
+            "flash_device_ms": {n: {"launches": len(v), "sum_ms": sum(v)}
+                                for n, v in flash_ms.items()}},
+        "card": card_line()})
+    del params, opt, init, step, params0
+    return out
+
+
+def transformer_mesh2_phase(dev) -> dict:
+    """Switch-Base-8's widths at 2 layers on ``make_mesh(8, order=("ep",
+    "tp"))`` (dp 2, tp 2, ep 2) with ring attention, in float32 and in
+    bfloat16 (the two variants of the reference's dryrun): one forward
+    held against the trivial grid's, then one training step (loss finite,
+    master parameters float32)."""
+    import torch
+    from sparkucx_tpu_torch.models import transformer as tt
+    mesh = tt.make_mesh(8, order=("ep", "tp"))
+    trivial = tt.ShardGrid()
+    out = {"grid": tt.mesh_axis_sizes(mesh), "layers": TF_MESH2_LAYERS,
+           "attn": "ring"}
+    params0 = x = y = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = transformer_config(TF_MESH2_LAYERS, "ring", dtype)
+        if params0 is None:
+            params0, x, y = transformer_inputs(cfg, dev, SEED + 51)
+        want, want_ms = _timed(lambda: transformer_routed_forward(
+            params0, x, trivial, cfg))
+        bf16 = dtype == "bfloat16"
+        got, got_ms = _timed(lambda: transformer_routed_forward(
+            params0, x, mesh, cfg,
+            replay=want["experts"] if bf16 else None))
+        check = transformer_routing_check(
+            got, want, TF_BF16_GAP if bf16 else TF_GAP,
+            TF_BF16_TOL if bf16 else TF_LOGIT_TOL,
+            f"transformer_mesh2 {dtype}")
+        del got, want
+        init, step = tt.make_train_step(mesh, cfg, lr=TF_LR, device=dev)
+        params, opt = init(params0)
+        (params, opt, loss), step_ms = _timed(lambda: step(params, opt, x,
+                                                           y))
+        dtypes = {k: str(v.dtype) for k, v in params.items()}
+        if not np.isfinite(float(loss)) or set(dtypes.values()) != {
+                "torch.float32"}:
+            raise AssertionError(f"transformer_mesh2 {dtype}: loss "
+                                 f"{float(loss)}, master dtypes {dtypes}")
+        out[dtype] = {"forward_vs_trivial": check,
+                      "trivial_forward_ms": want_ms,
+                      "grid_forward_ms": got_ms, "step_ms": step_ms,
+                      "loss": float(loss), "master_dtype": "float32"}
+        del params, opt, init, step
+    return out
+
+
 class PlaneTally:
     """While installed, counts over every node's metrics the spills
     (``shuffle.spill.count`` / ``.bytes``) and the reads whose admission
@@ -3956,6 +4342,18 @@ def main() -> int:
     print(json.dumps({"phase": "moe_dispatch", **md,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the five-axis MoE transformer at Switch-Base-8's widths, trained
+    # through the exchange and the flash kernels; then a dp x tp x ep grid
+    # on the ring in float32 and bfloat16
+    t = time.perf_counter()
+    tf = transformer_train_phase(dev)
+    print(json.dumps({"phase": "transformer_train", **tf,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    t = time.perf_counter()
+    tm2 = transformer_mesh2_phase(dev)
+    print(json.dumps({"phase": "transformer_mesh2", **tm2,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -3963,6 +4361,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/flash_attention.cu",
         "replaces": FLASH_TPU_KERNELS[name],
         "launches": flash_launches[name],
+        "transformer_launches_per_step": tf["launches_per_step"][name],
         "max_abs_err": fm["max_abs_err"][name], "ms": fm["kernel_ms"][name],
         "plain_ms": fm["plain_ms"][name],
         "bound_ms": fm["bounds"][name]["bound_ms"],

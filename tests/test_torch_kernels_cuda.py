@@ -1324,3 +1324,71 @@ def test_moe_routing_recompute_agrees_on_card(card, t):
     p = {k: v.to(card) for k, v in params.items()}
     chk = routing_disagreements(p, x.to(card), cfg, 2, 4)
     assert chk["rows"] == x.shape[0] and chk["disagree"] == 0, chk
+
+
+# -- the five-axis MoE transformer (models/transformer.py) -------------------
+def _transformer_case(card, **kw):
+    from sparkucx_tpu_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(**{**dict(
+        vocab=128, d_model=64, num_heads=4, head_dim=16, d_ff=128,
+        num_layers=2, num_experts=8, seq_len=64, microbatches=2,
+        attn="ulysses"), **kw})
+    g = torch.Generator().manual_seed(13)
+    params = tt.init_params(cfg, g, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (8, cfg.seq_len + 1), generator=g)
+    return (tt, cfg, params, {k: v.to(card) for k, v in params.items()},
+            toks[:, :-1], toks[:, 1:])
+
+
+def test_transformer_forward_on_card_matches_plain(card):
+    """The Ulysses forward on make_mesh(8) through the flash kernels
+    against the same forward through their plain versions: routing alike
+    (or split only at near-ties, as the smoke's transformer_train holds
+    it), logits within 2e-4 of max|logits|, one forward launch a layer and
+    microbatch."""
+    from chip_smoke import (TF_GAP, TF_LOGIT_TOL, transformer_routed_forward,
+                            transformer_routing_check)
+    tt, cfg, _, params, x, _ = _transformer_case(card)
+    mesh = tt.make_mesh(8)
+    before = backend.launch_counts().get("flash_fwd", 0)
+    kern = transformer_routed_forward(params, x.to(card), mesh, cfg)
+    torch.cuda.synchronize()
+    launched = backend.launch_counts().get("flash_fwd", 0) - before
+    plain = transformer_routed_forward(params, x.to(card), mesh, cfg,
+                                       impl="interpret")
+    chk = transformer_routing_check(kern, plain, TF_GAP, TF_LOGIT_TOL,
+                                    "card transformer forward")
+    assert launched == cfg.num_layers * cfg.microbatches
+    assert chk["kept_positions"] > 0
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_transformer_train_step_counts_flash_launches(card, remat):
+    """One training step on the card: flash_fwd once a layer and
+    microbatch (twice under remat: the recompute), flash_dq and flash_dkv
+    once; the loss and every gradient within 1e-4 of the same step on the
+    CPU (the blockwise scan there)."""
+    import dataclasses
+    tt, cfg, cpu_params, _, x, y = _transformer_case(card)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    mesh = tt.make_mesh(8)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        init, step = tt.make_train_step(mesh, cfg, device=dev)
+        p, opt = init(cpu_params)
+        before = backend.launch_counts()
+        p, opt, loss = step(p, opt, x.to(dev), y.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        after = backend.launch_counts()
+        out[dev.type] = (float(loss), {k: v.grad.cpu() for k, v in
+                                       p.items()},
+                         {k: after.get(k, 0) - before.get(k, 0)
+                          for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+    LM = cfg.num_layers * cfg.microbatches
+    assert out["cuda"][2] == {"flash_fwd": (2 if remat else 1) * LM,
+                              "flash_dq": LM, "flash_dkv": LM}
+    assert out["cpu"][2] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
+    for k, want in out["cpu"][1].items():
+        _moe_close(out["cuda"][1][k], want, 1e-4)
