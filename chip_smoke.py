@@ -269,6 +269,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             decisions below a gap of 2**-2, logits within 2e-2 of
             max|logits|), then one training step (loss finite, master
             parameters float32).
+33. hier — the two-tier (ICI, DCN) read on a node of 8 shards as 2
+            slices x 4 (``mesh.numSlices=2``) under the default conf
+            (``a2a.topology=auto`` -> hier, ``a2a.impl=auto`` -> dense;
+            no read may launch the segment move or the segment reduce),
+            at main's sizes, each read printing its wall, the tier
+            entries (payload and wire bytes, ``cross_exact``, the
+            emulated walls), the retries and the peak device bytes:
+            hier_plain (main's records against the oracle and against
+            the flat read of the same shuffle, ``a2a.topology=flat``),
+            hier_device (the same, ``sink="device"``: D2H 0 before
+            ``host_view()``, then the oracle), hier_ordered (TeraSort
+            proper, bounds from main's ReservoirSampler), hier_waved
+            (the same with ``a2a.waveRows=262144``: 5 waves, each with
+            ``ici_ms`` and ``dcn_ms``), hier_combine (combine's records,
+            int32 sums exact) and hier_int8 (int8_plain's gradient rows
+            on ``a2a.wire=int8``: quantize 2 + retries launches, the
+            first and last byte-equal to ``quantize_plain``, every value
+            within two rounding steps of the raw hier read's, keys in the
+            same places).
+34. dlpack — ``io/dlpack.ingest_foreign`` of a 1 GiB float32 tensor on
+            the card (zero copy: the same data pointer) and of a 1 GiB
+            CPU tensor through a pinned pool onto the card, cold (torch's
+            cache of page-locked blocks emptied first) and warm, with
+            GB/s; the pool's bytes in use back to 0.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -278,7 +302,8 @@ quant_kernel, wire_reduce_kernel, int8, quant_at_main_shapes,
 wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
-moe_train, moe_dispatch, transformer_train, transformer_mesh2.
+moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
+dlpack.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -291,7 +316,7 @@ segment reduce exactly as above; spill and admission's pairs: the segment
 move; pipelines: per pipeline, the three counts exactly as above;
 moe_train: the quantize exactly as above; moe_dispatch: the segment move
 once a pallas read; transformer_train: the three flash kernels exactly as
-above). The last two lines of standard output
+above; hier_int8: the quantize exactly as above). The last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
@@ -4030,6 +4055,270 @@ def pipelines_phase(dev, spill_root: str) -> dict:
     return out
 
 
+# -- the two-tier topology plane (shuffle/topology.py) and io/dlpack ---------
+HIER_CONF = {"spark.shuffle.tpu.mesh.numSlices": "2"}   # 2 slices x 4 shards
+HIER_WAVE_ROWS = 262_144   # 1,310,720 staged rows per shard -> 5 waves
+DLPACK_BYTES = 1 << 30
+
+
+def tier_summary(rep) -> list:
+    """The report's tier entries as the phase prints them."""
+    return [{k: t[k] for k in ("tier", "impl", "payload_rows",
+                               "payload_bytes", "wire_bytes", "pad_ratio",
+                               "cross_exact", "ms", "bw_gbps")}
+            for t in rep.tiers]
+
+
+def hier_read(svc, h, dev, **read_kw) -> tuple:
+    """One measured hierarchical read (launch counts and peak memory reset
+    just before): the tiered path ran (both tiers on the report, dense,
+    the headline wire the two-hop sum) and no hier read reached the
+    segment move or the segment reduce. Returns (result, stats,
+    report)."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.read(h, **read_kw)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    launches = backend.launch_counts()
+    rep = svc.report(h.shuffle_id)
+    if not (rep.hierarchical and rep.impl == "dense"
+            and [t["tier"] for t in rep.tiers] == ["ici", "dcn"]
+            and rep.wire_bytes == sum(t["wire_bytes"] for t in rep.tiers)):
+        raise AssertionError(f"hier read: hierarchical={rep.hierarchical} "
+                             f"impl={rep.impl} tiers={tier_summary(rep)}")
+    if launches.get(A2A, 0) or launches.get(SEG, 0):
+        raise AssertionError(f"a hier read launched {launches}")
+    return res, {"read_ms": read_ms, "group_ms": rep.group_ms,
+                 "pack_ms": rep.pack_ms, "dispatch_ms": rep.dispatch_ms,
+                 "payload_bytes": rep.payload_bytes,
+                 "wire_bytes": rep.wire_bytes, "wire": rep.wire,
+                 "retries": rep.retries, "plan_bucket": rep.plan_bucket,
+                 "tiers": tier_summary(rep),
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": launches}, rep
+
+
+def same_partitions(a, b, tag: str) -> None:
+    """Two reads of one shuffle hold the same (key, value) rows in every
+    partition (as multisets: row order within a partition may differ)."""
+    for r in range(PARTITIONS):
+        (ak, av), (bk, bv) = a[r], b[r]
+        oa, ob = np.lexsort((av[:, 0], ak)), np.lexsort((bv[:, 0], bk))
+        if not (np.array_equal(ak[oa], bk[ob])
+                and np.array_equal(av[oa], bv[ob])):
+            raise AssertionError(f"{tag}: partition {r} differs")
+
+
+def check_two_steps(parts, raw_parts) -> dict:
+    """int8 on both hops against the raw hier read of the same staging:
+    the same keys in the same places, every value within two rounding
+    steps (the first hop's amax/127, the second hop's of the rounded
+    row, at most 1/127 larger)."""
+    worst = 0.0
+    for r in range(PARTITIONS):
+        gk, gv = parts[r]
+        rk, rv = raw_parts[r]
+        if not np.array_equal(gk, rk):
+            raise AssertionError(f"hier_int8 partition {r}: keys differ "
+                                 f"from the raw hier read")
+        step = np.abs(rv).max(axis=1, keepdims=True) / 127.0
+        err = np.abs(gv.astype(np.float64) - rv)
+        if (err > 2 * step * (1 + 1 / 127) * (1 + 1e-6)).any():
+            raise AssertionError(f"hier_int8 partition {r}: a value is "
+                                 f"more than two rounding steps off")
+        worst = max(worst, float((err / np.maximum(step, 1e-30)).max()))
+    return {"max_err_in_steps": worst}
+
+
+def hier_phase(dev) -> dict:
+    """The hierarchical read on a 2 x 4 slice grid under the default conf
+    (``a2a.topology=auto`` -> hier, ``a2a.impl=auto`` -> dense) at main's
+    sizes: plain (against the oracle and against the flat read of the
+    same shuffle), ordered (TeraSort), combine, int8 (two quantize
+    launches, the first and last held against ``quantize_plain``), waved
+    ordered and a single-shot device sink."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops import quant as tq
+    out = {}
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    with connect(HIER_CONF, num_shards=SHARDS, use_env=False) as svc:
+        if not svc.manager.hierarchical:
+            raise AssertionError("the 2-slice node did not resolve hier")
+        wk, wv = make_records(1 << 16, zipf=False, seed=SEED + 1)
+        warm_read(svc, 60, wk, wv)
+        h = write_maps(svc, 61, keys, values, MAPS)
+        res, st, rep = hier_read(svc, h, dev)
+        t = time.perf_counter()
+        parts = [res.partition(r) for r in range(PARTITIONS)]
+        st["views_ms"] = (time.perf_counter() - t) * 1e3
+        del res
+        check_against_oracle(parts, keys, values, PARTITIONS)
+        # hier_device: the same shuffle, single-shot, device sink
+        dres, dst, drep = hier_read(svc, h, dev, sink="device")
+        d2h_before = drep.d2h_bytes
+        if not (drep.sink == "device" and d2h_before == 0):
+            raise AssertionError(f"hier_device: sink={drep.sink} d2h "
+                                 f"before host_view={d2h_before}")
+        delivered = int(dres.device_totals().sum())
+        t = time.perf_counter()
+        hv = dres.host_view()
+        dparts = [hv.partition(r) for r in range(PARTITIONS)]
+        dst["views_ms"] = (time.perf_counter() - t) * 1e3
+        del dres, hv
+        check_against_oracle(dparts, keys, values, PARTITIONS)
+        del dparts
+        out["hier_device"] = {"phase": "hier_device", **dst,
+                              "delivered_rows": delivered,
+                              "d2h_before_host_view": d2h_before,
+                              "d2h_after_host_view": drep.d2h_bytes,
+                              "ok": True}
+        svc.unregister_shuffle(61)
+    flat_conf = {**HIER_CONF, "spark.shuffle.tpu.a2a.topology": "flat"}
+    with connect(flat_conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 62, keys, values, MAPS)
+        t = time.perf_counter()
+        fparts, flat_ms, flat_views_ms = drive_read(svc, h)
+        frep = svc.report(62)
+        svc.unregister_shuffle(62)
+    if frep.hierarchical or frep.tiers:
+        raise AssertionError("a2a.topology=flat still ran the tiers")
+    same_partitions(parts, fparts, "hier_plain vs flat")
+    del parts, fparts
+    out["hier_plain"] = {"phase": "hier_plain", "records": RECORDS,
+                         "maps": MAPS, "partitions": PARTITIONS,
+                         "grid": [2, SHARDS // 2], **st,
+                         "flat": {"impl": frep.impl, "read_ms": flat_ms,
+                                  "views_ms": flat_views_ms},
+                         "ok": True}
+
+    # -- hier_ordered: TeraSort proper; hier_waved: the same in 5 waves
+    bounds = terasort_bounds(keys)
+    pid = np.searchsorted(bounds, keys, side="right").astype(np.int64)
+    for name, conf in (("hier_ordered", HIER_CONF),
+                       ("hier_waved", {**HIER_CONF,
+                                       "spark.shuffle.tpu.a2a.waveRows":
+                                       str(HIER_WAVE_ROWS)})):
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = write_maps(svc, 63, keys, values, MAPS, "range", bounds)
+            res, st, rep = hier_read(svc, h, dev, ordered=True)
+            t = time.perf_counter()
+            parts = [res.partition(r) for r in range(PARTITIONS)]
+            st["views_ms"] = (time.perf_counter() - t) * 1e3
+            del res
+            svc.unregister_shuffle(63)
+        allk = np.concatenate([parts[r][0] for r in range(PARTITIONS)])
+        if allk.size != keys.size or (np.diff(allk) < 0).any():
+            raise AssertionError(f"{name}: partitions not globally sorted")
+        del allk
+        check_against_oracle(parts, keys, values, PARTITIONS, pid=pid)
+        del parts
+        if name == "hier_waved":
+            if not (rep.waves == 5 and all(
+                    e["ici_ms"] > 0 and e["dcn_ms"] > 0
+                    for e in rep.wave_timeline)):
+                raise AssertionError(f"hier_waved: waves={rep.waves} "
+                                     f"timeline={rep.wave_timeline}")
+            st.update({"waves": rep.waves,
+                       "wave_timeline": rep.wave_timeline,
+                       "wave_pack_hidden_ms": rep.wave_pack_hidden_ms})
+        out[name] = {"phase": name, "records": RECORDS, **st, "ok": True}
+    del keys, values
+
+    # -- hier_combine: group-by-sum, finalized by combine_rows -------------
+    ckeys, cvalues = make_combine_records(RECORDS, SEED + 4)
+    with connect(HIER_CONF, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 64, ckeys, cvalues, MAPS)
+        res, st, rep = hier_read(svc, h, dev, combine="sum")
+        parts = [res.partition(r) for r in range(PARTITIONS)]
+        del res
+        svc.unregister_shuffle(64)
+    uk, sums, _ = group_oracle(ckeys, cvalues)
+    gk, gv = combined_rows(parts, PARTITIONS,
+                           lambda k: hash_pid(k, PARTITIONS))
+    want = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+        raise AssertionError("hier_combine: keys or sums differ from the "
+                             "oracle")
+    del parts, ckeys, cvalues, gk, gv
+    out["hier_combine"] = {"phase": "hier_combine", "records": RECORDS,
+                           "rows_out": int(uk.size), **st, "ok": True}
+
+    # -- hier_int8: the DLRM gradient rows on the int8 wire, both hops -----
+    ikeys, grads = make_embedding_grads(INT8_RECORDS, SEED + 11)
+    reads = {}
+    for wire in ("raw", "int8"):
+        conf = {**HIER_CONF, "spark.shuffle.tpu.a2a.wire": wire}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = write_maps(svc, 65, ikeys, grads, MAPS)
+            with KernelCapture() as capture:
+                res, st, rep = hier_read(svc, h, dev)
+            parts = [res.partition(r) for r in range(PARTITIONS)]
+            del res
+            svc.unregister_shuffle(65)
+        got = st["launches"].get(tq.KERNEL_NAME, 0)
+        want_n = 2 + rep.retries if wire == "int8" else 0
+        if got != want_n or rep.wire != wire:
+            raise AssertionError(f"hier_int8 ({wire}): quantize launched "
+                                 f"{got} times, expected {want_n}")
+        if wire == "int8":
+            # the first launch's copies count in the device peak above
+            st["capture_bytes"] = capture.nbytes()
+            st["kernel_checks"] = capture.check("hier_int8")
+        reads[wire] = (parts, st)
+    chk = check_two_steps(reads["int8"][0], reads["raw"][0])
+    out["hier_int8"] = {"phase": "hier_int8", "records": INT8_RECORDS,
+                        "value_lanes": EMB_DIM, "int8": reads["int8"][1],
+                        "raw": reads["raw"][1], **chk, "ok": True}
+    del reads, ikeys, grads
+    return out
+
+
+def dlpack_phase(dev) -> dict:
+    """``io/dlpack.ingest_foreign`` of a 1 GB tensor on the card (zero
+    copy) and of a 1 GB CPU tensor through the pinned pool onto the card
+    (twice: a cold pool, then its block reused), with GB/s."""
+    import torch
+    from sparkucx_tpu_torch.io.dlpack import ingest_foreign
+    from sparkucx_tpu_torch.runtime.node import (HostStagingPool,
+                                                 _empty_host_cache)
+    n = DLPACK_BYTES // 4
+    on_card = torch.arange(n, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = ingest_foreign(on_card)
+    zero_copy_ms = (time.perf_counter() - t) * 1e3
+    if got.data_ptr() != on_card.data_ptr():
+        raise AssertionError("ingest of a tensor on the card copied it")
+    del got, on_card
+    host = torch.arange(n, dtype=torch.float32)
+    # a cold pool pins its block: none of torch's cached page-locked
+    # blocks (the earlier phases freed some) may serve it
+    _empty_host_cache()
+    pool = HostStagingPool(pinned=True)
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        got = ingest_foreign(host, device=dev, pool=pool)
+        walls.append((time.perf_counter() - t) * 1e3)
+        if not torch.equal(got.cpu(), host):
+            raise AssertionError("pool ingest changed the bytes")
+        del got
+    if pool.stats()["in_use_bytes"]:
+        raise AssertionError(f"pool ingest kept {pool.stats()} checked out")
+    pool.close()
+    return {"phase": "dlpack", "bytes": DLPACK_BYTES,
+            "zero_copy_ms": zero_copy_ms,
+            "pool_cold_ms": walls[0], "pool_warm_ms": walls[1],
+            "pool_cold_gbps": DLPACK_BYTES / walls[0] / 1e6,
+            "pool_warm_gbps": DLPACK_BYTES / walls[1] / 1e6, "ok": True}
+
+
 def main() -> int:
     try:
         import torch
@@ -4354,6 +4643,18 @@ def main() -> int:
     print(json.dumps({"phase": "transformer_mesh2", **tm2,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the two-tier topology plane on a 2 x 4 slice grid, then io/dlpack
+    t = time.perf_counter()
+    hi = hier_phase(dev)
+    for name in ("hier_plain", "hier_device", "hier_ordered", "hier_waved",
+                 "hier_combine", "hier_int8"):
+        print(json.dumps(hi[name]), flush=True)
+    print(json.dumps({"phase": "hier", "seconds": time.perf_counter() - t}),
+          flush=True)
+    t = time.perf_counter()
+    dl = dlpack_phase(dev)
+    print(json.dumps({**dl, "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -4404,6 +4705,7 @@ def main() -> int:
         "replaces": QUANT_TPU_KERNEL,
         "launches": i8_stats["launches"][QUANT_KERNEL],
         "moe_launches": mo["int8_quantize_launches"],
+        "hier_launches": hi["hier_int8"]["int8"]["launches"][QUANT_KERNEL],
         "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
         "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": "bytes", "library_ms": qt["library_ms"]}, {

@@ -9,8 +9,8 @@ through unchanged.
 Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``a2a.capBucketGrowth``, ``a2a.sortImpl``, ``a2a.combineCompaction``,
 ``a2a.waveRows``, ``a2a.waveDepth``, ``a2a.wire``,
-``a2a.wireErrorSampleRows``, ``a2a.maxBytesInFlight``,
-``read.mergeImpl``, ``read.sink``, ``network.timeoutMs``,
+``a2a.wireErrorSampleRows``, ``a2a.maxBytesInFlight``, ``a2a.topology``,
+``mesh.numSlices``, ``read.mergeImpl``, ``read.sink``, ``network.timeoutMs``,
 ``spill.threshold``, ``spill.dir``. Byte sizes parse as the JAX
 package's do (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
@@ -72,6 +72,14 @@ READ_SINK_KEY = PREFIX + "read.sink"
 ALLOWED_WIRES = ("raw", "int8", "lossless")
 A2A_WIRE_KEY = PREFIX + "a2a.wire"
 
+# a2a.topology values (the JAX package's set): 'flat' is one exchange over
+# every shard; 'hier' the two-stage decomposition on a (dcn, ici) slice
+# grid (shuffle/topology.py: stage 1 within each slice, stage 2 across
+# slices, each row crossing the slow tier once); 'auto' is hier exactly
+# when the node's grid has more than one slice
+ALLOWED_TOPOLOGIES = ("flat", "hier", "auto")
+A2A_TOPOLOGY_KEY = PREFIX + "a2a.topology"
+
 
 _SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgGtT]?)i?[bB]?\s*$")
 _SIZE_MULT = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
@@ -124,6 +132,17 @@ def validate_wire(wire: str, conf_key: str = A2A_WIRE_KEY) -> str:
     return wire
 
 
+def validate_topology(topology: str,
+                      conf_key: str = A2A_TOPOLOGY_KEY) -> str:
+    if topology not in ALLOWED_TOPOLOGIES:
+        raise ValueError(
+            f"{conf_key}={topology!r}: want one of {ALLOWED_TOPOLOGIES} "
+            f"(flat = one collective over every device, hier = the "
+            f"two-stage ICI/DCN decomposition on a 2-D (dcn, ici) mesh, "
+            f"auto = hier exactly when the mesh has >1 slice)")
+    return topology
+
+
 def validate_sort_impl(v: str) -> str:
     if v not in SORT_METHODS:
         raise ValueError(
@@ -140,7 +159,8 @@ class ShuffleConf:
                     "wave_rows", "wave_depth", "a2a_wire",
                     "wire_error_sample_rows", "read_merge_impl",
                     "read_sink", "connection_timeout_ms",
-                    "spill_threshold", "max_bytes_in_flight")
+                    "spill_threshold", "max_bytes_in_flight",
+                    "a2a_topology", "num_slices")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -333,3 +353,16 @@ class ShuffleConf:
             raise ValueError(f"{PREFIX}a2a.maxBytesInFlight={v}: want >= 0 "
                              f"(0 = off)")
         return v
+
+    @property
+    def a2a_topology(self) -> str:
+        """Exchange topology: flat, hier (the two-stage exchange of
+        ``shuffle/topology.py``; needs a grid of more than one slice) or
+        auto (default: hier exactly when ``mesh.numSlices`` > 1)."""
+        return validate_topology(self._get("a2a.topology", "auto"))
+
+    @property
+    def num_slices(self) -> int:
+        """Slices the node's shards are laid out in (``parallel/mesh``):
+        more than 1 makes the grid ``[S, P/S]``, slice-major."""
+        return self.get_int("mesh.numSlices", 1)

@@ -2,9 +2,10 @@
 host staging pool.
 
 A :class:`Node` is an object the caller creates and passes (no process
-singleton). It owns the device every shuffle of its manager runs on and
-the number of logical shards ``P`` the exchange splits that device
-into — the role the JAX package's mesh plays."""
+singleton). It owns the device every shuffle of its manager runs on, the
+number of logical shards ``P`` the exchange splits that device into and
+their grid (``parallel/mesh.SliceGrid``: ``[S, P/S]`` when
+``mesh.numSlices`` = S > 1) — the role the JAX package's mesh plays."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from sparkucx_tpu_torch.backend import resolve_device
 from sparkucx_tpu_torch.config import ShuffleConf
 from sparkucx_tpu_torch.meta.registry import ShuffleRegistry
+from sparkucx_tpu_torch.parallel.mesh import make_shuffle_grid
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import Metrics
 
@@ -157,6 +159,7 @@ class Node:
         self.conf = conf or ShuffleConf()
         self.device = resolve_device(device)
         self.num_shards = int(num_shards)
+        self.grid = make_shuffle_grid(self.num_shards, self.conf)
         self.metrics = Metrics()
         self.registry = ShuffleRegistry()
         self.pool = HostStagingPool(pinned=self.device.type == "cuda")

@@ -15,6 +15,10 @@ from row 0, zero past the valid total — the JAX package's
 
 The chunk-aligned hand-kernel transport ('pallas') does not ride this
 contract; the reader dispatches it (``reader._pallas_step_body``).
+:func:`resolved_wire_impl` names the transport an exchange rides, for
+the reports; the exchange-topology set (``ALLOWED_TOPOLOGIES``,
+``validate_topology``: flat, hier, auto) is the config's, re-exported
+here as the JAX package keeps it beside the impl set.
 
 The int8 wire format (``a2a.wire=int8``) is defined here too:
 :func:`wire_pack_rows` narrows the float32 value lanes of ``[P, cap, W]``
@@ -39,7 +43,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from sparkucx_tpu_torch.config import ALLOWED_IMPLS, validate_impl
+from sparkucx_tpu_torch.config import (ALLOWED_IMPLS, ALLOWED_TOPOLOGIES,
+                                       validate_impl, validate_topology)
 from sparkucx_tpu_torch.meta.segments import exchange_plan
 from sparkucx_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
@@ -50,11 +55,12 @@ IMPLS = ("local", "dense", "gather")
 # dispatch, forward combine, spare, backward), as in the JAX package
 WIRE_SEED_STREAMS = 4
 
-__all__ = ["ALLOWED_IMPLS", "IMPLS", "ShuffleResult", "WIRE_SEED_STREAMS",
-           "exchange", "exchange_quantized", "group_shuffle",
-           "int8_wire_words", "ragged_shuffle", "select_impl", "shared_uniforms",
-           "validate_impl", "wire_noise_seed", "wire_pack_rows",
-           "wire_uniforms", "wire_unpack_rows"]
+__all__ = ["ALLOWED_IMPLS", "ALLOWED_TOPOLOGIES", "IMPLS", "ShuffleResult",
+           "WIRE_SEED_STREAMS", "exchange", "exchange_quantized",
+           "group_shuffle", "int8_wire_words", "ragged_shuffle",
+           "resolved_wire_impl", "select_impl", "shared_uniforms",
+           "validate_impl", "validate_topology", "wire_noise_seed",
+           "wire_pack_rows", "wire_uniforms", "wire_unpack_rows"]
 
 
 def wire_noise_seed(seed: int, stream: int) -> int:
@@ -166,6 +172,16 @@ def select_impl(impl: str, num_shards: int) -> str:
         raise ValueError(f"impl {impl!r} has no dense-contract exchange; "
                          f"the reader dispatches it")
     return impl
+
+
+def resolved_wire_impl(impl: str, num_shards: int) -> str:
+    """The transport an exchange with this (impl, shard count) rides, for
+    reports and the real-bytes accounting: the segment move for
+    'pallas', the one-shard local move under 'auto', else
+    :func:`select_impl`'s."""
+    if impl == "pallas":
+        return "pallas"
+    return select_impl(impl, num_shards)
 
 
 def _global_overflow(sizes: torch.Tensor, total: torch.Tensor,

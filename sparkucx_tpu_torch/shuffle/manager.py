@@ -35,6 +35,15 @@ dispatches in ``result()`` once earlier exchanges release. A host-sink
 read releases when its result settles (waved: when the last wave
 drained); a device-sink read holds its reservation until the result is
 consumed, closed or drained by ``host_view()``.
+
+Topology (``a2a.topology``, resolved when the manager binds to its node,
+``shuffle/topology.resolve_topology``): on a node with ``mesh.numSlices``
+> 1 a read runs the two-tier exchange (``topology.
+PendingTieredShuffle``; waved reads one per wave) and its report carries
+one entry per tier (``ExchangeReport.tiers``) with the headline wire
+bytes the two-hop sum. An explicit ``a2a.impl=pallas`` runs the flat
+exchange over all P shards instead (``report.hierarchical`` False), as
+the JAX package does; ``auto`` never resolves to it on such a node.
 """
 
 from __future__ import annotations
@@ -64,6 +73,10 @@ from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              plan_takes_seed, ragged_layout,
                                              wave_count, wave_payload_rows,
                                              wave_step_plan)
+from sparkucx_tpu_torch.shuffle.topology import (resolve_topology,
+                                                 settle_tier_walls,
+                                                 submit_shuffle_tiered,
+                                                 tier_layouts)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                DeviceShuffleReaderResult,
                                                WavedShuffleReaderResult,
@@ -75,8 +88,9 @@ from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_ADMIT_BYTES,
                                               C_KERNEL_FALLBACK,
-                                              C_SINK_FALLBACK, H_ADMIT_WAIT,
-                                              H_WAVE_GAP, labeled)
+                                              C_SINK_FALLBACK, C_TIER_BYTES,
+                                              H_ADMIT_WAIT, H_WAVE_GAP,
+                                              labeled)
 
 log = get_logger("shuffle.manager")
 
@@ -148,11 +162,21 @@ class ExchangeReport:
     # the deferral queue (0 for an immediate grant or no cap); group_ms
     # includes it when the dispatch was deferred
     admit_wait_ms: float = 0.0
+    # the read ran the two-tier exchange (shuffle/topology.py); ``tiers``
+    # holds one entry per tier ("ici", "dcn": payload/wire pairs, exact
+    # cross rows, the emulated wall ``ms`` and its rates) and then the
+    # headline ``wire_bytes``/``pad_ratio`` above are the two-hop sum.
+    # Empty on flat reads.
+    hierarchical: bool = False
+    tiers: List[Dict] = field(default_factory=list)
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
     # the manager's exchange sequence number: the int8 noise base
     _seq: int = field(default=0, repr=False)
+    # the [P, P] device matrix the tier entries' exact cross rows came
+    # from (re-stamped after a regrow)
+    _tier_matrix: Optional[np.ndarray] = field(default=None, repr=False)
 
     def to_dict(self) -> Dict:
         return {f.name: getattr(self, f.name)
@@ -203,6 +227,10 @@ class ShuffleManager:
         self._inflight_bytes = 0
         self._admit_queue: deque = deque()
         self._admit_ticket = 0
+        # the exchange topology of this binding (a2a.topology against the
+        # node's shard grid)
+        self.topology = resolve_topology(node.grid, self.conf)
+        self.hierarchical = self.topology.hierarchical
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
@@ -284,7 +312,8 @@ class ShuffleManager:
     def _new_report(self, handle: ShuffleHandle) -> ExchangeReport:
         rep = ExchangeReport(handle.shuffle_id, handle.num_maps,
                              handle.num_partitions, handle.partitioner,
-                             device=str(self.node.device))
+                             device=str(self.node.device),
+                             hierarchical=self.hierarchical)
         with self._lock:
             self._exchange_seq += 1
             rep._seq = self._exchange_seq
@@ -373,14 +402,16 @@ class ShuffleManager:
             self._materialize_outputs(writers, Pn)
         map_to_dev = np.arange(handle.num_maps) % Pn
         red_to_dev = blocked_partition_map(handle.num_partitions, Pn)
-        validate_row_sizes(table.device_matrix(map_to_dev, red_to_dev, Pn))
+        dev_matrix = table.device_matrix(map_to_dev, red_to_dev, Pn)
+        validate_row_sizes(dev_matrix)
         nvalid = np.array([sum(k.shape[0] for k, _ in outs)
                            for outs in shard_outputs], dtype=np.int64)
 
         t_plan = time.perf_counter()
         plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
                          self.node.device, partitioner=handle.partitioner,
-                         bounds=handle.bounds, sink=sink)
+                         bounds=handle.bounds, sink=sink,
+                         hierarchical=self.hierarchical)
         plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
         plan = self._decorated_plan(plan, combine, ordered, has_vals,
                                     val_tail, val_dtype, combine_sum_words,
@@ -392,9 +423,36 @@ class ShuffleManager:
         self._report_volume(rep, plan, nvalid, width,
                             part_rows=table.sizes.sum(axis=0))
         self._estimate_wire_error(rep, plan, shard_outputs)
+        hier = self.hierarchical and plan.impl != "pallas"
+        if hier:
+            # per-tier accounting, the cross rows exact from the metadata
+            # table's device matrix; the tiered stages combine through
+            # combine_rows, never the segment-reduce kernel
+            self._stamp_tiers(rep, plan, nvalid, width,
+                              dev_matrix=dev_matrix)
+            rep.kernel = "jnp"
+        elif self.hierarchical:
+            # the segment move is flat-only: the read runs over all P
+            # shards, and the report says so
+            log.info("a2a.impl=pallas on a multi-slice grid: using the "
+                     "flat exchange over %d shards", Pn)
+            rep.hierarchical = False
         if self.conf.wave_rows > 0 and self._waves_eligible(plan):
             W = wave_count(nvalid, self.conf.wave_rows)
             if W > 1:
+                if hier and plan.sink == "device":
+                    # waved hierarchical reads drain to the host (no
+                    # per-wave device fold over the tiers); single-shot
+                    # hierarchical reads keep the device sink
+                    mode = "combine" if combine else (
+                        "ordered" if ordered else "plain")
+                    self._warn_once(
+                        "hier_waved", "read.sink=device on a WAVED "
+                        "hierarchical read resolves to host (single-shot "
+                        "hierarchical reads keep the device sink)")
+                    self._note_sink_fallback(mode, "hierarchical_waved")
+                    plan = dataclasses.replace(plan, sink="host")
+                    rep.sink = "host"
                 return self._submit_waved(
                     handle, shard_outputs, nvalid, plan, width, has_vals,
                     val_tail if has_vals else None, val_dtype, rep, W,
@@ -427,10 +485,19 @@ class ShuffleManager:
             rep.retries = int(retries)
             if retries and pend is not None:
                 # the regrown plan padded to other capacities
-                lay = ragged_layout(pend._plan, nvalid, width)
-                rep.wire_bytes = lay.wire_bytes
-                rep.pad_ratio = lay.pad_ratio
+                if rep.tiers:
+                    # both hops under the final capacities
+                    self._stamp_tiers(rep, pend._plan, nvalid, width,
+                                      dev_matrix=rep._tier_matrix,
+                                      relay_cap=pend._relay_cap)
+                else:
+                    lay = ragged_layout(pend._plan, nvalid, width)
+                    rep.wire_bytes = lay.wire_bytes
+                    rep.pad_ratio = lay.pad_ratio
                 self.node.metrics.inc("shuffle.retries", float(retries))
+            if rep.tiers:
+                self._settle_tiers(rep, getattr(pend, "tier_walls", None),
+                                   completed=result is not None)
             if result is None:
                 rep.error = rep.error or "exchange failed"
                 return
@@ -443,10 +510,18 @@ class ShuffleManager:
 
         rep._t_dispatched = time.perf_counter()
         try:
-            pending = submit_shuffle(
-                plan, rows, nvalid, val_tail if has_vals else None,
-                val_dtype, self.node.device, on_done=on_done,
-                metrics=self.node.metrics, wire_seed=rep._seq, admit=admit)
+            if hier:
+                pending = submit_shuffle_tiered(
+                    self.topology, plan, rows, nvalid,
+                    val_tail if has_vals else None, val_dtype,
+                    self.node.device, on_done=on_done, admit=admit,
+                    wire_seed=rep._seq, metrics=self.node.metrics)
+            else:
+                pending = submit_shuffle(
+                    plan, rows, nvalid, val_tail if has_vals else None,
+                    val_dtype, self.node.device, on_done=on_done,
+                    metrics=self.node.metrics, wire_seed=rep._seq,
+                    admit=admit)
         except BaseException:
             self.node.pool.put(stage_buf)
             release_admitted()
@@ -471,6 +546,66 @@ class ShuffleManager:
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
+
+    # -- topology plane (shuffle/topology.py) ------------------------------
+    def _set_tiers(self, rep: ExchangeReport, tiers: List[Dict]) -> None:
+        """``rep.tiers`` and the headline wire accounting as the two-hop
+        sum — the exchange's cost over both tiers, replacing the flat
+        single-exchange figure ``_report_volume`` stamped."""
+        rep.tiers = tiers
+        wire = sum(t["wire_bytes"] for t in tiers)
+        rep.wire_bytes = int(wire)
+        rep.pad_ratio = round(wire / rep.payload_bytes, 6) \
+            if rep.payload_bytes else 0.0
+
+    def _stamp_tiers(self, rep: ExchangeReport, plan: ShufflePlan, nvalid,
+                     width: int, dev_matrix=None, relay_cap=None) -> None:
+        """The per-tier entries of a single-shot hierarchical read; the
+        ``[P, P]`` ``dev_matrix`` (the metadata table's) makes their
+        cross rows exact."""
+        rep._tier_matrix = None if dev_matrix is None \
+            else np.asarray(dev_matrix)
+        self._set_tiers(rep, tier_layouts(plan, self.topology, nvalid,
+                                          width, dev_matrix=dev_matrix,
+                                          relay_cap=relay_cap))
+
+    def _stamp_wave_tiers(self, rep: ExchangeReport, wplan: ShufflePlan,
+                          wave_sizes, width: int) -> None:
+        """Waved hierarchical accounting: W tiered exchanges of the wave
+        plan's shape, the wire cost per wave and the payload the summed
+        real rows. The device matrix is whole-exchange, so the entries
+        carry the every-row bound (``cross_exact`` false)."""
+        tiers = None
+        for n in wave_sizes:
+            lays = tier_layouts(wplan, self.topology, np.asarray([int(n)]),
+                                width)
+            if tiers is None:
+                tiers = lays
+                continue
+            for acc, lay in zip(tiers, lays):
+                for k in ("payload_rows", "payload_bytes", "wire_rows",
+                          "wire_bytes"):
+                    acc[k] += lay[k]
+        for t in tiers or []:
+            t["pad_ratio"] = round(t["wire_bytes"] / t["payload_bytes"], 6) \
+                if t["payload_bytes"] else 0.0
+            t["rows_in"] = int(sum(int(n) for n in wave_sizes))
+        self._set_tiers(rep, tiers or [])
+
+    def _settle_tiers(self, rep: ExchangeReport, tier_walls,
+                      completed: bool = True) -> None:
+        """Stamp the measured per-tier walls onto ``rep.tiers`` and count
+        each tier's wire bytes into ``shuffle.tier.bytes{tier, tenant}``
+        (tenant "default": tenancy is not ported) — once per read. A
+        failed read keeps its walls but counts no bytes."""
+        if tier_walls:
+            settle_tier_walls(rep.tiers, tier_walls)
+        if not completed:
+            return
+        for t in rep.tiers:
+            self.node.metrics.inc(labeled(C_TIER_BYTES, tier=t["tier"],
+                                          tenant="default"),
+                                  float(t["wire_bytes"]))
 
     def _estimate_wire_error(self, rep: ExchangeReport, plan: ShufflePlan,
                              slot_outputs) -> None:
@@ -702,6 +837,9 @@ class ShuffleManager:
         rep.wave_payload_rows = [int(x) for x in wave_sizes]
         rep.plan_bucket = [int(wplan.cap_in), int(wplan.cap_out)]
         self._set_wave_wire(rep, wplan, wave_sizes, width)
+        if rep.tiers:
+            # hierarchical waves: the per-tier pairs summed over the waves
+            self._stamp_wave_tiers(rep, wplan, wave_sizes, width)
         depth = max(1, min(self.conf.wave_depth, num_waves))
         # admission: ``depth`` pinned wave blocks plus the device buffers
         # of ``depth`` waves on the host sink (a wave holds its send and
@@ -973,7 +1111,10 @@ class PendingWaveShuffle:
     * at most ``depth`` waves are in flight, so pinned staging holds at
       most ``depth`` wave blocks; a block goes back to the pool once its
       wave's ``result()`` has waited on the overflow flag, which follows
-      the block's H2D copy on the stream.
+      the block's H2D copy on the stream;
+    * on a hierarchical binding each wave is a tiered exchange, and its
+      tier walls go into its timeline entry (``ici_ms``, ``dcn_ms``) and
+      into the read's tier entries, summed over the waves.
 
     On the host sink each drained wave is pulled to the host at once
     (``drain_wave_result``) and the result is a
@@ -1008,6 +1149,8 @@ class PendingWaveShuffle:
         self._lossless_bytes = 0      # compressed bytes of drained waves
         self._admit = admit
         self._release_admitted = release_admitted
+        # hierarchical waves: the tier walls summed over drained waves
+        self._tier_walls: Dict[str, float] = {}
 
     def done(self) -> bool:
         return self._result is not None or self._dead
@@ -1025,6 +1168,10 @@ class PendingWaveShuffle:
             self._dead = True
             self._release_admitted()
             self._rep.error = self._rep.error or repr(e)[:300]
+            if self._rep.tiers:
+                # the walls the drained waves measured; no bytes counted
+                self._mgr._settle_tiers(self._rep, self._tier_walls,
+                                        completed=False)
             raise
         self._result = res
         return res
@@ -1070,7 +1217,7 @@ class PendingWaveShuffle:
                 # the oldest in-flight exchange was still running on the
                 # device when it finished (partial overlap counts as not
                 # hidden, so the hidden total is a lower bound)
-                hidden = oldest is not None and not oldest.done()
+                hidden = oldest is not None and not oldest._outputs_ready()
                 pack_ms = (t1 - t0) * 1e3
                 pack_total += pack_ms
                 if hidden:
@@ -1137,6 +1284,11 @@ class PendingWaveShuffle:
             # the pool hands this block to a later wave's pack
             pool.put(_b)
 
+        if mgr.hierarchical:     # (waves never run under 'pallas')
+            return submit_shuffle_tiered(
+                mgr.topology, self._wave_plan, shard_rows, wnv,
+                self._val_tail, self._val_dtype, mgr.node.device,
+                on_done=on_done, wire_seed=wseed, metrics=mgr.node.metrics)
         return submit_shuffle(self._wave_plan, shard_rows, wnv,
                               self._val_tail, self._val_dtype,
                               mgr.node.device, on_done=on_done,
@@ -1165,6 +1317,9 @@ class PendingWaveShuffle:
         entry["wait_ms"] = round(wait_ms, 3)
         retries = int(pending._attempt)
         entry["retries"] = retries
+        for tier, ms in getattr(pending, "tier_walls", {}).items():
+            entry[f"{tier}_ms"] = round(ms, 3)
+            self._tier_walls[tier] = self._tier_walls.get(tier, 0.0) + ms
         wave_results[i] = res
         used = res.cap_out_used
         if used and int(used) > self._wave_plan.cap_out:
@@ -1188,6 +1343,10 @@ class PendingWaveShuffle:
         # the waves behind it)
         mgr._set_wave_wire(rep, self._wave_plan, self._wave_sizes,
                            self._width)
+        if rep.tiers:
+            mgr._stamp_wave_tiers(rep, self._wave_plan, self._wave_sizes,
+                                  self._width)
+            mgr._settle_tiers(rep, self._tier_walls)
         rep.lossless_bytes = int(self._lossless_bytes)
         rep.completed = True
         metrics = mgr.node.metrics

@@ -138,12 +138,13 @@ def check_bounds(bounds, num_partitions: int) -> Tuple[int, ...]:
 
 def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
               conf: ShuffleConf, device, partitioner: str = "hash",
-              bounds=None, sink: str = "host") -> ShufflePlan:
+              bounds=None, sink: str = "host",
+              hierarchical: bool = False) -> ShufflePlan:
     """Capacities from per-shard staged row counts; the impl resolved for
-    ``device``, the read's sink and whether ``conf`` waves it
-    (backend.resolve_a2a_impl). ``bounds`` are the range partitioner's
-    split points as :func:`check_bounds` returned them at
-    registration."""
+    ``device``, the read's sink, whether ``conf`` waves it and whether
+    the read runs the hierarchical exchange (backend.resolve_a2a_impl).
+    ``bounds`` are the range partitioner's split points as
+    :func:`check_bounds` returned them at registration."""
     if partitioner not in PARTITIONERS:
         raise ValueError(f"unknown partitioner {partitioner!r}; want one "
                          f"of {PARTITIONERS}")
@@ -157,7 +158,8 @@ def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
         num_shards=num_shards, num_partitions=num_partitions,
         cap_in=cap_in, cap_out=cap_out,
         impl=resolve_a2a_impl(conf.a2a_impl, device, num_shards,
-                              waved=conf.wave_rows > 0, sink=sink),
+                              waved=conf.wave_rows > 0, sink=sink,
+                              hierarchical=hierarchical),
         partitioner=partitioner, sort_impl=conf.sort_impl, bounds=bounds,
         combine_compaction=conf.combine_compaction)
 

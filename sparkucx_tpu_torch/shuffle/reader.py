@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from sparkucx_tpu_torch.config import PARTITIONERS, ShuffleConf
+from sparkucx_tpu_torch.io.dlpack import stage_to_device
 from sparkucx_tpu_torch.ops.aggregate import combine_rows, keysort_rows
 from sparkucx_tpu_torch.ops.partition import (_gather_rows,
                                               blocked_partition_map,
@@ -1110,84 +1111,79 @@ class DeviceShuffleReaderResult:
             pass
 
 
-class PendingShuffle:
-    """Handle of a dispatched exchange. ``done()`` polls without blocking;
-    ``result()`` blocks, runs the overflow-retry loop and returns a
-    :class:`LazyShuffleReaderResult`. ``on_done(result_or_None)`` fires
-    exactly once.
+class PendingExchangeBase:
+    """The lifecycle every pending exchange handle shares — the flat
+    :class:`PendingShuffle` and the two-stage
+    ``topology.PendingTieredShuffle`` (the JAX package's
+    ``PendingExchangeBase``):
 
-    ``admit`` is None (no ``a2a.maxBytesInFlight`` cap) or the manager's
-    ``admit(block) -> bool``: when the non-blocking attempt at submit
-    fails, the exchange is deferred — no H2D copy, no dispatch,
-    ``done()`` False — and ``result()`` waits for the capacity, then
-    dispatches (a blocking submit would deadlock a caller that resolves
-    its handles in order)."""
+    * admission: ``admit`` is None (no ``a2a.maxBytesInFlight`` cap) or
+      the manager's ``admit(block) -> bool``. When the non-blocking
+      attempt at submit fails, the exchange is deferred — no H2D copy,
+      no dispatch, ``done()`` False — and ``result()`` waits for the
+      capacity, then starts it (a blocking submit would deadlock a caller
+      that resolves its handles in order);
+    * ``on_done(result_or_None)`` fires exactly once; it is armed after
+      the first dispatch, so a dispatch failure in the constructor leaves
+      the cleanup to the caller, never to the half-built handle;
+    * each dispatch's overflow flag travels to pinned memory behind its
+      step (:meth:`_arm_overflow`), so a join waits for THIS step's
+      event, not for the whole stream (which also holds a waved read's
+      later waves);
+    * :meth:`_settle` turns a finished exchange's view into the sink's
+      result: the device result, or the host view with the delivered-rows
+      figure the manager's capacity hint learns from.
 
-    def __init__(self, plan: ShufflePlan, shard_rows: np.ndarray,
-                 shard_nvalid: np.ndarray, val_shape, val_dtype,
-                 device: torch.device, on_done=None, metrics=None,
-                 wire_seed: int = 0, admit=None):
-        self._plan = plan
-        # int8 noise base: attempt k of the overflow retry loop draws from
-        # wire_seed + k, so a re-run gets fresh rounding noise
-        self._wire_seed = int(wire_seed)
-        self._val_shape = val_shape
-        self._val_dtype = val_dtype
-        self._device = device
-        self._metrics = metrics
-        self._attempt = 0
-        self._result: Optional[LazyShuffleReaderResult] = None
+    Subclasses set ``_plan``, ``_val_shape`` and ``_val_dtype`` and
+    implement ``_start()`` (the first H2D copy and dispatch),
+    ``_result_inner()`` (the overflow-retry loop, returning the result)
+    and ``_drop_buffers()`` (the device references a settled handle
+    releases)."""
+
+    def _admit_or_defer(self, admit, on_done) -> None:
+        self._result = None
         self._event = None
-        # the staged rows stay owned by on_done until the exchange settles
-        if not isinstance(shard_rows, torch.Tensor):
-            shard_rows = torch.from_numpy(shard_rows)
-        self._host = (shard_rows, shard_nvalid)
         self._admit_cb = None
+        self._on_done = None
         if admit is None or admit(False):
             self._start()
         else:
-            self._admit_cb = admit       # deferred: dispatch in result()
-        # armed last: a dispatch failure above leaves the cleanup to the
-        # caller, never to this half-built handle
+            self._admit_cb = admit       # deferred: started in result()
         self._on_done = on_done
 
-    def _start(self) -> None:
-        """One H2D copy from the (page-locked) pack buffer, then the
-        first dispatch."""
-        shard_rows, shard_nvalid = self._host
-        self._host = None
-        self._rows = shard_rows.to(self._device, non_blocking=True)
-        # a pageable copy would wait for all earlier work on the stream
-        # (a waved read's previous wave); a pinned one stays asynchronous
-        nvalid = torch.from_numpy(np.asarray(shard_nvalid, dtype=np.int32))
-        if self._device.type == "cuda":
-            nvalid = nvalid.pin_memory()
-        self._nvalid = nvalid.to(self._device, non_blocking=True)
-        self._dispatch()
-
-    def _dispatch(self) -> None:
-        seeds = wire_shard_seeds(self._plan,
-                                 self._wire_seed + self._attempt)
-        self._out = step_body(self._plan)(self._rows, self._nvalid, seeds)
+    def _arm_overflow(self, ovf: torch.Tensor) -> None:
+        """Keep the just-dispatched step's 0-d overflow flag; on CUDA copy
+        it to pinned memory behind the step and record the step's
+        event."""
+        self._ovf = ovf
         self._event = None
-        if self._device.type == "cuda":
-            # the overflow flag travels to pinned memory behind the step,
-            # so result() waits for THIS step's event, not for the whole
-            # stream (which also holds a waved read's later waves)
+        if ovf.device.type == "cuda":
             self._ovf_host = torch.empty((), dtype=torch.bool,
                                          pin_memory=True)
-            self._ovf_host.copy_(self._out[3], non_blocking=True)
+            self._ovf_host.copy_(ovf, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(self._device))
+            self._event.record(torch.cuda.current_stream(ovf.device))
 
-    def done(self) -> bool:
+    def _overflowed(self) -> bool:
+        """Wait for the current step alone; its overflow verdict."""
+        if self._event is not None:
+            self._event.synchronize()
+            return bool(self._ovf_host)
+        return bool(self._ovf)
+
+    def _outputs_ready(self) -> bool:
+        """Stage-local poll: the outputs of the step dispatched last are
+        computed (the wave pipeline's hidden-pack probe)."""
         if self._result is not None:
             return True
         if self._admit_cb is not None:
             return False                 # deferred by maxBytesInFlight
         return self._event is None or self._event.query()
 
-    def result(self) -> LazyShuffleReaderResult:
+    def done(self) -> bool:
+        return self._outputs_ready()
+
+    def result(self):
         if self._result is not None:
             return self._result
         try:
@@ -1203,7 +1199,7 @@ class PendingShuffle:
             raise
         # the staged rows and step outputs are no longer needed on the
         # device (the result holds what it serves)
-        self._rows = self._nvalid = self._out = None
+        self._drop_buffers()
         self._result = res
         self._notify(res)
         return res
@@ -1223,13 +1219,77 @@ class PendingShuffle:
         if cb is not None:
             cb(res)
 
+    def _settle(self, res: "LazyShuffleReaderResult", need_rows: bool):
+        """The sink's result over ``res``: the device result on the
+        device sink (the partitions stay in the device tensors: no drain,
+        not even the seg matrix's, deferred to host_view); else ``res``
+        itself, with ``recv_rows_needed`` (the max rows a shard received)
+        when ``need_rows``."""
+        plan = self._plan
+        if plan.sink == "device":
+            return DeviceShuffleReaderResult([res], plan, self._val_shape,
+                                             self._val_dtype)
+        if need_rows:
+            res._seg_matrix(0)                  # pulls the whole matrix
+            res.recv_rows_needed = max_recv_rows(
+                res._seg, res._part_to_shard, plan.num_shards)
+        return res
+
+
+class PendingShuffle(PendingExchangeBase):
+    """Handle of a dispatched exchange. ``done()`` polls without blocking;
+    ``result()`` blocks, runs the overflow-retry loop and returns a
+    :class:`LazyShuffleReaderResult` (admission and ``on_done`` as in
+    :class:`PendingExchangeBase`). ``step_for(plan)`` builds the step
+    each attempt dispatches (default :func:`step_body`; the fused
+    hierarchical read passes its own)."""
+
+    def __init__(self, plan: ShufflePlan, shard_rows: np.ndarray,
+                 shard_nvalid: np.ndarray, val_shape, val_dtype,
+                 device: torch.device, on_done=None, metrics=None,
+                 wire_seed: int = 0, admit=None, step_for=step_body):
+        self._plan = plan
+        self._step_for = step_for
+        # int8 noise base: attempt k of the overflow retry loop draws from
+        # wire_seed + k, so a re-run gets fresh rounding noise
+        self._wire_seed = int(wire_seed)
+        self._val_shape = val_shape
+        self._val_dtype = val_dtype
+        self._device = device
+        self._metrics = metrics
+        self._attempt = 0
+        # the staged rows stay owned by on_done until the exchange settles
+        if not isinstance(shard_rows, torch.Tensor):
+            shard_rows = torch.from_numpy(shard_rows)
+        self._host = (shard_rows, shard_nvalid)
+        self._admit_or_defer(admit, on_done)
+
+    def _start(self) -> None:
+        """One H2D copy from the (page-locked) pack buffer, then the
+        first dispatch."""
+        shard_rows, shard_nvalid = self._host
+        self._host = None
+        # pinned copies: a pageable one would wait for all earlier work on
+        # the stream (a waved read's previous wave)
+        self._rows = stage_to_device(shard_rows, self._device)
+        self._nvalid = stage_to_device(
+            np.asarray(shard_nvalid, dtype=np.int32), self._device)
+        self._dispatch()
+
+    def _dispatch(self) -> None:
+        seeds = wire_shard_seeds(self._plan,
+                                 self._wire_seed + self._attempt)
+        self._out = self._step_for(self._plan)(self._rows, self._nvalid,
+                                               seeds)
+        self._arm_overflow(self._out[3])
+
+    def _drop_buffers(self) -> None:
+        self._rows = self._nvalid = self._out = None
+
     def _result_inner(self):
         while True:
-            rows_out, seg, total, ovf = self._out
-            if self._event is not None:
-                self._event.synchronize()      # waits for the step alone
-                ovf = self._ovf_host
-            if not bool(ovf):
+            rows_out, seg, total, _ = self._out
+            if not self._overflowed():
                 break
             if self._attempt >= self._plan.max_retries:
                 raise RuntimeError(
@@ -1260,17 +1320,9 @@ class PendingShuffle:
         res.cap_out_used = self._plan.cap_out
         res._totals_dev = total
         res._ready_event = self._event
-        if plan.sink == "device":
-            # the partitions stay in the device tensors above: no drain,
-            # not even the seg matrix's (deferred to host_view)
-            return DeviceShuffleReaderResult([res], plan, self._val_shape,
-                                             self._val_dtype)
-        if not (plan.combine or plan.impl == "pallas"):
-            # true delivered rows (the aligned layout consumes slack; a
-            # combine's counts are post-merge)
-            res._seg_matrix(0)                  # pulls the whole matrix
-            res.recv_rows_needed = max_recv_rows(res._seg, p2s, Pn)
-        return res
+        # true delivered rows (the aligned layout consumes slack; a
+        # combine's counts are post-merge)
+        return self._settle(res, not (plan.combine or plan.impl == "pallas"))
 
 
 def submit_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,

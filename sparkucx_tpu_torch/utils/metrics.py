@@ -10,7 +10,8 @@ and :data:`C_SPILL_COUNT`, the admission counter
 :data:`C_ADMIT_BYTES` with its wait histogram :data:`H_ADMIT_WAIT`, and
 the MoE exchange counters (:data:`C_PAYLOAD_BYTES`, :data:`C_WIRE_BYTES`,
 :data:`C_MOE_EXCHANGES`, :data:`C_MOE_ROWS`) with the host-staged
-consumer's upload counter :data:`C_H2D`."""
+consumer's upload counter :data:`C_H2D`, and the per-tier wire counter of
+hierarchical reads :data:`C_TIER_BYTES`."""
 
 from __future__ import annotations
 
@@ -55,6 +56,9 @@ C_PAYLOAD_BYTES = "shuffle.payload.bytes"
 C_WIRE_BYTES = "shuffle.wire.bytes"
 C_MOE_EXCHANGES = "moe.exchange.count"
 C_MOE_ROWS = "moe.exchange.rows"
+# wire bytes each tier of a hierarchical read moved
+# (ExchangeReport.tiers), labeled {tier="ici|dcn", tenant="default"}
+C_TIER_BYTES = "shuffle.tier.bytes"
 
 
 def labeled(name: str, **labels) -> str:

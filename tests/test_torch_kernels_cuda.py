@@ -1392,3 +1392,110 @@ def test_transformer_train_step_counts_flash_launches(card, remat):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
     for k, want in out["cpu"][1].items():
         _moe_close(out["cuda"][1][k], want, 1e-4)
+
+
+# -- the two-tier topology plane and io/dlpack on the card --------------------
+def _hier_maps(seed, M=8, rows=3000, vw=4, key_space=1 << 20, ints=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(M):
+        k = rng.integers(0, key_space, rows).astype(np.int64)
+        v = rng.integers(-1000, 1000, (rows, vw)).astype(np.int32) if ints \
+            else rng.standard_normal((rows, vw)).astype(np.float32)
+        out.append((k, v))
+    return out
+
+
+def _hier_read(device, conf, maps, R, **kw):
+    with connect({"spark.shuffle.tpu.mesh.numSlices": "2", **conf},
+                 device=device, use_env=False) as svc:
+        h = svc.register_shuffle(1, len(maps), R)
+        for m, (k, v) in enumerate(maps):
+            svc.write(h, m, k, v)
+        res = svc.read(h, **kw)
+        return [res.partition(r) for r in range(R)], svc.report(1)
+
+
+@pytest.mark.parametrize("mode", ["plain", "ordered", "combine"])
+def test_hier_read_on_card_matches_cpu(card, mode):
+    """The tiered read under the default conf on a 2-slice node: on the
+    card (auto -> dense, both tiers) as on the CPU, partition by
+    partition: plain as (key, value) multisets, ordered and int32
+    combine exactly."""
+    R = 24
+    maps = _hier_maps(40 + len(mode), key_space=5000 if mode == "combine"
+                      else 1 << 20, ints=mode == "combine")
+    kw = {"combine": "sum"} if mode == "combine" else (
+        {"ordered": True} if mode == "ordered" else {})
+    got, grep_ = _hier_read(card, {}, maps, R, **kw)
+    want, wrep = _hier_read("cpu", {}, maps, R, **kw)
+    assert grep_.hierarchical and grep_.impl == "dense"
+    assert [t["tier"] for t in grep_.tiers] == ["ici", "dcn"]
+    assert [t["payload_rows"] for t in grep_.tiers] == \
+        [t["payload_rows"] for t in wrep.tiers]
+    for r in range(R):
+        (gk, gv), (wk, wv) = got[r], want[r]
+        if mode == "plain":
+            g = sorted(zip(gk.tolist(), map(bytes, gv.view(np.uint8))))
+            w = sorted(zip(wk.tolist(), map(bytes, wv.view(np.uint8))))
+            assert g == w
+        elif mode == "ordered":
+            np.testing.assert_array_equal(gk, wk)
+            assert (np.diff(gk) >= 0).all()
+        else:
+            np.testing.assert_array_equal(gk, wk)
+            np.testing.assert_array_equal(gv, wv)
+
+
+def test_hier_int8_read_launches_quantize_twice(card, monkeypatch):
+    """On the int8 wire each hop quantizes all of its groups in one
+    launch: two launches a single-shot hier read, none of the segment
+    move; the first launch is byte-equal to ``quantize_plain`` on its
+    inputs, and the keys land as on the raw wire."""
+    from sparkucx_tpu_torch.ops import quant as tq
+    R = 24
+    maps = _hier_maps(50, vw=32)
+    seen = []
+    real = tq.quantize_kernel
+
+    def spy(x, u):
+        out = real(x, u)
+        seen.append((x.clone(), u.clone(), out[0].clone(), out[1].clone()))
+        return out
+
+    monkeypatch.setattr(tq, "quantize_kernel", spy)
+    before = backend.launch_counts()
+    got, rep = _hier_read(card, {"spark.shuffle.tpu.a2a.wire": "int8"}, maps,
+                          R)
+    torch.cuda.synchronize()
+    after = backend.launch_counts()
+    assert rep.wire == "int8" and rep.hierarchical
+    assert after.get(tq.KERNEL_NAME, 0) - before.get(tq.KERNEL_NAME, 0) == 2
+    assert after.get(ra.KERNEL_NAME, 0) == before.get(ra.KERNEL_NAME, 0)
+    assert len(seen) == 2
+    x, u, q, s = seen[0]
+    pq, ps = tq.quantize_plain(x.cpu(), u.cpu())
+    assert torch.equal(q.cpu(), pq) and torch.equal(
+        s.cpu().view(torch.int32), ps.view(torch.int32))
+    raw, _ = _hier_read(card, {}, maps, R)
+    for r in range(R):
+        np.testing.assert_array_equal(np.sort(got[r][0]), np.sort(raw[r][0]))
+
+
+def test_ingest_foreign_on_card(card):
+    """A CUDA tensor on the node's device ingests zero-copy; a CPU tensor
+    bounces through the pinned pool onto the card, and the block goes
+    back."""
+    from sparkucx_tpu_torch.io.dlpack import ingest_foreign, stage_to_device
+    from sparkucx_tpu_torch.runtime.node import HostStagingPool
+    t = torch.arange(4096, dtype=torch.float32, device=card).reshape(64, 64)
+    out = ingest_foreign(t)
+    assert out.device == card and out.data_ptr() == t.data_ptr()
+    pool = HostStagingPool(pinned=True)
+    h = torch.arange(1000, dtype=torch.int32).reshape(10, 100)
+    got = ingest_foreign(h, device=card, pool=pool)
+    assert got.device == card and torch.equal(got.cpu(), h)
+    assert pool.stats()["in_use_bytes"] == 0
+    staged = stage_to_device(np.arange(7, dtype=np.int64))
+    assert staged.device == card
+    assert staged.cpu().tolist() == list(range(7))
