@@ -293,6 +293,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             CPU tensor through a pinned pool onto the card, cold (torch's
             cache of page-locked blocks emptied first) and warm, with
             GB/s; the pool's bytes in use back to 0.
+35. distributed — two worker processes share the card
+            (``sparkucx_tpu_torch.cluster.run_cluster``; the kernels are
+            built here first, and this process's cached card memory is
+            released), each holding 4 of the 8 shards under the default
+            conf (``auto`` -> ``dense``; the rows that change process go
+            through pinned host buffers and one gloo all-to-all), each
+            writing the maps its shards own (map m to the owner of shard
+            m % 8) and checking its partitions against the oracle:
+            dist_plain (main's records; this process checks that every
+            partition is on one worker and its digest equals main's),
+            dist_hier (``mesh.numSlices=2``: the DCN stage crosses
+            processes, its agreed cross rows equal the rows that change
+            process), dist_waved_ordered (``a2a.waveRows=262144``,
+            TeraSort bounds, the device sink with the merge fold: the
+            merge kernel 4 launches a worker, then the host sink),
+            dist_combine (combine's records: the segment reduce),
+            dist_int8 (int8_plain's gradient rows on ``a2a.wire=int8``:
+            the quantize once a worker plus once a retry, the delivered
+            bytes equal to a single-process dense int8 read's) and
+            dist_int8_combine (the fused dequant reduce); every
+            kernel's first and last launch in each worker held against
+            its plain version (``KernelCapture``). Each read prints each
+            worker's wall, pack, bytes staged through the host and that
+            hop's wall, retries and peak device bytes. Then
+            dist_peer_loss: on a world of its own under
+            ``failure.collectiveTimeoutMs=6000``, worker 1 is killed once
+            both staged, and worker 0's read must raise
+            ``PeerLostError`` within 12 s.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -303,7 +331,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack.
+dlpack, distributed.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -316,7 +344,9 @@ segment reduce exactly as above; spill and admission's pairs: the segment
 move; pipelines: per pipeline, the three counts exactly as above;
 moe_train: the quantize exactly as above; moe_dispatch: the segment move
 once a pallas read; transformer_train: the three flash kernels exactly as
-above; hier_int8: the quantize exactly as above). The last two lines of standard output
+above; hier_int8: the quantize exactly as above; distributed: in each
+worker, per read, the merge, the segment reduce, the fused reduce and
+the quantize as above). The last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
@@ -541,14 +571,16 @@ def hash_pid(keys, R: int):
 
 
 def check_against_oracle(parts, keys, values, R: int, pid=None) -> None:
-    """parts[r] = (keys, values) served for partition r; ``pid`` the
-    oracle's partition of every record (default: the hash partitioner)."""
+    """parts[r] = (keys, values) served for partition r (a list of all R,
+    or a dict of the partitions a distributed worker holds); ``pid`` the
+    oracle's partition of every record (default: the hash
+    partitioner)."""
     if pid is None:
         pid = hash_pid(keys, R)
     order = np.lexsort((values[:, 0], keys, pid))
     bounds = np.concatenate([[0], np.cumsum(np.bincount(pid, minlength=R))])
-    for r in range(R):
-        gk, gv = parts[r]
+    for r, (gk, gv) in (parts.items() if isinstance(parts, dict)
+                        else enumerate(parts)):
         lo, hi = int(bounds[r]), int(bounds[r + 1])
         if gk.shape[0] != hi - lo:
             raise AssertionError(f"partition {r}: {gk.shape[0]} rows, "
@@ -831,6 +863,34 @@ def check_segment_reduce(tag: str, args, got) -> float:
     p = pr[..., 2:2 + sw].contiguous().view(torch.float32).double()
     diff = (k - p).abs().cpu().numpy()
     if (diff > run_tolerance(rows.cpu().numpy(), part.cpu().numpy(), sw,
+                             num_parts)).any():
+        raise AssertionError(f"{tag}: float sums outside tolerance")
+    return float(diff.max()) if diff.size else 0.0
+
+
+def check_segment_reduce_wire(tag: str, args, got) -> float:
+    """Hold the fused dequant reduce's (rows, part, n_out) for ``args`` =
+    (wire rows, part, num_parts, width, wire_words, sum_words) against
+    ``segment_reduce_wire_plain``: counts, partitions, keys and carried
+    lanes exact, float32 sums within :func:`run_tolerance` of the
+    dequantized rows. Returns the sums' largest difference."""
+    import torch
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.shuffle.alltoall import wire_unpack_rows
+    rows, part, num_parts, width, ww, sw = args
+    kr, kp, kn = got
+    pr, pp, pn = sg.segment_reduce_wire_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kn, pn) and torch.equal(kp, pp)):
+        raise AssertionError(f"{tag}: n_out/part differ")
+    exact = [0, 1] + list(range(2 + sw, width))
+    if not torch.equal(kr[..., exact], pr[..., exact]):
+        raise AssertionError(f"{tag}: keys/carry differ")
+    k = kr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    p = pr[..., 2:2 + sw].contiguous().view(torch.float32).double()
+    diff = (k - p).abs().cpu().numpy()
+    full = wire_unpack_rows(rows, width, ww).cpu().numpy()
+    if (diff > run_tolerance(full, part.cpu().numpy(), sw,
                              num_parts)).any():
         raise AssertionError(f"{tag}: float sums outside tolerance")
     return float(diff.max()) if diff.size else 0.0
@@ -2785,7 +2845,8 @@ def _card_copy(x):
 class KernelCapture:
     """While installed, keeps a device copy of the inputs and the output
     of the first launch of the segment move (B.1), the merge (B.2), the
-    segment reduce (B.3) and the quantize (B.5), and references to those
+    segment reduce (B.3), the fused dequant reduce (B.4) and the quantize
+    (B.5), and references to those
     of the latest launch; :meth:`check` then holds the first and the last launch
     against the plain version on the same inputs, at the shapes the run
     gave the kernel. The first launch's copy is made on the stream right
@@ -2806,6 +2867,8 @@ class KernelCapture:
                                 (sg, "segment_reduce_kernel",
                                  sg.KERNEL_NAME),
                                 (sg, "merge_kernel", sg.MERGE_KERNEL_NAME),
+                                (sg, "segment_reduce_wire_kernel",
+                                 sg.WIRE_KERNEL_NAME),
                                 (tq, "quantize_kernel", tq.KERNEL_NAME)):
             orig = getattr(mod, attr)
             self._saved.append((mod, attr, orig))
@@ -2854,6 +2917,9 @@ class KernelCapture:
                     check_merge(what, args, got)
                 elif name == tq.KERNEL_NAME:
                     check_quantize(what, args, got)
+                elif name == sg.WIRE_KERNEL_NAME:
+                    err = max(err, check_segment_reduce_wire(what, args,
+                                                             got))
                 else:
                     err = max(err, check_segment_reduce(what, args, got))
                 n += 1
@@ -4319,6 +4385,364 @@ def dlpack_phase(dev) -> dict:
             "pool_warm_gbps": DLPACK_BYTES / walls[1] / 1e6, "ok": True}
 
 
+# -- the multi-process read plane: two workers sharing the card ------------
+DIST_PROCS = 2             # worker processes, 4 of the 8 shards each
+DIST_WAVE_CONF = {"spark.shuffle.tpu.a2a.waveRows": str(WAVE_ROWS)}
+DIST_FENCE_MS = 6000.0     # dist_peer_loss: failure.collectiveTimeoutMs
+DIST_LOSS_ROWS = 16_384    # rows a map of the peer-loss drill (64 maps)
+DIST_DEADLINE_S = 400.0    # each world's deadline
+
+
+def partition_digest(keys, values) -> str:
+    """An order-free digest of one partition's (key, value bytes) rows:
+    the count and the wrapping sum of a 64-bit mix of every row."""
+    k = np.asarray(keys).astype(np.uint64)
+    w = np.ascontiguousarray(values).view(np.uint32).reshape(k.size, -1)
+    h = k * np.uint64(0x9E3779B97F4A7C15)
+    for j in range(w.shape[1]):
+        h ^= w[:, j].astype(np.uint64) \
+            * np.uint64(((0xBF58476D1CE4E5B9 * (j + 1)) | 1)
+                        & 0xFFFFFFFFFFFFFFFF)
+    h ^= h >> np.uint64(31)
+    h *= np.uint64(0x94D049BB133111EB)
+    h ^= h >> np.uint64(29)
+    return f"{k.size}:{int(h.sum(dtype=np.uint64)):016x}"
+
+
+def partition_digests(parts) -> dict:
+    return {str(r): partition_digest(*kv) for r, kv in (
+        parts.items() if isinstance(parts, dict) else enumerate(parts))}
+
+
+class HopTally:
+    """While installed, collects every ``CrossProcessHop`` made: the rows
+    kept on this process, the bytes staged through the host each way
+    (from the count matrix's splits) and the host-staged wall."""
+
+    def __enter__(self) -> "HopTally":
+        from sparkucx_tpu_torch.shuffle import distributed as tdist
+        self.hops = []
+        self._cls = tdist.CrossProcessHop
+        self._init = self._cls.__init__
+
+        def init(hop, *a, _init=self._init, **kw):
+            _init(hop, *a, **kw)
+            self.hops.append(hop)
+
+        self._cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._cls.__init__ = self._init
+
+    def totals(self) -> dict:
+        keys = ("calls", "local_rows", "host_bytes_sent",
+                "host_bytes_received", "host_ms", "d2h_ms", "all_to_all_ms",
+                "h2d_ms")
+        return {k: sum(h.stats[k] for h in self.hops) for k in keys}
+
+
+def _own_maps(mgr, sid: int, keys, values, mine, partitioner="hash",
+              bounds=None):
+    """``write_maps``'s split over MAPS maps, committing only ``mine``."""
+    h = mgr.register_shuffle(sid, MAPS, PARTITIONS, partitioner, bounds)
+    per = -(-keys.shape[0] // MAPS)
+    for m in mine:
+        w = mgr.get_writer(h, m)
+        w.write(keys[m * per:(m + 1) * per], values[m * per:(m + 1) * per])
+        w.commit(PARTITIONS)
+    return h
+
+
+def dist_read(mgr, h, dev, **read_kw) -> tuple:
+    """One measured distributed read by this worker (launch counts and the
+    device peak reset just before, the workers met at a barrier first, so
+    the wall does not hold one's wait for the other): (this worker's
+    partitions, stats)."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.shuffle.distributed import allgather_blob
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    allgather_blob(np.zeros(1, dtype=np.int64), what="smoke barrier")
+    backend.reset_launch_counts()
+    with HopTally() as hops:
+        t0 = time.perf_counter()
+        res = mgr.read(h, **read_kw)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        read_ms = (time.perf_counter() - t0) * 1e3
+    rep = mgr.report(h.shuffle_id)
+    st = {"read_ms": read_ms, "pack_ms": rep.pack_ms,
+          "group_ms": rep.group_ms, "retries": rep.retries,
+          "impl": rep.impl, "sink": rep.sink, "waves": rep.waves,
+          "distributed": rep.distributed, "d2h_before_views": rep.d2h_bytes,
+          "payload_bytes": rep.payload_bytes, "wire_bytes": rep.wire_bytes,
+          **hops.totals(), "launches": backend.launch_counts(),
+          "peak_device_bytes": torch.cuda.max_memory_allocated(dev)
+          if cuda else 0}
+    t0 = time.perf_counter()
+    view = res.host_view() if read_kw.get("sink") == "device" else res
+    parts = dict(view.partitions())
+    st["views_ms"] = (time.perf_counter() - t0) * 1e3
+    st["partitions"] = sorted(parts)
+    if rep.tiers:
+        st["tiers"] = tier_summary(rep)
+    return parts, st
+
+
+def _dist_manager(ctx, conf: dict):
+    from sparkucx_tpu_torch.config import ShuffleConf
+    from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+    return ShuffleManager(ctx.svc.node, ShuffleConf(conf, use_env=False))
+
+
+def dist_worker(ctx) -> dict:
+    """One worker of the ``distributed`` phase (``cluster.run_cluster``
+    job): main's TeraSort records, combine's, int8_plain's gradient rows,
+    the maps this process's shards own (``cluster.my_maps``), read as
+    collectives; each worker checks its partitions against the oracle and
+    holds the first and last launch of every kernel against its plain
+    version (``KernelCapture``; on the card)."""
+    from sparkucx_tpu_torch.cluster import my_maps
+    svc = ctx.svc
+    dev = svc.node.device
+    cuda = dev.type == "cuda"
+    n = int(ctx.args.get("records", RECORDS))
+    n8 = int(ctx.args.get("int8_records", INT8_RECORDS))
+    mine = my_maps(ctx, MAPS)
+    out = {"rank": ctx.rank, "shards": svc.node.local_shard_ids,
+           "maps": len(mine)}
+
+    def captured(fn):
+        if not cuda:
+            return fn(), {}
+        with KernelCapture() as cap:
+            got = fn()
+        return got, cap.check(f"worker {ctx.rank}")
+
+    keys, values = make_records(n, zipf=False, seed=SEED)
+    # warm the torch ops and the collectives (not counted, not timed)
+    wk, wv = make_records(1 << 16, zipf=False, seed=SEED + 1)
+    dist_read(svc.manager, _own_maps(svc.manager, 69, wk, wv, mine), dev)
+    svc.unregister_shuffle(69)
+    # dist_plain
+    h = _own_maps(svc.manager, 70, keys, values, mine)
+    parts, st = dist_read(svc.manager, h, dev)
+    check_against_oracle(parts, keys, values, PARTITIONS)
+    st["digests"] = partition_digests(parts)
+    out["dist_plain"] = st
+    del parts
+    svc.unregister_shuffle(70)
+    # dist_hier: the slice boundary is the process boundary
+    with ctx.connect({"spark.shuffle.tpu.mesh.numSlices":
+                      str(ctx.nprocs)}) as hsvc:
+        h = _own_maps(hsvc.manager, 71, keys, values, mine)
+        parts, st = dist_read(hsvc.manager, h, dev)
+        check_against_oracle(parts, keys, values, PARTITIONS)
+        per = -(-n // MAPS)
+        src = (np.arange(n) // per) % SHARDS
+        dst = blocked_shard(hash_pid(keys, PARTITIONS))
+        L = SHARDS // ctx.nprocs
+        st["cross_rows_want"] = {
+            "ici": int(((src % L) != (dst % L)).sum()),
+            "dcn": int(((src // L) != (dst // L)).sum())}
+        del parts, src, dst
+        hsvc.unregister_shuffle(71)
+    out["dist_hier"] = st
+    # dist_waved_ordered: TeraSort in waves, device sink then host sink
+    bounds = terasort_bounds(keys)
+    pid = np.searchsorted(bounds, keys, side="right").astype(np.int64)
+    mw = _dist_manager(ctx, DIST_WAVE_CONF)
+    h = _own_maps(mw, 72, keys, values, mine, "range", bounds)
+    for sink in ("device", "host"):
+        (parts, st), checks = captured(
+            lambda: dist_read(mw, h, dev, ordered=True, sink=sink))
+        for r, (gk, _) in parts.items():
+            if (np.diff(gk) < 0).any():
+                raise AssertionError(f"dist_waved_ordered: partition {r} "
+                                     f"is not sorted")
+        check_against_oracle(parts, keys, values, PARTITIONS, pid=pid)
+        st["kernel_checks"] = checks
+        out[f"dist_waved_ordered_{sink}"] = st
+        del parts
+    mw.unregister_shuffle(72)
+    mw.stop()
+    del keys, values, pid
+    # dist_combine: group-by-sum, the segment reduce in every worker
+    ck, cv = make_combine_records(n, SEED + 4)
+    h = _own_maps(svc.manager, 73, ck, cv, mine)
+    (parts, st), checks = captured(
+        lambda: dist_read(svc.manager, h, dev, combine="sum"))
+    uk, sums, _ = group_oracle(ck, cv)
+    want = dict(zip(uk.tolist(), (sums & 0xFFFFFFFF).astype(np.uint32)
+                    .view(np.int32).tolist()))
+    for r, (gk, gv) in parts.items():
+        if (np.diff(gk) <= 0).any() or (hash_pid(gk, PARTITIONS) != r).any() \
+                or [want[k] for k in gk.tolist()] != gv.tolist():
+            raise AssertionError(f"dist_combine: partition {r} differs "
+                                 f"from the oracle")
+    st["rows_out"] = int(sum(k.size for k, _ in parts.values()))
+    st["kernel_checks"] = checks
+    out["dist_combine"] = st
+    del parts, ck, cv, want
+    svc.unregister_shuffle(73)
+    # dist_int8: the DLRM gradient rows on the int8 wire, plain and combine
+    ikeys, grads = make_embedding_grads(n8, SEED + 11)
+    m8 = _dist_manager(ctx, {"spark.shuffle.tpu.a2a.wire": "int8"})
+    h = _own_maps(m8, 74, ikeys, grads, mine)
+    (parts, st), checks = captured(lambda: dist_read(m8, h, dev))
+    ipid = hash_pid(ikeys, PARTITIONS)
+    for r, (gk, _) in parts.items():
+        if not np.array_equal(np.sort(gk), np.sort(ikeys[ipid == r])):
+            raise AssertionError(f"dist_int8: partition {r} keys differ")
+    st["digests"] = partition_digests(parts)
+    st["kernel_checks"] = checks
+    out["dist_int8"] = st
+    del parts
+    (parts, st), checks = captured(
+        lambda: dist_read(m8, h, dev, combine="sum"))
+    st["rows_out"] = int(sum(k.size for k, _ in parts.values()))
+    st["kernel_checks"] = checks
+    out["dist_int8_combine"] = st
+    del parts, ikeys, grads, ipid
+    m8.unregister_shuffle(74)
+    m8.stop()
+    return out
+
+
+def blocked_shard(pid) -> np.ndarray:
+    """The shard each partition id lands on (the blocked map)."""
+    from sparkucx_tpu_torch.ops.partition import blocked_partition_map
+    return blocked_partition_map(PARTITIONS, SHARDS)[pid]
+
+
+def _both(results, name: str, key: str):
+    return [res[name][key] for res in results]
+
+
+def dist_phase(dev, main_digests: dict) -> dict:
+    """Two worker processes share the card, 4 of the 8 shards each
+    (``cluster.run_cluster``, default conf: ``auto`` -> ``dense``): the
+    reads of :func:`dist_worker`, checked here across the workers (every
+    partition on one worker, main's digests, the single-process int8
+    read's bytes, exact DCN cross rows, the kernels' launches), then the
+    peer-loss drill on a world of its own."""
+    import gc
+
+    import torch
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.cluster import run_cluster
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.runtime.node import _empty_host_cache
+    out = {}
+    # the single-process int8 read whose bytes the workers' must equal
+    ikeys, grads = make_embedding_grads(INT8_RECORDS, SEED + 11)
+    with connect({"spark.shuffle.tpu.a2a.wire": "int8",
+                  "spark.shuffle.tpu.a2a.impl": "dense"},
+                 num_shards=SHARDS, use_env=False) as svc:
+        res = svc.read(write_maps(svc, 80, ikeys, grads, MAPS))
+        int8_digests = partition_digests(
+            [res.partition(r) for r in range(PARTITIONS)])
+        del res
+    del ikeys, grads
+    # the workers get the card's memory this process cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    _empty_host_cache()
+    t = time.perf_counter()
+    run = run_cluster("chip_smoke:dist_worker", DIST_PROCS, SHARDS,
+                      device=None, timeout_s=DIST_DEADLINE_S)
+    results = run.results
+    out["world"] = {"seconds": time.perf_counter() - t,
+                    "attempts": run.attempts,
+                    "shards": [r["shards"] for r in results],
+                    "maps": [r["maps"] for r in results]}
+    names = ("dist_plain", "dist_hier", "dist_waved_ordered_device",
+             "dist_waved_ordered_host", "dist_combine", "dist_int8",
+             "dist_int8_combine")
+    for name in names:
+        parts = sorted(p for res in results
+                       for p in res[name].pop("partitions"))
+        if parts != list(range(PARTITIONS)):
+            raise AssertionError(f"{name}: partitions not covered once")
+        if not all(res[name]["distributed"] and res[name]["impl"] == "dense"
+                   for res in results):
+            raise AssertionError(f"{name}: not a dense distributed read")
+    for name, want in (("dist_plain", main_digests),
+                       ("dist_int8", int8_digests)):
+        got = {}
+        for res in results:
+            got.update(res[name].pop("digests"))
+        if got != want:
+            bad = sorted(int(r) for r in want if got.get(r) != want[r])
+            raise AssertionError(f"{name}: partitions {bad[:8]} differ "
+                                 f"from the single-process read's")
+    for res in results:
+        tiers = {t["tier"]: t for t in res["dist_hier"]["tiers"]}
+        want = res["dist_hier"]["cross_rows_want"]
+        if any(not tiers[k]["cross_exact"]
+               or tiers[k]["payload_rows"] != want[k] for k in want):
+            raise AssertionError(f"dist_hier: cross rows {tiers} against "
+                                 f"{want}")
+        dev_st = res["dist_waved_ordered_device"]
+        if not (dev_st["waves"] == 5 and dev_st["d2h_before_views"] == 0
+                and dev_st["sink"] == "device"):
+            raise AssertionError(f"dist_waved_ordered_device: {dev_st}")
+    launches = {}
+    for kname, name, want in (
+            (sg.MERGE_KERNEL_NAME, "dist_waved_ordered_device", 4),
+            (sg.KERNEL_NAME, "dist_combine", None),
+            (sg.WIRE_KERNEL_NAME, "dist_int8_combine", None),
+            (tq.KERNEL_NAME, "dist_int8", None)):
+        for res in results:
+            st = res[name]
+            got = st["launches"].get(kname, 0)
+            exp = want if want is not None else (
+                1 + st["retries"] if kname == tq.KERNEL_NAME else None)
+            if got < 1 or (exp is not None and got != exp):
+                raise AssertionError(f"{name} (worker {res['rank']}): "
+                                     f"{kname} launched {got} times")
+            if kname not in st["kernel_checks"]:
+                raise AssertionError(f"{name}: no {kname} launch held "
+                                     f"against its plain version")
+        launches[kname] = sum(res[name]["launches"].get(kname, 0)
+                              for res in results)
+    out["dist_launches"] = launches
+    for name in names:
+        st = [res[name] for res in results]
+        out[name] = {"phase": name, "workers": st,
+                     "read_ms": max(s["read_ms"] for s in st),
+                     "host_bytes_sent": sum(s["host_bytes_sent"]
+                                            for s in st),
+                     "host_ms": max(s["host_ms"] for s in st),
+                     "retries": _both(results, name, "retries"),
+                     "peak_device_bytes": _both(results, name,
+                                                "peak_device_bytes"),
+                     "ok": True}
+    # dist_peer_loss: worker 1 is killed once both staged
+    t = time.perf_counter()
+    loss = run_cluster(
+        "chaos", DIST_PROCS, SHARDS, device=None, timeout_s=DIST_DEADLINE_S,
+        conf={"spark.shuffle.tpu.failure.collectiveTimeoutMs":
+              str(DIST_FENCE_MS)},
+        args={"maps": MAPS, "rows": DIST_LOSS_ROWS})
+    survivor = loss.results[0]
+    if not (survivor["peer_lost"] and loss.results[1] is None
+            and survivor["wall_ms"] < 2 * DIST_FENCE_MS):
+        raise AssertionError(f"dist_peer_loss: {loss.results}")
+    out["dist_peer_loss"] = {"phase": "dist_peer_loss",
+                             "fence_ms": DIST_FENCE_MS,
+                             "survivor_wall_ms": survivor["wall_ms"],
+                             "expiries": survivor["expiries"],
+                             "error": survivor["error"],
+                             "seconds": time.perf_counter() - t, "ok": True}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4400,6 +4824,8 @@ def main() -> int:
         t = time.perf_counter()
         check_against_oracle(parts, keys, values, PARTITIONS)
         check_s = time.perf_counter() - t
+        # what the distributed phase's workers must deliver
+        main_digests = partition_digests(parts)
         del parts
         # steady state: the same read again (pinned pack buffer reused)
         parts2, read2_ms, views2_ms = drive_read(svc, h)
@@ -4655,6 +5081,20 @@ def main() -> int:
     dl = dlpack_phase(dev)
     print(json.dumps({**dl, "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the multi-process read plane: two workers sharing the card
+    t = time.perf_counter()
+    di = dist_phase(dev, main_digests)
+    print(json.dumps({"phase": "dist_world", **di["world"]}), flush=True)
+    for name in ("dist_plain", "dist_combine", "dist_int8",
+                 "dist_int8_combine", "dist_hier",
+                 "dist_waved_ordered_device", "dist_waved_ordered_host",
+                 "dist_peer_loss"):
+        print(json.dumps(di[name]), flush=True)
+    print(json.dumps({"phase": "distributed",
+                      "launches": di["dist_launches"],
+                      "seconds": time.perf_counter() - t}), flush=True)
+    dist_launches = di["dist_launches"]
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -4686,6 +5126,7 @@ def main() -> int:
         "name": SEG_KERNEL, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
+        "dist_launches": dist_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
@@ -4696,6 +5137,7 @@ def main() -> int:
         "name": MERGE_KERNEL, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/merge_path.cu",
         "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
+        "dist_launches": dist_launches[MERGE_KERNEL],
         "pipeline_launches": pl_launches[MERGE_KERNEL],
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
@@ -4706,6 +5148,7 @@ def main() -> int:
         "launches": i8_stats["launches"][QUANT_KERNEL],
         "moe_launches": mo["int8_quantize_launches"],
         "hier_launches": hi["hier_int8"]["int8"]["launches"][QUANT_KERNEL],
+        "dist_launches": dist_launches[QUANT_KERNEL],
         "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
         "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": "bytes", "library_ms": qt["library_ms"]}, {
@@ -4713,6 +5156,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
         "replaces": SEG_TPU_KERNEL,
         "launches": i8_stats["launches"][WIRE_KERNEL],
+        "dist_launches": dist_launches[WIRE_KERNEL],
         "max_abs_err": wt["max_abs_err"], "ms": wt["kernel_ms"],
         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
         "bound_full_output_ms": wt["bound_full_output_ms"],

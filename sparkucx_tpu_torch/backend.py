@@ -124,24 +124,27 @@ def check_sm90(device: torch.device) -> None:
 
 def resolve_a2a_impl(impl: str, device: torch.device, num_shards: int,
                      waved: bool = False, sink: str = "host",
-                     hierarchical: bool = False) -> str:
+                     hierarchical: bool = False,
+                     distributed: bool = False) -> str:
     """Resolve ``a2a.impl``. Explicit values pass through validated.
     ``auto`` resolves as the JAX package's ``ragged_shuffle`` does
     ('local' for one shard, else the dense exchange), with one exception:
     on CUDA a single-shot host-sink read (``waved`` false: no
-    ``a2a.waveRows``) of a flat topology takes the hand kernel
-    ('pallas'), whose chunk-aligned move gives the same partitions. A
-    waved read keeps its waves, a device-sink read keeps its valid rows a
-    prefix of each shard, and a hierarchical read keeps its two stages
-    (the reference never runs them under 'pallas'), as under the
-    reference's ``auto``."""
+    ``a2a.waveRows``) of a flat topology on one process takes the hand
+    kernel ('pallas'), whose chunk-aligned move gives the same
+    partitions. A waved read keeps its waves, a device-sink read keeps
+    its valid rows a prefix of each shard, a hierarchical read keeps its
+    two stages (the reference never runs them under 'pallas'), and a
+    distributed read keeps the dense move (the segment move is
+    device-local; the manager refuses an explicit 'pallas' there), as
+    under the reference's ``auto``."""
     validate_impl(impl)
     if impl != "auto":
         return impl
     if num_shards == 1:
         return "local"
     if device.type == "cuda" and not waved and sink == "host" \
-            and not hierarchical:
+            and not hierarchical and not distributed:
         return "pallas"
     return "dense"
 

@@ -11,8 +11,11 @@ Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``a2a.waveRows``, ``a2a.waveDepth``, ``a2a.wire``,
 ``a2a.wireErrorSampleRows``, ``a2a.maxBytesInFlight``, ``a2a.topology``,
 ``mesh.numSlices``, ``read.mergeImpl``, ``read.sink``, ``network.timeoutMs``,
-``spill.threshold``, ``spill.dir``. Byte sizes parse as the JAX
-package's do (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
+``spill.threshold``, ``spill.dir``, and the multi-process keys
+``coordinator.address``, ``numProcesses``, ``meta.bufferSize``,
+``failure.collectiveTimeoutMs``, ``failure.ici.timeoutMs`` and
+``failure.dcn.timeoutMs``. Byte sizes parse as the JAX package's do
+(``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
 from __future__ import annotations
@@ -160,7 +163,10 @@ class ShuffleConf:
                     "wire_error_sample_rows", "read_merge_impl",
                     "read_sink", "connection_timeout_ms",
                     "spill_threshold", "max_bytes_in_flight",
-                    "a2a_topology", "num_slices")
+                    "a2a_topology", "num_slices", "coordinator_address",
+                    "num_processes", "meta_buffer_size",
+                    "collective_timeout_ms", "ici_timeout_ms",
+                    "dcn_timeout_ms")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -194,6 +200,9 @@ class ShuffleConf:
 
     def get_int(self, short: str, default: int) -> int:
         return int(self._get(short, default))
+
+    def get_float(self, short: str, default: float) -> float:
+        return float(self._get(short, default))
 
     def get_bytes(self, short: str, default) -> int:
         return parse_bytes(self._get(short, default))
@@ -366,3 +375,61 @@ class ShuffleConf:
         """Slices the node's shards are laid out in (``parallel/mesh``):
         more than 1 makes the grid ``[S, P/S]``, slice-major."""
         return self.get_int("mesh.numSlices", 1)
+
+    # -- the multi-process keys (shuffle/distributed.py) -------------------
+    @property
+    def coordinator_address(self) -> str:
+        """``host:port`` of the rendezvous every process of a distributed
+        node dials (``torch.distributed``'s TCP init)."""
+        return self._get("coordinator.address", "localhost:55443")
+
+    @property
+    def num_processes(self) -> int:
+        """Processes in the cluster; a node started with
+        ``distributed=True`` spans processes only when this is above 1."""
+        v = self.get_int("numProcesses", 1)
+        if v < 1:
+            raise ValueError(f"{PREFIX}numProcesses={v}: want >= 1")
+        return v
+
+    @property
+    def meta_buffer_size(self) -> int:
+        """Upper bound on one metadata-plane message (the presence bitmap
+        a distributed read allgathers: 8 B a map, plus one)."""
+        return self.get_bytes("meta.bufferSize", "64k")
+
+    @property
+    def collective_timeout_ms(self) -> float:
+        """Deadline on every distributed rendezvous and collective wait
+        (``runtime/watchdog.py``): past it the watchdog probes the device
+        and raises ``PeerLostError`` instead of hanging on a dead peer.
+        0 (default) = off."""
+        v = self.get_float("failure.collectiveTimeoutMs", 0.0)
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.failure.collectiveTimeoutMs={v}: "
+                f"want >= 0 (0 = off)")
+        return v
+
+    def _tier_timeout(self, tier: str) -> float:
+        v = self.get_float(f"failure.{tier}.timeoutMs",
+                           self.collective_timeout_ms)
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.failure.{tier}.timeoutMs={v}: "
+                f"want >= 0 (0 = off)")
+        return v
+
+    @property
+    def ici_timeout_ms(self) -> float:
+        """Deadline on the intra-slice (ICI) stage of a hierarchical
+        read; past it ``PeerLostError`` names the ICI tier. Defaults to
+        ``failure.collectiveTimeoutMs`` (0 = off)."""
+        return self._tier_timeout("ici")
+
+    @property
+    def dcn_timeout_ms(self) -> float:
+        """Deadline on the cross-slice (DCN) stage of a hierarchical
+        read, the ``failure.ici.timeoutMs`` twin. Defaults to
+        ``failure.collectiveTimeoutMs`` (0 = off)."""
+        return self._tier_timeout("dcn")

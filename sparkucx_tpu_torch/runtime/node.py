@@ -1,16 +1,31 @@
-"""The per-process runtime: device, metrics, shuffle registry and the
-host staging pool.
+"""The per-process runtime: device, metrics, shuffle registry, the host
+staging pool and the failure plane.
 
 A :class:`Node` is an object the caller creates and passes (no process
 singleton). It owns the device every shuffle of its manager runs on, the
 number of logical shards ``P`` the exchange splits that device into and
 their grid (``parallel/mesh.SliceGrid``: ``[S, P/S]`` when
-``mesh.numSlices`` = S > 1) — the role the JAX package's mesh plays."""
+``mesh.numSlices`` = S > 1) — the role the JAX package's mesh plays.
+
+Distributed (``Node.start(..., distributed=True, process_id=i)`` with
+``numProcesses`` = N > 1, :attr:`Node.is_distributed`): the node joins
+the rendezvous at ``coordinator.address`` (``torch.distributed`` over
+gloo; a failure raises the classified ``RENDEZVOUS FAILED`` error), owns
+the contiguous block :attr:`Node.local_shard_ids` of the P global shards,
+and runs its collectives on a gloo group whose own timeout is the fence
+(``failure.collectiveTimeoutMs`` and the tier deadlines), installed for
+``shuffle/distributed.py``. Every node carries the failure plane: the
+:class:`~sparkucx_tpu_torch.runtime.failures.HealthMonitor` probe of its
+device, the process-global watchdog (``runtime/watchdog.py``) and the
+:class:`~sparkucx_tpu_torch.runtime.failures.EpochManager` whose bump
+resets the agreement sequence; :meth:`Node.remesh` bumps it."""
 
 from __future__ import annotations
 
+import datetime
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,7 +33,15 @@ import torch
 from sparkucx_tpu_torch.backend import resolve_device
 from sparkucx_tpu_torch.config import ShuffleConf
 from sparkucx_tpu_torch.meta.registry import ShuffleRegistry
-from sparkucx_tpu_torch.parallel.mesh import make_shuffle_grid
+from sparkucx_tpu_torch.parallel.mesh import (local_shard_ids,
+                                              make_shuffle_grid)
+from sparkucx_tpu_torch.runtime.failures import (DeviceUnhealthy,
+                                                 EpochManager,
+                                                 HealthMonitor)
+from sparkucx_tpu_torch.runtime.watchdog import (configure_from_conf,
+                                                 current_watchdog,
+                                                 set_global_watchdog)
+from sparkucx_tpu_torch.shuffle import agreement, distributed
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import Metrics
 
@@ -150,27 +173,146 @@ class MappedFile:
 
 
 class Node:
-    """Device + metrics + registry + staging pool for one process."""
+    """Device + metrics + registry + staging pool + failure plane for one
+    process (and, distributed, its place in the cluster)."""
 
     def __init__(self, conf: Optional[ShuffleConf] = None, device=None,
-                 num_shards: int = DEFAULT_SHARDS):
+                 num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
+                 process_id: int = 0):
         if num_shards <= 0:
             raise ValueError(f"num_shards must be positive, got {num_shards}")
         self.conf = conf or ShuffleConf()
         self.device = resolve_device(device)
         self.num_shards = int(num_shards)
+        self.process_id = int(process_id)
+        self.is_distributed = bool(distributed) \
+            and self.conf.num_processes > 1
+        self.group = None
+        self._owns_world = False
+        self._prev_group = None
+        if self.is_distributed:
+            # a shard count the processes cannot split fails before the
+            # rendezvous, on every process alike
+            local_shard_ids(self.num_shards, self.conf.num_processes,
+                            self.process_id)
+            self._rendezvous()
         self.grid = make_shuffle_grid(self.num_shards, self.conf)
         self.metrics = Metrics()
         self.registry = ShuffleRegistry()
         self.pool = HostStagingPool(pinned=self.device.type == "cuda")
+        self.health = HealthMonitor(self.device,
+                                    timeout_ms=self.conf.connection_timeout_ms)
+        self.watchdog = configure_from_conf(self.conf, health=self.health,
+                                            metrics=self.metrics)
+        self.epochs = EpochManager()
+        # a process that missed a remesh diverges typed in the next
+        # agreement round's header
+        agreement.reset_epoch(self.epochs.current)
+        self.epochs.on_bump(agreement.reset_epoch)
         self._closed = False
+
+    def _rendezvous(self) -> None:
+        """Join the world at ``coordinator.address`` (or the world this
+        process already joined) and make this node's collective group,
+        whose timeout is the fence so gloo never waits past it."""
+        import torch.distributed as dist
+        c = self.conf
+        t0 = time.monotonic()
+        try:
+            if dist.is_initialized():
+                if (dist.get_world_size(), dist.get_rank()) != \
+                        (c.num_processes, self.process_id):
+                    raise RuntimeError(
+                        f"this process already joined a world of "
+                        f"{dist.get_world_size()} as rank "
+                        f"{dist.get_rank()}")
+            else:
+                dist.init_process_group(
+                    "gloo", init_method=f"tcp://{c.coordinator_address}",
+                    world_size=c.num_processes, rank=self.process_id,
+                    timeout=datetime.timedelta(
+                        milliseconds=c.connection_timeout_ms))
+                self._owns_world = True
+            fence = max(c.collective_timeout_ms, c.ici_timeout_ms,
+                        c.dcn_timeout_ms)
+            self.group = dist.new_group(
+                backend="gloo",
+                timeout=datetime.timedelta(milliseconds=fence)
+                if fence > 0 else None)
+        except Exception as e:
+            # classified, so a launcher retries this failure alone
+            log.error("RENDEZVOUS FAILED after %.1fs: coordinator=%s "
+                      "process %d/%d: %r", time.monotonic() - t0,
+                      c.coordinator_address, self.process_id,
+                      c.num_processes, e)
+            raise RuntimeError(
+                f"RENDEZVOUS FAILED after {time.monotonic() - t0:.1f}s "
+                f"(coordinator {c.coordinator_address}, process "
+                f"{self.process_id}/{c.num_processes}): {e!r}") from e
+        self._prev_group = distributed.set_group(self.group)
+        log.info("distributed up: process %d/%d via %s in %.2fs",
+                 self.process_id, c.num_processes, c.coordinator_address,
+                 time.monotonic() - t0)
 
     @classmethod
     def start(cls, conf: Optional[ShuffleConf] = None, device=None,
-              num_shards: int = DEFAULT_SHARDS) -> "Node":
+              num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
+              process_id: int = 0) -> "Node":
         """Bring up a node on ``device`` (default: the CUDA device; raises
-        without one unless ``device="cpu"``)."""
-        return cls(conf, device=device, num_shards=num_shards)
+        without one unless ``device="cpu"``); ``distributed=True`` joins
+        the cluster as process ``process_id`` when ``numProcesses`` > 1."""
+        return cls(conf, device=device, num_shards=num_shards,
+                   distributed=distributed, process_id=process_id)
+
+    @property
+    def num_processes(self) -> int:
+        return self.conf.num_processes if self.is_distributed else 1
+
+    @property
+    def local_shard_ids(self) -> List[int]:
+        """Global ids of the shards this process owns (all of them on a
+        single-process node), in grid order."""
+        if not self.is_distributed:
+            return list(range(self.num_shards))
+        return local_shard_ids(self.num_shards, self.conf.num_processes,
+                               self.process_id)
+
+    def remesh(self, shards: Union[None, int, Sequence[int]] = None,
+               reason: str = "") -> int:
+        """Rebuild the shard grid over ``shards`` (a count or the agreed
+        surviving shard ids; default: all, after a device probe) and bump
+        the epoch: the registry is dropped, and every handle pinned to the
+        old epoch raises ``StaleEpochError`` instead of entering a
+        collective. Distributed, the survivor list must be given: probe
+        verdicts are process-local and can diverge. The process group is
+        not rebuilt; recovery re-runs on a fresh world. Returns the new
+        epoch."""
+        if shards is None:
+            if self.is_distributed:
+                raise RuntimeError(
+                    "distributed remesh requires an explicitly agreed "
+                    "device list; probe verdicts are process-local and can "
+                    "diverge. Re-bootstrap with the surviving processes "
+                    "and pass shards=.")
+            bad = [d for d, ok in self.health.probe().items() if not ok]
+            if bad:
+                raise DeviceUnhealthy(
+                    f"remesh: devices failed liveness probe: {bad}")
+            shards = self.num_shards
+        n = int(shards) if isinstance(shards, int) else len(list(shards))
+        if n <= 0:
+            raise RuntimeError("remesh with zero surviving devices")
+        self.grid = make_shuffle_grid(n, self.conf)
+        self.num_shards = n
+        self.health = HealthMonitor(self.device,
+                                    timeout_ms=self.conf.connection_timeout_ms)
+        # the watchdog probes through the current monitor
+        self.watchdog.health = self.health
+        self.registry.clear()
+        epoch = self.epochs.bump(reason or "remesh")
+        log.warning("remesh: %d shards, epoch %d (%s)", n, epoch,
+                    reason or "requested")
+        return epoch
 
     def stats(self) -> Dict[str, float]:
         return self.metrics.snapshot()
@@ -179,5 +321,19 @@ class Node:
         if self._closed:
             return
         self._closed = True
+        self.epochs.remove_listener(agreement.reset_epoch)
+        if current_watchdog() is self.watchdog:
+            set_global_watchdog(None)
         self.registry.clear()
         self.pool.close()
+        if self.group is not None:
+            import torch.distributed as dist
+            distributed.set_group(self._prev_group)
+            try:
+                if self._owns_world:
+                    dist.destroy_process_group()
+                else:
+                    dist.destroy_process_group(self.group)
+            except Exception as e:     # a world with a dead member
+                log.info("process group teardown: %s", e)
+            self.group = None

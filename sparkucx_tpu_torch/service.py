@@ -27,14 +27,17 @@ class ShuffleService:
     write / read / unregister / stop."""
 
     def __init__(self, conf: ShuffleConf, device=None,
-                 num_shards: int = DEFAULT_SHARDS):
+                 num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
+                 process_id: int = 0):
         self.conf = conf
         fmt = (conf.get("spark.shuffle.tpu.io.format") or "raw") \
             .strip().lower()
         if fmt not in IO_FORMATS:
             raise ValueError(f"io.format {fmt!r} is not ported; want one "
                              f"of {IO_FORMATS}")
-        self.node = Node.start(conf, device=device, num_shards=num_shards)
+        self.node = Node.start(conf, device=device, num_shards=num_shards,
+                               distributed=distributed,
+                               process_id=process_id)
         self.manager = ShuffleManager(self.node, conf)
 
     @property
@@ -102,12 +105,17 @@ class ShuffleService:
 
 
 def connect(conf: Optional[Mapping[str, str]] = None, *, device=None,
-            num_shards: int = DEFAULT_SHARDS,
-            use_env: bool = True) -> ShuffleService:
+            num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
+            process_id: int = 0, use_env: bool = True) -> ShuffleService:
     """Build the stack purely from configuration. ``device`` defaults to
     the CUDA device and raises without one; ``device="cpu"`` is the only
     way to run without a GPU. ``num_shards`` is the number of logical
-    shards the exchange splits the device into."""
+    shards the exchange splits the device into (distributed: the GLOBAL
+    count, split evenly over the processes). ``distributed=True`` joins
+    the cluster of ``numProcesses`` processes at ``coordinator.address``
+    as process ``process_id``; its reads are collectives
+    (``shuffle/distributed.py``)."""
     tconf = conf if isinstance(conf, ShuffleConf) \
         else ShuffleConf(conf, use_env=use_env)
-    return ShuffleService(tconf, device=device, num_shards=num_shards)
+    return ShuffleService(tconf, device=device, num_shards=num_shards,
+                          distributed=distributed, process_id=process_id)

@@ -1,0 +1,212 @@
+"""Epoch-scoped cross-process agreement — the distributed control plane
+(the JAX package's ``sparkucx_tpu/shuffle/agreement.py``).
+
+Every process of a distributed node computes its own copy of every
+decision (wave counts, overflow verdicts, regrown capacities). A process
+booted with a divergent conf, or one that missed a remesh, would compute
+a different decision and desync the group into a hang at the next
+collective. :func:`agree` is a named, sequenced round that every process
+enters in lockstep, over the watchdog-fenced metadata channel
+(``shuffle/distributed.allgather_blob``), so each failure class surfaces
+typed, on every process together:
+
+* a divergent proposal — :class:`AgreementDivergenceError` naming the
+  topic, the dissenting process ids and every proposal (the evidence
+  rides the allgather, so every process computes the same verdict);
+* a sequencing split (another topic, sequence number or epoch) — the
+  same error from the fixed-shape header round, before a payload of
+  another shape could wedge the transport;
+* a dead peer — ``PeerLostError`` from the channel's fence.
+
+One round is two allgathers: a fixed 6-int64 header (epoch, seq, topic
+code, payload length, reduction, a send stamp excluded from the check),
+then the payload. ``seq`` resets at each epoch bump (the node wires
+:func:`reset_epoch` as a bump listener). Every round counts
+``shuffle.agreement.rounds.count`` (and its ``{topic=}`` twin) and
+observes ``shuffle.agreement.round_ms`` into the ``metrics`` it is given
+(the caller's node metrics: the port has no process-global metrics).
+
+The JAX package's decision ledger (``shuffle/decisions.py``), its
+tracer spans and its ``CollectiveTurnstile`` (whose one caller is the
+tenancy executor) are not ported."""
+
+from __future__ import annotations
+
+import threading
+import time
+import zlib
+from typing import Callable, List, Optional, Sequence, Union
+
+import numpy as np
+
+from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.metrics import (C_AGREE_DIVERGENCE,
+                                              C_AGREE_ROUNDS, H_AGREE_ROUND,
+                                              labeled)
+
+log = get_logger("shuffle.agreement")
+
+
+class AgreementDivergenceError(RuntimeError):
+    """The verdict of a failed round, raised on every process together.
+
+    ``topic``, ``kind`` ("value": same round, other proposals;
+    "sequencing": processes entered other rounds), ``dissenters`` (the
+    process ids off the majority), ``proposals`` (every process's, in
+    process order) and ``conf_key`` (the key whose divergence most likely
+    split the round)."""
+
+    def __init__(self, topic: str, kind: str, dissenters: Sequence[int],
+                 proposals: List[list], conf_key: str = "",
+                 detail: str = ""):
+        self.topic = topic
+        self.kind = kind
+        self.dissenters = [int(d) for d in dissenters]
+        self.proposals = proposals
+        self.conf_key = conf_key
+        msg = (f"agreement divergence on topic {topic!r} ({kind}): "
+               f"process(es) {self.dissenters} disagree — proposals by "
+               f"process: {proposals}")
+        if detail:
+            msg += f"; {detail}"
+        if conf_key:
+            msg += f" — check {conf_key} is identical on every process"
+        super().__init__(msg)
+
+
+# One (epoch, seq) stream per process, identical on every process by the
+# lockstep. _LOCK covers the counters; _ROUND_LOCK is held across a whole
+# round (seq assignment and both allgathers), so two threads never
+# interleave one round's header with another's payload.
+_LOCK = threading.Lock()
+_ROUND_LOCK = threading.RLock()
+_STATE = {"epoch": 0, "seq": 0}
+
+
+def reset_epoch(epoch: int) -> None:
+    """Start the round stream of epoch ``epoch`` (seq back to 0)."""
+    with _LOCK:
+        _STATE["epoch"] = int(epoch)
+        _STATE["seq"] = 0
+
+
+def current_round() -> tuple:
+    """(epoch, next sequence number)."""
+    with _LOCK:
+        return _STATE["epoch"], _STATE["seq"]
+
+
+def _topic_code(topic: str) -> int:
+    # stable across processes (hash() is salted per process)
+    return zlib.crc32(topic.encode("utf-8")) & 0x7FFFFFFF
+
+
+_REDUCE_CODES = {"unanimous": 0, "max": 1, "min": 2, "sum": 3, "any": 4,
+                 "all": 5}
+_REDUCERS = {
+    "max": lambda rows: rows.max(axis=0),
+    "min": lambda rows: rows.min(axis=0),
+    "sum": lambda rows: rows.sum(axis=0),
+    "any": lambda rows: (rows != 0).any(axis=0).astype(np.int64),
+    "all": lambda rows: (rows != 0).all(axis=0).astype(np.int64),
+}
+
+
+def _majority_row(rows: np.ndarray) -> np.ndarray:
+    """The most common row, ties toward the lowest process index."""
+    _, inv, counts = np.unique(rows, axis=0, return_inverse=True,
+                               return_counts=True)
+    inv = np.asarray(inv).reshape(-1)
+    best = counts.max()
+    for i in range(rows.shape[0]):
+        if counts[inv[i]] == best:
+            return rows[i]
+    return rows[0]
+
+
+def _count(metrics, name: str, topic: str) -> None:
+    if metrics is not None:
+        metrics.inc(name, 1.0)
+        metrics.inc(labeled(name, topic=topic), 1.0)
+
+
+def agree(topic: str, payload,
+          reduce: Optional[Union[str, Callable]] = None,
+          conf_key: str = "", timeout_ms: Optional[float] = None,
+          metrics=None) -> np.ndarray:
+    """COLLECTIVE: one agreement round over an int64 payload vector.
+    Every process calls with the same topic, in the same order relative
+    to every other collective.
+
+    ``reduce=None`` (unanimity): every process proposes the same vector
+    and gets it back, else :class:`AgreementDivergenceError` on every
+    process. ``reduce`` in {max, min, sum, any, all} or a callable
+    ``rows -> row`` over the ``[nproc, n]`` proposals: the reduction
+    returns. A sequencing split raises from the header round either way.
+    ``timeout_ms`` overrides the fence's deadline for both rounds."""
+    mine = np.atleast_1d(np.asarray(payload, dtype=np.int64)).reshape(-1)
+    if callable(reduce):
+        reduce_code = len(_REDUCE_CODES)
+    else:
+        if reduce is not None and reduce not in _REDUCERS:
+            raise ValueError(
+                f"unknown agreement reduction {reduce!r}; want one of "
+                f"{sorted(_REDUCERS)} or a callable")
+        reduce_code = _REDUCE_CODES[reduce or "unanimous"]
+    with _ROUND_LOCK:
+        with _LOCK:
+            epoch, seq = _STATE["epoch"], _STATE["seq"]
+            _STATE["seq"] += 1
+        # counted before either gather: divergent and peer-lost rounds
+        # show in rounds.count too
+        _count(metrics, C_AGREE_ROUNDS, topic)
+        t0 = time.perf_counter()
+        try:
+            return _run_round(topic, mine, reduce, reduce_code, conf_key,
+                              timeout_ms, epoch, seq, metrics)
+        finally:
+            if metrics is not None:
+                ms = (time.perf_counter() - t0) * 1e3
+                metrics.observe(H_AGREE_ROUND, ms)
+                metrics.observe(labeled(H_AGREE_ROUND, topic=topic), ms)
+
+
+def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
+               epoch, seq, metrics):
+    # the module attribute, looked up per call (tests replay a 3-process
+    # gather through it)
+    from sparkucx_tpu_torch.shuffle import distributed
+
+    header = np.array([epoch, seq, _topic_code(topic), mine.shape[0],
+                       reduce_code, int(time.time() * 1e3)],
+                      dtype=np.int64)
+    got_h = np.asarray(distributed.allgather_blob(
+        header, what=f"agreement header {topic!r} #{seq}",
+        timeout_ms=timeout_ms)).reshape(-1, 6)
+    if (got_h[:, :5] != got_h[0, :5]).any():
+        maj = _majority_row(got_h[:, :5])
+        dissent = [i for i in range(got_h.shape[0])
+                   if (got_h[i, :5] != maj).any()]
+        _count(metrics, C_AGREE_DIVERGENCE, topic)
+        raise AgreementDivergenceError(
+            topic, "sequencing", dissent,
+            [r.tolist() for r in got_h[:, :5]], conf_key=conf_key,
+            detail="processes entered different agreement rounds "
+                   "(header = [epoch, seq, topic, len, reduce]) — a "
+                   "divergent conf or a missed remesh")
+    got = np.asarray(distributed.allgather_blob(
+        mine, what=f"agreement {topic!r} #{seq}",
+        timeout_ms=timeout_ms)).reshape(-1, mine.shape[0])
+    if callable(reduce):
+        return np.asarray(reduce(got), dtype=np.int64)
+    if reduce is not None:
+        return _REDUCERS[reduce](got).astype(np.int64)
+    if (got != got[0]).any():
+        maj = _majority_row(got)
+        dissent = [i for i in range(got.shape[0])
+                   if (got[i] != maj).any()]
+        _count(metrics, C_AGREE_DIVERGENCE, topic)
+        raise AgreementDivergenceError(
+            topic, "value", dissent, [r.tolist() for r in got],
+            conf_key=conf_key)
+    return got[0].copy()

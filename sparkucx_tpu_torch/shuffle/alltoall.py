@@ -193,14 +193,15 @@ def _global_overflow(sizes: torch.Tensor, total: torch.Tensor,
 
 
 def _compact_from_segments(recv_sizes: torch.Tensor, out_capacity: int):
-    """[P, out_capacity] (sender, within-segment row, valid) indices that
-    concatenate each receiver's ragged segments."""
-    P = recv_sizes.shape[0]
+    """[Q, out_capacity] (sender, within-segment row, valid) indices that
+    concatenate each of the Q receivers' ragged segments (``recv_sizes``
+    ``[Q, S]``: rows receiver q gets from each of S senders)."""
+    Q, S = recv_sizes.shape
     recv_cum = torch.cumsum(recv_sizes, dim=1, dtype=torch.int32)
     j = torch.arange(out_capacity, dtype=torch.int32,
-                     device=recv_sizes.device).expand(P, -1).contiguous()
+                     device=recv_sizes.device).expand(Q, -1).contiguous()
     sender = torch.searchsorted(recv_cum, j, right=True)
-    sender_c = torch.clamp(sender, max=P - 1)
+    sender_c = torch.clamp(sender, max=S - 1)
     excl = recv_cum - recv_sizes
     within = j - torch.gather(excl, 1, sender_c)
     valid = j < recv_cum[:, -1:]
@@ -230,10 +231,10 @@ def _a2a_local(data, sizes, out_capacity):
 
 def _a2a_gather(data, sizes, out_capacity):
     in_off, _, _, recv, total = exchange_plan(sizes)
-    P, cap_in = data.shape[0], data.shape[1]
+    cap_in = data.shape[1]
     sender, within, valid = _compact_from_segments(recv, out_capacity)
     # receiver p's row k comes from sender s at in_off[s, p] + within
-    recv_idx = torch.arange(P, device=data.device)[:, None]
+    recv_idx = torch.arange(sizes.shape[1], device=data.device)[:, None]
     src = in_off[sender, recv_idx] + within
     src = torch.clamp(src, 0, cap_in - 1)
     out = data[sender.to(torch.int64), src.to(torch.int64)]
@@ -242,18 +243,22 @@ def _a2a_gather(data, sizes, out_capacity):
 
 
 def _a2a_dense(data, sizes, out_capacity, peer_capacity):
+    """The dense move; ``sizes`` may be rectangular, ``[S, Q]``: S
+    senders, Q receivers (a distributed process's receivers are a block
+    of the global shards, ``shuffle/distributed.py``)."""
     in_off, send, _, recv, total = exchange_plan(sizes)
-    P, cap_in = data.shape[0], data.shape[1]
+    S, cap_in = data.shape[0], data.shape[1]
+    Q = sizes.shape[1]
     k = torch.arange(peer_capacity, dtype=torch.int32, device=data.device)
     # padded[s, q, k] = data[s, in_off[s, q] + k]
     src = torch.clamp(in_off[:, :, None] + k, max=cap_in - 1)
-    sidx = torch.arange(P, device=data.device)[:, None, None]
+    sidx = torch.arange(S, device=data.device)[:, None, None]
     padded = _masked(data[sidx, src.to(torch.int64)],
                      k[None, None, :] < send[:, :, None])
     swapped = padded.transpose(0, 1)          # [receiver, sender, k]
     sender, within, valid = _compact_from_segments(recv, out_capacity)
     within_c = torch.clamp(within, 0, peer_capacity - 1)
-    ridx = torch.arange(P, device=data.device)[:, None]
+    ridx = torch.arange(Q, device=data.device)[:, None]
     out = swapped[ridx, sender.to(torch.int64), within_c.to(torch.int64)]
     seg_bad = (send.max() > peer_capacity) | (recv.max() > peer_capacity)
     overflow = _global_overflow(sizes, total, cap_in, out_capacity) | seg_bad
@@ -268,7 +273,10 @@ def ragged_shuffle(data: torch.Tensor, sizes: torch.Tensor, *,
     ``data``  [P, cap_in, ...] send buffers, rows grouped by destination
               shard in ascending order; rows past ``sizes[p].sum()`` are
               padding and never sent.
-    ``sizes`` [P, P] rows shard p sends to shard q."""
+    ``sizes`` [P, P] rows shard p sends to shard q (``dense`` and
+              ``gather`` also take a rectangular ``[P, Q]``: Q receivers).
+    ``peer_capacity`` the dense move's per-segment pad (default
+              ``out_capacity``)."""
     if data.dim() < 2:
         raise ValueError("data must be [P, cap_in, ...]")
     impl = select_impl(impl, data.shape[0])

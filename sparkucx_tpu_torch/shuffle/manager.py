@@ -44,6 +44,19 @@ one entry per tier (``ExchangeReport.tiers``) with the headline wire
 bytes the two-hop sum. An explicit ``a2a.impl=pallas`` runs the flat
 exchange over all P shards instead (``report.hierarchical`` False), as
 the JAX package does; ``auto`` never resolves to it on such a node.
+
+Distributed (a node with ``is_distributed``, ``shuffle/distributed.py``):
+``read`` and ``submit`` are collectives. :meth:`ShuffleManager.
+_submit_distributed` runs the completeness barrier over the distinct-map
+presence bitmap (its timeout bit rides the allgather, so every process
+raises together), stages this process's committed maps round-robin over
+its LOCAL shards, agrees the value schema and the size row, the wave
+count (every read) and the per-wave sizes, and dispatches the flat or
+tiered distributed exchange; each process's result is the partial view
+of its own shards. An explicit ``a2a.impl=pallas`` raises before any
+collective. Handles are pinned to the node's epoch: after a remesh a
+stale handle raises ``StaleEpochError`` before any collective, and a
+``PeerLostError`` reaches the caller typed (no replay in place).
 """
 
 from __future__ import annotations
@@ -68,6 +81,10 @@ from sparkucx_tpu_torch.ops.aggregate import check_combinable
 from sparkucx_tpu_torch.ops.partition import blocked_partition_map
 from sparkucx_tpu_torch.ops.segmented import resolve_kernel_impl
 from sparkucx_tpu_torch.runtime.node import Node
+from sparkucx_tpu_torch.shuffle.agreement import agree
+from sparkucx_tpu_torch.shuffle.distributed import (
+    agree_wave_count, agree_wave_sizes, allgather_blob, allgather_sizes,
+    submit_shuffle_distributed, submit_shuffle_tiered_distributed)
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              check_bounds, make_plan,
                                              plan_takes_seed, ragged_layout,
@@ -76,7 +93,7 @@ from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
 from sparkucx_tpu_torch.shuffle.topology import (resolve_topology,
                                                  settle_tier_walls,
                                                  submit_shuffle_tiered,
-                                                 tier_layouts)
+                                                 tier_layouts, tier_timeouts)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                DeviceShuffleReaderResult,
                                                WavedShuffleReaderResult,
@@ -169,6 +186,10 @@ class ExchangeReport:
     # Empty on flat reads.
     hierarchical: bool = False
     tiers: List[Dict] = field(default_factory=list)
+    # a collective read of a distributed node, and the process that
+    # reported it (its view holds this process's shards only)
+    distributed: bool = False
+    process_id: int = 0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
@@ -194,6 +215,9 @@ class ShuffleHandle:
     entry: ShuffleEntry = field(repr=False)
     partitioner: str = "hash"
     bounds: Optional[tuple] = None
+    # the node epoch the shuffle was registered in: a read of a handle
+    # from an older epoch raises StaleEpochError
+    epoch: int = 0
 
     def __post_init__(self):
         if self.num_maps <= 0 or self.num_partitions <= 0:
@@ -231,6 +255,8 @@ class ShuffleManager:
         # node's shard grid)
         self.topology = resolve_topology(node.grid, self.conf)
         self.hierarchical = self.topology.hierarchical
+        # a remesh drops this binding's shuffle state
+        self.node.epochs.on_bump(self._on_epoch_bump)
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
@@ -257,7 +283,8 @@ class ShuffleManager:
         with self._lock:
             self._writers[shuffle_id] = {}
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
-                             partitioner, bounds)
+                             partitioner, bounds,
+                             epoch=self.node.epochs.current)
 
     def get_writer(self, handle: ShuffleHandle,
                    map_id: int) -> MapOutputWriter:
@@ -295,6 +322,7 @@ class ShuffleManager:
         self.node.registry.unregister(shuffle_id)
 
     def stop(self) -> None:
+        self.node.epochs.remove_listener(self._on_epoch_bump)
         with self._lock:
             sids = list(self._writers)
             pool, self._pack_pool = self._pack_pool, None
@@ -303,17 +331,37 @@ class ShuffleManager:
         if pool is not None:
             pool.shutdown(wait=True)
 
+    def _on_epoch_bump(self, epoch: int) -> None:
+        """A remesh: every shuffle's staged state goes (the node dropped
+        the registry); handles of the old epoch fail at their next read."""
+        with self._lock:
+            dropped, self._writers = self._writers, {}
+        for ws in dropped.values():
+            for w in ws.values():
+                w.release()
+        log.warning("manager rebound to epoch %d: shuffle state dropped — "
+                    "re-register and re-run live shuffles", epoch)
+
+    def _pin(self, handle: ShuffleHandle) -> None:
+        """A handle from an older epoch fails fast, before any
+        collective."""
+        self.node.epochs.validate(handle.epoch,
+                                  f"shuffle {handle.shuffle_id}")
+
     # -- reports ----------------------------------------------------------
     def report(self, shuffle_id: int) -> Optional[ExchangeReport]:
         """Latest ExchangeReport of a shuffle (None if never read)."""
         with self._lock:
             return self._reports.get(shuffle_id)
 
-    def _new_report(self, handle: ShuffleHandle) -> ExchangeReport:
+    def _new_report(self, handle: ShuffleHandle,
+                    distributed: bool = False) -> ExchangeReport:
         rep = ExchangeReport(handle.shuffle_id, handle.num_maps,
                              handle.num_partitions, handle.partitioner,
                              device=str(self.node.device),
-                             hierarchical=self.hierarchical)
+                             hierarchical=self.hierarchical,
+                             distributed=distributed,
+                             process_id=self.node.process_id)
         with self._lock:
             self._exchange_seq += 1
             rep._seq = self._exchange_seq
@@ -340,7 +388,12 @@ class ShuffleManager:
         ``sink="device"`` keeps the partitions in device tensors and
         returns a ``DeviceShuffleReaderResult`` (``consume`` /
         ``host_view``); ``"host"`` or ``None`` under the default conf
-        returns the numpy partition view (see :meth:`_resolve_sink`)."""
+        returns the numpy partition view (see :meth:`_resolve_sink`).
+
+        On a distributed node this is a collective: every process calls
+        it with the same arguments and gets the partial view of its own
+        shards."""
+        self._pin(handle)
         t0 = time.perf_counter()
         try:
             return self.submit(handle, timeout, combine=combine,
@@ -359,9 +412,15 @@ class ShuffleManager:
         """Plan + pack on the host and dispatch the exchange without
         waiting for it; ``result()`` on the returned handle blocks. The
         read options are :meth:`read`'s. A waved read packs and
-        dispatches its waves inside ``result()``."""
+        dispatches its waves inside ``result()``. Collective on a
+        distributed node (every process submits, then calls
+        ``result()``, in the same order)."""
+        self._pin(handle)
         timeout = timeout if timeout is not None \
             else self.conf.connection_timeout_ms / 1e3
+        if self.node.is_distributed:
+            return self._submit_distributed(handle, timeout, combine,
+                                            ordered, combine_sum_words, sink)
         sink = self._resolve_sink(sink, combine, ordered)
         rep = self._new_report(handle)
         rep.sink = sink
@@ -420,55 +479,124 @@ class ShuffleManager:
 
         width = KEY_WORDS + (value_words(val_tail, val_dtype)
                              if has_vals else 0)
-        self._report_volume(rep, plan, nvalid, width,
-                            part_rows=table.sizes.sum(axis=0))
+        return self._submit_planned(
+            handle, rep, plan, shard_outputs, nvalid, width, has_vals,
+            val_tail, val_dtype, combine, ordered, timeout,
+            part_rows=table.sizes.sum(axis=0), dev_matrix=lambda: dev_matrix)
+
+    def _submit_planned(self, handle: ShuffleHandle, rep: ExchangeReport,
+                        plan: ShufflePlan, shard_outputs, nvalid: np.ndarray,
+                        width: int, has_vals: bool, val_tail, val_dtype,
+                        combine: Optional[str], ordered: bool,
+                        timeout: Optional[float], part_rows: np.ndarray,
+                        dev_matrix, local=None):
+        """The submit both paths share once the plan is made: the report's
+        volume and tiers, the wave decision, the pack, admission and the
+        dispatch. ``nvalid`` is the global ``[P]`` row count,
+        ``part_rows`` the rows the skew is read from, ``dev_matrix()`` the
+        ``[P, P]`` source x destination row matrix (called only on a
+        hierarchical read). ``local`` is None on one process; distributed
+        it is (this process's shard ids, their ``[L]`` row counts) and
+        ``timeout`` is None (a local clock must not fail one process while
+        its peers enter the next collective)."""
+        node = self.node
+        distributed = local is not None
+        self._report_volume(rep, plan, nvalid, width, part_rows=part_rows)
         self._estimate_wire_error(rep, plan, shard_outputs)
         hier = self.hierarchical and plan.impl != "pallas"
         if hier:
-            # per-tier accounting, the cross rows exact from the metadata
-            # table's device matrix; the tiered stages combine through
-            # combine_rows, never the segment-reduce kernel
+            # per-tier accounting with the exact cross rows; the tiered
+            # stages combine through combine_rows, never the
+            # segment-reduce kernel
             self._stamp_tiers(rep, plan, nvalid, width,
-                              dev_matrix=dev_matrix)
+                              dev_matrix=dev_matrix())
             rep.kernel = "jnp"
         elif self.hierarchical:
             # the segment move is flat-only: the read runs over all P
             # shards, and the report says so
             log.info("a2a.impl=pallas on a multi-slice grid: using the "
-                     "flat exchange over %d shards", Pn)
+                     "flat exchange over %d shards", node.num_shards)
             rep.hierarchical = False
-        if self.conf.wave_rows > 0 and self._waves_eligible(plan):
-            W = wave_count(nvalid, self.conf.wave_rows)
-            if W > 1:
-                if hier and plan.sink == "device":
-                    # waved hierarchical reads drain to the host (no
-                    # per-wave device fold over the tiers); single-shot
-                    # hierarchical reads keep the device sink
-                    mode = "combine" if combine else (
-                        "ordered" if ordered else "plain")
-                    self._warn_once(
-                        "hier_waved", "read.sink=device on a WAVED "
-                        "hierarchical read resolves to host (single-shot "
-                        "hierarchical reads keep the device sink)")
-                    self._note_sink_fallback(mode, "hierarchical_waved")
-                    plan = dataclasses.replace(plan, sink="host")
-                    rep.sink = "host"
-                return self._submit_waved(
-                    handle, shard_outputs, nvalid, plan, width, has_vals,
-                    val_tail if has_vals else None, val_dtype, rep, W,
-                    timeout)
+        eligible = self.conf.wave_rows > 0 and self._waves_eligible(plan)
+        W = wave_count(nvalid, self.conf.wave_rows) if eligible else 1
+        if distributed:
+            # every distributed read agrees its wave count (waves off: 1),
+            # so a process with another a2a.waveRows fails typed instead
+            # of entering another number of collectives
+            W = agree_wave_count(W, node.metrics)
+        vt = val_tail if has_vals else None
+        if W > 1:
+            if hier and plan.sink == "device":
+                # waved hierarchical reads drain to the host (no per-wave
+                # device fold over the tiers); single-shot hierarchical
+                # reads keep the device sink
+                self._warn_once(
+                    "hier_waved", "read.sink=device on a WAVED "
+                    "hierarchical read resolves to host (single-shot "
+                    "hierarchical reads keep the device sink)")
+                self._note_sink_fallback(
+                    "combine" if combine else
+                    ("ordered" if ordered else "plain"),
+                    "hierarchical_waved")
+                plan = dataclasses.replace(plan, sink="host")
+                rep.sink = "host"
+            return self._submit_waved(handle, shard_outputs, nvalid, plan,
+                                      width, has_vals, vt, val_dtype, rep,
+                                      W, timeout, distributed=distributed)
         self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
                                             width, has_vals)
         rep.pack_ms = (time.perf_counter() - t_pack) * 1e3
-
-        total_rows = int(nvalid.sum())
-        pending_box = {}
+        if distributed:
+            shard_ids, nvalid_local = local
+            # admission from global facts only (the worst process's
+            # pinned block), so every process defers alike
+            stage_bytes = -(-node.num_shards // node.num_processes) \
+                * plan.cap_in * width * 4
+        else:
+            stage_bytes = rows.numel() * 4
         # a non-blocking reservation at dispatch; over the cap the
         # exchange is deferred and dispatches inside result()
         admit, release_admitted = self._make_admitter(
-            plan, width, rows.numel() * 4, timeout, rep)
+            plan, width, stage_bytes, timeout, rep)
+
+        def dispatch(on_done):
+            kw = dict(on_done=on_done, admit=admit, wire_seed=rep._seq,
+                      metrics=node.metrics)
+            if hier and distributed:
+                return submit_shuffle_tiered_distributed(
+                    self.topology, plan, rows, nvalid_local, shard_ids, vt,
+                    val_dtype, node.device, node.pool,
+                    timeouts=tier_timeouts(self.conf), **kw)
+            if hier:
+                return submit_shuffle_tiered(
+                    self.topology, plan, rows, nvalid, vt, val_dtype,
+                    node.device, timeouts=tier_timeouts(self.conf), **kw)
+            if distributed:
+                return submit_shuffle_distributed(
+                    plan, rows, nvalid_local, shard_ids, vt, val_dtype,
+                    node.device, node.pool, **kw)
+            return submit_shuffle(plan, rows, nvalid, vt, val_dtype,
+                                  node.device, **kw)
+
+        local_rows = np.sum(local[1] if distributed else nvalid)
+        return self._dispatch_read(handle, rep, dispatch, stage_buf,
+                                   release_admitted, nvalid, width,
+                                   int(local_rows))
+
+    def _dispatch_read(self, handle: ShuffleHandle, rep: ExchangeReport,
+                       dispatch, stage_buf, release_admitted,
+                       nvalid: np.ndarray, width: int,
+                       local_rows: int):
+        """``dispatch(on_done)`` of a single-shot read with the
+        settlement every read shares: the pack buffer and the admission
+        released (a device result holds its reservation until consumed),
+        the report's retries, regrown wire, tier walls and D2H, the
+        capacity hint (from the global rows ``nvalid``) and the row
+        counters (``local_rows``: this process's)."""
+        pending_box = {}
+        total_rows = int(np.sum(nvalid))
 
         def on_done(result):
             self.node.pool.put(stage_buf)
@@ -503,25 +631,14 @@ class ShuffleManager:
                 return
             self._arm_d2h(result, rep)
             self._learn_cap(handle, result, total_rows)
-            self.node.metrics.inc("shuffle.rows", float(total_rows))
+            self.node.metrics.inc("shuffle.rows", float(local_rows))
             self.node.metrics.inc("shuffle.bytes",
-                                  float(total_rows) * width * 4)
+                                  float(local_rows) * width * 4)
             rep.completed = True
 
         rep._t_dispatched = time.perf_counter()
         try:
-            if hier:
-                pending = submit_shuffle_tiered(
-                    self.topology, plan, rows, nvalid,
-                    val_tail if has_vals else None, val_dtype,
-                    self.node.device, on_done=on_done, admit=admit,
-                    wire_seed=rep._seq, metrics=self.node.metrics)
-            else:
-                pending = submit_shuffle(
-                    plan, rows, nvalid, val_tail if has_vals else None,
-                    val_dtype, self.node.device, on_done=on_done,
-                    metrics=self.node.metrics, wire_seed=rep._seq,
-                    admit=admit)
+            pending = dispatch(on_done)
         except BaseException:
             self.node.pool.put(stage_buf)
             release_admitted()
@@ -529,6 +646,183 @@ class ShuffleManager:
         pending_box["pending"] = weakref.ref(pending)
         rep.dispatch_ms = (time.perf_counter() - rep._t_dispatched) * 1e3
         return pending
+
+    # -- the distributed read (shuffle/distributed.py) -------------------
+    def _submit_distributed(self, handle: ShuffleHandle, timeout: float,
+                            combine: Optional[str], ordered: bool,
+                            combine_sum_words: int, sink: Optional[str]):
+        sink = self._resolve_sink(sink, combine, ordered)
+        rep = self._new_report(handle, distributed=True)
+        rep.sink = sink
+        try:
+            return self._submit_distributed_impl(handle, timeout, combine,
+                                                 ordered, combine_sum_words,
+                                                 rep, sink)
+        except BaseException as e:
+            rep.error = rep.error or repr(e)[:300]
+            raise
+
+    def _submit_distributed_impl(self, handle: ShuffleHandle,
+                                 timeout: float, combine: Optional[str],
+                                 ordered: bool, combine_sum_words: int,
+                                 rep: ExchangeReport, sink: str):
+        """COLLECTIVE: the completeness barrier, then the staged submit.
+        Map outputs stay on the process that committed them."""
+        if self.conf.a2a_impl == "pallas":
+            # conf facts only: every process raises here, before any
+            # collective
+            raise NotImplementedError(
+                "a2a.impl='pallas' on a distributed node: the segment-move "
+                "kernel is device-local and cannot move rows between "
+                "processes; use dense or gather (or auto) for multi-process "
+                "reads")
+        shard_ids = self.node.local_shard_ids
+        limit = self.conf.meta_buffer_size
+        if (handle.num_maps + 1) * 8 > limit:
+            raise ValueError(
+                f"shuffle {handle.shuffle_id}: presence bitmap "
+                f"({(handle.num_maps + 1) * 8} B for {handle.num_maps} "
+                f"maps) exceeds meta.bufferSize={limit}; raise "
+                f"spark.shuffle.tpu.meta.bufferSize")
+        # Completeness barrier over the DISTINCT map ids (a count would let
+        # a duplicate commit mask a missing map). The timeout bit rides the
+        # allgather, so one process's expired clock makes every process
+        # raise together.
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                if handle.shuffle_id not in self._writers:
+                    raise RuntimeError(
+                        f"shuffle {handle.shuffle_id} is not registered "
+                        f"with this manager (already unregistered?)")
+                committed = sorted(
+                    m for m, w in self._writers[handle.shuffle_id].items()
+                    if w.committed)
+            bitmap = np.zeros(handle.num_maps + 1, dtype=np.int64)
+            bitmap[committed] = 1
+            bitmap[-1] = 1 if time.monotonic() > deadline else 0
+            gathered = allgather_blob(bitmap, what="completeness barrier")
+            owners = gathered[:, :-1].sum(axis=0)
+            if (owners > 1).any():
+                dups = np.nonzero(owners > 1)[0].tolist()
+                raise RuntimeError(
+                    f"shuffle {handle.shuffle_id}: map ids {dups} committed "
+                    f"by multiple processes — ambiguous ownership (maps "
+                    f"must be partitioned over processes)")
+            total = int((owners > 0).sum())
+            if total >= handle.num_maps:
+                break
+            if gathered[:, -1].any():
+                raise TimeoutError(
+                    f"shuffle {handle.shuffle_id}: only {total}/"
+                    f"{handle.num_maps} map outputs published within "
+                    f"{timeout}s")
+            time.sleep(0.05)
+        with self._lock:
+            writers = {m: w for m, w in
+                       self._writers.get(handle.shuffle_id, {}).items()
+                       if w.committed}
+        # the stale-snapshot verdict rides a collective too: one process
+        # raising while its peers enter the schema allgather would hang
+        # them
+        changed = int(sorted(writers) != committed)
+        if allgather_blob(np.array([changed], dtype=np.int64),
+                          what="staging snapshot verdict").any():
+            raise RuntimeError(
+                f"shuffle {handle.shuffle_id}: committed map outputs "
+                f"changed between the completeness barrier and staging on "
+                f"at least one process (remesh or unregister raced this "
+                f"read)")
+        return self._submit_distributed_staged(
+            handle, writers, shard_ids, combine, ordered, combine_sum_words,
+            rep, sink)
+
+    def _agree_schema(self, has_vals: bool, val_tail, val_dtype,
+                      local_rows: int) -> tuple:
+        """COLLECTIVE: one value schema over every process; a process
+        that staged no rows adopts the cluster's. Returns (has_vals,
+        val_tail, val_dtype)."""
+        blob = np.full(8, -1, dtype=np.int64)
+        if local_rows:
+            blob[0] = 1 if has_vals else 0
+        if has_vals:
+            if len(val_tail) > 5:
+                raise ValueError(
+                    f"value rank {len(val_tail)} > 5 unsupported in "
+                    f"multi-process mode; flatten the trailing dims")
+            dt = np.dtype(val_dtype).str.encode()[:6]
+            blob[1] = int.from_bytes(dt, "little")
+            blob[2] = len(val_tail)
+            blob[3:3 + len(val_tail)] = val_tail
+        schemas = allgather_blob(blob, what="schema agreement")
+        known = schemas[schemas[:, 0] >= 0]
+        if known.size:
+            if not (known == known[0]).all():
+                raise ValueError(
+                    f"mixed value schema across processes: {schemas}")
+            ref = known[0]
+            if ref[0] == 1 and not has_vals:
+                val_dtype = np.dtype(
+                    int(ref[1]).to_bytes(6, "little").rstrip(b"\0")
+                    .decode())
+                val_tail = tuple(int(x) for x in ref[3:3 + int(ref[2])])
+            has_vals = bool(ref[0])
+        return has_vals, val_tail, val_dtype
+
+    def _agreed_dev_matrix(self, handle: ShuffleHandle, writers,
+                           shard_ids) -> np.ndarray:
+        """COLLECTIVE: the exact ``[P, P]`` source x destination row
+        matrix of a distributed tiered read: each process sums its own
+        maps' size rows (source shard ``shard_ids[ordinal % L]``, the
+        staging rule) and the cluster matrix is the agreed sum."""
+        Pn, L = self.node.num_shards, len(shard_ids)
+        local = np.zeros((Pn, Pn), dtype=np.int64)
+        red_to_dev = blocked_partition_map(handle.num_partitions, Pn)
+        for ordinal, mid in enumerate(sorted(writers)):
+            sizes = np.asarray(handle.entry.fetch_record(mid),
+                               dtype=np.int64)
+            np.add.at(local[int(shard_ids[ordinal % L])], red_to_dev, sizes)
+        return agree("tier.crossRows", local.reshape(-1), reduce="sum",
+                     conf_key="spark.shuffle.tpu.a2a.topology",
+                     metrics=self.node.metrics).reshape(Pn, Pn)
+
+    def _submit_distributed_staged(self, handle: ShuffleHandle, writers,
+                                   shard_ids, combine: Optional[str],
+                                   ordered: bool, combine_sum_words: int,
+                                   rep: ExchangeReport, sink: str):
+        node = self.node
+        Pn, L = node.num_shards, len(shard_ids)
+        shard_outputs, has_vals, val_tail, val_dtype = \
+            self._materialize_outputs(writers, L, by_ordinal=True)
+        nvalid_local = np.array(
+            [sum(k.shape[0] for k, _ in outs) for outs in shard_outputs],
+            dtype=np.int64)
+        has_vals, val_tail, val_dtype = self._agree_schema(
+            has_vals, val_tail, val_dtype, int(nvalid_local.sum()))
+        nvalid = allgather_sizes(nvalid_local, shard_ids, Pn)
+        validate_row_sizes(nvalid.reshape(1, -1))
+
+        t_plan = time.perf_counter()
+        plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
+                         node.device, partitioner=handle.partitioner,
+                         bounds=handle.bounds, sink=sink,
+                         hierarchical=self.hierarchical, distributed=True)
+        # every process runs the same reads, so the learned hints advance
+        # in lockstep
+        plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
+        plan = self._decorated_plan(plan, combine, ordered, has_vals,
+                                    val_tail, val_dtype, combine_sum_words,
+                                    sink=sink)
+        rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
+        width = KEY_WORDS + (value_words(val_tail, val_dtype)
+                             if has_vals else 0)
+        # no process holds the [M, R] table: skew from the size row
+        return self._submit_planned(
+            handle, rep, plan, shard_outputs, nvalid, width, has_vals,
+            val_tail, val_dtype, combine, ordered, None, part_rows=nvalid,
+            dev_matrix=lambda: self._agreed_dev_matrix(handle, writers,
+                                                       shard_ids),
+            local=(shard_ids, nvalid_local))
 
     def _report_volume(self, rep: ExchangeReport, plan: ShufflePlan,
                        nvalid: np.ndarray, width: int,
@@ -642,6 +936,8 @@ class ShuffleManager:
             result, DeviceShuffleReaderResult) else [result]
         for v in views:
             v._d2h_cb = cb
+            # a distributed host view drained as its read settled
+            cb(getattr(v, "d2h_bytes", 0))
 
     # -- admission (a2a.maxBytesInFlight) ---------------------------------
     @staticmethod
@@ -818,9 +1114,13 @@ class ShuffleManager:
                       nvalid: np.ndarray, plan: ShufflePlan, width: int,
                       has_vals: bool, val_tail, val_dtype,
                       rep: ExchangeReport, num_waves: int,
-                      timeout: Optional[float]) -> "PendingWaveShuffle":
+                      timeout: Optional[float],
+                      distributed: bool = False) -> "PendingWaveShuffle":
         """The pending handle of a waved read; the packs run inside its
-        ``result()``, overlapped with the waves' exchanges."""
+        ``result()``, overlapped with the waves' exchanges. Distributed,
+        ``slot_outputs`` are this process's shards, the per-wave sizes
+        are agreed, and admission never times out (a local clock must not
+        fail one process while its peers enter the next collective)."""
         wave_rows = self.conf.wave_rows
         outer = dataclasses.replace(plan, wave_rows=wave_rows,
                                     num_waves=num_waves)
@@ -832,6 +1132,8 @@ class ShuffleManager:
             # a same-shape read already settled its wave capacity
             wplan = dataclasses.replace(wplan, cap_out=hint)
         wave_sizes = wave_payload_rows(nvalid, wave_rows, num_waves)
+        if distributed:
+            wave_sizes = agree_wave_sizes(wave_sizes, self.node.metrics)
         rep.waves = num_waves
         rep.wave_rows = wave_rows
         rep.wave_payload_rows = [int(x) for x in wave_sizes]
@@ -853,15 +1155,18 @@ class ShuffleManager:
         admit, release_admitted = self._make_admitter(
             wplan, width,
             depth * block_bytes + (hbm_waves - 1) * device_wave,
-            timeout, rep)
+            None if distributed else timeout, rep)
         log.info("wave-pipelined read: shuffle %d, %d waves x %d rows/shard "
                  "(depth %d, wave plan cap_in=%d cap_out=%d)",
                  handle.shuffle_id, num_waves, wave_rows, depth,
                  wplan.cap_in, wplan.cap_out)
+        local_rows = sum(int(k.shape[0])
+                         for outs in slot_outputs for k, _ in outs)
         return PendingWaveShuffle(self, handle, outer, wplan, depth,
                                   slot_outputs, width, has_vals, val_tail,
-                                  val_dtype, rep, int(nvalid.sum()),
-                                  wave_sizes, admit, release_admitted)
+                                  val_dtype, rep, local_rows, wave_sizes,
+                                  admit, release_admitted,
+                                  distributed=distributed)
 
     # -- wire tiers -------------------------------------------------------
     def _warn_once(self, key: str, msg: str, *args) -> None:
@@ -1004,14 +1309,17 @@ class ShuffleManager:
                 self._cap_hints[key] = used / balanced
 
     # -- staging ----------------------------------------------------------
-    def _materialize_outputs(self, writers, num_slots: int):
-        """Committed map outputs grouped onto shards (``map_id % P``),
-        with one agreed value schema. Returns (slot_outputs, has_vals,
-        val_tail, val_dtype)."""
+    def _materialize_outputs(self, writers, num_slots: int,
+                             by_ordinal: bool = False):
+        """Committed map outputs grouped onto shards (``map_id % P``; with
+        ``by_ordinal``, the i-th map in id order on slot ``i % num_slots``:
+        a distributed process's maps over its local shards), with one
+        agreed value schema. Returns (slot_outputs, has_vals, val_tail,
+        val_dtype)."""
         slot_outputs = [[] for _ in range(num_slots)]
         has_vals = False
         val_tail, val_dtype = None, None
-        for map_id, w in sorted(writers.items()):
+        for ordinal, (map_id, w) in enumerate(sorted(writers.items())):
             keys, values = w.materialize()
             if values is not None and keys.shape[0]:
                 has_vals = True
@@ -1023,7 +1331,8 @@ class ShuffleManager:
                         f"mixed value schema across map outputs: mapId "
                         f"{map_id} wrote {values.dtype}{values.shape[1:]}, "
                         f"earlier outputs wrote {val_dtype}{val_tail}")
-            slot_outputs[map_id % num_slots].append((keys, values))
+            slot = ordinal if by_ordinal else map_id
+            slot_outputs[slot % num_slots].append((keys, values))
         if has_vals:
             for outs in slot_outputs:
                 for keys, values in outs:
@@ -1128,8 +1437,9 @@ class PendingWaveShuffle:
                  depth: int, slot_outputs, width: int, has_vals: bool,
                  val_tail, val_dtype, rep: ExchangeReport, local_rows: int,
                  wave_sizes: np.ndarray, admit=None,
-                 release_admitted=lambda: None):
+                 release_admitted=lambda: None, distributed: bool = False):
         self._mgr = mgr
+        self._distributed = distributed
         self._handle = handle
         self._outer_plan = outer_plan
         self._wave_plan = wave_plan
@@ -1284,11 +1594,24 @@ class PendingWaveShuffle:
             # the pool hands this block to a later wave's pack
             pool.put(_b)
 
+        node = mgr.node
+        if self._distributed and mgr.hierarchical:
+            return submit_shuffle_tiered_distributed(
+                mgr.topology, self._wave_plan, shard_rows, wnv,
+                node.local_shard_ids, self._val_tail, self._val_dtype,
+                node.device, pool, on_done=on_done, wire_seed=wseed,
+                metrics=node.metrics, timeouts=tier_timeouts(mgr.conf))
+        if self._distributed:
+            return submit_shuffle_distributed(
+                self._wave_plan, shard_rows, wnv, node.local_shard_ids,
+                self._val_tail, self._val_dtype, node.device, pool,
+                on_done=on_done, metrics=node.metrics, wire_seed=wseed)
         if mgr.hierarchical:     # (waves never run under 'pallas')
             return submit_shuffle_tiered(
                 mgr.topology, self._wave_plan, shard_rows, wnv,
                 self._val_tail, self._val_dtype, mgr.node.device,
-                on_done=on_done, wire_seed=wseed, metrics=mgr.node.metrics)
+                on_done=on_done, wire_seed=wseed, metrics=mgr.node.metrics,
+                timeouts=tier_timeouts(mgr.conf))
         return submit_shuffle(self._wave_plan, shard_rows, wnv,
                               self._val_tail, self._val_dtype,
                               mgr.node.device, on_done=on_done,

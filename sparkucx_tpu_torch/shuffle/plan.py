@@ -139,10 +139,12 @@ def check_bounds(bounds, num_partitions: int) -> Tuple[int, ...]:
 def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
               conf: ShuffleConf, device, partitioner: str = "hash",
               bounds=None, sink: str = "host",
-              hierarchical: bool = False) -> ShufflePlan:
+              hierarchical: bool = False,
+              distributed: bool = False) -> ShufflePlan:
     """Capacities from per-shard staged row counts; the impl resolved for
-    ``device``, the read's sink, whether ``conf`` waves it and whether
-    the read runs the hierarchical exchange (backend.resolve_a2a_impl).
+    ``device``, the read's sink, whether ``conf`` waves it, whether the
+    read runs the hierarchical exchange and whether it spans processes
+    (backend.resolve_a2a_impl).
     ``bounds`` are the range partitioner's split points as
     :func:`check_bounds` returned them at registration."""
     if partitioner not in PARTITIONERS:
@@ -159,7 +161,8 @@ def make_plan(shard_rows: np.ndarray, num_shards: int, num_partitions: int,
         cap_in=cap_in, cap_out=cap_out,
         impl=resolve_a2a_impl(conf.a2a_impl, device, num_shards,
                               waved=conf.wave_rows > 0, sink=sink,
-                              hierarchical=hierarchical),
+                              hierarchical=hierarchical,
+                              distributed=distributed),
         partitioner=partitioner, sort_impl=conf.sort_impl, bounds=bounds,
         combine_compaction=conf.combine_compaction)
 

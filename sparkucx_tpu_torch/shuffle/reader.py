@@ -123,17 +123,21 @@ def _combine(plan: ShufflePlan, rows: torch.Tensor, part: torch.Tensor,
                         compaction=plan.combine_compaction)
 
 
-def wire_shard_seeds(plan: ShufflePlan,
-                     base_seed: int) -> Optional[List[int]]:
+def wire_shard_seeds(plan: ShufflePlan, base_seed: int,
+                     shard_ids: Optional[Sequence[int]] = None
+                     ) -> Optional[List[int]]:
     """The per-shard noise seeds of one int8 exchange, ``(base * P +
-    shard) & 0x7FFFFFFF`` for every shard (the JAX package's
-    ``seeded_nvalid`` arithmetic, which carries them in the staged count
-    lane; here they travel as a host list beside the counts). None when
-    the plan draws no noise."""
+    shard) & 0x7FFFFFFF`` for each of ``shard_ids`` — the GLOBAL ids of
+    the caller's shards (default: all P), so a shard's noise never
+    depends on which process holds it (the JAX package's
+    ``seeded_nvalid`` arithmetic, which carries the seeds in the staged
+    count lane; here they travel as a host list beside the counts). None
+    when the plan draws no noise."""
     if not plan_takes_seed(plan):
         return None
     P = plan.num_shards
-    return [int((int(base_seed) * P + p) & 0x7FFFFFFF) for p in range(P)]
+    ids = range(P) if shard_ids is None else shard_ids
+    return [int((int(base_seed) * P + int(p)) & 0x7FFFFFFF) for p in ids]
 
 
 def _wire_pack(plan: ShufflePlan, send: torch.Tensor,
@@ -508,14 +512,24 @@ def max_recv_rows(seg: np.ndarray, part_to_shard: np.ndarray,
 
 class ShuffleReaderResult:
     """Host view of one completed exchange: ``partition(r)`` returns the
-    (keys, values) of reduce partition r, densely packed."""
+    (keys, values) of reduce partition r, densely packed.
+
+    ``shard_ids`` makes it a PARTIAL view (a distributed read,
+    ``shuffle/distributed.py``): it holds only those global shards, in
+    that order (``rows`` and a per-shard seg matrix are indexed by the
+    ordinal), and ``partition(r)`` raises ``KeyError`` for a partition
+    another process owns."""
 
     def __init__(self, num_partitions: int, part_to_shard: np.ndarray,
                  rows: np.ndarray, seg_counts: np.ndarray,
                  val_shape: Optional[Tuple[int, ...]], val_dtype,
-                 align_chunk: int = 0):
+                 align_chunk: int = 0,
+                 shard_ids: Optional[Sequence[int]] = None):
         self.num_partitions = num_partitions
         self._part_to_shard = part_to_shard
+        # global shard id -> ordinal in rows; None: every shard, in order
+        self._shard_ord = None if shard_ids is None else \
+            {int(g): i for i, g in enumerate(shard_ids)}
         self._rows = rows                      # [P, cap, W] (or per-shard)
         self._seg = seg_counts                 # [P, R] or [P, 1, R]
         self._val_shape = val_shape
@@ -529,11 +543,31 @@ class ShuffleReaderResult:
         self.cap_out_used: Optional[int] = None
         self.recv_rows_needed: Optional[int] = None
 
+    @property
+    def shard_ids(self) -> Optional[List[int]]:
+        """The global shards a partial view holds, in ordinal order (None
+        for a view of every shard)."""
+        return None if self._shard_ord is None else list(self._shard_ord)
+
+    def is_local(self, r: int) -> bool:
+        return self._shard_ord is None \
+            or int(self._part_to_shard[r]) in self._shard_ord
+
+    def _ordinal(self, shard: int) -> int:
+        if self._shard_ord is None:
+            return shard
+        if shard not in self._shard_ord:
+            raise KeyError(
+                f"shard {shard} is not on this process (local shards: "
+                f"{sorted(self._shard_ord)})")
+        return self._shard_ord[shard]
+
     def _seg_matrix(self, shard: int) -> np.ndarray:
         """The count matrix shard's runs are indexed by: the shared
         ``[P, R]`` per-sender matrix, or its own ``[1, R]`` row of a
         ``[P, 1, R]`` per-shard matrix."""
-        return self._seg if self._seg.ndim == 2 else self._seg[shard]
+        return self._seg if self._seg.ndim == 2 \
+            else self._seg[self._ordinal(shard)]
 
     def _runs(self, shard: int) -> _RunIndex:
         ri = self._runidx.get(shard)
@@ -546,7 +580,7 @@ class ShuffleReaderResult:
         return ri
 
     def _shard_rows(self, shard: int) -> np.ndarray:
-        return self._rows[shard]
+        return self._rows[self._ordinal(shard)]
 
     def _partition_block(self, r: int, shard: int) -> np.ndarray:
         rows = self._shard_rows(shard)
@@ -568,12 +602,18 @@ class ShuffleReaderResult:
             raise IndexError(f"partition {r} out of [0, "
                              f"{self.num_partitions})")
         shard = int(self._part_to_shard[r])
+        if not self.is_local(r):
+            raise KeyError(
+                f"partition {r} lives on shard {shard}, not on this "
+                f"process (local shards: {sorted(self._shard_ord)})")
         return unpack_rows(self._partition_block(r, shard),
                            self._val_shape, self._val_dtype)
 
     def partitions(self):
+        """(r, (keys, values)) for every partition this view holds."""
         for r in range(self.num_partitions):
-            yield r, self.partition(r)
+            if self.is_local(r):
+                yield r, self.partition(r)
 
     def release_partition(self, r: int) -> None:
         """Drop partition r's cached dense block."""
@@ -593,9 +633,10 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
 
     def __init__(self, num_partitions: int, part_to_shard: np.ndarray,
                  rows_dev: torch.Tensor, seg_dev: torch.Tensor,
-                 val_shape, val_dtype, align_chunk: int = 0, metrics=None):
+                 val_shape, val_dtype, align_chunk: int = 0, metrics=None,
+                 shard_ids: Optional[Sequence[int]] = None):
         super().__init__(num_partitions, part_to_shard, None, None,
-                         val_shape, val_dtype, align_chunk)
+                         val_shape, val_dtype, align_chunk, shard_ids)
         self._rows_dev = rows_dev
         self._seg_dev = seg_dev
         # per-shard delivered rows [P], on the device: the device sink's
@@ -648,7 +689,8 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
             if self._shards is not None:
                 return self._shards
         P = self._rows_dev.shape[0]
-        ext = [self._runs(p).extent for p in range(P)]
+        ext = [self._runs(g).extent for g in (
+            range(P) if self._shard_ord is None else self._shard_ord)]
         with self._lock:
             if self._shards is not None:
                 return self._shards
@@ -692,10 +734,11 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         device sink (a consumer that passes the rows through hands its
         output here)."""
         with self._lock:
-            out = LazyShuffleReaderResult(
+            out = type(self)(
                 self.num_partitions, self._part_to_shard, rows_dev,
                 self._seg_dev, self._val_shape, self._val_dtype,
-                self._align_chunk, self._metrics)
+                self._align_chunk, self._metrics,
+                shard_ids=self.shard_ids)
             if self._seg_dev is None:
                 out._seg = self._seg
             out._d2h_cb = self._d2h_cb
@@ -704,15 +747,16 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
 
     def _shard_rows(self, shard: int) -> np.ndarray:
         shards = self._materialize()
-        got = shards[shard]
+        j = self._ordinal(shard)
+        got = shards[j]
         if isinstance(got, LosslessBlock):
             with self._lock:
-                got = shards[shard]
+                got = shards[j]
                 if isinstance(got, LosslessBlock):
                     # a2a.wire=lossless parked this shard compressed; the
                     # first touch restores the exact bytes and keeps them
                     got = decode_block(got)
-                    shards[shard] = got
+                    shards[j] = got
         return got
 
     def compress_host_blocks(self, executor=None) -> Tuple[int, int]:
@@ -871,12 +915,23 @@ def device_merge_fold(res: "DeviceShuffleReaderResult",
 
     The accumulator's capacity is the largest per-shard sum of delivered
     rows over all waves (one ``[P]`` pull per wave: metadata, not
-    payload), on the cap-bucket ladder."""
+    payload), on the cap-bucket ladder. Over a distributed read's partial
+    views each wave's row is summed over every process
+    (``distributed.local_totals_row``, a collective), so every process
+    folds at the same capacity; the fold itself runs on the local
+    shards."""
     plan = res._plan
     Pn = plan.num_shards
     R = plan.num_partitions
     views = res.wave_views()
-    totals = np.stack([v._totals_dev.cpu().numpy() for v in views])
+    shard_ids = views[0].shard_ids
+    if shard_ids is None:
+        totals = np.stack([v._totals_dev.cpu().numpy() for v in views])
+    else:
+        from sparkucx_tpu_torch.shuffle.distributed import local_totals_row
+        totals = np.stack([local_totals_row(v._totals_dev, shard_ids, Pn)
+                           for v in views])
+    L = views[0]._rows_dev.shape[0]
     need = int(totals.sum(axis=0).max()) if totals.size else 0
     acc_cap = bucket_cap_conf(max(8, -(-need // 8) * 8), conf)
     merge_impl = resolve_merge_impl(conf, plan, views[0]._rows_dev.device)
@@ -890,13 +945,14 @@ def device_merge_fold(res: "DeviceShuffleReaderResult",
         acc_rows, acc_n = carry
         step = merge_step_body(plan, acc_cap, rows.shape[1], merge_impl)
         acc_rows, pcounts, acc_n = step(acc_rows, acc_n, rows, tot)
-        seg["seg"] = pcounts.reshape(Pn, 1, R)
+        seg["seg"] = pcounts.reshape(L, 1, R)
         return acc_rows, acc_n
 
     acc_rows, acc_n = res.consume(fold, None)
-    view = LazyShuffleReaderResult(
+    view = type(views[0])(
         R, blocked_partition_map(R, Pn), acc_rows, seg["seg"],
-        res._val_shape, res._val_dtype, metrics=views[0]._metrics)
+        res._val_shape, res._val_dtype, metrics=views[0]._metrics,
+        shard_ids=shard_ids)
     view._totals_dev = acc_n
     return view
 
@@ -927,9 +983,10 @@ class WavedShuffleReaderResult(ShuffleReaderResult):
                  val_dtype):
         if not wave_results:
             raise ValueError("waved result needs at least one wave")
-        super().__init__(plan.num_partitions,
-                         wave_results[0]._part_to_shard, None, None,
-                         val_shape, val_dtype)
+        first = wave_results[0]
+        super().__init__(plan.num_partitions, first._part_to_shard, None,
+                         None, val_shape, val_dtype,
+                         shard_ids=first.shard_ids)
         self._waves = list(wave_results)
         self._plan = plan
         self.waves = len(wave_results)
@@ -1302,9 +1359,6 @@ class PendingShuffle(PendingExchangeBase):
             self._plan = self._plan.grown()
             self._attempt += 1
             self._dispatch()
-        R = self._plan.num_partitions
-        Pn = self._plan.num_shards
-        p2s = blocked_partition_map(R, Pn)
         plan = self._plan
         align_chunk = 0
         if plan.impl == "pallas" and not (plan.combine or plan.ordered
@@ -1312,10 +1366,7 @@ class PendingShuffle(PendingExchangeBase):
             # only the plain host-sink read keeps the chunk-aligned layout
             align_chunk = chunk_rows_for(
                 wire_row_words(plan, rows_out.shape[2]))
-        res = LazyShuffleReaderResult(R, p2s, rows_out, seg,
-                                      self._val_shape, self._val_dtype,
-                                      align_chunk=align_chunk,
-                                      metrics=self._metrics)
+        res = self._view(rows_out, seg, align_chunk)
         # the PLAN capacity, not the chunk-inflated buffer size
         res.cap_out_used = self._plan.cap_out
         res._totals_dev = total
@@ -1323,6 +1374,14 @@ class PendingShuffle(PendingExchangeBase):
         # true delivered rows (the aligned layout consumes slack; a
         # combine's counts are post-merge)
         return self._settle(res, not (plan.combine or plan.impl == "pallas"))
+
+    def _view(self, rows_out, seg, align_chunk: int):
+        """The lazy result over the step's outputs."""
+        R = self._plan.num_partitions
+        return LazyShuffleReaderResult(
+            R, blocked_partition_map(R, self._plan.num_shards), rows_out,
+            seg, self._val_shape, self._val_dtype, align_chunk=align_chunk,
+            metrics=self._metrics)
 
 
 def submit_shuffle(plan: ShufflePlan, shard_rows: np.ndarray,

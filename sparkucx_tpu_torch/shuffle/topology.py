@@ -36,11 +36,21 @@ DCN fabrics; the accounting (:func:`tier_layouts`, exact cross rows from
   groups; key, partition and size lanes stay exact, so the partition
   recompute between the stages sees full rows).
 
-Not ported here, with the items that bring them: the per-tier deadlines
-(``failure.ici/dcn.timeoutMs``) and the watchdog fences that enforce them,
-the ``tier.ici``/``tier.dcn`` fault sites and replay, the flight records,
-the multi-process tiered pending, and the JAX package's compiled-step
-cache key (eager PyTorch compiles nothing per shape).
+Each tier runs under its own watchdog deadline (``failure.ici.timeoutMs``
+/ ``failure.dcn.timeoutMs``, :func:`tier_timeouts`; ``runtime/watchdog.py``):
+its collectives (on a distributed node) raise a ``PeerLostError`` naming
+the tier, and its local completion wait a ``DeviceUnhealthy`` naming it.
+The
+handle's distributed seams (``_stage_to_device``, ``_seed_nvalid``,
+``_local_overflow``, ``_agree_overflow``, ``_agree_regrow``,
+``_totals_host``, ``_stage2_step``, ``_assemble``) are identities here;
+``shuffle/distributed.PendingDistributedTieredShuffle`` overrides them to
+run the same two stages over the shards of several processes.
+
+Not ported here, with the items that bring them: the ``tier.ici`` /
+``tier.dcn`` fault sites and replay (item 7b), the flight records, and
+the JAX package's compiled-step cache key (eager PyTorch compiles
+nothing per shape).
 
 One deliberate difference from the JAX package: :func:`tier_layouts`
 sizes stage 1's dense wire by the relay capacity stage 1 really pads to,
@@ -62,6 +72,7 @@ from sparkucx_tpu_torch.ops.aggregate import keysort_rows
 from sparkucx_tpu_torch.ops.partition import (blocked_partition_map,
                                               destination_sort, to_device)
 from sparkucx_tpu_torch.parallel.mesh import DCN_AXIS, ICI_AXIS, SliceGrid
+from sparkucx_tpu_torch.runtime.watchdog import current_watchdog
 from sparkucx_tpu_torch.shuffle.alltoall import (ragged_shuffle,
                                                  resolved_wire_impl,
                                                  validate_topology,
@@ -139,6 +150,13 @@ def resolve_topology(grid: SliceGrid, conf) -> TopologyDescriptor:
                                   dcn_axis=DCN_AXIS, num_slices=S,
                                   per_slice=D)
     return TopologyDescriptor("flat", ici_axis=ICI_AXIS, per_slice=D)
+
+
+def tier_timeouts(conf) -> Dict[str, float]:
+    """Per-tier watchdog deadlines of one read: ``failure.ici.timeoutMs``
+    and ``failure.dcn.timeoutMs``, each defaulting to
+    ``failure.collectiveTimeoutMs`` (0 = off)."""
+    return {"ici": conf.ici_timeout_ms, "dcn": conf.dcn_timeout_ms}
 
 
 # -- per-tier accounting ---------------------------------------------------
@@ -276,16 +294,19 @@ def _stage1_body(plan: ShufflePlan, topo: TopologyDescriptor,
                  relay_cap: int):
     """Stage 1 — ICI: the map-side combine when the read combines
     (shrinking both hops), then within each slice the rows grouped by
-    destination device index ``g % D``. ``step(payload [P, cap, W],
-    nvalid [P], seeds)`` -> (relay ``[P, relay_cap, W]``, totals ``[P]``,
-    overflow 0-d bool)."""
+    destination device index ``g % D``. ``step(payload [L, cap, W],
+    nvalid [L], seeds)`` -> (relay ``[L, relay_cap, W]``, totals ``[L]``,
+    overflow 0-d bool), over the L shards of whole slices the caller holds
+    (all P on one process; a distributed process's own slices)."""
     R = plan.num_partitions
     Pn = plan.num_shards
-    S, D = topo.num_slices, topo.per_slice
+    D = topo.per_slice
     part_to_dest = blocked_partition_map(R, Pn)
     part_fn = _make_part_fn(plan, R)
 
     def step(payload: torch.Tensor, nvalid: torch.Tensor, seeds=None):
+        L = payload.shape[0]
+        S = L // D
         n0 = nvalid
         if plan.combine:
             payload, _, n0 = _combine(plan, payload, part_fn(payload),
@@ -297,7 +318,7 @@ def _stage1_body(plan: ShufflePlan, topo: TopologyDescriptor,
         relay, tot, ovf = _tier_wire_shuffle(
             plan, send1.reshape(S, D, cap, width), counts1.reshape(S, D, D),
             seeds, relay_cap, "ici")
-        return relay.reshape(Pn, relay_cap, width), tot.reshape(Pn), ovf
+        return relay.reshape(L, relay_cap, width), tot.reshape(L), ovf
 
     return step
 
@@ -343,14 +364,8 @@ def _stage2_body(plan: ShufflePlan, topo: TopologyDescriptor, out_cap: int):
             seeds, out_cap, "dcn")
         rows = got.reshape(Pn, out_cap, width)
         total = tot.reshape(Pn)
-        if plan.combine:
-            rows_out, pcounts, n_out = _combine(plan, rows, part_fn(rows),
-                                                total)
-            return rows_out, pcounts.reshape(Pn, 1, R), n_out, ovf
-        if plan.ordered:
-            _, rows_out, pcounts = keysort_rows(rows, part_fn(rows), total,
-                                                R)
-            return rows_out, pcounts.reshape(Pn, 1, R), total, ovf
+        if plan.combine or plan.ordered:
+            return stage2_finalize(plan, rows, total) + (ovf,)
         # receiver (s, d) got one segment from each relay (s', d) of its
         # column, in slice order: its seg matrix is their count rows
         rc = rcounts2.reshape(S, D, R).transpose(0, 1)           # [D, S, R]
@@ -358,6 +373,21 @@ def _stage2_body(plan: ShufflePlan, topo: TopologyDescriptor, out_cap: int):
         return rows, seg, total, ovf
 
     return step
+
+
+def stage2_finalize(plan: ShufflePlan, rows: torch.Tensor,
+                    total: torch.Tensor):
+    """A combine or ordered read's receive side after stage 2: combine ->
+    ``combine_rows``, ordered -> ``keysort_rows``; (rows, seg ``[L, 1,
+    R]``, totals ``[L]``) over the L receivers ``rows`` holds."""
+    R = plan.num_partitions
+    L = rows.shape[0]
+    part_fn = _make_part_fn(plan, R)
+    if plan.combine:
+        rows_out, pcounts, n_out = _combine(plan, rows, part_fn(rows), total)
+        return rows_out, pcounts.reshape(L, 1, R), n_out
+    _, rows_out, pcounts = keysort_rows(rows, part_fn(rows), total, R)
+    return rows_out, pcounts.reshape(L, 1, R), total
 
 
 def check_hier_grid(grid: SliceGrid, topo: TopologyDescriptor) -> None:
@@ -387,13 +417,18 @@ class PendingTieredShuffle(PendingExchangeBase):
       ``(wire_seed + attempt) * 2 + stream``, so the two hops never share
       a realization and every retry draws fresh noise.
     * ``done()`` stays False until stage 2 has dispatched.
+    * each tier's join runs under its deadline (``timeouts``, from
+      :func:`tier_timeouts`) through the process watchdog: its local
+      completion wait raises ``DeviceUnhealthy`` naming the tier, and
+      its collectives (the distributed seams) ``PeerLostError``.
 
     Admission and ``on_done`` follow :class:`reader.PendingExchangeBase`."""
 
     def __init__(self, topo: TopologyDescriptor, plan: ShufflePlan,
                  shard_rows, shard_nvalid: np.ndarray, val_shape, val_dtype,
                  device: torch.device, on_done=None, admit=None,
-                 wire_seed: int = 0, metrics=None):
+                 wire_seed: int = 0, metrics=None,
+                 timeouts: Optional[Dict[str, float]] = None):
         if not topo.hierarchical:
             raise ValueError(f"a tiered shuffle needs a hier topology, got "
                              f"{topo.kind!r}")
@@ -413,6 +448,7 @@ class PendingTieredShuffle(PendingExchangeBase):
         self._device = device
         self._metrics = metrics
         self._wire_seed = int(wire_seed)
+        self._timeouts = dict(timeouts or {})
         self.tier_walls: Dict[str, float] = {"ici": 0.0, "dcn": 0.0}
         self._t_stage = 0.0
         self._attempt = 0
@@ -424,25 +460,52 @@ class PendingTieredShuffle(PendingExchangeBase):
         self._rows = self._nvalid = self._out = None
         self._admit_or_defer(admit, on_done)
 
-    def _seeds(self, stream: int):
-        """The int8 noise seeds of stage ``1 + stream`` (None off int8)."""
-        return wire_shard_seeds(
-            self._plan, (self._wire_seed + self._attempt) * 2 + stream)
+    # -- the distributed seams (identities on one process) -----------------
+    def _stage_to_device(self, arr):
+        return stage_to_device(arr, self._device)
+
+    def _seed_nvalid(self, values, stream: int):
+        """Stage ``1 + stream``'s valid counts on the device and its int8
+        noise seeds (None off int8), from ``(wire_seed + attempt) * 2 +
+        stream``, so the hops never share a realization."""
+        return (self._stage_to_device(np.asarray(values, dtype=np.int32)),
+                wire_shard_seeds(self._plan,
+                                 (self._wire_seed + self._attempt) * 2
+                                 + stream))
+
+    def _local_overflow(self) -> bool:
+        return self._overflowed()
+
+    def _agree_overflow(self, tier: str, mine: bool) -> bool:
+        """The overflow verdict every process acts on."""
+        return mine
+
+    def _agree_regrow(self, tier: str, cap: int) -> int:
+        """The regrown capacity every process dispatches."""
+        return int(cap)
+
+    def _totals_host(self, tot1) -> np.ndarray:
+        """Stage 1's per-shard totals as the host row stage 2 seeds
+        from."""
+        return tot1.cpu().numpy().astype(np.int32)
+
+    def _stage2_step(self, plan: ShufflePlan):
+        return _stage2_body(plan, self._topo, plan.cap_out)
 
     def _start(self) -> None:
         rows, nvalid = self._host
         self._host = None
-        self._rows = stage_to_device(rows, self._device)
-        self._nvalid = stage_to_device(np.asarray(nvalid, dtype=np.int32),
-                                       self._device)
+        self._rows = self._stage_to_device(rows)
+        self._nvalid_host = nvalid
         self._dispatch()
 
     def _dispatch(self) -> None:
         """(Re)dispatch stage 1 over the staged rows."""
         step = _stage1_body(self._plan, self._topo, self._relay_cap)
+        nvalid, seeds = self._seed_nvalid(self._nvalid_host, 0)
         self._t_stage = time.perf_counter()
         self._stage = 1
-        self._out = step(self._rows, self._nvalid, self._seeds(0))
+        self._out = step(self._rows, nvalid, seeds)
         self._arm_overflow(self._out[2])
 
     def done(self) -> bool:
@@ -456,10 +519,17 @@ class PendingTieredShuffle(PendingExchangeBase):
         self._rows = self._nvalid = self._out = None
 
     def _join(self, tier: str) -> bool:
-        """Join the tier in flight: its overflow verdict. The wall from
-        its dispatch accumulates across retries, failures included."""
+        """Join the tier in flight under its deadline: the overflow
+        verdict every process acts on. The wall from its dispatch
+        accumulates across retries, failures included."""
         try:
-            return self._overflowed()
+            # the tier's collectives (stage 2's hop on a distributed
+            # node) returned inside its dispatch: this waits on this
+            # process's own device work
+            mine = current_watchdog().call(
+                self._local_overflow, what=f"hierarchical {tier} exchange",
+                timeout_ms=float(self._timeouts.get(tier, 0.0)), local=True)
+            return self._agree_overflow(tier, mine)
         finally:
             self.tier_walls[tier] += (time.perf_counter()
                                       - self._t_stage) * 1e3
@@ -478,19 +548,19 @@ class PendingTieredShuffle(PendingExchangeBase):
                     f"{self._relay_cap}); extreme skew — repartition")
             log.info("hier ICI overflow at relay_cap=%d (attempt %d); "
                      "growing", self._relay_cap, self._attempt)
-            self._relay_cap *= 2
+            self._relay_cap = self._agree_regrow("ici", self._relay_cap * 2)
             self._retries1 += 1
             self._attempt += 1
             self._dispatch()
         # only the [P] totals cross to the host
-        totals1 = tot1.cpu().numpy().astype(np.int32)
+        totals1 = self._totals_host(tot1)
         # -- stage 2: DCN, output-capacity retry loop ---------------------
         while True:
-            step2 = _stage2_body(plan, self._topo, plan.cap_out)
-            nv2 = stage_to_device(totals1, self._device)
+            step2 = self._stage2_step(plan)
             self._t_stage = time.perf_counter()
+            nv2, seeds2 = self._seed_nvalid(totals1, 1)
             self._stage = 2
-            self._out = step2(relay, nv2, self._seeds(1))
+            self._out = step2(relay, nv2, seeds2)
             self._arm_overflow(self._out[3])
             rows_out, seg, total, _ = self._out
             if not self._join("dcn"):
@@ -504,6 +574,7 @@ class PendingTieredShuffle(PendingExchangeBase):
             log.info("hier DCN overflow at cap_out=%d (attempt %d); "
                      "growing", plan.cap_out, self._attempt)
             plan = plan.grown()
+            self._agree_regrow("dcn", plan.cap_out)
             self._plan = plan
             self._retries2 += 1
             self._attempt += 1
@@ -528,8 +599,9 @@ class PendingTieredShuffle(PendingExchangeBase):
 def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
                           shard_rows, shard_nvalid: np.ndarray, val_shape,
                           val_dtype, device: torch.device, on_done=None,
-                          admit=None, wire_seed: int = 0,
-                          metrics=None) -> PendingTieredShuffle:
+                          admit=None, wire_seed: int = 0, metrics=None,
+                          timeouts: Optional[Dict[str, float]] = None
+                          ) -> PendingTieredShuffle:
     """Dispatch the two-tier exchange without blocking (the submit/poll
     contract of ``reader.submit_shuffle``).
 
@@ -540,7 +612,8 @@ def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
     return PendingTieredShuffle(topo, plan, shard_rows, shard_nvalid,
                                 val_shape, val_dtype, device,
                                 on_done=on_done, admit=admit,
-                                wire_seed=wire_seed, metrics=metrics)
+                                wire_seed=wire_seed, metrics=metrics,
+                                timeouts=timeouts)
 
 
 def read_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,

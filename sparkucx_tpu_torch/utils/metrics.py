@@ -10,8 +10,11 @@ and :data:`C_SPILL_COUNT`, the admission counter
 :data:`C_ADMIT_BYTES` with its wait histogram :data:`H_ADMIT_WAIT`, and
 the MoE exchange counters (:data:`C_PAYLOAD_BYTES`, :data:`C_WIRE_BYTES`,
 :data:`C_MOE_EXCHANGES`, :data:`C_MOE_ROWS`) with the host-staged
-consumer's upload counter :data:`C_H2D`, and the per-tier wire counter of
-hierarchical reads :data:`C_TIER_BYTES`."""
+consumer's upload counter :data:`C_H2D`, the per-tier wire counter of
+hierarchical reads :data:`C_TIER_BYTES`, and the failure and agreement
+planes of distributed reads (:data:`C_PEER_TIMEOUT`, :data:`C_PROBE_DEAD`,
+:data:`C_AGREE_ROUNDS`, :data:`C_AGREE_DIVERGENCE`,
+:data:`H_AGREE_ROUND`)."""
 
 from __future__ import annotations
 
@@ -59,6 +62,16 @@ C_MOE_ROWS = "moe.exchange.rows"
 # wire bytes each tier of a hierarchical read moved
 # (ExchangeReport.tiers), labeled {tier="ici|dcn", tenant="default"}
 C_TIER_BYTES = "shuffle.tier.bytes"
+# the watchdog's deadline expiries, and the devices its probe found dead
+# (runtime/watchdog.py)
+C_PEER_TIMEOUT = "failure.peer_timeout.count"
+C_PROBE_DEAD = "failure.probe.dead"
+# agreement rounds (every exit: agreed, divergent or peer-lost), the
+# divergent ones, and each round's wall (ms); each with a {topic=} twin
+# (shuffle/agreement.py)
+C_AGREE_ROUNDS = "shuffle.agreement.rounds.count"
+C_AGREE_DIVERGENCE = "shuffle.agreement.divergence.count"
+H_AGREE_ROUND = "shuffle.agreement.round_ms"
 
 
 def labeled(name: str, **labels) -> str:

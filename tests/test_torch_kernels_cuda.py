@@ -1499,3 +1499,70 @@ def test_ingest_foreign_on_card(card):
     staged = stage_to_device(np.arange(7, dtype=np.int64))
     assert staged.device == card
     assert staged.cpu().tolist() == list(range(7))
+
+
+# -- the multi-process read plane: two workers sharing the card ------------
+@pytest.fixture(scope="module")
+def card_world():
+    """``torch_cluster_jobs.card_reads`` on two workers sharing the card
+    and on two CPU workers, from the same seed (the parent builds the
+    kernels before it spawns a worker)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sparkucx_tpu_torch.cluster import run_cluster
+    backend.kernel_library()
+    card = run_cluster("torch_cluster_jobs:card_reads", 2, 8, device=None,
+                       timeout_s=400)
+    cpu = run_cluster("torch_cluster_jobs:card_reads", 2, 8, device="cpu",
+                      timeout_s=400)
+    return card.results, cpu.results
+
+
+def _world_rows(results, key, vdtype, vw):
+    out = {}
+    for res in results:
+        for r, (k, v) in res[key].items():
+            keys = np.frombuffer(bytes.fromhex(k), np.int64)
+            vals = np.frombuffer(bytes.fromhex(v), vdtype).reshape(-1, vw)
+            out[int(r)] = sorted(zip(keys.tolist(),
+                                     (row.tobytes() for row in vals)))
+    return out
+
+
+def test_two_process_read_on_card_matches_cpu(card_world):
+    """Plain and int32 combine reads by two workers on the card hold the
+    rows of the same reads by two CPU workers, partition by partition."""
+    import torch_cluster_jobs as jobs
+    card, cpu = card_world
+    assert _world_rows(card, "plain", np.float32, jobs.VW) == \
+        _world_rows(cpu, "plain", np.float32, jobs.VW)
+    assert _world_rows(card, "combine", np.int32, 2) == \
+        _world_rows(cpu, "combine", np.int32, 2)
+    assert sorted(_world_rows(card, "plain", np.float32, jobs.VW)) == \
+        list(range(jobs.R))
+
+
+def test_two_process_int8_launches_quantize_once_per_process(card_world):
+    """Each worker's int8 read launches the quantize kernel once (plus one
+    a retry), the first and last launch byte-equal to ``quantize_plain``
+    (``KernelCapture``); the keys land as on the CPU workers (the noise
+    comes from the card's generator, so the values may round apart)."""
+    from sparkucx_tpu_torch.ops import quant as tq
+    card, cpu = card_world
+    for res in card:
+        assert res["int8_launches"] == 1 + res["int8_retries"]
+        assert res["int8_checks"][tq.KERNEL_NAME]["calls"] >= 1
+        for r, (k, _) in res["int8"].items():
+            want = next(w for w in cpu if r in w["int8"])["int8"][r][0]
+            assert sorted(np.frombuffer(bytes.fromhex(k), np.int64)) == \
+                sorted(np.frombuffer(bytes.fromhex(want), np.int64))
+
+
+def test_two_process_combine_segment_reduce_matches_plain(card_world):
+    """Each worker's combine read finalizes through the segment-reduce
+    kernel, its first and last launch bit-equal to the plain version."""
+    from sparkucx_tpu_torch.ops import segmented as sg
+    card, _ = card_world
+    for res in card:
+        assert res["combine_launches"] >= 1
+        assert res["combine_checks"][sg.KERNEL_NAME]["calls"] >= 1

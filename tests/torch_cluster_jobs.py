@@ -1,0 +1,253 @@
+"""Jobs the port's multi-process tests run on ``cluster.run_cluster``
+workers, and the map data both sides of a comparison write. JAX-free, so
+the card tests share it.
+
+Map ``m`` goes to the process that owns shard ``m % P``
+(``cluster.my_maps``), so every shard stages the same maps in the same
+order as on one process: a read of the same maps by one process and by
+several then quantizes the same rows with the same noise."""
+
+import numpy as np
+
+from sparkucx_tpu_torch.cluster import my_maps
+
+SEED = 41
+R = 12            # partitions
+MAPS = 8
+ROWS = 40         # rows a map
+VW = 3            # value lanes
+SKEW_PART = R - 1  # the overflow case's one hot partition
+
+
+def float_maps(maps: int = MAPS, rows: int = ROWS):
+    """``maps`` (keys, float32 values) pairs, values of mixed magnitude."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(maps):
+        k = rng.integers(0, 1 << 16, rows).astype(np.int64)
+        v = (rng.standard_normal((rows, VW))
+             * np.exp(rng.normal(0, 1, (rows, 1)))).astype(np.float32)
+        out.append((k, v))
+    return out
+
+
+def float_run_maps(maps: int = MAPS, rows: int = ROWS):
+    """As :func:`float_maps`, over :func:`int_maps`' small key space, so a
+    float32 combine sums runs of several rows."""
+    rng = np.random.default_rng(SEED + 2)
+    return [(rng.integers(0, 64, rows).astype(np.int64),
+             (rng.standard_normal((rows, VW))
+              * np.exp(rng.normal(0, 1, (rows, 1)))).astype(np.float32))
+            for _ in range(maps)]
+
+
+def int_maps(maps: int = MAPS, rows: int = ROWS):
+    """``maps`` (keys, int32 values) pairs over a small key space, so the
+    combine has runs to sum."""
+    rng = np.random.default_rng(SEED + 1)
+    return [(rng.integers(0, 64, rows).astype(np.int64),
+             rng.integers(-1000, 1000, (rows, 2)).astype(np.int32))
+            for _ in range(maps)]
+
+
+def skew_maps(maps: int = MAPS, rows: int = ROWS):
+    """Direct-partitioned maps whose rows all go to the last partition
+    (on the last process's last shard): only that process's receiver
+    overflows a small ``a2a.capacityFactor``."""
+    return [(np.full(rows, SKEW_PART, dtype=np.int64),
+             np.arange(rows * 2, dtype=np.int32).reshape(rows, 2) + m)
+            for m in range(maps)]
+
+
+def write(mgr, sid: int, maps, owned, partitioner: str = "hash",
+          bounds=None):
+    """Register ``sid`` with ``mgr`` and commit the maps in ``owned``."""
+    h = mgr.register_shuffle(sid, len(maps), R, partitioner, bounds)
+    for m in owned:
+        w = mgr.get_writer(h, m)
+        w.write(*maps[m])
+        w.commit(R)
+    return h
+
+
+def dump(res) -> dict:
+    """The partitions a (partial) view holds: ``{r: [keys hex, values
+    hex]}``."""
+    return {str(r): [k.tobytes().hex(), v.tobytes().hex()]
+            for r, (k, v) in res.partitions()}
+
+
+def _manager(ctx, conf: dict):
+    from sparkucx_tpu_torch.config import ShuffleConf
+    from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+    return ShuffleManager(ctx.svc.node, ShuffleConf(conf, use_env=False))
+
+
+def _raises(fn, kind):
+    try:
+        fn()
+    except kind as e:
+        return f"{type(e).__name__}: {e}"
+    raise AssertionError(f"expected {kind.__name__}")
+
+
+def _report(rep) -> dict:
+    return {"distributed": rep.distributed, "impl": rep.impl,
+            "process_id": rep.process_id, "retries": rep.retries,
+            "wire": rep.wire, "sink": rep.sink, "waves": rep.waves,
+            "d2h_bytes": rep.d2h_bytes,
+            "tiers": [{k: t[k] for k in ("tier", "payload_rows",
+                                          "cross_exact")}
+                      for t in rep.tiers]}
+
+
+def read_suite(ctx) -> dict:
+    """Every read shape of the distributed plane on one world: plain,
+    ordered, combine (float32 and int32), int8, device sink, waved,
+    tiered, an overflow, and the three collective failures."""
+    svc = ctx.svc
+    mine = my_maps(ctx, MAPS)
+    fm, im = float_maps(), int_maps()
+    out = {"rank": ctx.rank, "shards": svc.node.local_shard_ids}
+    h = write(svc.manager, 1, fm, mine)
+    res = svc.read(h)
+    out["plain"] = dump(res)
+    out["plain_report"] = _report(svc.report(1))
+    other = next(r for r in range(R) if not res.is_local(r))
+    out["non_local"] = _raises(lambda: res.partition(other), KeyError)
+    out["ordered"] = dump(svc.read(h, ordered=True))
+    dres = svc.read(h, sink="device")
+    out["device_d2h_before"] = svc.report(1).d2h_bytes
+    out["device"] = dump(dres.host_view())
+    svc.unregister_shuffle(1)
+
+    h = write(svc.manager, 10, float_run_maps(), mine)
+    out["combine_f32"] = dump(svc.read(h, combine="sum"))
+    svc.unregister_shuffle(10)
+
+    h = write(svc.manager, 2, im, mine)
+    out["combine_i32"] = dump(svc.read(h, combine="sum"))
+    svc.unregister_shuffle(2)
+
+    m8 = _manager(ctx, {"spark.shuffle.tpu.a2a.wire": "int8"})
+    out["int8"] = dump(m8.read(write(m8, 3, fm, mine)))
+    out["int8_report"] = _report(m8.report(3))
+    m8.unregister_shuffle(3)
+    m8.stop()
+
+    mw = _manager(ctx, {"spark.shuffle.tpu.a2a.waveRows": "25"})
+    h = write(mw, 4, fm, mine)
+    out["waved"] = dump(mw.read(h))
+    out["waved_report"] = _report(mw.report(4))
+    out["waved_device"] = dump(mw.read(h, ordered=True,
+                                       sink="device").host_view())
+    mw.unregister_shuffle(4)
+    mw.stop()
+
+    mo = _manager(ctx, {"spark.shuffle.tpu.a2a.capacityFactor": "2"})
+    out["skew"] = dump(mo.read(write(mo, 5, skew_maps(), mine, "direct")))
+    out["skew_report"] = _report(mo.report(5))
+    mo.unregister_shuffle(5)
+    mo.stop()
+
+    # the completeness barrier: map 0 is never committed
+    h = write(svc.manager, 6, fm, [m for m in mine if m != 0])
+    out["barrier"] = _raises(lambda: svc.read(h, timeout=0.5),
+                             TimeoutError)
+    svc.unregister_shuffle(6)
+    # one process writes float32 values, the other int32
+    maps = fm if ctx.rank == 0 else im
+    h = write(svc.manager, 7, maps, mine)
+    out["schema"] = _raises(lambda: svc.read(h), ValueError)
+    svc.unregister_shuffle(7)
+    mp = _manager(ctx, {"spark.shuffle.tpu.a2a.impl": "pallas"})
+    h = write(mp, 8, fm, mine)
+    out["pallas"] = _raises(lambda: mp.read(h), NotImplementedError)
+    mp.unregister_shuffle(8)
+    mp.stop()
+
+    # two slices: the slice boundary is the process boundary
+    with ctx.connect({"spark.shuffle.tpu.mesh.numSlices":
+                      str(ctx.nprocs)}) as hier:
+        h = write(hier.manager, 9, fm, mine)
+        out["tiered"] = dump(hier.read(h))
+        out["tiered_report"] = _report(hier.report(9))
+        hier.unregister_shuffle(9)
+        h = write(hier.manager, 11, float_run_maps(), mine)
+        out["tiered_combine"] = dump(hier.read(h, combine="sum"))
+        hier.unregister_shuffle(11)
+    return out
+
+
+def divergence(ctx) -> dict:
+    """A unanimity round in which the last process proposes another
+    value: every process must raise, naming it."""
+    from sparkucx_tpu_torch.shuffle.agreement import (
+        AgreementDivergenceError, agree)
+    mine = [7, 99 if ctx.rank == ctx.nprocs - 1 else 1]
+    agreed = agree("test.warmup", [3, 4]).tolist()
+    try:
+        agree("test.divergent", mine, conf_key="spark.shuffle.tpu.test")
+    except AgreementDivergenceError as e:
+        return {"agreed": agreed, "kind": e.kind, "topic": e.topic,
+                "dissenters": e.dissenters, "proposals": e.proposals,
+                "message": str(e)}
+    raise AssertionError("the divergent round was agreed")
+
+
+def hang(ctx) -> dict:
+    """The victim stays alive but never joins the read (it sleeps past the
+    deadline, then leaves without a collective): the survivor's fence
+    must expire and raise ``PeerLostError``."""
+    import time
+
+    from sparkucx_tpu_torch.runtime.failures import PeerLostError
+    deadline_ms = ctx.svc.conf.collective_timeout_ms
+    h = write(ctx.svc.manager, 1, float_maps(), my_maps(ctx, MAPS))
+    ctx.orphaned = True
+    if ctx.rank == ctx.nprocs - 1:
+        time.sleep(3 * deadline_ms / 1e3)
+        return {"victim": True}
+    t0 = time.monotonic()
+    try:
+        ctx.svc.read(h)
+    except PeerLostError as e:
+        return {"wall_ms": (time.monotonic() - t0) * 1e3,
+                "expiries": ctx.svc.node.watchdog.expiries,
+                "leaked": ctx.svc.node.watchdog.leaked(),
+                "error": str(e)[:300]}
+    raise AssertionError("the read returned with a silent peer")
+
+
+def card_reads(ctx) -> dict:
+    """The card tests' world: a plain read, an int8 read and a combine
+    read on this process's device, each int8 and segment-reduce launch's
+    first and last held against the plain version (``chip_smoke.
+    KernelCapture``; run from the repository root)."""
+    from chip_smoke import KernelCapture
+
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops import segmented as sg
+    svc = ctx.svc
+    mine = my_maps(ctx, MAPS)
+    fm, im = float_maps(), int_maps()
+    out = {"rank": ctx.rank}
+    out["plain"] = dump(svc.read(write(svc.manager, 1, fm, mine)))
+    svc.unregister_shuffle(1)
+    m8 = _manager(ctx, {"spark.shuffle.tpu.a2a.wire": "int8"})
+    h = write(m8, 2, fm, mine)
+    backend.reset_launch_counts()
+    with KernelCapture() as cap:
+        out["int8"] = dump(m8.read(h))
+    out["int8_launches"] = backend.launch_counts().get(tq.KERNEL_NAME, 0)
+    out["int8_retries"] = m8.report(2).retries
+    out["int8_checks"] = cap.check("int8")
+    m8.stop()
+    h = write(svc.manager, 3, im, mine)
+    backend.reset_launch_counts()
+    with KernelCapture() as cap:
+        out["combine"] = dump(svc.read(h, combine="sum"))
+    out["combine_launches"] = backend.launch_counts().get(sg.KERNEL_NAME, 0)
+    out["combine_checks"] = cap.check("combine")
+    return out
