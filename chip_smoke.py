@@ -316,11 +316,52 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             kernel's first and last launch in each worker held against
             its plain version (``KernelCapture``). Each read prints each
             worker's wall, pack, bytes staged through the host and that
-            hop's wall, retries and peak device bytes. Then
-            dist_peer_loss: on a world of its own under
-            ``failure.collectiveTimeoutMs=6000``, worker 1 is killed once
-            both staged, and worker 0's read must raise
+            hop's wall, retries and peak device bytes. In the same world:
+            dist_replay (main's maps under ``failure.policy=replay`` with
+            an ``exchange`` fault armed on both workers: each replays
+            once and spends one budget unit, the digests equal main's)
+            and last dist_one_armed (on a node of its own under
+            ``failure.collectiveTimeoutMs=6000`` and
+            ``failure.replayAgreeTimeoutMs=2000``, the fault armed on
+            worker 0 only: worker 0 raises ``InjectedFault`` within the
+            fence, worker 1 completes or raises ``PeerLostError`` within
+            twice the fence). Then dist_peer_loss: on a world of its own
+            under ``failure.collectiveTimeoutMs=6000``, worker 1 is
+            killed once both staged, and worker 0's read must raise
             ``PeerLostError`` within 12 s.
+36. faults — the failure plane on main's, combine's and int8_plain's
+            records: faults_single (main's shuffle under
+            ``a2a.impl=pallas``, ``failure.policy=replay``,
+            ``fault.exchange.failCount=1``: main's digests, one replay
+            with its wall, the injector's (2, 1), the segment move
+            launched as often as in main, the pool back to the writers'
+            staging and the card's allocated bytes back to their value
+            before the read), faults_ledger (a remesh to the same 8
+            shards; the stale handle replays once through the recovery
+            ledger, main's digests), faults_small (an eighth of main's
+            records: ``replayBudget=1`` with ``failCount=5`` raises
+            ``InjectedFault`` after 2 injections; ``fault.fetch.
+            failCount=2`` under failfast retried to 3 fetches and 2
+            ``failure.retry.ms`` observations; a ``publish`` fault at
+            commit), faults_surface (main's cold read — torch's pinned
+            cache emptied, a fresh node — without and with
+            ``memory.preAllocateBuffers`` sized from faults_single's
+            staging and pack blocks, the second also under
+            ``io.fetchGranularity=partition``: node start, write and read
+            walls, the pool's peak and preallocated counts,
+            ``partition(0)``'s wall and D2H bytes under each granularity,
+            and ``read_partitions(h, 0, 16)`` equal to ``partition(0..
+            15)``), faults_waved (waved_combine's device-sink read under
+            replay with ``fault.wave.failRate=0.25`` and a ``fault.seed``
+            found first, on the CPU, so that the node's second read
+            fails at its middle wave: the sums equal the oracle, the
+            merge launches as in the fault-free read, the segment reduce
+            once more per settled wave, the peak at most one wave's
+            buffers above the fault-free read's) and faults_tiered
+            (hier_int8's rows with ``fault.tier.dcn.failCount=1`` and the
+            flight recorder on: a ``tier_fault`` naming dcn in the ring,
+            one replay, partitions equal to a fault-free read's that drew
+            the same int8 noise, the quantize launches of both).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -331,7 +372,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed.
+dlpack, distributed, faults.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -346,7 +387,13 @@ moe_train: the quantize exactly as above; moe_dispatch: the segment move
 once a pallas read; transformer_train: the three flash kernels exactly as
 above; hier_int8: the quantize exactly as above; distributed: in each
 worker, per read, the merge, the segment reduce, the fused reduce and
-the quantize as above). The last two lines of standard output
+the quantize as above; faults: the segment move in faults_single
+exactly main's count, the merge and the segment reduce in faults_waved
+and the quantize in faults_tiered as above). The ``kernels`` line gives
+the launches in the faults phase (``faults_launches``) of the four
+kernels it drives (the segment move, the merge, the segment reduce and
+the quantize); the others carry no such key. The
+last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
@@ -4391,6 +4438,9 @@ DIST_WAVE_CONF = {"spark.shuffle.tpu.a2a.waveRows": str(WAVE_ROWS)}
 DIST_FENCE_MS = 6000.0     # dist_peer_loss: failure.collectiveTimeoutMs
 DIST_LOSS_ROWS = 16_384    # rows a map of the peer-loss drill (64 maps)
 DIST_DEADLINE_S = 400.0    # each world's deadline
+DIST_ENTER_MS = 2000.0     # dist_one_armed: failure.replayAgreeTimeoutMs
+PFX = "spark.shuffle.tpu."
+REPLAY_CONF = {PFX + "failure.policy": "replay"}
 
 
 def partition_digest(keys, values) -> str:
@@ -4536,6 +4586,20 @@ def dist_worker(ctx) -> dict:
     out["dist_plain"] = st
     del parts
     svc.unregister_shuffle(70)
+    # dist_replay: an exchange fault on both workers under replay; one
+    # replay.enter round, one budget unit each
+    mr = _dist_manager(ctx, REPLAY_CONF)
+    h = _own_maps(mr, 76, keys, values, mine)
+    svc.node.faults.arm("exchange", fail_count=1)
+    parts, st = dist_read(mr, h, dev)
+    rep = mr.report(76)
+    st.update(digests=partition_digests(parts), replays=rep.replays,
+              replay_ms=rep.replay_ms, spent=mr._replay_counts.get(76, 0),
+              exchange=list(svc.node.faults.stats()["exchange"]))
+    out["dist_replay"] = st
+    del parts
+    mr.unregister_shuffle(76)
+    mr.stop()
     # dist_hier: the slice boundary is the process boundary
     with ctx.connect({"spark.shuffle.tpu.mesh.numSlices":
                       str(ctx.nprocs)}) as hsvc:
@@ -4610,6 +4674,29 @@ def dist_worker(ctx) -> dict:
     del parts, ikeys, grads, ipid
     m8.unregister_shuffle(74)
     m8.stop()
+    # dist_one_armed: a fault on worker 0 only, on a node of its own under
+    # the fence (its groups are left broken: no teardown at exit)
+    from sparkucx_tpu_torch.runtime.failures import TransientError
+    from sparkucx_tpu_torch.shuffle.distributed import allgather_blob
+    ctx.orphaned = True
+    fenced = ctx.connect({
+        **REPLAY_CONF,
+        PFX + "failure.collectiveTimeoutMs": str(DIST_FENCE_MS),
+        PFX + "failure.replayAgreeTimeoutMs": str(DIST_ENTER_MS)})
+    lk, lv = make_records(MAPS * DIST_LOSS_ROWS, zipf=False, seed=SEED + 5)
+    h = _own_maps(fenced.manager, 77, lk, lv, mine)
+    if ctx.rank == 0:
+        fenced.node.faults.arm("exchange", fail_count=1)
+    allgather_blob(np.zeros(1, dtype=np.int64), what="smoke barrier")
+    t0 = time.perf_counter()
+    try:
+        fenced.read(h)
+        outcome = "completed"
+    except (TransientError, RuntimeError) as e:
+        outcome = f"{type(e).__name__}: {e}"[:300]
+    out["dist_one_armed"] = {"outcome": outcome,
+                             "wall_ms": (time.perf_counter() - t0) * 1e3,
+                             "armed": ctx.rank == 0}
     return out
 
 
@@ -4625,7 +4712,8 @@ def _both(results, name: str, key: str):
 
 def dist_phase(dev, main_digests: dict) -> dict:
     """Two worker processes share the card, 4 of the 8 shards each
-    (``cluster.run_cluster``, default conf: ``auto`` -> ``dense``): the
+    (``cluster.run_cluster``, the nodes under ``failure.policy=replay``
+    so that they make the replay group; ``auto`` -> ``dense``): the
     reads of :func:`dist_worker`, checked here across the workers (every
     partition on one worker, main's digests, the single-process int8
     read's bytes, exact DCN cross rows, the kernels' launches), then the
@@ -4655,15 +4743,16 @@ def dist_phase(dev, main_digests: dict) -> dict:
     _empty_host_cache()
     t = time.perf_counter()
     run = run_cluster("chip_smoke:dist_worker", DIST_PROCS, SHARDS,
-                      device=None, timeout_s=DIST_DEADLINE_S)
+                      conf=REPLAY_CONF, device=None,
+                      timeout_s=DIST_DEADLINE_S)
     results = run.results
     out["world"] = {"seconds": time.perf_counter() - t,
                     "attempts": run.attempts,
                     "shards": [r["shards"] for r in results],
                     "maps": [r["maps"] for r in results]}
-    names = ("dist_plain", "dist_hier", "dist_waved_ordered_device",
-             "dist_waved_ordered_host", "dist_combine", "dist_int8",
-             "dist_int8_combine")
+    names = ("dist_plain", "dist_replay", "dist_hier",
+             "dist_waved_ordered_device", "dist_waved_ordered_host",
+             "dist_combine", "dist_int8", "dist_int8_combine")
     for name in names:
         parts = sorted(p for res in results
                        for p in res[name].pop("partitions"))
@@ -4673,6 +4762,7 @@ def dist_phase(dev, main_digests: dict) -> dict:
                    for res in results):
             raise AssertionError(f"{name}: not a dense distributed read")
     for name, want in (("dist_plain", main_digests),
+                       ("dist_replay", main_digests),
                        ("dist_int8", int8_digests)):
         got = {}
         for res in results:
@@ -4692,6 +4782,23 @@ def dist_phase(dev, main_digests: dict) -> dict:
         if not (dev_st["waves"] == 5 and dev_st["d2h_before_views"] == 0
                 and dev_st["sink"] == "device"):
             raise AssertionError(f"dist_waved_ordered_device: {dev_st}")
+    for res in results:
+        st = res["dist_replay"]
+        if not (st["replays"] == 1 and st["spent"] == 1
+                and st["exchange"] == [2, 1] and st["replay_ms"] > 0):
+            raise AssertionError(f"dist_replay (worker {res['rank']}): "
+                                 f"{st}")
+    armed, other = (res["dist_one_armed"] for res in results)
+    if not (armed["outcome"].startswith("InjectedFault")
+            and armed["wall_ms"] < DIST_FENCE_MS
+            and (other["outcome"] == "completed"
+                 or other["outcome"].startswith("PeerLostError"))
+            and other["wall_ms"] < 2 * DIST_FENCE_MS):
+        raise AssertionError(f"dist_one_armed: {armed} {other}")
+    out["dist_one_armed"] = {"phase": "dist_one_armed",
+                             "enter_ms": DIST_ENTER_MS,
+                             "fence_ms": DIST_FENCE_MS,
+                             "workers": [armed, other], "ok": True}
     launches = {}
     for kname, name, want in (
             (sg.MERGE_KERNEL_NAME, "dist_waved_ordered_device", 4),
@@ -4723,6 +4830,10 @@ def dist_phase(dev, main_digests: dict) -> dict:
                      "peak_device_bytes": _both(results, name,
                                                 "peak_device_bytes"),
                      "ok": True}
+    out["dist_replay"].update(
+        replays=_both(results, "dist_replay", "replays"),
+        spent=_both(results, "dist_replay", "spent"),
+        replay_ms=_both(results, "dist_replay", "replay_ms"))
     # dist_peer_loss: worker 1 is killed once both staged
     t = time.perf_counter()
     loss = run_cluster(
@@ -4740,6 +4851,412 @@ def dist_phase(dev, main_digests: dict) -> dict:
                              "expiries": survivor["expiries"],
                              "error": survivor["error"],
                              "seconds": time.perf_counter() - t, "ok": True}
+    return out
+
+
+# -- the failure plane: fault injection, retry, replay, the recovery ledger,
+# and the pool / fetch surface (runtime/failures.py, shuffle/manager.py) --
+FAULT_SMALL_RECORDS = RECORDS // 8   # the budget / retry / publish cases
+WAVE_FAULT_RATE = 0.25
+
+
+def wave_fault_seed(num_maps: int, num_waves: int,
+                    rate: float = WAVE_FAULT_RATE) -> tuple:
+    """(seed, wave): the first ``fault.seed`` under which a conf with
+    ``fault.wave.failRate=rate`` lets a waved read's first attempt pass,
+    fails its second at its middle wave and lets the replay pass — by
+    the port's own FaultInjector over the sites such a node checks in
+    order (a commit per map, then per attempt the fetch, the exchange and
+    one check per wave until one fires)."""
+    from sparkucx_tpu_torch.config import ShuffleConf
+    from sparkucx_tpu_torch.runtime.failures import (FaultInjector,
+                                                     InjectedFault)
+    target = num_waves // 2
+    attempt = ["fetch", "exchange"] + ["wave"] * num_waves
+    for seed in range(1, 1 << 20):
+        fi = FaultInjector(ShuffleConf({PFX + "fault.wave.failRate":
+                                        str(rate), PFX + "fault.seed":
+                                        str(seed)}, use_env=False))
+        fired = []
+        for site in ["publish"] * num_maps:
+            fi.check(site)
+        for n, sites in enumerate((attempt, attempt, attempt)):
+            for i, site in enumerate(sites):
+                try:
+                    fi.check(site)
+                except InjectedFault:
+                    fired.append((n, i - 2))
+                    break
+        if fired == [(1, target)]:
+            return seed, target
+    raise AssertionError("no fault.seed fires once at the middle wave")
+
+
+def _cold_host_cache() -> None:
+    """Free what this process cached on the card and its page-locked host
+    blocks, so the next node pins from nothing."""
+    import gc
+
+    import torch
+    from sparkucx_tpu_torch.runtime.node import _empty_host_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    _empty_host_cache()
+
+
+def faults_single(dev, keys, values, main_digests: dict,
+                  main_launches: int) -> dict:
+    """faults_single, then faults_ledger on the same node: main's shuffle
+    under ``a2a.impl=pallas``, ``failure.policy=replay`` and
+    ``fault.exchange.failCount=1``; then a remesh to the same 8 shards
+    and the stale handle's read through the recovery ledger."""
+    import gc
+
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    conf = {PFX + "a2a.impl": "pallas", **REPLAY_CONF,
+            PFX + "fault.exchange.failCount": "1"}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        pool = svc.node.pool
+        sizes = []
+        get = pool.get
+        pool.get = lambda n: (sizes.append(int(n)), get(n))[1]
+        h = write_maps(svc, 90, keys, values, MAPS)
+        staging = list(sizes)
+        staged = pool.stats()["in_use_bytes"]
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+        backend.reset_launch_counts()
+        parts, read_ms, views_ms = drive_read(svc, h)
+        launches = backend.launch_counts()
+        pack = sorted(set(sizes[len(staging):]))
+        del pool.get
+        rep = svc.report(90)
+        stats = svc.node.faults.stats()
+        if partition_digests(parts) != main_digests:
+            raise AssertionError("faults_single: partitions differ from "
+                                 "main's")
+        del parts
+        in_use_after = pool.stats()["in_use_bytes"]
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        mem_after = torch.cuda.memory_allocated(dev)
+        if not (rep.replays == 1 and rep.replay_ms > 0
+                and stats["exchange"] == (2, 1)
+                and launches.get(A2A, 0) == main_launches
+                and in_use_after == staged and mem_after == mem0):
+            raise AssertionError(
+                f"faults_single: replays={rep.replays} replay_ms="
+                f"{rep.replay_ms} exchange={stats.get('exchange')} "
+                f"launches={launches} (main {main_launches}) pool "
+                f"{in_use_after}/{staged} B device {mem_after}/{mem0} B")
+        single = {"phase": "faults_single", "read_ms": read_ms,
+                  "views_ms": views_ms, "replays": rep.replays,
+                  "replay_ms": rep.replay_ms, "pack_ms": rep.pack_ms,
+                  "exchange_stats": list(stats["exchange"]),
+                  "launches": launches, "pool_in_use_after": in_use_after, "pool_staged": staged,
+                  "device_bytes_before": mem0, "device_bytes_after":
+                      mem_after, "ok": True}
+        # faults_ledger: a remesh to the same 8 shards; the stale handle
+        # re-pins through the recovery ledger and replays once
+        t = time.perf_counter()
+        svc.node.remesh(SHARDS, reason="faults_ledger drill")
+        backend.reset_launch_counts()
+        parts, lread_ms, _ = drive_read(svc, h)
+        lrep = svc.report(90)
+        ok = partition_digests(parts) == main_digests
+        del parts
+        if not (ok and lrep.replays == 1 and h.epoch == 1):
+            raise AssertionError(f"faults_ledger: digests equal {ok}, "
+                                 f"replays {lrep.replays}, epoch {h.epoch}")
+        ledger = {"phase": "faults_ledger", "read_ms": lread_ms,
+                  "replays": lrep.replays, "epoch": h.epoch,
+                  "launches": backend.launch_counts(),
+                  "seconds": time.perf_counter() - t, "ok": True}
+        svc.unregister_shuffle(90)
+        if pool.stats()["in_use_bytes"]:
+            raise AssertionError("faults_single: the pool still holds "
+                                 "staging after unregister")
+    return single, ledger, {"staging": staging, "pack": pack}
+
+
+def faults_small(dev, keys, values) -> dict:
+    """The budget, retry and publish cases on an eighth of main's
+    records: ``failure.replayBudget=1`` with ``failCount=5`` raises
+    InjectedFault after 2 injections; ``fault.fetch.failCount=2`` under
+    failfast is absorbed by the retry policy (3 fetch attempts, 2 retry
+    observations); a ``publish`` fault surfaces at commit."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.runtime.failures import InjectedFault
+    from sparkucx_tpu_torch.utils.metrics import H_RETRY_MS
+    n = FAULT_SMALL_RECORDS
+    sk, sv = keys[:n], values[:n]
+    out = {"phase": "faults_small", "records": n}
+    conf = {PFX + "a2a.impl": "pallas", **REPLAY_CONF,
+            PFX + "failure.replayBudget": "1",
+            PFX + "fault.exchange.failCount": "5"}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 91, sk, sv, MAPS)
+        try:
+            svc.read(h)
+            raise AssertionError("faults_small: the budget did not run out")
+        except InjectedFault as e:
+            out["budget_error"] = str(e)
+        out["budget_exchange"] = list(svc.node.faults.stats()["exchange"])
+        if out["budget_exchange"][1] != 2:
+            raise AssertionError(f"faults_small: {out}")
+    conf = {PFX + "a2a.impl": "pallas", PFX + "fault.fetch.failCount": "2",
+            PFX + "fault.publish.failCount": "1"}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = svc.register_shuffle(92, MAPS, PARTITIONS)
+        per = -(-n // MAPS)
+        w = svc.writer(h, 0)
+        w.write(sk[:per], sv[:per])
+        try:
+            w.commit(PARTITIONS)
+            raise AssertionError("faults_small: the publish fault did not "
+                                 "surface")
+        except InjectedFault as e:
+            out["publish_error"] = str(e)
+        for m in range(MAPS):
+            svc.write(h, m, sk[m * per:(m + 1) * per],
+                      sv[m * per:(m + 1) * per])
+        parts, read_ms, _ = drive_read(svc, h)
+        check_against_oracle(parts, sk, sv, PARTITIONS)
+        del parts
+        out["fetch"] = list(svc.node.faults.stats()["fetch"])
+        out["retry_observations"] = svc.node.metrics.histogram(
+            H_RETRY_MS).get("count", 0)
+        out["fetch_read_ms"] = read_ms
+        if out["fetch"] != [3, 2] or out["retry_observations"] != 2:
+            raise AssertionError(f"faults_small: {out}")
+    out["ok"] = True
+    return out
+
+
+def faults_waved(dev) -> dict:
+    """waved_combine's records and conf (``a2a.impl=dense``, 5 waves,
+    device sink, the merge fold) under replay with
+    ``fault.wave.failRate`` and a ``fault.seed`` chosen here so the first
+    read passes and the second fails at its middle wave: the sums equal
+    the oracle on both, the in-flight waves settle and the whole
+    exchange re-runs (the segment reduce launched once more per settled
+    wave, the merge not at all for the failed attempt), and the peak is
+    no higher than the fault-free read's plus one wave's buffers."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME as MERGE
+    keys, values = make_combine_records(RECORDS, SEED + 4)
+    waves = -(-(RECORDS // SHARDS) // WAVE_ROWS)
+    seed, wave = wave_fault_seed(MAPS, waves)
+    print(json.dumps({"phase": "faults_waved_plan", "fault_seed": seed,
+                      "fail_rate": WAVE_FAULT_RATE, "fails_at_wave": wave,
+                      "waves": waves}), flush=True)
+    uk, sums, _ = group_oracle(keys, values)
+    want = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    conf = {**WAVE_CONF, PFX + "read.mergeImpl": "auto", **REPLAY_CONF,
+            PFX + "fault.wave.failRate": str(WAVE_FAULT_RATE),
+            PFX + "fault.seed": str(seed)}
+    reads = []
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 93, keys, values, MAPS)
+        for _ in range(2):
+            parts, st, rep = waved_read(svc, h, dev, combine="sum")
+            gk, gv = combined_rows(parts, PARTITIONS,
+                                   lambda k: hash_pid(k, PARTITIONS))
+            if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+                raise AssertionError("faults_waved: sums differ from the "
+                                     "oracle")
+            del parts, gk, gv
+            reads.append((st, rep.replays, rep.replay_ms,
+                          rep.plan_bucket))
+        stats = svc.node.faults.stats()
+        svc.unregister_shuffle(93)
+    (base, r0, _, _), (faulted, r1, replay_ms, bucket) = reads
+    f2, f3 = (base["launches"].get(k, 0) for k in (MERGE, SEG))
+    t2, t3 = (faulted["launches"].get(k, 0) for k in (MERGE, SEG))
+    per_wave = (f3 - f2) // waves
+    wave_bytes = (bucket[0] + bucket[1]) * (2 + COMBINE_VALUE_WORDS) * 4 \
+        * SHARDS
+    out = {"phase": "faults_waved", "records": RECORDS, "waves": waves,
+           "fault_seed": seed, "fails_at_wave": wave,
+           "replays": [r0, r1], "replay_ms": replay_ms,
+           "wave_stats": list(stats["wave"]),
+           "fault_free": {"read_ms": base["read_ms"],
+                          "peak_device_bytes": base["peak_device_bytes"],
+                          "launches": base["launches"]},
+           "replayed": {"read_ms": faulted["read_ms"],
+                        "peak_device_bytes": faulted["peak_device_bytes"],
+                        "launches": faulted["launches"]},
+           "one_wave_bytes": wave_bytes}
+    # a wave's exchange launches the segment reduce once and each fold
+    # step a merge and a segment reduce; the failed attempt settled
+    # ``wave`` waves and folded none
+    if not (r0 == 0 and r1 == 1 and (f3 - f2) % waves == 0
+            and t2 == f2 and t3 == f3 + wave * per_wave
+            and faulted["peak_device_bytes"]
+            <= base["peak_device_bytes"] + wave_bytes):
+        raise AssertionError(f"faults_waved: {out}")
+    out["ok"] = True
+    return out
+
+
+def faults_tiered(dev) -> dict:
+    """hier_int8's gradient rows on the 2 x 4 grid under replay with
+    ``fault.tier.dcn.failCount=1`` and the flight recorder on: the ring
+    holds a ``tier_fault`` naming dcn, and the replayed read's partitions
+    equal a fault-free read's whose exchange drew the same int8 noise (a
+    small read first, so its read is the node's second exchange, as the
+    replay is). Prints the quantize launches of both."""
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.quant import KERNEL_NAME as QUANT
+    ikeys, grads = make_embedding_grads(INT8_RECORDS, SEED + 11)
+    wk, wg = ikeys[:1 << 14], grads[:1 << 14]
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    base = {**HIER_CONF, PFX + "a2a.wire": "int8", **REPLAY_CONF}
+    out = {"phase": "faults_tiered", "records": INT8_RECORDS}
+    digests = {}
+    try:
+        for arm, extra in (("fault_free", {}),
+                           ("replayed", {
+                               PFX + "fault.tier.dcn.failCount": "1",
+                               PFX + "flightRecorder.enabled": "true",
+                               PFX + "flightRecorder.dir": flight_dir})):
+            with connect({**base, **extra}, num_shards=SHARDS,
+                         use_env=False) as svc:
+                if arm == "fault_free":
+                    drive_read(svc, write_maps(svc, 94, wk, wg, 8))
+                    svc.unregister_shuffle(94)
+                h = write_maps(svc, 95, ikeys, grads, MAPS)
+                backend.reset_launch_counts()
+                parts, read_ms, _ = drive_read(svc, h)
+                rep = svc.report(95)
+                digests[arm] = partition_digests(parts)
+                del parts
+                out[arm] = {"read_ms": read_ms, "replays": rep.replays,
+                            "replay_ms": rep.replay_ms,
+                            "retries": rep.retries, "wire": rep.wire,
+                            "hierarchical": rep.hierarchical,
+                            "quantize_launches":
+                                backend.launch_counts().get(QUANT, 0)}
+                if arm == "replayed":
+                    ring = [e for e in svc.node.flight.events()
+                            if e["kind"] in ("fault", "tier_fault",
+                                             "replay")]
+                    out["ring"] = ring
+                    out["dcn_stats"] = list(
+                        svc.node.faults.stats()["tier.dcn"])
+                svc.unregister_shuffle(95)
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    ff, rp = out["fault_free"], out["replayed"]
+    if not (digests["fault_free"] == digests["replayed"]
+            and rp["replays"] == 1 and ff["replays"] == 0
+            and rp["wire"] == "int8" and rp["hierarchical"]
+            and any(e["kind"] == "tier_fault" and e["tier"] == "dcn"
+                    for e in out["ring"])
+            and ff["quantize_launches"] == 2 + ff["retries"]):
+        raise AssertionError(f"faults_tiered: {out}")
+    out["ok"] = True
+    return out
+
+
+def faults_surface(dev, keys, values, main_digests: dict,
+                   blocks: dict) -> dict:
+    """main's cold read (torch's page-locked cache emptied, a fresh node)
+    without and with ``memory.preAllocateBuffers`` sized from the staging
+    and pack blocks faults_single's read checked out; the second node also
+    fetches by partition (``io.fetchGranularity=partition``):
+    ``partition(0)``'s bytes against the shard fetch's, and the wall of
+    the pass over every partition after it under each fetch; and
+    ``read_partitions(h, 0, 16)`` against the first node's partitions."""
+    from collections import Counter
+
+    from sparkucx_tpu_torch import connect
+    spec = Counter(blocks["staging"])
+    for size in blocks["pack"]:
+        spec[size] += 1
+    prealloc = ",".join(f"{s}:{c}" for s, c in sorted(spec.items()))
+    out = {"phase": "faults_surface", "preallocate": prealloc}
+    base = {PFX + "a2a.impl": "pallas"}
+    for arm, extra in (("cold", {}),
+                       ("preallocated", {
+                           PFX + "memory.preAllocateBuffers": prealloc,
+                           PFX + "io.fetchGranularity": "partition"})):
+        _cold_host_cache()
+        t0 = time.perf_counter()
+        with connect({**base, **extra}, num_shards=SHARDS,
+                     use_env=False) as svc:
+            start_s = time.perf_counter() - t0
+            t = time.perf_counter()
+            h = write_maps(svc, 96, keys, values, MAPS)
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            res = svc.read(h)
+            import torch
+            torch.cuda.synchronize(dev)
+            read_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            k0, v0 = res.partition(0)
+            p0_ms = (time.perf_counter() - t) * 1e3
+            p0_bytes = svc.report(96).d2h_bytes
+            t = time.perf_counter()
+            parts = [res.partition(r) for r in range(PARTITIONS)]
+            pass_ms = (time.perf_counter() - t) * 1e3
+            ok = partition_digests(parts) == main_digests
+            st = svc.node.pool.stats()
+            out[arm] = {"node_start_s": start_s, "write_s": write_s,
+                        "read_ms": read_ms, "pack_ms": svc.report(96).pack_ms,
+                        "partition0_ms": p0_ms, "partition0_rows":
+                            int(k0.shape[0]),
+                        "partition0_d2h_bytes": p0_bytes,
+                        "all_partitions_ms": pass_ms,
+                        "d2h_bytes": svc.report(96).d2h_bytes,
+                        "pool_peak_bytes": st["peak_bytes"],
+                        "preallocated": st["preallocated"],
+                        "allocated": st["allocated"]}
+            if not ok:
+                raise AssertionError(f"faults_surface ({arm}): partitions "
+                                     f"differ from main's")
+            if arm == "cold":
+                ranged = dict(svc.manager.read_partitions(h, 0, 16))
+                if sorted(ranged) != list(range(16)) or any(
+                        partition_digest(*ranged[r])
+                        != partition_digest(*parts[r]) for r in range(16)):
+                    raise AssertionError("faults_surface: read_partitions "
+                                         "differs from partition(0..15)")
+                out["read_partitions"] = {"partitions": 16, "equal": True}
+            del res, parts
+            svc.unregister_shuffle(96)
+    width = 2 + VALUE_WORDS
+    pa = out["preallocated"]
+    # (a CPU view costs no copy, so only the card counts D2H bytes)
+    moved = dev.type != "cuda" or (
+        pa["partition0_d2h_bytes"] == pa["partition0_rows"] * width * 4
+        and out["cold"]["partition0_d2h_bytes"]
+        > pa["partition0_d2h_bytes"])
+    if not (moved and pa["preallocated"] == sum(spec.values())):
+        raise AssertionError(f"faults_surface: {out}")
+    out["ok"] = True
+    return out
+
+
+def faults_phase(dev, main_digests: dict, main_launches: int) -> dict:
+    """The failure plane on the card (module docstring, phase 36)."""
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    out = {"gen_s": time.perf_counter() - t}
+    single, ledger, blocks = faults_single(dev, keys, values, main_digests,
+                                           main_launches)
+    out["faults_single"], out["faults_ledger"] = single, ledger
+    out["faults_small"] = faults_small(dev, keys, values)
+    out["faults_surface"] = faults_surface(dev, keys, values, main_digests,
+                                           blocks)
+    del keys, values
+    out["faults_waved"] = faults_waved(dev)
+    out["faults_tiered"] = faults_tiered(dev)
     return out
 
 
@@ -5085,15 +5602,34 @@ def main() -> int:
     t = time.perf_counter()
     di = dist_phase(dev, main_digests)
     print(json.dumps({"phase": "dist_world", **di["world"]}), flush=True)
-    for name in ("dist_plain", "dist_combine", "dist_int8",
+    for name in ("dist_plain", "dist_replay", "dist_combine", "dist_int8",
                  "dist_int8_combine", "dist_hier",
                  "dist_waved_ordered_device", "dist_waved_ordered_host",
-                 "dist_peer_loss"):
+                 "dist_one_armed", "dist_peer_loss"):
         print(json.dumps(di[name]), flush=True)
     print(json.dumps({"phase": "distributed",
                       "launches": di["dist_launches"],
                       "seconds": time.perf_counter() - t}), flush=True)
     dist_launches = di["dist_launches"]
+
+    # -- the failure plane: replayed reads (single-shot, waved, tiered,
+    # the recovery ledger) and the pool / fetch surface
+    t = time.perf_counter()
+    fa = faults_phase(dev, main_digests, launches)
+    for name in ("faults_single", "faults_ledger", "faults_small",
+                 "faults_surface", "faults_waved", "faults_tiered"):
+        print(json.dumps(fa[name]), flush=True)
+    faults_launches = {
+        KERNEL_NAME: fa["faults_single"]["launches"].get(KERNEL_NAME, 0)
+        + fa["faults_ledger"]["launches"].get(KERNEL_NAME, 0),
+        MERGE_KERNEL: fa["faults_waved"]["replayed"]["launches"].get(
+            MERGE_KERNEL, 0),
+        SEG_KERNEL: fa["faults_waved"]["replayed"]["launches"].get(
+            SEG_KERNEL, 0),
+        QUANT_KERNEL: fa["faults_tiered"]["replayed"]["quantize_launches"]}
+    print(json.dumps({"phase": "faults", "gen_s": fa["gen_s"],
+                      "faults_launches": faults_launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
 
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
@@ -5120,6 +5656,7 @@ def main() -> int:
         "workload_launches": wl_launches[KERNEL_NAME],
         "pipeline_launches": pl_launches[KERNEL_NAME],
         "moe_launches": md["pallas"]["launches"],
+        "faults_launches": faults_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -5127,6 +5664,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/segment_reduce.cu",
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
         "dist_launches": dist_launches[SEG_KERNEL],
+        "faults_launches": faults_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
@@ -5138,6 +5676,7 @@ def main() -> int:
         "source": "sparkucx_tpu_torch/csrc/merge_path.cu",
         "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
         "dist_launches": dist_launches[MERGE_KERNEL],
+        "faults_launches": faults_launches[MERGE_KERNEL],
         "pipeline_launches": pl_launches[MERGE_KERNEL],
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
@@ -5149,6 +5688,7 @@ def main() -> int:
         "moe_launches": mo["int8_quantize_launches"],
         "hier_launches": hi["hier_int8"]["int8"]["launches"][QUANT_KERNEL],
         "dist_launches": dist_launches[QUANT_KERNEL],
+        "faults_launches": faults_launches[QUANT_KERNEL],
         "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
         "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": "bytes", "library_ms": qt["library_ms"]}, {

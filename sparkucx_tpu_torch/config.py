@@ -14,7 +14,13 @@ Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``spill.threshold``, ``spill.dir``, and the multi-process keys
 ``coordinator.address``, ``numProcesses``, ``meta.bufferSize``,
 ``failure.collectiveTimeoutMs``, ``failure.ici.timeoutMs`` and
-``failure.dcn.timeoutMs``. Byte sizes parse as the JAX package's do
+``failure.dcn.timeoutMs``; the failure plane's ``failure.policy``,
+``failure.replayBudget`` and ``failure.replayAgreeTimeoutMs`` (the keys
+``failure.maxAttempts``, ``failure.backoffMs``, ``failure.maxBackoffMs``,
+``fault.*`` and ``flightRecorder.*`` are read where they are used:
+``runtime/failures.py``, ``runtime/node.py``); the pool's ``memory.*``
+keys; ``a2a.packThreads``, ``coresPerProcess``, ``io.fetchGranularity``
+and ``metrics.reportCapacity``. Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
@@ -23,7 +29,7 @@ from __future__ import annotations
 import os
 import re
 import tempfile
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 PREFIX = "spark.shuffle.tpu."
 
@@ -82,6 +88,19 @@ A2A_WIRE_KEY = PREFIX + "a2a.wire"
 # when the node's grid has more than one slice
 ALLOWED_TOPOLOGIES = ("flat", "hier", "auto")
 A2A_TOPOLOGY_KEY = PREFIX + "a2a.topology"
+
+# failure.policy values (the JAX package's set): failfast surfaces typed
+# errors to the caller; replay keeps the recovery ledger across epoch
+# bumps and re-runs a failed exchange within failure.replayBudget
+FAILURE_POLICIES = ("failfast", "replay")
+
+# io.fetchGranularity values (the JAX package's set): shard pulls a
+# shard's whole delivered prefix on its first touch; partition copies only
+# the touched partition's runs
+FETCH_GRANULARITIES = ("shard", "partition")
+
+# most-recent ExchangeReports a manager keeps (metrics.reportCapacity)
+REPORT_CAPACITY = 64
 
 
 _SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgGtT]?)i?[bB]?\s*$")
@@ -166,7 +185,11 @@ class ShuffleConf:
                     "a2a_topology", "num_slices", "coordinator_address",
                     "num_processes", "meta_buffer_size",
                     "collective_timeout_ms", "ici_timeout_ms",
-                    "dcn_timeout_ms")
+                    "dcn_timeout_ms", "failure_policy", "replay_budget",
+                    "replay_agree_timeout_ms", "min_buffer_size",
+                    "min_allocation_size", "pre_allocate_buffers",
+                    "pinned_memory", "pack_threads", "cores_per_process",
+                    "fetch_granularity", "report_capacity")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -194,6 +217,11 @@ class ShuffleConf:
             return self._conf[key]
         hit = self._index.get(_norm(key))
         return default if hit is None else self._conf[hit]
+
+    def items(self) -> Iterator[Tuple[str, str]]:
+        """Every key and value of the mapping, sorted by key (the fault
+        injector arms its sites from the ``fault.*`` keys here)."""
+        return iter(sorted(self._conf.items()))
 
     def _get(self, short: str, default) -> str:
         return self.get(PREFIX + short, str(default))
@@ -433,3 +461,121 @@ class ShuffleConf:
         read, the ``failure.ici.timeoutMs`` twin. Defaults to
         ``failure.collectiveTimeoutMs`` (0 = off)."""
         return self._tier_timeout("dcn")
+
+    # -- the failure plane (runtime/failures.py, shuffle/manager.py) -------
+    @property
+    def failure_policy(self) -> str:
+        """What ``read()`` / ``submit()`` do when an exchange fails or a
+        remesh invalidates its handle: ``failfast`` (default: typed
+        errors reach the caller) or ``replay`` (the manager keeps the
+        shuffles whose staged state is intact across an epoch bump, and
+        re-runs a failed exchange, up to ``failure.replayBudget`` times
+        a shuffle)."""
+        v = self._get("failure.policy", "failfast")
+        if v not in FAILURE_POLICIES:
+            raise ValueError(
+                f"spark.shuffle.tpu.failure.policy={v!r}: want "
+                f"failfast|replay")
+        return v
+
+    @property
+    def replay_budget(self) -> int:
+        """Replays a shuffle may spend under ``failure.policy=replay``
+        (stale-handle re-pins after a remesh plus re-runs after a
+        transient failure, cumulative per shuffle); past it the shuffle
+        fails fast."""
+        v = self.get_int("failure.replayBudget", 2)
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.failure.replayBudget={v}: want >= 0")
+        return v
+
+    @property
+    def replay_agree_timeout_ms(self) -> float:
+        """Deadline of a distributed replay's ``replay.enter`` agreement
+        round: a peer whose read did not fail never enters it, and this
+        bounds the wait of those that did. Defaults to
+        ``failure.collectiveTimeoutMs`` (0 = off)."""
+        v = self.get_float("failure.replayAgreeTimeoutMs",
+                           self.collective_timeout_ms)
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.failure.replayAgreeTimeoutMs={v}: "
+                f"want >= 0 (0 = off)")
+        return v
+
+    # -- the staging pool (runtime/node.HostStagingPool) --------------------
+    @property
+    def min_buffer_size(self) -> int:
+        """The smallest buffer the staging pool hands out (rounded up to
+        a power of two by the pool; default 1k)."""
+        return self.get_bytes("memory.minBufferSize", "1k")
+
+    @property
+    def min_allocation_size(self) -> int:
+        """The page-locked slab that preallocated buffers smaller than it
+        are carved from (default 4m)."""
+        return self.get_bytes("memory.minAllocationSize", "4m")
+
+    @property
+    def pre_allocate_buffers(self) -> Dict[int, int]:
+        """``'size:count,size:count'`` parsed to {bytes: count}: buffers
+        the staging pool takes at node start."""
+        spec = self._get("memory.preAllocateBuffers", "")
+        out: Dict[int, int] = {}
+        if spec:
+            for part in spec.split(","):
+                try:
+                    size, count = part.split(":")
+                    out[parse_bytes(size)] = int(count)
+                except ValueError as e:
+                    raise ValueError(
+                        f"preAllocateBuffers entry {part!r} is not "
+                        f"'size:count'") from e
+        return out
+
+    @property
+    def pinned_memory(self) -> bool:
+        """Whether the staging pool of a CUDA node page-locks its
+        buffers (default true; a CPU node never does)."""
+        return self.get_bool("memory.pinned", True)
+
+    # -- the pack executor and the result views ----------------------------
+    @property
+    def pack_threads(self) -> int:
+        """Worker threads of the manager's pack executor (the shard
+        fan-out of a pack; numpy copies release the GIL). 0 (default) =
+        ``coresPerProcess``."""
+        v = self.get_int("a2a.packThreads", 0)
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.a2a.packThreads={v}: want >= 0 "
+                f"(0 = coresPerProcess)")
+        return v
+
+    @property
+    def cores_per_process(self) -> int:
+        """Concurrent map tasks a process expects; sizes the pack
+        executor when ``a2a.packThreads`` is 0. Default: the host's CPU
+        count."""
+        return self.get_int("coresPerProcess", os.cpu_count() or 1)
+
+    @property
+    def fetch_granularity(self) -> str:
+        """How a host result moves its rows to the host: ``shard``
+        (default: the first touch of a shard pulls its whole delivered
+        prefix) or ``partition`` (each fetch copies only that partition's
+        runs)."""
+        v = self._get("io.fetchGranularity", "shard")
+        if v not in FETCH_GRANULARITIES:
+            raise ValueError(
+                f"spark.shuffle.tpu.io.fetchGranularity={v!r}: want "
+                f"shard|partition")
+        return v
+
+    @property
+    def report_capacity(self) -> int:
+        """ExchangeReports a manager keeps, most recent first
+        (``metrics.reportCapacity``, at least 1; default 64)."""
+        return max(1, self.get_int("metrics.reportCapacity",
+                                   REPORT_CAPACITY))

@@ -14,11 +14,21 @@ gloo; a failure raises the classified ``RENDEZVOUS FAILED`` error), owns
 the contiguous block :attr:`Node.local_shard_ids` of the P global shards,
 and runs its collectives on a gloo group whose own timeout is the fence
 (``failure.collectiveTimeoutMs`` and the tier deadlines), installed for
-``shuffle/distributed.py``. Every node carries the failure plane: the
+``shuffle/distributed.py``, and, under ``failure.policy=replay``, a
+second group of its own for the distributed replay's ``replay.enter``
+rounds (:attr:`Node.replay_group`; None under ``failfast``).
+Every node carries the failure plane
+(``runtime/failures.py``), built in this order: the flight recorder
+(:attr:`Node.flight`; the null recorder unless ``flightRecorder.enabled``,
+else it records every metric of the node and dumps on an unhandled
+exception until :meth:`Node.close`), the fault injector
+(:attr:`Node.faults`, armed from ``fault.*``), the retry policy
+(:attr:`Node.retry_policy`), the
 :class:`~sparkucx_tpu_torch.runtime.failures.HealthMonitor` probe of its
 device, the process-global watchdog (``runtime/watchdog.py``) and the
 :class:`~sparkucx_tpu_torch.runtime.failures.EpochManager` whose bump
-resets the agreement sequence; :meth:`Node.remesh` bumps it."""
+resets the agreement sequence and lands in the recorder's ring;
+:meth:`Node.remesh` bumps it."""
 
 from __future__ import annotations
 
@@ -35,9 +45,11 @@ from sparkucx_tpu_torch.config import ShuffleConf
 from sparkucx_tpu_torch.meta.registry import ShuffleRegistry
 from sparkucx_tpu_torch.parallel.mesh import (local_shard_ids,
                                               make_shuffle_grid)
-from sparkucx_tpu_torch.runtime.failures import (DeviceUnhealthy,
-                                                 EpochManager,
-                                                 HealthMonitor)
+from sparkucx_tpu_torch.runtime.failures import (NULL_FLIGHT_RECORDER,
+                                                 DeviceUnhealthy,
+                                                 EpochManager, FaultInjector,
+                                                 FlightRecorder,
+                                                 HealthMonitor, RetryPolicy)
 from sparkucx_tpu_torch.runtime.watchdog import (configure_from_conf,
                                                  current_watchdog,
                                                  set_global_watchdog)
@@ -60,41 +72,68 @@ def _empty_host_cache() -> None:
     fn()
 
 
+def _round_pow2(v: int) -> int:
+    r = 1
+    while r < v:
+        r <<= 1
+    return r
+
+
 class HostStagingPool:
     """Reusable host byte buffers for map-side staging and the pack
     stage. On a CUDA node the buffers are page-locked
-    (``pin_memory=True``), so the staged rows reach the device in one DMA
-    with no pageable bounce; pinning is slow to allocate, so freed
-    buffers are kept and handed out again, up to ``max_free_bytes``: a
-    ``put`` past it drops the longest-free buffers and, on a CUDA node,
-    empties torch's cache of unused pinned blocks, so a process keeps no
-    more than that of an earlier, larger job's staging.
+    (``pin_memory=True``; ``memory.pinned=false`` turns that off), so the
+    staged rows reach the device in one DMA with no pageable bounce;
+    pinning is slow to allocate, so freed buffers are kept and handed out
+    again, up to ``max_free_bytes``: a ``put`` past it drops the
+    longest-free buffers and, on a CUDA node, empties torch's cache of
+    unused pinned blocks, so a process keeps no more than that of an
+    earlier, larger job's staging.
+
+    Sizes (the JAX package's ``runtime/memory.HostMemoryPool`` keys,
+    without its size-class arena): a request below ``memory.
+    minBufferSize`` (rounded up to a power of two, :attr:`min_block`)
+    gets that much; :meth:`preallocate` takes ``count`` buffers of a
+    size up front (the node does it at start for each entry of
+    ``memory.preAllocateBuffers``), carving buffers smaller than
+    ``memory.minAllocationSize`` (:attr:`slab_size`) out of shared slabs
+    of that size, so small buffers share one pinned allocation.
 
     Byte accounting at the ``get``/``put`` seam, as the JAX package's
     pool keeps it: ``stats()["in_use_bytes"]`` is the summed ``numel()``
     of the buffers checked out now (a reused buffer may be up to twice
     the request, and counts whole), ``peak_bytes`` its high-water mark
-    since the last :meth:`reset_peak_bytes`. A second ``put`` of one
-    buffer raises and moves no count."""
+    since the last :meth:`reset_peak_bytes`; ``requests``,
+    ``allocated`` (fresh buffers, preallocated ones included) and
+    ``preallocated`` count buffers. A second ``put`` of one buffer
+    raises and moves no count."""
 
     # a 1 GB shuffle's staging plus its pack buffer come to about 2.4 GB:
     # jobs of that size one after another keep reusing their blocks
     max_free_bytes = 4 << 30
 
-    def __init__(self, pinned: bool):
-        self.pinned = pinned
+    def __init__(self, pinned: bool, conf: Optional[ShuffleConf] = None):
+        conf = conf or ShuffleConf(use_env=False)
+        self.pinned = pinned and conf.pinned_memory
+        self.min_block = _round_pow2(conf.min_buffer_size)
+        self.slab_size = conf.min_allocation_size
         self._free: List[torch.Tensor] = []     # longest free first
         self._free_bytes = 0
         self._out: Dict[int, torch.Tensor] = {}   # id -> checked-out buffer
         self._in_use_bytes = 0
         self._peak_bytes = 0
+        self._counts = {"requests": 0, "allocated": 0, "preallocated": 0}
         self._lock = threading.Lock()
 
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+
     def get(self, nbytes: int) -> torch.Tensor:
-        """A uint8 buffer of at least ``nbytes`` (at most twice that when
-        a free one is reused)."""
-        nbytes = max(int(nbytes), 1)
+        """A uint8 buffer of at least ``max(nbytes, min_block)`` (at most
+        twice that when a free one is reused)."""
+        nbytes = max(int(nbytes), self.min_block)
         with self._lock:
+            self._counts["requests"] += 1
             fits = [i for i, b in enumerate(self._free)
                     if nbytes <= b.numel() <= 2 * nbytes]
             buf = self._free.pop(min(
@@ -102,13 +141,33 @@ class HostStagingPool:
             if buf is not None:
                 self._free_bytes -= buf.numel()
         if buf is None:
-            buf = torch.empty(nbytes, dtype=torch.uint8,
-                              pin_memory=self.pinned)
+            buf = self._alloc(nbytes)
+            with self._lock:
+                self._counts["allocated"] += 1
         with self._lock:
             self._out[id(buf)] = buf
             self._in_use_bytes += buf.numel()
             self._peak_bytes = max(self._peak_bytes, self._in_use_bytes)
         return buf
+
+    def preallocate(self, size: int, count: int) -> None:
+        """Take ``count`` free buffers of ``max(size, min_block)`` bytes
+        now, so the first ``get`` calls of that size pin nothing."""
+        size = max(int(size), self.min_block)
+        per_slab = self.slab_size // size if size < self.slab_size else 1
+        bufs: List[torch.Tensor] = []
+        while len(bufs) < count:
+            n = min(per_slab, count - len(bufs))
+            if n > 1:
+                slab = self._alloc(n * size)
+                bufs.extend(slab[i * size:(i + 1) * size] for i in range(n))
+            else:
+                bufs.append(self._alloc(size))
+        with self._lock:
+            self._free.extend(bufs)
+            self._free_bytes += size * len(bufs)
+            self._counts["allocated"] += len(bufs)
+            self._counts["preallocated"] += len(bufs)
 
     def put(self, buf: torch.Tensor) -> None:
         with self._lock:
@@ -126,11 +185,13 @@ class HostStagingPool:
             _empty_host_cache()
 
     def stats(self) -> Dict[str, int]:
-        """{'in_use', 'in_use_bytes', 'peak_bytes', 'free', 'free_bytes'}:
-        buffers and bytes checked out, the high-water mark of the bytes,
-        and the buffers and bytes kept for reuse."""
+        """{'requests', 'allocated', 'preallocated', 'in_use',
+        'in_use_bytes', 'peak_bytes', 'free', 'free_bytes'}: buffer
+        counts, buffers and bytes checked out, the high-water mark of the
+        bytes, and the buffers and bytes kept for reuse."""
         with self._lock:
-            return {"in_use": len(self._out),
+            return {**self._counts,
+                    "in_use": len(self._out),
                     "in_use_bytes": self._in_use_bytes,
                     "peak_bytes": self._peak_bytes,
                     "free": len(self._free),
@@ -188,6 +249,7 @@ class Node:
         self.is_distributed = bool(distributed) \
             and self.conf.num_processes > 1
         self.group = None
+        self.replay_group = None
         self._owns_world = False
         self._prev_group = None
         if self.is_distributed:
@@ -199,9 +261,24 @@ class Node:
         self.grid = make_shuffle_grid(self.num_shards, self.conf)
         self.metrics = Metrics()
         self.registry = ShuffleRegistry()
-        self.pool = HostStagingPool(pinned=self.device.type == "cuda")
+        self.pool = HostStagingPool(pinned=self.device.type == "cuda",
+                                    conf=self.conf)
+        for size, count in self.conf.pre_allocate_buffers.items():
+            self.pool.preallocate(size, count)
+        # the recorder first: the failure plane below records into it
+        if self.conf.get_bool("flightRecorder.enabled", False):
+            self.flight = FlightRecorder(self.conf)
+            self.flight.metrics_sources.append(self.metrics)
+            self.metrics.add_reporter(self.flight.metrics_reporter)
+            self.flight.install_abort_hook()
+        else:
+            self.flight = NULL_FLIGHT_RECORDER
+        self.faults = FaultInjector(self.conf, flight=self.flight)
+        self.retry_policy = RetryPolicy.from_conf(
+            self.conf, metrics=self.metrics, flight=self.flight)
         self.health = HealthMonitor(self.device,
-                                    timeout_ms=self.conf.connection_timeout_ms)
+                                    timeout_ms=self.conf.connection_timeout_ms,
+                                    flight=self.flight)
         self.watchdog = configure_from_conf(self.conf, health=self.health,
                                             metrics=self.metrics)
         self.epochs = EpochManager()
@@ -209,6 +286,7 @@ class Node:
         # agreement round's header
         agreement.reset_epoch(self.epochs.current)
         self.epochs.on_bump(agreement.reset_epoch)
+        self.epochs.on_bump(self.flight.on_epoch_bump)
         self._closed = False
 
     def _rendezvous(self) -> None:
@@ -239,6 +317,17 @@ class Node:
                 backend="gloo",
                 timeout=datetime.timedelta(milliseconds=fence)
                 if fence > 0 else None)
+            # replay.enter rounds ride a group of their own: a peer that
+            # never enters one (its read did not fail) may be inside a
+            # collective of the first group, and the two must not match
+            # each other's messages; only a node under the replay policy
+            # makes it
+            if c.failure_policy == "replay":
+                enter = c.replay_agree_timeout_ms or fence
+                self.replay_group = dist.new_group(
+                    backend="gloo",
+                    timeout=datetime.timedelta(milliseconds=enter)
+                    if enter > 0 else None)
         except Exception as e:
             # classified, so a launcher retries this failure alone
             log.error("RENDEZVOUS FAILED after %.1fs: coordinator=%s "
@@ -305,7 +394,8 @@ class Node:
         self.grid = make_shuffle_grid(n, self.conf)
         self.num_shards = n
         self.health = HealthMonitor(self.device,
-                                    timeout_ms=self.conf.connection_timeout_ms)
+                                    timeout_ms=self.conf.connection_timeout_ms,
+                                    flight=self.flight)
         # the watchdog probes through the current monitor
         self.watchdog.health = self.health
         self.registry.clear()
@@ -322,6 +412,8 @@ class Node:
             return
         self._closed = True
         self.epochs.remove_listener(agreement.reset_epoch)
+        self.epochs.remove_listener(self.flight.on_epoch_bump)
+        self.flight.uninstall_abort_hook()
         if current_watchdog() is self.watchdog:
             set_global_watchdog(None)
         self.registry.clear()
@@ -334,6 +426,8 @@ class Node:
                     dist.destroy_process_group()
                 else:
                     dist.destroy_process_group(self.group)
+                    if self.replay_group is not None:
+                        dist.destroy_process_group(self.replay_group)
             except Exception as e:     # a world with a dead member
                 log.info("process group teardown: %s", e)
-            self.group = None
+            self.group = self.replay_group = None

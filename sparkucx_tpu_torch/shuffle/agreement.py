@@ -133,7 +133,7 @@ def _count(metrics, name: str, topic: str) -> None:
 def agree(topic: str, payload,
           reduce: Optional[Union[str, Callable]] = None,
           conf_key: str = "", timeout_ms: Optional[float] = None,
-          metrics=None) -> np.ndarray:
+          metrics=None, group=None) -> np.ndarray:
     """COLLECTIVE: one agreement round over an int64 payload vector.
     Every process calls with the same topic, in the same order relative
     to every other collective.
@@ -143,7 +143,9 @@ def agree(topic: str, payload,
     process. ``reduce`` in {max, min, sum, any, all} or a callable
     ``rows -> row`` over the ``[nproc, n]`` proposals: the reduction
     returns. A sequencing split raises from the header round either way.
-    ``timeout_ms`` overrides the fence's deadline for both rounds."""
+    ``timeout_ms`` overrides the fence's deadline for both rounds;
+    ``group`` runs both on that process group (``distributed.
+    allgather_blob``)."""
     mine = np.atleast_1d(np.asarray(payload, dtype=np.int64)).reshape(-1)
     if callable(reduce):
         reduce_code = len(_REDUCE_CODES)
@@ -163,7 +165,7 @@ def agree(topic: str, payload,
         t0 = time.perf_counter()
         try:
             return _run_round(topic, mine, reduce, reduce_code, conf_key,
-                              timeout_ms, epoch, seq, metrics)
+                              timeout_ms, epoch, seq, metrics, group)
         finally:
             if metrics is not None:
                 ms = (time.perf_counter() - t0) * 1e3
@@ -172,7 +174,7 @@ def agree(topic: str, payload,
 
 
 def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
-               epoch, seq, metrics):
+               epoch, seq, metrics, group):
     # the module attribute, looked up per call (tests replay a 3-process
     # gather through it)
     from sparkucx_tpu_torch.shuffle import distributed
@@ -180,9 +182,10 @@ def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
     header = np.array([epoch, seq, _topic_code(topic), mine.shape[0],
                        reduce_code, int(time.time() * 1e3)],
                       dtype=np.int64)
+    kw = {} if group is None else {"group": group}
     got_h = np.asarray(distributed.allgather_blob(
         header, what=f"agreement header {topic!r} #{seq}",
-        timeout_ms=timeout_ms)).reshape(-1, 6)
+        timeout_ms=timeout_ms, **kw)).reshape(-1, 6)
     if (got_h[:, :5] != got_h[0, :5]).any():
         maj = _majority_row(got_h[:, :5])
         dissent = [i for i in range(got_h.shape[0])
@@ -196,7 +199,7 @@ def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
                    "divergent conf or a missed remesh")
     got = np.asarray(distributed.allgather_blob(
         mine, what=f"agreement {topic!r} #{seq}",
-        timeout_ms=timeout_ms)).reshape(-1, mine.shape[0])
+        timeout_ms=timeout_ms, **kw)).reshape(-1, mine.shape[0])
     if callable(reduce):
         return np.asarray(reduce(got), dtype=np.int64)
     if reduce is not None:

@@ -142,13 +142,20 @@ def _fenced(fn, what: str, timeout_ms: Optional[float] = None):
 
 # -- the metadata plane ------------------------------------------------------
 def allgather_blob(blob, what: str = "metadata allgather",
-                   timeout_ms: Optional[float] = None) -> np.ndarray:
+                   timeout_ms: Optional[float] = None,
+                   group=None) -> np.ndarray:
     """COLLECTIVE: the ``[nproc, ...]`` stack of one small host array per
     process (same shape and dtype everywhere), in process order, fenced
     by the watchdog (``timeout_ms`` overrides its deadline for this
-    round). With no process group it is ``blob[None]``."""
+    round). ``group`` runs it on that group instead of the installed one
+    (the node's ``replay_group``). With no process group it is
+    ``blob[None]``."""
     arr = np.ascontiguousarray(blob)
-    group, n = _world()
+    if group is None:
+        group, n = _world()
+    else:
+        import torch.distributed as dist
+        n = dist.get_world_size(group)
 
     def gather():
         if group is None:
@@ -602,7 +609,7 @@ class PendingDistributedTieredShuffle(PendingTieredShuffle):
                  local_rows, local_nvalid, shard_ids: Sequence[int],
                  val_shape, val_dtype, device: torch.device, pool,
                  on_done=None, admit=None, wire_seed: int = 0, metrics=None,
-                 timeouts: Optional[Dict[str, float]] = None):
+                 timeouts: Optional[Dict[str, float]] = None, **hooks):
         self._shard_ids = [int(g) for g in shard_ids]
         if len(self._shard_ids) % max(topo.per_slice, 1):
             raise ValueError(
@@ -618,7 +625,7 @@ class PendingDistributedTieredShuffle(PendingTieredShuffle):
         super().__init__(topo, plan, local_rows, local_nvalid, val_shape,
                          val_dtype, device, on_done=on_done, admit=admit,
                          wire_seed=wire_seed, metrics=metrics,
-                         timeouts=timeouts)
+                         timeouts=timeouts, **hooks)
 
     def _seed_nvalid(self, values, stream: int):
         return (self._stage_to_device(np.asarray(values, dtype=np.int32)),
@@ -672,11 +679,12 @@ def submit_shuffle_tiered_distributed(
         local_nvalid, shard_ids: Sequence[int], val_shape, val_dtype,
         device: torch.device, pool, on_done=None, admit=None,
         wire_seed: int = 0, metrics=None,
-        timeouts: Optional[Dict[str, float]] = None
+        timeouts: Optional[Dict[str, float]] = None, **hooks
 ) -> PendingDistributedTieredShuffle:
     """Dispatch the distributed two-tier exchange (collective: every
-    process submits and joins in lockstep)."""
+    process submits and joins in lockstep); ``hooks`` are the
+    ``faults`` / ``flight`` of ``topology.submit_shuffle_tiered``."""
     return PendingDistributedTieredShuffle(
         topo, plan, local_rows, local_nvalid, shard_ids, val_shape,
         val_dtype, device, pool, on_done=on_done, admit=admit,
-        wire_seed=wire_seed, metrics=metrics, timeouts=timeouts)
+        wire_seed=wire_seed, metrics=metrics, timeouts=timeouts, **hooks)

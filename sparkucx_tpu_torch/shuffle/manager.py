@@ -55,8 +55,25 @@ count (every read) and the per-wave sizes, and dispatches the flat or
 tiered distributed exchange; each process's result is the partial view
 of its own shards. An explicit ``a2a.impl=pallas`` raises before any
 collective. Handles are pinned to the node's epoch: after a remesh a
-stale handle raises ``StaleEpochError`` before any collective, and a
-``PeerLostError`` reaches the caller typed (no replay in place).
+stale handle raises ``StaleEpochError`` before any collective.
+
+Failures (``failure.policy``, the node's ``FaultInjector`` and
+``RetryPolicy``): the metadata fetch runs under the retry policy (fault
+site ``fetch``); fault site ``exchange`` comes before every dispatch
+(single-shot, waved, distributed) and ``wave`` before each wave; a fault
+there gives the pinned pack buffer and the admission reservation back.
+Under ``failfast`` (default) a failure reaches the caller typed. Under
+``replay`` the read loop (:meth:`ShuffleManager.read`) re-runs the whole
+exchange after a ``TransientError``, up to ``failure.replayBudget`` times
+a shuffle (``ExchangeReport.replays`` / ``replay_ms``); on a distributed
+node every process must agree to re-enter (a ``replay.enter`` round on
+the node's replay group under ``failure.replayAgreeTimeoutMs``), and a
+distributed ``PeerLostError`` never replays in place. An epoch bump keeps
+the shuffles whose maps are all committed and staged (the recovery
+ledger) and re-pins their stale handles on the next read, one budget unit
+each; everything else is dropped. Dropped writers' buffers go back to the
+pool only once no read that could still copy from them is in flight
+(:meth:`ShuffleManager._read_started`, the graveyard).
 """
 
 from __future__ import annotations
@@ -75,6 +92,9 @@ import torch
 
 from sparkucx_tpu_torch.config import (PARTITIONERS, ShuffleConf,
                                        validate_sink)
+from sparkucx_tpu_torch.runtime.failures import (PeerLostError,
+                                                 StaleEpochError,
+                                                 TransientError)
 from sparkucx_tpu_torch.meta.registry import ShuffleEntry
 from sparkucx_tpu_torch.meta.segments import validate_row_sizes
 from sparkucx_tpu_torch.ops.aggregate import check_combinable
@@ -96,6 +116,7 @@ from sparkucx_tpu_torch.shuffle.topology import (resolve_topology,
                                                  tier_layouts, tier_timeouts)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                DeviceShuffleReaderResult,
+                                               LazyShuffleReaderResult,
                                                WavedShuffleReaderResult,
                                                device_merge_fold,
                                                drain_wave_result, pack_rows,
@@ -104,14 +125,13 @@ from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_ADMIT_BYTES,
-                                              C_KERNEL_FALLBACK,
-                                              C_SINK_FALLBACK, C_TIER_BYTES,
-                                              H_ADMIT_WAIT, H_WAVE_GAP,
+                                              C_KERNEL_FALLBACK, C_REPLAY_MS,
+                                              C_REPLAYS, C_SINK_FALLBACK,
+                                              C_TIER_BYTES, H_ADMIT_WAIT,
+                                              H_FETCH_WAIT, H_WAVE_GAP,
                                               labeled)
 
 log = get_logger("shuffle.manager")
-
-REPORT_CAPACITY = 64     # most-recent ExchangeReports retained
 
 
 @dataclass
@@ -190,6 +210,10 @@ class ExchangeReport:
     # reported it (its view holds this process's shards only)
     distributed: bool = False
     process_id: int = 0
+    # failure.policy=replay: the replays this read spent (stale-handle
+    # re-pins and re-runs) and the wall of its failed attempts (ms)
+    replays: int = 0
+    replay_ms: float = 0.0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
@@ -227,6 +251,25 @@ class ShuffleHandle:
                              f"want one of {PARTITIONERS}")
 
 
+class _ReadGuard:
+    """One read's window over writer-owned memory (staged buffers,
+    mapped spill views), from the writers snapshot through the end of its
+    pack: a batch of writers dropped meanwhile stays in the manager's
+    graveyard until every such window opened before the drop has closed.
+    :meth:`close` is idempotent."""
+
+    __slots__ = ("_mgr", "_gen")
+
+    def __init__(self, mgr: "ShuffleManager"):
+        self._mgr = mgr
+        self._gen = mgr._read_started()
+
+    def close(self) -> None:
+        mgr, self._mgr = self._mgr, None
+        if mgr is not None:
+            mgr._read_finished(self._gen)
+
+
 class ShuffleManager:
     """Per-process shuffle service bound to a :class:`Node`."""
 
@@ -240,6 +283,7 @@ class ShuffleManager:
         # wave cap_in)
         self._wave_cap_hints: Dict[tuple, int] = {}
         self._reports: "OrderedDict[int, ExchangeReport]" = OrderedDict()
+        self._report_capacity = self.conf.report_capacity
         self._pack_pool: Optional[ThreadPoolExecutor] = None
         self._warned: set = set()
         self._lock = threading.Lock()
@@ -251,12 +295,40 @@ class ShuffleManager:
         self._inflight_bytes = 0
         self._admit_queue: deque = deque()
         self._admit_ticket = 0
+        # dropped writers wait here, tagged with the generation of their
+        # drop, until no read that could still copy from them is in flight
+        # (_collect_free_graveyard_locked); reads in flight by the
+        # generation they started under
+        self._graveyard: list = []          # [(dropped_at_gen, [writers])]
+        self._gen = 0
+        self._active_reads: Dict[int, int] = {}
+        # -- the recovery ledger (failure.policy=replay) --------------------
+        # registration shapes (a re-registration after a bump needs them:
+        # the remesh cleared the registry first), the shuffles the last
+        # bump carried over (sid -> {entry, epoch}) and the replays each
+        # shuffle spent
+        self._shapes: Dict[int, Dict] = {}
+        self._replayed: Dict[int, Dict] = {}
+        self._replay_counts: Dict[int, int] = {}
+        self._policy = self.conf.failure_policy
+        if self._policy == "replay" and self.node.is_distributed \
+                and self.node.replay_group is None:
+            raise ValueError(
+                "failure.policy=replay on a distributed node needs the node "
+                "started under it: its replay.enter rounds ride a gloo "
+                "group that only such a node makes")
+        self._replay_budget = self.conf.replay_budget
         # the exchange topology of this binding (a2a.topology against the
-        # node's shard grid)
-        self.topology = resolve_topology(node.grid, self.conf)
-        self.hierarchical = self.topology.hierarchical
-        # a remesh drops this binding's shuffle state
+        # node's shard grid; rebound at every epoch bump)
+        self._bind_grid()
+        # a remesh drops (or, under replay, carries) this binding's
+        # shuffle state; the recorder's postmortem carries the reports
         self.node.epochs.on_bump(self._on_epoch_bump)
+        self.node.flight.add_context_provider(self.exchange_reports)
+
+    def _bind_grid(self) -> None:
+        self.topology = resolve_topology(self.node.grid, self.conf)
+        self.hierarchical = self.topology.hierarchical
 
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
@@ -282,6 +354,9 @@ class ShuffleManager:
                                             num_partitions, partitioner)
         with self._lock:
             self._writers[shuffle_id] = {}
+            self._shapes[shuffle_id] = {
+                "num_maps": num_maps, "num_partitions": num_partitions,
+                "partitioner": partitioner}
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
                              partitioner, bounds,
                              epoch=self.node.epochs.current)
@@ -297,7 +372,8 @@ class ShuffleManager:
                             handle.partitioner, handle.bounds,
                             spill_dir=self.conf.spill_dir,
                             spill_threshold=self.conf.spill_threshold,
-                            metrics=self.node.metrics)
+                            metrics=self.node.metrics,
+                            faults=self.node.faults)
         with self._lock:
             ws = self._writers.get(handle.shuffle_id)
             if ws is None:
@@ -314,45 +390,329 @@ class ShuffleManager:
             ws[map_id] = w
         return w
 
-    def unregister_shuffle(self, shuffle_id: int) -> None:
+    def has_live_writer(self, shuffle_id: int, map_id: int) -> bool:
+        """Whether (shuffle, map) holds an uncommitted writer now."""
         with self._lock:
-            ws = self._writers.pop(shuffle_id, {})
-        for w in ws.values():
-            w.release()
+            w = self._writers.get(shuffle_id, {}).get(map_id)
+        return w is not None and not w.committed
+
+    def live_shuffles(self) -> List[int]:
+        """The registered shuffle ids, sorted."""
+        with self._lock:
+            return sorted(self._writers)
+
+    def export_shuffle(self, shuffle_id: int) -> Dict[int, tuple]:
+        """``{map_id: (keys, values, committed)}``: copies of the staged
+        state of every writer of a shuffle (a spilled writer's mapped
+        views are copied, so the export owns its bytes), read under the
+        in-flight guard so a concurrent remesh defers their release."""
+        guard = _ReadGuard(self)
+        try:
+            with self._lock:
+                if shuffle_id not in self._writers:
+                    raise KeyError(f"shuffle {shuffle_id} not registered")
+                writers = dict(self._writers[shuffle_id])
+            staged = {}
+            for map_id, w in writers.items():
+                keys, values = w.materialize()
+                staged[map_id] = (np.array(keys, copy=True),
+                                  None if values is None
+                                  else np.array(values, copy=True),
+                                  w.committed)
+            return staged
+        finally:
+            guard.close()
+
+    def unregister_shuffle(self, shuffle_id: int) -> None:
+        """Drop a shuffle: its table, and its writers' buffers and spill
+        files (through the graveyard, so a read still packing from them
+        finishes first)."""
+        with self._lock:
+            writers = self._writers.pop(shuffle_id, {})
+            self._shapes.pop(shuffle_id, None)
+            self._replayed.pop(shuffle_id, None)
+            self._replay_counts.pop(shuffle_id, None)
+            to_free = self._bury_locked([writers] if writers else [])
+        self._release_writer_batches(to_free)
         self.node.registry.unregister(shuffle_id)
 
     def stop(self) -> None:
         self.node.epochs.remove_listener(self._on_epoch_bump)
+        self.node.flight.remove_context_provider(self.exchange_reports)
         with self._lock:
             sids = list(self._writers)
             pool, self._pack_pool = self._pack_pool, None
         for sid in sids:
             self.unregister_shuffle(sid)
+        # a read still in flight at shutdown loses its writers anyway:
+        # shutdown must end
+        with self._lock:
+            leftover, self._graveyard = self._graveyard, []
+        self._release_writer_batches([ws for _, ws in leftover])
         if pool is not None:
             pool.shutdown(wait=True)
 
     def _on_epoch_bump(self, epoch: int) -> None:
-        """A remesh: every shuffle's staged state goes (the node dropped
-        the registry); handles of the old epoch fail at their next read."""
+        """A remesh: the binding follows the node's new grid. Under
+        ``failure.policy=replay`` the shuffles whose maps are all
+        committed and staged here re-register under the new epoch (the
+        recovery ledger); every other shuffle's writers are dropped,
+        through the graveyard."""
+        self._bind_grid()
+        survivors = self._ledger_candidates() \
+            if self._policy == "replay" else {}
         with self._lock:
-            dropped, self._writers = self._writers, {}
-        for ws in dropped.values():
-            for w in ws.values():
-                w.release()
-        log.warning("manager rebound to epoch %d: shuffle state dropped — "
-                    "re-register and re-run live shuffles", epoch)
+            dropped = [ws for sid, ws in self._writers.items()
+                       if sid not in survivors]
+            self._writers = {sid: ws for sid, ws in self._writers.items()
+                             if sid in survivors}
+            to_free = self._bury_locked(dropped)
+        self._release_writer_batches(to_free)
+        carried = [sid for sid in sorted(survivors)
+                   if self._reregister_shuffle(sid, epoch)]
+        if carried:
+            log.warning("manager rebound to epoch %d: %d shuffle(s) "
+                        "re-registered from the recovery ledger (%s); %d "
+                        "dropped", epoch, len(carried), carried,
+                        len(dropped))
+        else:
+            log.warning("manager rebound to epoch %d: shuffle state "
+                        "dropped — re-register and re-run live shuffles",
+                        epoch)
 
-    def _pin(self, handle: ShuffleHandle) -> None:
-        """A handle from an older epoch fails fast, before any
-        collective."""
-        self.node.epochs.validate(handle.epoch,
-                                  f"shuffle {handle.shuffle_id}")
+    # -- the in-flight guard and the graveyard ----------------------------
+    def _bury_locked(self, batch: list) -> list:
+        """Park one drop (a list of ``{map_id: writer}``) in the
+        graveyard under a new generation; returns the batches no read in
+        flight can reach, for the caller to release outside the lock."""
+        self._gen += 1
+        if batch:
+            self._graveyard.append((self._gen, batch))
+        return self._collect_free_graveyard_locked()
+
+    def _collect_free_graveyard_locked(self) -> list:
+        """Split off the graveyard batches no read in flight can reach (a
+        read that started at generation G snapshotted the writers at G or
+        later, so only reads with G below a batch's drop generation can
+        hold views into it). Caller holds the lock."""
+        oldest = min(self._active_reads, default=None)
+        free, keep = [], []
+        for dropped_at, ws in self._graveyard:
+            if oldest is None or oldest >= dropped_at:
+                free.append(ws)
+            else:
+                keep.append((dropped_at, ws))
+        self._graveyard = keep
+        return free
+
+    @staticmethod
+    def _release_writer_batches(batches: list) -> None:
+        """Each batch is one drop: a list of ``{map_id: writer}``."""
+        for batch in batches:
+            for ws in batch:
+                for w in ws.values():
+                    w.release()
+
+    def _read_started(self) -> int:
+        with self._lock:
+            g = self._gen
+            self._active_reads[g] = self._active_reads.get(g, 0) + 1
+        return g
+
+    def _read_finished(self, start_gen: int) -> None:
+        with self._lock:
+            n = self._active_reads.get(start_gen, 0) - 1
+            if n > 0:
+                self._active_reads[start_gen] = n
+            else:
+                self._active_reads.pop(start_gen, None)
+            to_free = self._collect_free_graveyard_locked()
+        self._release_writer_batches(to_free)
+
+    # -- the recovery ledger (failure.policy=replay) -----------------------
+    def _ledger_candidates(self) -> Dict[int, Dict]:
+        """Shuffles whose writers here are whole: every map committed and
+        none released. A partly staged shuffle is dropped: an
+        uncommitted map's rows cannot be recovered without re-running its
+        task."""
+        with self._lock:
+            snap = {sid: dict(ws) for sid, ws in self._writers.items()}
+            shapes = dict(self._shapes)
+        out: Dict[int, Dict] = {}
+        for sid, ws in snap.items():
+            shape = shapes.get(sid)
+            if not shape or not ws:
+                continue
+            committed = {m for m, w in ws.items()
+                         if w.committed and not w.released}
+            if committed == set(range(shape["num_maps"])):
+                out[sid] = ws
+        return out
+
+    def _reregister_shuffle(self, sid: int, epoch: int) -> bool:
+        """Re-register one ledger survivor under the new epoch: a fresh
+        registry entry with the committed size rows copied from the old
+        entry, the writers pointed at it. On any failure the shuffle is
+        dropped, through the graveyard."""
+        try:
+            shape = self._shapes[sid]
+            with self._lock:
+                ws = dict(self._writers.get(sid, {}))
+            old_entry = next(iter(ws.values())).entry
+            reg = self.node.registry
+            reg.unregister(sid)     # a no-op when the remesh cleared it
+            entry = reg.register(sid, shape["num_maps"],
+                                 shape["num_partitions"],
+                                 shape["partitioner"])
+            for m in sorted(ws):
+                entry.publish(m, old_entry.fetch_record(m))
+                ws[m].entry = entry
+            with self._lock:
+                self._replayed[sid] = {"entry": entry, "epoch": epoch}
+            return True
+        except Exception as e:
+            log.error("recovery ledger could not re-register shuffle %d "
+                      "(%s) — dropping it", sid, e)
+            with self._lock:
+                ws = self._writers.pop(sid, None)
+                to_free = self._bury_locked([ws] if ws else [])
+            self._release_writer_batches(to_free)
+            return False
+
+    def _replay_budget_for(self, sid: int):
+        """(budget, conf key) of one shuffle's replays. (The JAX
+        package's per-tenant override comes with tenancy.)"""
+        return self._replay_budget, "spark.shuffle.tpu.failure.replayBudget"
+
+    def _spend_replay(self, sid: int) -> bool:
+        """Spend one unit of the shuffle's replay budget; False once it
+        is spent (the caller fails fast)."""
+        budget, conf_key = self._replay_budget_for(sid)
+        with self._lock:
+            spent = self._replay_counts.get(sid, 0)
+            if spent >= budget:
+                log.error("shuffle %d replay budget exhausted (%d/%d, %s) "
+                          "— failing fast", sid, spent, budget, conf_key)
+                return False
+            self._replay_counts[sid] = spent + 1
+        return True
+
+    def _resolve_handle(self, handle: ShuffleHandle) -> int:
+        """Pin a handle to the current epoch: 0 when it is current, 1
+        when it was re-pinned through the recovery ledger (one replay);
+        else ``StaleEpochError`` (always under failfast)."""
+        cur = self.node.epochs.current
+        if handle.epoch == cur:
+            return 0
+        sid = handle.shuffle_id
+        with self._lock:
+            rec = self._replayed.get(sid)
+        if self._policy != "replay" or rec is None \
+                or rec["epoch"] != cur:
+            self.node.epochs.validate(handle.epoch, f"shuffle {sid}")
+            return 0              # not reached: validate raises
+        if not self._spend_replay(sid):
+            budget, conf_key = self._replay_budget_for(sid)
+            raise StaleEpochError(
+                f"shuffle {sid} pinned to epoch {handle.epoch}, mesh is "
+                f"at {cur}, and its replay budget ({budget}) is spent — "
+                f"re-register and re-run, or raise {conf_key}")
+        handle.entry = rec["entry"]
+        handle.epoch = cur
+        log.warning("shuffle %d re-pinned to epoch %d through the recovery "
+                    "ledger — replaying on the new grid", sid, cur)
+        return 1
+
+    def _replay_after_failure(self, handle: ShuffleHandle, err) -> bool:
+        """Whether :meth:`read` may re-run the exchange after the
+        transient failure ``err`` (one budget unit).
+
+        On a distributed node the decision is collective: every process
+        whose read failed proposes (shuffle id, budget left) in a
+        ``replay.enter`` agreement round on the node's replay group,
+        bounded by ``failure.replayAgreeTimeoutMs`` (a peer whose read
+        did not fail never enters it); a divergence or a failed round
+        vetoes the replay with no unit spent, and a ``PeerLostError``
+        never replays in place (its channel is gone). On one process a
+        ``PeerLostError`` remeshes over the probe's survivors first, and
+        the unit spent here also covers the handle's re-pin."""
+        if self._policy != "replay":
+            return False
+        sid = handle.shuffle_id
+        if self.node.is_distributed:
+            if isinstance(err, PeerLostError):
+                return False
+            budget, conf_key = self._replay_budget_for(sid)
+            with self._lock:
+                left = budget - self._replay_counts.get(sid, 0)
+            enter_ms = self.conf.replay_agree_timeout_ms
+            try:
+                agree("replay.enter", np.array([sid, left], dtype=np.int64),
+                      conf_key=conf_key,
+                      timeout_ms=enter_ms if enter_ms > 0 else None,
+                      metrics=self.node.metrics,
+                      group=self.node.replay_group)
+            except Exception as e:
+                log.error("distributed replay of shuffle %d vetoed (%r); "
+                          "failing fast", sid, e)
+                return False
+            if not self._spend_replay(sid):
+                return False
+            self.node.flight.record("replay", shuffle_id=sid,
+                                    error=repr(err)[:200], distributed=True)
+            log.warning("replaying shuffle %d group-wide after a transient "
+                        "failure: %r", sid, err)
+            return True
+        if not self._spend_replay(sid):
+            return False
+        if isinstance(err, PeerLostError):
+            try:
+                self.node.remesh(reason=f"replay shuffle {sid} after "
+                                        f"{type(err).__name__}")
+            except Exception as e:
+                log.error("replay remesh failed (%s); failing fast", e)
+                return False
+            cur = self.node.epochs.current
+            with self._lock:
+                rec = self._replayed.get(sid)
+            if rec is None or rec["epoch"] != cur:
+                log.error("staged state of shuffle %d did not survive the "
+                          "replay remesh; failing fast", sid)
+                return False
+            handle.entry = rec["entry"]
+            handle.epoch = cur
+        self.node.flight.record("replay", shuffle_id=sid,
+                                error=repr(err)[:200])
+        log.warning("replaying shuffle %d after a transient failure: %r",
+                    sid, err)
+        return True
+
+    def _account_replays(self, handle: ShuffleHandle, replays: int,
+                         replay_ms: float) -> None:
+        rep = self.report(handle.shuffle_id)
+        if rep is not None:
+            rep.replays = int(replays)
+            rep.replay_ms = round(replay_ms, 3)
+        self.node.metrics.inc(C_REPLAYS, float(replays))
+        if replay_ms:
+            self.node.metrics.inc(C_REPLAY_MS, float(replay_ms))
 
     # -- reports ----------------------------------------------------------
     def report(self, shuffle_id: int) -> Optional[ExchangeReport]:
         """Latest ExchangeReport of a shuffle (None if never read)."""
         with self._lock:
             return self._reports.get(shuffle_id)
+
+    def reports(self) -> List[ExchangeReport]:
+        """Every retained report, oldest first (``metrics.
+        reportCapacity`` of them at most)."""
+        with self._lock:
+            return list(self._reports.values())
+
+    def exchange_reports(self) -> List[Dict]:
+        """The retained reports as dicts: the flight recorder's context
+        provider (its dump key is this method's name)."""
+        return [r.to_dict() for r in self.reports()]
 
     def _new_report(self, handle: ShuffleHandle,
                     distributed: bool = False) -> ExchangeReport:
@@ -367,7 +727,7 @@ class ShuffleManager:
             rep._seq = self._exchange_seq
             self._reports[handle.shuffle_id] = rep
             self._reports.move_to_end(handle.shuffle_id)
-            while len(self._reports) > REPORT_CAPACITY:
+            while len(self._reports) > self._report_capacity:
                 self._reports.popitem(last=False)
         return rep
 
@@ -390,20 +750,61 @@ class ShuffleManager:
         ``host_view``); ``"host"`` or ``None`` under the default conf
         returns the numpy partition view (see :meth:`_resolve_sink`).
 
+        Under ``failure.policy=replay`` a ``TransientError`` of an
+        attempt (an injected fault, a lost peer on one process) re-runs
+        the whole exchange, and a stale handle whose staged state
+        survived the remesh re-pins, each spending one unit of
+        ``failure.replayBudget``; the report carries ``replays`` and the
+        failed attempts' ``replay_ms``. A stale handle that cannot
+        re-pin raises ``StaleEpochError`` before the read's metrics
+        window opens.
+
         On a distributed node this is a collective: every process calls
         it with the same arguments and gets the partial view of its own
         shards."""
-        self._pin(handle)
+        metrics = self.node.metrics
+        replays = self._resolve_handle(handle)
         t0 = time.perf_counter()
+        replay_ms = 0.0
         try:
-            return self.submit(handle, timeout, combine=combine,
-                               ordered=ordered,
-                               combine_sum_words=combine_sum_words,
-                               sink=sink).result()
+            while True:
+                t_attempt = time.perf_counter()
+                try:
+                    replays += self._resolve_handle(handle)
+                    res = self._submit(handle, timeout, combine, ordered,
+                                       combine_sum_words, sink).result()
+                    break
+                except TransientError as e:
+                    replay_ms += (time.perf_counter() - t_attempt) * 1e3
+                    if not self._replay_after_failure(handle, e):
+                        raise
+                    replays += 1
+            if replays:
+                self._account_replays(handle, replays, replay_ms)
+            return res
         finally:
-            m = self.node.metrics
-            m.inc("shuffle.read.ms", (time.perf_counter() - t0) * 1e3)
-            m.inc("shuffle.read.count", 1)
+            ms = (time.perf_counter() - t0) * 1e3
+            metrics.inc("shuffle.read.ms", ms)
+            metrics.inc("shuffle.read.count", 1)
+            metrics.observe(H_FETCH_WAIT, ms)
+
+    def read_partitions(self, handle: ShuffleHandle, start: int, end: int,
+                        timeout: Optional[float] = None,
+                        combine: Optional[str] = None,
+                        ordered: bool = False):
+        """Iterator of ``(r, (keys, values))`` over the reduce partitions
+        ``[start, end)`` — the partition-range reader. The range is
+        checked and the read (one whole exchange, on the host sink) runs
+        before this returns; on a distributed node the partitions other
+        processes own are skipped."""
+        if not (0 <= start <= end <= handle.num_partitions):
+            raise IndexError(
+                f"partition range [{start}, {end}) out of "
+                f"[0, {handle.num_partitions}]")
+        res = self.read(handle, timeout=timeout, combine=combine,
+                        ordered=ordered, sink="host")
+        return ((r, res.partition(r)) for r in range(start, end)
+                if res.is_local(r))
 
     def submit(self, handle: ShuffleHandle,
                timeout: Optional[float] = None,
@@ -414,13 +815,31 @@ class ShuffleManager:
         read options are :meth:`read`'s. A waved read packs and
         dispatches its waves inside ``result()``. Collective on a
         distributed node (every process submits, then calls
-        ``result()``, in the same order)."""
-        self._pin(handle)
+        ``result()``, in the same order). A stale handle re-pins as in
+        :meth:`read`; a failure of the exchange itself reaches the
+        caller (the asynchronous handle does not replay)."""
+        replayed = self._resolve_handle(handle)
+        pending = self._submit(handle, timeout, combine, ordered,
+                               combine_sum_words, sink)
+        if replayed:
+            self._account_replays(handle, replayed, 0.0)
+        return pending
+
+    def _submit(self, handle: ShuffleHandle, timeout: Optional[float],
+                combine: Optional[str], ordered: bool,
+                combine_sum_words: int, sink: Optional[str]):
+        """One attempt's submit on a pinned handle."""
         timeout = timeout if timeout is not None \
             else self.conf.connection_timeout_ms / 1e3
         if self.node.is_distributed:
             return self._submit_distributed(handle, timeout, combine,
                                             ordered, combine_sum_words, sink)
+        return self._submit_local(handle, timeout, combine, ordered,
+                                  combine_sum_words, sink)
+
+    def _submit_local(self, handle: ShuffleHandle, timeout: float,
+                      combine: Optional[str], ordered: bool,
+                      combine_sum_words: int, sink: Optional[str]):
         sink = self._resolve_sink(sink, combine, ordered)
         rep = self._new_report(handle)
         rep.sink = sink
@@ -441,58 +860,72 @@ class ShuffleManager:
                 f"shuffle {handle.shuffle_id}: only "
                 f"{handle.entry.num_present}/{handle.num_maps} map outputs "
                 f"published within {timeout}s")
-        table = handle.entry.fetch_table()
+        # the metadata fetch is a retried control-plane step
+        table = self.node.retry_policy.run(
+            lambda: (self.node.faults.check("fetch"),
+                     handle.entry.fetch_table())[1])
         Pn = self.node.num_shards
-        with self._lock:
-            if handle.shuffle_id not in self._writers:
+        # from the writers snapshot to the end of the pack this read
+        # copies from writer-owned memory
+        guard = _ReadGuard(self)
+        try:
+            with self._lock:
+                if handle.shuffle_id not in self._writers:
+                    raise RuntimeError(
+                        f"shuffle {handle.shuffle_id} is not registered "
+                        f"with this manager (already unregistered?)")
+                writers = {m: w for m, w in
+                           self._writers[handle.shuffle_id].items()
+                           if w.committed}
+            missing = sorted(set(range(handle.num_maps)) - set(writers))
+            if missing:
                 raise RuntimeError(
-                    f"shuffle {handle.shuffle_id} is not registered with "
-                    f"this manager (already unregistered?)")
-            writers = {m: w for m, w in
-                       self._writers[handle.shuffle_id].items()
-                       if w.committed}
-        missing = sorted(set(range(handle.num_maps)) - set(writers))
-        if missing:
-            raise RuntimeError(
-                f"shuffle {handle.shuffle_id}: metadata table is complete "
-                f"but maps {missing[:8]} have no committed staged rows in "
-                f"this manager")
-        shard_outputs, has_vals, val_tail, val_dtype = \
-            self._materialize_outputs(writers, Pn)
-        map_to_dev = np.arange(handle.num_maps) % Pn
-        red_to_dev = blocked_partition_map(handle.num_partitions, Pn)
-        dev_matrix = table.device_matrix(map_to_dev, red_to_dev, Pn)
-        validate_row_sizes(dev_matrix)
-        nvalid = np.array([sum(k.shape[0] for k, _ in outs)
-                           for outs in shard_outputs], dtype=np.int64)
+                    f"shuffle {handle.shuffle_id}: metadata table is "
+                    f"complete but maps {missing[:8]} have no committed "
+                    f"staged rows in this manager")
+            shard_outputs, has_vals, val_tail, val_dtype = \
+                self._materialize_outputs(writers, Pn)
+            map_to_dev = np.arange(handle.num_maps) % Pn
+            red_to_dev = blocked_partition_map(handle.num_partitions, Pn)
+            dev_matrix = table.device_matrix(map_to_dev, red_to_dev, Pn)
+            validate_row_sizes(dev_matrix)
+            nvalid = np.array([sum(k.shape[0] for k, _ in outs)
+                               for outs in shard_outputs], dtype=np.int64)
 
-        t_plan = time.perf_counter()
-        plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
-                         self.node.device, partitioner=handle.partitioner,
-                         bounds=handle.bounds, sink=sink,
-                         hierarchical=self.hierarchical)
-        plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
-        plan = self._decorated_plan(plan, combine, ordered, has_vals,
-                                    val_tail, val_dtype, combine_sum_words,
-                                    sink=sink)
-        rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
+            t_plan = time.perf_counter()
+            plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
+                             self.node.device,
+                             partitioner=handle.partitioner,
+                             bounds=handle.bounds, sink=sink,
+                             hierarchical=self.hierarchical)
+            plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
+            plan = self._decorated_plan(plan, combine, ordered, has_vals,
+                                        val_tail, val_dtype,
+                                        combine_sum_words, sink=sink)
+            rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
 
-        width = KEY_WORDS + (value_words(val_tail, val_dtype)
-                             if has_vals else 0)
-        return self._submit_planned(
-            handle, rep, plan, shard_outputs, nvalid, width, has_vals,
-            val_tail, val_dtype, combine, ordered, timeout,
-            part_rows=table.sizes.sum(axis=0), dev_matrix=lambda: dev_matrix)
+            width = KEY_WORDS + (value_words(val_tail, val_dtype)
+                                 if has_vals else 0)
+            return self._submit_planned(
+                handle, rep, plan, shard_outputs, nvalid, width, has_vals,
+                val_tail, val_dtype, combine, ordered, timeout,
+                part_rows=table.sizes.sum(axis=0),
+                dev_matrix=lambda: dev_matrix, guard=guard)
+        except BaseException:
+            guard.close()
+            raise
 
     def _submit_planned(self, handle: ShuffleHandle, rep: ExchangeReport,
                         plan: ShufflePlan, shard_outputs, nvalid: np.ndarray,
                         width: int, has_vals: bool, val_tail, val_dtype,
                         combine: Optional[str], ordered: bool,
                         timeout: Optional[float], part_rows: np.ndarray,
-                        dev_matrix, local=None):
+                        dev_matrix, guard: "_ReadGuard", local=None):
         """The submit both paths share once the plan is made: the report's
         volume and tiers, the wave decision, the pack, admission and the
-        dispatch. ``nvalid`` is the global ``[P]`` row count,
+        dispatch. ``guard`` is the read's in-flight window over the
+        writers' memory, closed once the pack (a waved read's last) has
+        copied from it. ``nvalid`` is the global ``[P]`` row count,
         ``part_rows`` the rows the skew is read from, ``dev_matrix()`` the
         ``[P, P]`` source x destination row matrix (called only on a
         hierarchical read). ``local`` is None on one process; distributed
@@ -542,12 +975,14 @@ class ShuffleManager:
                 rep.sink = "host"
             return self._submit_waved(handle, shard_outputs, nvalid, plan,
                                       width, has_vals, vt, val_dtype, rep,
-                                      W, timeout, distributed=distributed)
+                                      W, timeout, guard,
+                                      distributed=distributed)
         self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
                                             width, has_vals)
         rep.pack_ms = (time.perf_counter() - t_pack) * 1e3
+        guard.close()
         if distributed:
             shard_ids, nvalid_local = local
             # admission from global facts only (the worst process's
@@ -568,11 +1003,11 @@ class ShuffleManager:
                 return submit_shuffle_tiered_distributed(
                     self.topology, plan, rows, nvalid_local, shard_ids, vt,
                     val_dtype, node.device, node.pool,
-                    timeouts=tier_timeouts(self.conf), **kw)
+                    **self._tier_hooks(), **kw)
             if hier:
                 return submit_shuffle_tiered(
                     self.topology, plan, rows, nvalid, vt, val_dtype,
-                    node.device, timeouts=tier_timeouts(self.conf), **kw)
+                    node.device, **self._tier_hooks(), **kw)
             if distributed:
                 return submit_shuffle_distributed(
                     plan, rows, nvalid_local, shard_ids, vt, val_dtype,
@@ -585,6 +1020,12 @@ class ShuffleManager:
                                    release_admitted, nvalid, width,
                                    int(local_rows))
 
+    def _tier_hooks(self) -> Dict:
+        """The tiered exchange's per-tier deadlines, fault sites and
+        flight recorder."""
+        return dict(timeouts=tier_timeouts(self.conf),
+                    faults=self.node.faults, flight=self.node.flight)
+
     def _dispatch_read(self, handle: ShuffleHandle, rep: ExchangeReport,
                        dispatch, stage_buf, release_admitted,
                        nvalid: np.ndarray, width: int,
@@ -594,7 +1035,10 @@ class ShuffleManager:
         released (a device result holds its reservation until consumed),
         the report's retries, regrown wire, tier walls and D2H, the
         capacity hint (from the global rows ``nvalid``) and the row
-        counters (``local_rows``: this process's)."""
+        counters (``local_rows``: this process's). The ``exchange`` fault
+        site comes first: until the pending handle exists, a failure here
+        hands the pack buffer and the admission back; after, its
+        ``on_done`` does."""
         pending_box = {}
         total_rows = int(np.sum(nvalid))
 
@@ -629,6 +1073,8 @@ class ShuffleManager:
             if result is None:
                 rep.error = rep.error or "exchange failed"
                 return
+            if isinstance(result, LazyShuffleReaderResult):
+                result.fetch_granularity = self.conf.fetch_granularity
             self._arm_d2h(result, rep)
             self._learn_cap(handle, result, total_rows)
             self.node.metrics.inc("shuffle.rows", float(local_rows))
@@ -638,6 +1084,7 @@ class ShuffleManager:
 
         rep._t_dispatched = time.perf_counter()
         try:
+            self.node.faults.check("exchange")
             pending = dispatch(on_done)
         except BaseException:
             self.node.pool.put(stage_buf)
@@ -718,24 +1165,31 @@ class ShuffleManager:
                     f"{handle.num_maps} map outputs published within "
                     f"{timeout}s")
             time.sleep(0.05)
-        with self._lock:
-            writers = {m: w for m, w in
-                       self._writers.get(handle.shuffle_id, {}).items()
-                       if w.committed}
-        # the stale-snapshot verdict rides a collective too: one process
-        # raising while its peers enter the schema allgather would hang
-        # them
-        changed = int(sorted(writers) != committed)
-        if allgather_blob(np.array([changed], dtype=np.int64),
-                          what="staging snapshot verdict").any():
-            raise RuntimeError(
-                f"shuffle {handle.shuffle_id}: committed map outputs "
-                f"changed between the completeness barrier and staging on "
-                f"at least one process (remesh or unregister raced this "
-                f"read)")
-        return self._submit_distributed_staged(
-            handle, writers, shard_ids, combine, ordered, combine_sum_words,
-            rep, sink)
+        # the snapshot is retaken under the in-flight guard: the barrier's
+        # predates it, and a remesh in between could release its writers
+        guard = _ReadGuard(self)
+        try:
+            with self._lock:
+                writers = {m: w for m, w in
+                           self._writers.get(handle.shuffle_id, {}).items()
+                           if w.committed}
+            # the stale-snapshot verdict rides a collective too: one
+            # process raising while its peers enter the schema allgather
+            # would hang them
+            changed = int(sorted(writers) != committed)
+            if allgather_blob(np.array([changed], dtype=np.int64),
+                              what="staging snapshot verdict").any():
+                raise RuntimeError(
+                    f"shuffle {handle.shuffle_id}: committed map outputs "
+                    f"changed between the completeness barrier and staging "
+                    f"on at least one process (remesh or unregister raced "
+                    f"this read)")
+            return self._submit_distributed_staged(
+                handle, writers, shard_ids, combine, ordered,
+                combine_sum_words, rep, sink, guard)
+        except BaseException:
+            guard.close()
+            raise
 
     def _agree_schema(self, has_vals: bool, val_tail, val_dtype,
                       local_rows: int) -> tuple:
@@ -789,7 +1243,8 @@ class ShuffleManager:
     def _submit_distributed_staged(self, handle: ShuffleHandle, writers,
                                    shard_ids, combine: Optional[str],
                                    ordered: bool, combine_sum_words: int,
-                                   rep: ExchangeReport, sink: str):
+                                   rep: ExchangeReport, sink: str,
+                                   guard: "_ReadGuard"):
         node = self.node
         Pn, L = node.num_shards, len(shard_ids)
         shard_outputs, has_vals, val_tail, val_dtype = \
@@ -822,7 +1277,7 @@ class ShuffleManager:
             val_tail, val_dtype, combine, ordered, None, part_rows=nvalid,
             dev_matrix=lambda: self._agreed_dev_matrix(handle, writers,
                                                        shard_ids),
-            local=(shard_ids, nvalid_local))
+            guard=guard, local=(shard_ids, nvalid_local))
 
     def _report_volume(self, rep: ExchangeReport, plan: ShufflePlan,
                        nvalid: np.ndarray, width: int,
@@ -1114,13 +1569,16 @@ class ShuffleManager:
                       nvalid: np.ndarray, plan: ShufflePlan, width: int,
                       has_vals: bool, val_tail, val_dtype,
                       rep: ExchangeReport, num_waves: int,
-                      timeout: Optional[float],
+                      timeout: Optional[float], guard: "_ReadGuard",
                       distributed: bool = False) -> "PendingWaveShuffle":
         """The pending handle of a waved read; the packs run inside its
-        ``result()``, overlapped with the waves' exchanges. Distributed,
-        ``slot_outputs`` are this process's shards, the per-wave sizes
-        are agreed, and admission never times out (a local clock must not
-        fail one process while its peers enter the next collective)."""
+        ``result()``, overlapped with the waves' exchanges, and the
+        handle closes the read's ``guard`` after the last one. The
+        ``exchange`` fault site comes before the handle exists.
+        Distributed, ``slot_outputs`` are this process's shards, the
+        per-wave sizes are agreed, and admission never times out (a
+        local clock must not fail one process while its peers enter the
+        next collective)."""
         wave_rows = self.conf.wave_rows
         outer = dataclasses.replace(plan, wave_rows=wave_rows,
                                     num_waves=num_waves)
@@ -1156,6 +1614,11 @@ class ShuffleManager:
             wplan, width,
             depth * block_bytes + (hbm_waves - 1) * device_wave,
             None if distributed else timeout, rep)
+        try:
+            self.node.faults.check("exchange")
+        except BaseException:
+            release_admitted()
+            raise
         log.info("wave-pipelined read: shuffle %d, %d waves x %d rows/shard "
                  "(depth %d, wave plan cap_in=%d cap_out=%d)",
                  handle.shuffle_id, num_waves, wave_rows, depth,
@@ -1165,7 +1628,7 @@ class ShuffleManager:
         return PendingWaveShuffle(self, handle, outer, wplan, depth,
                                   slot_outputs, width, has_vals, val_tail,
                                   val_dtype, rep, local_rows, wave_sizes,
-                                  admit, release_admitted,
+                                  guard, admit, release_admitted,
                                   distributed=distributed)
 
     # -- wire tiers -------------------------------------------------------
@@ -1377,10 +1840,14 @@ class ShuffleManager:
         return rows_t, buf
 
     def _executor(self) -> ThreadPoolExecutor:
+        """The pack executor: ``a2a.packThreads`` workers (0 =
+        ``coresPerProcess``)."""
         with self._lock:
             if self._pack_pool is None:
+                workers = self.conf.pack_threads \
+                    or self.conf.cores_per_process
                 self._pack_pool = ThreadPoolExecutor(
-                    max_workers=self.node.num_shards,
+                    max_workers=max(1, int(workers)),
                     thread_name_prefix="sxt-pack")
             return self._pack_pool
 
@@ -1423,7 +1890,11 @@ class PendingWaveShuffle:
       the block's H2D copy on the stream;
     * on a hierarchical binding each wave is a tiered exchange, and its
       tier walls go into its timeline entry (``ici_ms``, ``dcn_ms``) and
-      into the read's tier entries, summed over the waves.
+      into the read's tier entries, summed over the waves;
+    * the ``wave`` fault site comes before each wave; a failure anywhere
+      settles every wave in flight (their pinned blocks go back) before
+      it propagates, and the read's in-flight guard closes after the last
+      pack or on the failure.
 
     On the host sink each drained wave is pulled to the host at once
     (``drain_wave_result``) and the result is a
@@ -1436,9 +1907,10 @@ class PendingWaveShuffle:
                  outer_plan: ShufflePlan, wave_plan: ShufflePlan,
                  depth: int, slot_outputs, width: int, has_vals: bool,
                  val_tail, val_dtype, rep: ExchangeReport, local_rows: int,
-                 wave_sizes: np.ndarray, admit=None,
+                 wave_sizes: np.ndarray, guard: "_ReadGuard", admit=None,
                  release_admitted=lambda: None, distributed: bool = False):
         self._mgr = mgr
+        self._guard = guard
         self._distributed = distributed
         self._handle = handle
         self._outer_plan = outer_plan
@@ -1465,6 +1937,20 @@ class PendingWaveShuffle:
     def done(self) -> bool:
         return self._result is not None or self._dead
 
+    def _finish_guard(self) -> None:
+        # the staged views go first: they alias the writers' memory the
+        # guard stops protecting
+        self._slot_outputs = None
+        self._guard.close()
+
+    def __del__(self):
+        # an abandoned handle dispatched nothing (the packs run in
+        # result()), but its guard must not hold a graveyard batch
+        try:
+            self._finish_guard()
+        except Exception:
+            pass
+
     def result(self):
         if self._result is not None:
             return self._result
@@ -1476,6 +1962,7 @@ class PendingWaveShuffle:
             res = self._drive()
         except BaseException as e:
             self._dead = True
+            self._finish_guard()
             self._release_admitted()
             self._rep.error = self._rep.error or repr(e)[:300]
             if self._rep.tiers:
@@ -1500,6 +1987,7 @@ class PendingWaveShuffle:
             self._admit(True)             # waits until capacity frees
         try:
             for i in range(self._num_waves):
+                mgr.node.faults.check("wave")
                 while len(inflight) >= self._depth:
                     retries_total += self._drain_oldest(
                         inflight, wave_results, timeline, t_read0)
@@ -1513,7 +2001,7 @@ class PendingWaveShuffle:
                     self._has_vals)
                 t1 = time.perf_counter()
                 if i == self._num_waves - 1:
-                    self._slot_outputs = None     # last pack done
+                    self._finish_guard()          # last pack done
                 if not rep._t_dispatched:
                     rep._t_dispatched = t1
                 try:
@@ -1546,16 +2034,16 @@ class PendingWaveShuffle:
                     inflight, wave_results, timeline, t_read0)
         except BaseException:
             # settle every in-flight wave first: its on_done returns its
-            # pinned block to the pool
+            # pinned block to the pool; the settled waves' device results
+            # go with this frame
             while inflight:
                 _, p = inflight.popleft()
                 try:
                     p.result()
                 except Exception:
                     pass
+            wave_results.clear()
             raise
-        finally:
-            self._slot_outputs = None
         outer = self._outer_plan
         if outer.sink == "device":
             views = [w.wave_views()[0] for w in wave_results]
@@ -1600,7 +2088,7 @@ class PendingWaveShuffle:
                 mgr.topology, self._wave_plan, shard_rows, wnv,
                 node.local_shard_ids, self._val_tail, self._val_dtype,
                 node.device, pool, on_done=on_done, wire_seed=wseed,
-                metrics=node.metrics, timeouts=tier_timeouts(mgr.conf))
+                metrics=node.metrics, **mgr._tier_hooks())
         if self._distributed:
             return submit_shuffle_distributed(
                 self._wave_plan, shard_rows, wnv, node.local_shard_ids,
@@ -1611,7 +2099,7 @@ class PendingWaveShuffle:
                 mgr.topology, self._wave_plan, shard_rows, wnv,
                 self._val_tail, self._val_dtype, mgr.node.device,
                 on_done=on_done, wire_seed=wseed, metrics=mgr.node.metrics,
-                timeouts=tier_timeouts(mgr.conf))
+                **mgr._tier_hooks())
         return submit_shuffle(self._wave_plan, shard_rows, wnv,
                               self._val_tail, self._val_dtype,
                               mgr.node.device, on_done=on_done,

@@ -629,7 +629,14 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
 
     On a CUDA device the copies run on a side stream that waits only for
     ``_ready_event`` (recorded after the step that made the tensors), or,
-    without one, for the work queued so far on the current stream."""
+    without one, for the work queued so far on the current stream.
+
+    ``fetch_granularity`` (``io.fetchGranularity``; the manager sets it
+    on a single-shot host result): ``"shard"`` (default) as above;
+    ``"partition"``: ``partition(r)`` copies only partition r's runs of
+    its shard to the host (one pinned buffer of those rows), caches the
+    block, and the device tensors are dropped once every partition this
+    view holds was fetched."""
 
     def __init__(self, num_partitions: int, part_to_shard: np.ndarray,
                  rows_dev: torch.Tensor, seg_dev: torch.Tensor,
@@ -652,6 +659,8 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         # result's host_view() hands its admission release to it)
         self._on_device_free = None
         self._lock = threading.Lock()
+        self.fetch_granularity = "shard"
+        self._part_cache: Dict[int, np.ndarray] = {}
 
     def _to_host(self, copy_into) -> None:
         """Run ``copy_into()`` (non-blocking D2H copies) on a side stream
@@ -727,6 +736,62 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         if freed is not None:
             freed()
         return shards
+
+    def _partition_block(self, r: int, shard: int) -> np.ndarray:
+        if self.fetch_granularity != "partition":
+            return super()._partition_block(r, shard)
+        runs = self._runs(shard).runs(r)         # the seg matrix, small
+        with self._lock:
+            got = self._part_cache.get(r)
+            dev = None if got is not None or self._shards is not None \
+                or self._rows_dev is None \
+                else self._rows_dev[self._ordinal(shard)]
+        if got is not None:
+            return got
+        if dev is None:                  # the shards are on the host
+            return super()._partition_block(r, shard)
+        block = self._fetch_runs(dev, runs)
+        freed = None
+        with self._lock:
+            self._part_cache[r] = block
+            local = sum(1 for q in range(self.num_partitions)
+                        if self.is_local(q))
+            if len(self._part_cache) == local:
+                self._rows_dev = None       # every partition is on the host
+                freed, self._on_device_free = self._on_device_free, None
+        if freed is not None:
+            freed()
+        return block
+
+    def _fetch_runs(self, dev: torch.Tensor, runs) -> np.ndarray:
+        """The rows of ``runs`` (``(start, n)`` in ``dev``, one shard's
+        ``[cap, W]``) as one host block: on the card, one pinned buffer
+        of exactly those rows."""
+        if not runs:
+            return np.zeros((0, dev.shape[1]), dtype=np.int32)
+        if dev.device.type == "cpu":
+            host = dev.numpy()
+            return host[runs[0][0]:runs[0][0] + runs[0][1]] \
+                if len(runs) == 1 else np.concatenate(
+                    [host[s:s + n] for s, n in runs])
+        buf = torch.empty((sum(n for _, n in runs), dev.shape[1]),
+                          dtype=dev.dtype, pin_memory=True)
+
+        def copy_into():
+            off = 0
+            for s, n in runs:
+                buf[off:off + n].copy_(dev[s:s + n], non_blocking=True)
+                off += n
+
+        self._to_host(copy_into)
+        nbytes = int(buf.numel()) * buf.element_size()
+        with self._lock:
+            self.d2h_bytes += nbytes
+        if self._metrics is not None:
+            self._metrics.inc(C_D2H, float(nbytes))
+        if self._d2h_cb is not None:
+            self._d2h_cb(nbytes)
+        return buf.numpy()
 
     def with_rows(self, rows_dev: torch.Tensor) -> "LazyShuffleReaderResult":
         """A new view over replacement rows ``[P, cap, W]`` with this
@@ -1199,6 +1264,7 @@ class PendingExchangeBase:
 
     def _admit_or_defer(self, admit, on_done) -> None:
         self._result = None
+        self._dead = False
         self._event = None
         self._admit_cb = None
         self._on_done = None
@@ -1243,6 +1309,10 @@ class PendingExchangeBase:
     def result(self):
         if self._result is not None:
             return self._result
+        if self._dead:
+            raise RuntimeError(
+                "exchange handle is dead: a previous result() failed and "
+                "its buffers were released; re-submit the shuffle")
         try:
             if self._admit_cb is not None:
                 # deferred submit: wait for the capacity (TimeoutError
@@ -1252,6 +1322,10 @@ class PendingExchangeBase:
                 self._start()
             res = self._result_inner()
         except BaseException:
+            # a failed exchange keeps nothing on the device: a replay
+            # must not run beside this attempt's buffers
+            self._dead = True
+            self._drop_buffers()
             self._notify(None)
             raise
         # the staged rows and step outputs are no longer needed on the

@@ -47,10 +47,13 @@ handle's distributed seams (``_stage_to_device``, ``_seed_nvalid``,
 ``shuffle/distributed.PendingDistributedTieredShuffle`` overrides them to
 run the same two stages over the shards of several processes.
 
-Not ported here, with the items that bring them: the ``tier.ici`` /
-``tier.dcn`` fault sites and replay (item 7b), the flight records, and
-the JAX package's compiled-step cache key (eager PyTorch compiles
-nothing per shape).
+Each tier's join checks its fault site (``tier.ici`` / ``tier.dcn``,
+:data:`TIER_FAULT_SITES`, the node's ``FaultInjector``) and records a
+``tier_fault`` event naming the tier in the node's flight recorder when
+the join fails; the manager replays the whole exchange under
+``failure.policy=replay``. Not ported: the JAX package's compiled-step
+cache key (eager PyTorch compiles nothing per shape) and its span
+tracer's tier spans.
 
 One deliberate difference from the JAX package: :func:`tier_layouts`
 sizes stage 1's dense wire by the relay capacity stage 1 really pads to,
@@ -72,6 +75,7 @@ from sparkucx_tpu_torch.ops.aggregate import keysort_rows
 from sparkucx_tpu_torch.ops.partition import (blocked_partition_map,
                                               destination_sort, to_device)
 from sparkucx_tpu_torch.parallel.mesh import DCN_AXIS, ICI_AXIS, SliceGrid
+from sparkucx_tpu_torch.runtime.failures import NULL_FLIGHT_RECORDER
 from sparkucx_tpu_torch.runtime.watchdog import current_watchdog
 from sparkucx_tpu_torch.shuffle.alltoall import (ragged_shuffle,
                                                  resolved_wire_impl,
@@ -150,6 +154,10 @@ def resolve_topology(grid: SliceGrid, conf) -> TopologyDescriptor:
                                   dcn_axis=DCN_AXIS, num_slices=S,
                                   per_slice=D)
     return TopologyDescriptor("flat", ici_axis=ICI_AXIS, per_slice=D)
+
+
+# the fault-injection site each tier's join checks
+TIER_FAULT_SITES = {"ici": "tier.ici", "dcn": "tier.dcn"}
 
 
 def tier_timeouts(conf) -> Dict[str, float]:
@@ -428,7 +436,8 @@ class PendingTieredShuffle(PendingExchangeBase):
                  shard_rows, shard_nvalid: np.ndarray, val_shape, val_dtype,
                  device: torch.device, on_done=None, admit=None,
                  wire_seed: int = 0, metrics=None,
-                 timeouts: Optional[Dict[str, float]] = None):
+                 timeouts: Optional[Dict[str, float]] = None,
+                 faults=None, flight=NULL_FLIGHT_RECORDER):
         if not topo.hierarchical:
             raise ValueError(f"a tiered shuffle needs a hier topology, got "
                              f"{topo.kind!r}")
@@ -449,6 +458,8 @@ class PendingTieredShuffle(PendingExchangeBase):
         self._metrics = metrics
         self._wire_seed = int(wire_seed)
         self._timeouts = dict(timeouts or {})
+        self._faults = faults
+        self._flight = flight
         self.tier_walls: Dict[str, float] = {"ici": 0.0, "dcn": 0.0}
         self._t_stage = 0.0
         self._attempt = 0
@@ -520,16 +531,31 @@ class PendingTieredShuffle(PendingExchangeBase):
 
     def _join(self, tier: str) -> bool:
         """Join the tier in flight under its deadline: the overflow
-        verdict every process acts on. The wall from its dispatch
-        accumulates across retries, failures included."""
+        verdict every process acts on. The tier's fault site
+        (``tier.ici`` / ``tier.dcn``) is checked inside the watched wait,
+        so an armed delay counts against this tier's wall and deadline;
+        any failure of the join records a ``tier_fault`` event naming the
+        tier. The wall from its dispatch accumulates across retries,
+        failures included."""
+        faults = self._faults
+
+        def join():
+            if faults is not None:
+                faults.check(TIER_FAULT_SITES[tier])
+            return self._local_overflow()
+
         try:
             # the tier's collectives (stage 2's hop on a distributed
             # node) returned inside its dispatch: this waits on this
             # process's own device work
             mine = current_watchdog().call(
-                self._local_overflow, what=f"hierarchical {tier} exchange",
+                join, what=f"hierarchical {tier} exchange",
                 timeout_ms=float(self._timeouts.get(tier, 0.0)), local=True)
             return self._agree_overflow(tier, mine)
+        except BaseException as e:
+            self._flight.record("tier_fault", tier=tier,
+                                error=repr(e)[:200])
+            raise
         finally:
             self.tier_walls[tier] += (time.perf_counter()
                                       - self._t_stage) * 1e3
@@ -600,7 +626,8 @@ def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
                           shard_rows, shard_nvalid: np.ndarray, val_shape,
                           val_dtype, device: torch.device, on_done=None,
                           admit=None, wire_seed: int = 0, metrics=None,
-                          timeouts: Optional[Dict[str, float]] = None
+                          timeouts: Optional[Dict[str, float]] = None,
+                          faults=None, flight=NULL_FLIGHT_RECORDER
                           ) -> PendingTieredShuffle:
     """Dispatch the two-tier exchange without blocking (the submit/poll
     contract of ``reader.submit_shuffle``).
@@ -608,12 +635,15 @@ def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
     shard_rows   — [P, cap_in, width] fused int32 rows per shard
     shard_nvalid — [P] valid row counts
     wire_seed    — int8 noise base (the manager's exchange sequence
-                   number)"""
+                   number)
+    faults       — the node's FaultInjector (the tier sites), or None
+    flight       — the node's flight recorder (``tier_fault`` events)"""
     return PendingTieredShuffle(topo, plan, shard_rows, shard_nvalid,
                                 val_shape, val_dtype, device,
                                 on_done=on_done, admit=admit,
                                 wire_seed=wire_seed, metrics=metrics,
-                                timeouts=timeouts)
+                                timeouts=timeouts, faults=faults,
+                                flight=flight)
 
 
 def read_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,

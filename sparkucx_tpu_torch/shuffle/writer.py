@@ -15,6 +15,9 @@ and the read path packs straight from the mapped views.
 :meth:`MapOutputWriter.spill` is the same move on demand — the budget
 valve of the external-memory pipelines
 (``workloads.MemoryBudget``).
+
+Fault sites (the node's ``FaultInjector``, ``fault.<site>.*``):
+``publish`` before a commit publishes, ``spill`` before a move to disk.
 """
 
 from __future__ import annotations
@@ -178,8 +181,9 @@ class MapOutputWriter:
     def __init__(self, entry: ShuffleEntry, map_id: int,
                  pool: HostStagingPool, partitioner: str = "hash",
                  bounds=None, spill_dir: Optional[str] = None,
-                 spill_threshold: int = 0, metrics=None):
+                 spill_threshold: int = 0, metrics=None, faults=None):
         self.entry = entry
+        self.faults = faults      # runtime.failures.FaultInjector
         self.map_id = map_id
         self.pool = pool
         self.partitioner = partitioner
@@ -259,6 +263,8 @@ class MapOutputWriter:
         """Append the staged batches to the spill files and return their
         buffers to the pool; counts ``shuffle.spill.bytes`` / ``.count``
         (every spill, threshold or forced, passes here)."""
+        if self.faults is not None:
+            self.faults.check("spill")
         if self._spill is None:
             self._spill = SpillFiles(self._spill_dir, self.entry.shuffle_id,
                                      self.map_id)
@@ -305,6 +311,10 @@ class MapOutputWriter:
     def committed(self) -> bool:
         return self._committed
 
+    @property
+    def released(self) -> bool:
+        return self._released
+
     def commit(self, num_partitions: int) -> np.ndarray:
         """Compute and publish this map output's size row; returns it."""
         if self._committed:
@@ -313,6 +323,8 @@ class MapOutputWriter:
             raise RuntimeError(
                 f"map {self.map_id}: writer was released — its staged rows "
                 f"are gone and it may not publish; first commit wins")
+        if self.faults is not None:
+            self.faults.check("publish")
         with Timer() as t:
             keys, _ = self.materialize()
             if keys.shape[0]:

@@ -14,14 +14,19 @@ consumer's upload counter :data:`C_H2D`, the per-tier wire counter of
 hierarchical reads :data:`C_TIER_BYTES`, and the failure and agreement
 planes of distributed reads (:data:`C_PEER_TIMEOUT`, :data:`C_PROBE_DEAD`,
 :data:`C_AGREE_ROUNDS`, :data:`C_AGREE_DIVERGENCE`,
-:data:`H_AGREE_ROUND`)."""
+:data:`H_AGREE_ROUND`), the replay counters :data:`C_REPLAYS` and
+:data:`C_REPLAY_MS`, the retry histogram :data:`H_RETRY_MS` and each
+read's wall :data:`H_FETCH_WAIT`. A reporter (:meth:`Metrics.add_reporter`,
+the flight recorder's ring) sees every increment and observation."""
 
 from __future__ import annotations
 
 import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict, List
+
+from sparkucx_tpu_torch.utils.logging import get_logger
 
 # payload bytes a reader result pulled device-to-host
 C_D2H = "shuffle.read.d2h.bytes"
@@ -72,6 +77,13 @@ C_PROBE_DEAD = "failure.probe.dead"
 C_AGREE_ROUNDS = "shuffle.agreement.rounds.count"
 C_AGREE_DIVERGENCE = "shuffle.agreement.divergence.count"
 H_AGREE_ROUND = "shuffle.agreement.round_ms"
+# failure.policy=replay: exchange replays executed and the wall the failed
+# attempts burned (ms); each read's wall (ms, failures included); the wall
+# of each failed attempt RetryPolicy.run retried (ms)
+C_REPLAYS = "shuffle.replay.count"
+C_REPLAY_MS = "shuffle.replay.ms"
+H_FETCH_WAIT = "shuffle.read.wait_ms"
+H_RETRY_MS = "failure.retry.ms"
 
 
 def labeled(name: str, **labels) -> str:
@@ -102,10 +114,32 @@ class Metrics:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = defaultdict(float)
         self._histograms: Dict[str, Dict[str, float]] = {}
+        self._reporters: List[Callable[[str, float], None]] = []
+        self._broken: set = set()
+
+    def add_reporter(self, fn: Callable[[str, float], None]) -> None:
+        """Attach ``fn(name, value)``, called on every :meth:`inc` and
+        :meth:`observe`; a reporter that raises is logged once and never
+        reaches the caller."""
+        with self._lock:
+            self._reporters.append(fn)
+
+    def _report(self, name: str, value: float, reporters) -> None:
+        for fn in reporters:
+            try:
+                fn(name, value)
+            except Exception:
+                if id(fn) not in self._broken:
+                    self._broken.add(id(fn))
+                    get_logger("metrics").exception(
+                        "metrics reporter %r raised; further failures "
+                        "from it are silenced", fn)
 
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self._counters[name] += value
+            reporters = list(self._reporters)
+        self._report(name, value, reporters)
 
     def get(self, name: str) -> float:
         with self._lock:
@@ -126,9 +160,16 @@ class Metrics:
             h["sum"] += value
             h["min"] = min(h["min"], value)
             h["max"] = max(h["max"], value)
+            reporters = list(self._reporters)
+        self._report(name, value, reporters)
 
     def histogram(self, name: str) -> Dict[str, float]:
         """The named histogram's summary ({} before its first
         observation)."""
         with self._lock:
             return dict(self._histograms.get(name, {}))
+
+    def histograms(self) -> Dict[str, Dict[str, float]]:
+        """Every histogram's summary, by name."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._histograms.items()}

@@ -217,6 +217,17 @@ def test_two_processes_report_and_partial_views(world2):
         assert res["waved_report"]["waves"] == 2
 
 
+def test_failfast_node_makes_no_replay_group(world2, replay_world):
+    """Only a node started under ``failure.policy=replay`` makes the
+    ``replay.enter`` group; a replay binding on a failfast distributed
+    node is refused at construction."""
+    for res in world2:
+        assert res["replay_group"] is False
+        assert res["replay_refused"].startswith(
+            "ValueError: failure.policy=replay on a distributed node")
+    assert all(res["replay_group"] is True for res in replay_world)
+
+
 def test_two_process_overflow_retries_in_lockstep(world2, jax_flat):
     """Only the last process's receiver overflows; both regrow and retry
     the same number of times, as the JAX package's read of the maps."""
@@ -263,6 +274,84 @@ def test_two_process_tiered_dcn_rows_cross_processes(world2):
         assert ici["cross_exact"] and dcn["cross_exact"]
         assert dcn["payload_rows"] == int(((src // 4) != (dst // 4)).sum())
         assert ici["payload_rows"] == int(((src % 4) != (dst % 4)).sum())
+
+
+# -- the distributed replay (failure.policy=replay) ---------------------------
+@pytest.fixture(scope="module")
+def replay_world():
+    run = run_cluster("torch_cluster_jobs:replay_suite", 2, P, device="cpu",
+                      conf={"spark.shuffle.tpu.failure.policy": "replay"},
+                      timeout_s=240)
+    assert run.attempts in (1, 2) and run.returncodes == [0, 0]
+    return run.results
+
+
+def _jax_dist_replay(maps):
+    """The JAX package's distributed arm (one process, ``dist_mgr``
+    pattern) under replay with one exchange fault: its partitions, report
+    replays and budget spent."""
+    node, mgr = _jax_manager({"spark.shuffle.tpu.failure.policy": "replay"})
+    node.is_distributed = True
+    try:
+        h = jobs.write(mgr, 1, maps, range(len(maps)))
+        node.faults.arm("exchange", fail_count=1)
+        parts = _parts(mgr.read(h))
+        return parts, mgr.report(1).replays, mgr._replay_counts.get(1, 0)
+    finally:
+        node.is_distributed = False
+        mgr.stop()
+        node.close()
+
+
+def test_distributed_collective_replay_one_budget_unit(replay_world,
+                                                       jax_flat):
+    """An exchange fault on every process replays group-wide: each
+    process spends ONE unit, the report counts one replay, and the two
+    partial views hold the JAX package's read of the maps (whose own
+    distributed arm spends one unit too)."""
+    got = _merged(replay_world, "replay")
+    _check(got, jax_flat["plain"], "plain")
+    want_parts, jreplays, jspent = _jax_dist_replay(jobs.float_maps())
+    _check(got, want_parts, "plain")
+    for res in replay_world:
+        rep = res["replay_report"]
+        assert (rep["replays"], rep["spent"], rep["exchange"]) == \
+            (jreplays, jspent, [2, 1]) == (1, 1, [2, 1])
+        assert rep["replay_ms"] > 0
+
+
+def test_distributed_replay_vetoed_on_divergence(replay_world):
+    """Processes with different replay budgets disagree in the
+    ``replay.enter`` round: the replay is vetoed on every process, the
+    fault surfaces typed, and no unit is spent."""
+    for res in replay_world:
+        assert res["vetoed"].startswith("InjectedFault: injected fault at "
+                                        "site 'exchange'")
+        assert res["vetoed_spent"] == 0
+
+
+def test_replay_enter_rides_dedicated_timeout(replay_world, jax_flat):
+    """Both rounds of ``replay.enter`` (header and payload) run on the
+    node's replay group under ``failure.replayAgreeTimeoutMs``, and the
+    replayed read delivers the maps."""
+    _check(_merged(replay_world, "timed"), jax_flat["plain"], "plain")
+    for res in replay_world:
+        assert res["enter_rounds"] == [[1234.0, True], [1234.0, True]]
+
+
+def test_one_armed_fault_fails_typed_within_the_enter_deadline(
+        replay_world):
+    """A fault on process 0 only: its ``replay.enter`` round has no
+    partner, so it fails typed once the enter deadline passes; process 1,
+    inside the exchange its peer never joins, fails typed within the
+    collective fence (or completes). Neither waits past the fence."""
+    first, second = replay_world
+    assert first["one_armed"].startswith("InjectedFault")
+    assert jobs.REPLAY_ENTER_MS <= first["one_armed_ms"] \
+        < jobs.REPLAY_FENCE_MS
+    assert second["one_armed"] == "completed" \
+        or second["one_armed"].startswith("PeerLostError"), second
+    assert second["one_armed_ms"] < 2 * jobs.REPLAY_FENCE_MS
 
 
 # -- one process against the JAX package's distributed arm --------------------
@@ -329,6 +418,29 @@ def test_one_process_matches_jax_distributed(one_rank_world, conf, kw,
         for t, jt in zip(rep.tiers, jrep.tiers):
             assert (t["tier"], t["payload_rows"], t["cross_exact"]) == \
                 (jt["tier"], jt["payload_rows"], jt["cross_exact"])
+
+
+@pytest.mark.parametrize("conf,kw,maps", [
+    ({}, {}, "float"), ({}, {"ordered": True}, "float"),
+    ({}, {"combine": "sum"}, "int"), (WAVES, {}, "float"),
+    (SLICES, {}, "float"), (SLICES, {"combine": "sum"}, "int"),
+    ({"spark.shuffle.tpu.a2a.wire": "int8"}, {}, "float")],
+    ids=["plain", "ordered", "combine_i32", "waved", "slices_plain",
+         "slices_combine", "int8"])
+def test_one_process_report_bytes_match_jax_distributed(one_rank_world,
+                                                        conf, kw, maps):
+    """The distributed report's byte contract: ``payload_bytes``,
+    ``wire_bytes`` and ``pad_ratio`` equal the JAX package's distributed
+    arm's on the same maps (exact)."""
+    m = jobs.int_maps() if maps == "int" else jobs.float_maps()
+    _, rep = _port_dist_read(conf, m, **kw)
+    _, jrep = _jax_read(conf, m, distributed=True, **kw)
+    assert (rep.payload_bytes, rep.wire_bytes, rep.pad_ratio) == \
+        (jrep.payload_bytes, jrep.wire_bytes, jrep.pad_ratio)
+    assert rep.wire == jrep.wire
+    if not conf and not kw:
+        assert (rep.payload_bytes, rep.wire_bytes, rep.pad_ratio) == \
+            (6_400, 102_400, 16.0)
 
 
 @pytest.mark.parametrize("conf", [{}, SLICES])

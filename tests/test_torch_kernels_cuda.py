@@ -1566,3 +1566,114 @@ def test_two_process_combine_segment_reduce_matches_plain(card_world):
     for res in card:
         assert res["combine_launches"] >= 1
         assert res["combine_checks"][sg.KERNEL_NAME]["calls"] >= 1
+
+
+# -- the failure plane and the pool/fetch surface ----------------------------
+def _failure_maps(seed: int, M: int = 8, n: int = 6000, vw: int = 5):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-(1 << 62), 1 << 62, size=M * n, dtype=np.int64)
+    vals = rng.integers(-(1 << 31), 1 << 31, size=(M * n, vw)).astype(
+        np.int32)
+    return keys, vals
+
+
+def _write_maps(svc, sid: int, keys, vals, M: int, R: int):
+    h = svc.register_shuffle(sid, M, R)
+    per = keys.shape[0] // M
+    for m in range(M):
+        svc.write(h, m, keys[m * per:(m + 1) * per],
+                  vals[m * per:(m + 1) * per])
+    return h
+
+
+def _check_oracle(res, keys, vals, R: int) -> None:
+    pid = (hash32_np(keys) % np.uint32(R)).astype(np.int64)
+    for r in range(R):
+        k, v = res.partition(r)
+        want = np.flatnonzero(pid == r)
+        assert sorted(zip(k.tolist(), map(bytes, v))) == \
+            sorted(zip(keys[want].tolist(), map(bytes, vals[want])))
+
+
+def test_replayed_pallas_read_leaves_device_memory_on_card(card):
+    """An exchange fault under ``failure.policy=replay`` and
+    ``a2a.impl=pallas``: the read replays once, the segment move launches
+    once (the fault comes before the dispatch), the partitions equal the
+    oracle, the pool holds only the writers' staging afterwards and the
+    card's allocated bytes return to their value before the read."""
+    import gc
+    M, R = 8, 16
+    keys, vals = _failure_maps(51)
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+            "spark.shuffle.tpu.failure.policy": "replay"}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        h = _write_maps(svc, 1, keys, vals, M, R)
+        warm = svc.read(h)
+        dict(warm.partitions())
+        del warm
+        gc.collect()
+        torch.cuda.synchronize(card)
+        staged = svc.node.pool.stats()["in_use_bytes"]
+        before = torch.cuda.memory_allocated(card)
+        svc.node.faults.arm("exchange", fail_count=1)
+        launches = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+        res = svc.read(h)
+        assert backend.launch_counts()[ra.KERNEL_NAME] == launches + 1
+        rep = svc.report(1)
+        assert (rep.replays, rep.impl) == (1, "pallas")
+        assert svc.node.faults.stats()["exchange"] == (2, 1)
+        _check_oracle(res, keys, vals, R)
+        assert svc.node.pool.stats()["in_use_bytes"] == staged
+        del res
+        gc.collect()
+        torch.cuda.synchronize(card)
+        assert torch.cuda.memory_allocated(card) == before
+        svc.unregister_shuffle(1)
+        assert svc.node.pool.stats()["in_use_bytes"] == 0
+
+
+def test_preallocate_pins_blocks_on_card(card):
+    """``memory.preAllocateBuffers`` on a card node takes page-locked
+    blocks at node start; blocks below ``memory.minAllocationSize`` share
+    one pinned slab, and a ``get`` of that size takes a preallocated
+    block."""
+    conf = {"spark.shuffle.tpu.memory.preAllocateBuffers": "1m:2,4k:3"}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        pool = svc.node.pool
+        st = pool.stats()
+        assert (st["preallocated"], st["free"]) == (5, 5)
+        assert all(b.is_pinned() for b in pool._free)
+        small = [b for b in pool._free if b.numel() == 4096]
+        assert len({b.untyped_storage().data_ptr() for b in small}) == 1
+        got = pool.get(4000)
+        assert got.is_pinned() and pool.stats()["allocated"] == 5
+        pool.put(got)
+    with connect({**conf, "spark.shuffle.tpu.memory.pinned": "false"},
+                 num_shards=8, use_env=False) as svc:
+        assert not any(b.is_pinned() for b in svc.node.pool._free)
+
+
+def test_partition_fetch_moves_only_the_partition_on_card(card):
+    """``io.fetchGranularity=partition``: ``partition(0)`` copies exactly
+    that partition's rows (its bytes in ``d2h_bytes``), equal to the
+    shard-granular read's, and the device rows go once every partition
+    was fetched."""
+    M, R = 8, 16
+    keys, vals = _failure_maps(52)
+    width = 2 + vals.shape[1]
+    views = {}
+    for gran in ("shard", "partition"):
+        conf = {"spark.shuffle.tpu.io.fetchGranularity": gran}
+        with connect(conf, num_shards=8, use_env=False) as svc:
+            res = svc.read(_write_maps(svc, 1, keys, vals, M, R))
+            k0, v0 = res.partition(0)
+            moved = svc.report(1).d2h_bytes
+            if gran == "partition":
+                assert moved == k0.shape[0] * width * 4
+                assert res._rows_dev is not None
+                _check_oracle(res, keys, vals, R)
+                assert res._rows_dev is None
+            else:
+                assert moved > k0.shape[0] * width * 4
+            views[gran] = sorted(zip(k0.tolist(), map(bytes, v0)))
+    assert views["shard"] == views["partition"]

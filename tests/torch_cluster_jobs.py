@@ -109,6 +109,11 @@ def read_suite(ctx) -> dict:
     mine = my_maps(ctx, MAPS)
     fm, im = float_maps(), int_maps()
     out = {"rank": ctx.rank, "shards": svc.node.local_shard_ids}
+    # a failfast node makes no replay group, and refuses a replay binding
+    out["replay_group"] = svc.node.replay_group is not None
+    out["replay_refused"] = _raises(
+        lambda: _manager(ctx, {"spark.shuffle.tpu.failure.policy":
+                               "replay"}), ValueError)
     h = write(svc.manager, 1, fm, mine)
     res = svc.read(h)
     out["plain"] = dump(res)
@@ -250,4 +255,95 @@ def card_reads(ctx) -> dict:
         out["combine"] = dump(svc.read(h, combine="sum"))
     out["combine_launches"] = backend.launch_counts().get(sg.KERNEL_NAME, 0)
     out["combine_checks"] = cap.check("combine")
+    return out
+
+
+REPLAY_FENCE_MS = 3000.0      # the one-armed case's collective fence
+REPLAY_ENTER_MS = 1000.0      # ... and its replay.enter deadline
+
+
+def replay_suite(ctx) -> dict:
+    """The distributed replay (``failure.policy=replay``) on one world:
+    an exchange fault on every process (one budget unit spent group-wide
+    and the maps' partitions delivered), a divergent ``replayBudget``
+    (the ``replay.enter`` round vetoes the replay, no unit spent), the
+    round's dedicated deadline (``failure.replayAgreeTimeoutMs`` on the
+    node's replay group), and last, on a node of its own under a
+    collective fence, a fault on process 0 only: process 0 fails typed
+    within the enter deadline and process 1's read fails typed (its
+    peer never enters the exchange) or completes."""
+    import time
+
+    from sparkucx_tpu_torch.runtime.failures import (InjectedFault,
+                                                     TransientError)
+    from sparkucx_tpu_torch.shuffle import distributed as tdist
+    svc = ctx.svc
+    faults = svc.node.faults
+    mine = my_maps(ctx, MAPS)
+    fm = float_maps()
+    out = {"rank": ctx.rank}
+
+    out["replay_group"] = svc.node.replay_group is not None
+    mr = _manager(ctx, {"spark.shuffle.tpu.failure.policy": "replay"})
+    h = write(mr, 1, fm, mine)
+    faults.arm("exchange", fail_count=1)
+    out["replay"] = dump(mr.read(h))
+    rep = mr.report(1)
+    out["replay_report"] = {"replays": rep.replays,
+                            "replay_ms": rep.replay_ms,
+                            "spent": mr._replay_counts.get(1, 0),
+                            "exchange": list(faults.stats()["exchange"])}
+    mr.unregister_shuffle(1)
+    mr.stop()
+
+    mv = _manager(ctx, {"spark.shuffle.tpu.failure.policy": "replay",
+                        "spark.shuffle.tpu.failure.replayBudget":
+                            str(2 + ctx.rank)})
+    h = write(mv, 2, fm, mine)
+    faults.arm("exchange", fail_count=1)
+    out["vetoed"] = _raises(lambda: mv.read(h), InjectedFault)
+    out["vetoed_spent"] = mv._replay_counts.get(2, 0)
+    mv.unregister_shuffle(2)
+    mv.stop()
+
+    mt = _manager(ctx, {"spark.shuffle.tpu.failure.policy": "replay",
+                        "spark.shuffle.tpu.failure.replayAgreeTimeoutMs":
+                            "1234"})
+    h = write(mt, 3, fm, mine)
+    seen = []
+    real = tdist.allgather_blob
+
+    def gather(payload, what="", timeout_ms=None, group=None):
+        if "replay.enter" in what:
+            seen.append([timeout_ms, group is svc.node.replay_group])
+        return real(payload, what=what, timeout_ms=timeout_ms, group=group)
+
+    tdist.allgather_blob = gather
+    try:
+        faults.arm("exchange", fail_count=1)
+        out["timed"] = dump(mt.read(h))
+    finally:
+        tdist.allgather_blob = real
+    out["enter_rounds"] = seen
+    mt.unregister_shuffle(3)
+    mt.stop()
+
+    # the groups of this last node are left broken: no teardown
+    ctx.orphaned = True
+    fenced = ctx.connect({
+        "spark.shuffle.tpu.failure.policy": "replay",
+        "spark.shuffle.tpu.failure.collectiveTimeoutMs":
+            str(REPLAY_FENCE_MS),
+        "spark.shuffle.tpu.failure.replayAgreeTimeoutMs":
+            str(REPLAY_ENTER_MS)})
+    h = write(fenced.manager, 4, fm, mine)
+    if ctx.rank == 0:
+        fenced.node.faults.arm("exchange", fail_count=1)
+    t0 = time.monotonic()
+    try:
+        fenced.read(h)
+        out["one_armed"] = "completed"
+    except (TransientError, RuntimeError) as e:
+        out["one_armed"] = f"{type(e).__name__}: {e}"[:300]
+    out["one_armed_ms"] = (time.monotonic() - t0) * 1e3
     return out
