@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             8 logical shards, ``a2a.impl=pallas``. Every partition's
             count and (key, value) multiset is checked against a numpy
             oracle built here from the same seed. The kernel is then
-            timed at the shapes this read gave it.
+            timed at the shapes this read gave it. Under the default
+            ``integrity.verify=staged`` (every phase runs it) each commit
+            publishes a checksum record and each read re-verifies every
+            staged byte before the exchange; the line prints the
+            report's ``integrity`` and ``integrity_bytes``.
 5. skew   — 1,048,576 Zipf(1.1) keys under capacityFactor 0.5: the first
             attempt overflows, the regrow delivers; checked against the
             oracle as well.
@@ -134,6 +138,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             oracle; under ``a2a.impl=pallas`` a plain ``sink="device"``
             read (ragged_a2a 1, D2H 0) must hold each shard's rows for its
             partitions, exactly, in ``device_rows()[p, :totals[p]]``.
+            Both reads print their report's ``integrity`` and
+            ``integrity_bytes`` (the default staged verify).
 19. flash_kernels — the three flash-attention kernels (forward, dq, dk/dv)
             against their plain versions on the card: T in {1, 33, 97,
             130, 256, 1000} x D in {8, 32, 64, 128} x causal / not x BH
@@ -319,8 +325,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             hop's wall, retries and peak device bytes. In the same world:
             dist_replay (main's maps under ``failure.policy=replay`` with
             an ``exchange`` fault armed on both workers: each replays
-            once and spends one budget unit, the digests equal main's)
-            and last dist_one_armed (on a node of its own under
+            once and spends one budget unit, the digests equal main's),
+            dist_full (main's maps at ``integrity.verify=full``: the
+            digest tables all-gathered before the plan, both workers
+            report ``integrity == "full"`` and main's digests) and last
+            dist_one_armed (on a node of its own under
             ``failure.collectiveTimeoutMs=6000`` and
             ``failure.replayAgreeTimeoutMs=2000``, the fault armed on
             worker 0 only: worker 0 raises ``InjectedFault`` within the
@@ -362,6 +371,39 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             flight recorder on: a ``tier_fault`` naming dcn in the ring,
             one replay, partitions equal to a fault-free read's that drew
             the same int8 noise, the quantize launches of both).
+37. integrity — the integrity and durability plane on main's records:
+            integrity_levels (main's shuffle on a fresh ``pallas`` node at
+            each of ``integrity.verify=off``, ``staged`` and ``full``,
+            beside main's own read: the 64 commits' wall, the read's
+            wall, pack, ``integrity`` and ``integrity_bytes``, the staged
+            verify's wall and the post-exchange verify's at ``full``;
+            main's digests and main's segment move launches at every
+            level), integrity_corrupt (an eighth
+            of main's records: ``fault.corrupt.staged.failCount=1`` under
+            failfast raises ``BlockCorruptionError`` naming map 0's
+            staged arena before any launch, with a ``block_corruption``
+            ring event, and a clean re-read equals the oracle; the same
+            fault under replay costs one replay; ``corrupt.spill`` on
+            spilled writers is found through the mapped views, one
+            replay, the file's crc32 as before), integrity_modes
+            (waved_combine's device-sink read at ``full``: the merged
+            view's key lanes sampled, ``integrity_bytes`` = staged + 8 B
+            a delivered row, ``d2h_bytes`` = the sample, the merge 4 and
+            the segment reduce at least 9 launches; a combine host read
+            at ``full`` verifies the staged bytes only; the int8 plain
+            host read at ``full`` of an eighth of int8_plain's rows
+            verifies key-only digests, the quantize once; each against
+            its phase's oracle) and restart_drill (a ``spawn`` child
+            loads the built kernels, commits main's 64 maps under
+            ``failure.ledgerDir`` and SIGKILLs itself; no ``*.tmp``, 64
+            sealed ``.keys``; a fresh node recovers all 64 maps — the
+            scan's wall —, adopts them, refuses a second writer, reads
+            main's digests at ``staged`` with the pool's bytes in use
+            unchanged; a flipped byte in map 17's ``.vals`` quarantines
+            it alone at the next restart, the report names it, only it
+            is written again and the read gives main's digests;
+            ``unregister_shuffle`` removes the directory; the durable
+            commits' wall beside main's).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -372,7 +414,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed, faults.
+dlpack, distributed, faults, integrity.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -389,10 +431,14 @@ above; hier_int8: the quantize exactly as above; distributed: in each
 worker, per read, the merge, the segment reduce, the fused reduce and
 the quantize as above; faults: the segment move in faults_single
 exactly main's count, the merge and the segment reduce in faults_waved
-and the quantize in faults_tiered as above). The ``kernels`` line gives
-the launches in the faults phase (``faults_launches``) of the four
-kernels it drives (the segment move, the merge, the segment reduce and
-the quantize); the others carry no such key. The
+and the quantize in faults_tiered as above; integrity: the segment move
+in each level's read exactly main's count, and in every other read of
+the phase once, the merge, the segment reduce and the quantize in
+integrity_modes as above). The ``kernels`` line gives the launches in
+the faults phase (``faults_launches``) and in the integrity phase
+(``integrity_launches``) of the four kernels they drive (the segment
+move, the merge, the segment reduce and the quantize); the others carry
+no such key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
@@ -2323,7 +2369,9 @@ def default_conf_phase(dev) -> dict:
         check_against_oracle([hv.partition(r) for r in range(PARTITIONS)],
                              keys, values, PARTITIONS)
         out["waved_device"] = {"waves": rep.waves, "impl": rep.impl,
-                               "read_ms": read_ms, "launches": launches}
+                               "read_ms": read_ms, "launches": launches,
+                               "integrity": rep.integrity,
+                               "integrity_bytes": rep.integrity_bytes}
     with connect({"spark.shuffle.tpu.a2a.impl": "pallas"},
                  num_shards=SHARDS, use_env=False) as svc:
         h = write_maps(svc, 41, keys, values, MAPS)
@@ -2354,6 +2402,8 @@ def default_conf_phase(dev) -> dict:
                                  f"not the rows written for it")
     out["pallas_device"] = {"impl": rep.impl, "read_ms": read_ms,
                             "launches": launches,
+                            "integrity": rep.integrity,
+                            "integrity_bytes": rep.integrity_bytes,
                             "totals": [int(x) for x in totals]}
     return {**out, "ok": True}
 
@@ -4600,6 +4650,18 @@ def dist_worker(ctx) -> dict:
     del parts
     mr.unregister_shuffle(76)
     mr.stop()
+    # dist_full: main's maps at integrity.verify=full (the digest tables
+    # all-gathered before the plan, every local partition verified after)
+    mf = _dist_manager(ctx, {PFX + "integrity.verify": "full"})
+    h = _own_maps(mf, 78, keys, values, mine)
+    parts, st = dist_read(mf, h, dev)
+    rep = mf.report(78)
+    st.update(digests=partition_digests(parts), integrity=rep.integrity,
+              integrity_bytes=rep.integrity_bytes)
+    out["dist_full"] = st
+    del parts
+    mf.unregister_shuffle(78)
+    mf.stop()
     # dist_hier: the slice boundary is the process boundary
     with ctx.connect({"spark.shuffle.tpu.mesh.numSlices":
                       str(ctx.nprocs)}) as hsvc:
@@ -4750,7 +4812,7 @@ def dist_phase(dev, main_digests: dict) -> dict:
                     "attempts": run.attempts,
                     "shards": [r["shards"] for r in results],
                     "maps": [r["maps"] for r in results]}
-    names = ("dist_plain", "dist_replay", "dist_hier",
+    names = ("dist_plain", "dist_replay", "dist_full", "dist_hier",
              "dist_waved_ordered_device", "dist_waved_ordered_host",
              "dist_combine", "dist_int8", "dist_int8_combine")
     for name in names:
@@ -4763,6 +4825,7 @@ def dist_phase(dev, main_digests: dict) -> dict:
             raise AssertionError(f"{name}: not a dense distributed read")
     for name, want in (("dist_plain", main_digests),
                        ("dist_replay", main_digests),
+                       ("dist_full", main_digests),
                        ("dist_int8", int8_digests)):
         got = {}
         for res in results:
@@ -4782,6 +4845,11 @@ def dist_phase(dev, main_digests: dict) -> dict:
         if not (dev_st["waves"] == 5 and dev_st["d2h_before_views"] == 0
                 and dev_st["sink"] == "device"):
             raise AssertionError(f"dist_waved_ordered_device: {dev_st}")
+    for res in results:
+        st = res["dist_full"]
+        if st["integrity"] != "full":
+            raise AssertionError(f"dist_full (worker {res['rank']}): "
+                                 f"integrity {st['integrity']!r}")
     for res in results:
         st = res["dist_replay"]
         if not (st["replays"] == 1 and st["spent"] == 1
@@ -4830,6 +4898,9 @@ def dist_phase(dev, main_digests: dict) -> dict:
                      "peak_device_bytes": _both(results, name,
                                                 "peak_device_bytes"),
                      "ok": True}
+    out["dist_full"].update(
+        integrity=_both(results, "dist_full", "integrity"),
+        integrity_bytes=_both(results, "dist_full", "integrity_bytes"))
     out["dist_replay"].update(
         replays=_both(results, "dist_replay", "replays"),
         spent=_both(results, "dist_replay", "spent"),
@@ -4866,13 +4937,15 @@ def wave_fault_seed(num_maps: int, num_waves: int,
     ``fault.wave.failRate=rate`` lets a waved read's first attempt pass,
     fails its second at its middle wave and lets the replay pass — by
     the port's own FaultInjector over the sites such a node checks in
-    order (a commit per map, then per attempt the fetch, the exchange and
-    one check per wave until one fires)."""
+    order (a commit per map, then per attempt the fetch, each map's
+    ``corrupt.staged`` site at the default staged verify, the exchange
+    and one check per wave until one fires)."""
     from sparkucx_tpu_torch.config import ShuffleConf
     from sparkucx_tpu_torch.runtime.failures import (FaultInjector,
                                                      InjectedFault)
     target = num_waves // 2
-    attempt = ["fetch", "exchange"] + ["wave"] * num_waves
+    head = ["fetch"] + ["corrupt.staged"] * num_maps + ["exchange"]
+    attempt = head + ["wave"] * num_waves
     for seed in range(1, 1 << 20):
         fi = FaultInjector(ShuffleConf({PFX + "fault.wave.failRate":
                                         str(rate), PFX + "fault.seed":
@@ -4885,7 +4958,7 @@ def wave_fault_seed(num_maps: int, num_waves: int,
                 try:
                     fi.check(site)
                 except InjectedFault:
-                    fired.append((n, i - 2))
+                    fired.append((n, i - len(head)))
                     break
         if fired == [(1, target)]:
             return seed, target
@@ -5260,6 +5333,491 @@ def faults_phase(dev, main_digests: dict, main_launches: int) -> dict:
     return out
 
 
+# -- the integrity and durability plane (shuffle/integrity.py,
+# shuffle/durable.py): the verify levels, the corrupt sites, the modes'
+# verdicts and the restart drill --------------------------------------------
+CORRUPT_OFFSET = 4097          # the corrupt sites' byte
+RESTART_SID = 110
+RESTART_QUARANTINED_MAP = 17
+
+
+def _timed_method(mgr, name: str, walls: list) -> None:
+    """Record the wall (ms) of each call of ``mgr``'s method ``name``
+    (its callers look it up on the instance at call time)."""
+    real = getattr(mgr, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(mgr, name, timed)
+
+
+def integrity_levels(dev, keys, values, main_digests: dict,
+                     main_launches: int, main_line: dict) -> dict:
+    """main's shuffle on a fresh ``a2a.impl=pallas`` node at each
+    ``integrity.verify`` level (``off``, ``staged`` — the default — and
+    ``full``; each node reads a small warm-up shuffle first), beside
+    main's own read: the 64 commits' wall, the read's wall, pack and
+    verified bytes, the staged verify's wall and, at ``full``, the
+    post-exchange verify's, and the segment move's launches. Every
+    level's partitions give main's digests and launch the segment move
+    as often as main."""
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    payload = int(keys.nbytes + values.nbytes)
+    out = {"phase": "integrity_levels", "main": {
+        "commit_s": main_line["main_write_s"],
+        "read_ms": main_line["main_read_ms"],
+        "pack_ms": main_line["main_pack_ms"],
+        "integrity": main_line["main_integrity"],
+        "integrity_bytes": main_line["main_integrity_bytes"],
+        "launches": main_launches}}
+    if (out["main"]["integrity"], out["main"]["integrity_bytes"]) != \
+            ("staged", payload):
+        raise AssertionError(f"main's staged verify: {out['main']}")
+    wk, wv = make_records(1 << 16, zipf=False, seed=SEED + 1)
+    want = {"off": ("", 0), "staged": ("staged", payload),
+            "full": ("full", 2 * payload)}
+    for level in ("off", "staged", "full"):
+        with connect({PFX + "a2a.impl": "pallas",
+                      PFX + "integrity.verify": level},
+                     num_shards=SHARDS, use_env=False) as svc:
+            drive_read(svc, write_maps(svc, 1, wk, wv, 8))
+            svc.unregister_shuffle(1)
+            walls, staged_walls = [], []
+            _timed_method(svc.manager, "_verify_full_result", walls)
+            _timed_method(svc.manager, "_verified_materialize", staged_walls)
+            t = time.perf_counter()
+            h = write_maps(svc, 111, keys, values, MAPS)
+            commit_s = time.perf_counter() - t
+            backend.reset_launch_counts()
+            parts, read_ms, views_ms = drive_read(svc, h)
+            launches = backend.launch_counts().get(A2A, 0)
+            rep = svc.report(111)
+            same = partition_digests(parts) == main_digests
+            del parts
+            svc.unregister_shuffle(111)
+        st = {"commit_s": commit_s, "read_ms": read_ms,
+              "views_ms": views_ms, "pack_ms": rep.pack_ms,
+              "integrity": rep.integrity,
+              "integrity_bytes": rep.integrity_bytes,
+              "staged_verify_ms": staged_walls, "verify_ms": walls,
+              "launches": launches}
+        if not (same and launches == main_launches
+                and (rep.integrity, rep.integrity_bytes) == want[level]
+                and len(staged_walls) == (level != "off")
+                and len(walls) == (level == "full")):
+            raise AssertionError(f"integrity_levels ({level}): digests "
+                                 f"equal {same}, {st}")
+        out[level] = st
+    return {**out, "ok": True}
+
+
+def integrity_corrupt(dev, keys, values) -> dict:
+    """The corrupt sites on an eighth of main's records: a
+    ``corrupt.staged`` flip under failfast raises ``BlockCorruptionError``
+    naming map 0's staged arena with a ``block_corruption`` ring event
+    and no launch, and a clean re-read equals the oracle; the same flip
+    under replay costs one replay; a ``corrupt.spill`` flip on spilled
+    writers is found through the mapped views and undone (the file's
+    crc32 as before)."""
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    from sparkucx_tpu_torch.runtime.failures import BlockCorruptionError
+    from sparkucx_tpu_torch.shuffle.integrity import crc32_file
+    from sparkucx_tpu_torch.utils.metrics import C_INTEGRITY_CORRUPT_BLOCKS
+    n = FAULT_SMALL_RECORDS
+    sk, sv = keys[:n], values[:n]
+    staged = {PFX + "fault.corrupt.staged.failCount": "1",
+              PFX + "fault.corrupt.staged.offset": str(CORRUPT_OFFSET)}
+    base = {PFX + "a2a.impl": "pallas"}
+    out = {"phase": "integrity_corrupt", "records": n}
+    launches = 0
+    root = tempfile.mkdtemp(prefix="chip_smoke_integrity_")
+    try:
+        conf = {**base, **staged, PFX + "flightRecorder.enabled": "true",
+                PFX + "flightRecorder.dir": os.path.join(root, "flight")}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = write_maps(svc, 120, sk, sv, MAPS)
+            backend.reset_launch_counts()
+            try:
+                svc.read(h)
+                raise AssertionError("corrupt.staged: the read returned")
+            except BlockCorruptionError as e:
+                msg = str(e)
+            failed_launches = backend.launch_counts().get(A2A, 0)
+            events = [e for e in svc.node.flight.events()
+                      if e["kind"] == "block_corruption"]
+            parts, read_ms, _ = drive_read(svc, h)
+            check_against_oracle(parts, sk, sv, PARTITIONS)
+            del parts
+            launches += backend.launch_counts().get(A2A, 0)
+            svc.unregister_shuffle(120)
+        block = "map 0 (map 0 staged arena)"
+        if not (block in msg and failed_launches == 0 and len(events) == 1
+                and events[0]["block"] == block):
+            raise AssertionError(f"corrupt.staged failfast: {msg!r}, "
+                                 f"{failed_launches} launches, {events}")
+        out["failfast"] = {"error": msg[:200], "block": events[0]["block"],
+                           "launches_before_raise": failed_launches,
+                           "reread_ms": read_ms}
+        with connect({**base, **staged, **REPLAY_CONF}, num_shards=SHARDS,
+                     use_env=False) as svc:
+            h = write_maps(svc, 121, sk, sv, MAPS)
+            backend.reset_launch_counts()
+            parts, read_ms, _ = drive_read(svc, h)
+            got = backend.launch_counts().get(A2A, 0)
+            launches += got
+            check_against_oracle(parts, sk, sv, PARTITIONS)
+            del parts
+            rep = svc.report(121)
+            blocks = svc.node.metrics.get(C_INTEGRITY_CORRUPT_BLOCKS)
+            svc.unregister_shuffle(121)
+        if not (rep.replays == 1 and got == 1 and blocks == 1):
+            raise AssertionError(f"corrupt.staged replay: replays "
+                                 f"{rep.replays}, launches {got}, blocks "
+                                 f"{blocks}")
+        out["replay"] = {"replays": rep.replays, "replay_ms": rep.replay_ms,
+                         "read_ms": read_ms, "launches": got}
+        sdir = os.path.join(root, "spill")
+        conf = {**base, **REPLAY_CONF, PFX + "spill.threshold": "1m",
+                PFX + "spill.dir": sdir,
+                PFX + "fault.corrupt.spill.failCount": "1",
+                PFX + "fault.corrupt.spill.offset": str(CORRUPT_OFFSET)}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = write_maps(svc, 122, sk, sv, MAPS)
+            path = os.path.join(sdir, "shuffle_122_map_0.keys")
+            crc0 = crc32_file(path)
+            backend.reset_launch_counts()
+            parts, read_ms, _ = drive_read(svc, h)
+            got = backend.launch_counts().get(A2A, 0)
+            launches += got
+            check_against_oracle(parts, sk, sv, PARTITIONS)
+            del parts
+            rep = svc.report(122)
+            fired = svc.node.faults.stats()["corrupt.spill"][1]
+            spilled = svc.stats()["shuffle.spill.count"]
+            undone = crc32_file(path) == crc0
+            svc.unregister_shuffle(122)
+        if not (rep.replays == 1 and fired == 1 and undone and got == 1
+                and spilled >= MAPS):
+            raise AssertionError(f"corrupt.spill: replays {rep.replays}, "
+                                 f"fired {fired}, undone {undone}, "
+                                 f"launches {got}, spills {spilled}")
+        out["spill"] = {"replays": rep.replays, "read_ms": read_ms,
+                        "spills": spilled, "crc32_restored": undone,
+                        "launches": got}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {**out, "launches": {A2A: launches}, "ok": True}
+
+
+def integrity_modes(dev) -> dict:
+    """The full level's verdict per read mode: waved_combine's device-sink
+    read samples the merged view's key lanes (``integrity_bytes`` = the
+    staged bytes + 8 B a delivered row, ``d2h_bytes`` = the sampled
+    copy); the int8 plain host read verifies key-only digests; a combine
+    host read verifies the staged bytes only (the report names the
+    configured level, as the JAX package's does). Each against its
+    phase's oracle."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops import quant as tq
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    full = {PFX + "integrity.verify": "full"}
+    out = {"phase": "integrity_modes"}
+    ck, cv = make_combine_records(RECORDS, SEED + 4)
+    staged = int(ck.nbytes + cv.nbytes)
+    uk, sums, _ = group_oracle(ck, cv)
+    want = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    conf = {**WAVE_CONF, PFX + "read.mergeImpl": "auto", **full}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        walls = []
+        _timed_method(svc.manager, "_verify_full_result", walls)
+        h = write_maps(svc, 130, ck, cv, MAPS)
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = svc.read(h, combine="sum", sink="device")
+        torch.cuda.synchronize(dev)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        launches = backend.launch_counts()
+        rep = svc.report(130)
+        rows = res.device_rows()
+        delivered = int(res.device_totals().sum())
+        sampled = rows.shape[0] * rows.shape[1] * 8
+        st = {"read_ms": read_ms, "waves": rep.waves, "merge_ms":
+              rep.merge_ms, "integrity": rep.integrity,
+              "integrity_bytes": rep.integrity_bytes,
+              "d2h_bytes": rep.d2h_bytes, "verify_ms": walls,
+              "launches": launches}
+        del rows
+        hv = res.host_view()
+        gk, gv = combined_rows([hv.partition(r) for r in range(PARTITIONS)],
+                               PARTITIONS, lambda k: hash_pid(k, PARTITIONS))
+        del hv, res
+        svc.unregister_shuffle(130)
+    if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+        raise AssertionError("integrity_modes (waved device combine): sums "
+                             "differ from the oracle")
+    if not (rep.waves == 5 and rep.integrity == "full"
+            and rep.integrity_bytes == staged + 8 * delivered
+            and st["d2h_bytes"] == sampled
+            and launches.get(sg.MERGE_KERNEL_NAME, 0) == 4
+            and launches.get(sg.KERNEL_NAME, 0) >= 9):
+        raise AssertionError(f"integrity_modes (waved device combine): "
+                             f"{st}, staged {staged}, delivered "
+                             f"{delivered}, sampled {sampled}")
+    out["waved_combine_device"] = st
+    # a combine host read: the staged verify only
+    conf = {PFX + "a2a.impl": "pallas", PFX + "read.mergeImpl": "auto",
+            **full}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 132, ck, cv, MAPS)
+        backend.reset_launch_counts()
+        parts, read_ms, views_ms = drive_read(svc, h, combine="sum")
+        claunches = backend.launch_counts()
+        crep = svc.report(132)
+        gk, gv = combined_rows(parts, PARTITIONS,
+                               lambda k: hash_pid(k, PARTITIONS))
+        del parts
+        svc.unregister_shuffle(132)
+    if not (np.array_equal(gk, uk) and np.array_equal(gv, want)):
+        raise AssertionError("integrity_modes (combine host): sums differ")
+    if not ((crep.integrity, crep.integrity_bytes) == ("full", staged)
+            and claunches.get(sg.KERNEL_NAME, 0) >= 1):
+        raise AssertionError(f"integrity_modes (combine host): "
+                             f"{crep.integrity} {crep.integrity_bytes} B "
+                             f"(staged {staged}), launches {claunches}")
+    out["combine_host"] = {"read_ms": read_ms, "integrity": crep.integrity,
+                           "integrity_bytes": crep.integrity_bytes,
+                           "launches": claunches}
+    del ck, cv, uk, sums, want, gk, gv
+    # the int8 plain host read: key-only digests
+    n8 = INT8_RECORDS // 8
+    ikeys, grads = make_embedding_grads(n8, SEED + 11)
+    conf = {PFX + "a2a.impl": "pallas", PFX + "a2a.wire": "int8", **full}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        walls = []
+        _timed_method(svc.manager, "_verify_full_result", walls)
+        h = write_maps(svc, 131, ikeys, grads, MAPS)
+        backend.reset_launch_counts()
+        parts, read_ms, views_ms = drive_read(svc, h)
+        ilaunches = backend.launch_counts()
+        irep = svc.report(131)
+        svc.unregister_shuffle(131)
+    ipid = hash_pid(ikeys, PARTITIONS)
+    for r in range(PARTITIONS):
+        if not np.array_equal(np.sort(parts[r][0]), np.sort(ikeys[ipid == r])):
+            raise AssertionError(f"integrity_modes (int8): partition {r} "
+                                 f"keys differ")
+    del parts
+    istaged = int(ikeys.nbytes + grads.nbytes)
+    if not (irep.wire == "int8" and irep.integrity == "full"
+            and irep.integrity_bytes == istaged + int(ikeys.nbytes)
+            and ilaunches.get(tq.KERNEL_NAME, 0) == 1 + irep.retries
+            and ilaunches.get(A2A, 0) == 1 + irep.retries):
+        raise AssertionError(f"integrity_modes (int8): {irep.wire} "
+                             f"{irep.integrity} {irep.integrity_bytes} B, "
+                             f"launches {ilaunches}")
+    out["int8_plain_host"] = {"records": n8, "read_ms": read_ms,
+                              "integrity": irep.integrity,
+                              "integrity_bytes": irep.integrity_bytes,
+                              "verify_ms": walls, "launches": ilaunches}
+    out["launches"] = {k: launches.get(k, 0) + claunches.get(k, 0)
+                       + ilaunches.get(k, 0)
+                       for k in (A2A, sg.MERGE_KERNEL_NAME, sg.KERNEL_NAME,
+                                 tq.KERNEL_NAME)}
+    return {**out, "ok": True}
+
+
+def restart_child(ledger: str, conn) -> None:
+    """The restart drill's writer (a ``spawn`` child): it loads the
+    kernel library the parent built, connects on the card under
+    ``failure.ledgerDir=ledger``, writes and commits main's 64 maps,
+    sends its figures and kills itself with SIGKILL — no ``stop()``, no
+    ``close()``."""
+    import signal
+
+    from sparkucx_tpu_torch import backend, connect
+    t = time.perf_counter()
+    backend.kernel_library()
+    load_s = time.perf_counter() - t
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    svc = connect({PFX + "failure.ledgerDir": ledger}, num_shards=SHARDS,
+                  use_env=False)
+    t = time.perf_counter()
+    write_maps(svc, RESTART_SID, keys, values, MAPS)
+    commit_s = time.perf_counter() - t
+    conn.send({"commit_s": commit_s, "kernel_load_s": load_s,
+               "rebuilt": bool(backend.build_log),
+               "launches": backend.launch_counts(),
+               "device": str(svc.node.device)})
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def restart_drill(dev, keys, values, main_digests: dict,
+                  staged_commit_s: float) -> dict:
+    """A real crash and restart on the durable ledger: a ``spawn`` child
+    commits main's 64 maps durably and is SIGKILLed; the directory holds
+    64 sealed ``.keys`` and no ``*.tmp``; a fresh node on it recovers all
+    64 maps (the scan's wall), adopts them with zero recompute (a second
+    ``get_writer`` refuses) and reads main's digests at the staged level
+    from the mapped files; one flipped byte in map 17's ``.vals``
+    quarantines that map alone at the next restart, and only it is
+    written again; ``unregister_shuffle`` removes the directory."""
+    import glob
+    import json as _json
+    import multiprocessing as mp
+    import signal
+
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as A2A
+    from sparkucx_tpu_torch.shuffle.durable import ShuffleLedger
+    from sparkucx_tpu_torch.utils.metrics import C_INTEGRITY_RECOVERED
+    out = {"phase": "restart_drill"}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ledger_")
+    ledger = os.path.join(root, "ledger")
+    sdir = os.path.join(ledger, f"shuffle_{RESTART_SID}")
+    conf = {PFX + "a2a.impl": "pallas", PFX + "failure.ledgerDir": ledger}
+    scans = []
+    real_scan = ShuffleLedger.scan
+
+    def timed_scan(self):
+        t0 = time.perf_counter()
+        try:
+            return real_scan(self)
+        finally:
+            scans.append((time.perf_counter() - t0) * 1e3)
+
+    ShuffleLedger.scan = timed_scan
+    launches = 0
+    try:
+        ctx = mp.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=restart_child, args=(ledger, send))
+        t = time.perf_counter()
+        proc.start()
+        send.close()
+        try:
+            child = recv.recv()
+        finally:
+            proc.join(120)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        out["child"] = {**child, "exitcode": proc.exitcode,
+                        "seconds": time.perf_counter() - t}
+        tmp = glob.glob(os.path.join(sdir, "*.tmp"))
+        sealed = glob.glob(os.path.join(sdir, "*.keys"))
+        if not (proc.exitcode == -signal.SIGKILL and not child["rebuilt"]
+                and not child["launches"] and not tmp
+                and len(sealed) == MAPS):
+            raise AssertionError(f"restart child: {out['child']}, tmp "
+                                 f"{tmp}, {len(sealed)} sealed")
+        want = {RESTART_SID: {"intact": list(range(MAPS)),
+                              "quarantined": []}}
+        t = time.perf_counter()
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            connect_s = time.perf_counter() - t
+            recovered = svc.recovered_shuffles()
+            h = svc.register_shuffle(RESTART_SID, MAPS, PARTITIONS)
+            try:
+                svc.writer(h, 0)
+                refused = ""
+            except RuntimeError as e:
+                refused = str(e)
+            in_use0 = svc.node.pool.stats()["in_use_bytes"]
+            backend.reset_launch_counts()
+            parts, read_ms, views_ms = drive_read(svc, h)
+            got = backend.launch_counts().get(A2A, 0)
+            launches += got
+            rep = svc.report(RESTART_SID)
+            same = partition_digests(parts) == main_digests
+            del parts
+            in_use1 = svc.node.pool.stats()["in_use_bytes"]
+            count = svc.node.metrics.get(C_INTEGRITY_RECOVERED)
+        st = {"connect_s": connect_s, "scan_ms": list(scans),
+              "recovered": {str(k): {"intact": len(v["intact"]),
+                                     "quarantined": v["quarantined"]}
+                            for k, v in recovered.items()},
+              "read_ms": read_ms, "views_ms": views_ms,
+              "pack_ms": rep.pack_ms, "integrity": rep.integrity,
+              "integrity_bytes": rep.integrity_bytes,
+              "recovered_count": count, "launches": got,
+              "pool_in_use": [in_use0, in_use1]}
+        if not (recovered == want and "already committed" in refused
+                and same and rep.integrity == "staged" and count == MAPS
+                and got == 1 and in_use1 == in_use0):
+            raise AssertionError(f"restart (adopt): {st}, refused "
+                                 f"{refused!r}, digests equal {same}")
+        out["adopt"] = st
+        # rot one sealed block between restarts
+        vpath = os.path.join(
+            sdir, f"shuffle_{RESTART_SID}_map_{RESTART_QUARANTINED_MAP}.vals")
+        with open(vpath, "r+b") as f:
+            f.seek(CORRUPT_OFFSET)
+            b = f.read(1)
+            f.seek(CORRUPT_OFFSET)
+            f.write(bytes([b[0] ^ 0xFF]))
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            recovered = svc.recovered_shuffles()
+            with open(os.path.join(ledger, "quarantine_report.json")) as f:
+                report = [(b["shuffle_id"], b["map_id"])
+                          for b in _json.load(f)["blocks"]]
+            h = svc.register_shuffle(RESTART_SID, MAPS, PARTITIONS)
+            missing = [m for m in range(MAPS) if not h.entry.present(m)]
+            per = -(-keys.shape[0] // MAPS)
+            sl = slice(RESTART_QUARANTINED_MAP * per,
+                       (RESTART_QUARANTINED_MAP + 1) * per)
+            svc.write(h, RESTART_QUARANTINED_MAP, keys[sl], values[sl])
+            backend.reset_launch_counts()
+            parts, qread_ms, _ = drive_read(svc, h)
+            got = backend.launch_counts().get(A2A, 0)
+            launches += got
+            same = partition_digests(parts) == main_digests
+            del parts
+            svc.unregister_shuffle(RESTART_SID)
+            gone = not os.path.exists(sdir)
+        q = RESTART_QUARANTINED_MAP
+        want = {RESTART_SID: {"intact": [m for m in range(MAPS) if m != q],
+                              "quarantined": [q]}}
+        st = {"scan_ms": scans[-1], "quarantined": [q],
+              "report": report, "missing": missing, "read_ms": qread_ms,
+              "launches": got, "directory_removed": gone}
+        if not (recovered == want and report == [(RESTART_SID, q)]
+                and missing == [q] and same and gone and got == 1):
+            raise AssertionError(f"restart (quarantine): {st}, recovered "
+                                 f"{recovered}, digests equal {same}")
+        out["quarantine"] = st
+    finally:
+        ShuffleLedger.scan = real_scan
+        shutil.rmtree(root, ignore_errors=True)
+    out["commits"] = {"durable_s": out["child"]["commit_s"],
+                      "staged_s": staged_commit_s}
+    return {**out, "launches": {A2A: launches}, "ok": True}
+
+
+def integrity_phase(dev, main_digests: dict, main_launches: int,
+                    main_line: dict) -> dict:
+    """The integrity and durability plane on the card (module docstring,
+    phase 37)."""
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    out = {"gen_s": time.perf_counter() - t}
+    out["integrity_levels"] = integrity_levels(
+        dev, keys, values, main_digests, main_launches, main_line)
+    out["integrity_corrupt"] = integrity_corrupt(dev, keys, values)
+    out["integrity_modes"] = integrity_modes(dev)
+    out["restart_drill"] = restart_drill(
+        dev, keys, values, main_digests, main_line["main_write_s"])
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5366,6 +5924,7 @@ def main() -> int:
         "plan_ms": rep.plan_ms, "pack_ms": rep.pack_ms,
         "dispatch_ms": rep.dispatch_ms, "group_ms": rep.group_ms,
         "peak_device_bytes": peak, "launches": launches,
+        "integrity": rep.integrity, "integrity_bytes": rep.integrity_bytes,
         "gen_s": gen_s, "write_s": write_s, "oracle_s": check_s,
         "ok": True}), flush=True)
     print(json.dumps({"phase": "main_profile", **prof}), flush=True)
@@ -5373,7 +5932,9 @@ def main() -> int:
     planes.cut("main")
     main_line = {"main_write_s": write_s, "main_read_ms": read_ms,
                  "main_pack_ms": rep.pack_ms, "main_read2_ms": read2_ms,
-                 "main_read2_pack_ms": rep2.pack_ms}
+                 "main_read2_pack_ms": rep2.pack_ms,
+                 "main_integrity": rep.integrity,
+                 "main_integrity_bytes": rep.integrity_bytes}
     kt = kernel_at_main_shapes(keys, values, rep, dev)
     print(json.dumps({"phase": "kernel_at_main_shapes", **kt}), flush=True)
 
@@ -5602,7 +6163,8 @@ def main() -> int:
     t = time.perf_counter()
     di = dist_phase(dev, main_digests)
     print(json.dumps({"phase": "dist_world", **di["world"]}), flush=True)
-    for name in ("dist_plain", "dist_replay", "dist_combine", "dist_int8",
+    for name in ("dist_plain", "dist_replay", "dist_full", "dist_combine",
+                 "dist_int8",
                  "dist_int8_combine", "dist_hier",
                  "dist_waved_ordered_device", "dist_waved_ordered_host",
                  "dist_one_armed", "dist_peer_loss"):
@@ -5631,6 +6193,26 @@ def main() -> int:
                       "faults_launches": faults_launches,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the integrity and durability plane: the verify levels at main's
+    # size, the corrupt sites, each mode's verdict, the SIGKILL restart
+    t = time.perf_counter()
+    ig = integrity_phase(dev, main_digests, launches, main_line)
+    for name in ("integrity_levels", "integrity_corrupt", "integrity_modes",
+                 "restart_drill"):
+        print(json.dumps(ig[name]), flush=True)
+    modes = ig["integrity_modes"]["launches"]
+    integrity_launches = {
+        KERNEL_NAME: sum(ig["integrity_levels"][level]["launches"]
+                         for level in ("off", "staged", "full"))
+        + ig["integrity_corrupt"]["launches"][KERNEL_NAME]
+        + modes[KERNEL_NAME]
+        + ig["restart_drill"]["launches"][KERNEL_NAME],
+        MERGE_KERNEL: modes[MERGE_KERNEL], SEG_KERNEL: modes[SEG_KERNEL],
+        QUANT_KERNEL: modes[QUANT_KERNEL]}
+    print(json.dumps({"phase": "integrity", "gen_s": ig["gen_s"],
+                      "integrity_launches": integrity_launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -5657,6 +6239,7 @@ def main() -> int:
         "pipeline_launches": pl_launches[KERNEL_NAME],
         "moe_launches": md["pallas"]["launches"],
         "faults_launches": faults_launches[KERNEL_NAME],
+        "integrity_launches": integrity_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -5665,6 +6248,7 @@ def main() -> int:
         "replaces": SEG_TPU_KERNEL, "launches": seg_launches,
         "dist_launches": dist_launches[SEG_KERNEL],
         "faults_launches": faults_launches[SEG_KERNEL],
+        "integrity_launches": integrity_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
@@ -5677,6 +6261,7 @@ def main() -> int:
         "replaces": MERGE_TPU_KERNEL, "launches": merge_launches,
         "dist_launches": dist_launches[MERGE_KERNEL],
         "faults_launches": faults_launches[MERGE_KERNEL],
+        "integrity_launches": integrity_launches[MERGE_KERNEL],
         "pipeline_launches": pl_launches[MERGE_KERNEL],
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
@@ -5689,6 +6274,7 @@ def main() -> int:
         "hier_launches": hi["hier_int8"]["int8"]["launches"][QUANT_KERNEL],
         "dist_launches": dist_launches[QUANT_KERNEL],
         "faults_launches": faults_launches[QUANT_KERNEL],
+        "integrity_launches": integrity_launches[QUANT_KERNEL],
         "max_abs_err": qt["max_abs_err"], "ms": qt["kernel_ms"],
         "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": "bytes", "library_ms": qt["library_ms"]}, {

@@ -15,7 +15,8 @@ Keys: ``a2a.impl``, ``a2a.capacityFactor``, ``a2a.capBuckets``,
 ``coordinator.address``, ``numProcesses``, ``meta.bufferSize``,
 ``failure.collectiveTimeoutMs``, ``failure.ici.timeoutMs`` and
 ``failure.dcn.timeoutMs``; the failure plane's ``failure.policy``,
-``failure.replayBudget`` and ``failure.replayAgreeTimeoutMs`` (the keys
+``failure.replayBudget`` and ``failure.replayAgreeTimeoutMs``; the
+integrity plane's ``integrity.verify`` and ``failure.ledgerDir`` (the keys
 ``failure.maxAttempts``, ``failure.backoffMs``, ``failure.maxBackoffMs``,
 ``fault.*`` and ``flightRecorder.*`` are read where they are used:
 ``runtime/failures.py``, ``runtime/node.py``); the pool's ``memory.*``
@@ -186,7 +187,8 @@ class ShuffleConf:
                     "num_processes", "meta_buffer_size",
                     "collective_timeout_ms", "ici_timeout_ms",
                     "dcn_timeout_ms", "failure_policy", "replay_budget",
-                    "replay_agree_timeout_ms", "min_buffer_size",
+                    "replay_agree_timeout_ms", "integrity_verify",
+                    "ledger_dir", "min_buffer_size",
                     "min_allocation_size", "pre_allocate_buffers",
                     "pinned_memory", "pack_threads", "cores_per_process",
                     "fetch_granularity", "report_capacity")
@@ -503,6 +505,35 @@ class ShuffleConf:
                 f"spark.shuffle.tpu.failure.replayAgreeTimeoutMs={v}: "
                 f"want >= 0 (0 = off)")
         return v
+
+    # -- the integrity plane (shuffle/integrity.py, shuffle/durable.py) -----
+    @property
+    def integrity_verify(self) -> str:
+        """Block-integrity verification level: ``off`` (no checksums);
+        ``staged`` (default: commit publishes a checksum record beside
+        each size row and the read re-verifies the staged or spilled
+        bytes before they enter the exchange); ``full`` (staged, and the
+        result after the exchange: the host sink per reduce partition
+        against order-free digest sums, key lanes only under the int8
+        wire; the device sink by re-routing the sampled key lanes). A
+        mismatch raises ``BlockCorruptionError``, which
+        ``failure.policy=replay`` may absorb. Every level launches the
+        same kernels."""
+        from sparkucx_tpu_torch.shuffle.integrity import \
+            validate_verify_level
+        return validate_verify_level(
+            self._get("integrity.verify", "staged"),
+            conf_key=PREFIX + "integrity.verify")
+
+    @property
+    def ledger_dir(self) -> str:
+        """The durable ledger's directory (empty = off): every commit
+        seals its output under ``<dir>/shuffle_<id>/`` and rewrites the
+        shuffle's checksummed ``commit.manifest``; a manager started on
+        the same directory validates them and serves the intact maps
+        without recompute (``shuffle/durable.py``). ``stop()`` keeps the
+        ledger; ``unregister_shuffle`` deletes a shuffle's part."""
+        return self._get("failure.ledgerDir", "")
 
     # -- the staging pool (runtime/node.HostStagingPool) --------------------
     @property

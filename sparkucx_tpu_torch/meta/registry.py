@@ -1,9 +1,10 @@
 """Shuffle registry — the per-shuffle metadata table, host side.
 
 One slot per map output holding its packed size record
-(:mod:`sparkucx_tpu_torch.meta.segments`); mappers publish at commit,
-readers wait until every slot is present and snapshot the table in one
-read."""
+(:mod:`sparkucx_tpu_torch.meta.segments`), and beside it the map's
+integrity record (``shuffle/integrity.IntegrityRecord``, stored as it
+is); mappers publish at commit, readers wait until every slot is present
+and snapshot the table in one read."""
 
 from __future__ import annotations
 
@@ -21,19 +22,24 @@ class ShuffleEntry:
     arrival tracking."""
 
     def __init__(self, shuffle_id: int, num_maps: int, num_partitions: int,
-                 partitioner: str = "hash"):
+                 partitioner: str = "hash", bounds=None):
         self.shuffle_id = shuffle_id
         self.num_maps = num_maps
         self.num_partitions = num_partitions
         self.partitioner = partitioner
+        # range split points: the durable ledger's manifest records them
+        self.bounds = tuple(bounds) if bounds is not None else None
         self.slot = record_size(num_partitions)
         self.table = bytearray(self.slot * num_maps)
         self._present = np.zeros(num_maps, dtype=bool)
+        self._integrity: Dict[int, object] = {}
         self._cv = threading.Condition()
 
-    def publish(self, map_id: int, sizes: np.ndarray) -> None:
-        """Mapper commit: write slot ``map_id``. A slot is written once
-        (first commit wins)."""
+    def publish(self, map_id: int, sizes: np.ndarray,
+                integrity=None) -> None:
+        """Mapper commit: write slot ``map_id``, with the optional
+        ``integrity`` record beside it. A slot is written once (first
+        commit wins)."""
         if not (0 <= map_id < self.num_maps):
             raise IndexError(
                 f"mapId {map_id} out of range [0,{self.num_maps})")
@@ -49,10 +55,21 @@ class ShuffleEntry:
                     f"published; its size row is immutable (first commit "
                     f"wins)")
             self.table[map_id * self.slot:(map_id + 1) * self.slot] = rec
+            if integrity is not None:
+                self._integrity[map_id] = integrity
             self._present[map_id] = True
             self._cv.notify_all()
 
+    def fetch_integrity(self, map_id: int):
+        """The integrity record published beside map ``map_id``'s size
+        row, or None (published without one, or
+        ``integrity.verify=off``)."""
+        with self._cv:
+            return self._integrity.get(map_id)
+
     def present(self, map_id: int) -> bool:
+        """Whether map ``map_id``'s size row is published: after a
+        restart, the maps to re-stage are those it is False for."""
         with self._cv:
             return bool(self._present[map_id])
 
@@ -95,12 +112,12 @@ class ShuffleRegistry:
         self._lock = threading.Lock()
 
     def register(self, shuffle_id: int, num_maps: int, num_partitions: int,
-                 partitioner: str = "hash") -> ShuffleEntry:
+                 partitioner: str = "hash", bounds=None) -> ShuffleEntry:
         with self._lock:
             if shuffle_id in self._entries:
                 raise ValueError(f"shuffle {shuffle_id} already registered")
             e = ShuffleEntry(shuffle_id, num_maps, num_partitions,
-                             partitioner)
+                             partitioner, bounds)
             self._entries[shuffle_id] = e
             return e
 

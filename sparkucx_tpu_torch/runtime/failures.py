@@ -302,13 +302,18 @@ class FaultInjector:
         spark.shuffle.tpu.fault.<site>.failCount = N   # fail the first N hits
         spark.shuffle.tpu.fault.<site>.failRate  = p   # else fail w.p. p
         spark.shuffle.tpu.fault.<site>.delayMs   = ms  # sleep at each hit
+        spark.shuffle.tpu.fault.<site>.offset    = b   # a corrupt site's byte
         spark.shuffle.tpu.fault.seed             = s   # the rate's draws
 
     (the knob names match case-insensitively) or :meth:`arm`. Sites:
     ``publish`` (a map's commit), ``spill`` (a writer's move to disk),
     ``fetch`` (the metadata table fetch), ``exchange`` (before a read's
     dispatch), ``wave`` (before each wave of a waved read), ``tier.ici``
-    and ``tier.dcn`` (each tier's join of a hierarchical read).
+    and ``tier.dcn`` (each tier's join of a hierarchical read), and the
+    corrupt pair ``corrupt.staged`` / ``corrupt.spill``, consumed through
+    :meth:`fire`: instead of raising, a firing tells the read's staged
+    verify to flip one bit of the staged buffer / sealed spill file at
+    the site's ``offset``, which the verify must then detect.
 
     While anything is armed, every :meth:`check` of any site counts a hit
     and, unless the site has fail counts left, draws one number from
@@ -323,6 +328,7 @@ class FaultInjector:
         self._fail_count: Dict[str, int] = {}
         self._fail_rate: Dict[str, float] = {}
         self._delay_ms: Dict[str, float] = {}
+        self._offset: Dict[str, int] = {}
         self._hits: Dict[str, int] = {}
         self._injected: Dict[str, int] = {}
         if conf is not None:
@@ -342,10 +348,12 @@ class FaultInjector:
                     self._fail_rate[site] = float(val)
                 elif knob == "delayms":
                     self._delay_ms[site] = float(val)
+                elif knob == "offset":
+                    self._offset[site] = int(val)
         self._rng = np.random.default_rng(seed or 0)
 
     def arm(self, site: str, fail_count: int = 0, fail_rate: float = 0.0,
-            delay_ms: float = 0.0) -> None:
+            delay_ms: float = 0.0, offset: Optional[int] = None) -> None:
         with self._lock:
             if fail_count:
                 self._fail_count[site] = fail_count
@@ -353,12 +361,15 @@ class FaultInjector:
                 self._fail_rate[site] = fail_rate
             if delay_ms:
                 self._delay_ms[site] = delay_ms
+            if offset is not None:
+                self._offset[site] = int(offset)
 
     def disarm(self, site: str) -> None:
         with self._lock:
             self._fail_count.pop(site, None)
             self._fail_rate.pop(site, None)
             self._delay_ms.pop(site, None)
+            self._offset.pop(site, None)
 
     @property
     def active(self) -> bool:
@@ -386,6 +397,30 @@ class FaultInjector:
         if fired:
             self.flight.record("fault", site=site)
             raise InjectedFault(f"injected fault at site {site!r}")
+
+    def fire(self, site: str) -> Optional[int]:
+        """A corrupt site's :meth:`check`: when the site fires, one firing
+        is consumed, a ``fault`` ring event records the offset, and the
+        armed byte offset (default 0) is returned instead of a raise;
+        None otherwise. No work while nothing is armed."""
+        if not self.active:
+            return None
+        with self._lock:
+            self._hits[site] = self._hits.get(site, 0) + 1
+            remaining = self._fail_count.get(site, 0)
+            if remaining > 0:
+                self._fail_count[site] = remaining - 1
+                fired = True
+            else:
+                fired = bool(self._rng.random()
+                             < self._fail_rate.get(site, 0.0))
+            if fired:
+                self._injected[site] = self._injected.get(site, 0) + 1
+            offset = self._offset.get(site, 0)
+        if fired:
+            self.flight.record("fault", site=site, offset=offset)
+            return offset
+        return None
 
     def stats(self) -> Dict[str, Tuple[int, int]]:
         """``{site: (hits, injected)}``."""

@@ -88,6 +88,14 @@ class ShuffleService:
     def report(self, shuffle_id: int):
         return self.manager.report(shuffle_id)
 
+    def recovered_shuffles(self):
+        """The shuffles the durable ledger (``failure.ledgerDir``)
+        recovered at connect that are not re-registered yet:
+        ``{shuffle_id: {"intact": [...], "quarantined": [...]}}``.
+        ``register_shuffle`` with the same shape adopts one; only its
+        quarantined maps need writing again."""
+        return self.manager.recovered_shuffles()
+
     def stats(self):
         return self.node.stats()
 

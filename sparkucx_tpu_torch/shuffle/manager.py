@@ -74,11 +74,30 @@ ledger) and re-pins their stale handles on the next read, one budget unit
 each; everything else is dropped. Dropped writers' buffers go back to the
 pool only once no read that could still copy from them is in flight
 (:meth:`ShuffleManager._read_started`, the graveyard).
+
+Integrity (``integrity.verify``, ``shuffle/integrity.py``): at
+``staged`` (the default) and ``full`` every map output is re-verified
+against the record its commit published before its bytes enter the
+exchange (:meth:`ShuffleManager._verified_materialize`, home of the
+``corrupt.staged`` / ``corrupt.spill`` fault sites); at ``full`` the
+result is verified after the exchange too (:meth:`ShuffleManager.
+_verify_full_result`, run inside the pending handle's ``result()``). A
+mismatch raises ``BlockCorruptionError`` (a ``TransientError``: under
+``replay`` one budget unit re-verifies and re-runs). The report's
+``integrity`` names the level that ran and ``integrity_bytes`` what it
+verified.
+
+Durability (``failure.ledgerDir``, ``shuffle/durable.py``): commits seal
+into the ledger; a manager started on the same directory re-registers
+the intact shuffles it finds (:meth:`ShuffleManager.recovered_shuffles`),
+and ``register_shuffle`` with the same shape adopts one with zero
+recompute (a quarantined map is the only one to stage again).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 import weakref
@@ -92,7 +111,8 @@ import torch
 
 from sparkucx_tpu_torch.config import (PARTITIONERS, ShuffleConf,
                                        validate_sink)
-from sparkucx_tpu_torch.runtime.failures import (PeerLostError,
+from sparkucx_tpu_torch.runtime.failures import (BlockCorruptionError,
+                                                 PeerLostError,
                                                  StaleEpochError,
                                                  TransientError)
 from sparkucx_tpu_torch.meta.registry import ShuffleEntry
@@ -102,9 +122,11 @@ from sparkucx_tpu_torch.ops.partition import blocked_partition_map
 from sparkucx_tpu_torch.ops.segmented import resolve_kernel_impl
 from sparkucx_tpu_torch.runtime.node import Node
 from sparkucx_tpu_torch.shuffle.agreement import agree
+from sparkucx_tpu_torch.shuffle import integrity as integ
 from sparkucx_tpu_torch.shuffle.distributed import (
     agree_wave_count, agree_wave_sizes, allgather_blob, allgather_sizes,
     submit_shuffle_distributed, submit_shuffle_tiered_distributed)
+from sparkucx_tpu_torch.shuffle.durable import ShuffleLedger
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              check_bounds, make_plan,
                                              plan_takes_seed, ragged_layout,
@@ -124,12 +146,11 @@ from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
 from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.utils.logging import get_logger
-from sparkucx_tpu_torch.utils.metrics import (C_ADMIT_BYTES,
-                                              C_KERNEL_FALLBACK, C_REPLAY_MS,
-                                              C_REPLAYS, C_SINK_FALLBACK,
-                                              C_TIER_BYTES, H_ADMIT_WAIT,
-                                              H_FETCH_WAIT, H_WAVE_GAP,
-                                              labeled)
+from sparkucx_tpu_torch.utils.metrics import (
+    C_ADMIT_BYTES, C_INTEGRITY_CORRUPT, C_INTEGRITY_CORRUPT_BLOCKS,
+    C_INTEGRITY_QUARANTINED, C_INTEGRITY_RECOVERED, C_INTEGRITY_VERIFIED,
+    C_KERNEL_FALLBACK, C_REPLAY_MS, C_REPLAYS, C_SINK_FALLBACK,
+    C_TIER_BYTES, H_ADMIT_WAIT, H_FETCH_WAIT, H_WAVE_GAP, labeled)
 
 log = get_logger("shuffle.manager")
 
@@ -214,6 +235,12 @@ class ExchangeReport:
     # re-pins and re-runs) and the wall of its failed attempts (ms)
     replays: int = 0
     replay_ms: float = 0.0
+    # the integrity verify level this read ran ("staged": the staged and
+    # spilled bytes re-checked before the exchange; "full": the result
+    # checked after it too; "" = off, or no map published a record) and
+    # the bytes it verified
+    integrity: str = ""
+    integrity_bytes: int = 0
     completed: bool = False
     error: Optional[str] = None
     _t_dispatched: float = field(default=0.0, repr=False)
@@ -318,6 +345,20 @@ class ShuffleManager:
                 "started under it: its replay.enter rounds ride a gloo "
                 "group that only such a node makes")
         self._replay_budget = self.conf.replay_budget
+        # -- the integrity plane (shuffle/integrity.py) ---------------------
+        self._integrity_level = self.conf.integrity_verify
+        # distributed full verify: each shuffle's agreed expected digest
+        # tables, gathered at submit and read after the exchange
+        self._full_expect: Dict[int, Dict] = {}
+        # -- the durable ledger (failure.ledgerDir, shuffle/durable.py) -----
+        # a manager started on a ledger directory re-registers the intact
+        # shuffles it finds there; register_shuffle adopts them
+        self._ledger: Optional[ShuffleLedger] = None
+        self._recovered: Dict[int, Dict] = {}
+        if self.conf.ledger_dir:
+            self._ledger = ShuffleLedger(self.conf.ledger_dir)
+            self._ledger.epoch = self.node.epochs.current
+            self._recover_from_ledger()
         # the exchange topology of this binding (a2a.topology against the
         # node's shard grid; rebound at every epoch bump)
         self._bind_grid()
@@ -339,7 +380,12 @@ class ShuffleManager:
         ids, 'range' routes the int64 key through the sorted split points
         ``bounds`` (``num_partitions - 1`` of them; Spark's
         RangePartitioner). Bounds are validated here, before any map
-        publishes a size row computed from them."""
+        publishes a size row computed from them.
+
+        A shuffle the durable ledger recovered at construction is adopted
+        instead (:meth:`_adopt_recovered`): its intact maps are committed
+        already. A different shape drops the recovery and registers
+        fresh."""
         if partitioner not in PARTITIONERS:
             raise ValueError(f"unknown partitioner {partitioner!r}; want "
                              f"one of {PARTITIONERS}")
@@ -350,13 +396,23 @@ class ShuffleManager:
         if (partitioner == "range") != (bounds is not None):
             raise ValueError(
                 "partitioner='range' requires bounds (and only it)")
+        with self._lock:
+            rec = self._recovered.pop(shuffle_id, None)
+        if rec is not None:
+            h = self._adopt_recovered(rec, shuffle_id, num_maps,
+                                      num_partitions, partitioner, bounds)
+            if h is not None:
+                return h
         entry = self.node.registry.register(shuffle_id, num_maps,
-                                            num_partitions, partitioner)
+                                            num_partitions, partitioner,
+                                            bounds)
         with self._lock:
             self._writers[shuffle_id] = {}
             self._shapes[shuffle_id] = {
                 "num_maps": num_maps, "num_partitions": num_partitions,
-                "partitioner": partitioner}
+                "partitioner": partitioner, "bounds": bounds}
+            self._replayed.pop(shuffle_id, None)
+            self._replay_counts.pop(shuffle_id, None)
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
                              partitioner, bounds,
                              epoch=self.node.epochs.current)
@@ -368,12 +424,18 @@ class ShuffleManager:
         if not (0 <= map_id < handle.num_maps):
             raise IndexError(
                 f"mapId {map_id} out of range [0,{handle.num_maps})")
+        # with the ledger on, the writer spills into (and commit seals
+        # into) the shuffle's ledger directory
+        spill_dir = self._ledger.shuffle_dir(handle.shuffle_id) \
+            if self._ledger is not None else self.conf.spill_dir
         w = MapOutputWriter(handle.entry, map_id, self.node.pool,
                             handle.partitioner, handle.bounds,
-                            spill_dir=self.conf.spill_dir,
+                            spill_dir=spill_dir,
                             spill_threshold=self.conf.spill_threshold,
                             metrics=self.node.metrics,
-                            faults=self.node.faults)
+                            faults=self.node.faults,
+                            integrity_level=self._integrity_for(),
+                            ledger=self._ledger)
         with self._lock:
             ws = self._writers.get(handle.shuffle_id)
             if ws is None:
@@ -423,27 +485,37 @@ class ShuffleManager:
         finally:
             guard.close()
 
-    def unregister_shuffle(self, shuffle_id: int) -> None:
+    def unregister_shuffle(self, shuffle_id: int,
+                           keep_durable: bool = False) -> None:
         """Drop a shuffle: its table, and its writers' buffers and spill
         files (through the graveyard, so a read still packing from them
-        finishes first)."""
+        finishes first), and its part of the durable ledger unless
+        ``keep_durable`` (``stop()``'s path: a shutdown keeps what the
+        ledger exists to carry across a restart)."""
         with self._lock:
             writers = self._writers.pop(shuffle_id, {})
             self._shapes.pop(shuffle_id, None)
             self._replayed.pop(shuffle_id, None)
             self._replay_counts.pop(shuffle_id, None)
+            self._recovered.pop(shuffle_id, None)
+            self._full_expect.pop(shuffle_id, None)
             to_free = self._bury_locked([writers] if writers else [])
         self._release_writer_batches(to_free)
         self.node.registry.unregister(shuffle_id)
+        if self._ledger is not None and not keep_durable:
+            self._ledger.forget(shuffle_id)
 
     def stop(self) -> None:
+        """Unregister every shuffle, keeping the durable ledger, and shut
+        the pack executor down."""
         self.node.epochs.remove_listener(self._on_epoch_bump)
         self.node.flight.remove_context_provider(self.exchange_reports)
         with self._lock:
-            sids = list(self._writers)
+            # recovered shuffles never adopted hold registry entries too
+            sids = sorted(set(self._writers) | set(self._recovered))
             pool, self._pack_pool = self._pack_pool, None
         for sid in sids:
-            self.unregister_shuffle(sid)
+            self.unregister_shuffle(sid, keep_durable=True)
         # a read still in flight at shutdown loses its writers anyway:
         # shutdown must end
         with self._lock:
@@ -457,8 +529,13 @@ class ShuffleManager:
         ``failure.policy=replay`` the shuffles whose maps are all
         committed and staged here re-register under the new epoch (the
         recovery ledger); every other shuffle's writers are dropped,
-        through the graveyard."""
+        through the graveyard. With the durable ledger on, later manifests
+        record the new epoch and the recovered shuffles not adopted yet
+        are registered again (the remesh cleared the registry)."""
         self._bind_grid()
+        if self._ledger is not None:
+            self._ledger.epoch = epoch
+            self._refresh_recovered_registrations()
         survivors = self._ledger_candidates() \
             if self._policy == "replay" else {}
         with self._lock:
@@ -551,9 +628,9 @@ class ShuffleManager:
 
     def _reregister_shuffle(self, sid: int, epoch: int) -> bool:
         """Re-register one ledger survivor under the new epoch: a fresh
-        registry entry with the committed size rows copied from the old
-        entry, the writers pointed at it. On any failure the shuffle is
-        dropped, through the graveyard."""
+        registry entry with the committed size rows and integrity records
+        copied from the old entry, the writers pointed at it. On any
+        failure the shuffle is dropped, through the graveyard."""
         try:
             shape = self._shapes[sid]
             with self._lock:
@@ -563,9 +640,11 @@ class ShuffleManager:
             reg.unregister(sid)     # a no-op when the remesh cleared it
             entry = reg.register(sid, shape["num_maps"],
                                  shape["num_partitions"],
-                                 shape["partitioner"])
+                                 shape["partitioner"], shape["bounds"])
             for m in sorted(ws):
-                entry.publish(m, old_entry.fetch_record(m))
+                # a replayed read verifies like any other
+                entry.publish(m, old_entry.fetch_record(m),
+                              integrity=old_entry.fetch_integrity(m))
                 ws[m].entry = entry
             with self._lock:
                 self._replayed[sid] = {"entry": entry, "epoch": epoch}
@@ -696,6 +775,352 @@ class ShuffleManager:
         self.node.metrics.inc(C_REPLAYS, float(replays))
         if replay_ms:
             self.node.metrics.inc(C_REPLAY_MS, float(replay_ms))
+
+    # -- restart recovery (failure.ledgerDir, shuffle/durable.py) ----------
+    def _register_recovered(self, rs) -> ShuffleEntry:
+        """A registry entry for a recovered shuffle with every intact
+        map's size row and integrity record published."""
+        entry = self.node.registry.register(rs.shuffle_id, rs.num_maps,
+                                            rs.num_partitions,
+                                            rs.partitioner, rs.bounds)
+        for mid in sorted(rs.intact):
+            rec, sizes = rs.intact[mid]
+            entry.publish(mid, sizes, integrity=rec)
+        return entry
+
+    def _recover_from_ledger(self) -> None:
+        """Scan the durable ledger at construction: each shuffle whose
+        manifest validates is registered under the current epoch with its
+        intact maps published (the scan quarantined the rest), and
+        :meth:`register_shuffle` with the same shape adopts it."""
+        reg = self.node.registry
+        for rs in self._ledger.scan():
+            sid = rs.shuffle_id
+            try:
+                reg.get(sid)
+                continue        # a live manager of this node owns it
+            except KeyError:
+                pass
+            try:
+                entry = self._register_recovered(rs)
+            except Exception as e:
+                log.error("restart recovery: shuffle %d could not "
+                          "re-register (%s) — it will recompute", sid, e)
+                reg.unregister(sid)
+                continue
+            self._recovered[sid] = {"rs": rs, "entry": entry}
+            self.node.metrics.inc(C_INTEGRITY_RECOVERED,
+                                  float(len(rs.intact)))
+            if rs.quarantined:
+                self.node.metrics.inc(C_INTEGRITY_QUARANTINED,
+                                      float(len(rs.quarantined)))
+                self.node.flight.record("block_quarantine", shuffle_id=sid,
+                                        maps=list(rs.quarantined))
+            log.warning(
+                "restart recovery: shuffle %d re-registered from the "
+                "ledger (%d/%d maps intact, served without recompute%s)",
+                sid, len(rs.intact), rs.num_maps,
+                f"; maps {rs.quarantined} quarantined — re-stage only "
+                f"those" if rs.quarantined else "")
+
+    def _refresh_recovered_registrations(self) -> None:
+        """Register again the recovered shuffles not adopted yet whose
+        entries a remesh cleared; a failure drops the recovery (the
+        shuffle recomputes, as with no ledger)."""
+        reg = self.node.registry
+        with self._lock:
+            pending = list(self._recovered.items())
+        for sid, rec in pending:
+            try:
+                reg.get(sid)
+                continue                      # the entry survived
+            except KeyError:
+                pass
+            try:
+                rec["entry"] = self._register_recovered(rec["rs"])
+            except Exception as e:
+                log.error("recovered shuffle %d could not re-register "
+                          "after the remesh (%s) — it will recompute",
+                          sid, e)
+                with self._lock:
+                    self._recovered.pop(sid, None)
+
+    def recovered_shuffles(self) -> Dict[int, Dict]:
+        """``{shuffle_id: {"intact": [...], "quarantined": [...]}}`` of
+        the shuffles the ledger recovered that :meth:`register_shuffle`
+        has not adopted yet."""
+        with self._lock:
+            return {sid: {"intact": sorted(rec["rs"].intact),
+                          "quarantined": list(rec["rs"].quarantined)}
+                    for sid, rec in self._recovered.items()}
+
+    def _adopt_recovered(self, rec: Dict, shuffle_id: int, num_maps: int,
+                         num_partitions: int, partitioner: str,
+                         bounds) -> Optional[ShuffleHandle]:
+        """Install a recovered shuffle as live state: a committed writer
+        over the sealed files of each intact map (reads pack from their
+        mapped views), none for a quarantined map (``entry.present(m)``
+        is False; only it stages again). Returns None on a shape
+        mismatch, after dropping the recovery and its ledger state: a
+        shuffle id reused with another shape is another shuffle."""
+        rs = rec["rs"]
+        if (num_maps, num_partitions, partitioner, bounds) != \
+                (rs.num_maps, rs.num_partitions, rs.partitioner,
+                 rs.bounds):
+            log.warning(
+                "register_shuffle(%d): shape differs from the ledger's "
+                "(%dx%d %s vs %dx%d %s) — dropping the recovered state "
+                "and registering fresh", shuffle_id, num_maps,
+                num_partitions, partitioner, rs.num_maps,
+                rs.num_partitions, rs.partitioner)
+            self.node.registry.unregister(shuffle_id)
+            self._ledger.forget(shuffle_id)
+            return None
+        entry = rec["entry"]
+        ws = {mid: MapOutputWriter.recovered(
+                  entry, mid, self.node.pool, rs.directory, irec,
+                  partitioner=partitioner, bounds=bounds,
+                  integrity_level=self._integrity_for(),
+                  metrics=self.node.metrics)
+              for mid, (irec, _sizes) in rs.intact.items()}
+        with self._lock:
+            self._writers[shuffle_id] = ws
+            self._shapes[shuffle_id] = {
+                "num_maps": num_maps, "num_partitions": num_partitions,
+                "partitioner": partitioner, "bounds": bounds}
+            self._replayed.pop(shuffle_id, None)
+            self._replay_counts.pop(shuffle_id, None)
+        log.info("shuffle %d adopted from the durable ledger: %d/%d maps "
+                 "served from sealed files, %d to re-stage", shuffle_id,
+                 len(ws), num_maps, num_maps - len(ws))
+        return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
+                             partitioner, bounds,
+                             epoch=self.node.epochs.current)
+
+    # -- integrity verification (shuffle/integrity.py) ---------------------
+    def _integrity_for(self, tenant: Optional[str] = None) -> str:
+        """The integrity level of a tenant's shuffles: the global
+        ``integrity.verify`` (the per-tenant override comes with
+        tenancy). Commit and read resolve it alike, so records and checks
+        cannot disagree."""
+        return self._integrity_level
+
+    def _note_corruption(self, shuffle_id: int, block: str, nbytes: int,
+                         detail: str) -> str:
+        """Count one detected corruption (``C_INTEGRITY_CORRUPT_BLOCKS``,
+        ``C_INTEGRITY_CORRUPT``), record a ``block_corruption`` ring event
+        naming the block, and return the typed raise's message."""
+        self.node.metrics.inc(C_INTEGRITY_CORRUPT_BLOCKS, 1.0)
+        self.node.metrics.inc(C_INTEGRITY_CORRUPT, float(max(nbytes, 0)))
+        self.node.flight.record("block_corruption", shuffle_id=shuffle_id,
+                                block=block, bytes=int(nbytes),
+                                detail=detail[:200])
+        msg = (f"shuffle {shuffle_id}: block corruption detected in "
+               f"{block}: {detail} — staged bytes no longer match the "
+               f"checksums published at commit "
+               f"(spark.shuffle.tpu.integrity.verify="
+               f"{self._integrity_level}); failure.policy=replay spends "
+               f"one budget unit re-verifying and re-running")
+        log.error(msg)
+        return msg
+
+    def _verified_materialize(self, entry: ShuffleEntry, writers):
+        """``[(map_id, keys, values, verified_bytes)]`` of the committed
+        map outputs ``writers``, in map-id order, each checked against the
+        record its commit published before any byte can enter the
+        exchange; ``verified_bytes`` is -1 for a map that published no
+        record (it does not count as verified). The folds run on the pack
+        executor (``a2a.packThreads``); the verdict is the serial loop's:
+        a mismatch raises ``BlockCorruptionError`` naming the lowest
+        failing map.
+
+        The ``corrupt.staged`` / ``corrupt.spill`` fault sites live here,
+        consulted in map-id order until one fires, as the serial loop
+        consults them until its raise: a firing flips one bit of that
+        map's staged buffer / sealed spill file at the armed offset, the
+        verify must detect it, and the ``finally`` undoes the flip before
+        any pack reads the bytes (a one-batch writer hands back its
+        staged buffer itself), so a replay finds them intact."""
+        faults = self.node.faults
+        tokens, staged = [], []
+        try:
+            for map_id, w in sorted(writers.items()):
+                spilled = w._spill is not None
+                if not tokens and not spilled and w._keys:
+                    # only a flippable target consumes the firing
+                    off = faults.fire("corrupt.staged")
+                    if off is not None:
+                        tokens.append(integ.flip_array_byte(w._keys[0], off))
+                keys, values = w.materialize()
+                if not tokens and spilled:
+                    off = faults.fire("corrupt.spill")
+                    if off is not None:
+                        # the shared read-only mappings see the file's flip
+                        tokens.append(integ.flip_file_byte(
+                            w._spill.keys_path, off))
+                block = (os.path.basename(w._spill.keys_path) if spilled
+                         else f"map {map_id} staged arena")
+                staged.append((map_id, keys, values,
+                               entry.fetch_integrity(map_id), block))
+
+            def check(item):
+                _, keys, values, rec, _ = item
+                if rec is None:
+                    return -1
+                try:
+                    return integ.verify_staged(keys, values, rec)
+                except integ._StagedMismatch as e:
+                    return e
+
+            nbytes = sum(int(k.nbytes) + (0 if v is None else int(v.nbytes))
+                         for _, k, v, _, _ in staged)
+            verdicts = list(self._executor().map(check, staged)) \
+                if len(staged) > 1 and nbytes >= (1 << 20) \
+                else [check(item) for item in staged]
+            out = []
+            for (map_id, keys, values, _, block), got in zip(staged,
+                                                             verdicts):
+                if isinstance(got, integ._StagedMismatch):
+                    raise BlockCorruptionError(self._note_corruption(
+                        entry.shuffle_id, f"map {map_id} ({block})",
+                        int(keys.nbytes) + (int(values.nbytes)
+                                            if values is not None else 0),
+                        str(got))) from None
+                out.append((map_id, keys, values, got))
+            return out
+        finally:
+            for token in tokens:
+                token.restore()
+
+    def _verify_full_result(self, handle: ShuffleHandle, res,
+                            combine: Optional[str]) -> None:
+        """``integrity.verify=full`` after the exchange: every local reduce
+        partition of a host result is digested again (order-free row
+        digest sums) and must equal the senders' published digest rows
+        (key lanes only under the int8 wire); a device result has its
+        sampled key lanes routed again (:meth:`_verify_full_device`). A
+        combined host read keeps the staged verdict: the combine rewrites
+        rows. Host-side only: no kernel launch changes."""
+        if self._integrity_for() != "full":
+            return
+        rep = self.report(handle.shuffle_id)
+        if rep is None:
+            return
+        if getattr(res, "sink", "host") == "device":
+            self._verify_full_device(handle, res, rep)
+            return
+        if combine:
+            self._warn_once(
+                "full_combine", "integrity.verify=full: combined reads "
+                "verify at the staged level only — the combine rewrites "
+                "rows, so per-row digests cannot survive it")
+            return
+        key_only = rep.wire == "int8"
+        if self.node.is_distributed:
+            st = self._full_expect.pop(handle.shuffle_id, None)
+            if st is None:
+                self._warn_once(
+                    "full_dist", "integrity.verify=full: no agreed digest "
+                    "table for this distributed read (a process committed "
+                    "below the full level?) — staged verify only")
+                return
+            expected = st["key" if key_only else "full"]
+        else:
+            expected = integ.aggregate_digests(handle.entry, handle.num_maps,
+                                               key_only)
+            if expected is None:
+                self._warn_once(
+                    "full_missing", "integrity.verify=full: commit "
+                    "published no digest rows (maps committed below the "
+                    "full level) — staged verify only for this shuffle")
+                return
+        verified = 0
+        for r in range(handle.num_partitions):
+            if not res.is_local(r):
+                continue
+            k, v = res.partition(r)
+            nbytes = int(k.nbytes) + (int(v.nbytes) if v is not None
+                                      and not key_only else 0)
+            got = integ.digest_sum(k, None if key_only else v)
+            if got != int(expected[r]):
+                raise BlockCorruptionError(self._note_corruption(
+                    handle.shuffle_id,
+                    f"reduce partition {r} (post-collective"
+                    f"{', key lanes' if key_only else ''})", nbytes,
+                    f"drained digest {got:#x} != published "
+                    f"{int(expected[r]):#x}"))
+            verified += nbytes
+        self.node.metrics.inc(C_INTEGRITY_VERIFIED, float(verified))
+        rep.integrity = "full"
+        rep.integrity_bytes += verified
+
+    def _verify_full_device(self, handle: ShuffleHandle, res,
+                            rep: ExchangeReport) -> None:
+        """``integrity.verify=full`` over a device result: a host copy of
+        the first wave's key lanes (a single-shot read is one wave; an
+        ordered or combine waved read is one merged view; a plain waved
+        read is sampled at wave 0), every valid key routed again through
+        the host twin of the device partitioner
+        (``integrity.verify_key_routing``). It covers combine reads and
+        every wire tier (key lanes are exact), and the copy is real D2H,
+        charged to the read's ``d2h_bytes``. A plain read under the
+        segment move keeps the staged verdict, as the JAX package's does:
+        its receive layout there is chunk-aligned (valid rows are not a
+        prefix; the port compacts them for the device consumer, but keeps
+        the reference's verdict)."""
+        plan = res._plan
+        if plan.impl == "pallas" and not (plan.combine or plan.ordered):
+            self._warn_once(
+                "full_device_aligned", "integrity.verify=full: device-sink "
+                "reads on a chunk-aligned receive layout (a2a.impl=pallas, "
+                "plain) verify at the staged level only")
+            return
+        views = res.wave_views()
+        got = views[0].key_lanes_to_host() if views else None
+        if got is None:
+            return        # already consumed: nothing to sample
+        keys, totals = got
+        try:
+            # a distributed view holds this process's shards only
+            verified = integ.verify_key_routing(
+                keys.reshape(-1, 2), totals, handle.num_partitions,
+                self.node.num_shards, partitioner=handle.partitioner,
+                bounds=handle.bounds, shard_ids=views[0].shard_ids)
+        except integ._StagedMismatch as e:
+            raise BlockCorruptionError(self._note_corruption(
+                handle.shuffle_id, "device receive buffer (post-collective, "
+                "key lanes, sampled wave 0)", int(keys.nbytes),
+                str(e))) from None
+        self.node.metrics.inc(C_INTEGRITY_VERIFIED, float(verified))
+        rep.integrity = "full"
+        rep.integrity_bytes += verified
+
+    def _stash_full_expect(self, handle: ShuffleHandle, writers) -> None:
+        """COLLECTIVE (distributed, full level, non-combine reads): every
+        process's summed digest rows all-gathered, so each holds the
+        global expected tables for its partitions. The uint64 words travel
+        as their int64 views (a round trip keeps every bit). One process
+        lacking digest rows makes every process skip together."""
+        R = handle.num_partitions
+        full = np.zeros(R, dtype=np.uint64)
+        key = np.zeros(R, dtype=np.uint64)
+        have = 1
+        for mid in writers:
+            rec = handle.entry.fetch_integrity(mid)
+            if rec is None or rec.digests is None:
+                have = 0
+                break
+            full += np.asarray(rec.digests, dtype=np.uint64)
+            key += np.asarray(rec.key_digests, dtype=np.uint64)
+        blob = np.concatenate([np.array([have], dtype=np.int64),
+                               full.view(np.int64), key.view(np.int64)])
+        gathered = allgather_blob(blob, what="full-verify digest table")
+        if not int(gathered[:, 0].min()):
+            return
+        words = np.ascontiguousarray(gathered[:, 1:]).view(np.uint64)
+        self._full_expect[handle.shuffle_id] = {
+            "full": words[:, :R].sum(axis=0, dtype=np.uint64),
+            "key": words[:, R:].sum(axis=0, dtype=np.uint64)}
 
     # -- reports ----------------------------------------------------------
     def report(self, shuffle_id: int) -> Optional[ExchangeReport]:
@@ -884,7 +1309,7 @@ class ShuffleManager:
                     f"complete but maps {missing[:8]} have no committed "
                     f"staged rows in this manager")
             shard_outputs, has_vals, val_tail, val_dtype = \
-                self._materialize_outputs(writers, Pn)
+                self._materialize_outputs(writers, Pn, handle.entry, rep)
             map_to_dev = np.arange(handle.num_maps) % Pn
             red_to_dev = blocked_partition_map(handle.num_partitions, Pn)
             dev_matrix = table.device_matrix(map_to_dev, red_to_dev, Pn)
@@ -1016,9 +1441,14 @@ class ShuffleManager:
                                   node.device, **kw)
 
         local_rows = np.sum(local[1] if distributed else nvalid)
-        return self._dispatch_read(handle, rep, dispatch, stage_buf,
-                                   release_admitted, nvalid, width,
-                                   int(local_rows))
+        pending = self._dispatch_read(handle, rep, dispatch, stage_buf,
+                                      release_admitted, nvalid, width,
+                                      int(local_rows))
+        if self._integrity_for() == "full":
+            # the post-exchange check runs inside result() itself
+            pending._post_result = lambda res: self._verify_full_result(
+                handle, res, combine)
+        return pending
 
     def _tier_hooks(self) -> Dict:
         """The tiered exchange's per-tier deadlines, fault sites and
@@ -1248,7 +1678,8 @@ class ShuffleManager:
         node = self.node
         Pn, L = node.num_shards, len(shard_ids)
         shard_outputs, has_vals, val_tail, val_dtype = \
-            self._materialize_outputs(writers, L, by_ordinal=True)
+            self._materialize_outputs(writers, L, handle.entry, rep,
+                                      by_ordinal=True)
         nvalid_local = np.array(
             [sum(k.shape[0] for k, _ in outs) for outs in shard_outputs],
             dtype=np.int64)
@@ -1256,6 +1687,9 @@ class ShuffleManager:
             has_vals, val_tail, val_dtype, int(nvalid_local.sum()))
         nvalid = allgather_sizes(nvalid_local, shard_ids, Pn)
         validate_row_sizes(nvalid.reshape(1, -1))
+        if self._integrity_for() == "full" and not combine:
+            # the receivers need the global per-partition digest tables
+            self._stash_full_expect(handle, writers)
 
         t_plan = time.perf_counter()
         plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
@@ -1773,17 +2207,30 @@ class ShuffleManager:
 
     # -- staging ----------------------------------------------------------
     def _materialize_outputs(self, writers, num_slots: int,
+                             entry: ShuffleEntry, rep: ExchangeReport,
                              by_ordinal: bool = False):
         """Committed map outputs grouped onto shards (``map_id % P``; with
         ``by_ordinal``, the i-th map in id order on slot ``i % num_slots``:
         a distributed process's maps over its local shards), with one
-        agreed value schema. Returns (slot_outputs, has_vals, val_tail,
+        agreed value schema. Unless ``integrity.verify=off`` every output
+        is verified against its commit's record first
+        (:meth:`_verified_materialize`), so no byte is packed before every
+        map verified; ``rep`` gets the level and the bytes when any map
+        published a record. Returns (slot_outputs, has_vals, val_tail,
         val_dtype)."""
+        level = self._integrity_for()
+        verify = level != "off"
+        if verify:
+            outputs = self._verified_materialize(entry, writers)
+        else:
+            outputs = [(m, *w.materialize(), -1)
+                       for m, w in sorted(writers.items())]
+        verified_bytes = sum(nb for *_, nb in outputs if nb >= 0)
+        verified_maps = sum(1 for *_, nb in outputs if nb >= 0)
         slot_outputs = [[] for _ in range(num_slots)]
         has_vals = False
         val_tail, val_dtype = None, None
-        for ordinal, (map_id, w) in enumerate(sorted(writers.items())):
-            keys, values = w.materialize()
+        for ordinal, (map_id, keys, values, _) in enumerate(outputs):
             if values is not None and keys.shape[0]:
                 has_vals = True
                 if val_dtype is None:
@@ -1803,6 +2250,15 @@ class ShuffleManager:
                         raise ValueError(
                             "mixed schema: some map outputs have values, "
                             "others have keys only")
+        if verify:
+            if verified_bytes:
+                self.node.metrics.inc(C_INTEGRITY_VERIFIED,
+                                      float(verified_bytes))
+            if verified_maps:
+                # a shuffle whose maps published no record keeps
+                # integrity="": no check ran
+                rep.integrity = level
+                rep.integrity_bytes += verified_bytes
         return slot_outputs, has_vals, val_tail, val_dtype
 
     def _pack_shards(self, slot_outputs, cap_in: int, width: int,
@@ -2068,6 +2524,9 @@ class PendingWaveShuffle:
                                            self._val_tail, self._val_dtype)
         self._finalize(timeline, retries_total, pack_total, pack_hidden,
                        dispatch_total)
+        # integrity.verify=full: digests are wave-split invariant, so the
+        # drained waves verify together against every map's digest rows
+        mgr._verify_full_result(self._handle, res, outer.combine)
         return res
 
     def _dispatch_wave(self, shard_rows, wnv: np.ndarray, buf,

@@ -725,11 +725,12 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                 for p in range(P):
                     shards.append(host[off:off + ext[p]])
                     off += ext[p]
-                self.d2h_bytes = int(buf.numel()) * 4
+                nbytes = int(buf.numel()) * 4
+                self.d2h_bytes += nbytes
                 if self._metrics is not None:
-                    self._metrics.inc(C_D2H, float(self.d2h_bytes))
+                    self._metrics.inc(C_D2H, float(nbytes))
                 if self._d2h_cb is not None:
-                    self._d2h_cb(self.d2h_bytes)
+                    self._d2h_cb(nbytes)
             self._shards = shards
             self._rows_dev = None         # free the device buffer
             freed, self._on_device_free = self._on_device_free, None
@@ -784,14 +785,47 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                 off += n
 
         self._to_host(copy_into)
-        nbytes = int(buf.numel()) * buf.element_size()
+        self.note_d2h(int(buf.numel()) * buf.element_size())
+        return buf.numpy()
+
+    def note_d2h(self, nbytes: int) -> None:
+        """Count a payload pull of ``nbytes``: this view's ``d2h_bytes``,
+        the ``C_D2H`` counter and, once the manager armed it, the owning
+        read's report. Call it without the view's lock held."""
         with self._lock:
             self.d2h_bytes += nbytes
         if self._metrics is not None:
             self._metrics.inc(C_D2H, float(nbytes))
         if self._d2h_cb is not None:
             self._d2h_cb(nbytes)
-        return buf.numpy()
+
+    def key_lanes_to_host(self):
+        """``(keys, totals)``: a host copy of the live device buffer's key
+        lanes, ``[S, cap, 2]`` int32 over every shard of this view, and
+        its delivered rows ``[S]``; None once the buffers were consumed
+        or drained. The copy counts as D2H; the device buffers stay
+        live (``integrity.verify=full`` on the device sink)."""
+        with self._lock:
+            rows, totals = self._rows_dev, self._totals_dev
+        if rows is None or totals is None:
+            return None
+        if rows.device.type == "cpu":
+            keys = rows[:, :, :2].numpy().copy()
+            tot = totals.numpy().copy()
+        else:
+            keys_t = torch.empty(rows.shape[:2] + (2,), dtype=rows.dtype,
+                                 pin_memory=True)
+            tot_t = torch.empty(tuple(totals.shape), dtype=totals.dtype,
+                                pin_memory=True)
+
+            def copy_into():
+                keys_t.copy_(rows[:, :, :2], non_blocking=True)
+                tot_t.copy_(totals, non_blocking=True)
+
+            self._to_host(copy_into)
+            keys, tot = keys_t.numpy(), tot_t.numpy()
+        self.note_d2h(int(keys.nbytes))
+        return keys, tot
 
     def with_rows(self, rows_dev: torch.Tensor) -> "LazyShuffleReaderResult":
         """A new view over replacement rows ``[P, cap, W]`` with this
@@ -1321,6 +1355,12 @@ class PendingExchangeBase:
                 admit(True)
                 self._start()
             res = self._result_inner()
+            # the manager's post-exchange check (integrity.verify=full):
+            # inside result(), so submit()/result() verifies as read()
+            # does, and a raise takes the failure path below
+            hook = getattr(self, "_post_result", None)
+            if hook is not None:
+                hook(res)
         except BaseException:
             # a failed exchange keeps nothing on the device: a replay
             # must not run beside this attempt's buffers

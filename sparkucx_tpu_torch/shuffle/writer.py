@@ -4,8 +4,19 @@
 pool (page-locked on a CUDA node, so the later pack reads pinned memory
 and the pool's byte count sees what map tasks hold); ``commit`` computes
 the per-reduce-partition size row with the host twin of the device
-partitioner and publishes it to the shuffle's registry entry. An empty
-output publishes an all-zero row.
+partitioner and publishes it to the shuffle's registry entry, with the
+output's integrity record beside it (``shuffle/integrity.
+IntegrityRecord``: fold64 checksums at ``integrity.verify=staged``, also
+per-partition digest rows at ``full``, none at ``off``). An empty output
+publishes an all-zero row.
+
+Durable commit (``failure.ledgerDir``, ``shuffle/durable.py``): the
+writer's spill directory is the shuffle's ledger directory, ``commit``
+seals the whole output there before it publishes (so a published map
+survives the process), adds crc32 checksums to the record and rewrites
+the shuffle's manifest. A durable writer's ``release`` keeps its files;
+:meth:`MapOutputWriter.recovered` adopts a sealed file set after a
+restart.
 
 Spill: past ``spill.threshold`` staged bytes, a writer appends its
 batches to a ``.keys``/``.vals`` file pair (:class:`SpillFiles`) and
@@ -31,6 +42,7 @@ import numpy as np
 from sparkucx_tpu_torch.meta.registry import ShuffleEntry
 from sparkucx_tpu_torch.runtime.failures import TruncatedBlockError
 from sparkucx_tpu_torch.runtime.node import HostStagingPool, MappedFile
+from sparkucx_tpu_torch.shuffle.integrity import compute_record
 from sparkucx_tpu_torch.utils.atomicio import atomic_write_text, fsync_dir
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_SPILL_BYTES, C_SPILL_COUNT,
@@ -67,6 +79,25 @@ class SpillFiles:
         self.rows = 0
         self.sealed = False
         self._maps: List[MappedFile] = []
+
+    @classmethod
+    def open_sealed(cls, directory: str, shuffle_id: int,
+                    map_id: int) -> "SpillFiles":
+        """Adopt an already sealed file set (the durable ledger's restart
+        recovery): no open files, the rows from the sealed sidecar;
+        :meth:`load` maps the columns."""
+        obj = cls.__new__(cls)
+        stem = os.path.join(directory,
+                            f"shuffle_{shuffle_id}_map_{map_id}")
+        obj.keys_path = stem + ".keys"
+        obj.vals_path = stem + ".vals"
+        obj.index_path = stem + ".index"
+        obj._kf = obj._vf = None
+        obj.sealed = True
+        obj._maps = []
+        with open(obj.index_path) as f:
+            obj.rows = int(json.load(f)["rows"])
+        return obj
 
     def append(self, keys: np.ndarray, values: Optional[np.ndarray]) -> None:
         if self.sealed:
@@ -147,13 +178,17 @@ class SpillFiles:
             m.close()
         self._maps.clear()
 
-    def close(self) -> None:
-        """Close the files and delete them (sealed, index and ``*.tmp``)."""
+    def close(self, delete: bool = True) -> None:
+        """Close the files and drop the mappings; with ``delete`` (the
+        default) delete the files too (sealed, index and ``*.tmp``). A
+        durable writer keeps them: deleting them is the ledger's job."""
         for f in (self._kf, self._vf):
             if f is not None:
                 f.close()
         self._kf = self._vf = None
         self.drop_views()
+        if not delete:
+            return
         for p in (self.keys_path, self.vals_path, self.index_path,
                   self.keys_path + ".tmp", self.vals_path + ".tmp"):
             try:
@@ -181,7 +216,8 @@ class MapOutputWriter:
     def __init__(self, entry: ShuffleEntry, map_id: int,
                  pool: HostStagingPool, partitioner: str = "hash",
                  bounds=None, spill_dir: Optional[str] = None,
-                 spill_threshold: int = 0, metrics=None, faults=None):
+                 spill_threshold: int = 0, metrics=None, faults=None,
+                 integrity_level: str = "off", ledger=None):
         self.entry = entry
         self.faults = faults      # runtime.failures.FaultInjector
         self.map_id = map_id
@@ -202,6 +238,14 @@ class MapOutputWriter:
         self._spill_views = None     # cached mapped (keys, values)
         self._staged_bytes = 0
         self._metrics = metrics
+        # integrity.verify at commit: "off" publishes no record
+        self._integrity_level = integrity_level
+        self.integrity = None        # the published record
+        # the durable ledger (shuffle/durable.ShuffleLedger): commit seals
+        # into spill_dir (the ledger's shuffle directory) and records the
+        # manifest row; release() keeps a durable writer's files
+        self._ledger = ledger
+        self._durable = ledger is not None
 
     def _stage(self, arr: np.ndarray) -> np.ndarray:
         """Copy ``arr`` into a pool buffer; returns the view over it."""
@@ -316,7 +360,9 @@ class MapOutputWriter:
         return self._released
 
     def commit(self, num_partitions: int) -> np.ndarray:
-        """Compute and publish this map output's size row; returns it."""
+        """Compute and publish this map output's size row and integrity
+        record; returns the size row. With a ledger the output is sealed
+        on disk before anything is published."""
         if self._committed:
             raise RuntimeError("writer already committed")
         if self._released:
@@ -326,16 +372,31 @@ class MapOutputWriter:
         if self.faults is not None:
             self.faults.check("publish")
         with Timer() as t:
-            keys, _ = self.materialize()
-            if keys.shape[0]:
-                sizes = np.bincount(self.partition_of(keys, num_partitions),
-                                    minlength=num_partitions)
+            keys = values = parts = None
+            if self.num_rows:
+                if self._ledger is not None and self._spill is None:
+                    # a published durable map must survive a restart:
+                    # materialize() below seals the files
+                    self._flush_to_disk()
+                keys, values = self.materialize()
+                parts = self.partition_of(keys, num_partitions)
+                sizes = np.bincount(parts, minlength=num_partitions)
             else:
                 sizes = np.zeros(num_partitions, dtype=np.int64)
-            self.entry.publish(self.map_id, sizes)
+            rec = None
+            if self._integrity_level != "off" or self._ledger is not None:
+                rec = compute_record(
+                    keys, values, parts, num_partitions,
+                    with_digests=self._integrity_level == "full",
+                    with_crc=self._ledger is not None)
+            self.entry.publish(self.map_id, sizes, integrity=rec)
+            self.integrity = rec
+            if self._ledger is not None:
+                self._ledger.record_commit(self.entry, self.map_id, sizes,
+                                           rec)
         self._committed = True
         log.debug("map %d publish: %.2f ms (%d rows)", self.map_id, t.ms,
-                  keys.shape[0])
+                  0 if keys is None else keys.shape[0])
         return sizes
 
     def partition_of(self, keys: np.ndarray,
@@ -354,6 +415,30 @@ class MapOutputWriter:
             return np.searchsorted(np.asarray(self.bounds, dtype=np.int64),
                                    keys, side="right").astype(np.int64)
         return (hash32_np(keys) % np.uint32(num_partitions)).astype(np.int64)
+
+    @classmethod
+    def recovered(cls, entry: ShuffleEntry, map_id: int,
+                  pool: HostStagingPool, directory: str, rec,
+                  partitioner: str = "hash", bounds=None,
+                  integrity_level: str = "staged",
+                  metrics=None) -> "MapOutputWriter":
+        """A committed writer over one map output the durable ledger's
+        restart scan validated: its staged state is the sealed file set
+        in ``directory``, which reads pack from through the mapped views
+        (no recompute). ``rec`` is the manifest's record."""
+        w = cls(entry, map_id, pool, partitioner, bounds,
+                spill_dir=directory, metrics=metrics,
+                integrity_level=integrity_level)
+        w._durable = True                # release() keeps the files
+        if rec.rows:
+            w._spill = SpillFiles.open_sealed(directory, entry.shuffle_id,
+                                              map_id)
+        if rec.val_dtype is not None:
+            w._val_tail = tuple(rec.val_tail or ())
+            w._val_dtype = np.dtype(rec.val_dtype)
+        w.integrity = rec
+        w._committed = True
+        return w
 
     def materialize(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Concatenated (keys, values) staged by this writer. Once it
@@ -379,7 +464,9 @@ class MapOutputWriter:
 
     def release(self) -> None:
         """Return the staging buffers to the pool and delete the spill
-        files; the writer is dead afterwards. Idempotent."""
+        files; the writer is dead afterwards. Idempotent. A durable
+        writer's files stay on disk (only its mappings close): deleting
+        them is ``ShuffleLedger.forget``'s job."""
         self._released = True
         self._keys.clear()
         self._values.clear()
@@ -387,5 +474,5 @@ class MapOutputWriter:
         self._staged_bytes = 0
         if self._spill is not None:
             self._spill_views = None
-            self._spill.close()
+            self._spill.close(delete=not self._durable)
             self._spill = None

@@ -15,8 +15,9 @@ hierarchical reads :data:`C_TIER_BYTES`, and the failure and agreement
 planes of distributed reads (:data:`C_PEER_TIMEOUT`, :data:`C_PROBE_DEAD`,
 :data:`C_AGREE_ROUNDS`, :data:`C_AGREE_DIVERGENCE`,
 :data:`H_AGREE_ROUND`), the replay counters :data:`C_REPLAYS` and
-:data:`C_REPLAY_MS`, the retry histogram :data:`H_RETRY_MS` and each
-read's wall :data:`H_FETCH_WAIT`. A reporter (:meth:`Metrics.add_reporter`,
+:data:`C_REPLAY_MS`, the retry histogram :data:`H_RETRY_MS`, each
+read's wall :data:`H_FETCH_WAIT` and the integrity counters
+(:data:`C_INTEGRITY_VERIFIED` and the four beside it). A reporter (:meth:`Metrics.add_reporter`,
 the flight recorder's ring) sees every increment and observation."""
 
 from __future__ import annotations
@@ -84,6 +85,14 @@ C_REPLAYS = "shuffle.replay.count"
 C_REPLAY_MS = "shuffle.replay.ms"
 H_FETCH_WAIT = "shuffle.read.wait_ms"
 H_RETRY_MS = "failure.retry.ms"
+# the integrity plane (shuffle/integrity.py, the manager's verifies,
+# shuffle/durable.py's restart scan): bytes verified, bytes and blocks
+# found corrupt, maps the restart scan quarantined and maps it recovered
+C_INTEGRITY_VERIFIED = "shuffle.integrity.verified.bytes"
+C_INTEGRITY_CORRUPT = "shuffle.integrity.corrupt.bytes"
+C_INTEGRITY_CORRUPT_BLOCKS = "shuffle.integrity.corrupt.count"
+C_INTEGRITY_QUARANTINED = "shuffle.integrity.quarantined.count"
+C_INTEGRITY_RECOVERED = "shuffle.integrity.recovered.count"
 
 
 def labeled(name: str, **labels) -> str:

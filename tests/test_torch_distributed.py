@@ -554,3 +554,48 @@ def test_launcher_fails_at_once_on_a_job_error():
     with pytest.raises(ClusterError, match="worker"):
         run_cluster("torch_cluster_jobs:no_such_job", 2, P, device="cpu",
                     timeout_s=60)
+
+
+# -- integrity.verify=full across processes ----------------------------------
+@pytest.fixture(scope="module")
+def integrity_world():
+    run = run_cluster("torch_cluster_jobs:integrity_suite", 2, P,
+                      device="cpu", timeout_s=240)
+    assert run.attempts in (1, 2) and run.returncodes == [0, 0]
+    return run.results
+
+
+def test_distributed_full_verify_table_matches_jax(integrity_world,
+                                                   jax_flat):
+    """Every process gathers the same digest tables, equal bit for bit to
+    the JAX package's ``aggregate_digests`` over every map (words at and
+    above 2**63 included), verifies its partitions against them, and the
+    partial views hold the reference's read."""
+    from sparkucx_tpu.shuffle import integrity as jinteg
+    node, mgr = _jax_manager({"spark.shuffle.tpu.integrity.verify": "full"})
+    try:
+        h = jobs.write(mgr, 1, jobs.float_maps(), range(jobs.MAPS))
+        want = {"full": jinteg.aggregate_digests(h.entry, jobs.MAPS, False),
+                "key": jinteg.aggregate_digests(h.entry, jobs.MAPS, True)}
+    finally:
+        mgr.stop()
+        node.close()
+    want = {k: [int(x) for x in v] for k, v in want.items()}
+    assert any(x >= 1 << 63 for x in want["full"] + want["key"])
+    _check(_merged(integrity_world, "full"), jax_flat["plain"], "plain")
+    for res in integrity_world:
+        assert res["table"] == want
+        integ, nbytes = res["full_report"]
+        assert integ == "full" and nbytes > res["staged_bytes"]
+
+
+def test_distributed_full_verify_skips_together(integrity_world,
+                                                jax_flat):
+    """One process lacking digest rows makes every process skip the
+    post-exchange check (the staged verify still ran on each), and the
+    read still delivers the reference's partitions."""
+    _check(_merged(integrity_world, "lacking"), jax_flat["plain"], "plain")
+    for res in integrity_world:
+        assert res["lacking_table"] is False
+        assert res["lacking_report"] == ["full", res["staged_bytes"]]
+

@@ -51,6 +51,14 @@ def test_scan_covers_the_wire_modules():
             "ops/segmented.py"} <= names
 
 
+def test_scan_covers_the_integrity_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"shuffle/integrity.py", "shuffle/durable.py",
+            "shuffle/writer.py", "meta/registry.py",
+            "runtime/failures.py"} <= names
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):

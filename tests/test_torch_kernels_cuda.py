@@ -1677,3 +1677,56 @@ def test_partition_fetch_moves_only_the_partition_on_card(card):
                 assert moved > k0.shape[0] * width * 4
             views[gran] = sorted(zip(k0.tolist(), map(bytes, v0)))
     assert views["shard"] == views["partition"]
+
+
+def test_staged_pallas_read_reports_integrity_bytes_on_card(card):
+    """Under the default ``integrity.verify=staged`` a ``pallas`` read on
+    the card verifies every staged byte before the exchange (the
+    reference's ``integrity_bytes``: every map's key and value bytes),
+    launches the segment move once and matches the oracle."""
+    M, R = 8, 16
+    keys, vals = _failure_maps(53)
+    with connect({"spark.shuffle.tpu.a2a.impl": "pallas"}, num_shards=8,
+                 use_env=False) as svc:
+        h = _write_maps(svc, 1, keys, vals, M, R)
+        launches = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+        res = svc.read(h)
+        rep = svc.report(1)
+        assert (rep.impl, rep.integrity) == ("pallas", "staged")
+        assert rep.integrity_bytes == keys.nbytes + vals.nbytes
+        assert backend.launch_counts()[ra.KERNEL_NAME] == launches + 1
+        _check_oracle(res, keys, vals, R)
+
+
+def test_corrupt_staged_replay_leaves_device_memory_on_card(card):
+    """A ``corrupt.staged`` flip under ``failure.policy=replay`` is found
+    before the pack (no launch for the failed attempt), the replay
+    launches the segment move once, the partitions equal the oracle and
+    the card's allocated bytes return to their value before the read."""
+    import gc
+    M, R = 8, 16
+    keys, vals = _failure_maps(54)
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+            "spark.shuffle.tpu.failure.policy": "replay"}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        h = _write_maps(svc, 1, keys, vals, M, R)
+        warm = svc.read(h)
+        dict(warm.partitions())
+        del warm
+        gc.collect()
+        torch.cuda.synchronize(card)
+        staged = svc.node.pool.stats()["in_use_bytes"]
+        before = torch.cuda.memory_allocated(card)
+        svc.node.faults.arm("corrupt.staged", fail_count=1, offset=4097)
+        launches = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+        res = svc.read(h)
+        assert backend.launch_counts()[ra.KERNEL_NAME] == launches + 1
+        rep = svc.report(1)
+        assert (rep.replays, rep.integrity) == (1, "staged")
+        assert svc.node.metrics.get("shuffle.integrity.corrupt.count") == 1
+        _check_oracle(res, keys, vals, R)
+        assert svc.node.pool.stats()["in_use_bytes"] == staged
+        del res
+        gc.collect()
+        torch.cuda.synchronize(card)
+        assert torch.cuda.memory_allocated(card) == before

@@ -347,3 +347,41 @@ def replay_suite(ctx) -> dict:
         out["one_armed"] = f"{type(e).__name__}: {e}"[:300]
     out["one_armed_ms"] = (time.monotonic() - t0) * 1e3
     return out
+
+
+def integrity_suite(ctx) -> dict:
+    """``integrity.verify=full`` on one world: a plain read whose digest
+    tables every process gathers before the exchange (the table as
+    submit left it, the partitions and the report), then a read whose
+    process 1 holds maps without digest rows (committed below the full
+    level): every process skips the post-exchange check together."""
+    svc = ctx.svc
+    mine = my_maps(ctx, MAPS)
+    fm = float_maps()
+    full = {"spark.shuffle.tpu.integrity.verify": "full"}
+    out = {"rank": ctx.rank}
+    mgr = _manager(ctx, full)
+    h = write(mgr, 1, fm, mine)
+    pending = mgr.submit(h)
+    table = mgr._full_expect.get(1)
+    out["table"] = None if table is None else {
+        k: [int(x) for x in v] for k, v in table.items()}
+    out["full"] = dump(pending.result())
+    rep = mgr.report(1)
+    out["full_report"] = [rep.integrity, rep.integrity_bytes]
+    out["staged_bytes"] = int(sum(fm[m][0].nbytes + fm[m][1].nbytes
+                                  for m in mine))
+
+    h = write(mgr, 2, fm, mine)
+    if ctx.rank == 1:
+        for m in mine:
+            h.entry.fetch_integrity(m).digests = None
+    pending = mgr.submit(h)
+    out["lacking_table"] = 2 in mgr._full_expect
+    out["lacking"] = dump(pending.result())
+    rep = mgr.report(2)
+    out["lacking_report"] = [rep.integrity, rep.integrity_bytes]
+    mgr.unregister_shuffle(1)
+    mgr.unregister_shuffle(2)
+    mgr.stop()
+    return out
