@@ -328,8 +328,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             once and spends one budget unit, the digests equal main's),
             dist_full (main's maps at ``integrity.verify=full``: the
             digest tables all-gathered before the plan, both workers
-            report ``integrity == "full"`` and main's digests) and last
-            dist_one_armed (on a node of its own under
+            report ``integrity == "full"`` and main's digests),
+            dist_async (on a service of its own with
+            ``tenant.asyncWorkers=4``, each worker submits the same six
+            ``read_async`` reads of a minnow-sized shuffle under two
+            tenants, ``lo`` normal and ``hi`` high: every result against
+            the oracle, both workers run the reads in the same order,
+            the concatenation of the agreed batch orders, every report's
+            ``async_workers`` 4; the turnstile's waits are printed) and
+            last dist_one_armed (on a node of its own under
             ``failure.collectiveTimeoutMs=6000`` and
             ``failure.replayAgreeTimeoutMs=2000``, the fault armed on
             worker 0 only: worker 0 raises ``InjectedFault`` within the
@@ -404,6 +411,42 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             is written again and the read gives main's digests;
             ``unregister_shuffle`` removes the directory; the durable
             commits' wall beside main's).
+38. tenancy — the multi-tenant service plane on the async read path
+            (``read_async``, ``tenant.asyncWorkers=16``, main's conf):
+            the whale is main's shuffle under tenant ``whale``
+            (``batch``), a minnow 262,144 records of main's row shape, 8
+            maps, tenant ``minnow`` (``high``), eight minnow shuffles of
+            which the last is a ``combine="sum"`` read of combine's value
+            shape. ``a2a.maxBytesInFlight`` is one whale read's
+            footprint, measured first. tenancy_solo: the eight minnows,
+            three rounds; tenancy_fair: the whale floods four
+            device-sink reads into admission first (one granted and held
+            until round 1's minnows are all deferred behind the other
+            three, then drained and checked against main's digests; the
+            rest settle as they complete, the last checked too), then the
+            minnow rounds; tenancy_fifo: the same under
+            ``tenant.fairShare=false``. Every minnow result against its
+            oracle; the grant order through each deferred minnow's
+            ``shuffle.admit.cross_grants{tenant=minnow}``: at most 1
+            under DRR, exactly 3 for each of round 1's eight minnows
+            under FIFO; the in-flight bytes back to 0, the queue empty,
+            the pool's bytes in use back to the writers'. Printed: minnow
+            p50 / p99 (queued + wall, as the reference's bench), wall,
+            queued and submit-to-result, the ratios to solo beside the
+            reference's CPU claim of 1.8, the whale's flood-to-last wall,
+            per-tenant admitted bytes and waits, ``_pack_share`` answers,
+            the pool's peak and the phase's device peak.
+            tenancy_overrides: tenants ``a`` (``integrity.verify=full``)
+            and ``b`` (``off``) read back to back; ``d``
+            (``replayBudget=0``) under an armed exchange fault raises
+            without a replay while the default tenant's read replays
+            once; ``c`` (``waveDepth=1``) in a waved device-sink ordered
+            read (``dense``, 4 waves) packs each wave after the previous
+            one was forced and reserves less than the default depth 2.
+            tenancy_quota: ``hog`` at a quota of one of its reads, three
+            device-sink hog reads and a ``normal`` read: the normal one
+            completes past the quota-blocked hog head while the first
+            hog read still holds; every read completes.
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -414,7 +457,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed, faults, integrity.
+dlpack, distributed, faults, integrity, tenancy.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -434,11 +477,15 @@ exactly main's count, the merge and the segment reduce in faults_waved
 and the quantize in faults_tiered as above; integrity: the segment move
 in each level's read exactly main's count, and in every other read of
 the phase once, the merge, the segment reduce and the quantize in
-integrity_modes as above). The ``kernels`` line gives the launches in
-the faults phase (``faults_launches``) and in the integrity phase
-(``integrity_launches``) of the four kernels they drive (the segment
-move, the merge, the segment reduce and the quantize); the others carry
-no such key. The
+integrity_modes as above; tenancy: in each cell, the segment move once
+an attempt of every ``pallas`` read and the segment reduce once an
+attempt of every combine read, the merge once a fold step of
+tenancy_overrides' waved reads). The ``kernels`` line gives the
+launches in the faults phase (``faults_launches``) and in the integrity
+phase (``integrity_launches``) of the four kernels they drive (the
+segment move, the merge, the segment reduce and the quantize), and in
+the tenancy phase (``tenancy_launches``) of the segment move, the merge
+and the segment reduce; the others carry no such key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
@@ -686,9 +733,9 @@ def check_against_oracle(parts, keys, values, R: int, pid=None) -> None:
 
 
 def write_maps(svc, sid: int, keys, values, num_maps: int,
-               partitioner: str = "hash", bounds=None):
+               partitioner: str = "hash", bounds=None, tenant=None):
     h = svc.register_shuffle(sid, num_maps, PARTITIONS, partitioner,
-                             bounds=bounds)
+                             bounds=bounds, tenant=tenant)
     per = -(-keys.shape[0] // num_maps)
     for m in range(num_maps):
         sl = slice(m * per, min((m + 1) * per, keys.shape[0]))
@@ -4736,6 +4783,9 @@ def dist_worker(ctx) -> dict:
     del parts, ikeys, grads, ipid
     m8.unregister_shuffle(74)
     m8.stop()
+    # dist_async: six read_async reads of two tenants on 4 workers, each
+    # batch's order agreed and each read under its turnstile ticket
+    out["dist_async"] = dist_async(ctx, dev)
     # dist_one_armed: a fault on worker 0 only, on a node of its own under
     # the fence (its groups are left broken: no teardown at exit)
     from sparkucx_tpu_torch.runtime.failures import TransientError
@@ -4867,6 +4917,23 @@ def dist_phase(dev, main_digests: dict) -> dict:
                              "enter_ms": DIST_ENTER_MS,
                              "fence_ms": DIST_FENCE_MS,
                              "workers": [armed, other], "ok": True}
+    a, b = (res["dist_async"] for res in results)
+    flat = [s - 1 for batch in a["orders"] for s in batch]
+    n_async = len(DIST_ASYNC_TENANTS)
+    if not (a["orders"] == b["orders"] and a["ran"] == b["ran"] == flat
+            and sorted(a["partitions"] + b["partitions"])
+            == list(range(PARTITIONS))
+            and all(x["async_workers"] == [4] * n_async
+                    and x["tenants"] == list(DIST_ASYNC_TENANTS)
+                    for x in (a, b))):
+        raise AssertionError(f"dist_async: {a} {b}")
+    out["dist_async"] = {"phase": "dist_async",
+                         "tenants": list(DIST_ASYNC_TENANTS),
+                         "agreed_orders": a["orders"], "ran": a["ran"],
+                         "wall_ms": [a["wall_ms"], b["wall_ms"]],
+                         "turnstile_wait_ms": [a["turnstile_wait_ms"],
+                                               b["turnstile_wait_ms"]],
+                         "workers": [a, b], "ok": True}
     launches = {}
     for kname, name, want in (
             (sg.MERGE_KERNEL_NAME, "dist_waved_ordered_device", 4),
@@ -5818,6 +5885,659 @@ def integrity_phase(dev, main_digests: dict, main_launches: int,
     return out
 
 
+# -- the tenancy plane: tenant policy, fair-share admission, the async read
+# plane (shuffle/tenancy.py, the manager's admission) ----------------------
+MINNOW_RECORDS = 262_144       # a serving tier's small exchange: 26.2 MB
+MINNOW_MAPS = 8
+MINNOWS = 8                    # minnow shuffles; the last one is a combine
+MINNOW_ROUNDS = 3
+WHALE_FLOOD = 4                # whale reads flooded into admission first
+TENANCY_DEADLINE_S = 120.0     # any future or wait of the phase
+# grants to the whale a minnow ticket may wait through: under DRR the
+# whale read that is DRR's cached head when the minnow queues (a whale
+# read needs thousands of quanta, a minnow read tens), under FIFO every
+# whale read queued ahead of it
+FAIR_CROSS_BOUND = 1.0
+FIFO_CROSS = float(WHALE_FLOOD - 1)
+TENANCY_CONF = {PFX + "a2a.impl": "pallas",          # main's conf
+                PFX + "read.mergeImpl": "auto",
+                # every future holds a worker: the executor must not be a
+                # FIFO queue in front of the admission plane
+                PFX + "tenant.asyncWorkers": "16",
+                PFX + "tenant.whale.priority": "batch",
+                PFX + "tenant.minnow.priority": "high"}
+DIST_ASYNC_TENANTS = ("lo", "hi", "hi", "lo", "hi", "lo")
+
+
+def minnow_data() -> list:
+    """The minnow shuffles' records: MINNOWS - 1 of main's row shape and
+    one of combine's value shape, with their oracles (partition digests;
+    the combine's per-key int32 sums)."""
+    out = []
+    for i in range(MINNOWS):
+        if i == MINNOWS - 1:
+            k, v = make_combine_records(MINNOW_RECORDS, SEED + 40)
+            uk, sums, _ = group_oracle(k, v)
+            want = (uk, (sums & 0xFFFFFFFF).astype(np.uint32)
+                    .view(np.int32))
+            out.append({"keys": k, "values": v, "combine": True,
+                        "want": want})
+            continue
+        k, v = make_records(MINNOW_RECORDS, zipf=False, seed=SEED + 30 + i)
+        pid = hash_pid(k, PARTITIONS)
+        order = np.argsort(pid, kind="stable")
+        edges = np.searchsorted(pid[order], np.arange(PARTITIONS + 1))
+        want = {str(r): partition_digest(k[order[edges[r]:edges[r + 1]]],
+                                         v[order[edges[r]:edges[r + 1]]])
+                for r in range(PARTITIONS)}
+        out.append({"keys": k, "values": v, "combine": False, "want": want})
+    return out
+
+
+def check_minnow(res, m: dict, tag: str) -> None:
+    """One minnow result against its oracle: every partition's count and
+    row multiset (digests), or the combine's keys and exact sums."""
+    parts = [res.partition(r) for r in range(PARTITIONS)]
+    if m["combine"]:
+        gk, gv = combined_rows(parts, PARTITIONS,
+                               lambda k: hash_pid(k, PARTITIONS))
+        if not (np.array_equal(gk, m["want"][0])
+                and np.array_equal(gv, m["want"][1])):
+            raise AssertionError(f"{tag}: combine keys or sums differ "
+                                 f"from the oracle")
+    elif partition_digests(parts) != m["want"]:
+        raise AssertionError(f"{tag}: partitions differ from the oracle")
+
+
+def _wait_for(pred, what: str) -> None:
+    deadline = time.monotonic() + TENANCY_DEADLINE_S
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"tenancy: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+class _TenancyTap:
+    """While installed on a manager: every report it makes (a read
+    attempt each) and every ``_pack_share`` answer with the tenants
+    packing at that moment."""
+
+    def __init__(self, mgr):
+        self.mgr, self.reports, self.shares = mgr, [], []
+
+    def __enter__(self) -> "_TenancyTap":
+        mgr = self.mgr
+        new_report, pack_share = mgr._new_report, mgr._pack_share
+
+        def tap_report(h, *a, **kw):
+            rep = new_report(h, *a, **kw)
+            self.reports.append(rep)
+            return rep
+
+        def tap_share(tenant):
+            share = pack_share(tenant)
+            with mgr._lock:
+                contending = sorted(t for t, n in mgr._packing.items() if n)
+            self.shares.append((tenant, share, contending))
+            return share
+
+        mgr._new_report, mgr._pack_share = tap_report, tap_share
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.mgr._new_report, self.mgr._pack_share
+
+    def expected_launches(self) -> dict:
+        """The launch rule over the read attempts made: the segment move
+        once an attempt (and once more a regrow) of a ``pallas`` read
+        that dispatched, the segment reduce as often in a combine read
+        (the only reads here whose report names the kernel tier)."""
+        from sparkucx_tpu_torch.ops import ragged_a2a as ra
+        from sparkucx_tpu_torch.ops import segmented as sg
+        done = [r for r in self.reports
+                if r.completed and r.impl == "pallas"]
+        return {ra.KERNEL_NAME: sum(1 + r.retries for r in done),
+                sg.KERNEL_NAME: sum(1 + r.retries for r in done
+                                    if r.kernel == "pallas")}
+
+
+def _check_rule(tag: str, tap: "_TenancyTap") -> dict:
+    """The launches since the last reset against ``tap``'s launch rule."""
+    from sparkucx_tpu_torch import backend
+    want = tap.expected_launches()
+    launches = backend.launch_counts()
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, the launch rule "
+                             f"gives {want}")
+    return got
+
+
+def _tenant_metrics(metrics, tenants) -> dict:
+    from sparkucx_tpu_torch.utils import metrics as mt
+    out = {}
+    for t in tenants:
+        wait = metrics.histogram(mt.labeled(mt.H_ADMIT_WAIT, tenant=t))
+        out[t] = {
+            "admitted_bytes": metrics.get(mt.labeled(mt.C_ADMIT_BYTES,
+                                                     tenant=t)),
+            "admit_waits": wait.get("count", 0),
+            "admit_wait_ms_sum": wait.get("sum", 0.0),
+            "admit_wait_ms_max": wait.get("max", 0.0),
+            "cross_grants": metrics.histogram(
+                mt.labeled(mt.H_ADMIT_CROSS, tenant=t)),
+            "reads": metrics.get(mt.labeled("shuffle.read.count",
+                                            tenant=t))}
+    return out
+
+
+class _WhaleDrain:
+    """Settles the whale's flooded device-sink reads after the first, in
+    the order they complete (each holds its reservation until then): the
+    last is drained to the host through ``host_view()`` and checked
+    against main's digests, the others closed. Runs on its own thread;
+    an error is kept and raised by :meth:`join`."""
+
+    def __init__(self, futures, main_digests: dict):
+        import threading
+        self.pending = list(futures)
+        self.main_digests = main_digests
+        self.error = None
+        self.last_done = 0.0
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        try:
+            deadline = time.monotonic() + TENANCY_DEADLINE_S
+            while self.pending:
+                ready = [f for f in self.pending if f.done()]
+                if not ready:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("a whale read never completed")
+                    time.sleep(0.002)
+                    continue
+                for f in ready:
+                    self.pending.remove(f)
+                    res = f.result()
+                    self.last_done = time.perf_counter()
+                    if self.pending:
+                        res.close()
+                        continue
+                    view = res.host_view()
+                    parts = [view.partition(r) for r in range(PARTITIONS)]
+                    if partition_digests(parts) != self.main_digests:
+                        raise AssertionError("the whale's last read differs "
+                                             "from main's")
+        except BaseException as e:
+            self.error = e
+
+    def start(self) -> "_WhaleDrain":
+        self.thread.start()
+        return self
+
+    def join(self) -> None:
+        self.thread.join(TENANCY_DEADLINE_S)
+        if self.thread.is_alive():
+            raise AssertionError("the whale drain did not finish")
+        if self.error is not None:
+            raise self.error
+
+
+def tenancy_cell(dev, name: str, conf_extra: dict, minnows: list,
+                 whale, main_digests: dict, cap: int,
+                 contend: bool = False) -> dict:
+    """One cell: the minnows' MINNOW_ROUNDS rounds of ``read_async`` (all
+    MINNOWS at once, then the next round), after the whale's
+    WHALE_FLOOD device-sink ``read_async`` reads of its one shuffle when
+    ``whale`` is given: the flood's first read holds its reservation
+    (one whale footprint, the cap) until round 1's minnows are all
+    deferred behind the three queued whale reads, then is drained and
+    checked against main's digests; the rest settle in completion order
+    (:class:`_WhaleDrain`). With ``contend``, one more host-sink whale
+    read and the minnows are then submitted together, so that their packs
+    overlap (``pack_share_contended``: the ``_pack_share`` answers of
+    that window). Every result is held against its oracle. Returns the
+    latencies, the admission figures and the launch counts against the
+    launch rule."""
+    import gc
+
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    conf = {**TENANCY_CONF, PFX + "a2a.maxBytesInFlight": str(cap),
+            **conf_extra}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        mgr = svc.manager
+        hs = [write_maps(svc, 500 + i, m["keys"], m["values"], MINNOW_MAPS,
+                         tenant="minnow") for i, m in enumerate(minnows)]
+        wh = None
+        if whale is not None:
+            wh = write_maps(svc, 600, whale[0], whale[1], MAPS,
+                            tenant="whale")
+            svc.read(wh, sink="device").close()        # warm, not counted
+        for h, m in zip(hs[-2:], minnows[-2:]):        # warm both kinds
+            svc.read(h, combine="sum" if m["combine"] else None)
+        torch.cuda.synchronize(dev)
+        staged = svc.node.pool.stats()["in_use_bytes"]
+        svc.node.pool.reset_peak_bytes()
+        backend.reset_launch_counts()
+        lat, s2r, queued, walls = [], [], [], []
+        drain, whale_wall_ms, first_whale = None, None, {}
+        with _TenancyTap(mgr) as tap, KernelCapture() as cap_k:
+            t_flood = time.perf_counter()
+            if wh is not None:
+                wfuts = [svc.read_async(wh, sink="device")
+                         for _ in range(WHALE_FLOOD)]
+                q = mgr._admit_queue
+                _wait_for(lambda: q.depth() == WHALE_FLOOD - 1
+                          and any(f.done() for f in wfuts),
+                          "the whale flood in admission")
+                time.sleep(0.2)        # the queued whale reads poll first
+                w0 = next(f for f in wfuts if f.done())
+                drain = _WhaleDrain([f for f in wfuts if f is not w0],
+                                    main_digests)
+            for rnd in range(MINNOW_ROUNDS):
+                t_sub, done_at, futs = {}, {}, []
+                for i, (h, m) in enumerate(zip(hs, minnows)):
+                    t_sub[i] = time.perf_counter()
+                    f = svc.read_async(
+                        h, combine="sum" if m["combine"] else None)
+                    f.add_done_callback(
+                        lambda _f, i=i: done_at.__setitem__(
+                            i, time.perf_counter()))
+                    futs.append(f)
+                if rnd == 0 and wh is not None:
+                    q = mgr._admit_queue
+                    _wait_for(lambda: q.depth() == WHALE_FLOOD - 1 + MINNOWS,
+                              "round 1's minnows queued behind the flood")
+                    first_whale["queue_depth"] = q.depth()
+                    first_whale["minnows_queued_ms"] = \
+                        (time.perf_counter() - t_flood) * 1e3
+                    drain.start()
+                    view = w0.result().host_view()
+                    parts = [view.partition(r) for r in range(PARTITIONS)]
+                    first_whale["served_ms"] = \
+                        (time.perf_counter() - t_flood) * 1e3
+                    if partition_digests(parts) != main_digests:
+                        raise AssertionError(f"{name}: the whale's first "
+                                             f"read differs from main's")
+                    del parts, view
+                results = [f.result(timeout=TENANCY_DEADLINE_S)
+                           for f in futs]
+                for i, f in enumerate(futs):
+                    lat.append(f.queued_ms + f.wall_ms)
+                    queued.append(f.queued_ms)
+                    walls.append(f.wall_ms)
+                    s2r.append((done_at[i] - t_sub[i]) * 1e3)
+                for i, (res, m) in enumerate(zip(results, minnows)):
+                    check_minnow(res, m, f"{name} round {rnd} minnow {i}")
+                del results
+            if drain is not None:
+                drain.join()
+                whale_wall_ms = (drain.last_done - t_flood) * 1e3
+            mark = len(tap.shares)
+            if contend:
+                fw = svc.read_async(wh)
+                # the minnows start while the whale read packs
+                _wait_for(lambda: fw.done() or mgr._packing.get("whale"),
+                          "the contended whale read's pack")
+                futs = [svc.read_async(h, combine="sum" if m["combine"]
+                                       else None)
+                        for h, m in zip(hs, minnows)]
+                for i, (f, m) in enumerate(zip(futs, minnows)):
+                    check_minnow(f.result(timeout=TENANCY_DEADLINE_S), m,
+                                 f"{name} contended minnow {i}")
+                view = fw.result(timeout=TENANCY_DEADLINE_S)
+                parts = [view.partition(r) for r in range(PARTITIONS)]
+                if partition_digests(parts) != main_digests:
+                    raise AssertionError(f"{name}: the contended whale read "
+                                         f"differs from main's")
+                del parts, view, futs
+            torch.cuda.synchronize(dev)
+            got = _check_rule(name, tap)
+            checks = cap_k.check(name)
+        gc.collect()
+        pool = svc.node.pool.stats()
+        if not (mgr._inflight_bytes == 0 and not mgr._admit_queue
+                and mgr._inflight_by_tenant == {}
+                and pool["in_use_bytes"] == staged):
+            raise AssertionError(
+                f"{name}: in flight {mgr._inflight_bytes} B, queue "
+                f"{len(mgr._admit_queue)}, pool {pool['in_use_bytes']} B "
+                f"in use against the writers' {staged}")
+        per_tenant = _tenant_metrics(svc.node.metrics, ("minnow", "whale"))
+        shares, contended = {}, {}
+        for i, (tenant, share, contending) in enumerate(tap.shares):
+            key = f"{tenant} with {'+'.join(contending)}"
+            shares.setdefault(key, set()).add(share)
+            if i >= mark:
+                contended.setdefault(key, set()).add(share)
+        out = {"phase": name, "minnows": MINNOWS, "rounds": MINNOW_ROUNDS,
+               "minnow_records": MINNOW_RECORDS, "cap": cap,
+               "fair_share": conf.get(PFX + "tenant.fairShare", "true"),
+               "minnow_reads": len(lat),
+               "minnow_p50_ms": _pct(lat, 50), "minnow_p99_ms": _pct(lat, 99),
+               "minnow_wall_p50_ms": _pct(walls, 50),
+               "minnow_wall_p99_ms": _pct(walls, 99),
+               "minnow_queued_p50_ms": _pct(queued, 50),
+               "minnow_queued_p99_ms": _pct(queued, 99),
+               "submit_to_result_p50_ms": _pct(s2r, 50),
+               "submit_to_result_p99_ms": _pct(s2r, 99),
+               "whale_reads": WHALE_FLOOD if wh is not None else 0,
+               "whale_flood_to_last_ms": whale_wall_ms,
+               "first_whale": first_whale, "per_tenant": per_tenant,
+               "pack_share": {k: sorted(v) for k, v in shares.items()},
+               "pack_share_contended": {k: sorted(v)
+                                        for k, v in contended.items()},
+               "pack_workers": mgr._pack_workers(),
+               "pool_peak_bytes": pool["peak_bytes"],
+               "pool_in_use_bytes": pool["in_use_bytes"],
+               "staged_bytes": staged, "launches": got,
+               "kernel_checks": checks,
+               "impls": sorted({r.impl for r in tap.reports}), "ok": True}
+    return out
+
+
+def tenancy_overrides(dev, minnows: list) -> dict:
+    """The per-tenant overrides at minnow size on one node each: tenant
+    ``a`` at ``integrity.verify=full`` and ``b`` at ``off``, read back to
+    back; tenant ``d`` with ``replayBudget=0`` under an armed exchange
+    fault raises without a replay, the default tenant's read replays
+    once; then tenant ``c`` with ``waveDepth=1`` beside the default
+    depth 2 in a waved device-sink ordered read (``dense``, 4 waves: the
+    merge in its fold): each wave packs only after the previous one was
+    forced, and it reserves less."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.runtime.failures import InjectedFault
+    m0 = minnows[0]
+    out = {"phase": "tenancy_overrides"}
+    conf = {**TENANCY_CONF, PFX + "failure.policy": "replay",
+            PFX + "tenant.a.integrity.verify": "full",
+            PFX + "tenant.b.integrity.verify": "off",
+            PFX + "tenant.d.replayBudget": "0"}
+    backend.reset_launch_counts()
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc, \
+            _TenancyTap(svc.manager) as tap:
+        for sid, tenant in ((700, "a"), (701, "b")):
+            h = write_maps(svc, sid, m0["keys"], m0["values"], MINNOW_MAPS,
+                           tenant=tenant)
+            t0 = time.perf_counter()
+            res = svc.read(h)
+            ms = (time.perf_counter() - t0) * 1e3
+            check_minnow(res, m0, f"overrides tenant {tenant}")
+            rep = svc.report(sid)
+            out[f"tenant_{tenant}"] = {"integrity": rep.integrity,
+                                       "integrity_bytes": rep.integrity_bytes,
+                                       "read_ms": ms}
+        staged = int(m0["keys"].nbytes + m0["values"].nbytes)
+        a, b = out["tenant_a"], out["tenant_b"]
+        if not (a["integrity"] == "full" and a["integrity_bytes"] > staged
+                and b["integrity"] == "" and b["integrity_bytes"] == 0):
+            raise AssertionError(f"overrides: integrity levels {a} {b}")
+        hd = write_maps(svc, 702, m0["keys"], m0["values"], MINNOW_MAPS,
+                        tenant="d")
+        hn = write_maps(svc, 703, m0["keys"], m0["values"], MINNOW_MAPS)
+        svc.node.faults.arm("exchange", fail_count=1)
+        try:
+            svc.read(hd)
+            raised = None
+        except InjectedFault as e:
+            raised = f"{type(e).__name__}: {e}"[:200]
+        svc.node.faults.arm("exchange", fail_count=1)
+        check_minnow(svc.read(hn), m0, "overrides default tenant replay")
+        budgets = [svc.manager._replay_budget_for(s) for s in (702, 703)]
+        out["tenant_d"] = {"raised": raised,
+                           "replays": svc.report(702).replays,
+                           "budget": budgets[0]}
+        out["default"] = {"replays": svc.report(703).replays,
+                          "budget": budgets[1]}
+        if not (raised and out["tenant_d"]["replays"] == 0
+                and out["default"]["replays"] == 1):
+            raise AssertionError(f"overrides: replay budgets {out}")
+        out["launches"] = _check_rule("tenancy_overrides", tap)
+    backend.reset_launch_counts()
+    k, v = m0["keys"], m0["values"]
+    bounds = terasort_bounds(k)
+    wave_rows = MINNOW_RECORDS // SHARDS // 4
+    wconf = {PFX + "a2a.impl": "dense", PFX + "a2a.waveRows": str(wave_rows),
+             PFX + "a2a.waveDepth": "2", PFX + "tenant.c.waveDepth": "1",
+             PFX + "a2a.maxBytesInFlight": "64g"}
+    merges = 0
+    with connect(wconf, num_shards=SHARDS, use_env=False) as svc:
+        for sid, tenant in ((710, "c"), (711, None)):
+            h = write_maps(svc, sid, k, v, MINNOW_MAPS, "range", bounds,
+                           tenant=tenant)
+            torch.cuda.synchronize(dev)
+            res = svc.read(h, ordered=True, sink="device")
+            reserved = svc.manager._inflight_bytes
+            rep = svc.report(sid)
+            nrows, ksum, unsorted = res.consume(_key_checksum)
+            if (int(nrows), int(ksum), bool(unsorted)) != (
+                    k.shape[0], int(k.sum()), False) or rep.waves != 4:
+                raise AssertionError(f"overrides: waved read of tenant "
+                                     f"{tenant}: {int(nrows)} rows, waves "
+                                     f"{rep.waves}")
+            tl = rep.wave_timeline
+            serial = all(tl[i + 1]["pack_start_ms"] >= tl[i]["forced_ms"]
+                         for i in range(len(tl) - 1))
+            merges += rep.waves - 1
+            out[f"waved_{tenant or 'default'}"] = {
+                "tenant": rep.tenant, "waves": rep.waves,
+                "reserved": reserved, "serial_waves": serial,
+                "merge_ms": rep.merge_ms, "hidden_ms":
+                rep.wave_pack_hidden_ms}
+    c, d = out["waved_c"], out["waved_default"]
+    if not (c["serial_waves"] and c["reserved"] < d["reserved"]):
+        raise AssertionError(f"overrides: waveDepth=1 not honoured: {c} "
+                             f"against {d}")
+    got = backend.launch_counts().get(sg.MERGE_KERNEL_NAME, 0)
+    if got != merges:
+        raise AssertionError(f"overrides: merge launched {got} times, the "
+                             f"fold's steps {merges}")
+    out["launches"][sg.MERGE_KERNEL_NAME] = got
+    out["ok"] = True
+    return out
+
+
+def tenancy_quota(dev, minnows: list, minnow_footprint: int) -> dict:
+    """Tenant ``hog`` with a ``maxBytesInFlight`` of one of its reads:
+    three device-sink ``read_async`` reads of its shuffle, the first
+    granted and held, two deferred on its own quota; a ``normal``
+    tenant's read submitted after them is granted past the blocked hog
+    head and completes while the hog's first read still holds; then the
+    hog's reads complete one by one. Every result against the oracle."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.utils import metrics as mt
+    m0 = minnows[0]
+    conf = {**TENANCY_CONF, PFX + "a2a.maxBytesInFlight": "64g",
+            PFX + "tenant.hog.maxBytesInFlight": str(minnow_footprint)}
+    out = {"phase": "tenancy_quota", "hog_quota": minnow_footprint}
+    from sparkucx_tpu_torch import backend
+    backend.reset_launch_counts()
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc, \
+            _TenancyTap(svc.manager) as tap:
+        mgr = svc.manager
+        hh = write_maps(svc, 720, m0["keys"], m0["values"], MINNOW_MAPS,
+                        tenant="hog")
+        hn = write_maps(svc, 721, m0["keys"], m0["values"], MINNOW_MAPS,
+                        tenant="normal")
+        check_minnow(svc.read(hn), m0, "quota warm")
+        hogs = [svc.read_async(hh, sink="device") for _ in range(3)]
+        q = mgr._admit_queue
+        _wait_for(lambda: q.depth() == 2 and any(f.done() for f in hogs),
+                  "two hog reads deferred on the hog's quota")
+        t0 = time.perf_counter()
+        fn = svc.read_async(hn)
+        res = fn.result(timeout=TENANCY_DEADLINE_S)
+        out["normal_ms"] = (time.perf_counter() - t0) * 1e3
+        out["queue_at_normal"] = q.depth()
+        out["hog_held_at_normal"] = mgr._inflight_by_tenant.get("hog", 0)
+        check_minnow(res, m0, "quota normal")
+        if out["queue_at_normal"] != 2 or not out["hog_held_at_normal"]:
+            raise AssertionError(f"quota: the normal read was not granted "
+                                 f"past the blocked hog head: {out}")
+        left = list(hogs)
+        while left:
+            _wait_for(lambda: any(f.done() for f in left), "a hog read")
+            f = next(f for f in left if f.done())
+            left.remove(f)
+            check_minnow(f.result().host_view(), m0, "quota hog")
+        out["per_tenant"] = _tenant_metrics(svc.node.metrics,
+                                            ("hog", "normal"))
+        cross = svc.node.metrics.histogram(
+            mt.labeled(mt.H_ADMIT_CROSS, tenant="normal"))
+        if not (mgr._inflight_bytes == 0 and not q
+                and cross.get("max", 0.0) == 0.0):
+            raise AssertionError(f"quota: end state {mgr._inflight_bytes} B "
+                                 f"in flight, queue {len(q)}, normal's "
+                                 f"cross grants {cross}")
+        out["launches"] = _check_rule("tenancy_quota", tap)
+    out["ok"] = True
+    return out
+
+
+def tenancy_phase(dev, main_digests: dict) -> dict:
+    """The tenancy plane on the card: tenancy_solo, tenancy_fair and
+    tenancy_fifo (:func:`tenancy_cell`; the cap is one whale read's
+    footprint, measured first), tenancy_overrides and tenancy_quota.
+    Asserts the grant order through each minnow ticket's
+    ``shuffle.admit.cross_grants{tenant=minnow}``: at most
+    FAIR_CROSS_BOUND under DRR, exactly FIFO_CROSS for each of round 1's
+    minnows under FIFO (the only deferred minnows there)."""
+    import torch
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.ops import ragged_a2a as ra
+    from sparkucx_tpu_torch.ops import segmented as sg
+    from sparkucx_tpu_torch.runtime.node import _empty_host_cache
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    minnows = minnow_data()
+    gen_s = time.perf_counter() - t
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # one whale read's footprint, and one minnow read's
+    with connect(TENANCY_CONF, num_shards=SHARDS, use_env=False) as svc:
+        wh = write_maps(svc, 600, keys, values, MAPS, tenant="whale")
+        svc.read(wh, sink="device").close()
+        whale_fp = one_read_footprint(svc.report(600), RECORD_WORDS)
+        hm = write_maps(svc, 601, minnows[0]["keys"], minnows[0]["values"],
+                        MINNOW_MAPS, tenant="minnow")
+        svc.read(hm)
+        minnow_fp = one_read_footprint(svc.report(601), RECORD_WORDS)
+    out = {"gen_s": gen_s, "whale_footprint": whale_fp,
+           "minnow_footprint": minnow_fp}
+    cells = {"tenancy_solo": ({}, None),
+             "tenancy_fair": ({}, (keys, values)),
+             "tenancy_fifo": ({PFX + "tenant.fairShare": "false"},
+                              (keys, values))}
+    for name, (extra, whale) in cells.items():
+        out[name] = tenancy_cell(dev, name, extra, minnows, whale,
+                                 main_digests, whale_fp,
+                                 contend=name == "tenancy_fair")
+        _empty_host_cache()
+    del keys, values
+    solo = out["tenancy_solo"]["minnow_p99_ms"]
+    for name in ("tenancy_fair", "tenancy_fifo"):
+        out[name]["p99_over_solo"] = out[name]["minnow_p99_ms"] / solo
+        out[name]["reference_cpu_claim"] = 1.8
+    fair = out["tenancy_fair"]["per_tenant"]["minnow"]["cross_grants"]
+    fifo = out["tenancy_fifo"]["per_tenant"]["minnow"]["cross_grants"]
+    if not (fair.get("count", 0) >= MINNOWS
+            and fair.get("max", 0.0) <= FAIR_CROSS_BOUND):
+        raise AssertionError(f"tenancy_fair: a minnow waited through more "
+                             f"than {FAIR_CROSS_BOUND} whale grants: {fair}")
+    if not (fifo.get("count") == MINNOWS
+            and fifo.get("min") == fifo.get("max") == FIFO_CROSS):
+        raise AssertionError(f"tenancy_fifo: round 1's minnows must each "
+                             f"wait through {FIFO_CROSS} whale grants: "
+                             f"{fifo}")
+    out["tenancy_overrides"] = tenancy_overrides(dev, minnows)
+    out["tenancy_quota"] = tenancy_quota(dev, minnows, minnow_fp)
+    torch.cuda.synchronize(dev)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    launches = {ra.KERNEL_NAME: 0, sg.KERNEL_NAME: 0,
+                sg.MERGE_KERNEL_NAME: 0}
+    for name in (*cells, "tenancy_overrides", "tenancy_quota"):
+        for kname, n in out[name]["launches"].items():
+            launches[kname] += n
+    out["tenancy_launches"] = launches
+    return out
+
+
+def dist_async(ctx, dev) -> dict:
+    """dist_async in the two-worker world: every worker submits the same
+    six ``read_async`` reads of two tenants (``lo`` normal, ``hi`` high),
+    minnow size and shape, in the same order, on ``tenant.asyncWorkers=
+    4``; each result against the oracle (this worker's partitions), the
+    execution order (the reports' exchange sequence numbers) against the
+    concatenated agreed batch orders (``tenancy.agreed_submission_order``
+    wrapped), ``async_workers`` on every report, the turnstile's wait
+    histogram. Every future has a deadline."""
+    from sparkucx_tpu_torch.cluster import my_maps
+    from sparkucx_tpu_torch.shuffle import tenancy
+    from sparkucx_tpu_torch.utils import metrics as mt
+    k, v = make_records(MINNOW_RECORDS, zipf=False, seed=SEED + 30)
+    mine = my_maps(ctx, MINNOW_MAPS)
+    orders, real = [], tenancy.agreed_submission_order
+
+    def spy(pending, weight_of):
+        got = real(pending, weight_of)
+        orders.append([int(s) for s in got])
+        return got
+
+    tenancy.agreed_submission_order = spy
+    try:
+        with ctx.connect({PFX + "tenant.hi.priority": "high",
+                          PFX + "tenant.asyncWorkers": "4"}) as svc:
+            per = -(-k.shape[0] // MINNOW_MAPS)
+            hs = []
+            for i, tenant in enumerate(DIST_ASYNC_TENANTS):
+                h = svc.register_shuffle(90 + i, MINNOW_MAPS, PARTITIONS,
+                                         tenant=tenant)
+                for m in mine:
+                    svc.write(h, m, k[m * per:(m + 1) * per],
+                              v[m * per:(m + 1) * per])
+                hs.append(h)
+            t0 = time.perf_counter()
+            futs = [svc.read_async(h) for h in hs]
+            results = [f.result(timeout=TENANCY_DEADLINE_S) for f in futs]
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            reps = [svc.report(h.shuffle_id) for h in hs]
+            local = []
+            for res in results:
+                parts = dict(res.partitions())
+                check_against_oracle(parts, k, v, PARTITIONS)
+                local.append(sorted(parts))
+            if any(p != local[0] for p in local):
+                raise AssertionError("dist_async: the reads hold other "
+                                     "partitions")
+            ran = sorted(range(len(hs)), key=lambda i: reps[i]._seq)
+            m = svc.node.metrics
+            out = {"wall_ms": wall_ms, "orders": list(orders), "ran": ran,
+                   "partitions": local[0],
+                   "async_workers": [r.async_workers for r in reps],
+                   "tenants": [r.tenant for r in reps],
+                   "impls": [r.impl for r in reps],
+                   "read_wall_ms": [f.wall_ms for f in futs],
+                   "queued_ms": [f.queued_ms for f in futs],
+                   "turnstile_wait_ms": m.histogram(mt.H_TURNSTILE_WAIT),
+                   "turnstile_depth": m.get_gauge(mt.G_TURNSTILE_DEPTH),
+                   "rounds": {topic: m.get(mt.labeled(mt.C_AGREE_ROUNDS,
+                                                      topic=topic))
+                              for topic in ("async.batch", "async.order")}}
+            del results
+            for h in hs:
+                svc.unregister_shuffle(h.shuffle_id)
+    finally:
+        tenancy.agreed_submission_order = real
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6167,7 +6887,7 @@ def main() -> int:
                  "dist_int8",
                  "dist_int8_combine", "dist_hier",
                  "dist_waved_ordered_device", "dist_waved_ordered_host",
-                 "dist_one_armed", "dist_peer_loss"):
+                 "dist_async", "dist_one_armed", "dist_peer_loss"):
         print(json.dumps(di[name]), flush=True)
     print(json.dumps({"phase": "distributed",
                       "launches": di["dist_launches"],
@@ -6213,6 +6933,21 @@ def main() -> int:
                       "integrity_launches": integrity_launches,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the tenancy plane: a whale and eight minnows through read_async,
+    # fair share against FIFO, the per-tenant overrides and a quota
+    t = time.perf_counter()
+    tn = tenancy_phase(dev, main_digests)
+    for name in ("tenancy_solo", "tenancy_fair", "tenancy_fifo",
+                 "tenancy_overrides", "tenancy_quota"):
+        print(json.dumps(tn[name]), flush=True)
+    tenancy_launches = tn["tenancy_launches"]
+    print(json.dumps({"phase": "tenancy", "gen_s": tn["gen_s"],
+                      "whale_footprint": tn["whale_footprint"],
+                      "minnow_footprint": tn["minnow_footprint"],
+                      "peak_device_bytes": tn["peak_device_bytes"],
+                      "tenancy_launches": tenancy_launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -6240,6 +6975,7 @@ def main() -> int:
         "moe_launches": md["pallas"]["launches"],
         "faults_launches": faults_launches[KERNEL_NAME],
         "integrity_launches": integrity_launches[KERNEL_NAME],
+        "tenancy_launches": tenancy_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -6249,6 +6985,7 @@ def main() -> int:
         "dist_launches": dist_launches[SEG_KERNEL],
         "faults_launches": faults_launches[SEG_KERNEL],
         "integrity_launches": integrity_launches[SEG_KERNEL],
+        "tenancy_launches": tenancy_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
@@ -6262,6 +6999,7 @@ def main() -> int:
         "dist_launches": dist_launches[MERGE_KERNEL],
         "faults_launches": faults_launches[MERGE_KERNEL],
         "integrity_launches": integrity_launches[MERGE_KERNEL],
+        "tenancy_launches": tenancy_launches[MERGE_KERNEL],
         "pipeline_launches": pl_launches[MERGE_KERNEL],
         "max_abs_err": mt["max_abs_err"], "ms": mt["kernel_ms"],
         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],

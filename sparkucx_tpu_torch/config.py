@@ -21,7 +21,10 @@ integrity plane's ``integrity.verify`` and ``failure.ledgerDir`` (the keys
 ``fault.*`` and ``flightRecorder.*`` are read where they are used:
 ``runtime/failures.py``, ``runtime/node.py``); the pool's ``memory.*``
 keys; ``a2a.packThreads``, ``coresPerProcess``, ``io.fetchGranularity``
-and ``metrics.reportCapacity``. Byte sizes parse as the JAX package's do
+and ``metrics.reportCapacity``; the tenancy plane's ``tenant.id``,
+``tenant.priority``, ``tenant.fairShare``, ``tenant.asyncWorkers``,
+``tenant.asyncAgreedOrder`` and the per-tenant ``tenant.<id>.*`` keys
+(:meth:`ShuffleConf.tenant_policy`). Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
@@ -191,7 +194,9 @@ class ShuffleConf:
                     "ledger_dir", "min_buffer_size",
                     "min_allocation_size", "pre_allocate_buffers",
                     "pinned_memory", "pack_threads", "cores_per_process",
-                    "fetch_granularity", "report_capacity")
+                    "fetch_granularity", "report_capacity",
+                    "tenant_id", "tenant_priority", "tenant_fair_share",
+                    "tenant_async_workers", "tenant_async_agreed_order")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -610,3 +615,81 @@ class ShuffleConf:
         (``metrics.reportCapacity``, at least 1; default 64)."""
         return max(1, self.get_int("metrics.reportCapacity",
                                    REPORT_CAPACITY))
+
+    # -- the tenancy plane (shuffle/tenancy.py) ------------------------------
+    @property
+    def tenant_id(self) -> str:
+        """This process's default tenant (``tenant.id``, default
+        ``default``): the tenant of a shuffle registered without one."""
+        return str(self._get("tenant.id", "default")).strip() or "default"
+
+    @property
+    def tenant_priority(self) -> str:
+        """The default priority class (``high`` | ``normal`` | ``batch``)
+        of a tenant without a ``tenant.<id>.priority``."""
+        from sparkucx_tpu_torch.shuffle.tenancy import validate_priority
+        return validate_priority(self._get("tenant.priority", "normal"),
+                                 PREFIX + "tenant.priority")
+
+    @property
+    def tenant_fair_share(self) -> bool:
+        """Deficit-round-robin admission across tenants (default on);
+        off = the strictly FIFO deferral queue."""
+        return self.get_bool("tenant.fairShare", True)
+
+    @property
+    def tenant_async_workers(self) -> int:
+        """Worker threads of the async read plane (``read_async``,
+        default 4, at least 1)."""
+        v = self.get_int("tenant.asyncWorkers", 4)
+        if v < 1:
+            raise ValueError(f"{PREFIX}tenant.asyncWorkers={v}: want >= 1")
+        return v
+
+    @property
+    def tenant_async_agreed_order(self) -> bool:
+        """Distributed async reads on more than one worker agree each
+        batch's order collectively (default on); off clamps the pool to
+        one worker."""
+        return self.get_bool("tenant.asyncAgreedOrder", True)
+
+    def tenant_policy(self, tenant: str, default_priority: str) -> Dict:
+        """One tenant's ``tenant.<id>.*`` keys, validated: ``priority``
+        (default ``default_priority``), ``max_bytes_in_flight`` and
+        ``max_inflight_reads`` (0 = no per-tenant limit), and the
+        overrides ``replay_budget``, ``integrity_verify`` and
+        ``wave_depth`` (None = the global key applies)."""
+        from sparkucx_tpu_torch.shuffle.integrity import \
+            validate_verify_level
+        from sparkucx_tpu_torch.shuffle.tenancy import validate_priority
+        pre = f"tenant.{tenant}."
+        key = PREFIX + pre
+        priority = validate_priority(
+            self._get(pre + "priority", default_priority), key + "priority")
+        quota = self.get_bytes(pre + "maxBytesInFlight", 0)
+        if quota < 0:
+            raise ValueError(f"{key}maxBytesInFlight={quota}: want >= 0")
+        inflight = self.get_int(pre + "maxInflightReads", 0)
+        if inflight < 0:
+            raise ValueError(f"{key}maxInflightReads={inflight}: want >= 0")
+        budget = None
+        raw = str(self._get(pre + "replayBudget", "")).strip()
+        if raw:
+            budget = int(raw)
+            if budget < 0:
+                raise ValueError(f"{key}replayBudget={budget}: want >= 0")
+        verify = None
+        raw = str(self._get(pre + "integrity.verify", "")).strip()
+        if raw:
+            verify = validate_verify_level(raw,
+                                           conf_key=key + "integrity.verify")
+        depth = None
+        raw = str(self._get(pre + "waveDepth", "")).strip()
+        if raw:
+            depth = int(raw)
+            lo, hi = WAVE_DEPTH_RANGE
+            if not lo <= depth <= hi:
+                raise ValueError(f"{key}waveDepth={depth}: want {lo}..{hi}")
+        return {"priority": priority, "max_bytes_in_flight": quota,
+                "max_inflight_reads": inflight, "replay_budget": budget,
+                "integrity_verify": verify, "wave_depth": depth}

@@ -220,8 +220,8 @@ class FlightRecorder:
         """Write the postmortem JSON; returns its path, or None when the
         write failed (a failing process must not fail harder because its
         recorder did). Keys: ``reason``, ``ts``, ``pid``, ``events``,
-        ``counters``, ``gauges`` (the port's metrics keep none: empty),
-        ``histograms``, ``contexts``, and ``extra``'s."""
+        ``counters``, ``gauges``, ``histograms`` (from the node's
+        metrics), ``contexts``, and ``extra``'s."""
         try:
             with self._lock:
                 events = list(self._events)
@@ -238,6 +238,7 @@ class FlightRecorder:
                    "histograms": {}, "contexts": contexts}
             for m in self.metrics_sources:
                 doc["counters"].update(m.snapshot())
+                doc["gauges"].update(m.gauges())
                 doc["histograms"].update(m.histograms())
             if extra:
                 doc.update(extra)

@@ -7,6 +7,11 @@ value rows, ``read`` returns the partition view (plain, combined by key
 or key-ordered), or the device result under ``sink="device"``. A conf that names
 ``spark.shuffle.tpu.io.format`` other than ``raw`` is refused (the Arrow
 codec is a later slice of the port).
+
+``read_async`` / ``submit_async`` run reads on the async plane
+(``shuffle/tenancy.AsyncShuffleExecutor``) and return a
+``ShuffleFuture``; ``register_shuffle(tenant=)`` names the tenant a
+shuffle's reads run as (``tenant.*`` keys).
 """
 
 from __future__ import annotations
@@ -18,13 +23,15 @@ import numpy as np
 from sparkucx_tpu_torch.config import ShuffleConf
 from sparkucx_tpu_torch.runtime.node import DEFAULT_SHARDS, Node
 from sparkucx_tpu_torch.shuffle.manager import ShuffleHandle, ShuffleManager
+from sparkucx_tpu_torch.shuffle.tenancy import (AsyncShuffleExecutor,
+                                                ShuffleFuture)
 
 IO_FORMATS = ("raw",)
 
 
 class ShuffleService:
     """The assembled stack behind one :func:`connect` call: register /
-    write / read / unregister / stop."""
+    write / read / unregister / stop, and the async reads."""
 
     def __init__(self, conf: ShuffleConf, device=None,
                  num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
@@ -39,6 +46,13 @@ class ShuffleService:
                                distributed=distributed,
                                process_id=process_id)
         self.manager = ShuffleManager(self.node, conf)
+        # the async plane (its worker pool starts on the first submit);
+        # it shares the manager's tenant registry, and reports stamp its
+        # effective width
+        self._async = AsyncShuffleExecutor(
+            conf, self.manager._tenants, self.node.metrics,
+            distributed=self.node.is_distributed)
+        self.manager._async_workers = self._async.workers
 
     @property
     def device(self):
@@ -46,10 +60,11 @@ class ShuffleService:
 
     def register_shuffle(self, shuffle_id: int, num_maps: int,
                          num_partitions: int, partitioner: str = "hash",
-                         bounds=None) -> ShuffleHandle:
+                         bounds=None,
+                         tenant: Optional[str] = None) -> ShuffleHandle:
         return self.manager.register_shuffle(shuffle_id, num_maps,
                                              num_partitions, partitioner,
-                                             bounds)
+                                             bounds, tenant=tenant)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
         self.manager.unregister_shuffle(shuffle_id)
@@ -85,6 +100,26 @@ class ShuffleService:
                                    combine_sum_words=combine_sum_words,
                                    sink=sink)
 
+    def read_async(self, handle: ShuffleHandle, **kw) -> ShuffleFuture:
+        """:meth:`read` on the async plane: a future of what
+        ``read(handle, **kw)`` returns. A tenant at its
+        ``tenant.<id>.maxInflightReads`` blocks here until one of its
+        reads resolves. On a distributed node every process submits the
+        same reads in the same order; each batch's order is agreed
+        collectively (see ``AsyncShuffleExecutor``)."""
+        return self._async.submit(lambda: self.read(handle, **kw),
+                                  handle.tenant, handle.shuffle_id,
+                                  timeout=kw.get("timeout"))
+
+    def submit_async(self, handle: ShuffleHandle, **kw) -> ShuffleFuture:
+        """:meth:`submit` and its ``result()`` on the async plane, under
+        :meth:`read_async`'s caps and order; like ``submit`` it does not
+        replay."""
+        def run():
+            return self.manager.submit(handle, **kw).result()
+        return self._async.submit(run, handle.tenant, handle.shuffle_id,
+                                  timeout=kw.get("timeout"))
+
     def report(self, shuffle_id: int):
         return self.manager.report(shuffle_id)
 
@@ -100,6 +135,9 @@ class ShuffleService:
         return self.node.stats()
 
     def stop(self) -> None:
+        # async reads in flight hold pinned blocks and reservations of the
+        # manager stopped next: drain them first
+        self._async.stop()
         self.manager.stop()
         self.node.close()
 

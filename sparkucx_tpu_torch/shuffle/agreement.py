@@ -26,9 +26,13 @@ then the payload. ``seq`` resets at each epoch bump (the node wires
 observes ``shuffle.agreement.round_ms`` into the ``metrics`` it is given
 (the caller's node metrics: the port has no process-global metrics).
 
-The JAX package's decision ledger (``shuffle/decisions.py``), its
-tracer spans and its ``CollectiveTurnstile`` (whose one caller is the
-tenancy executor) are not ported."""
+:class:`CollectiveTurnstile` orders whole collective sections (one
+distributed read each) in an agreed sequence on every process: the
+tenancy plane's async dispatcher issues its tickets
+(``shuffle/tenancy.AsyncShuffleExecutor``).
+
+The JAX package's decision ledger (``shuffle/decisions.py``) and its
+tracer spans are not ported."""
 
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ import numpy as np
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_AGREE_DIVERGENCE,
                                               C_AGREE_ROUNDS, H_AGREE_ROUND,
-                                              labeled)
+                                              C_TURNSTILE_ABANDONED,
+                                              G_TURNSTILE_DEPTH,
+                                              H_TURNSTILE_WAIT, labeled)
 
 log = get_logger("shuffle.agreement")
 
@@ -213,3 +219,106 @@ def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
             topic, "value", dissent, [r.tolist() for r in got],
             conf_key=conf_key)
     return got[0].copy()
+
+
+class CollectiveTurnstile:
+    """Per-process gate that runs collective SECTIONS in one order on
+    every process.
+
+    :func:`agree` makes one round atomic, but a section that issues many
+    collectives (a whole distributed read: the completeness barrier, the
+    schema, the wave agreements, the exchange, overflow rounds) must run
+    them all before another thread's section starts, or two processes
+    could interleave read X's collectives with read Y's differently and
+    cross. Tickets are issued in an agreed order (the async dispatcher
+    issues them from the agreed batch schedule, so ticket k is the same
+    work everywhere); :meth:`acquire` blocks until every earlier ticket
+    has released.
+
+    :meth:`release` is idempotent and legal out of turn: an abandoned
+    ticket (a dispatch failure, an executor stop) marks itself done and
+    the turn skips it. :meth:`close` fails every waiter typed.
+
+    Each ticket's issue-to-enter wait goes to ``shuffle.turnstile.
+    wait_ms``, the issued-but-unreleased count to the ``shuffle.
+    turnstile.depth`` gauge, and a ticket released without entering to
+    ``shuffle.turnstile.abandoned.count``, in ``metrics`` (a node's;
+    none: not counted). A metrics fault never fails a section."""
+
+    def __init__(self, metrics=None):
+        self._cv = threading.Condition()
+        self._next = 0          # next unissued ticket
+        self._turn = 0          # lowest unreleased ticket
+        self._done = set()      # released out of turn, not yet passed
+        self._closed = False
+        self._m = metrics
+        self._issued_at = {}    # ticket -> perf_counter at issue
+        self._entered = set()   # tickets that reached their turn
+
+    def _metric(self, fn, *args) -> None:
+        if self._m is None:
+            return
+        try:
+            fn(*args)
+        except Exception:
+            log.debug("turnstile metrics failed", exc_info=True)
+
+    def _gauge_depth_locked(self) -> None:
+        if self._m is not None:
+            self._metric(self._m.set_gauge, G_TURNSTILE_DEPTH,
+                         float(self._next - self._turn))
+
+    def issue(self) -> int:
+        """Take the next ticket. Call in the agreed order (one issuing
+        thread a process: the async dispatcher)."""
+        with self._cv:
+            t = self._next
+            self._next += 1
+            self._issued_at[t] = time.perf_counter()
+            self._gauge_depth_locked()
+            return t
+
+    def acquire(self, ticket: int) -> None:
+        """Block until ``ticket``'s turn. Raises once closed, so a worker
+        parked behind a long section fails typed at shutdown."""
+        with self._cv:
+            while True:
+                if self._closed:
+                    raise RuntimeError(
+                        "collective turnstile is closed (executor "
+                        "stopped)")
+                if ticket < self._turn or ticket in self._done:
+                    raise RuntimeError(
+                        f"collective ticket {ticket} was already "
+                        f"released")
+                if self._turn == ticket:
+                    self._entered.add(ticket)
+                    t0 = self._issued_at.get(ticket)
+                    if t0 is not None and self._m is not None:
+                        self._metric(self._m.observe, H_TURNSTILE_WAIT,
+                                     (time.perf_counter() - t0) * 1e3)
+                    return
+                self._cv.wait(0.2)
+
+    def release(self, ticket: int) -> None:
+        """Mark ``ticket`` done (idempotent, legal before its turn): the
+        turn advances past every consecutive done ticket."""
+        with self._cv:
+            if ticket < self._turn or ticket in self._done:
+                return
+            if ticket not in self._entered and ticket in self._issued_at \
+                    and self._m is not None:
+                self._metric(self._m.inc, C_TURNSTILE_ABANDONED, 1.0)
+            self._issued_at.pop(ticket, None)
+            self._entered.discard(ticket)
+            self._done.add(ticket)
+            while self._turn in self._done:
+                self._done.discard(self._turn)
+                self._turn += 1
+            self._gauge_depth_locked()
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()

@@ -30,11 +30,23 @@ read. The report's ``wire`` names the tier that ran.
 
 Admission (``a2a.maxBytesInFlight``, :meth:`ShuffleManager.
 _make_admitter`): each exchange reserves an estimate of the pinned and
-device bytes it holds; a submit over the cap is deferred (FIFO) and
-dispatches in ``result()`` once earlier exchanges release. A host-sink
-read releases when its result settles (waved: when the last wave
-drained); a device-sink read holds its reservation until the result is
-consumed, closed or drained by ``host_view()``.
+device bytes it holds; a submit over the cap is deferred and dispatches
+in ``result()`` once earlier exchanges release. A host-sink read
+releases when its result settles (waved: when the last wave drained); a
+device-sink read holds its reservation until the result is consumed,
+closed or drained by ``host_view()``.
+
+Tenancy (``tenant.*``, ``shuffle/tenancy.py``): every shuffle is
+registered under a tenant (``register_shuffle(tenant=)``, default
+``tenant.id``). Deferred reservations queue in the deficit-round-robin
+``FairShareQueue`` across tenants, weighted by priority (FIFO within a
+tenant; ``tenant.fairShare=false``: one FIFO), under each tenant's
+``maxBytesInFlight`` quota; the tenant's ``replayBudget``,
+``integrity.verify`` and ``waveDepth`` override the global keys;
+concurrent packs of several tenants split the pack executor by weight
+(:meth:`ShuffleManager._pack_share`); the report ring evicts the oldest
+report of the tenant that holds the most; reports, read counters,
+replay counters and volume counters carry the tenant.
 
 Topology (``a2a.topology``, resolved when the manager binds to its node,
 ``shuffle/topology.resolve_topology``): on a node with ``mesh.numSlices``
@@ -102,7 +114,8 @@ import threading
 import time
 import weakref
 from collections import OrderedDict, deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -136,6 +149,9 @@ from sparkucx_tpu_torch.shuffle.topology import (resolve_topology,
                                                  settle_tier_walls,
                                                  submit_shuffle_tiered,
                                                  tier_layouts, tier_timeouts)
+from sparkucx_tpu_torch.shuffle.tenancy import (FairShareQueue,
+                                                FifoAdmitQueue,
+                                                TenantRegistry)
 from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                DeviceShuffleReaderResult,
                                                LazyShuffleReaderResult,
@@ -149,8 +165,9 @@ from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (
     C_ADMIT_BYTES, C_INTEGRITY_CORRUPT, C_INTEGRITY_CORRUPT_BLOCKS,
     C_INTEGRITY_QUARANTINED, C_INTEGRITY_RECOVERED, C_INTEGRITY_VERIFIED,
-    C_KERNEL_FALLBACK, C_REPLAY_MS, C_REPLAYS, C_SINK_FALLBACK,
-    C_TIER_BYTES, H_ADMIT_WAIT, H_FETCH_WAIT, H_WAVE_GAP, labeled)
+    C_KERNEL_FALLBACK, C_PAYLOAD_BYTES, C_REPLAY_MS, C_REPLAYS,
+    C_SINK_FALLBACK, C_TIER_BYTES, C_WIRE_BYTES, G_TENANT_INFLIGHT,
+    H_ADMIT_CROSS, H_ADMIT_WAIT, H_FETCH_WAIT, H_WAVE_GAP, labeled)
 
 log = get_logger("shuffle.manager")
 
@@ -160,7 +177,12 @@ class ExchangeReport:
     """Postmortem of one read: resolved impl, phase times, volume and the
     real-bytes accounting (``payload_bytes`` the real staged bytes,
     ``wire_bytes`` what the transport moved for them, ``pad_ratio`` their
-    quotient), refreshed from the final plan after an overflow retry."""
+    quotient), refreshed from the final plan after an overflow retry.
+    ``rows_local`` / ``bytes_local`` are this process's staged rows and
+    bytes (the global figures on one process), ``peer_bytes`` each
+    shard's staged bytes. On completion ``bw_gbps`` is the payload over
+    ``group_ms`` and ``effective_bw_gbps`` that rate times the int8
+    tier's raw/wire row-width gain (equal off that tier)."""
 
     shuffle_id: int
     num_maps: int
@@ -180,10 +202,13 @@ class ExchangeReport:
     dispatch_ms: float = 0.0
     group_ms: float = 0.0
     rows_global: int = 0
+    rows_local: int = 0
+    bytes_local: int = 0
     payload_bytes: int = 0
     wire_bytes: int = 0
     pad_ratio: float = 0.0
     peer_rows: List[int] = field(default_factory=list)
+    peer_bytes: List[int] = field(default_factory=list)
     skew_ratio: float = 0.0
     retries: int = 0
     plan_bucket: List[int] = field(default_factory=list)
@@ -212,14 +237,23 @@ class ExchangeReport:
     # narrowed rows and ``wire_dequant_error`` is the sampled relative
     # RMS error of a round-to-nearest int8 pass over staged values
     # (a2a.wireErrorSampleRows; 0.0 when off). lossless: the compressed
-    # bytes of the drained waves (0 on a single-shot or device read).
+    # bytes of the drained waves (0 on a single-shot or device read), and
+    # their ratio to the payload.
     wire: str = "raw"
     wire_dequant_error: float = 0.0
     lossless_bytes: int = 0
+    lossless_ratio: float = 0.0
+    bw_gbps: float = 0.0
+    effective_bw_gbps: float = 0.0
     # a2a.maxBytesInFlight: the wall this read's reservation waited in
     # the deferral queue (0 for an immediate grant or no cap); group_ms
     # includes it when the dispatch was deferred
     admit_wait_ms: float = 0.0
+    # the tenant the shuffle was registered under, and the async plane's
+    # worker count when this read ran (0: no async plane attached; 1 on a
+    # distributed node clamped by tenant.asyncAgreedOrder=false)
+    tenant: str = ""
+    async_workers: int = 0
     # the read ran the two-tier exchange (shuffle/topology.py); ``tiers``
     # holds one entry per tier ("ici", "dcn": payload/wire pairs, exact
     # cross rows, the emulated wall ``ms`` and its rates) and then the
@@ -249,6 +283,9 @@ class ExchangeReport:
     # the [P, P] device matrix the tier entries' exact cross rows came
     # from (re-stamped after a regrow)
     _tier_matrix: Optional[np.ndarray] = field(default=None, repr=False)
+    # the int8 tier's raw/wire row-width gain (1.0 elsewhere): the
+    # multiplier of effective_bw_gbps
+    _wire_gain: float = field(default=1.0, repr=False)
 
     def to_dict(self) -> Dict:
         return {f.name: getattr(self, f.name)
@@ -269,6 +306,9 @@ class ShuffleHandle:
     # the node epoch the shuffle was registered in: a read of a handle
     # from an older epoch raises StaleEpochError
     epoch: int = 0
+    # the tenant every read of it is admitted, accounted and
+    # policy-resolved as (shuffle/tenancy.py)
+    tenant: str = "default"
 
     def __post_init__(self):
         if self.num_maps <= 0 or self.num_partitions <= 0:
@@ -316,12 +356,24 @@ class ShuffleManager:
         self._lock = threading.Lock()
         # one number per read: the int8 wire's noise base
         self._exchange_seq = 0
-        # a2a.maxBytesInFlight: bytes reserved by exchanges in flight, and
-        # the FIFO of deferred reservations' tickets
+        # -- tenancy (shuffle/tenancy.py): per-tenant policy from conf --
+        self._tenants = TenantRegistry(self.conf)
+        # a2a.maxBytesInFlight: bytes reserved by exchanges in flight (in
+        # all and per tenant) and the queue of deferred reservations'
+        # tickets (DRR across tenants, or FIFO); every grant ever and per
+        # tenant (the cross-grants count of a deferred ticket)
         self._inflight_cv = threading.Condition()
         self._inflight_bytes = 0
-        self._admit_queue: deque = deque()
+        self._inflight_by_tenant: Dict[str, int] = {}
+        self._grant_seq = 0
+        self._grant_count_by_tenant: Dict[str, int] = {}
+        self._admit_queue = FairShareQueue(self._tenants) \
+            if self._tenants.fair_share else FifoAdmitQueue()
         self._admit_ticket = 0
+        # tenant -> packs running now (the pack executor's fair share)
+        self._packing: Dict[str, int] = {}
+        # the async plane's worker count, stamped by the service
+        self._async_workers = 0
         # dropped writers wait here, tagged with the generation of their
         # drop, until no read that could still copy from them is in flight
         # (_collect_free_graveyard_locked); reads in flight by the
@@ -374,13 +426,16 @@ class ShuffleManager:
     # -- lifecycle --------------------------------------------------------
     def register_shuffle(self, shuffle_id: int, num_maps: int,
                          num_partitions: int, partitioner: str = "hash",
-                         bounds=None) -> ShuffleHandle:
+                         bounds=None,
+                         tenant: Optional[str] = None) -> ShuffleHandle:
         """Allocate the metadata table for a shuffle. ``partitioner``:
         'hash' groups by key hash, 'direct' treats keys as partition
         ids, 'range' routes the int64 key through the sorted split points
         ``bounds`` (``num_partitions - 1`` of them; Spark's
         RangePartitioner). Bounds are validated here, before any map
-        publishes a size row computed from them.
+        publishes a size row computed from them. ``tenant`` (default:
+        conf ``tenant.id``) is the tenant every read of the shuffle runs
+        as; its ``tenant.<id>.*`` keys are validated here too.
 
         A shuffle the durable ledger recovered at construction is adopted
         instead (:meth:`_adopt_recovered`): its intact maps are committed
@@ -396,11 +451,14 @@ class ShuffleManager:
         if (partitioner == "range") != (bounds is not None):
             raise ValueError(
                 "partitioner='range' requires bounds (and only it)")
+        tid = self._tenants.resolve(tenant)
+        self._tenants.spec(tid)
         with self._lock:
             rec = self._recovered.pop(shuffle_id, None)
         if rec is not None:
             h = self._adopt_recovered(rec, shuffle_id, num_maps,
-                                      num_partitions, partitioner, bounds)
+                                      num_partitions, partitioner, bounds,
+                                      tenant=tid)
             if h is not None:
                 return h
         entry = self.node.registry.register(shuffle_id, num_maps,
@@ -410,12 +468,13 @@ class ShuffleManager:
             self._writers[shuffle_id] = {}
             self._shapes[shuffle_id] = {
                 "num_maps": num_maps, "num_partitions": num_partitions,
-                "partitioner": partitioner, "bounds": bounds}
+                "partitioner": partitioner, "bounds": bounds,
+                "tenant": tid}
             self._replayed.pop(shuffle_id, None)
             self._replay_counts.pop(shuffle_id, None)
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
                              partitioner, bounds,
-                             epoch=self.node.epochs.current)
+                             epoch=self.node.epochs.current, tenant=tid)
 
     def get_writer(self, handle: ShuffleHandle,
                    map_id: int) -> MapOutputWriter:
@@ -434,7 +493,8 @@ class ShuffleManager:
                             spill_threshold=self.conf.spill_threshold,
                             metrics=self.node.metrics,
                             faults=self.node.faults,
-                            integrity_level=self._integrity_for(),
+                            integrity_level=self._integrity_for(
+                                handle.tenant),
                             ledger=self._ledger)
         with self._lock:
             ws = self._writers.get(handle.shuffle_id)
@@ -658,9 +718,21 @@ class ShuffleManager:
             self._release_writer_batches(to_free)
             return False
 
+    def _tenant_of(self, sid: int) -> str:
+        """The tenant a shuffle was registered under (the conf default
+        for one with no registration record)."""
+        with self._lock:
+            shape = self._shapes.get(sid)
+        return (shape or {}).get("tenant") or self._tenants.default_id
+
     def _replay_budget_for(self, sid: int):
-        """(budget, conf key) of one shuffle's replays. (The JAX
-        package's per-tenant override comes with tenancy.)"""
+        """(budget, conf key) of one shuffle's replays: its tenant's
+        ``tenant.<id>.replayBudget`` when set, else the global."""
+        tid = self._tenant_of(sid)
+        spec = self._tenants.spec(tid)
+        if spec.replay_budget is not None:
+            return spec.replay_budget, \
+                f"spark.shuffle.tpu.tenant.{tid}.replayBudget"
         return self._replay_budget, "spark.shuffle.tpu.failure.replayBudget"
 
     def _spend_replay(self, sid: int) -> bool:
@@ -772,9 +844,13 @@ class ShuffleManager:
         if rep is not None:
             rep.replays = int(replays)
             rep.replay_ms = round(replay_ms, 3)
-        self.node.metrics.inc(C_REPLAYS, float(replays))
+        m = self.node.metrics
+        m.inc(C_REPLAYS, float(replays))
+        m.inc(labeled(C_REPLAYS, tenant=handle.tenant), float(replays))
         if replay_ms:
-            self.node.metrics.inc(C_REPLAY_MS, float(replay_ms))
+            m.inc(C_REPLAY_MS, float(replay_ms))
+            m.inc(labeled(C_REPLAY_MS, tenant=handle.tenant),
+                  float(replay_ms))
 
     # -- restart recovery (failure.ledgerDir, shuffle/durable.py) ----------
     def _register_recovered(self, rs) -> ShuffleEntry:
@@ -856,7 +932,7 @@ class ShuffleManager:
 
     def _adopt_recovered(self, rec: Dict, shuffle_id: int, num_maps: int,
                          num_partitions: int, partitioner: str,
-                         bounds) -> Optional[ShuffleHandle]:
+                         bounds, tenant: str) -> Optional[ShuffleHandle]:
         """Install a recovered shuffle as live state: a committed writer
         over the sealed files of each intact map (reads pack from their
         mapped views), none for a quarantined map (``entry.present(m)``
@@ -880,14 +956,15 @@ class ShuffleManager:
         ws = {mid: MapOutputWriter.recovered(
                   entry, mid, self.node.pool, rs.directory, irec,
                   partitioner=partitioner, bounds=bounds,
-                  integrity_level=self._integrity_for(),
+                  integrity_level=self._integrity_for(tenant),
                   metrics=self.node.metrics)
               for mid, (irec, _sizes) in rs.intact.items()}
         with self._lock:
             self._writers[shuffle_id] = ws
             self._shapes[shuffle_id] = {
                 "num_maps": num_maps, "num_partitions": num_partitions,
-                "partitioner": partitioner, "bounds": bounds}
+                "partitioner": partitioner, "bounds": bounds,
+                "tenant": tenant}
             self._replayed.pop(shuffle_id, None)
             self._replay_counts.pop(shuffle_id, None)
         log.info("shuffle %d adopted from the durable ledger: %d/%d maps "
@@ -895,15 +972,16 @@ class ShuffleManager:
                  len(ws), num_maps, num_maps - len(ws))
         return ShuffleHandle(shuffle_id, num_maps, num_partitions, entry,
                              partitioner, bounds,
-                             epoch=self.node.epochs.current)
+                             epoch=self.node.epochs.current, tenant=tenant)
 
     # -- integrity verification (shuffle/integrity.py) ---------------------
-    def _integrity_for(self, tenant: Optional[str] = None) -> str:
-        """The integrity level of a tenant's shuffles: the global
-        ``integrity.verify`` (the per-tenant override comes with
-        tenancy). Commit and read resolve it alike, so records and checks
-        cannot disagree."""
-        return self._integrity_level
+    def _integrity_for(self, tenant: Optional[str]) -> str:
+        """The integrity level of a tenant's shuffles: its
+        ``tenant.<id>.integrity.verify`` when set, else the global
+        ``integrity.verify``. Commit and read resolve it from the same
+        tenant, so records and checks cannot disagree."""
+        spec = self._tenants.spec(tenant)
+        return spec.integrity_verify or self._integrity_level
 
     def _note_corruption(self, shuffle_id: int, block: str, nbytes: int,
                          detail: str) -> str:
@@ -1001,7 +1079,7 @@ class ShuffleManager:
         sampled key lanes routed again (:meth:`_verify_full_device`). A
         combined host read keeps the staged verdict: the combine rewrites
         rows. Host-side only: no kernel launch changes."""
-        if self._integrity_for() != "full":
+        if self._integrity_for(handle.tenant) != "full":
             return
         rep = self.report(handle.shuffle_id)
         if rep is None:
@@ -1146,15 +1224,34 @@ class ShuffleManager:
                              device=str(self.node.device),
                              hierarchical=self.hierarchical,
                              distributed=distributed,
-                             process_id=self.node.process_id)
+                             process_id=self.node.process_id,
+                             tenant=handle.tenant,
+                             async_workers=int(self._async_workers))
         with self._lock:
             self._exchange_seq += 1
             rep._seq = self._exchange_seq
             self._reports[handle.shuffle_id] = rep
             self._reports.move_to_end(handle.shuffle_id)
             while len(self._reports) > self._report_capacity:
-                self._reports.popitem(last=False)
+                self._evict_report_locked()
         return rep
+
+    def _evict_report_locked(self) -> None:
+        """Evict one report: the oldest of the tenant holding the most
+        ring entries (ties: the tenant of the oldest entry), so a chatty
+        tenant churns its own history. With one tenant this is the
+        oldest report."""
+        counts: Dict[str, int] = {}
+        for r in self._reports.values():
+            counts[r.tenant] = counts.get(r.tenant, 0) + 1
+        if len(counts) <= 1:
+            self._reports.popitem(last=False)
+            return
+        top = max(counts.values())
+        for sid, r in self._reports.items():
+            if counts[r.tenant] == top:
+                self._reports.pop(sid)
+                return
 
     # -- reads ------------------------------------------------------------
     def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
@@ -1212,6 +1309,9 @@ class ShuffleManager:
             metrics.inc("shuffle.read.ms", ms)
             metrics.inc("shuffle.read.count", 1)
             metrics.observe(H_FETCH_WAIT, ms)
+            metrics.observe(labeled(H_FETCH_WAIT, tenant=handle.tenant), ms)
+            metrics.inc(labeled("shuffle.read.count", tenant=handle.tenant),
+                        1)
 
     def read_partitions(self, handle: ShuffleHandle, start: int, end: int,
                         timeout: Optional[float] = None,
@@ -1359,7 +1459,9 @@ class ShuffleManager:
         its peers enter the next collective)."""
         node = self.node
         distributed = local is not None
-        self._report_volume(rep, plan, nvalid, width, part_rows=part_rows)
+        self._report_volume(rep, plan, nvalid, width, part_rows=part_rows,
+                            local_rows=int(np.sum(local[1]))
+                            if distributed else None)
         self._estimate_wire_error(rep, plan, shard_outputs)
         hier = self.hierarchical and plan.impl != "pallas"
         if hier:
@@ -1405,7 +1507,8 @@ class ShuffleManager:
         self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
         rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
-                                            width, has_vals)
+                                            width, has_vals,
+                                            tenant=handle.tenant)
         rep.pack_ms = (time.perf_counter() - t_pack) * 1e3
         guard.close()
         if distributed:
@@ -1419,7 +1522,8 @@ class ShuffleManager:
         # a non-blocking reservation at dispatch; over the cap the
         # exchange is deferred and dispatches inside result()
         admit, release_admitted = self._make_admitter(
-            plan, width, stage_bytes, timeout, rep)
+            plan, width, stage_bytes, timeout, tenant=handle.tenant,
+            report=rep)
 
         def dispatch(on_done):
             kw = dict(on_done=on_done, admit=admit, wire_seed=rep._seq,
@@ -1444,7 +1548,7 @@ class ShuffleManager:
         pending = self._dispatch_read(handle, rep, dispatch, stage_buf,
                                       release_admitted, nvalid, width,
                                       int(local_rows))
-        if self._integrity_for() == "full":
+        if self._integrity_for(handle.tenant) == "full":
             # the post-exchange check runs inside result() itself
             pending._post_result = lambda res: self._verify_full_result(
                 handle, res, combine)
@@ -1503,6 +1607,7 @@ class ShuffleManager:
             if result is None:
                 rep.error = rep.error or "exchange failed"
                 return
+            self._settle_volume(rep, width)
             if isinstance(result, LazyShuffleReaderResult):
                 result.fetch_granularity = self.conf.fetch_granularity
             self._arm_d2h(result, rep)
@@ -1687,7 +1792,7 @@ class ShuffleManager:
             has_vals, val_tail, val_dtype, int(nvalid_local.sum()))
         nvalid = allgather_sizes(nvalid_local, shard_ids, Pn)
         validate_row_sizes(nvalid.reshape(1, -1))
-        if self._integrity_for() == "full" and not combine:
+        if self._integrity_for(handle.tenant) == "full" and not combine:
             # the receivers need the global per-partition digest tables
             self._stash_full_expect(handle, writers)
 
@@ -1715,7 +1820,10 @@ class ShuffleManager:
 
     def _report_volume(self, rep: ExchangeReport, plan: ShufflePlan,
                        nvalid: np.ndarray, width: int,
-                       part_rows: np.ndarray) -> None:
+                       part_rows: np.ndarray,
+                       local_rows: Optional[int] = None) -> None:
+        """The report's volume, skew and plan fields. ``local_rows``:
+        this process's staged rows on a distributed node (None: all)."""
         layout = ragged_layout(plan, nvalid, width)
         rep.impl = layout.impl
         rep.wire = layout.wire
@@ -1723,9 +1831,15 @@ class ShuffleManager:
         rep.payload_bytes = layout.payload_bytes
         rep.wire_bytes = layout.wire_bytes
         rep.pad_ratio = layout.pad_ratio
+        rep._wire_gain = (width * 4 / layout.wire_row_bytes) \
+            if layout.wire == "int8" and layout.wire_row_bytes else 1.0
         rep.plan_bucket = [int(plan.cap_in), int(plan.cap_out)]
         rep.peer_rows = [int(x) for x in nvalid]
+        rep.peer_bytes = [r * width * 4 for r in rep.peer_rows]
         rep.rows_global = sum(rep.peer_rows)
+        rep.rows_local = rep.rows_global if local_rows is None \
+            else int(local_rows)
+        rep.bytes_local = rep.rows_local * width * 4
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
@@ -1779,16 +1893,45 @@ class ShuffleManager:
                       completed: bool = True) -> None:
         """Stamp the measured per-tier walls onto ``rep.tiers`` and count
         each tier's wire bytes into ``shuffle.tier.bytes{tier, tenant}``
-        (tenant "default": tenancy is not ported) — once per read. A
+        (this process's share of the global figure) — once per read. A
         failed read keeps its walls but counts no bytes."""
         if tier_walls:
             settle_tier_walls(rep.tiers, tier_walls)
         if not completed:
             return
+        tid = rep.tenant or self._tenants.default_id
+        frac = self._local_share()
         for t in rep.tiers:
             self.node.metrics.inc(labeled(C_TIER_BYTES, tier=t["tier"],
-                                          tenant="default"),
-                                  float(t["wire_bytes"]))
+                                          tenant=tid),
+                                  float(t["wire_bytes"]) * frac)
+
+    def _local_share(self) -> float:
+        """This process's fraction of the shards: the share of a global
+        wire figure its counters carry (1 on one process), so the sum
+        over the processes is the global figure."""
+        return len(self.node.local_shard_ids) / max(self.node.num_shards, 1)
+
+    def _settle_volume(self, rep: ExchangeReport, width: int) -> None:
+        """A completed read's rates and volume counters: ``bw_gbps`` (the
+        payload over ``group_ms``), ``effective_bw_gbps`` (times the
+        int8 tier's row-width gain), and ``shuffle.payload.bytes`` /
+        ``shuffle.wire.bytes`` with their ``{tenant}`` twins (this
+        process's staged bytes and its share of the wire bytes)."""
+        if rep.group_ms > 0:
+            payload = rep.payload_bytes or rep.rows_global * width * 4
+            gbps = payload / (rep.group_ms * 1e6)
+            rep.bw_gbps = round(gbps, 6)
+            rep.effective_bw_gbps = round(gbps * rep._wire_gain, 6)
+        if not rep.payload_bytes:
+            return
+        metrics = self.node.metrics
+        tid = rep.tenant or self._tenants.default_id
+        for name, value in (
+                (C_PAYLOAD_BYTES, float(rep.rows_local) * width * 4),
+                (C_WIRE_BYTES, float(rep.wire_bytes) * self._local_share())):
+            metrics.inc(name, value)
+            metrics.inc(labeled(name, tenant=tid), value)
 
     def _estimate_wire_error(self, rep: ExchangeReport, plan: ShufflePlan,
                              slot_outputs) -> None:
@@ -1838,77 +1981,144 @@ class ShuffleManager:
         device = (plan.cap_in + plan.cap_out) * width * 4 * plan.num_shards
         return int(stage_bytes) + int(device)
 
-    def _fits_inflight_locked(self, nbytes: int, ticket=None) -> bool:
+    def _tenant_fits_locked(self, tenant: str, nbytes: int) -> bool:
+        """Whether one tenant's reservation fits now (under the lock):
+        global room (an exchange bigger than the cap is admitted when
+        nothing is in flight, so it cannot deadlock itself) and room in
+        the tenant's ``maxBytesInFlight`` quota (the same rule: a tenant
+        holding nothing is admitted)."""
+        cap = self.conf.max_bytes_in_flight
+        if self._inflight_bytes and self._inflight_bytes + nbytes > cap:
+            return False
+        quota = self._tenants.spec(tenant).max_bytes_in_flight
+        if quota > 0:
+            held = self._inflight_by_tenant.get(tenant, 0)
+            if held and held + nbytes > quota:
+                return False
+        return True
+
+    def _tenant_quota_blocked_locked(self, tenant: str,
+                                     nbytes: int) -> bool:
+        """True when global room exists but the tenant's own quota
+        refuses the reservation: the one case the fair-share queue
+        bypasses its head for."""
+        cap = self.conf.max_bytes_in_flight
+        if self._inflight_bytes and self._inflight_bytes + nbytes > cap:
+            return False
+        quota = self._tenants.spec(tenant).max_bytes_in_flight
+        if quota <= 0:
+            return False
+        held = self._inflight_by_tenant.get(tenant, 0)
+        return bool(held) and held + nbytes > quota
+
+    def _fits_inflight_locked(self, nbytes: int, ticket=None,
+                              tenant: Optional[str] = None) -> bool:
         """Whether a reservation may be granted now (under the lock). A
         submit-time attempt (``ticket`` None) yields to every deferred
         one, so a later submit never takes capacity freed for a queued
-        exchange; a queued ticket is granted only at the head of the
-        FIFO. An exchange bigger than the cap is admitted when nothing
-        is in flight, so it cannot deadlock itself."""
+        exchange; a queued ticket is granted when the admission queue
+        serves it (DRR across tenants, FIFO within one)."""
+        tid = self._tenants.resolve(tenant)
         if ticket is None:
             if self._admit_queue:
                 return False
-        elif self._admit_queue[0] != ticket:
-            return False
-        cap = self.conf.max_bytes_in_flight
-        return not (self._inflight_bytes
-                    and self._inflight_bytes + nbytes > cap)
+            return self._tenant_fits_locked(tid, nbytes)
+        return self._admit_queue.grantable(
+            self._tenant_fits_locked,
+            self._tenant_quota_blocked_locked) == ticket
 
-    def _grant_inflight_locked(self, nbytes: int, waited_ms: float) -> None:
+    def _grant_inflight_locked(self, tenant: str, nbytes: int) -> None:
+        """Account one grant (under the lock): the bytes in flight in all
+        and per tenant, the grant counts, ``shuffle.admit.bytes`` (and
+        its {tenant} twin) and the tenant's ``shuffle.inflight.bytes``
+        gauge."""
         self._inflight_bytes += nbytes
-        self.node.metrics.inc(C_ADMIT_BYTES, float(nbytes))
-        self.node.metrics.observe(H_ADMIT_WAIT, waited_ms)
+        held = self._inflight_by_tenant.get(tenant, 0) + nbytes
+        self._inflight_by_tenant[tenant] = held
+        self._grant_seq += 1
+        self._grant_count_by_tenant[tenant] = \
+            self._grant_count_by_tenant.get(tenant, 0) + 1
+        metrics = self.node.metrics
+        metrics.inc(C_ADMIT_BYTES, float(nbytes))
+        metrics.inc(labeled(C_ADMIT_BYTES, tenant=tenant), float(nbytes))
+        metrics.set_gauge(labeled(G_TENANT_INFLIGHT, tenant=tenant), held)
 
-    def _release_inflight(self, nbytes: int) -> None:
+    def _release_inflight(self, nbytes: int,
+                          tenant: Optional[str] = None) -> None:
         if nbytes <= 0:
             return
+        tid = self._tenants.resolve(tenant)
         with self._inflight_cv:
             self._inflight_bytes -= nbytes
+            held = self._inflight_by_tenant.get(tid, 0) - nbytes
+            if held > 0:
+                self._inflight_by_tenant[tid] = held
+            else:
+                self._inflight_by_tenant.pop(tid, None)
+            self.node.metrics.set_gauge(
+                labeled(G_TENANT_INFLIGHT, tenant=tid), max(0, held))
             self._inflight_cv.notify_all()
+
+    def _observe_admit(self, tenant: str, waited_ms: float) -> None:
+        metrics = self.node.metrics
+        metrics.observe(H_ADMIT_WAIT, waited_ms)
+        metrics.observe(labeled(H_ADMIT_WAIT, tenant=tenant), waited_ms)
 
     def _make_admitter(self, plan: ShufflePlan, width: int,
                        stage_bytes: int, timeout: Optional[float],
+                       tenant: Optional[str] = None,
                        report: Optional[ExchangeReport] = None):
-        """(admit, release) for one exchange. ``admit(block)`` goes to the
-        pending handle (None when the cap is off): ``admit(False)`` grants
-        or enqueues and returns whether it granted; ``admit(True)`` waits
-        at the head of the queue until the reservation fits, or raises
-        ``TimeoutError`` after ``timeout`` seconds. ``release()`` is
-        idempotent, and takes a still-queued ticket out of the queue.
-        The JAX package's tenant quotas and fair-share order are not
-        ported: the queue is FIFO."""
+        """(admit, release) for one exchange of ``tenant``.
+        ``admit(block)`` goes to the pending handle (None when the cap is
+        off): ``admit(False)`` grants or enqueues and returns whether it
+        granted; ``admit(True)`` waits until the admission queue serves
+        the ticket and the reservation fits, or raises ``TimeoutError``
+        after ``timeout`` seconds. ``release()`` is idempotent, and takes
+        a still-queued ticket out of the queue. Every grant observes its
+        wait into ``shuffle.admit.wait_ms`` (and its {tenant} twin; 0 for
+        an immediate grant); a deferred grant also observes the grants
+        other tenants received while it waited into
+        ``shuffle.admit.cross_grants{tenant}``."""
         if self.conf.max_bytes_in_flight <= 0:
             return None, lambda: None
+        tid = self._tenants.resolve(tenant)
         nbytes = self._exchange_footprint(plan, width, stage_bytes)
-        state = {"reserved": 0, "ticket": None, "queued_at": 0.0}
+        state = {"reserved": 0, "ticket": None, "queued_at": 0.0,
+                 "seq0": 0, "own0": 0}
 
         def admit(block: bool) -> bool:
             with self._inflight_cv:
                 if not block:
-                    if self._fits_inflight_locked(nbytes):
-                        self._grant_inflight_locked(nbytes, 0.0)
+                    if self._fits_inflight_locked(nbytes, tenant=tid):
+                        self._grant_inflight_locked(tid, nbytes)
                         state["reserved"] = nbytes
+                        self._observe_admit(tid, 0.0)
                         return True
                     ticket = self._admit_ticket
                     self._admit_ticket += 1
-                    self._admit_queue.append(ticket)
+                    self._admit_queue.enqueue(ticket, tid, nbytes)
                     state["ticket"] = ticket
                     state["queued_at"] = time.perf_counter()
-                    log.info("submit deferred by maxBytesInFlight=%d (in "
-                             "flight %d B, requesting %d B, queue depth "
-                             "%d)", self.conf.max_bytes_in_flight,
+                    state["seq0"] = self._grant_seq
+                    state["own0"] = self._grant_count_by_tenant.get(tid, 0)
+                    log.info("submit deferred by maxBytesInFlight=%d "
+                             "(tenant %s, in flight %d B, requesting %d B, "
+                             "queue depth %d)",
+                             self.conf.max_bytes_in_flight, tid,
                              self._inflight_bytes, nbytes,
-                             len(self._admit_queue))
+                             self._admit_queue.depth())
                     return False
                 ticket = state["ticket"]
                 deadline = None if timeout is None \
                     else time.monotonic() + timeout
-                while not self._fits_inflight_locked(nbytes, ticket):
+                while not self._fits_inflight_locked(nbytes, ticket,
+                                                     tenant=tid):
                     if deadline is not None:
                         remaining = deadline - time.monotonic()
                         if remaining <= 0:
                             raise TimeoutError(
-                                f"deferred exchange waited {timeout}s: "
+                                f"deferred exchange (tenant {tid}) waited "
+                                f"{timeout}s: "
                                 f"{self._inflight_bytes} B in flight "
                                 f"exceeds a2a.maxBytesInFlight="
                                 f"{self.conf.max_bytes_in_flight} and no "
@@ -1917,11 +2127,18 @@ class ShuffleManager:
                         self._inflight_cv.wait(min(remaining, 1.0))
                     else:
                         self._inflight_cv.wait(1.0)
-                self._admit_queue.popleft()
+                self._admit_queue.pop(ticket, nbytes)
                 state["ticket"] = None
-                waited = (time.perf_counter() - state["queued_at"]) * 1e3
-                self._grant_inflight_locked(nbytes, waited)
+                # grants to other tenants while this ticket waited, taken
+                # before this grant lands in the counts
+                cross = (self._grant_seq - state["seq0"]) - (
+                    self._grant_count_by_tenant.get(tid, 0) - state["own0"])
+                self._grant_inflight_locked(tid, nbytes)
                 state["reserved"] = nbytes
+                waited = (time.perf_counter() - state["queued_at"]) * 1e3
+                self._observe_admit(tid, waited)
+                self.node.metrics.observe(
+                    labeled(H_ADMIT_CROSS, tenant=tid), float(max(0, cross)))
                 if report is not None:
                     report.admit_wait_ms += waited
                 self._inflight_cv.notify_all()
@@ -1931,11 +2148,11 @@ class ShuffleManager:
             with self._inflight_cv:
                 if state["ticket"] is not None:
                     # abandoned while queued: unblock those behind it
-                    self._admit_queue.remove(state["ticket"])
+                    self._admit_queue.discard(state["ticket"])
                     state["ticket"] = None
                     self._inflight_cv.notify_all()
                 n, state["reserved"] = state["reserved"], 0
-            self._release_inflight(n)
+            self._release_inflight(n, tenant=tid)
 
         return admit, release
 
@@ -2034,7 +2251,9 @@ class ShuffleManager:
         if rep.tiers:
             # hierarchical waves: the per-tier pairs summed over the waves
             self._stamp_wave_tiers(rep, wplan, wave_sizes, width)
-        depth = max(1, min(self.conf.wave_depth, num_waves))
+        # the tenant's waveDepth wins over a2a.waveDepth
+        spec_depth = self._tenants.spec(handle.tenant).wave_depth
+        depth = max(1, min(spec_depth or self.conf.wave_depth, num_waves))
         # admission: ``depth`` pinned wave blocks plus the device buffers
         # of ``depth`` waves on the host sink (a wave holds its send and
         # receive matrices until it drains), of every wave on the device
@@ -2047,7 +2266,8 @@ class ShuffleManager:
         admit, release_admitted = self._make_admitter(
             wplan, width,
             depth * block_bytes + (hbm_waves - 1) * device_wave,
-            None if distributed else timeout, rep)
+            None if distributed else timeout, tenant=handle.tenant,
+            report=rep)
         try:
             self.node.faults.check("exchange")
         except BaseException:
@@ -2218,7 +2438,7 @@ class ShuffleManager:
         map verified; ``rep`` gets the level and the bytes when any map
         published a record. Returns (slot_outputs, has_vals, val_tail,
         val_dtype)."""
-        level = self._integrity_for()
+        level = self._integrity_for(rep.tenant)
         verify = level != "off"
         if verify:
             outputs = self._verified_materialize(entry, writers)
@@ -2261,13 +2481,30 @@ class ShuffleManager:
                 rep.integrity_bytes += verified_bytes
         return slot_outputs, has_vals, val_tail, val_dtype
 
+    def _pack_share(self, tenant: str) -> int:
+        """A tenant's share of the pack executor's workers: all of them
+        while it packs alone; with several tenants packing, split by
+        priority weight (at least 1)."""
+        workers = self._pack_workers()
+        with self._lock:
+            contending = [t for t, n in self._packing.items() if n > 0]
+        if len(contending) <= 1:
+            return workers
+        weights = {t: self._tenants.spec(t).weight for t in contending}
+        total = sum(weights.values()) or 1
+        return max(1, (workers * weights.get(tenant, 1)) // total)
+
     def _pack_shards(self, slot_outputs, cap_in: int, width: int,
-                     has_vals: bool):
+                     has_vals: bool, tenant: Optional[str] = None):
         """Fuse key+value bytes into one [P, cap_in, width] int32 matrix
         inside a staging-pool buffer (page-locked on CUDA) — the one host
-        copy on the read path. Shards fill in parallel (numpy copies
-        release the GIL). Returns (rows tensor, pool buffer); the caller
-        returns the buffer once the exchange settled."""
+        copy on the read path. Shards fill in parallel on the pack
+        executor (numpy copies release the GIL); while packs of several
+        tenants run, this pack keeps at most its tenant's
+        :meth:`_pack_share` of fills in flight. Returns (rows tensor,
+        pool buffer); the caller returns the buffer once the exchange
+        settled."""
+        tid = self._tenants.resolve(tenant)
         P = len(slot_outputs)
         buf = self.node.pool.get(P * cap_in * width * 4)
         rows_t = buf[:P * cap_in * width * 4].view(torch.int32) \
@@ -2284,26 +2521,54 @@ class ShuffleManager:
                 off += n
             rows[p, off:] = 0       # recycled buffer: no stale rows
 
+        with self._lock:
+            self._packing[tid] = self._packing.get(tid, 0) + 1
         try:
             if P > 1 and rows.nbytes >= (1 << 20):
-                list(self._executor().map(fill, range(P)))
+                ex = self._executor()
+                share = self._pack_share(tid)
+                if share >= self._pack_workers():
+                    list(ex.map(fill, range(P)))
+                else:
+                    # a sliding window of ``share`` fills (topped up as
+                    # each completes); the fills run on pack workers and
+                    # submit nothing, so a window cannot deadlock
+                    live = set()
+                    for p in range(P):
+                        live.add(ex.submit(fill, p))
+                        if len(live) >= share:
+                            done, live = futures_wait(
+                                live, return_when=FIRST_COMPLETED)
+                            for f in done:
+                                f.result()
+                    for f in live:
+                        f.result()
             else:
                 for p in range(P):
                     fill(p)
         except BaseException:
             self.node.pool.put(buf)
             raise
+        finally:
+            with self._lock:
+                n = self._packing.get(tid, 1) - 1
+                if n > 0:
+                    self._packing[tid] = n
+                else:
+                    self._packing.pop(tid, None)
         return rows_t, buf
 
+    def _pack_workers(self) -> int:
+        """``a2a.packThreads`` (0 = ``coresPerProcess``), at least 1."""
+        return max(1, int(self.conf.pack_threads
+                          or self.conf.cores_per_process))
+
     def _executor(self) -> ThreadPoolExecutor:
-        """The pack executor: ``a2a.packThreads`` workers (0 =
-        ``coresPerProcess``)."""
+        """The pack executor: :meth:`_pack_workers` workers."""
         with self._lock:
             if self._pack_pool is None:
-                workers = self.conf.pack_threads \
-                    or self.conf.cores_per_process
                 self._pack_pool = ThreadPoolExecutor(
-                    max_workers=max(1, int(workers)),
+                    max_workers=self._pack_workers(),
                     thread_name_prefix="sxt-pack")
             return self._pack_pool
 
@@ -2454,7 +2719,7 @@ class PendingWaveShuffle:
                     (i + 1) * self._wave_rows)
                 shard_rows, buf = mgr._pack_shards(
                     sliced, self._wave_plan.cap_in, self._width,
-                    self._has_vals)
+                    self._has_vals, tenant=self._handle.tenant)
                 t1 = time.perf_counter()
                 if i == self._num_waves - 1:
                     self._finish_guard()          # last pack done
@@ -2618,6 +2883,11 @@ class PendingWaveShuffle:
                                   self._width)
             mgr._settle_tiers(rep, self._tier_walls)
         rep.lossless_bytes = int(self._lossless_bytes)
+        if rep.lossless_bytes:
+            rep.lossless_ratio = round(
+                rep.lossless_bytes / rep.payload_bytes, 6) \
+                if rep.payload_bytes else 0.0
+        mgr._settle_volume(rep, self._width)
         rep.completed = True
         metrics = mgr.node.metrics
         metrics.inc("shuffle.rows", float(self._local_rows))

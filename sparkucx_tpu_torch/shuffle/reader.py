@@ -1376,11 +1376,16 @@ class PendingExchangeBase:
         return res
 
     def __del__(self):
-        # an abandoned deferred handle: nothing reached the device, so its
-        # pack buffer and its place in the admission queue are released
+        # an abandoned handle gives its pack buffer and its reservation
+        # back (on_done(None)): a deferred one at once (nothing reached
+        # the device), a dispatched one once its step's event says the
+        # H2D copy out of the pinned buffer is done
         try:
-            if self._admit_cb is not None and self._result is None:
-                self._admit_cb = None
+            if self._result is None and not self._dead:
+                if self._admit_cb is not None:
+                    self._admit_cb = None
+                elif self._event is not None:
+                    self._event.synchronize()
                 self._notify(None)
         except Exception:
             pass

@@ -17,7 +17,12 @@ planes of distributed reads (:data:`C_PEER_TIMEOUT`, :data:`C_PROBE_DEAD`,
 :data:`H_AGREE_ROUND`), the replay counters :data:`C_REPLAYS` and
 :data:`C_REPLAY_MS`, the retry histogram :data:`H_RETRY_MS`, each
 read's wall :data:`H_FETCH_WAIT` and the integrity counters
-(:data:`C_INTEGRITY_VERIFIED` and the four beside it). A reporter (:meth:`Metrics.add_reporter`,
+(:data:`C_INTEGRITY_VERIFIED` and the four beside it), and the tenancy
+plane's names (:data:`H_ADMIT_CROSS`, :data:`C_SUBMIT_THROTTLED`,
+:data:`G_TENANT_INFLIGHT`) with the collective turnstile's
+(:data:`H_TURNSTILE_WAIT`, :data:`G_TURNSTILE_DEPTH`,
+:data:`C_TURNSTILE_ABANDONED`). Point-in-time values are gauges
+(:meth:`Metrics.set_gauge`). A reporter (:meth:`Metrics.add_reporter`,
 the flight recorder's ring) sees every increment and observation."""
 
 from __future__ import annotations
@@ -55,6 +60,21 @@ C_SPILL_COUNT = "shuffle.spill.count"
 # grant's wait in the deferral queue (ms; 0 for an immediate grant)
 C_ADMIT_BYTES = "shuffle.admit.bytes"
 H_ADMIT_WAIT = "shuffle.admit.wait_ms"
+# the tenancy plane (shuffle/tenancy.py), each labeled {tenant=...}: per
+# deferred grant, the grants OTHER tenants received between its enqueue
+# and its grant (a tenant parked behind another's flood observes the
+# flood's length, one queueing behind its own reads ~0); async
+# submissions that waited at tenant.<id>.maxInflightReads; the bytes a
+# tenant holds reserved now (a gauge)
+H_ADMIT_CROSS = "shuffle.admit.cross_grants"
+C_SUBMIT_THROTTLED = "shuffle.submit.throttled.count"
+G_TENANT_INFLIGHT = "shuffle.inflight.bytes"
+# the collective turnstile (shuffle/agreement.CollectiveTurnstile): each
+# ticket's issue-to-enter wait (ms), the issued-but-unreleased tickets (a
+# gauge), and tickets released without entering
+H_TURNSTILE_WAIT = "shuffle.turnstile.wait_ms"
+G_TURNSTILE_DEPTH = "shuffle.turnstile.depth"
+C_TURNSTILE_ABANDONED = "shuffle.turnstile.abandoned.count"
 # bytes a host-staged consumer re-uploaded host-to-device after draining a
 # host-sink read (models/moe.host_staged_consume): the round trip the
 # device sink removes
@@ -66,7 +86,7 @@ C_WIRE_BYTES = "shuffle.wire.bytes"
 C_MOE_EXCHANGES = "moe.exchange.count"
 C_MOE_ROWS = "moe.exchange.rows"
 # wire bytes each tier of a hierarchical read moved
-# (ExchangeReport.tiers), labeled {tier="ici|dcn", tenant="default"}
+# (ExchangeReport.tiers), labeled {tier="ici|dcn", tenant=...}
 C_TIER_BYTES = "shuffle.tier.bytes"
 # the watchdog's deadline expiries, and the devices its probe found dead
 # (runtime/watchdog.py)
@@ -123,6 +143,7 @@ class Metrics:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = defaultdict(float)
         self._histograms: Dict[str, Dict[str, float]] = {}
+        self._gauges: Dict[str, float] = {}
         self._reporters: List[Callable[[str, float], None]] = []
         self._broken: set = set()
 
@@ -157,6 +178,24 @@ class Metrics:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._counters)
+
+    def set_gauge(self, name: str, value) -> None:
+        """Publish a point-in-time value; ``None`` clears the gauge (a
+        source that cannot be sampled leaves no stale number)."""
+        with self._lock:
+            if value is None:
+                self._gauges.pop(name, None)
+            else:
+                self._gauges[name] = float(value)
+
+    def get_gauge(self, name: str, default: float = 0.0) -> float:
+        with self._lock:
+            return self._gauges.get(name, default)
+
+    def gauges(self) -> Dict[str, float]:
+        """``{identity: value}`` (plain names or :func:`labeled` forms)."""
+        with self._lock:
+            return dict(self._gauges)
 
     def observe(self, name: str, value: float) -> None:
         """Add one observation to the named histogram (count, sum, min,

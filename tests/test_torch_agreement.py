@@ -1,7 +1,8 @@
 """Port parity for the agreement primitive (``shuffle/agreement.py``):
 ``tests/test_distributed_parity.py``'s primitive cases against the
-port's ``agree`` (its turnstile case is not here: ``CollectiveTurnstile``
-is not ported) — one process, where every
+port's ``agree`` and ``CollectiveTurnstile`` (with
+``tests/test_decisions.py``'s turnstile case, run on both packages) — one
+process, where every
 allgather is the identity, and divergence shapes replayed through a
 stubbed 3-process gather on the agreement channel — plus a real
 divergence among three processes on the CPU (``cluster.run_cluster``).
@@ -16,8 +17,8 @@ import pytest
 from sparkucx_tpu_torch.cluster import run_cluster
 from sparkucx_tpu_torch.shuffle import distributed as dist
 from sparkucx_tpu_torch.shuffle.agreement import (AgreementDivergenceError,
-                                                  agree, current_round,
-                                                  reset_epoch)
+                                                  CollectiveTurnstile, agree,
+                                                  current_round, reset_epoch)
 from sparkucx_tpu_torch.utils.metrics import (C_AGREE_DIVERGENCE,
                                               C_AGREE_ROUNDS,
                                               H_AGREE_ROUND, Metrics,
@@ -192,3 +193,84 @@ def test_three_processes_raise_naming_process_2():
         assert res["proposals"] == [[7, 1], [7, 1], [7, 99]]
         assert "process(es) [2]" in res["message"]
         assert "spark.shuffle.tpu.test" in res["message"]
+
+
+# -- the collective turnstile --------------------------------------------------
+def _turnstiles():
+    from sparkucx_tpu.shuffle import agreement as jagreement
+    from sparkucx_tpu.utils import metrics as jmetrics
+    from sparkucx_tpu_torch.utils import metrics as tmetrics
+    return [(jagreement.CollectiveTurnstile, jmetrics),
+            (CollectiveTurnstile, tmetrics)]
+
+
+def test_collective_turnstile_orders_and_skips_abandoned():
+    """Acquisition follows issue order in both packages; a ticket
+    released out of turn is skipped, not waited for; ``close()`` fails a
+    waiter typed."""
+    got = []
+    for cls, mod in _turnstiles():
+        gate = cls(metrics=mod.Metrics())
+        t0, t1, t2, t3 = (gate.issue() for _ in range(4))
+        ran = []
+
+        def hold(ticket, tag, gate=gate, ran=ran):
+            gate.acquire(ticket)
+            ran.append(tag)
+            gate.release(ticket)
+
+        gate.release(t1)
+        th = threading.Thread(target=hold, args=(t2, "c"))
+        th.start()
+        time.sleep(0.05)
+        before = list(ran)
+        hold(t0, "a")
+        th.join(timeout=10)
+        gate.release(t0)                 # idempotent
+        gate.close()
+        with pytest.raises(RuntimeError, match="closed"):
+            gate.acquire(t3)
+        got.append((before, ran, (t0, t1, t2, t3)))
+    assert got[0] == got[1] == ([], ["a", "c"], (0, 1, 2, 3))
+
+
+def test_turnstile_k_workers_ordered_abandoned_counted():
+    """Eight workers started in reverse acquire in ticket order; the
+    abandoned ticket is counted and skipped; the depth gauge returns to
+    0 and every wait is observed — the same in both packages."""
+    got = []
+    for cls, mod in _turnstiles():
+        m = mod.Metrics()
+        gate = cls(metrics=m)
+        tickets = [gate.issue() for _ in range(8)]
+        depth0 = m.gauges()[mod.G_TURNSTILE_DEPTH]
+        ran, lock = [], threading.Lock()
+
+        def work(t, gate=gate, ran=ran, lock=lock):
+            gate.acquire(t)
+            with lock:
+                ran.append(t)
+            gate.release(t)
+
+        gate.release(tickets[3])
+        live = [t for t in tickets if t != tickets[3]]
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in reversed(live)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+        h = m.histogram(mod.H_TURNSTILE_WAIT)
+        count = h.count if hasattr(h, "count") else h["count"]
+        got.append((depth0, ran == live, m.gauges()[mod.G_TURNSTILE_DEPTH],
+                    m.get(mod.C_TURNSTILE_ABANDONED), count))
+        gate.close()
+    assert got[0] == got[1] == (8.0, True, 0.0, 1.0, 7)
+
+
+def test_turnstile_without_metrics_and_released_ticket():
+    gate = CollectiveTurnstile()
+    t = gate.issue()
+    gate.release(t)
+    with pytest.raises(RuntimeError, match="already released"):
+        gate.acquire(t)

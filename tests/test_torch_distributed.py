@@ -599,3 +599,55 @@ def test_distributed_full_verify_skips_together(integrity_world,
         assert res["lacking_table"] is False
         assert res["lacking_report"] == ["full", res["staged_bytes"]]
 
+
+
+# -- the async plane across processes (shuffle/tenancy.py) --------------------
+@pytest.fixture(scope="module")
+def tenancy_world():
+    run = run_cluster("torch_cluster_jobs:tenancy_suite", 2, P,
+                      device="cpu", timeout_s=240)
+    assert run.attempts in (1, 2) and run.returncodes == [0, 0]
+    return run.results
+
+
+def test_async_reads_across_processes_match_the_reference(tenancy_world,
+                                                          jax_flat):
+    """Six ``read_async`` reads on each of two processes (4 workers
+    each): every read's partial views together hold the JAX package's
+    read of the same maps, each report names its tenant and the width
+    4, and the read after a divergent batch still runs."""
+    for i in range(len(jobs.ASYNC_TENANTS)):
+        _check(_merged(tenancy_world, f"read{i}"), jax_flat["plain"],
+               "plain")
+    _check(_merged(tenancy_world, "after"), jax_flat["plain"], "plain")
+    for res in tenancy_world:
+        assert res["tenants"] == list(jobs.ASYNC_TENANTS)
+        assert res["async_workers"] == [4] * 6
+        assert all(res["distributed"])
+
+
+def test_async_execution_follows_the_agreed_order(tenancy_world):
+    """Both processes ran the reads in the same order, and that order is
+    the concatenation of the batches' agreed DRR orders (seqs 1..6 are
+    the reads in submission order); each batch cost one async.batch and
+    one async.order round, and every ticket's wait was observed."""
+    a, b = tenancy_world
+    assert a["orders"] == b["orders"] and a["ran"] == b["ran"]
+    flat = [s - 1 for batch in a["orders"] for s in batch]
+    assert flat[:len(jobs.ASYNC_TENANTS)] == a["ran"]
+    assert sorted(a["ran"]) == list(range(6))
+    lo = [i for i, t in enumerate(jobs.ASYNC_TENANTS) if t == "lo"]
+    assert [i for i in a["ran"] if i in lo] == lo      # FIFO in a tenant
+    for res in tenancy_world:
+        assert res["rounds"]["async.order"] >= 1
+        assert res["rounds"]["async.batch"] >= res["rounds"]["async.order"]
+        assert res["turnstile_waits"]["count"] >= 6 + len(res["orders"])
+
+
+def test_async_divergent_batch_fails_typed_on_every_process(
+        tenancy_world):
+    for res in tenancy_world:
+        got = res["divergent"]
+        assert got.startswith("AgreementDivergenceError"), got
+        assert "async.order" in got and "asyncAgreedOrder" in got
+        assert "process(es) [1]" in got or "process(es) [0]" in got

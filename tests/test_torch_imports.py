@@ -118,6 +118,14 @@ def test_carry_across_defaults_to_the_card(monkeypatch):
     assert t.device.type == "cpu" and t.tolist() == rows.tolist()
 
 
+def test_scan_covers_the_tenancy_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"shuffle/tenancy.py", "shuffle/agreement.py",
+            "shuffle/manager.py", "service.py", "config.py",
+            "utils/metrics.py"} <= names
+
+
 def test_scan_covers_the_attention_modules():
     names = {p.relative_to(PKG).as_posix() for p in _port_sources()
              if PKG in p.parents}

@@ -1730,3 +1730,73 @@ def test_corrupt_staged_replay_leaves_device_memory_on_card(card):
         gc.collect()
         torch.cuda.synchronize(card)
         assert torch.cuda.memory_allocated(card) == before
+
+
+# -- the tenancy plane: concurrent async reads on the card -------------------
+def _async_svc(conf=None):
+    return connect({"spark.shuffle.tpu.a2a.impl": "pallas",
+                    "spark.shuffle.tpu.tenant.asyncWorkers": "8",
+                    "spark.shuffle.tpu.tenant.m.priority": "high",
+                    **(conf or {})}, use_env=False)
+
+
+def _async_minnows(svc, n: int, rows: int = 20_000, maps: int = 4):
+    rng = np.random.default_rng(18)
+    hs, want = [], []
+    for i in range(n):
+        k = rng.integers(0, 1 << 40, rows).astype(np.int64)
+        v = np.repeat(k[:, None], 3, axis=1).astype(np.int32)
+        h = svc.register_shuffle(300 + i, maps, 8,
+                                 tenant="m" if i % 2 else "w")
+        per = rows // maps
+        for mid in range(maps):
+            svc.write(h, mid, k[mid * per:(mid + 1) * per],
+                      v[mid * per:(mid + 1) * per])
+        hs.append(h)
+        want.append(k)
+    return hs, want
+
+
+@pytest.mark.parametrize("cap", ["0", "1"])
+def test_concurrent_async_reads_on_card_match_oracle(card, cap):
+    """Eight ``read_async`` reads at once on eight workers (the admission
+    cap off, or 1 byte so that they serialize through the fair-share
+    queue), each against its oracle: every row routed to its hash
+    partition with its own value lanes, every written key once; the
+    reservations return to 0 and the pool to the writers' bytes."""
+    with _async_svc({"spark.shuffle.tpu.a2a.maxBytesInFlight": cap}) as svc:
+        hs, want = _async_minnows(svc, 8)
+        staged = svc.node.pool.stats()["in_use_bytes"]
+        futs = [svc.read_async(h) for h in hs]
+        for f, k in zip(futs, want):
+            res = f.result(timeout=120)
+            got = []
+            for r in range(8):
+                pk, pv = res.partition(r)
+                assert (hash32_np(pk) % 8 == r).all()
+                assert (pv == pk[:, None].astype(np.int32)).all()
+                got.append(pk)
+            np.testing.assert_array_equal(np.sort(np.concatenate(got)),
+                                          np.sort(k))
+        torch.cuda.synchronize(card)
+        m = svc.manager
+        assert m._inflight_bytes == 0 and not m._admit_queue
+        assert svc.node.pool.stats()["in_use_bytes"] == staged
+        assert {svc.report(h.shuffle_id).async_workers for h in hs} == {8}
+
+
+def test_segment_move_launches_once_per_attempt_under_contention(card):
+    """Under eight concurrent async reads the segment-move kernel
+    launches once per read attempt (the count is process-wide and each
+    attempt launches it exactly once)."""
+    with _async_svc() as svc:
+        hs, _ = _async_minnows(svc, 8)
+        svc.read(hs[0])                       # warm (not counted)
+        backend.reset_launch_counts()
+        futs = [svc.read_async(h) for h in hs]
+        for f in futs:
+            f.result(timeout=120)
+        torch.cuda.synchronize(card)
+        attempts = sum(1 + svc.report(h.shuffle_id).retries for h in hs)
+        assert backend.launch_counts().get(ra.KERNEL_NAME, 0) == attempts
+        assert all(svc.report(h.shuffle_id).impl == "pallas" for h in hs)

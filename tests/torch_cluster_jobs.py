@@ -385,3 +385,76 @@ def integrity_suite(ctx) -> dict:
     mgr.unregister_shuffle(2)
     mgr.stop()
     return out
+
+
+ASYNC_TENANTS = ("lo", "hi", "hi", "lo", "hi", "lo")
+
+
+def tenancy_suite(ctx) -> dict:
+    """The distributed async plane on one world: every process submits
+    the same six ``read_async`` reads of two tenants (``lo`` normal,
+    ``hi`` high) in the same order, on 4 workers; each batch's order is
+    agreed and each read runs under its turnstile ticket. Records every
+    batch's agreed order (``tenancy.agreed_submission_order``, wrapped),
+    the order the reads ran (their reports' exchange sequence numbers),
+    the partial views and the reports. Then one read whose tenant
+    differs on process 1: its batch fails typed on every process, and
+    the next read still runs."""
+    from sparkucx_tpu_torch.shuffle import tenancy
+    from sparkucx_tpu_torch.utils.metrics import (C_AGREE_ROUNDS,
+                                                  H_TURNSTILE_WAIT, labeled)
+    pfx = "spark.shuffle.tpu."
+    svc = ctx.connect({pfx + "tenant.hi.priority": "high",
+                       pfx + "tenant.asyncWorkers": "4"})
+    mine = my_maps(ctx, MAPS)
+    fm = float_maps()
+    orders = []
+    real = tenancy.agreed_submission_order
+
+    def spy(pending, weight_of):
+        got = real(pending, weight_of)
+        orders.append([int(s) for s in got])
+        return got
+
+    tenancy.agreed_submission_order = spy
+    out = {"rank": ctx.rank}
+    try:
+        hs = []
+        for i, t in enumerate(ASYNC_TENANTS):
+            h = svc.register_shuffle(20 + i, MAPS, R, tenant=t)
+            for m in mine:
+                w = svc.writer(h, m)
+                w.write(*fm[m])
+                w.commit(R)
+            hs.append(h)
+        futs = [svc.read_async(h) for h in hs]
+        for i, f in enumerate(futs):
+            out[f"read{i}"] = dump(f.result(timeout=120))
+        reps = [svc.report(20 + i) for i in range(len(hs))]
+        out["ran"] = sorted(range(len(hs)), key=lambda i: reps[i]._seq)
+        out["orders"] = list(orders)
+        out["tenants"] = [r.tenant for r in reps]
+        out["async_workers"] = [r.async_workers for r in reps]
+        out["distributed"] = [r.distributed for r in reps]
+        m = svc.node.metrics
+        out["turnstile_waits"] = m.histogram(H_TURNSTILE_WAIT)
+        out["rounds"] = {t: m.get(labeled(C_AGREE_ROUNDS, topic=t))
+                         for t in ("async.batch", "async.order")}
+        # a divergent batch: process 1 holds the read under another tenant
+        h = svc.register_shuffle(40, MAPS, R,
+                                 tenant="hi" if ctx.rank == 1 else "lo")
+        for m_ in mine:
+            svc.write(h, m_, *fm[m_])
+        try:
+            svc.read_async(h).result(timeout=120)
+            out["divergent"] = "completed"
+        except Exception as e:
+            out["divergent"] = f"{type(e).__name__}: {e}"[:400]
+        h = svc.register_shuffle(41, MAPS, R, tenant="lo")
+        for m_ in mine:
+            svc.write(h, m_, *fm[m_])
+        out["after"] = dump(svc.read_async(h).result(timeout=120))
+    finally:
+        tenancy.agreed_submission_order = real
+        svc.stop()
+    return out
