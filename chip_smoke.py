@@ -329,6 +329,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             dist_full (main's maps at ``integrity.verify=full``: the
             digest tables all-gathered before the plan, both workers
             report ``integrity == "full"`` and main's digests),
+            dist_decisions (on a node of its own of two slices, one a
+            worker, under ``history.dir`` in a directory both workers
+            share and ``trace.enabled``: main's maps read flat in waves of
+            262,144 rows — the ``a2a.waveRows`` / ``a2a.waveSizes``
+            rounds — and two-tier — ``tier.crossRows`` and the
+            ``hier.*`` rounds; in each worker the ledger's records equal
+            the ``shuffle.agreement.rounds.count`` delta; this process
+            loads both ``decisions_p<rank>.jsonl``, aligns them round by
+            round — one topic and one winner digest each, no audit
+            finding —, holds each read's ``agreement`` summary equal in
+            both workers, and merges the gathered spans through the
+            gathered clock anchors into one timeline with a track a
+            worker holding both reads' spans),
             dist_async (on a service of its own with
             ``tenant.asyncWorkers=4``, each worker submits the same six
             ``read_async`` reads of a minnow-sized shuffle under two
@@ -447,6 +460,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             device-sink hog reads and a ``normal`` read: the normal one
             completes past the quota-blocked hog head while the first
             hog read still holds; every read completes.
+39. telemetry — the telemetry plane on main's records:
+            telemetry_trace (main's committed shuffle, ``pallas``, 8
+            shards: the warm read's median of 5 with the tracer off,
+            then on; each traced read's spans named as the reference's
+            plain read names them and tagged with its report's
+            ``trace_id``; the span summary, each span's ms and share of
+            the read's ``shuffle.exchange`` wall; no dropped span; then
+            one read under ``trace.device`` inside
+            ``tracer.device_trace``: its ``torch.profiler`` Chrome trace
+            holds the segment move's kernel at least once and at most as
+            often as the launch counter moved, each launched inside a
+            ``shuffle.dispatch`` range), telemetry_devmon (one waved
+            device-sink read of main's records at WAVE_CONF under
+            ``devmon.enabled`` every 20 ms and the flight recorder: a
+            sample stamped with the read's trace id, no null device
+            field, ``in_use`` at most ``limit`` = the card's total
+            memory, ``peak`` at least ``in_use``, the pool gauges; the
+            sampled peak beside ``torch.cuda.max_memory_allocated``),
+            telemetry_snapshot (``stats("prometheus")`` passes
+            ``validate_exposition``, ``stats("json")``'s read-wait count
+            equals the reads; the one-second history windows of
+            ``history.dir`` add up to the registry's counters) and
+            telemetry_flight (an eighth of main's records under an armed
+            ``exchange`` fault that fires after 1.5 s: a postmortem taken
+            while the read is in flight names it in
+            ``in_flight_traces`` and holds spans; the read raises
+            ``InjectedFault``).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -457,7 +497,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed, faults, integrity, tenancy.
+dlpack, distributed, faults, integrity, tenancy, telemetry.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -480,17 +520,21 @@ the phase once, the merge, the segment reduce and the quantize in
 integrity_modes as above; tenancy: in each cell, the segment move once
 an attempt of every ``pallas`` read and the segment reduce once an
 attempt of every combine read, the merge once a fold step of
-tenancy_overrides' waved reads). The ``kernels`` line gives the
+tenancy_overrides' waved reads; telemetry: the segment move, over the
+traced reads and the device trace's read). The ``kernels`` line gives the
 launches in the faults phase (``faults_launches``) and in the integrity
 phase (``integrity_launches``) of the four kernels they drive (the
 segment move, the merge, the segment reduce and the quantize), and in
 the tenancy phase (``tenancy_launches``) of the segment move, the merge
-and the segment reduce; the others carry no such key. The
+and the segment reduce, and in the telemetry phase
+(``telemetry_launches``) of the segment move; the others carry no such
+key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -757,14 +801,33 @@ def drive_read(svc, h, **read_kw):
     return parts, read_ms, views_ms
 
 
+# A torch.profiler trace can lack the first launches made in it, the
+# more of them the longer the process has kept the card busy (all of the
+# first ten after two minutes); a host wait after the profiler starts
+# keeps them in most traces, not in all (tools/profiler_margin_probe.py
+# measures both). Kernel times are therefore taken over PROFILER_BUSY_S
+# of calls, whose first launches a trace can spare.
+PROFILER_LEAD_S = 0.05
+PROFILER_BUSY_S = 0.05
+
+
+@contextlib.contextmanager
+def device_profile(cpu: bool = True):
+    """torch.profiler over the card's activity (and the host's ops with
+    ``cpu``), started PROFILER_LEAD_S before the body runs."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILER_LEAD_S)
+        yield prof
+
+
 def profiled_read(svc, h, **read_kw) -> dict:
     """One more read + views under torch.profiler: device busy time by
     kernel and the device's idle share of the wall (profiler on, so the
     wall is longer than the unprofiled reads above)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         parts, read_ms, views_ms = drive_read(svc, h, **read_kw)
     del parts
     wall = read_ms + views_ms
@@ -1356,17 +1419,20 @@ def reduce_times(kernel, plain, library, out_rows, out_part, n_out,
 
 def device_kernel_ms(fn, names, calls: int = 5) -> dict:
     """Device time per call of each kernel whose name holds one of
-    ``names``, over ``calls`` calls of ``fn`` under torch.profiler (the
-    CUDA-event times above also hold the wrapper's host work whenever
-    the device waits for it)."""
+    ``names``: the mean over the launches that a torch.profiler trace of
+    at least ``calls`` calls of ``fn``, and PROFILER_BUSY_S of them,
+    holds (the CUDA-event times above also hold the wrapper's host work
+    whenever the device waits for it)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with device_profile() as prof:
+        made, t0 = 0, time.perf_counter()
+        while made < calls or time.perf_counter() - t0 < PROFILER_BUSY_S:
             fn()
+            made += 1
+            if made % calls == 0:
+                torch.cuda.synchronize()
         torch.cuda.synchronize()
     spans = {name: [] for name in names}
     for evt in prof.events():
@@ -1377,10 +1443,10 @@ def device_kernel_ms(fn, names, calls: int = 5) -> dict:
                 spans[name].append((evt.time_range.end
                                     - evt.time_range.start) / 1e3)
     if not all(spans.values()):
-        raise AssertionError(f"the profiler saw no launch of {names}")
-    # the mean over the launches the trace holds (it may hold fewer than
-    # were made), and how many that is
+        raise AssertionError(f"the profiler saw no launch of {names} in "
+                             f"{made} calls")
     return {**{name: float(np.mean(v)) for name, v in spans.items()},
+            "calls": made,
             "launches_seen": {name: len(v) for name, v in spans.items()}}
 
 
@@ -1581,9 +1647,7 @@ def profiled_device_read(svc, h, **read_kw) -> dict:
     """One more device-sink read under torch.profiler (the read alone,
     no host view): device busy time and idle share of its wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         res = svc.read(h, sink="device", **read_kw)
         torch.cuda.synchronize()
@@ -2586,9 +2650,7 @@ def global_qkv(qkv, dev):
 def profiled_consume(svc, h, step) -> dict:
     """One more device-sink read + consume under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         res = svc.read(h, ordered=True, sink="device")
         torch.cuda.synchronize()
@@ -3154,7 +3216,6 @@ def workloads_phase(dev) -> dict:
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
     from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as reduce
     from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     with connect(num_shards=SHARDS, use_env=False) as svc:
         for name, module, fn, kw in WORKLOAD_RUNS:
@@ -3165,7 +3226,7 @@ def workloads_phase(dev) -> dict:
             # device activities only: no host op is recorded, so the
             # tracing adds no per-op cost to the runner's host work
             with ReadTally(manager) as tally, KernelCapture() as capture, \
-                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    device_profile(cpu=False) as prof:
                 backend.reset_launch_counts()
                 t0 = time.perf_counter()
                 result = run(manager, **kw)
@@ -3377,7 +3438,6 @@ def moe_train_phase(dev) -> tuple:
     from sparkucx_tpu_torch.models import moe as tm
     from sparkucx_tpu_torch.ops import quant as tq
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
-    from torch.profiler import ProfilerActivity, profile
     params0, x, y = moe_inputs(dev)
     want, oracle_expert = moe_oracle(params0, x)
     with torch.no_grad():
@@ -3412,7 +3472,7 @@ def moe_train_phase(dev) -> tuple:
             counts = backend.launch_counts()
             peak = torch.cuda.max_memory_allocated(dev)
         # one more step under device-activity tracing: where its time goes
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(cpu=False) as prof:
             _, prof_ms = _timed(lambda: step(params, opt, x, y))
         # int8: the dispatch, the combine and the combine's backward, one
         # launch each for all 8 shards; the dispatch's backward does not
@@ -3475,7 +3535,6 @@ def moe_dispatch_phase(dev, params0, x) -> dict:
     from sparkucx_tpu_torch.models import moe as tm
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME as move
     from sparkucx_tpu_torch.utils.metrics import C_D2H, C_H2D
-    from torch.profiler import ProfilerActivity, profile
     cfg = tm.MoEConfig(d_model=MOE_D, d_hidden=MOE_H, num_experts=MOE_E)
     with torch.no_grad():
         eids = torch.argmax(x @ params0["router"], dim=-1).cpu().numpy()
@@ -3535,7 +3594,7 @@ def moe_dispatch_phase(dev, params0, x) -> dict:
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"moe_dispatch: losses {losses}")
         # one more read and consume under device-activity tracing
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(cpu=False) as prof:
             _, prof_ms = _timed(lambda: consume(
                 svc.read(h, sink="device"), params))
         profiled = {"wall_ms": prof_ms, **device_busy(prof, prof_ms)}
@@ -3778,7 +3837,6 @@ def transformer_train_phase(dev) -> dict:
     from sparkucx_tpu_torch import backend
     from sparkucx_tpu_torch.models import transformer as tt
     from sparkucx_tpu_torch.ops import flash_attention as tfa
-    from torch.profiler import ProfilerActivity, profile
     cfg = transformer_config(TF_LAYERS, "ulysses")
     mesh = tt.make_mesh(8)
     g = tt.mesh_axis_sizes(mesh)
@@ -3874,7 +3932,7 @@ def transformer_train_phase(dev) -> dict:
                              f", want {out['flash_shape']}")
     del captured, q, k, v, gg, lse, delta, kdq, kdk, kdv, pdq, pdk, pdv
     # one more step under device-activity tracing
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=False) as prof:
         _, prof_ms = _timed(lambda: step(params, opt, x, y))
     flash_ms = {name: traced_kernel_ms(prof, name) for name in FLASH_KERNELS}
     out.update({
@@ -4192,7 +4250,6 @@ def pipelines_phase(dev, spill_root: str) -> dict:
     from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as reduce
     from sparkucx_tpu_torch.ops.segmented import MERGE_KERNEL_NAME as merge
     from sparkucx_tpu_torch.workloads import workload_conf_overrides
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for name, module, fn, budget, kw in PIPELINE_RUNS:
         run = getattr(importlib.import_module(
@@ -4208,7 +4265,7 @@ def pipelines_phase(dev, spill_root: str) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
             with ReadTally(svc.manager) as tally, \
                     KernelCapture() as capture, \
-                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    device_profile(cpu=False) as prof:
                 backend.reset_launch_counts()
                 t0 = time.perf_counter()
                 rep = run(svc.manager, budget_bytes=budget, **kw, **extra)
@@ -4743,6 +4800,10 @@ def dist_worker(ctx) -> dict:
         del parts
     mw.unregister_shuffle(72)
     mw.stop()
+    # dist_decisions: the decision ledger on a two-slice node of its own
+    # (history.dir shared by the workers)
+    if "history_dir" in ctx.args:
+        out["dist_decisions"] = dist_decisions(ctx, dev, keys, values, mine)
     del keys, values, pid
     # dist_combine: group-by-sum, the segment reduce in every worker
     ck, cv = make_combine_records(n, SEED + 4)
@@ -4854,10 +4915,16 @@ def dist_phase(dev, main_digests: dict) -> dict:
     torch.cuda.empty_cache()
     _empty_host_cache()
     t = time.perf_counter()
-    run = run_cluster("chip_smoke:dist_worker", DIST_PROCS, SHARDS,
-                      conf=REPLAY_CONF, device=None,
-                      timeout_s=DIST_DEADLINE_S)
-    results = run.results
+    hist_dir = tempfile.mkdtemp(prefix="chip_smoke_decisions_")
+    try:
+        run = run_cluster("chip_smoke:dist_worker", DIST_PROCS, SHARDS,
+                          conf=REPLAY_CONF, device=None,
+                          timeout_s=DIST_DEADLINE_S,
+                          args={"history_dir": hist_dir})
+        results = run.results
+        out["dist_decisions"] = check_dist_decisions(results, hist_dir)
+    finally:
+        shutil.rmtree(hist_dir, ignore_errors=True)
     out["world"] = {"seconds": time.perf_counter() - t,
                     "attempts": run.attempts,
                     "shards": [r["shards"] for r in results],
@@ -5168,7 +5235,7 @@ def faults_small(dev, keys, values) -> dict:
         del parts
         out["fetch"] = list(svc.node.faults.stats()["fetch"])
         out["retry_observations"] = svc.node.metrics.histogram(
-            H_RETRY_MS).get("count", 0)
+            H_RETRY_MS).count
         out["fetch_read_ms"] = read_ms
         if out["fetch"] != [3, 2] or out["retry_observations"] != 2:
             raise AssertionError(f"faults_small: {out}")
@@ -5567,7 +5634,7 @@ def integrity_corrupt(dev, keys, values) -> dict:
             del parts
             rep = svc.report(122)
             fired = svc.node.faults.stats()["corrupt.spill"][1]
-            spilled = svc.stats()["shuffle.spill.count"]
+            spilled = svc.stats()["counters"]["shuffle.spill.count"]
             undone = crc32_file(path) == crc0
             svc.unregister_shuffle(122)
         if not (rep.replays == 1 and fired == 1 and undone and got == 1
@@ -6017,19 +6084,27 @@ def _check_rule(tag: str, tap: "_TenancyTap") -> dict:
     return got
 
 
+def _hist_snapshot(metrics, name: str) -> dict:
+    """The named histogram's snapshot ({} before its first
+    observation)."""
+    h = metrics.histogram(name)
+    return {} if h is None else h.snapshot()
+
+
 def _tenant_metrics(metrics, tenants) -> dict:
     from sparkucx_tpu_torch.utils import metrics as mt
     out = {}
     for t in tenants:
-        wait = metrics.histogram(mt.labeled(mt.H_ADMIT_WAIT, tenant=t))
+        wait = _hist_snapshot(metrics,
+                              mt.labeled(mt.H_ADMIT_WAIT, tenant=t))
         out[t] = {
             "admitted_bytes": metrics.get(mt.labeled(mt.C_ADMIT_BYTES,
                                                      tenant=t)),
             "admit_waits": wait.get("count", 0),
             "admit_wait_ms_sum": wait.get("sum", 0.0),
             "admit_wait_ms_max": wait.get("max", 0.0),
-            "cross_grants": metrics.histogram(
-                mt.labeled(mt.H_ADMIT_CROSS, tenant=t)),
+            "cross_grants": _hist_snapshot(
+                metrics, mt.labeled(mt.H_ADMIT_CROSS, tenant=t)),
             "reads": metrics.get(mt.labeled("shuffle.read.count",
                                             tenant=t))}
     return out
@@ -6389,8 +6464,8 @@ def tenancy_quota(dev, minnows: list, minnow_footprint: int) -> dict:
             check_minnow(f.result().host_view(), m0, "quota hog")
         out["per_tenant"] = _tenant_metrics(svc.node.metrics,
                                             ("hog", "normal"))
-        cross = svc.node.metrics.histogram(
-            mt.labeled(mt.H_ADMIT_CROSS, tenant="normal"))
+        cross = _hist_snapshot(svc.node.metrics,
+                               mt.labeled(mt.H_ADMIT_CROSS, tenant="normal"))
         if not (mgr._inflight_bytes == 0 and not q
                 and cross.get("max", 0.0) == 0.0):
             raise AssertionError(f"quota: end state {mgr._inflight_bytes} B "
@@ -6525,7 +6600,8 @@ def dist_async(ctx, dev) -> dict:
                    "impls": [r.impl for r in reps],
                    "read_wall_ms": [f.wall_ms for f in futs],
                    "queued_ms": [f.queued_ms for f in futs],
-                   "turnstile_wait_ms": m.histogram(mt.H_TURNSTILE_WAIT),
+                   "turnstile_wait_ms": _hist_snapshot(
+                       m, mt.H_TURNSTILE_WAIT),
                    "turnstile_depth": m.get_gauge(mt.G_TURNSTILE_DEPTH),
                    "rounds": {topic: m.get(mt.labeled(mt.C_AGREE_ROUNDS,
                                                       topic=topic))
@@ -6536,6 +6612,491 @@ def dist_async(ctx, dev) -> dict:
     finally:
         tenancy.agreed_submission_order = real
     return out
+
+
+# -- the telemetry plane: the tracer's cost, the device trace, the device-
+# memory sampler, the snapshot and the flight recorder (utils/trace.py,
+# utils/export.py, utils/history.py, runtime/devmon.py) ----------------------
+TELEMETRY_READS = 5            # warm reads a median is taken over
+# the span names of one plain read (submit to result), as the JAX
+# package's manager names them (tests/test_torch_trace.py holds the port
+# to it read mode by read mode)
+PLAIN_READ_SPANS = {"shuffle.barrier": 1, "shuffle.plan": 2,
+                    "shuffle.pack": 1, "shuffle.dispatch": 1,
+                    "shuffle.submit": 1, "shuffle.exchange.wait": 1,
+                    "shuffle.result": 1, "shuffle.settle": 1,
+                    "shuffle.exchange": 1}
+SEGMENT_MOVE_SYMBOL = "ragged_segment_copy"   # csrc/ragged_a2a.cu's kernel
+TELEMETRY_FAULT_DELAY_MS = 1500.0
+
+
+def _timed_reads(svc, h, n: int) -> list:
+    """``n`` reads of ``h`` (the read and its device work, no views):
+    their walls in ms."""
+    import torch
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        svc.read(h)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _read_breakdown(spans, trace_id: str) -> dict:
+    """One read's ms by span name (the spans tagged with its trace id,
+    and the untagged completion wait and result assembly inside its
+    wall) and each as a share of the wall (``shuffle.exchange``)."""
+    wall = next(s for s in spans if s.name == "shuffle.exchange"
+                and s.attrs.get("trace") == trace_id)
+    lo, hi = wall.start_us, wall.start_us + wall.dur_us
+    ms = {}
+    for s in spans:
+        inside = lo <= s.start_us and s.start_us + s.dur_us <= hi
+        if s.attrs.get("trace") == trace_id or (
+                inside and s.name in ("shuffle.exchange.wait",
+                                      "shuffle.result")):
+            ms[s.name] = ms.get(s.name, 0.0) + s.dur_ms
+    return {"wall_ms": wall.dur_ms, "ms": ms,
+            "share": {k: v / wall.dur_ms for k, v in ms.items()
+                      if k != "shuffle.exchange"}}
+
+
+def telemetry_trace(dev, svc, h) -> dict:
+    """(a) and (b) of the telemetry phase on main's committed shuffle:
+    the warm read's median wall with the tracer off and on (5 reads
+    each, in turns); each traced
+    read's span names against the reference's and their trace id; the
+    span summary and the per-span breakdown; then one read inside
+    ``tracer.device_trace`` with ``trace.device`` on, whose Chrome trace
+    must hold the segment move's kernel, at most as often as its launch
+    counter moved, each launched from inside a ``shuffle.dispatch``
+    range."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    tracer = svc.node.tracer
+    out = {}
+    svc.read(h)                      # warm (not counted, not timed)
+    backend.reset_launch_counts()
+    off, on, breakdowns = [], [], []
+    # in turns (off, on, on, off, ...), so drift does not favour a side;
+    # turning it on is what trace.enabled=true does at node start
+    for i in range(2 * TELEMETRY_READS):
+        traced = (i % 4) in (1, 2)
+        tracer.enabled = traced
+        tracer.clear()
+        wall = _timed_reads(svc, h, 1)
+        if not traced:
+            off += wall
+            continue
+        on += wall
+        rep = svc.report(h.shuffle_id)
+        spans = tracer.spans()
+        names = {}
+        for s in spans:
+            names[s.name] = names.get(s.name, 0) + 1
+        want = dict(PLAIN_READ_SPANS)
+        want["shuffle.dispatch"] += rep.retries
+        want["shuffle.exchange.wait"] += rep.retries
+        if names != want:
+            raise AssertionError(f"telemetry: a traced read's spans "
+                                 f"{names}, the reference's {want}")
+        tagged = {s.attrs["trace"] for s in spans if "trace" in s.attrs}
+        if tagged != {rep.trace_id}:
+            raise AssertionError(f"telemetry: spans tagged {tagged}, the "
+                                 f"read is {rep.trace_id}")
+        breakdowns.append(_read_breakdown(spans, rep.trace_id))
+    tracer.enabled = True
+    launches = counted(KERNEL_NAME)
+    summary = {k: {"count": v["count"], "total_ms": v["total_ms"]}
+               for k, v in tracer.summary().items()}
+    if tracer.dropped:
+        raise AssertionError(f"telemetry: the tracer dropped "
+                             f"{tracer.dropped} spans")
+    names = sorted(breakdowns[0]["ms"])
+    out.update(
+        reads=TELEMETRY_READS, tracer_off_ms=off, tracer_on_ms=on,
+        tracer_off_median_ms=float(np.median(off)),
+        tracer_on_median_ms=float(np.median(on)),
+        span_summary_last_read=summary,
+        breakdown_median_ms={k: float(np.median(
+            [b["ms"].get(k, 0.0) for b in breakdowns])) for k in names},
+        breakdown_median_share={k: float(np.median(
+            [b["share"].get(k, 0.0) for b in breakdowns]))
+            for k in names if k != "shuffle.exchange"},
+        wall_median_ms=float(np.median([b["wall_ms"]
+                                        for b in breakdowns])),
+        traced_launches=launches, trace_id=rep.trace_id)
+    # (b) the device trace: spans as record_function ranges beside the
+    # kernels
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        tracer.annotate_device = True
+        tracer.clear()
+        before = backend.launch_counts().get(KERNEL_NAME, 0)
+        with tracer.device_trace(logdir):
+            time.sleep(PROFILER_LEAD_S)
+            svc.read(h)
+            torch.cuda.synchronize(dev)
+        delta = backend.launch_counts().get(KERNEL_NAME, 0) - before
+        path = tracer.device_trace_path
+        if not path:
+            raise AssertionError("telemetry: the device trace did not run")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(path)
+    finally:
+        tracer.annotate_device = False
+        tracer.enabled = False
+        tracer.clear()
+        shutil.rmtree(logdir, ignore_errors=True)
+    xs = [e for e in events if e.get("ph") == "X"]
+    kernels = [e for e in xs if SEGMENT_MOVE_SYMBOL in str(e.get("name"))
+               and e.get("cat") == "kernel"]
+    dispatch = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+                if e.get("name") == "shuffle.dispatch"
+                and e.get("cat") == "user_annotation"]
+    by_corr = {}
+    for e in xs:
+        c = (e.get("args") or {}).get("correlation")
+        if c is not None and e.get("cat") != "kernel":
+            by_corr.setdefault(c, []).append(e)
+    if not (1 <= len(kernels) <= delta) or not dispatch:
+        raise AssertionError(
+            f"telemetry: the device trace holds {len(kernels)} segment "
+            f"moves and {len(dispatch)} dispatch ranges; the counter "
+            f"moved {delta}")
+    launch_ts = []
+    for k in kernels:
+        hosts = by_corr.get(k["args"]["correlation"], [])
+        if not hosts:
+            raise AssertionError(f"telemetry: no host launch for kernel "
+                                 f"{k['name'][:60]}")
+        ts = hosts[0]["ts"]
+        if not any(lo <= ts <= hi for lo, hi in dispatch):
+            raise AssertionError(f"telemetry: a segment move launched at "
+                                 f"{ts} outside every shuffle.dispatch "
+                                 f"range {dispatch}")
+        launch_ts.append(ts)
+    out["device_trace"] = {
+        "segment_moves": len(kernels), "counter_delta": delta,
+        "dispatch_ranges": len(dispatch),
+        "launch_api": sorted({hosts["name"] for k in kernels
+                              for hosts in by_corr[k["args"]
+                                                   ["correlation"]]}),
+        "kernel_device_ms": [k["dur"] / 1e3 for k in kernels],
+        "events": len(events), "trace_bytes": trace_bytes}
+    return out
+
+
+def telemetry_devmon(dev, keys, values, history_dir: str) -> dict:
+    """(c) and (d) of the telemetry phase: one waved device-sink read of
+    main's records at WAVE_CONF under ``devmon.enabled`` (20 ms) and the
+    flight recorder (which owns the in-flight trace the samples carry),
+    ``history.dir`` with one-second windows; then the snapshot in both
+    formats and the history frames against the registry."""
+    import torch
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.utils.export import validate_exposition
+    from sparkucx_tpu_torch.utils.history import load_history_file
+    from sparkucx_tpu_torch.utils.metrics import (G_HBM_IN_USE, G_HBM_LIMIT,
+                                                  G_HBM_PEAK, labeled)
+    conf = {**WAVE_CONF, PFX + "devmon.enabled": "true",
+            PFX + "devmon.intervalMs": "20",
+            PFX + "flightRecorder.enabled": "true",
+            PFX + "flightRecorder.dir": os.path.join(history_dir, "flight"),
+            PFX + "history.dir": history_dir,
+            PFX + "history.windowSecs": "1"}
+    out = {}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        node = svc.node
+        node.history.roll()          # the first window opens here
+        node.tracer.enabled = False  # the recorder's spans are not timed
+        h = write_maps(svc, 701, keys, values, MAPS)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = svc.read(h, sink="device")
+        res.consume(lambda carry, rows, tot: None)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        rep = svc.report(701)
+        max_alloc = torch.cuda.max_memory_allocated(dev)
+        if rep.waves < 2 or rep.sink != "device":
+            raise AssertionError(f"telemetry_devmon: {rep.waves} waves on "
+                                 f"the {rep.sink} sink")
+        node.devmon.sample_once()
+        samples = node.devmon.samples()
+        stamped = [s for s in samples if s["trace"] == rep.trace_id]
+        nulls = [d for s in samples for d in s["devices"]
+                 if None in (d["in_use"], d["limit"], d["peak"])]
+        g = node.metrics.gauges()
+        key = {n: labeled(n, device=dev.index or 0)
+               for n in (G_HBM_IN_USE, G_HBM_LIMIT, G_HBM_PEAK)}
+        in_use, limit, peak = (g.get(key[n]) for n in (
+            G_HBM_IN_USE, G_HBM_LIMIT, G_HBM_PEAK))
+        total = torch.cuda.get_device_properties(dev).total_memory
+        if not stamped or nulls or in_use is None or limit is None \
+                or peak is None or not (in_use <= limit == total) \
+                or peak < in_use \
+                or not {"pool.in_use_bytes", "pool.peak_bytes"} <= set(g):
+            raise AssertionError(
+                f"telemetry_devmon: {len(stamped)} samples of "
+                f"{len(samples)} stamped {rep.trace_id}, {len(nulls)} "
+                f"null device fields, in_use {in_use} limit {limit} "
+                f"(card {total}) peak {peak}, gauges {sorted(g)}")
+        out["devmon"] = {
+            "samples": len(samples), "stamped": len(stamped),
+            "read_wall_ms": wall, "waves": rep.waves,
+            "in_use": in_use, "limit": limit,
+            "peak_during_read": max(d["peak"] for s in stamped
+                                    for d in s["devices"]),
+            "max_memory_allocated": max_alloc,
+            "pool_peak_bytes": g["pool.peak_bytes"]}
+        # (d) the snapshot in both formats
+        svc.unregister_shuffle(701)
+        text = svc.stats("prometheus")
+        validate_exposition(text)
+        doc = svc.stats("json")
+        reads = doc["counters"]["shuffle.read.count"]
+        waits = doc["histograms"]["shuffle.read.wait_ms"]["count"]
+        if not reads == waits == 1:
+            raise AssertionError(f"telemetry_snapshot: {reads} reads, "
+                                 f"{waits} waits observed")
+        # the last window: the dumper stops first, so no roll races it
+        svc._dumper.stop()
+        svc._dumper = None
+        node.history.roll()
+        counters = node.metrics.snapshot()
+    frames = load_history_file(os.path.join(history_dir,
+                                            "history_p0.jsonl"))
+    summed = {}
+    for f in frames:
+        for k, v in f["counters"].items():
+            summed[k] = summed.get(k, 0.0) + v
+    # the sampler counts on its own thread from node start, before the
+    # first window opened
+    want = {k: v for k, v in counters.items() if not k.startswith("devmon")}
+    got = {k: v for k, v in summed.items() if not k.startswith("devmon")}
+    if got != want or not frames:
+        bad = sorted(k for k in set(want) | set(got)
+                     if want.get(k) != got.get(k))
+        raise AssertionError(f"telemetry_history: {len(frames)} frames; "
+                             f"counters that do not add up: {bad[:8]}")
+    out["snapshot"] = {"exposition_lines": len(text.splitlines()),
+                       "json_keys": sorted(doc),
+                       "reads": reads, "wait_count": waits,
+                       "frames": len(frames),
+                       "counters_checked": len(want)}
+    return out
+
+
+def telemetry_flight(dev, keys, values, flight_dir: str) -> dict:
+    """(e) of the telemetry phase: one read of an eighth of main's
+    records under an armed ``exchange`` fault (it fires once, after a
+    delay) with the flight recorder on; a postmortem taken while the
+    read is in flight names the read in ``in_flight_traces`` and holds
+    its spans; the read then fails typed."""
+    import threading
+
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.runtime.failures import InjectedFault
+    n = RECORDS // 8
+    conf = {PFX + "a2a.impl": "pallas",
+            PFX + "flightRecorder.enabled": "true",
+            PFX + "flightRecorder.dir": flight_dir,
+            PFX + "fault.exchange.failCount": "1",
+            PFX + "fault.exchange.delayMs": str(TELEMETRY_FAULT_DELAY_MS)}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        node = svc.node
+        h = write_maps(svc, 702, keys[:n], values[:n], MAPS)
+        box = {}
+
+        def take_postmortem():
+            deadline = time.monotonic() + 60.0
+            while node.flight.current_trace() is None:
+                if time.monotonic() > deadline:
+                    return
+                time.sleep(0.005)
+            time.sleep(TELEMETRY_FAULT_DELAY_MS / 4e3)
+            box["path"] = node.flight.dump("telemetry: armed exchange "
+                                           "fault in flight")
+
+        th = threading.Thread(target=take_postmortem)
+        th.start()
+        try:
+            svc.read(h)
+            raise AssertionError("telemetry_flight: the armed read passed")
+        except InjectedFault as e:
+            err = f"{type(e).__name__}: {e}"
+        th.join(timeout=60)
+        rep = svc.report(702)
+        with open(box["path"]) as f:
+            doc = json.load(f)
+        fault = [e for e in doc["events"] if e["kind"] == "fault"]
+    if doc["in_flight_traces"] != [rep.trace_id] or not doc["spans"] \
+            or not doc["trace_events"] or "wall_epoch" not in doc["anchor"]:
+        raise AssertionError(
+            f"telemetry_flight: in flight {doc['in_flight_traces']} "
+            f"(the read {rep.trace_id}), spans {sorted(doc['spans'])}")
+    return {"trace_id": rep.trace_id, "error": err,
+            "in_flight_traces": doc["in_flight_traces"],
+            "spans": sorted(doc["spans"]),
+            "trace_events": len(doc["trace_events"]),
+            "dropped_spans": doc["dropped_spans"],
+            "fault_events_before_dump": len(fault)}
+
+
+def telemetry_phase(dev) -> dict:
+    """Phase 39 on main's records: telemetry_trace on main's committed
+    shuffle (``a2a.impl=pallas``, 8 shards), telemetry_devmon (and the
+    snapshot and history checks), telemetry_flight. The segment move's
+    launches over the phase's reads are counted from 0."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    gen_s = time.perf_counter() - t
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        backend.reset_launch_counts()
+        with connect({PFX + "a2a.impl": "pallas"}, num_shards=SHARDS,
+                     use_env=False) as svc:
+            h = write_maps(svc, 700, keys, values, MAPS)
+            tr = telemetry_trace(dev, svc, h)
+            svc.unregister_shuffle(700)
+        launches = counted(KERNEL_NAME)
+        dm = telemetry_devmon(dev, keys, values,
+                              os.path.join(root, "history"))
+        fl = telemetry_flight(dev, keys, values, os.path.join(root, "fl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"gen_s": gen_s, "telemetry_launches": launches,
+            "telemetry_trace": {"phase": "telemetry_trace", **tr,
+                                "ok": True},
+            "telemetry_devmon": {"phase": "telemetry_devmon",
+                                 **dm["devmon"], "ok": True},
+            "telemetry_snapshot": {"phase": "telemetry_snapshot",
+                                   **dm["snapshot"], "ok": True},
+            "telemetry_flight": {"phase": "telemetry_flight", **fl,
+                                 "ok": True}}
+
+
+def dist_decisions(ctx, dev, keys, values, mine) -> dict:
+    """``dist_decisions`` in a worker: a node of two slices (one a
+    worker) under ``history.dir`` (shared by the workers) and the
+    tracer; main's maps of this worker read flat in waves (WAVE_ROWS:
+    the ``a2a.waveRows`` / ``a2a.waveSizes`` rounds) and two-tier
+    (``tier.crossRows`` and the ``hier.*`` rounds). Returns the rounds
+    the node's metrics counted and its ledger recorded, each read's
+    agreement summary and trace id, the gathered spans and anchors."""
+    from sparkucx_tpu_torch.utils.metrics import C_AGREE_ROUNDS
+    t0 = time.perf_counter()
+    hist = ctx.args["history_dir"]
+    with ctx.connect({PFX + "mesh.numSlices": str(ctx.nprocs),
+                      PFX + "history.dir": hist,
+                      PFX + "trace.enabled": "true"}) as svc:
+        node = svc.node
+        node.tracer.clear()
+        rounds0 = node.metrics.get(C_AGREE_ROUNDS)
+        total0 = node.decisions.total
+        reads = {}
+        from sparkucx_tpu_torch.config import ShuffleConf
+        from sparkucx_tpu_torch.shuffle.manager import ShuffleManager
+        mw = ShuffleManager(node, ShuffleConf(
+            {PFX + "a2a.topology": "flat",
+             PFX + "a2a.waveRows": str(WAVE_ROWS)}, use_env=False))
+        h = _own_maps(mw, 90, keys, values, mine)
+        res = mw.read(h)
+        del res
+        reads["waved"] = mw.report(90)
+        mw.unregister_shuffle(90)
+        mw.stop()
+        h = _own_maps(svc.manager, 91, keys, values, mine)
+        res = svc.read(h)
+        del res
+        reads["tiered"] = svc.report(91)
+        svc.unregister_shuffle(91)
+        out = {"rounds": node.metrics.get(C_AGREE_ROUNDS) - rounds0,
+               "records": node.decisions.total - total0,
+               "ledger_path": node.decisions.path,
+               "anchors": node.cluster_anchors,
+               "spans": svc.manager.gather_spans()}
+        for name, rep in reads.items():
+            out[name] = {"trace_id": rep.trace_id, "waves": rep.waves,
+                         "tiers": [t["tier"] for t in rep.tiers],
+                         "agreement": rep.agreement,
+                         "completed": rep.completed}
+        node.tracer.enabled = False
+        node.tracer.clear()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_dist_decisions(results, history_dir: str) -> dict:
+    """The parent's half of ``dist_decisions``: each worker's ledger
+    recorded every round its metrics counted; both ledgers align round by
+    round with one topic and one winner and the audit finds nothing;
+    each read's agreement summary agrees across the workers; the
+    gathered spans and anchors merge into one timeline with a track a
+    worker holding both workers' read spans."""
+    from sparkucx_tpu_torch.shuffle.decisions import (align_rounds,
+                                                      audit_round,
+                                                      decisions_files,
+                                                      load_decisions_file)
+    from sparkucx_tpu_torch.utils.export import merge_timeline
+    st = [res["dist_decisions"] for res in results]
+    paths = decisions_files(history_dir)
+    for i, s in enumerate(st):
+        if not (s["records"] == s["rounds"] > 0
+                and s["ledger_path"] == paths[i]):
+            raise AssertionError(f"dist_decisions (worker {i}): "
+                                 f"{s['records']} records, {s['rounds']} "
+                                 f"rounds, ledger {s['ledger_path']}")
+    ledgers = {i: load_decisions_file(p) for i, p in enumerate(paths)}
+    aligned = align_rounds(ledgers)
+    findings = [audit_round(row) for row in aligned]
+    split = [row for row in aligned
+             if set(row["records"]) != {0, 1}
+             or len({r["topic"] for r in row["records"].values()}) != 1
+             or len({r["winner"] for r in row["records"].values()}) != 1]
+    if len(paths) != 2 or any(findings) or split \
+            or len(aligned) != st[0]["records"]:
+        raise AssertionError(f"dist_decisions: {len(aligned)} rounds, "
+                             f"findings {[f for f in findings if f]}, "
+                             f"split {split[:2]}")
+    for name in ("waved", "tiered"):
+        a, b = (s[name] for s in st)
+        if not (a["agreement"]["rounds"] == b["agreement"]["rounds"] > 0
+                and a["trace_id"] == b["trace_id"] and a["completed"]):
+            raise AssertionError(f"dist_decisions: {name} {a} {b}")
+    anchors = {a["process_id"]: a for a in st[0]["anchors"]}
+    docs = [dict(s, anchor=anchors[s["process_id"]])
+            for s in st[0]["spans"]]
+    doc = merge_timeline(docs)
+    tracks = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == "shuffle.exchange":
+            tracks.setdefault(e["pid"], set()).add(e["args"]["trace"])
+    want = {st[0]["waved"]["trace_id"], st[0]["tiered"]["trace_id"]}
+    if sorted(tracks) != [0, 1] or any(v != want for v in tracks.values()):
+        raise AssertionError(f"dist_decisions: timeline tracks {tracks}")
+    topics = {}
+    for r in ledgers[0]:
+        topics[r["topic"]] = topics.get(r["topic"], 0) + 1
+    return {"phase": "dist_decisions", "rounds": len(aligned),
+            "topics": topics,
+            "agree_ms": [sum(r["round_ms"] for r in ledgers[i])
+                         for i in (0, 1)],
+            "waved": [s["waved"]["agreement"] for s in st],
+            "tiered": [s["tiered"]["agreement"] for s in st],
+            "waves": st[0]["waved"]["waves"],
+            "tiers": st[0]["tiered"]["tiers"],
+            "timeline_events": len(doc["traceEvents"]),
+            "seconds": [s["seconds"] for s in st], "ok": True}
 
 
 def main() -> int:
@@ -6887,7 +7448,8 @@ def main() -> int:
                  "dist_int8",
                  "dist_int8_combine", "dist_hier",
                  "dist_waved_ordered_device", "dist_waved_ordered_host",
-                 "dist_async", "dist_one_armed", "dist_peer_loss"):
+                 "dist_decisions", "dist_async", "dist_one_armed",
+                 "dist_peer_loss"):
         print(json.dumps(di[name]), flush=True)
     print(json.dumps({"phase": "distributed",
                       "launches": di["dist_launches"],
@@ -6948,6 +7510,18 @@ def main() -> int:
                       "tenancy_launches": tenancy_launches,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the telemetry plane: the tracer's cost and main's read by span,
+    # the device trace, the device-memory sampler, the snapshot and the
+    # history, a postmortem of a read in flight
+    t = time.perf_counter()
+    te = telemetry_phase(dev)
+    for name in ("telemetry_trace", "telemetry_devmon", "telemetry_snapshot",
+                 "telemetry_flight"):
+        print(json.dumps(te[name]), flush=True)
+    print(json.dumps({"phase": "telemetry", "gen_s": te["gen_s"],
+                      "telemetry_launches": te["telemetry_launches"],
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -6976,6 +7550,7 @@ def main() -> int:
         "faults_launches": faults_launches[KERNEL_NAME],
         "integrity_launches": integrity_launches[KERNEL_NAME],
         "tenancy_launches": tenancy_launches[KERNEL_NAME],
+        "telemetry_launches": te["telemetry_launches"],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {

@@ -36,8 +36,8 @@ import time
 
 import numpy as np
 
-from chip_smoke import (HBM_BYTES_PER_S, back_to_back_ms, card_line,
-                        host_ms, median_ms)
+from chip_smoke import (HBM_BYTES_PER_S, PROFILER_LEAD_S, back_to_back_ms,
+                        card_line, host_ms, median_ms)
 
 SEED = 20261018
 R = 200
@@ -79,6 +79,8 @@ def device_ms(fn, calls: int = 5) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the trace can lack the first launches made in it
+        time.sleep(PROFILER_LEAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -89,7 +91,8 @@ def device_ms(fn, calls: int = 5) -> dict:
             name = evt.name.replace("(anonymous namespace)::", "")
             spans.setdefault(name.split("(")[0], []).append(
                 (evt.time_range.end - evt.time_range.start) / 1e3)
-    return {name: float(np.sum(v)) / calls for name, v in spans.items()}
+    # the mean over the launches the trace holds
+    return {name: float(np.mean(v)) for name, v in spans.items()}
 
 
 def bench_width(sg, width: int, reps: int, dev) -> dict:

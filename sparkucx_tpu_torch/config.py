@@ -24,7 +24,10 @@ keys; ``a2a.packThreads``, ``coresPerProcess``, ``io.fetchGranularity``
 and ``metrics.reportCapacity``; the tenancy plane's ``tenant.id``,
 ``tenant.priority``, ``tenant.fairShare``, ``tenant.asyncWorkers``,
 ``tenant.asyncAgreedOrder`` and the per-tenant ``tenant.<id>.*`` keys
-(:meth:`ShuffleConf.tenant_policy`). Byte sizes parse as the JAX package's do
+(:meth:`ShuffleConf.tenant_policy`); the telemetry and decision planes'
+keys (:data:`TELEMETRY_KEYS`: ``trace.*``, ``metrics.dumpDir``,
+``metrics.dumpIntervalSecs``, ``devmon.*``, ``history.*``,
+``decisions.*``). Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
@@ -105,6 +108,48 @@ FETCH_GRANULARITIES = ("shard", "partition")
 
 # most-recent ExchangeReports a manager keeps (metrics.reportCapacity)
 REPORT_CAPACITY = 64
+
+# the telemetry and decision planes' keys: {key: (default, description)},
+# the JAX package's defaults and descriptions
+TELEMETRY_KEYS = {
+    "trace.enabled": ("false", "turn on the span tracer (utils/trace.py)"),
+    "trace.device": ("false", "also record device-time spans (a "
+                              "torch.profiler record_function range "
+                              "around every span)"),
+    "trace.capacity": ("65536", "tracer ring-buffer size"),
+    "metrics.dumpDir": ("", "periodic JSON metrics-snapshot dumps land "
+                            "here (off when unset; utils/export.py)"),
+    "metrics.dumpIntervalSecs": ("60", "seconds between periodic metrics "
+                                       "dumps (default 60)"),
+    "devmon.enabled": ("false", "device memory sampler "
+                                "(runtime/devmon.py): device memory + "
+                                "pool watermark gauges on a cadence "
+                                "(default off, null-object)"),
+    "devmon.intervalMs": ("1000", "devmon sampling interval in ms "
+                                  "(default 1000)"),
+    "history.dir": ("", "windowed telemetry history JSONL directory "
+                        "(utils/history.py; unset = in-memory ring only) "
+                        "— restart-durable, bounded to retainWindows "
+                        "lines"),
+    "history.windowSecs": ("60", "history window length in seconds "
+                                 "(default 60); rolled on the periodic-"
+                                 "dumper cadence, no extra thread"),
+    "history.retainWindows": ("120", "history retention, in windows, for "
+                                     "both the ring and the on-disk log "
+                                     "(default 120)"),
+    "decisions.enabled": ("true", "decision ledger "
+                                  "(shuffle/decisions.py): append every "
+                                  "agree() round — winner/proposal "
+                                  "digests, round wall ms, per-peer "
+                                  "header lag — to a bounded ring plus "
+                                  "(when history.dir is set) a rank-"
+                                  "keyed decisions_p<rank>.jsonl "
+                                  "(default on; off = null-object, zero "
+                                  "overhead)"),
+    "decisions.retain": ("256", "decision-ledger retention, in records, "
+                                "for both the ring and the on-disk log "
+                                "(default 256)"),
+}
 
 
 _SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgGtT]?)i?[bB]?\s*$")
@@ -196,7 +241,12 @@ class ShuffleConf:
                     "pinned_memory", "pack_threads", "cores_per_process",
                     "fetch_granularity", "report_capacity",
                     "tenant_id", "tenant_priority", "tenant_fair_share",
-                    "tenant_async_workers", "tenant_async_agreed_order")
+                    "tenant_async_workers", "tenant_async_agreed_order",
+                    "trace_enabled", "trace_device", "trace_capacity",
+                    "metrics_dump_interval_secs", "devmon_enabled",
+                    "devmon_interval_ms", "history_window_secs",
+                    "history_retain_windows", "decisions_enabled",
+                    "decisions_retain")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -224,6 +274,15 @@ class ShuffleConf:
             return self._conf[key]
         hit = self._index.get(_norm(key))
         return default if hit is None else self._conf[hit]
+
+    def set(self, key: str, value) -> "ShuffleConf":
+        """Set one key (a full ``spark.shuffle.tpu.*`` name)."""
+        hit = self._index.get(_norm(key))
+        if hit is not None and hit != key:
+            del self._conf[hit]
+        self._conf[key] = str(value)
+        self._index[_norm(key)] = key
+        return self
 
     def items(self) -> Iterator[Tuple[str, str]]:
         """Every key and value of the mapping, sorted by key (the fault
@@ -693,3 +752,55 @@ class ShuffleConf:
         return {"priority": priority, "max_bytes_in_flight": quota,
                 "max_inflight_reads": inflight, "replay_budget": budget,
                 "integrity_verify": verify, "wave_depth": depth}
+
+    # -- the telemetry and decision planes (TELEMETRY_KEYS) -----------------
+    def _telemetry(self, short: str) -> str:
+        return self._get(short, TELEMETRY_KEYS[short][0])
+
+    @property
+    def trace_enabled(self) -> bool:
+        return self.get_bool("trace.enabled", False)
+
+    @property
+    def trace_device(self) -> bool:
+        return self.get_bool("trace.device", False)
+
+    @property
+    def trace_capacity(self) -> int:
+        return int(self._telemetry("trace.capacity"))
+
+    @property
+    def metrics_dump_dir(self) -> Optional[str]:
+        return self._telemetry("metrics.dumpDir") or None
+
+    @property
+    def metrics_dump_interval_secs(self) -> float:
+        return float(self._telemetry("metrics.dumpIntervalSecs"))
+
+    @property
+    def devmon_enabled(self) -> bool:
+        return self.get_bool("devmon.enabled", False)
+
+    @property
+    def devmon_interval_ms(self) -> float:
+        return float(self._telemetry("devmon.intervalMs"))
+
+    @property
+    def history_dir(self) -> Optional[str]:
+        return self._telemetry("history.dir") or None
+
+    @property
+    def history_window_secs(self) -> float:
+        return float(self._telemetry("history.windowSecs"))
+
+    @property
+    def history_retain_windows(self) -> int:
+        return int(self._telemetry("history.retainWindows"))
+
+    @property
+    def decisions_enabled(self) -> bool:
+        return self.get_bool("decisions.enabled", True)
+
+    @property
+    def decisions_retain(self) -> int:
+        return int(self._telemetry("decisions.retain"))

@@ -29,13 +29,16 @@ the device probe and the epoch plane (the JAX package's
   :class:`StaleEpochError` instead of entering a collective that would
   hang.
 
-The postmortem carries what the port's planes hold: the reason, the
-event ring, the counters and histograms of the attached metrics and the
-context providers' output (the manager's exchange reports). The JAX
-package's dump also carries the in-flight trace ids, its span tracer's
-anchor, spans, chrome trace events and dropped-span count and its
-doctor's findings; those planes are not ported, so those keys are
-absent."""
+The postmortem carries the reason, the event ring, the exchanges in
+flight (``in_flight_traces``: the manager opens each read's trace id
+with :meth:`FlightRecorder.begin_trace` and closes it at settlement;
+ring events recorded meanwhile carry it), the process tracer's clock
+anchor, span summary, chrome trace events and dropped-span count
+(``utils/trace.py``), the counters, gauges and histograms of the
+attached metrics and the context providers' output (the manager's
+exchange reports, the node's decision ledger). The JAX package's dump
+also carries its doctor's findings; the doctor is not ported yet, so
+that key is absent."""
 
 from __future__ import annotations
 
@@ -117,6 +120,15 @@ class _NullFlightRecorder:
     def on_epoch_bump(self, epoch: int) -> None:
         pass
 
+    def begin_trace(self, trace_id: str) -> None:
+        pass
+
+    def end_trace(self, trace_id: str) -> None:
+        pass
+
+    def current_trace(self) -> Optional[str]:
+        return None
+
     def events(self):
         return []
 
@@ -177,8 +189,29 @@ class FlightRecorder:
         # carries (the node appends its own)
         self.metrics_sources: list = []
         self._epoch = time.time()
+        # the exchanges in flight, newest last (a stack: concurrent reads
+        # from several threads overlap)
+        self._inflight_traces: list = []
 
     # -- recording --------------------------------------------------------
+    def begin_trace(self, trace_id: str) -> None:
+        with self._lock:
+            self._inflight_traces.append(trace_id)
+
+    def end_trace(self, trace_id: str) -> None:
+        with self._lock:
+            try:
+                self._inflight_traces.remove(trace_id)
+            except ValueError:
+                pass
+
+    def current_trace(self) -> Optional[str]:
+        """The newest in-flight exchange's trace id, or None (the device
+        sampler stamps its samples with it)."""
+        with self._lock:
+            return self._inflight_traces[-1] if self._inflight_traces \
+                else None
+
     def events(self):
         """The ring, oldest first (what a dump would carry)."""
         with self._lock:
@@ -187,6 +220,8 @@ class FlightRecorder:
     def record(self, kind: str, **data) -> None:
         try:
             with self._lock:
+                if self._inflight_traces and "trace" not in data:
+                    data["trace"] = self._inflight_traces[-1]
                 self._events.append(
                     {"t": round(time.time() - self._epoch, 6),
                      "kind": kind, **data})
@@ -219,13 +254,19 @@ class FlightRecorder:
              ) -> Optional[str]:
         """Write the postmortem JSON; returns its path, or None when the
         write failed (a failing process must not fail harder because its
-        recorder did). Keys: ``reason``, ``ts``, ``pid``, ``events``,
-        ``counters``, ``gauges``, ``histograms`` (from the node's
-        metrics), ``contexts``, and ``extra``'s."""
+        recorder did). Keys: ``reason``, ``ts``, ``pid``, ``anchor``,
+        ``in_flight_traces``, ``events``, ``counters``, ``gauges``,
+        ``histograms`` (from the node's metrics), ``spans``,
+        ``trace_events``, ``dropped_spans`` (the process tracer),
+        ``contexts``, and ``extra``'s."""
         try:
+            from sparkucx_tpu_torch.utils.export import \
+                merge_histogram_snapshots
+            from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
             with self._lock:
                 events = list(self._events)
                 providers = list(self._providers)
+                inflight = list(self._inflight_traces)
             contexts: Dict = {}
             for fn in providers:
                 name = getattr(fn, "__name__", repr(fn))
@@ -234,12 +275,19 @@ class FlightRecorder:
                 except Exception as e:
                     contexts[name] = f"<provider failed: {e!r}>"
             doc = {"reason": reason, "ts": time.time(), "pid": os.getpid(),
+                   "anchor": GLOBAL_TRACER.anchor(),
+                   "in_flight_traces": inflight,
                    "events": events, "counters": {}, "gauges": {},
-                   "histograms": {}, "contexts": contexts}
+                   "histograms": {},
+                   "spans": GLOBAL_TRACER.summary(),
+                   "trace_events": GLOBAL_TRACER.chrome_events(),
+                   "dropped_spans": GLOBAL_TRACER.dropped,
+                   "contexts": contexts}
             for m in self.metrics_sources:
                 doc["counters"].update(m.snapshot())
                 doc["gauges"].update(m.gauges())
-                doc["histograms"].update(m.histograms())
+                merge_histogram_snapshots(doc["histograms"],
+                                          m.histograms())
             if extra:
                 doc.update(extra)
             os.makedirs(self.out_dir, exist_ok=True)
@@ -504,6 +552,9 @@ class RetryPolicy:
                         self.metrics.observe(H_RETRY_MS, ms)
                     self.flight.record("retry", attempt=attempt,
                                        error=repr(e)[:200], ms=round(ms, 3))
+                    from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
+                    GLOBAL_TRACER.instant("retry", attempt=attempt,
+                                          error=repr(e)[:200])
                 except Exception:
                     log.debug("retry telemetry failed", exc_info=True)
                 if attempt == self.max_attempts:

@@ -28,7 +28,20 @@ exception until :meth:`Node.close`), the fault injector
 device, the process-global watchdog (``runtime/watchdog.py``) and the
 :class:`~sparkucx_tpu_torch.runtime.failures.EpochManager` whose bump
 resets the agreement sequence and lands in the recorder's ring;
-:meth:`Node.remesh` bumps it."""
+:meth:`Node.remesh` bumps it.
+
+The telemetry plane rides the node too: the process tracer
+(:attr:`Node.tracer`, ``utils/trace.py``, set from ``trace.*``; the
+flight recorder turns it on), the windowed history
+(:attr:`Node.history`, ``utils/history.py``: ``history.*``, rolled by
+the service's dumper), the decision ledger (:attr:`Node.decisions`,
+``shuffle/decisions.py``: ``decisions.*``, installed for ``agree``; its
+JSONL beside the history log under ``history.dir``), the device-memory
+sampler (:attr:`Node.devmon`, ``runtime/devmon.py``: ``devmon.*``), and
+the clock anchors of every process (:attr:`Node.cluster_anchors`,
+gathered at start on a distributed node). :meth:`Node.
+telemetry_snapshot` is the one snapshot document every consumer reads
+(``service.stats``, the dumps)."""
 
 from __future__ import annotations
 
@@ -53,9 +66,17 @@ from sparkucx_tpu_torch.runtime.failures import (NULL_FLIGHT_RECORDER,
 from sparkucx_tpu_torch.runtime.watchdog import (configure_from_conf,
                                                  current_watchdog,
                                                  set_global_watchdog)
+from sparkucx_tpu_torch.runtime.devmon import NULL_DEVMON, DeviceMonitor
 from sparkucx_tpu_torch.shuffle import agreement, distributed
+from sparkucx_tpu_torch.shuffle.decisions import (NULL_DECISION_LEDGER,
+                                                  DecisionLedger,
+                                                  current_ledger, set_ledger)
+from sparkucx_tpu_torch.utils.export import collect_snapshot
+from sparkucx_tpu_torch.utils.history import TelemetryHistory
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import Metrics
+from sparkucx_tpu_torch.utils.trace import configure_from_conf \
+    as configure_tracer
 
 log = get_logger("runtime.node")
 
@@ -265,11 +286,14 @@ class Node:
                                     conf=self.conf)
         for size, count in self.conf.pre_allocate_buffers.items():
             self.pool.preallocate(size, count)
+        self.tracer = configure_tracer(self.conf)
         # the recorder first: the failure plane below records into it
         if self.conf.get_bool("flightRecorder.enabled", False):
             self.flight = FlightRecorder(self.conf)
             self.flight.metrics_sources.append(self.metrics)
             self.metrics.add_reporter(self.flight.metrics_reporter)
+            # a postmortem without a timeline answers nothing
+            self.tracer.enabled = True
             self.flight.install_abort_hook()
         else:
             self.flight = NULL_FLIGHT_RECORDER
@@ -287,6 +311,25 @@ class Node:
         agreement.reset_epoch(self.epochs.current)
         self.epochs.on_bump(agreement.reset_epoch)
         self.epochs.on_bump(self.flight.on_epoch_bump)
+        # every process's clock anchor (a collective on a distributed
+        # node: every process builds its node in lockstep)
+        self.cluster_anchors = self._gather_anchors()
+        c = self.conf
+        self.history = TelemetryHistory(
+            self._history_collect, window_secs=c.history_window_secs,
+            retain_windows=c.history_retain_windows, out_dir=c.history_dir,
+            process_id=self.process_id)
+        if c.decisions_enabled:
+            self.decisions = DecisionLedger(retain=c.decisions_retain,
+                                            out_dir=c.history_dir,
+                                            process_id=self.process_id)
+        else:
+            self.decisions = NULL_DECISION_LEDGER
+        set_ledger(self.decisions)
+        self.flight.add_context_provider(self.decision_ledger)
+        self.devmon = DeviceMonitor(
+            self, interval_s=c.devmon_interval_ms / 1e3).start() \
+            if c.devmon_enabled else NULL_DEVMON
         self._closed = False
 
     def _rendezvous(self) -> None:
@@ -404,13 +447,83 @@ class Node:
                     reason or "requested")
         return epoch
 
-    def stats(self) -> Dict[str, float]:
-        return self.metrics.snapshot()
+    def _gather_anchors(self) -> list:
+        if self.is_distributed:
+            return distributed.gather_clock_anchors(self.tracer,
+                                                    self.process_id)
+        a = self.tracer.anchor()
+        a["process_id"] = self.process_id
+        return [a]
+
+    def telemetry_snapshot(self, reports: Optional[list] = None,
+                           include_history: bool = True) -> dict:
+        """The snapshot document of this process (``utils/export.
+        collect_snapshot``): counters, gauges (the pool's watermarks
+        among them) and histograms of the node's metrics, the tracer's
+        span summary, events and fresh clock anchor, plus ``pool``,
+        ``process_id``, ``cluster_anchors``, ``anchors`` (this process's
+        start anchor) and ``anchor_skew_s`` (the wall clock's drift
+        since), the retained ``history_frames`` (``include_history``)
+        and the decision ledger's tail (``decisions``). ``reports``: the
+        manager's exchange reports, when the caller has a manager."""
+        pool_stats = self.pool.stats()
+        self.publish_pool_gauges(pool_stats)
+        extra = {"pool": pool_stats, "process_id": self.process_id,
+                 "cluster_anchors": self.cluster_anchors}
+        boot = next((a for a in self.cluster_anchors
+                     if a.get("process_id") == self.process_id
+                     and "wall_epoch" in a), None)
+        if boot is not None:
+            extra["anchors"] = [dict(boot)]
+            extra["anchor_skew_s"] = round(
+                self.tracer.anchor()["wall_epoch"]
+                - float(boot["wall_epoch"]), 6)
+        if include_history:
+            frames = self.history.frames()
+            if frames:
+                extra["history_frames"] = frames
+        recs = self.decisions.tail()
+        if recs:
+            extra["decisions"] = recs
+        return collect_snapshot(self.metrics, tracer=self.tracer,
+                                reports=reports, extra=extra)
+
+    def _history_collect(self) -> dict:
+        """The history plane's lean snapshot: counters, populated
+        histograms, gauges and the anchor (no span summary or events:
+        a window delta reads neither)."""
+        self.publish_pool_gauges()
+        return collect_snapshot(self.metrics, populated_only=True,
+                                extra={"process_id": self.process_id})
+
+    def decision_ledger(self) -> dict:
+        """The decision plane's postmortem face (a flight context
+        provider, keyed ``decision_ledger``): the last-decision position
+        and the retained tail."""
+        led = self.decisions
+        return {"enabled": bool(led.enabled), "total": int(led.total),
+                "path": led.path, "position": led.position(),
+                "decisions": led.tail()}
+
+    def publish_pool_gauges(self, stats: Optional[dict] = None) -> None:
+        """The staging pool's watermarks as ``pool.*`` gauges (they go
+        down, so they are gauges, not counters)."""
+        st = stats if stats is not None else self.pool.stats()
+        for key in ("in_use", "in_use_bytes", "peak_bytes", "allocated",
+                    "preallocated"):
+            if key in st:
+                self.metrics.set_gauge(f"pool.{key}", st[key])
 
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        # the sampler first: it reads the pool and metrics dropped below
+        self.devmon.stop()
+        self.flight.remove_context_provider(self.decision_ledger)
+        if current_ledger() is self.decisions:
+            set_ledger(NULL_DECISION_LEDGER)
+        self.decisions.close()
         self.epochs.remove_listener(agreement.reset_epoch)
         self.epochs.remove_listener(self.flight.on_epoch_bump)
         self.flight.uninstall_abort_hook()

@@ -12,6 +12,13 @@ codec is a later slice of the port).
 (``shuffle/tenancy.AsyncShuffleExecutor``) and return a
 ``ShuffleFuture``; ``register_shuffle(tenant=)`` names the tenant a
 shuffle's reads run as (``tenant.*`` keys).
+
+``stats(format="json"|"prometheus")`` is one snapshot of the telemetry
+plane (``Node.telemetry_snapshot`` with the manager's exchange
+reports): the dict, or its Prometheus text exposition. Under
+``metrics.dumpDir`` a ``utils/export.PeriodicDumper`` writes it every
+``metrics.dumpIntervalSecs``; its beat also rolls the history windows
+when ``history.dir`` is set (a tick-only dumper without a dump dir).
 """
 
 from __future__ import annotations
@@ -25,8 +32,31 @@ from sparkucx_tpu_torch.runtime.node import DEFAULT_SHARDS, Node
 from sparkucx_tpu_torch.shuffle.manager import ShuffleHandle, ShuffleManager
 from sparkucx_tpu_torch.shuffle.tenancy import (AsyncShuffleExecutor,
                                                 ShuffleFuture)
+from sparkucx_tpu_torch.utils.export import PeriodicDumper, render_prometheus
 
 IO_FORMATS = ("raw",)
+
+
+def _start_dumper(conf: ShuffleConf, stats_fn, node) -> Optional[
+        PeriodicDumper]:
+    """The periodic snapshot dumper (``metrics.dumpDir``, every
+    ``metrics.dumpIntervalSecs``), whose beat also ticks the node's
+    history when ``history.dir`` is set; a tick-only dumper (no dump
+    dir) then beats at the history window. None when neither is set."""
+    dump_dir = conf.metrics_dump_dir
+    dump_interval = conf.metrics_dump_interval_secs
+    interval = dump_interval
+    ticks = []
+    if node.history.out_dir:
+        ticks.append(node.history.tick)
+        interval = min(interval, node.history.window_secs)
+    if not dump_dir and not ticks:
+        return None
+    # the thread beats at the faster cadence; the file still lands at
+    # the configured dump rate
+    dump_every = max(1, round(dump_interval / interval))
+    return PeriodicDumper(lambda: stats_fn("json"), dump_dir, interval,
+                          tick_fns=ticks, dump_every=dump_every).start()
 
 
 class ShuffleService:
@@ -53,6 +83,7 @@ class ShuffleService:
             conf, self.manager._tenants, self.node.metrics,
             distributed=self.node.is_distributed)
         self.manager._async_workers = self._async.workers
+        self._dumper = _start_dumper(conf, self.stats, self.node)
 
     @property
     def device(self):
@@ -131,13 +162,28 @@ class ShuffleService:
         quarantined maps need writing again."""
         return self.manager.recovered_shuffles()
 
-    def stats(self):
-        return self.node.stats()
+    def stats(self, format: str = "json"):
+        """One snapshot of the telemetry plane: counters, histograms
+        (with p50/p99), gauges, the span summary and the exchange
+        reports. ``"json"``: the snapshot dict; ``"prometheus"``: its
+        text exposition."""
+        doc = self.node.telemetry_snapshot(
+            reports=self.manager.exchange_reports())
+        if format == "json":
+            return doc
+        if format == "prometheus":
+            return render_prometheus(doc)
+        raise ValueError(f"unknown stats format {format!r}; "
+                         f"want json|prometheus")
 
     def stop(self) -> None:
         # async reads in flight hold pinned blocks and reservations of the
         # manager stopped next: drain them first
         self._async.stop()
+        if self._dumper is not None:
+            # its stop writes the final snapshot
+            self._dumper.stop()
+            self._dumper = None
         self.manager.stop()
         self.node.close()
 

@@ -21,18 +21,22 @@ typed, on every process together:
 One round is two allgathers: a fixed 6-int64 header (epoch, seq, topic
 code, payload length, reduction, a send stamp excluded from the check),
 then the payload. ``seq`` resets at each epoch bump (the node wires
-:func:`reset_epoch` as a bump listener). Every round counts
+:func:`reset_epoch` as a bump listener). Every round, on every exit
+(agreed, reduced, divergent, peer lost), counts
 ``shuffle.agreement.rounds.count`` (and its ``{topic=}`` twin) and
-observes ``shuffle.agreement.round_ms`` into the ``metrics`` it is given
-(the caller's node metrics: the port has no process-global metrics).
+observes ``shuffle.agreement.round_ms`` (and its twin) into the
+``metrics`` it is given (the caller's node metrics: the port has no
+process-global metrics), runs inside one ``shuffle.agree`` span, and
+lands one record in the decision ledger (``shuffle/decisions.py``,
+:func:`~sparkucx_tpu_torch.shuffle.decisions.current_ledger`): the
+winner and per-peer proposal digests, the per-peer header arrival lag
+recovered from the header's send stamps, and the round's audit contract
+(``agree(audit=)``).
 
 :class:`CollectiveTurnstile` orders whole collective sections (one
 distributed read each) in an agreed sequence on every process: the
 tenancy plane's async dispatcher issues its tickets
-(``shuffle/tenancy.AsyncShuffleExecutor``).
-
-The JAX package's decision ledger (``shuffle/decisions.py``) and its
-tracer spans are not ported."""
+(``shuffle/tenancy.AsyncShuffleExecutor``)."""
 
 from __future__ import annotations
 
@@ -43,12 +47,14 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from sparkucx_tpu_torch.shuffle.decisions import current_ledger, digest_row
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (C_AGREE_DIVERGENCE,
                                               C_AGREE_ROUNDS, H_AGREE_ROUND,
                                               C_TURNSTILE_ABANDONED,
                                               G_TURNSTILE_DEPTH,
                                               H_TURNSTILE_WAIT, labeled)
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 log = get_logger("shuffle.agreement")
 
@@ -139,7 +145,8 @@ def _count(metrics, name: str, topic: str) -> None:
 def agree(topic: str, payload,
           reduce: Optional[Union[str, Callable]] = None,
           conf_key: str = "", timeout_ms: Optional[float] = None,
-          metrics=None, group=None) -> np.ndarray:
+          metrics=None, group=None,
+          audit: Optional[str] = None) -> np.ndarray:
     """COLLECTIVE: one agreement round over an int64 payload vector.
     Every process calls with the same topic, in the same order relative
     to every other collective.
@@ -151,7 +158,14 @@ def agree(topic: str, payload,
     returns. A sequencing split raises from the header round either way.
     ``timeout_ms`` overrides the fence's deadline for both rounds;
     ``group`` runs both on that process group (``distributed.
-    allgather_blob``)."""
+    allgather_blob``).
+
+    ``audit`` is the round's contract in the decision ledger:
+    ``"strict"`` (every peer derives its proposal from conf, so
+    differing proposals under a reducer are a silent conf split the
+    audit flags) or ``"aggregate"`` (per-peer shares that differ by
+    design). Default: strict for unanimity rounds, aggregate under a
+    reducer."""
     mine = np.atleast_1d(np.asarray(payload, dtype=np.int64)).reshape(-1)
     if callable(reduce):
         reduce_code = len(_REDUCE_CODES)
@@ -161,6 +175,13 @@ def agree(topic: str, payload,
                 f"unknown agreement reduction {reduce!r}; want one of "
                 f"{sorted(_REDUCERS)} or a callable")
         reduce_code = _REDUCE_CODES[reduce or "unanimous"]
+    reduce_name = ("callable" if callable(reduce)
+                   else (reduce or "unanimous"))
+    if audit is None:
+        audit = "strict" if reduce is None else "aggregate"
+    elif audit not in ("strict", "aggregate"):
+        raise ValueError(f"unknown audit contract {audit!r}; want "
+                         f"'strict' or 'aggregate'")
     with _ROUND_LOCK:
         with _LOCK:
             epoch, seq = _STATE["epoch"], _STATE["seq"]
@@ -168,19 +189,35 @@ def agree(topic: str, payload,
         # counted before either gather: divergent and peer-lost rounds
         # show in rounds.count too
         _count(metrics, C_AGREE_ROUNDS, topic)
+        # what _run_round learns, for the settlement on every exit
+        note = {"winner": 0, "proposals": [], "lag": [], "nprocs": 1,
+                "ok": True, "error": ""}
         t0 = time.perf_counter()
         try:
-            return _run_round(topic, mine, reduce, reduce_code, conf_key,
-                              timeout_ms, epoch, seq, metrics, group)
+            with GLOBAL_TRACER.span("shuffle.agree", topic=topic):
+                return _run_round(topic, mine, reduce, reduce_code,
+                                  conf_key, timeout_ms, epoch, seq,
+                                  metrics, group, note)
+        except BaseException as e:
+            note["ok"] = False
+            if not note["error"]:
+                note["error"] = type(e).__name__
+            raise
         finally:
+            ms = (time.perf_counter() - t0) * 1e3
             if metrics is not None:
-                ms = (time.perf_counter() - t0) * 1e3
                 metrics.observe(H_AGREE_ROUND, ms)
                 metrics.observe(labeled(H_AGREE_ROUND, topic=topic), ms)
+            current_ledger().record(
+                epoch=epoch, seq=seq, topic=topic, reduce=reduce_name,
+                nprocs=note["nprocs"], winner=note["winner"],
+                proposals=note["proposals"], round_ms=ms,
+                lag_ms=note["lag"], conf_key=conf_key, ok=note["ok"],
+                error=note["error"], audit=audit)
 
 
 def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
-               epoch, seq, metrics, group):
+               epoch, seq, metrics, group, note):
     # the module attribute, looked up per call (tests replay a 3-process
     # gather through it)
     from sparkucx_tpu_torch.shuffle import distributed
@@ -192,11 +229,17 @@ def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
     got_h = np.asarray(distributed.allgather_blob(
         header, what=f"agreement header {topic!r} #{seq}",
         timeout_ms=timeout_ms, **kw)).reshape(-1, 6)
+    note["nprocs"] = int(got_h.shape[0])
+    # per-peer arrival lag from the send stamps (excluded from the check)
+    stamps = got_h[:, 5]
+    note["lag"] = [float(v) for v in (stamps - stamps.min())]
     if (got_h[:, :5] != got_h[0, :5]).any():
         maj = _majority_row(got_h[:, :5])
         dissent = [i for i in range(got_h.shape[0])
                    if (got_h[i, :5] != maj).any()]
         _count(metrics, C_AGREE_DIVERGENCE, topic)
+        note["error"] = "sequencing"
+        note["proposals"] = [digest_row(r) for r in got_h[:, :5]]
         raise AgreementDivergenceError(
             topic, "sequencing", dissent,
             [r.tolist() for r in got_h[:, :5]], conf_key=conf_key,
@@ -206,18 +249,25 @@ def _run_round(topic, mine, reduce, reduce_code, conf_key, timeout_ms,
     got = np.asarray(distributed.allgather_blob(
         mine, what=f"agreement {topic!r} #{seq}",
         timeout_ms=timeout_ms, **kw)).reshape(-1, mine.shape[0])
+    note["proposals"] = [digest_row(r) for r in got]
     if callable(reduce):
-        return np.asarray(reduce(got), dtype=np.int64)
+        out = np.asarray(reduce(got), dtype=np.int64)
+        note["winner"] = digest_row(out)
+        return out
     if reduce is not None:
-        return _REDUCERS[reduce](got).astype(np.int64)
+        out = _REDUCERS[reduce](got).astype(np.int64)
+        note["winner"] = digest_row(out)
+        return out
     if (got != got[0]).any():
         maj = _majority_row(got)
         dissent = [i for i in range(got.shape[0])
                    if (got[i] != maj).any()]
         _count(metrics, C_AGREE_DIVERGENCE, topic)
+        note["error"] = "value"
         raise AgreementDivergenceError(
             topic, "value", dissent, [r.tolist() for r in got],
             conf_key=conf_key)
+    note["winner"] = digest_row(got[0])
     return got[0].copy()
 
 

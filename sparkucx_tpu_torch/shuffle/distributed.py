@@ -80,6 +80,7 @@ from sparkucx_tpu_torch.shuffle.topology import (PendingTieredShuffle,
                                                  TopologyDescriptor,
                                                  stage2_finalize)
 from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 log = get_logger("shuffle.distributed")
 
@@ -166,7 +167,11 @@ def allgather_blob(blob, what: str = "metadata allgather",
         dist.all_gather(out, t, group=group)
         return np.stack([o.numpy() for o in out])
 
-    return _fenced(gather, what, timeout_ms)
+    # no trace attr: trace-less callers (the anchor gather) share the
+    # channel
+    with GLOBAL_TRACER.span("shuffle.barrier", kind="allgather",
+                            what=what):
+        return _fenced(gather, what, timeout_ms)
 
 
 def allgather_json(obj) -> list:
@@ -184,6 +189,16 @@ def allgather_json(obj) -> list:
         except ValueError:
             out.append({})
     return out
+
+
+def gather_clock_anchors(tracer=None, process_id: int = 0) -> list:
+    """COLLECTIVE: every process's wall/perf anchor pair
+    (``Tracer.anchor()`` plus its ``process_id``), in process order: the
+    alignment ``utils/export.merge_timeline`` needs for the processes'
+    span clocks. The node gathers them at start."""
+    a = (tracer or GLOBAL_TRACER).anchor()
+    a["process_id"] = int(process_id)
+    return allgather_json(a)
 
 
 def allgather_sizes(local_vals, shard_ids: Sequence[int],
@@ -497,6 +512,8 @@ class PendingDistributedShuffle(PendingShuffle):
         self._out = self._step_for(self._plan)(self._rows, self._nvalid,
                                                seeds)
         self._arm_overflow(self._out[3])
+
+    _wait_tier = "dcn"
 
     def _overflowed(self) -> bool:
         # the hop's collectives returned inside the dispatch: this waits

@@ -29,6 +29,7 @@ from sparkucx_tpu_torch.shuffle.reader import PendingShuffle
 from sparkucx_tpu_torch.shuffle.topology import (TopologyDescriptor,
                                                  _stage1_body, _stage2_body,
                                                  check_hier_grid)
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 
 def _hier_step_for(topo: TopologyDescriptor):
@@ -37,8 +38,10 @@ def _hier_step_for(topo: TopologyDescriptor):
     totals, overflow), the flat step's contract."""
 
     def step_for(plan: ShufflePlan):
-        stage1 = _stage1_body(plan, topo, int(plan.cap_out))
-        stage2 = _stage2_body(plan, topo, int(plan.cap_out))
+        with GLOBAL_TRACER.span("shuffle.hier.build", ici=topo.ici_axis,
+                                dcn=topo.dcn_axis):
+            stage1 = _stage1_body(plan, topo, int(plan.cap_out))
+            stage2 = _stage2_body(plan, topo, int(plan.cap_out))
 
         def step(payload: torch.Tensor, nvalid: torch.Tensor, seeds=None):
             relay, tot1, ovf1 = stage1(payload, nvalid, seeds)

@@ -137,8 +137,9 @@ from sparkucx_tpu_torch.runtime.node import Node
 from sparkucx_tpu_torch.shuffle.agreement import agree
 from sparkucx_tpu_torch.shuffle import integrity as integ
 from sparkucx_tpu_torch.shuffle.distributed import (
-    agree_wave_count, agree_wave_sizes, allgather_blob, allgather_sizes,
-    submit_shuffle_distributed, submit_shuffle_tiered_distributed)
+    agree_wave_count, agree_wave_sizes, allgather_blob, allgather_json,
+    allgather_sizes, submit_shuffle_distributed,
+    submit_shuffle_tiered_distributed)
 from sparkucx_tpu_torch.shuffle.durable import ShuffleLedger
 from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
                                              check_bounds, make_plan,
@@ -161,13 +162,16 @@ from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
                                                submit_shuffle, value_words)
 from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
+from sparkucx_tpu_torch.shuffle.decisions import current_ledger
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (
     C_ADMIT_BYTES, C_INTEGRITY_CORRUPT, C_INTEGRITY_CORRUPT_BLOCKS,
     C_INTEGRITY_QUARANTINED, C_INTEGRITY_RECOVERED, C_INTEGRITY_VERIFIED,
     C_KERNEL_FALLBACK, C_PAYLOAD_BYTES, C_REPLAY_MS, C_REPLAYS,
     C_SINK_FALLBACK, C_TIER_BYTES, C_WIRE_BYTES, G_TENANT_INFLIGHT,
-    H_ADMIT_CROSS, H_ADMIT_WAIT, H_FETCH_WAIT, H_WAVE_GAP, labeled)
+    H_ADMIT_CROSS, H_ADMIT_WAIT, H_BW, H_FETCH_WAIT, H_PEER_BYTES,
+    H_PEER_ROWS, H_WAVE_GAP, labeled)
+from sparkucx_tpu_torch.utils.trace import format_trace_id
 
 log = get_logger("shuffle.manager")
 
@@ -188,6 +192,10 @@ class ExchangeReport:
     num_maps: int
     num_partitions: int
     partitioner: str
+    # the cluster-correlation key s<sid>.e<epoch>.x<seq>
+    # (utils/trace.format_trace_id): the same exchange in every
+    # process's spans, reports and flight events
+    trace_id: str = ""
     device: str = ""
     impl: str = ""
     # read.mergeImpl as resolved for a combine or ordered read
@@ -275,8 +283,17 @@ class ExchangeReport:
     # the bytes it verified
     integrity: str = ""
     integrity_bytes: int = 0
+    # the agreement rounds this process closed during the read (the
+    # decision ledger's records since the read started): {rounds,
+    # agree_ms, slowest_topic, divergent}; {} when none ran or the plane
+    # is off
+    agreement: Dict = field(default_factory=dict)
     completed: bool = False
     error: Optional[str] = None
+    # the read's start (the wall span shuffle.exchange starts here) and
+    # the decision ledger's append count then
+    _t_start: float = field(default=0.0, repr=False)
+    _agree_mark: int = field(default=-1, repr=False)
     _t_dispatched: float = field(default=0.0, repr=False)
     # the manager's exchange sequence number: the int8 noise base
     _seq: int = field(default=0, repr=False)
@@ -354,7 +371,8 @@ class ShuffleManager:
         self._pack_pool: Optional[ThreadPoolExecutor] = None
         self._warned: set = set()
         self._lock = threading.Lock()
-        # one number per read: the int8 wire's noise base
+        # one number per read: the seq third of the trace id and the int8
+        # wire's noise base
         self._exchange_seq = 0
         # -- tenancy (shuffle/tenancy.py): per-tenant policy from conf --
         self._tenants = TenantRegistry(self.conf)
@@ -1084,6 +1102,18 @@ class ShuffleManager:
         rep = self.report(handle.shuffle_id)
         if rep is None:
             return
+        # the verify's wall, on both verdicts
+        t0 = time.perf_counter()
+        try:
+            self._verify_full_inner(handle, res, combine, rep)
+        finally:
+            self.node.tracer.record_span(
+                "shuffle.verify", t0, level="full",
+                shuffle_id=handle.shuffle_id, trace=rep.trace_id)
+
+    def _verify_full_inner(self, handle: ShuffleHandle, res,
+                           combine: Optional[str],
+                           rep: ExchangeReport) -> None:
         if getattr(res, "sink", "host") == "device":
             self._verify_full_device(handle, res, rep)
             return
@@ -1227,14 +1257,88 @@ class ShuffleManager:
                              process_id=self.node.process_id,
                              tenant=handle.tenant,
                              async_workers=int(self._async_workers))
+        rep._t_start = time.perf_counter()
+        rep._agree_mark = int(current_ledger().total)
         with self._lock:
+            # reads run in the same order on every process, so the
+            # sequence (and the trace id) agrees cluster-wide
             self._exchange_seq += 1
             rep._seq = self._exchange_seq
+            rep.trace_id = format_trace_id(handle.shuffle_id,
+                                           self.node.epochs.current,
+                                           self._exchange_seq)
             self._reports[handle.shuffle_id] = rep
             self._reports.move_to_end(handle.shuffle_id)
             while len(self._reports) > self._report_capacity:
                 self._evict_report_locked()
+        # ring events recorded while the read is in flight carry its id
+        self.node.flight.begin_trace(rep.trace_id)
         return rep
+
+    def _settle_report(self, rep: ExchangeReport, completed: bool) -> None:
+        """The read's settlement, on every exit: the ``agreement``
+        summary, the ``shuffle.exchange`` wall span (report start to
+        now), the tracer's drops as a counter, and the end of the read's
+        flight trace. Never raises."""
+        try:
+            self._settle_agreement(rep)
+            tracer = self.node.tracer
+            if tracer.enabled and rep._t_start:
+                tracer.record_span(
+                    "shuffle.exchange", rep._t_start,
+                    shuffle_id=rep.shuffle_id, trace=rep.trace_id,
+                    tenant=rep.tenant or self._tenants.default_id,
+                    completed=completed)
+                tracer.publish_dropped(self.node.metrics)
+        except Exception:
+            log.debug("settlement of %s failed", rep.trace_id,
+                      exc_info=True)
+        self.node.flight.end_trace(rep.trace_id)
+
+    @staticmethod
+    def _settle_agreement(rep: ExchangeReport) -> None:
+        """The decision ledger's records since the read started, as the
+        report's ``agreement`` summary: rounds, their summed wall, the
+        topic that took longest in all, and the divergent rounds."""
+        if rep._agree_mark < 0:
+            return
+        recs = current_ledger().since(rep._agree_mark)
+        if not recs:
+            return
+        by_topic: Dict[str, float] = {}
+        for r in recs:
+            t = r.get("topic", "?")
+            by_topic[t] = by_topic.get(t, 0.0) + float(r.get("round_ms",
+                                                             0.0))
+        rep.agreement = {
+            "rounds": len(recs),
+            "agree_ms": round(sum(by_topic.values()), 3),
+            "slowest_topic": max(by_topic.items(), key=lambda kv: kv[1])[0],
+            "divergent": sum(1 for r in recs if not r.get("ok", True))}
+
+    def gather_reports(self, shuffle_id: int) -> List[Dict]:
+        """COLLECTIVE on a distributed node: every process's report of a
+        shuffle, as dicts in process order ({} from a process that never
+        read it); on one process the local report alone."""
+        rep = self.report(shuffle_id)
+        local = rep.to_dict() if rep is not None else {}
+        if not self.node.is_distributed:
+            return [local] if local else []
+        return allgather_json(local)
+
+    def gather_spans(self) -> List[Dict]:
+        """COLLECTIVE on a distributed node: every process's span buffer
+        as chrome trace events with its clock anchor, in process order:
+        the input of ``utils/export.merge_timeline``. One process: the
+        local capture alone."""
+        tracer = self.node.tracer
+        local = {"process_id": self.node.process_id, "pid": os.getpid(),
+                 "anchor": tracer.anchor(),
+                 "events": tracer.chrome_events(),
+                 "dropped_spans": tracer.dropped}
+        if not self.node.is_distributed:
+            return [local]
+        return allgather_json(local)
 
     def _evict_report_locked(self) -> None:
         """Evict one report: the oldest of the tenant holding the most
@@ -1369,18 +1473,27 @@ class ShuffleManager:
         rep = self._new_report(handle)
         rep.sink = sink
         try:
-            return self._submit_local_staged(handle, timeout, rep, combine,
-                                             ordered, combine_sum_words,
-                                             sink)
+            with self.node.tracer.span("shuffle.submit",
+                                       shuffle_id=handle.shuffle_id,
+                                       trace=rep.trace_id):
+                return self._submit_local_staged(
+                    handle, timeout, rep, combine, ordered,
+                    combine_sum_words, sink)
         except BaseException as e:
             rep.error = rep.error or repr(e)[:300]
+            # a read that dies before its exchange is armed never settles
+            self.node.flight.end_trace(rep.trace_id)
             raise
 
     def _submit_local_staged(self, handle: ShuffleHandle, timeout: float,
                              rep: ExchangeReport, combine: Optional[str],
                              ordered: bool, combine_sum_words: int,
                              sink: str = "host"):
-        if not handle.entry.wait_complete(timeout):
+        tracer = self.node.tracer
+        with tracer.span("shuffle.barrier", kind="map_outputs",
+                         shuffle_id=handle.shuffle_id, trace=rep.trace_id):
+            complete = handle.entry.wait_complete(timeout)
+        if not complete:
             raise TimeoutError(
                 f"shuffle {handle.shuffle_id}: only "
                 f"{handle.entry.num_present}/{handle.num_maps} map outputs "
@@ -1418,15 +1531,19 @@ class ShuffleManager:
                                for outs in shard_outputs], dtype=np.int64)
 
             t_plan = time.perf_counter()
-            plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
-                             self.node.device,
-                             partitioner=handle.partitioner,
-                             bounds=handle.bounds, sink=sink,
-                             hierarchical=self.hierarchical)
-            plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
-            plan = self._decorated_plan(plan, combine, ordered, has_vals,
-                                        val_tail, val_dtype,
-                                        combine_sum_words, sink=sink)
+            with tracer.span("shuffle.plan", shuffle_id=handle.shuffle_id,
+                             trace=rep.trace_id):
+                plan = make_plan(nvalid, Pn, handle.num_partitions,
+                                 self.conf, self.node.device,
+                                 partitioner=handle.partitioner,
+                                 bounds=handle.bounds, sink=sink,
+                                 hierarchical=self.hierarchical)
+                plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
+            with tracer.span("shuffle.plan", shuffle_id=handle.shuffle_id,
+                             decorate=True, trace=rep.trace_id):
+                plan = self._decorated_plan(plan, combine, ordered,
+                                            has_vals, val_tail, val_dtype,
+                                            combine_sum_words, sink=sink)
             rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
 
             width = KEY_WORDS + (value_words(val_tail, val_dtype)
@@ -1506,9 +1623,13 @@ class ShuffleManager:
                                       distributed=distributed)
         self._note_inert_lossless(plan)
         t_pack = time.perf_counter()
-        rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
-                                            width, has_vals,
-                                            tenant=handle.tenant)
+        with node.tracer.span("shuffle.pack",
+                              rows=int(np.sum(local[1] if distributed
+                                              else nvalid)),
+                              trace=rep.trace_id):
+            rows, stage_buf = self._pack_shards(shard_outputs, plan.cap_in,
+                                                width, has_vals,
+                                                tenant=handle.tenant)
         rep.pack_ms = (time.perf_counter() - t_pack) * 1e3
         guard.close()
         if distributed:
@@ -1532,11 +1653,11 @@ class ShuffleManager:
                 return submit_shuffle_tiered_distributed(
                     self.topology, plan, rows, nvalid_local, shard_ids, vt,
                     val_dtype, node.device, node.pool,
-                    **self._tier_hooks(), **kw)
+                    **self._tier_hooks(rep.trace_id), **kw)
             if hier:
                 return submit_shuffle_tiered(
                     self.topology, plan, rows, nvalid, vt, val_dtype,
-                    node.device, **self._tier_hooks(), **kw)
+                    node.device, **self._tier_hooks(rep.trace_id), **kw)
             if distributed:
                 return submit_shuffle_distributed(
                     plan, rows, nvalid_local, shard_ids, vt, val_dtype,
@@ -1554,11 +1675,12 @@ class ShuffleManager:
                 handle, res, combine)
         return pending
 
-    def _tier_hooks(self) -> Dict:
-        """The tiered exchange's per-tier deadlines, fault sites and
-        flight recorder."""
+    def _tier_hooks(self, trace_id: str) -> Dict:
+        """The tiered exchange's per-tier deadlines, fault sites, flight
+        recorder and the read's trace id."""
         return dict(timeouts=tier_timeouts(self.conf),
-                    faults=self.node.faults, flight=self.node.flight)
+                    faults=self.node.faults, flight=self.node.flight,
+                    trace_id=trace_id)
 
     def _dispatch_read(self, handle: ShuffleHandle, rep: ExchangeReport,
                        dispatch, stage_buf, release_admitted,
@@ -1577,6 +1699,16 @@ class ShuffleManager:
         total_rows = int(np.sum(nvalid))
 
         def on_done(result):
+            t_settle = time.perf_counter()
+            try:
+                settle(result)
+            finally:
+                if self.node.tracer.enabled:
+                    self.node.tracer.record_span(
+                        "shuffle.settle", t_settle, trace=rep.trace_id)
+                self._settle_report(rep, completed=result is not None)
+
+        def settle(result):
             self.node.pool.put(stage_buf)
             if isinstance(result, DeviceShuffleReaderResult):
                 # the receive buffers stay on the device until the
@@ -1620,7 +1752,11 @@ class ShuffleManager:
         rep._t_dispatched = time.perf_counter()
         try:
             self.node.faults.check("exchange")
-            pending = dispatch(on_done)
+            with self.node.tracer.span(
+                    "shuffle.dispatch", shuffle_id=handle.shuffle_id,
+                    rows=total_rows, width=width,
+                    hierarchical=self.hierarchical, trace=rep.trace_id):
+                pending = dispatch(on_done)
         except BaseException:
             self.node.pool.put(stage_buf)
             release_admitted()
@@ -1637,11 +1773,15 @@ class ShuffleManager:
         rep = self._new_report(handle, distributed=True)
         rep.sink = sink
         try:
-            return self._submit_distributed_impl(handle, timeout, combine,
-                                                 ordered, combine_sum_words,
-                                                 rep, sink)
+            with self.node.tracer.span("shuffle.submit",
+                                       shuffle_id=handle.shuffle_id,
+                                       trace=rep.trace_id):
+                return self._submit_distributed_impl(
+                    handle, timeout, combine, ordered, combine_sum_words,
+                    rep, sink)
         except BaseException as e:
             rep.error = rep.error or repr(e)[:300]
+            self.node.flight.end_trace(rep.trace_id)
             raise
 
     def _submit_distributed_impl(self, handle: ShuffleHandle,
@@ -1666,40 +1806,10 @@ class ShuffleManager:
                 f"({(handle.num_maps + 1) * 8} B for {handle.num_maps} "
                 f"maps) exceeds meta.bufferSize={limit}; raise "
                 f"spark.shuffle.tpu.meta.bufferSize")
-        # Completeness barrier over the DISTINCT map ids (a count would let
-        # a duplicate commit mask a missing map). The timeout bit rides the
-        # allgather, so one process's expired clock makes every process
-        # raise together.
-        deadline = time.monotonic() + timeout
-        while True:
-            with self._lock:
-                if handle.shuffle_id not in self._writers:
-                    raise RuntimeError(
-                        f"shuffle {handle.shuffle_id} is not registered "
-                        f"with this manager (already unregistered?)")
-                committed = sorted(
-                    m for m, w in self._writers[handle.shuffle_id].items()
-                    if w.committed)
-            bitmap = np.zeros(handle.num_maps + 1, dtype=np.int64)
-            bitmap[committed] = 1
-            bitmap[-1] = 1 if time.monotonic() > deadline else 0
-            gathered = allgather_blob(bitmap, what="completeness barrier")
-            owners = gathered[:, :-1].sum(axis=0)
-            if (owners > 1).any():
-                dups = np.nonzero(owners > 1)[0].tolist()
-                raise RuntimeError(
-                    f"shuffle {handle.shuffle_id}: map ids {dups} committed "
-                    f"by multiple processes — ambiguous ownership (maps "
-                    f"must be partitioned over processes)")
-            total = int((owners > 0).sum())
-            if total >= handle.num_maps:
-                break
-            if gathered[:, -1].any():
-                raise TimeoutError(
-                    f"shuffle {handle.shuffle_id}: only {total}/"
-                    f"{handle.num_maps} map outputs published within "
-                    f"{timeout}s")
-            time.sleep(0.05)
+        with self.node.tracer.span("shuffle.barrier", kind="map_outputs",
+                                   shuffle_id=handle.shuffle_id,
+                                   trace=rep.trace_id):
+            committed = self._completeness_barrier(handle, timeout)
         # the snapshot is retaken under the in-flight guard: the barrier's
         # predates it, and a remesh in between could release its writers
         guard = _ReadGuard(self)
@@ -1725,6 +1835,45 @@ class ShuffleManager:
         except BaseException:
             guard.close()
             raise
+
+    def _completeness_barrier(self, handle: ShuffleHandle,
+                              timeout: float) -> List[int]:
+        """COLLECTIVE: poll the presence bitmap of the DISTINCT map ids (a
+        count would let a duplicate commit mask a missing map) until
+        every map of the shuffle is committed on some process; returns
+        this process's committed map ids. The timeout bit rides the
+        allgather, so one process's expired clock makes every process
+        raise together."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                if handle.shuffle_id not in self._writers:
+                    raise RuntimeError(
+                        f"shuffle {handle.shuffle_id} is not registered "
+                        f"with this manager (already unregistered?)")
+                committed = sorted(
+                    m for m, w in self._writers[handle.shuffle_id].items()
+                    if w.committed)
+            bitmap = np.zeros(handle.num_maps + 1, dtype=np.int64)
+            bitmap[committed] = 1
+            bitmap[-1] = 1 if time.monotonic() > deadline else 0
+            gathered = allgather_blob(bitmap, what="completeness barrier")
+            owners = gathered[:, :-1].sum(axis=0)
+            if (owners > 1).any():
+                dups = np.nonzero(owners > 1)[0].tolist()
+                raise RuntimeError(
+                    f"shuffle {handle.shuffle_id}: map ids {dups} committed "
+                    f"by multiple processes — ambiguous ownership (maps "
+                    f"must be partitioned over processes)")
+            total = int((owners > 0).sum())
+            if total >= handle.num_maps:
+                return committed
+            if gathered[:, -1].any():
+                raise TimeoutError(
+                    f"shuffle {handle.shuffle_id}: only {total}/"
+                    f"{handle.num_maps} map outputs published within "
+                    f"{timeout}s")
+            time.sleep(0.05)
 
     def _agree_schema(self, has_vals: bool, val_tail, val_dtype,
                       local_rows: int) -> tuple:
@@ -1797,16 +1946,21 @@ class ShuffleManager:
             self._stash_full_expect(handle, writers)
 
         t_plan = time.perf_counter()
-        plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
-                         node.device, partitioner=handle.partitioner,
-                         bounds=handle.bounds, sink=sink,
-                         hierarchical=self.hierarchical, distributed=True)
-        # every process runs the same reads, so the learned hints advance
-        # in lockstep
-        plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
-        plan = self._decorated_plan(plan, combine, ordered, has_vals,
-                                    val_tail, val_dtype, combine_sum_words,
-                                    sink=sink)
+        with node.tracer.span("shuffle.plan", shuffle_id=handle.shuffle_id,
+                              trace=rep.trace_id):
+            plan = make_plan(nvalid, Pn, handle.num_partitions, self.conf,
+                             node.device, partitioner=handle.partitioner,
+                             bounds=handle.bounds, sink=sink,
+                             hierarchical=self.hierarchical,
+                             distributed=True)
+            # every process runs the same reads, so the learned hints
+            # advance in lockstep
+            plan = self._apply_cap_hint(plan, handle, int(nvalid.sum()))
+        with node.tracer.span("shuffle.plan", shuffle_id=handle.shuffle_id,
+                              decorate=True, trace=rep.trace_id):
+            plan = self._decorated_plan(plan, combine, ordered, has_vals,
+                                        val_tail, val_dtype,
+                                        combine_sum_words, sink=sink)
         rep.plan_ms = (time.perf_counter() - t_plan) * 1e3
         width = KEY_WORDS + (value_words(val_tail, val_dtype)
                              if has_vals else 0)
@@ -1843,6 +1997,10 @@ class ShuffleManager:
         skew = [int(x) for x in part_rows]
         mean = sum(skew) / len(skew) if skew else 0.0
         rep.skew_ratio = max(skew) / mean if mean > 0 else 0.0
+        metrics = self.node.metrics
+        for r, b in zip(rep.peer_rows, rep.peer_bytes):
+            metrics.observe(H_PEER_ROWS, float(r))
+            metrics.observe(H_PEER_BYTES, float(b))
 
     # -- topology plane (shuffle/topology.py) ------------------------------
     def _set_tiers(self, rep: ExchangeReport, tiers: List[Dict]) -> None:
@@ -1923,6 +2081,7 @@ class ShuffleManager:
             gbps = payload / (rep.group_ms * 1e6)
             rep.bw_gbps = round(gbps, 6)
             rep.effective_bw_gbps = round(gbps * rep._wire_gain, 6)
+            self.node.metrics.observe(H_BW, gbps)
         if not rep.payload_bytes:
             return
         metrics = self.node.metrics
@@ -2135,7 +2294,13 @@ class ShuffleManager:
                     self._grant_count_by_tenant.get(tid, 0) - state["own0"])
                 self._grant_inflight_locked(tid, nbytes)
                 state["reserved"] = nbytes
-                waited = (time.perf_counter() - state["queued_at"]) * 1e3
+                t_grant = time.perf_counter()
+                waited = (t_grant - state["queued_at"]) * 1e3
+                if report is not None:
+                    # the deferred admission's wall, enqueue to grant
+                    self.node.tracer.record_span(
+                        "shuffle.admit.wait", state["queued_at"], t_grant,
+                        trace=report.trace_id, tenant=tid)
                 self._observe_admit(tid, waited)
                 self.node.metrics.observe(
                     labeled(H_ADMIT_CROSS, tenant=tid), float(max(0, cross)))
@@ -2669,6 +2834,8 @@ class PendingWaveShuffle:
         # result()), but its guard must not hold a graveyard batch
         try:
             self._finish_guard()
+            if self._result is None and not self._dead:
+                self._mgr.node.flight.end_trace(self._rep.trace_id)
         except Exception:
             pass
 
@@ -2690,6 +2857,7 @@ class PendingWaveShuffle:
                 # the walls the drained waves measured; no bytes counted
                 self._mgr._settle_tiers(self._rep, self._tier_walls,
                                         completed=False)
+            self._mgr._settle_report(self._rep, completed=False)
             raise
         self._result = res
         return res
@@ -2714,23 +2882,27 @@ class PendingWaveShuffle:
                         inflight, wave_results, timeline, t_read0)
                 oldest = inflight[0][1] if inflight else None
                 t0 = time.perf_counter()
-                sliced, wnv = _slice_slot_outputs(
-                    self._slot_outputs, i * self._wave_rows,
-                    (i + 1) * self._wave_rows)
-                shard_rows, buf = mgr._pack_shards(
-                    sliced, self._wave_plan.cap_in, self._width,
-                    self._has_vals, tenant=self._handle.tenant)
-                t1 = time.perf_counter()
-                if i == self._num_waves - 1:
-                    self._finish_guard()          # last pack done
-                if not rep._t_dispatched:
-                    rep._t_dispatched = t1
-                try:
-                    pending = self._dispatch_wave(shard_rows, wnv, buf, i)
-                except BaseException:
-                    # no pending owns the pinned block yet
-                    mgr.node.pool.put(buf)
-                    raise
+                with mgr.node.tracer.span("shuffle.wave",
+                                          shuffle_id=self._handle.shuffle_id,
+                                          wave=i, trace=rep.trace_id):
+                    sliced, wnv = _slice_slot_outputs(
+                        self._slot_outputs, i * self._wave_rows,
+                        (i + 1) * self._wave_rows)
+                    shard_rows, buf = mgr._pack_shards(
+                        sliced, self._wave_plan.cap_in, self._width,
+                        self._has_vals, tenant=self._handle.tenant)
+                    t1 = time.perf_counter()
+                    if i == self._num_waves - 1:
+                        self._finish_guard()          # last pack done
+                    if not rep._t_dispatched:
+                        rep._t_dispatched = t1
+                    try:
+                        pending = self._dispatch_wave(shard_rows, wnv, buf,
+                                                      i)
+                    except BaseException:
+                        # no pending owns the pinned block yet
+                        mgr.node.pool.put(buf)
+                        raise
                 t2 = time.perf_counter()
                 # measured, not assumed: the pack counts as hidden only if
                 # the oldest in-flight exchange was still running on the
@@ -2812,7 +2984,7 @@ class PendingWaveShuffle:
                 mgr.topology, self._wave_plan, shard_rows, wnv,
                 node.local_shard_ids, self._val_tail, self._val_dtype,
                 node.device, pool, on_done=on_done, wire_seed=wseed,
-                metrics=node.metrics, **mgr._tier_hooks())
+                metrics=node.metrics, **mgr._tier_hooks(self._rep.trace_id))
         if self._distributed:
             return submit_shuffle_distributed(
                 self._wave_plan, shard_rows, wnv, node.local_shard_ids,
@@ -2823,7 +2995,7 @@ class PendingWaveShuffle:
                 mgr.topology, self._wave_plan, shard_rows, wnv,
                 self._val_tail, self._val_dtype, mgr.node.device,
                 on_done=on_done, wire_seed=wseed, metrics=mgr.node.metrics,
-                **mgr._tier_hooks())
+                **mgr._tier_hooks(self._rep.trace_id))
         return submit_shuffle(self._wave_plan, shard_rows, wnv,
                               self._val_tail, self._val_dtype,
                               mgr.node.device, on_done=on_done,
@@ -2889,6 +3061,7 @@ class PendingWaveShuffle:
                 if rep.payload_bytes else 0.0
         mgr._settle_volume(rep, self._width)
         rep.completed = True
+        mgr._settle_report(rep, completed=True)
         metrics = mgr.node.metrics
         metrics.inc("shuffle.rows", float(self._local_rows))
         metrics.inc("shuffle.bytes",

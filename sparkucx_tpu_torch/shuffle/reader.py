@@ -83,6 +83,7 @@ from sparkucx_tpu_torch.shuffle.plan import (ShufflePlan, bucket_cap_conf,
 from sparkucx_tpu_torch.shuffle.wire import (LosslessBlock, decode_block,
                                              encode_block)
 from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 from sparkucx_tpu_torch.utils.metrics import C_D2H
 
 log = get_logger("shuffle.reader")
@@ -597,7 +598,9 @@ class ShuffleReaderResult:
         return got
 
     def partition(self, r: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """(keys, values) of reduce partition r."""
+        """(keys, values) of reduce partition r, in a ``shuffle.fetch``
+        span (partition id and bytes; a lazy result's first fetch of a
+        shard carries its D2H wait)."""
         if not 0 <= r < self.num_partitions:
             raise IndexError(f"partition {r} out of [0, "
                              f"{self.num_partitions})")
@@ -606,8 +609,10 @@ class ShuffleReaderResult:
             raise KeyError(
                 f"partition {r} lives on shard {shard}, not on this "
                 f"process (local shards: {sorted(self._shard_ord)})")
-        return unpack_rows(self._partition_block(r, shard),
-                           self._val_shape, self._val_dtype)
+        with GLOBAL_TRACER.span("shuffle.fetch", partition=r) as sp:
+            block = self._partition_block(r, shard)
+            sp.set(bytes=int(block.nbytes))
+            return unpack_rows(block, self._val_shape, self._val_dtype)
 
     def partitions(self):
         """(r, (keys, values)) for every partition this view holds."""
@@ -1047,7 +1052,9 @@ def device_merge_fold(res: "DeviceShuffleReaderResult",
         seg["seg"] = pcounts.reshape(L, 1, R)
         return acc_rows, acc_n
 
-    acc_rows, acc_n = res.consume(fold, None)
+    with GLOBAL_TRACER.span("shuffle.merge", waves=len(views),
+                            impl=merge_impl):
+        acc_rows, acc_n = res.consume(fold, None)
     view = type(views[0])(
         R, blocked_partition_map(R, Pn), acc_rows, seg["seg"],
         res._val_shape, res._val_dtype, metrics=views[0]._metrics,
@@ -1353,7 +1360,10 @@ class PendingExchangeBase:
                 # when nothing frees it), then the first dispatch
                 admit, self._admit_cb = self._admit_cb, None
                 admit(True)
-                self._start()
+                # the deferred first dispatch runs here, outside the
+                # manager's dispatch span
+                with GLOBAL_TRACER.span("shuffle.dispatch", deferred=True):
+                    self._start()
             res = self._result_inner()
             # the manager's post-exchange check (integrity.verify=full):
             # inside result(), so submit()/result() verifies as read()
@@ -1462,10 +1472,17 @@ class PendingShuffle(PendingExchangeBase):
     def _drop_buffers(self) -> None:
         self._rows = self._nvalid = self._out = None
 
+    # the fabric tier the completion wait stands for (a cross-process
+    # read's is "dcn")
+    _wait_tier = "ici"
+
     def _result_inner(self):
         while True:
             rows_out, seg, total, _ = self._out
-            if not self._overflowed():
+            with GLOBAL_TRACER.span("shuffle.exchange.wait",
+                                    tier=self._wait_tier):
+                overflowed = self._overflowed()
+            if not overflowed:
                 break
             if self._attempt >= self._plan.max_retries:
                 raise RuntimeError(
@@ -1477,22 +1494,26 @@ class PendingShuffle(PendingExchangeBase):
                      "growing", self._plan.cap_out, self._attempt)
             self._plan = self._plan.grown()
             self._attempt += 1
-            self._dispatch()
+            with GLOBAL_TRACER.span("shuffle.dispatch", retry=self._attempt):
+                self._dispatch()
         plan = self._plan
-        align_chunk = 0
-        if plan.impl == "pallas" and not (plan.combine or plan.ordered
-                                          or plan.sink == "device"):
-            # only the plain host-sink read keeps the chunk-aligned layout
-            align_chunk = chunk_rows_for(
-                wire_row_words(plan, rows_out.shape[2]))
-        res = self._view(rows_out, seg, align_chunk)
-        # the PLAN capacity, not the chunk-inflated buffer size
-        res.cap_out_used = self._plan.cap_out
-        res._totals_dev = total
-        res._ready_event = self._event
-        # true delivered rows (the aligned layout consumes slack; a
-        # combine's counts are post-merge)
-        return self._settle(res, not (plan.combine or plan.impl == "pallas"))
+        with GLOBAL_TRACER.span("shuffle.result", sink=plan.sink):
+            align_chunk = 0
+            if plan.impl == "pallas" and not (plan.combine or plan.ordered
+                                              or plan.sink == "device"):
+                # only the plain host-sink read keeps the chunk-aligned
+                # layout
+                align_chunk = chunk_rows_for(
+                    wire_row_words(plan, rows_out.shape[2]))
+            res = self._view(rows_out, seg, align_chunk)
+            # the PLAN capacity, not the chunk-inflated buffer size
+            res.cap_out_used = self._plan.cap_out
+            res._totals_dev = total
+            res._ready_event = self._event
+            # true delivered rows (the aligned layout consumes slack; a
+            # combine's counts are post-merge)
+            return self._settle(res, not (plan.combine
+                                          or plan.impl == "pallas"))
 
     def _view(self, rows_out, seg, align_chunk: int):
         """The lazy result over the step's outputs."""

@@ -91,6 +91,7 @@ from sparkucx_tpu_torch.shuffle.reader import (LazyShuffleReaderResult,
                                                _make_part_fn,
                                                wire_shard_seeds)
 from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 log = get_logger("shuffle.topology")
 
@@ -437,7 +438,8 @@ class PendingTieredShuffle(PendingExchangeBase):
                  device: torch.device, on_done=None, admit=None,
                  wire_seed: int = 0, metrics=None,
                  timeouts: Optional[Dict[str, float]] = None,
-                 faults=None, flight=NULL_FLIGHT_RECORDER):
+                 faults=None, flight=NULL_FLIGHT_RECORDER,
+                 trace_id: str = ""):
         if not topo.hierarchical:
             raise ValueError(f"a tiered shuffle needs a hier topology, got "
                              f"{topo.kind!r}")
@@ -460,6 +462,7 @@ class PendingTieredShuffle(PendingExchangeBase):
         self._timeouts = dict(timeouts or {})
         self._faults = faults
         self._flight = flight
+        self._trace_id = trace_id
         self.tier_walls: Dict[str, float] = {"ici": 0.0, "dcn": 0.0}
         self._t_stage = 0.0
         self._attempt = 0
@@ -547,11 +550,14 @@ class PendingTieredShuffle(PendingExchangeBase):
         try:
             # the tier's collectives (stage 2's hop on a distributed
             # node) returned inside its dispatch: this waits on this
-            # process's own device work
-            mine = current_watchdog().call(
-                join, what=f"hierarchical {tier} exchange",
-                timeout_ms=float(self._timeouts.get(tier, 0.0)), local=True)
-            return self._agree_overflow(tier, mine)
+            # process's own device work; the agreement round rides
+            # inside the tier's span and wall
+            with self._span("shuffle.tier", tier=tier):
+                mine = current_watchdog().call(
+                    join, what=f"hierarchical {tier} exchange",
+                    timeout_ms=float(self._timeouts.get(tier, 0.0)),
+                    local=True)
+                return self._agree_overflow(tier, mine)
         except BaseException as e:
             self._flight.record("tier_fault", tier=tier,
                                 error=repr(e)[:200])
@@ -559,6 +565,10 @@ class PendingTieredShuffle(PendingExchangeBase):
         finally:
             self.tier_walls[tier] += (time.perf_counter()
                                       - self._t_stage) * 1e3
+
+    def _span(self, name: str, **attrs):
+        """A span tagged with the read's trace id."""
+        return GLOBAL_TRACER.span(name, trace=self._trace_id, **attrs)
 
     def _result_inner(self):
         plan = self._plan
@@ -577,17 +587,21 @@ class PendingTieredShuffle(PendingExchangeBase):
             self._relay_cap = self._agree_regrow("ici", self._relay_cap * 2)
             self._retries1 += 1
             self._attempt += 1
-            self._dispatch()
-        # only the [P] totals cross to the host
-        totals1 = self._totals_host(tot1)
+            with self._span("shuffle.dispatch", stage=1,
+                            retry=self._retries1):
+                self._dispatch()
+        # only the [P] totals cross to the host (a wait on stage 1)
+        with self._span("shuffle.tier", tier="ici"):
+            totals1 = self._totals_host(tot1)
         # -- stage 2: DCN, output-capacity retry loop ---------------------
         while True:
-            step2 = self._stage2_step(plan)
-            self._t_stage = time.perf_counter()
-            nv2, seeds2 = self._seed_nvalid(totals1, 1)
-            self._stage = 2
-            self._out = step2(relay, nv2, seeds2)
-            self._arm_overflow(self._out[3])
+            with self._span("shuffle.dispatch", stage=2):
+                step2 = self._stage2_step(plan)
+                self._t_stage = time.perf_counter()
+                nv2, seeds2 = self._seed_nvalid(totals1, 1)
+                self._stage = 2
+                self._out = step2(relay, nv2, seeds2)
+                self._arm_overflow(self._out[3])
             rows_out, seg, total, _ = self._out
             if not self._join("dcn"):
                 break
@@ -604,7 +618,8 @@ class PendingTieredShuffle(PendingExchangeBase):
             self._plan = plan
             self._retries2 += 1
             self._attempt += 1
-        return self._assemble(rows_out, seg, total)
+        with self._span("shuffle.result", sink=plan.sink):
+            return self._assemble(rows_out, seg, total)
 
     def _assemble(self, rows_out, seg, total):
         plan = self._plan
@@ -627,8 +642,8 @@ def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
                           val_dtype, device: torch.device, on_done=None,
                           admit=None, wire_seed: int = 0, metrics=None,
                           timeouts: Optional[Dict[str, float]] = None,
-                          faults=None, flight=NULL_FLIGHT_RECORDER
-                          ) -> PendingTieredShuffle:
+                          faults=None, flight=NULL_FLIGHT_RECORDER,
+                          trace_id: str = "") -> PendingTieredShuffle:
     """Dispatch the two-tier exchange without blocking (the submit/poll
     contract of ``reader.submit_shuffle``).
 
@@ -637,13 +652,14 @@ def submit_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,
     wire_seed    — int8 noise base (the manager's exchange sequence
                    number)
     faults       — the node's FaultInjector (the tier sites), or None
-    flight       — the node's flight recorder (``tier_fault`` events)"""
+    flight       — the node's flight recorder (``tier_fault`` events)
+    trace_id     — the read's trace id, on its tier spans"""
     return PendingTieredShuffle(topo, plan, shard_rows, shard_nvalid,
                                 val_shape, val_dtype, device,
                                 on_done=on_done, admit=admit,
                                 wire_seed=wire_seed, metrics=metrics,
                                 timeouts=timeouts, faults=faults,
-                                flight=flight)
+                                flight=flight, trace_id=trace_id)
 
 
 def read_shuffle_tiered(topo: TopologyDescriptor, plan: ShufflePlan,

@@ -45,6 +45,7 @@ from sparkucx_tpu_torch.runtime.node import HostStagingPool, MappedFile
 from sparkucx_tpu_torch.shuffle.integrity import compute_record
 from sparkucx_tpu_torch.utils.atomicio import atomic_write_text, fsync_dir
 from sparkucx_tpu_torch.utils.logging import get_logger
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 from sparkucx_tpu_torch.utils.metrics import (C_SPILL_BYTES, C_SPILL_COUNT,
                                               Timer)
 
@@ -314,12 +315,14 @@ class MapOutputWriter:
                                      self.map_id)
             log.info("map %d spilling to %s (threshold %d B)", self.map_id,
                      self._spill.keys_path, self._spill_threshold)
-        for i, keys in enumerate(self._keys):
-            self._spill.append(keys, self._values[i] if self._values
-                               else None)
-        self._keys.clear()
-        self._values.clear()
-        self._return_staged()
+        with GLOBAL_TRACER.span("shuffle.spill", map_id=self.map_id,
+                                shuffle_id=self.entry.shuffle_id):
+            for i, keys in enumerate(self._keys):
+                self._spill.append(keys, self._values[i] if self._values
+                                   else None)
+            self._keys.clear()
+            self._values.clear()
+            self._return_staged()
         moved, self._staged_bytes = self._staged_bytes, 0
         if moved and self._metrics is not None:
             self._metrics.inc(C_SPILL_BYTES, float(moved))
@@ -371,7 +374,8 @@ class MapOutputWriter:
                 f"are gone and it may not publish; first commit wins")
         if self.faults is not None:
             self.faults.check("publish")
-        with Timer() as t:
+        with Timer() as t, GLOBAL_TRACER.span(
+                "shuffle.publish", map_id=self.map_id, rows=self.num_rows):
             keys = values = parts = None
             if self.num_rows:
                 if self._ledger is not None and self._spill is None:

@@ -94,7 +94,7 @@ def test_agree_value_divergence_names_dissenter(monkeypatch):
     for name in (C_AGREE_ROUNDS, C_AGREE_DIVERGENCE):
         assert metrics.get(name) == 1.0
         assert metrics.get(labeled(name, topic="a2a.waveRows")) == 1.0
-    assert metrics.histogram(H_AGREE_ROUND)["count"] == 1
+    assert metrics.histogram(H_AGREE_ROUND).count == 1
 
 
 def test_agree_sequencing_divergence_from_header(monkeypatch):
@@ -260,8 +260,7 @@ def test_turnstile_k_workers_ordered_abandoned_counted():
             th.start()
         for th in threads:
             th.join(timeout=30)
-        h = m.histogram(mod.H_TURNSTILE_WAIT)
-        count = h.count if hasattr(h, "count") else h["count"]
+        count = m.histogram(mod.H_TURNSTILE_WAIT).count
         got.append((depth0, ran == live, m.gauges()[mod.G_TURNSTILE_DEPTH],
                     m.get(mod.C_TURNSTILE_ABANDONED), count))
         gate.close()

@@ -651,3 +651,99 @@ def test_async_divergent_batch_fails_typed_on_every_process(
         assert got.startswith("AgreementDivergenceError"), got
         assert "async.order" in got and "asyncAgreedOrder" in got
         assert "process(es) [1]" in got or "process(es) [0]" in got
+
+
+# -- the decision plane across processes (shuffle/decisions.py) ---------------
+@pytest.fixture(scope="module")
+def decisions_world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("decisions")
+    run = run_cluster("torch_cluster_jobs:decisions_suite", 2, P,
+                      conf={"spark.shuffle.tpu.mesh.numSlices": "2",
+                            "spark.shuffle.tpu.history.dir": str(d),
+                            "spark.shuffle.tpu.trace.enabled": "true"},
+                      device="cpu", timeout_s=240)
+    assert run.attempts in (1, 2) and run.returncodes == [0, 0]
+    return run.results, d
+
+
+def test_decisions_ledgers_audit_clean_across_processes(decisions_world,
+                                                        jax_flat):
+    """Every agreement round each process closed is in its ledger (one
+    record a counted round), both ``decisions_p<rank>.jsonl`` files
+    align round by round with one topic and one winner digest, and the
+    audit (both packages') finds nothing; the reads hold the
+    reference's partitions."""
+    from sparkucx_tpu.shuffle import decisions as jdec
+    from sparkucx_tpu_torch.shuffle import decisions as tdec
+    results, d = decisions_world
+    _check(_merged(results, "waved"), jax_flat["plain"], "plain")
+    _check(_merged(results, "tiered"), jax_flat["plain"], "plain")
+    paths = tdec.decisions_files(str(d))
+    assert paths == [str(d / "decisions_p0.jsonl"),
+                     str(d / "decisions_p1.jsonl")]
+    for res in results:
+        assert res["ledger_path"] == paths[res["rank"]]
+        assert res["records"] == res["rounds"] > 0
+        assert {"a2a.waveRows", "a2a.waveSizes", "tier.crossRows",
+                "hier.ici.overflow", "hier.dcn.overflow"} <= \
+            set(res["topics"])
+    ledgers = {p: tdec.load_decisions_file(path)
+               for p, path in enumerate(paths)}
+    rounds = tdec.align_rounds(ledgers)
+    assert len(rounds) == results[0]["records"]
+    for row in rounds:
+        recs = row["records"]
+        assert set(recs) == {0, 1}
+        assert len({r["topic"] for r in recs.values()}) == 1
+        assert len({r["winner"] for r in recs.values()}) == 1
+        assert tdec.audit_round(row) is None
+        assert jdec.audit_round(row) is None
+
+
+def test_decisions_report_agreement_summary(decisions_world):
+    """Each read's report carries the rounds it closed, equal on both
+    processes, and so does the gathered report."""
+    results, _ = decisions_world
+    for key in ("waved_report", "tiered_report"):
+        a, b = (res[key]["agreement"] for res in results)
+        assert a["rounds"] == b["rounds"] > 0
+        assert a["slowest_topic"] and a["divergent"] == 0
+        assert results[0][key]["trace_id"] == results[1][key]["trace_id"]
+    assert results[0]["waved_report"]["agreement"]["rounds"] >= 2
+    assert results[0]["tiered_report"]["tiers"] == ["ici", "dcn"]
+    for res in results:
+        got = res["gathered_reports"]
+        assert [g["process_id"] for g in got] == [0, 1]
+        assert [g["agreement"]["rounds"] for g in got] == \
+            [results[0]["tiered_report"]["agreement"]["rounds"]] * 2
+
+
+def test_decisions_timeline_merges_both_workers(decisions_world):
+    """``gather_spans`` plus the gathered clock anchors, through
+    ``merge_timeline``: one document with one track a worker, each
+    holding that worker's read spans."""
+    from sparkucx_tpu_torch.utils.export import merge_timeline
+    results, _ = decisions_world
+    spans = results[0]["spans"]
+    assert spans == results[1]["spans"]
+    anchors = {a["process_id"]: a for a in results[0]["anchors"]}
+    assert sorted(anchors) == [0, 1]
+    assert results[0]["anchors"] == results[1]["anchors"]
+    docs = [dict(s, anchor=anchors[s["process_id"]]) for s in spans]
+    doc = merge_timeline(docs)
+    assert doc["metadata"]["processes"] == 2
+    names = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M"}
+    assert names == {"process 0", "process 1"}
+    for p in (0, 1):
+        evs = [e for e in doc["traceEvents"]
+               if e["pid"] == p and e["ph"] == "X"]
+        got = {e["name"] for e in evs}
+        assert {"shuffle.exchange", "shuffle.wave", "shuffle.tier",
+                "shuffle.agree"} <= got
+        traces = {e["args"].get("trace") for e in evs
+                  if e["name"] == "shuffle.exchange"}
+        assert traces == {results[0]["waved_report"]["trace_id"],
+                          results[0]["tiered_report"]["trace_id"]}
+    with pytest.raises(NotImplementedError, match="6b"):
+        merge_timeline(docs, anatomy=True)

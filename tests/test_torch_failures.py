@@ -74,8 +74,6 @@ def _keys(res) -> np.ndarray:
 
 def _hist_count(metrics, name: str) -> int:
     h = metrics.histogram(name)
-    if isinstance(h, dict):
-        return int(h.get("count", 0))
     return 0 if h is None else int(h.count)
 
 

@@ -8,10 +8,11 @@ the port's ``connect(device="cpu")``, both ``a2a.impl=dense``, on the
 same seeded keys) and holds the port's ring and postmortem to the
 reference's: the ring's bound and event kinds, what triggers a dump, the
 dump's reason, its fault / retry / epoch / metric events, its counters,
-histograms and exchange reports (exact). The reference's dump also
-carries its in-flight trace ids, its span tracer's chrome events and its
-doctor's findings; the tracer and the doctor are not ported yet
-(``ROADMAP.md`` §A item 6), so those keys are not compared."""
+histograms and exchange reports (exact), and its span tracer's keys
+(the in-flight trace ids, the anchor, the span summary and chrome
+events: the same span names). The reference's dump also carries its
+doctor's findings; the doctor is not ported yet (``ROADMAP.md`` §A item
+6b), so that key is not compared."""
 
 import json
 import sys
@@ -114,8 +115,7 @@ def test_retry_budget_exhaustion_dumps_and_observes_latency(tmp_path, mods):
     assert "retry budget exhausted after 3 attempts" in doc["reason"]
     retries = [e for e in doc["events"] if e["kind"] == "retry"]
     assert [e["attempt"] for e in retries] == [1, 2, 3]
-    h = metrics.histogram(metrics_mod.H_RETRY_MS)
-    assert (h["count"] if isinstance(h, dict) else h.count) == 3
+    assert metrics.histogram(metrics_mod.H_RETRY_MS).count == 3
 
 
 @pytest.mark.parametrize("mods", BOTH)
@@ -141,9 +141,9 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
     """A fetch fault armed past the retry budget: one dump, whose
     ``contexts.exchange_reports`` hold the failing shuffle's report and
     the healthy one's completed report, with the fault events, the read
-    counter and the read-wait histogram. (The reference's half of this
-    acceptance case that checks chrome spans waits for the tracer,
-    ``ROADMAP.md`` §A item 6.)"""
+    counter and the read-wait histogram; the recorder turned the tracer
+    on, so the dump carries the healthy read's chrome spans, and the
+    failing read (its fetch retried inside the read) is in flight."""
     extra = {"spark.shuffle.tpu.failure.maxAttempts": "2",
              "spark.shuffle.tpu.failure.backoffMs": "1"}
     got = []
@@ -152,6 +152,8 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
         node = mgr.node
         assert node.flight is not (jf if side == "jax" else tf) \
             .NULL_FLIGHT_RECORDER
+        assert node.tracer.enabled
+        node.tracer.clear()
         mgr.read(_stage(mgr, 31, 64, 0))
         node.faults.arm("fetch", fail_count=10)
         h2 = _stage(mgr, 32, 16, 1)
@@ -170,10 +172,19 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
             [e["attempt"] for e in doc["events"] if e["kind"] == "retry"],
             doc["counters"]["shuffle.read.count"],
             "shuffle.read.wait_ms" in doc["histograms"]
-            or "shuffle.read.first_wait_ms" in doc["histograms"]))
+            or "shuffle.read.first_wait_ms" in doc["histograms"],
+            doc["in_flight_traces"],
+            {"shuffle.dispatch", "shuffle.exchange", "shuffle.publish"}
+            <= {e["name"] for e in doc["trace_events"]},
+            sorted(set(doc["spans"]) - {"compile.step"}),
+            "wall_epoch" in doc["anchor"], doc["dropped_spans"]))
+        node.tracer.enabled = False
+        node.tracer.clear()
     assert got[0] == got[1]
-    assert got[1] == (True, [31, 32], [True], ["fetch", "fetch"], [1, 2],
-                      1.0, True)
+    assert got[1][:7] == (True, [31, 32], [True], ["fetch", "fetch"],
+                          [1, 2], 1.0, True)
+    assert got[1][7] == ["s32.e0.x2"] and got[1][8:] == (
+        True, got[1][9], True, 0)
 
 
 @pytest.mark.parametrize("mods", BOTH)

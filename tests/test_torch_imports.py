@@ -1,6 +1,6 @@
 """The port stands alone: it imports with JAX and the JAX package
-blocked, no module of it (nor chip_smoke.py, flash_bench.py or
-merge_bench.py) imports either, and its entry points refuse to drop to
+blocked, no module of it (nor chip_smoke.py, flash_bench.py,
+merge_bench.py or the scripts under tools/) imports either, and its entry points refuse to drop to
 the CPU on their own."""
 
 import ast
@@ -19,7 +19,8 @@ PKG = ROOT / "sparkucx_tpu_torch"
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "flash_bench.py",
-                                        ROOT / "merge_bench.py"]
+                                        ROOT / "merge_bench.py"] \
+        + sorted((ROOT / "tools").glob("*.py"))
 
 
 def test_imports_with_jax_blocked():
@@ -124,6 +125,13 @@ def test_scan_covers_the_tenancy_modules():
     assert {"shuffle/tenancy.py", "shuffle/agreement.py",
             "shuffle/manager.py", "service.py", "config.py",
             "utils/metrics.py"} <= names
+
+
+def test_scan_covers_the_telemetry_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"utils/trace.py", "utils/history.py", "utils/export.py",
+            "shuffle/decisions.py", "runtime/devmon.py"} <= names
 
 
 def test_scan_covers_the_attention_modules():

@@ -10,6 +10,8 @@ the JAX package, so it also runs on a machine that has only PyTorch:
         tests/test_torch_kernels_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1123,7 +1125,7 @@ def test_spilled_read_on_card(card, tmp_path):
             for c in range(m * n, (m + 1) * n, 1000):
                 w.write(keys[c:c + 1000], vals[c:c + 1000])
             w.commit(R)
-        assert svc.stats()["shuffle.spill.count"] >= M
+        assert svc.stats()["counters"]["shuffle.spill.count"] >= M
         assert svc.node.pool.stats()["in_use_bytes"] == 0
         before = backend.launch_counts().get(ra.KERNEL_NAME, 0)
         res = svc.read(h)
@@ -1800,3 +1802,69 @@ def test_segment_move_launches_once_per_attempt_under_contention(card):
         attempts = sum(1 + svc.report(h.shuffle_id).retries for h in hs)
         assert backend.launch_counts().get(ra.KERNEL_NAME, 0) == attempts
         assert all(svc.report(h.shuffle_id).impl == "pallas" for h in hs)
+
+
+def test_device_trace_holds_the_segment_move_on_card(card, tmp_path):
+    """Under ``trace.device`` a read inside ``tracer.device_trace``
+    writes a Chrome trace that holds the segment move's kernel, each
+    launched from inside a ``shuffle.dispatch`` range, at most as often
+    as its launch counter moved."""
+    import json
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+            "spark.shuffle.tpu.trace.enabled": "true",
+            "spark.shuffle.tpu.trace.device": "true"}
+    with connect(conf, use_env=False) as svc:
+        rng = np.random.default_rng(3)
+        h = svc.register_shuffle(5, 8, 8)
+        for m in range(8):
+            svc.write(h, m, rng.integers(0, 1 << 40, size=4096),
+                      rng.integers(0, 1 << 20, size=(4096, 2),
+                                   dtype=np.int32))
+        svc.read(h)                                    # warm
+        tracer = svc.node.tracer
+        before = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+        with tracer.device_trace(str(tmp_path)):
+            # a profiler trace can lack the first launches made in it
+            # (chip_smoke.PROFILER_LEAD_S)
+            time.sleep(0.05)
+            svc.read(h)
+            torch.cuda.synchronize(card)
+        delta = backend.launch_counts()[ra.KERNEL_NAME] - before
+        tracer.enabled = tracer.annotate_device = False
+        events = json.load(open(tracer.device_trace_path))["traceEvents"]
+    xs = [e for e in events if e.get("ph") == "X"]
+    kernels = [e for e in xs if e.get("cat") == "kernel"
+               and "ragged_segment_copy" in e["name"]]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+              if e["name"] == "shuffle.dispatch"
+              and e.get("cat") == "user_annotation"]
+    host = {(e.get("args") or {}).get("correlation"): e["ts"] for e in xs
+            if e.get("cat") != "kernel"}
+    assert 1 <= len(kernels) <= delta and ranges
+    for k in kernels:
+        ts = host[k["args"]["correlation"]]
+        assert any(lo <= ts <= hi for lo, hi in ranges)
+
+
+def test_devmon_reads_the_card(card):
+    """The sampler reads the card's allocator: ``in_use`` at most
+    ``limit``, which is the card's total memory, ``peak`` at least
+    ``in_use``; no field is null on the card."""
+    from sparkucx_tpu_torch.runtime.devmon import device_memory
+    from sparkucx_tpu_torch.utils.metrics import G_HBM_IN_USE, labeled
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    mem = device_memory(card)
+    assert None not in mem.values()
+    assert mem["in_use"] >= x.numel() and mem["in_use"] <= mem["limit"]
+    assert mem["limit"] == torch.cuda.get_device_properties(card) \
+        .total_memory
+    assert mem["peak"] >= mem["in_use"]
+    with connect({"spark.shuffle.tpu.devmon.enabled": "true",
+                  "spark.shuffle.tpu.devmon.intervalMs": "3600000"},
+                 use_env=False) as svc:
+        svc.node.devmon.sample_once()
+        (d,) = svc.node.devmon.samples()[-1]["devices"]
+        assert None not in (d["in_use"], d["limit"], d["peak"])
+        assert svc.node.metrics.gauges()[labeled(
+            G_HBM_IN_USE, device=card.index or 0)] == d["in_use"]
+    del x

@@ -61,9 +61,7 @@ class Pkg:
     def hist(self, metrics, name):
         """(count, max) of a histogram; (0, None) before any."""
         h = metrics.histogram(name)
-        if self.side == "jax":
-            return (0, None) if h is None else (h.count, h.max)
-        return (int(h.get("count", 0)), h.get("max"))
+        return (0, None) if h is None else (h.count, h.max)
 
 
 @pytest.fixture()
@@ -748,11 +746,11 @@ def test_fair_share_minnow_crosses_at_most_one_whale_grant(fair):
         assert not errs and len(out) == 4
         h = mgr.node.metrics.histogram(tmetrics.labeled(
             tmetrics.H_ADMIT_CROSS, tenant="minnow"))
-        assert h["count"] == 4
+        assert h.count == 4
         if fair:
-            assert h["max"] <= 1.0
+            assert h.max <= 1.0
         else:
-            assert h["min"] == h["max"] == 3.0
+            assert h.min == h.max == 3.0
         assert mgr._inflight_bytes == 0 and not mgr._admit_queue
     finally:
         svc.stop()
@@ -968,7 +966,7 @@ def test_async_turnstile_orders_execution_not_just_submission(side):
         m = tmetrics
         assert metrics.get(m.labeled(m.C_AGREE_ROUNDS,
                                      topic="async.order")) == 1.0
-        assert metrics.histogram(m.H_TURNSTILE_WAIT)["count"] == 6
+        assert metrics.histogram(m.H_TURNSTILE_WAIT).count == 6
 
 
 def _boom_agree(p, topic_to_fail, exc):
@@ -1153,7 +1151,7 @@ def test_facade_race_stats_reports():
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads + scrapers)
         assert not errs, errs
-        counters = svc.stats()
+        counters = svc.stats()["counters"]
         lab = tmetrics.labeled
         assert counters[lab("shuffle.read.count", tenant="m")] == 6.0
         assert counters[lab("shuffle.read.count", tenant="w")] == 6.0
@@ -1227,10 +1225,11 @@ def test_report_public_fields_cover_the_ported_planes():
            if not f.name.startswith("_")}
     port = {f.name for f in dataclasses.fields(TRep)
             if not f.name.startswith("_")}
-    later = {"trace_id", "phases", "dark_ms", "dark_intervals",
-             "anatomy_wall_ms", "agreement", "device_cost",
-             "stepcache_hits", "stepcache_programs", "plan_family"}
+    later = {"phases", "dark_ms", "dark_intervals", "anatomy_wall_ms",
+             "device_cost", "stepcache_hits", "stepcache_programs",
+             "plan_family"}
     assert ref - port == later
+    assert {"trace_id", "agreement"} <= port
     assert {"tenant", "async_workers", "rows_local", "bytes_local",
             "peer_bytes", "bw_gbps", "effective_bw_gbps",
             "lossless_ratio"} <= port

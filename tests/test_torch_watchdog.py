@@ -396,13 +396,13 @@ def test_manager_stale_epoch_fenced(rng):
         agree("epoch.unit", [1])
         assert svc.node.remesh(reason="simulated device loss") == 1
         assert current_round() == (1, 0)
-        reads = svc.stats().get("shuffle.read.count", 0.0)
+        reads = svc.stats()["counters"].get("shuffle.read.count", 0.0)
         with pytest.raises(StaleEpochError, match="shuffle 912 pinned to "
                                                   "epoch 0, mesh is at 1"):
             svc.read(h)
         with pytest.raises(StaleEpochError):
             svc.submit(h)
-        assert svc.stats().get("shuffle.read.count", 0.0) == reads
+        assert svc.stats()["counters"].get("shuffle.read.count", 0.0) == reads
         svc.unregister_shuffle(912)
         h2 = svc.register_shuffle(912, num_maps=2, num_partitions=4)
         assert h2.epoch == 1

@@ -92,7 +92,7 @@ def test_waved_host_read_matches_reference(manager_factory, mode):
         [t["rows"] for t in jrep.wave_timeline]
     assert not trep.wave_timeline[0]["hidden"]
     assert trep.wave_pack_hidden_ms <= trep.pack_ms
-    assert gaps["count"] == trep.waves - 1
+    assert gaps.count == trep.waves - 1
     for r in range(R):
         (gk, gv), (wk, wv) = got[r], want[r]
         if mode == "plain":

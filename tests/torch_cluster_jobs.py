@@ -437,7 +437,7 @@ def tenancy_suite(ctx) -> dict:
         out["async_workers"] = [r.async_workers for r in reps]
         out["distributed"] = [r.distributed for r in reps]
         m = svc.node.metrics
-        out["turnstile_waits"] = m.histogram(H_TURNSTILE_WAIT)
+        out["turnstile_waits"] = m.histogram(H_TURNSTILE_WAIT).snapshot()
         out["rounds"] = {t: m.get(labeled(C_AGREE_ROUNDS, topic=t))
                          for t in ("async.batch", "async.order")}
         # a divergent batch: process 1 holds the read under another tenant
@@ -457,4 +457,45 @@ def tenancy_suite(ctx) -> dict:
     finally:
         tenancy.agreed_submission_order = real
         svc.stop()
+    return out
+
+
+def decisions_suite(ctx) -> dict:
+    """The decision plane on one world of two slices (the world's conf
+    sets ``mesh.numSlices``, ``history.dir`` and ``trace.enabled``): a
+    flat waved read (its ``a2a.waveRows`` / ``a2a.waveSizes`` rounds)
+    and a two-tier read (``tier.crossRows`` and the ``hier.*`` rounds).
+    Each process returns the reads' partitions and agreement summaries,
+    its ledger's records and path, the rounds its metrics counted, the
+    gathered spans and anchors and the gathered reports."""
+    from sparkucx_tpu_torch.utils.metrics import C_AGREE_ROUNDS
+    svc = ctx.svc
+    node = svc.node
+    mine = my_maps(ctx, MAPS)
+    fm = float_maps()
+    out = {"rank": ctx.rank, "ledger_path": node.decisions.path}
+    rounds0, total0 = node.metrics.get(C_AGREE_ROUNDS), node.decisions.total
+    mw = _manager(ctx, {"spark.shuffle.tpu.a2a.topology": "flat",
+                        "spark.shuffle.tpu.a2a.waveRows": "10"})
+    h = write(mw, 1, fm, mine)
+    out["waved"] = dump(mw.read(h))
+    rep = mw.report(1)
+    out["waved_report"] = {"waves": rep.waves, "trace_id": rep.trace_id,
+                           "agreement": rep.agreement}
+    mw.unregister_shuffle(1)
+    mw.stop()
+    h = write(svc.manager, 2, fm, mine)
+    out["tiered"] = dump(svc.read(h))
+    rep = svc.report(2)
+    out["tiered_report"] = {"tiers": [t["tier"] for t in rep.tiers],
+                            "trace_id": rep.trace_id,
+                            "agreement": rep.agreement}
+    out["gathered_reports"] = svc.manager.gather_reports(2)
+    svc.unregister_shuffle(2)
+    out["rounds"] = node.metrics.get(C_AGREE_ROUNDS) - rounds0
+    out["records"] = node.decisions.total - total0
+    out["topics"] = sorted({r["topic"] for r in node.decisions.tail()})
+    out["anchors"] = node.cluster_anchors
+    out["spans"] = svc.manager.gather_spans()
+    node.decisions.close()
     return out
