@@ -487,6 +487,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             while the read is in flight names it in
             ``in_flight_traces`` and holds spans; the read raises
             ``InjectedFault``).
+40. diagnosis — the diagnosis plane on main's records (``pallas``, 8
+            shards): diagnosis_anatomy (the tracer on: five warm plain
+            reads, each report's ``phases`` plus ``dark_ms`` equal to
+            its ``anatomy_wall_ms`` within their rounding, ``pack`` and
+            ``transfer.ici`` among the phases, the ms of
+            ``fold_tracer`` alone; one combine read, its ledger
+            conserving too; the node's doctor then has no critical
+            finding), diagnosis_drills (each on a fresh node: three
+            reads under an armed ``corrupt.staged`` site fire
+            ``block_corruption`` critical; a read whose exchange fails
+            twice under ``failure.policy=replay`` fires
+            ``replay_storm`` warn; reads under ``slo.read.p99Ms`` at
+            half the anatomy's median read wall fire ``slo_burn``
+            critical, ``health_status`` names ``slo_fast_burn`` and
+            ``slo()["burning"]`` the objective) and diagnosis_watcher
+            (``doctor.watchIntervalSecs`` 0.2, ``captureMs`` 200, the
+            flight recorder: after three corrupt reads plain reads go on
+            until the watcher captures; one capture, whose
+            ``torch.profiler`` trace holds a segment move and whose
+            postmortem carries the finding and the doctor's findings;
+            a second pass captures nothing).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -497,7 +518,7 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed, faults, integrity, tenancy, telemetry.
+dlpack, distributed, faults, integrity, tenancy, telemetry, diagnosis.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -521,14 +542,17 @@ integrity_modes as above; tenancy: in each cell, the segment move once
 an attempt of every ``pallas`` read and the segment reduce once an
 attempt of every combine read, the merge once a fold step of
 tenancy_overrides' waved reads; telemetry: the segment move, over the
-traced reads and the device trace's read). The ``kernels`` line gives the
+traced reads and the device trace's read; diagnosis: the segment move
+over the anatomy's plain reads and the segment move and the segment
+reduce over its combine read). The ``kernels`` line gives the
 launches in the faults phase (``faults_launches``) and in the integrity
 phase (``integrity_launches``) of the four kernels they drive (the
 segment move, the merge, the segment reduce and the quantize), and in
 the tenancy phase (``tenancy_launches``) of the segment move, the merge
 and the segment reduce, and in the telemetry phase
-(``telemetry_launches``) of the segment move; the others carry no such
-key. The
+(``telemetry_launches``) of the segment move, and in the diagnosis
+phase (``diagnosis_launches``) of the segment move and the segment
+reduce; the others carry no such key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
@@ -6985,6 +7009,295 @@ def telemetry_phase(dev) -> dict:
                                  "ok": True}}
 
 
+DIAGNOSIS_READS = 5            # warm traced reads the anatomy is read on
+DIAGNOSIS_CORRUPT_READS = 3    # failed reads: block_corruption's critical
+#                                floor (Thresholds.corruption_critical_blocks)
+DIAGNOSIS_REPLAYS = 2          # exchange faults under replay: two replays
+DIAGNOSIS_WATCH_S = 60.0       # the watcher drill's deadline
+# the rule and grade each drill fires; tests/test_torch_doctor.py holds
+# the JAX package's doctor to the same pairs on the same drills
+DIAGNOSIS_DRILLS = {"corruption": ("block_corruption", "critical"),
+                    "replay": ("replay_storm", "warn"),
+                    "slo": ("slo_burn", "critical")}
+
+
+def _ledger_check(tag: str, rep) -> dict:
+    """One read's stamped ledger: conserving within the rounding of its
+    stamped values (each rounded to a microsecond); returns it."""
+    total = sum(rep.phases.values()) + rep.dark_ms
+    tol = 1e-3 * (len(rep.phases) + 2)
+    if not rep.phases or rep.anatomy_wall_ms <= 0 \
+            or abs(total - rep.anatomy_wall_ms) > tol:
+        raise AssertionError(f"{tag}: phases {rep.phases} + dark "
+                             f"{rep.dark_ms} != wall {rep.anatomy_wall_ms}")
+    return {"phases": rep.phases, "dark_ms": rep.dark_ms,
+            "anatomy_wall_ms": rep.anatomy_wall_ms,
+            "dark_share": rep.dark_ms / rep.anatomy_wall_ms,
+            "dark_intervals": rep.dark_intervals}
+
+
+def _launched(before: dict, name: str) -> int:
+    """Launches of kernel ``name`` since the counts were ``before``;
+    raises when there were none."""
+    from sparkucx_tpu_torch import backend
+    n = backend.launch_counts().get(name, 0) - before.get(name, 0)
+    if n < 1:
+        raise AssertionError(f"the path never launched kernel {name}")
+    return n
+
+
+def _fold_ms(tracer, trace_id: str, calls: int = 5) -> float:
+    """The median ms of ``fold_tracer`` alone on this read's ring."""
+    from sparkucx_tpu_torch.utils.anatomy import fold_tracer
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fold_tracer(tracer, trace_id)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def diagnosis_anatomy(dev, keys, values) -> dict:
+    """(1) of the diagnosis phase on main's shuffle (``pallas``, the
+    tracer on): five warm plain reads, each report's ledger conserving
+    with ``pack`` and ``transfer.ici`` in it, the fold's own cost; one
+    combine read (the segment reduce) conserving too; the node's doctor
+    then has no critical finding (the quiet case)."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    conf = {PFX + "a2a.impl": "pallas", PFX + "read.mergeImpl": "auto",
+            PFX + "trace.enabled": "true"}
+    out = {"phase": "diagnosis_anatomy", "reads": DIAGNOSIS_READS}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        tracer = svc.node.tracer
+        h = write_maps(svc, 720, keys, values, MAPS)
+        svc.read(h)                  # warm
+        torch.cuda.synchronize(dev)
+        before = backend.launch_counts()
+        reads, walls = [], []
+        for i in range(DIAGNOSIS_READS):
+            tracer.clear()
+            walls += _timed_reads(svc, h, 1)
+            rep = svc.report(720)
+            led = _ledger_check(f"diagnosis read {i}", rep)
+            if not {"pack", "transfer.ici"} <= set(rep.phases):
+                raise AssertionError(f"diagnosis read {i}: phases "
+                                     f"{sorted(rep.phases)}")
+            led["fold_ms"] = _fold_ms(tracer, rep.trace_id)
+            led["spans"] = len(tracer.spans())
+            reads.append(led)
+        plain_launches = _launched(before, KERNEL_NAME)
+        tracer.clear()
+        before = backend.launch_counts()
+        t0 = time.perf_counter()
+        res = svc.read(h, combine="sum")
+        torch.cuda.synchronize(dev)
+        combine_wall = (time.perf_counter() - t0) * 1e3
+        del res
+        rep = svc.report(720)
+        comb = _ledger_check("diagnosis combine read", rep)
+        comb.update(wall_ms=combine_wall, kernel=rep.kernel,
+                    fold_ms=_fold_ms(tracer, rep.trace_id),
+                    launches={k: _launched(before, k)
+                              for k in (KERNEL_NAME, SEG)})
+        findings = [f.to_dict() for f in svc.doctor()]
+        critical = [f for f in findings if f["grade"] == "critical"]
+        svc.unregister_shuffle(720)
+    if critical:
+        raise AssertionError(f"diagnosis quiet: a clean node's doctor "
+                             f"found {critical}")
+    names = sorted({k for r in reads for k in r["phases"]})
+    out.update(
+        walls_ms=walls, read_wall_median_ms=float(np.median(walls)),
+        ledgers=reads, plain_launches=plain_launches, combine=comb,
+        phase_median_ms={k: float(np.median([r["phases"].get(k, 0.0)
+                                             for r in reads]))
+                         for k in names},
+        dark_median_ms=float(np.median([r["dark_ms"] for r in reads])),
+        wall_median_ms=float(np.median([r["anatomy_wall_ms"]
+                                        for r in reads])),
+        fold_median_ms=float(np.median([r["fold_ms"] for r in reads])),
+        quiet_findings=[{k: f[k] for k in ("rule", "grade", "summary")}
+                        for f in findings])
+    return out
+
+
+def _drill_finding(tag: str, svc, rule: str, grade: str) -> dict:
+    fs = [f for f in svc.doctor() if f.rule == rule]
+    if [f.grade for f in fs] != [grade]:
+        raise AssertionError(f"diagnosis {tag}: {rule} findings "
+                             f"{[f.to_dict() for f in fs]}, want one "
+                             f"{grade}")
+    return fs[0].to_dict()
+
+
+def diagnosis_drills(dev, keys, values, read_ms: float) -> dict:
+    """(2) of the diagnosis phase, each drill on a fresh node over main's
+    records (``pallas``): three reads under an armed ``corrupt.staged``
+    site (each raising ``BlockCorruptionError``) fire
+    ``block_corruption`` critical; a read whose exchange fails twice
+    under ``failure.policy=replay`` fires ``replay_storm`` warn; reads
+    under ``slo.read.p99Ms`` at half of ``read_ms`` fire ``slo_burn``
+    critical, with ``health_status`` naming ``slo_fast_burn`` and
+    ``slo()["burning"]`` the objective."""
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.runtime.failures import BlockCorruptionError
+    base = {PFX + "a2a.impl": "pallas"}
+    out = {"phase": "diagnosis_drills"}
+    rule, grade = DIAGNOSIS_DRILLS["corruption"]
+    conf = {**base, PFX + "fault.corrupt.staged.failCount":
+            str(DIAGNOSIS_CORRUPT_READS),
+            PFX + "fault.corrupt.staged.offset": str(CORRUPT_OFFSET)}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 721, keys, values, MAPS)
+        for _ in range(DIAGNOSIS_CORRUPT_READS):
+            try:
+                svc.read(h)
+                raise AssertionError("diagnosis corruption: a read passed")
+            except BlockCorruptionError:
+                pass
+        out["corruption"] = _drill_finding("corruption", svc, rule, grade)
+    rule, grade = DIAGNOSIS_DRILLS["replay"]
+    conf = {**base, **REPLAY_CONF,
+            PFX + "fault.exchange.failCount": str(DIAGNOSIS_REPLAYS)}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 722, keys, values, MAPS)
+        _timed_reads(svc, h, 1)
+        if svc.report(722).replays != DIAGNOSIS_REPLAYS:
+            raise AssertionError(f"diagnosis replay: "
+                                 f"{svc.report(722).replays} replays")
+        out["replay"] = _drill_finding("replay", svc, rule, grade)
+    rule, grade = DIAGNOSIS_DRILLS["slo"]
+    bound = read_ms / 2
+    conf = {**base, PFX + "slo.read.p99Ms": f"{bound:.3f}",
+            PFX + "history.windowSecs": "86400"}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        node = svc.node
+        h = write_maps(svc, 723, keys, values, MAPS)
+        _timed_reads(svc, h, 1)      # warm, outside the graded window
+        node.history.roll()
+        walls = _timed_reads(svc, h, DIAGNOSIS_READS)
+        node.history.roll()
+        verdict = svc.slo()
+        status = node.health_status()
+        if verdict["burning"] != ["slo.read.p99Ms"] \
+                or status["cause"] != "slo_fast_burn" or status["ok"]:
+            raise AssertionError(f"diagnosis slo: burning "
+                                 f"{verdict['burning']}, health {status}")
+        obj = verdict["objectives"][0]
+        out["slo"] = {"bound_ms": bound, "walls_ms": walls,
+                      "burn_fast": obj["burn_fast"],
+                      "budget": obj["budget"], "health": status,
+                      "finding": _drill_finding("slo", svc, rule, grade)}
+    return out
+
+
+def diagnosis_watcher(dev, keys, values, root: str) -> dict:
+    """(3) of the diagnosis phase: a fresh node over main's records
+    (``pallas``) with the doctor watcher every 0.2 s (``captureMs`` 200)
+    and the flight recorder; three reads under an armed
+    ``corrupt.staged`` site make ``block_corruption`` critical, and plain
+    reads go on until the watcher has captured. It captures once; its
+    profile holds at least one segment-move kernel; its postmortem
+    carries the finding and the doctor's ``findings``; another pass over
+    the same finding captures nothing."""
+    import torch
+    from sparkucx_tpu_torch import connect
+    from sparkucx_tpu_torch.runtime.failures import BlockCorruptionError
+    conf = {PFX + "a2a.impl": "pallas",
+            PFX + "fault.corrupt.staged.failCount":
+            str(DIAGNOSIS_CORRUPT_READS),
+            PFX + "fault.corrupt.staged.offset": str(CORRUPT_OFFSET),
+            PFX + "doctor.watchIntervalSecs": "0.2",
+            PFX + "doctor.captureMs": "200",
+            PFX + "doctor.captureDir": os.path.join(root, "capture"),
+            PFX + "flightRecorder.enabled": "true",
+            PFX + "flightRecorder.dir": os.path.join(root, "flight")}
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        w = svc.node.watcher
+        h = write_maps(svc, 724, keys, values, MAPS)
+        for _ in range(DIAGNOSIS_CORRUPT_READS):
+            try:
+                svc.read(h)
+                raise AssertionError("diagnosis watcher: a read passed")
+            except BlockCorruptionError:
+                pass
+        t0 = time.perf_counter()
+        reads = 0
+        while not w.captures:
+            if time.perf_counter() - t0 > DIAGNOSIS_WATCH_S:
+                raise AssertionError("diagnosis watcher: no capture")
+            svc.read(h)
+            torch.cuda.synchronize(dev)
+            reads += 1
+        capture_s = time.perf_counter() - t0
+        again = w.check_once()
+        caps = list(w.captures)
+    if len(caps) != 1 or again:
+        raise AssertionError(f"diagnosis watcher: {len(caps)} captures, "
+                             f"{len(again)} on the second pass")
+    cap = caps[0]
+    if (cap["rule"], cap["grade"]) != DIAGNOSIS_DRILLS["corruption"] \
+            or not cap["profile_dir"]:
+        raise AssertionError(f"diagnosis watcher: capture {cap}")
+    with open(os.path.join(cap["profile_dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    moves = [e for e in events if e.get("cat") == "kernel"
+             and SEGMENT_MOVE_SYMBOL in str(e.get("name"))]
+    with open(cap["flight_dump"]) as f:
+        dump = json.load(f)
+    dumped = {x["rule"] for x in dump.get("findings", [])
+              if isinstance(x, dict)}
+    if not moves or dump.get("finding", {}).get("rule") != cap["rule"] \
+            or cap["rule"] not in dumped:
+        raise AssertionError(f"diagnosis watcher: {len(moves)} segment "
+                             f"moves in the profile, dump finding "
+                             f"{dump.get('finding')}, findings {dumped}")
+    return {"phase": "diagnosis_watcher", "captures": len(caps),
+            "rule": cap["rule"], "grade": cap["grade"],
+            "reads_until_capture": reads, "capture_s": capture_s,
+            "profile_events": len(events), "segment_moves": len(moves),
+            "kernel_device_ms": [e["dur"] / 1e3 for e in moves],
+            "dump_findings": sorted(dumped),
+            "second_pass_captures": len(again)}
+
+
+def diagnosis_phase(dev) -> dict:
+    """Phase 40 on main's records: diagnosis_anatomy, diagnosis_drills,
+    diagnosis_watcher. The launch counts are set to 0 at the phase's
+    start and read at its end (``diagnosis_launches``)."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.ops.segmented import KERNEL_NAME as SEG
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    gen_s = time.perf_counter() - t
+    root = tempfile.mkdtemp(prefix="chip_smoke_diagnosis_")
+    try:
+        backend.reset_launch_counts()
+        t = time.perf_counter()
+        an = diagnosis_anatomy(dev, keys, values)
+        an["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        dr = diagnosis_drills(dev, keys, values,
+                              an["read_wall_median_ms"])
+        dr["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        wa = diagnosis_watcher(dev, keys, values, root)
+        wa["seconds"] = time.perf_counter() - t
+        launches = {k: counted(k) for k in (KERNEL_NAME, SEG)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"gen_s": gen_s, "diagnosis_anatomy": {**an, "ok": True},
+            "diagnosis_drills": {**dr, "ok": True},
+            "diagnosis_watcher": {**wa, "ok": True},
+            "diagnosis_launches": launches}
+
+
 def dist_decisions(ctx, dev, keys, values, mine) -> dict:
     """``dist_decisions`` in a worker: a node of two slices (one a
     worker) under ``history.dir`` (shared by the workers) and the
@@ -7522,6 +7835,18 @@ def main() -> int:
                       "telemetry_launches": te["telemetry_launches"],
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the diagnosis plane: main's read by phase (the anatomy), the
+    # doctor's drills, the watcher's capture
+    t = time.perf_counter()
+    dg = diagnosis_phase(dev)
+    for name in ("diagnosis_anatomy", "diagnosis_drills",
+                 "diagnosis_watcher"):
+        print(json.dumps(dg[name]), flush=True)
+    diagnosis_launches = dg["diagnosis_launches"]
+    print(json.dumps({"phase": "diagnosis", "gen_s": dg["gen_s"],
+                      "diagnosis_launches": diagnosis_launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -7551,6 +7876,7 @@ def main() -> int:
         "integrity_launches": integrity_launches[KERNEL_NAME],
         "tenancy_launches": tenancy_launches[KERNEL_NAME],
         "telemetry_launches": te["telemetry_launches"],
+        "diagnosis_launches": diagnosis_launches[KERNEL_NAME],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -7561,6 +7887,7 @@ def main() -> int:
         "faults_launches": faults_launches[SEG_KERNEL],
         "integrity_launches": integrity_launches[SEG_KERNEL],
         "tenancy_launches": tenancy_launches[SEG_KERNEL],
+        "diagnosis_launches": diagnosis_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],

@@ -27,7 +27,8 @@ and ``metrics.reportCapacity``; the tenancy plane's ``tenant.id``,
 (:meth:`ShuffleConf.tenant_policy`); the telemetry and decision planes'
 keys (:data:`TELEMETRY_KEYS`: ``trace.*``, ``metrics.dumpDir``,
 ``metrics.dumpIntervalSecs``, ``devmon.*``, ``history.*``,
-``decisions.*``). Byte sizes parse as the JAX package's do
+``decisions.*``) and the diagnosis plane's (``slo.*``, parsed by
+``utils/slo.py``, and ``doctor.*``). Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 """
 
@@ -149,6 +150,37 @@ TELEMETRY_KEYS = {
     "decisions.retain": ("256", "decision-ledger retention, in records, "
                                 "for both the ring and the on-disk log "
                                 "(default 256)"),
+    "slo.read.p99Ms": ("", "latency objective (utils/slo.py): the read "
+                           "wait bound in ms (unset = no latency "
+                           "objective)"),
+    "slo.read.target": ("0.99", "the latency objective's good-read "
+                                "fraction (default 0.99)"),
+    "slo.availability": ("", "availability objective: the fraction of "
+                             "reads without a replay or a collective "
+                             "deadline (unset = off)"),
+    "slo.fastWindowSecs": ("300", "fast burn window in seconds "
+                                  "(default 300)"),
+    "slo.slowWindowSecs": ("3600", "slow burn window in seconds "
+                                   "(default 3600)"),
+    "slo.fastBurn": ("14.4", "fast-burn multiple (default 14.4); a fast "
+                             "burn degrades Node.health_status"),
+    "slo.slowBurn": ("6", "slow-burn multiple (default 6)"),
+    "slo.minEvents": ("4", "reads a window needs before its burn is "
+                           "graded (default 4); per-tenant objectives "
+                           "ride tenant.<id>.slo.read.p99Ms / "
+                           "tenant.<id>.slo.availability"),
+    "doctor.watchIntervalSecs": ("0", "anomaly watcher: run the doctor "
+                                      "over live telemetry every N secs; "
+                                      "first critical finding triggers a "
+                                      "deep capture (default 0 = off)"),
+    "doctor.captureMs": ("200", "profiler window length of a watcher "
+                                "deep capture (default 200 ms)"),
+    "doctor.captureDir": ("", "where watcher captures land (default: "
+                              "the flight recorder dir)"),
+    "doctor.rearmHealthyPasses": ("3", "watcher re-arm: a captured "
+                                       "finding key absent for N "
+                                       "consecutive passes captures "
+                                       "again on recurrence (default 3)"),
 }
 
 
@@ -246,7 +278,8 @@ class ShuffleConf:
                     "metrics_dump_interval_secs", "devmon_enabled",
                     "devmon_interval_ms", "history_window_secs",
                     "history_retain_windows", "decisions_enabled",
-                    "decisions_retain")
+                    "decisions_retain", "doctor_watch_interval_secs",
+                    "doctor_capture_ms", "doctor_rearm_passes")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -804,3 +837,20 @@ class ShuffleConf:
     @property
     def decisions_retain(self) -> int:
         return int(self._telemetry("decisions.retain"))
+
+    # -- the diagnosis plane's watcher (runtime/devmon.DoctorWatcher) -------
+    @property
+    def doctor_watch_interval_secs(self) -> float:
+        return float(self._telemetry("doctor.watchIntervalSecs"))
+
+    @property
+    def doctor_capture_ms(self) -> float:
+        return float(self._telemetry("doctor.captureMs"))
+
+    @property
+    def doctor_capture_dir(self) -> Optional[str]:
+        return self._telemetry("doctor.captureDir") or None
+
+    @property
+    def doctor_rearm_passes(self) -> int:
+        return int(self._telemetry("doctor.rearmHealthyPasses"))

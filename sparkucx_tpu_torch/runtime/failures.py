@@ -36,9 +36,8 @@ ring events recorded meanwhile carry it), the process tracer's clock
 anchor, span summary, chrome trace events and dropped-span count
 (``utils/trace.py``), the counters, gauges and histograms of the
 attached metrics and the context providers' output (the manager's
-exchange reports, the node's decision ledger). The JAX package's dump
-also carries its doctor's findings; the doctor is not ported yet, so
-that key is absent."""
+exchange reports, the node's decision ledger and SLO verdict) and the
+doctor's ``findings`` on the dump itself (``utils/doctor.diagnose``)."""
 
 from __future__ import annotations
 
@@ -258,7 +257,8 @@ class FlightRecorder:
         ``in_flight_traces``, ``events``, ``counters``, ``gauges``,
         ``histograms`` (from the node's metrics), ``spans``,
         ``trace_events``, ``dropped_spans`` (the process tracer),
-        ``contexts``, and ``extra``'s."""
+        ``contexts``, ``extra``'s, and ``findings`` (the doctor's, on
+        this document)."""
         try:
             from sparkucx_tpu_torch.utils.export import \
                 merge_histogram_snapshots
@@ -290,6 +290,13 @@ class FlightRecorder:
                                           m.histograms())
             if extra:
                 doc.update(extra)
+            # the postmortem diagnoses itself; the manager's exchange
+            # reports reach the report rules through ``contexts``
+            try:
+                from sparkucx_tpu_torch.utils.doctor import diagnose
+                doc["findings"] = [f.to_dict() for f in diagnose(doc)]
+            except Exception as e:
+                doc["findings"] = [f"<doctor failed: {e!r}>"]
             os.makedirs(self.out_dir, exist_ok=True)
             slug = "".join(c if c.isalnum() else "-"
                            for c in reason.lower())[:40].strip("-")
@@ -641,14 +648,16 @@ class HealthMonitor:
     A probe thread that outlives its deadline stays parked in the wedged
     op; it is tracked, and the device is reported dead without another
     thread until that one returns. A failed :meth:`assert_healthy`
-    records a ``device_unhealthy`` event and dumps the flight
-    recorder."""
+    records a ``device_unhealthy`` event, dumps the flight recorder and
+    calls ``on_unhealthy(bad)`` when set (the node marks itself
+    unhealthy there)."""
 
     def __init__(self, device, timeout_ms: float = 30_000.0,
                  flight=NULL_FLIGHT_RECORDER):
         self.device = torch.device(device)
         self.timeout_ms = float(timeout_ms)
         self.flight = flight
+        self.on_unhealthy = None
         self._stuck = ThreadLeakCensus(
             warn_at=1,
             warning=("%d probe thread(s) exceeded the "
@@ -688,6 +697,12 @@ class HealthMonitor:
         if bad:
             self.flight.record("device_unhealthy", devices=bad)
             self.flight.dump(f"DeviceUnhealthy: {bad}")
+            if self.on_unhealthy is not None:
+                try:
+                    self.on_unhealthy(bad)
+                except Exception:
+                    log.debug("on_unhealthy callback failed",
+                              exc_info=True)
             raise DeviceUnhealthy(f"devices failed liveness probe: {bad}")
 
 

@@ -41,11 +41,23 @@ sampler (:attr:`Node.devmon`, ``runtime/devmon.py``: ``devmon.*``), and
 the clock anchors of every process (:attr:`Node.cluster_anchors`,
 gathered at start on a distributed node). :meth:`Node.
 telemetry_snapshot` is the one snapshot document every consumer reads
-(``service.stats``, the dumps)."""
+(``service.stats``, the dumps).
+
+And the diagnosis plane: the SLO objectives and burn policy from
+``slo.*`` (``utils/slo.py``; :meth:`Node.slo_verdict` over the history,
+a postmortem context provider when any is declared), the health verdict
+(:meth:`Node.health_status`: an epoch bump, a failed device probe, a
+fast SLO burn, ``close`` or :meth:`Node.mark_unhealthy` turn it; each
+names its ``cause``), the doctor's seams (:attr:`Node.doctor_provider`
+and :attr:`Node.telemetry_provider`, which a service replaces with its
+own until it stops) and, under ``doctor.watchIntervalSecs``, the
+watcher (:attr:`Node.watcher`, ``runtime/devmon.DoctorWatcher``)."""
 
 from __future__ import annotations
 
 import datetime
+import os
+import tempfile
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Union
@@ -66,7 +78,8 @@ from sparkucx_tpu_torch.runtime.failures import (NULL_FLIGHT_RECORDER,
 from sparkucx_tpu_torch.runtime.watchdog import (configure_from_conf,
                                                  current_watchdog,
                                                  set_global_watchdog)
-from sparkucx_tpu_torch.runtime.devmon import NULL_DEVMON, DeviceMonitor
+from sparkucx_tpu_torch.runtime.devmon import (NULL_DEVMON, DeviceMonitor,
+                                               DoctorWatcher)
 from sparkucx_tpu_torch.shuffle import agreement, distributed
 from sparkucx_tpu_torch.shuffle.decisions import (NULL_DECISION_LEDGER,
                                                   DecisionLedger,
@@ -75,6 +88,8 @@ from sparkucx_tpu_torch.utils.export import collect_snapshot
 from sparkucx_tpu_torch.utils.history import TelemetryHistory
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import Metrics
+from sparkucx_tpu_torch.utils.slo import (BurnPolicy, evaluate,
+                                          objectives_from_conf)
 from sparkucx_tpu_torch.utils.trace import configure_from_conf \
     as configure_tracer
 
@@ -314,11 +329,33 @@ class Node:
         # every process's clock anchor (a collective on a distributed
         # node: every process builds its node in lockstep)
         self.cluster_anchors = self._gather_anchors()
+        # the health verdict: clear until an epoch bump (a remesh drops
+        # the registered shuffles), a failed device probe or an operator
+        # says otherwise
+        self._health_lock = threading.Lock()
+        self._unhealthy_reason: Optional[str] = None
+        self._unhealthy_cause: Optional[str] = None
+        self.health.on_unhealthy = self._on_device_unhealthy
+        self.epochs.on_bump(self._on_epoch_health)
         c = self.conf
+        # the SLO plane: objectives and burn policy from slo.* (a bad
+        # value fails the node's start); frames carry them, so a history
+        # dir describes itself
+        self.slo_objectives = objectives_from_conf(c)
+        self.slo_policy = BurnPolicy.from_conf(c)
+        frame_extra = {}
+        if self.slo_objectives:
+            frame_extra = {
+                "slo_objectives": [o.to_dict() for o in self.slo_objectives],
+                "slo_policy": self.slo_policy.to_dict()}
         self.history = TelemetryHistory(
             self._history_collect, window_secs=c.history_window_secs,
             retain_windows=c.history_retain_windows, out_dir=c.history_dir,
-            process_id=self.process_id)
+            process_id=self.process_id, extra=frame_extra)
+        self._slo_cache = (None, -1)        # (verdict, history.version)
+        if self.slo_objectives:
+            # a postmortem carries the verdict at fault time
+            self.flight.add_context_provider(self.slo_verdict)
         if c.decisions_enabled:
             self.decisions = DecisionLedger(retain=c.decisions_retain,
                                             out_dir=c.history_dir,
@@ -330,7 +367,21 @@ class Node:
         self.devmon = DeviceMonitor(
             self, interval_s=c.devmon_interval_ms / 1e3).start() \
             if c.devmon_enabled else NULL_DEVMON
+        # what the doctor watcher reads: the node's own snapshot and
+        # diagnosis, until a service swaps in its pair (exchange reports
+        # included) and restores these at stop
+        self.telemetry_provider = self.telemetry_snapshot
+        self.doctor_provider = self._default_doctor
         self._closed = False
+        # the rolling doctor pass (doctor.watchIntervalSecs > 0): a new
+        # critical finding triggers a profiler window and a postmortem
+        self.watcher = None
+        if c.doctor_watch_interval_secs > 0:
+            self.watcher = DoctorWatcher(
+                self, c.doctor_watch_interval_secs,
+                profile_ms=c.doctor_capture_ms,
+                capture_dir=c.doctor_capture_dir,
+                rearm_passes=c.doctor_rearm_passes).start()
 
     def _rendezvous(self) -> None:
         """Join the world at ``coordinator.address`` (or the world this
@@ -439,6 +490,7 @@ class Node:
         self.health = HealthMonitor(self.device,
                                     timeout_ms=self.conf.connection_timeout_ms,
                                     flight=self.flight)
+        self.health.on_unhealthy = self._on_device_unhealthy
         # the watchdog probes through the current monitor
         self.watchdog.health = self.health
         self.registry.clear()
@@ -482,6 +534,10 @@ class Node:
             frames = self.history.frames()
             if frames:
                 extra["history_frames"] = frames
+            if self.slo_objectives:
+                extra["slo_objectives"] = [o.to_dict()
+                                           for o in self.slo_objectives]
+                extra["slo_policy"] = self.slo_policy.to_dict()
         recs = self.decisions.tail()
         if recs:
             extra["decisions"] = recs
@@ -505,6 +561,99 @@ class Node:
                 "path": led.path, "position": led.position(),
                 "decisions": led.tail()}
 
+    # -- the SLO plane (utils/slo.py over the retained history) ----------
+    def slo_verdict(self) -> dict:
+        """The SLO verdict over the retained windows (``utils/slo.
+        evaluate``), cached until the history rolls another frame; a
+        node without objectives returns the empty, healthy verdict."""
+        cached, ver = self._slo_cache
+        if cached is not None and ver == self.history.version:
+            return cached
+        verdict = evaluate(self.history.frames(), self.slo_objectives,
+                           policy=self.slo_policy)
+        self._slo_cache = (verdict, self.history.version)
+        return verdict
+
+    def slo_fast_burn(self) -> List[str]:
+        """The objectives burning at the fast rate (empty when healthy
+        or without objectives)."""
+        if not self.slo_objectives:
+            return []
+        try:
+            return self.slo_verdict().get("burning", [])
+        except Exception:
+            log.debug("slo evaluation failed", exc_info=True)
+            return []
+
+    # -- the doctor's seams ------------------------------------------------
+    def _default_doctor(self):
+        """The node's own diagnosis (no manager, so no exchange reports):
+        the ``doctor_provider`` a service replaces."""
+        from sparkucx_tpu_torch.utils.doctor import diagnose
+        return diagnose(self.telemetry_snapshot())
+
+    def reset_providers(self) -> None:
+        """Restore the node's own telemetry and doctor providers (a
+        service's stop calls this, so a stopped manager is not kept
+        reachable through them)."""
+        self.telemetry_provider = self.telemetry_snapshot
+        self.doctor_provider = self._default_doctor
+
+    def flight_capture_dir(self) -> str:
+        """Where the doctor watcher puts its captures: the flight
+        recorder's directory when it is on, else a per-process directory
+        under the temp dir."""
+        d = getattr(self.flight, "out_dir", None)
+        if d:
+            return d
+        return os.path.join(tempfile.gettempdir(),
+                            f"sparkucx_tpu_capture_{os.getpid()}")
+
+    # -- health -----------------------------------------------------------
+    def mark_unhealthy(self, reason: str, cause: str = "operator") -> None:
+        """``cause`` is the verdict's stable machine face
+        (``epoch_bump`` / ``device_unhealthy`` / ``slo_fast_burn`` /
+        ``closed`` / ``operator``); ``reason`` the human sentence."""
+        with self._health_lock:
+            self._unhealthy_reason = reason
+            self._unhealthy_cause = cause
+
+    def mark_healthy(self) -> None:
+        """The operator's acknowledgment (shuffles re-registered after a
+        remesh, the device replaced): serve traffic again."""
+        with self._health_lock:
+            self._unhealthy_reason = None
+            self._unhealthy_cause = None
+
+    def _on_device_unhealthy(self, bad) -> None:
+        self.mark_unhealthy(f"DeviceUnhealthy: {bad}",
+                            cause="device_unhealthy")
+
+    def _on_epoch_health(self, epoch: int) -> None:
+        self.mark_unhealthy(
+            f"epoch bumped to {epoch}: registered shuffles dropped — "
+            f"re-register and mark_healthy()", cause="epoch_bump")
+
+    def health_status(self) -> dict:
+        """``ok`` and its evidence: the epoch, the shard count (the
+        devices of the JAX package's mesh), the process, the human
+        ``reason`` and the machine ``cause``. A fast-burning SLO degrades
+        health like a device fault: the node still serves, but its error
+        budget is burning at page-now speed."""
+        with self._health_lock:
+            reason, cause = self._unhealthy_reason, self._unhealthy_cause
+        if self._closed:
+            reason, cause = "node closed", "closed"
+        elif reason is None:
+            burning = self.slo_fast_burn()
+            if burning:
+                reason = ("SLO fast burn: " + ", ".join(burning)
+                          + " — error budget burning at page-now speed")
+                cause = "slo_fast_burn"
+        return {"ok": reason is None, "epoch": self.epochs.current,
+                "devices": self.num_shards, "process_id": self.process_id,
+                "reason": reason, "cause": cause}
+
     def publish_pool_gauges(self, stats: Optional[dict] = None) -> None:
         """The staging pool's watermarks as ``pool.*`` gauges (they go
         down, so they are gauges, not counters)."""
@@ -518,8 +667,14 @@ class Node:
         if self._closed:
             return
         self._closed = True
-        # the sampler first: it reads the pool and metrics dropped below
+        # the watcher and the sampler first: they read the pool and
+        # metrics dropped below
+        if self.watcher is not None:
+            self.watcher.stop()
         self.devmon.stop()
+        self.reset_providers()
+        self.epochs.remove_listener(self._on_epoch_health)
+        self.flight.remove_context_provider(self.slo_verdict)
         self.flight.remove_context_provider(self.decision_ledger)
         if current_ledger() is self.decisions:
             set_ledger(NULL_DECISION_LEDGER)

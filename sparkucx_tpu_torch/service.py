@@ -18,7 +18,12 @@ plane (``Node.telemetry_snapshot`` with the manager's exchange
 reports): the dict, or its Prometheus text exposition. Under
 ``metrics.dumpDir`` a ``utils/export.PeriodicDumper`` writes it every
 ``metrics.dumpIntervalSecs``; its beat also rolls the history windows
-when ``history.dir`` is set (a tick-only dumper without a dump dir).
+when ``history.dir`` or an SLO objective is set (a tick-only dumper
+without a dump dir). ``doctor(format="findings"|"json"|"text")`` runs the
+doctor (``utils/doctor.py``) over that snapshot; ``slo(format="json"|
+"text")`` is the node's SLO verdict (``utils/slo.py``). The node's
+``telemetry_provider`` / ``doctor_provider`` (what its doctor watcher
+reads) serve this service's ``stats`` and ``doctor`` until ``stop``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ from sparkucx_tpu_torch.runtime.node import DEFAULT_SHARDS, Node
 from sparkucx_tpu_torch.shuffle.manager import ShuffleHandle, ShuffleManager
 from sparkucx_tpu_torch.shuffle.tenancy import (AsyncShuffleExecutor,
                                                 ShuffleFuture)
+from sparkucx_tpu_torch.utils.doctor import diagnose, render_findings
 from sparkucx_tpu_torch.utils.export import PeriodicDumper, render_prometheus
+from sparkucx_tpu_torch.utils.slo import render_verdict
 
 IO_FORMATS = ("raw",)
 
@@ -41,13 +48,14 @@ def _start_dumper(conf: ShuffleConf, stats_fn, node) -> Optional[
         PeriodicDumper]:
     """The periodic snapshot dumper (``metrics.dumpDir``, every
     ``metrics.dumpIntervalSecs``), whose beat also ticks the node's
-    history when ``history.dir`` is set; a tick-only dumper (no dump
-    dir) then beats at the history window. None when neither is set."""
+    history when ``history.dir`` or an SLO objective is set; a tick-only
+    dumper (no dump dir) then beats at the history window. None when
+    none is set."""
     dump_dir = conf.metrics_dump_dir
     dump_interval = conf.metrics_dump_interval_secs
     interval = dump_interval
     ticks = []
-    if node.history.out_dir:
+    if node.history.out_dir or node.slo_objectives:
         ticks.append(node.history.tick)
         interval = min(interval, node.history.window_secs)
     if not dump_dir and not ticks:
@@ -84,6 +92,10 @@ class ShuffleService:
             distributed=self.node.is_distributed)
         self.manager._async_workers = self._async.workers
         self._dumper = _start_dumper(conf, self.stats, self.node)
+        # the node's watcher reads this service's richer pair (exchange
+        # reports included); stop() restores the node's own
+        self.node.telemetry_provider = lambda: self.stats("json")
+        self.node.doctor_provider = lambda: self.doctor("findings")
 
     @property
     def device(self):
@@ -176,6 +188,31 @@ class ShuffleService:
         raise ValueError(f"unknown stats format {format!r}; "
                          f"want json|prometheus")
 
+    def doctor(self, format: str = "findings"):
+        """The doctor over this service's :meth:`stats` document:
+        ``"findings"`` (``utils/doctor.Finding`` objects), ``"json"``
+        (their dicts) or ``"text"``."""
+        findings = diagnose(self.stats("json"))
+        if format == "findings":
+            return findings
+        if format == "json":
+            return [f.to_dict() for f in findings]
+        if format == "text":
+            return render_findings(findings)
+        raise ValueError(f"unknown doctor format {format!r}; "
+                         f"want findings|json|text")
+
+    def slo(self, format: str = "json"):
+        """The SLO verdict over the retained history windows
+        (``Node.slo_verdict``; objectives from ``slo.*`` and
+        ``tenant.<id>.slo.*``): the dict (``"json"``) or ``"text"``."""
+        verdict = self.node.slo_verdict()
+        if format == "json":
+            return verdict
+        if format == "text":
+            return render_verdict(verdict)
+        raise ValueError(f"unknown slo format {format!r}; want json|text")
+
     def stop(self) -> None:
         # async reads in flight hold pinned blocks and reservations of the
         # manager stopped next: drain them first
@@ -184,6 +221,8 @@ class ShuffleService:
             # its stop writes the final snapshot
             self._dumper.stop()
             self._dumper = None
+        # the watcher must not keep reading through a stopped manager
+        self.node.reset_providers()
         self.manager.stop()
         self.node.close()
 

@@ -163,11 +163,12 @@ from sparkucx_tpu_torch.shuffle.reader import (KEY_WORDS,
 from sparkucx_tpu_torch.shuffle.wire import estimate_dequant_error
 from sparkucx_tpu_torch.shuffle.writer import MapOutputWriter
 from sparkucx_tpu_torch.shuffle.decisions import current_ledger
+from sparkucx_tpu_torch.utils.anatomy import DARK, fold_tracer
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import (
     C_ADMIT_BYTES, C_INTEGRITY_CORRUPT, C_INTEGRITY_CORRUPT_BLOCKS,
     C_INTEGRITY_QUARANTINED, C_INTEGRITY_RECOVERED, C_INTEGRITY_VERIFIED,
-    C_KERNEL_FALLBACK, C_PAYLOAD_BYTES, C_REPLAY_MS, C_REPLAYS,
+    C_KERNEL_FALLBACK, C_PAYLOAD_BYTES, C_PHASE_MS, C_REPLAY_MS, C_REPLAYS,
     C_SINK_FALLBACK, C_TIER_BYTES, C_WIRE_BYTES, G_TENANT_INFLIGHT,
     H_ADMIT_CROSS, H_ADMIT_WAIT, H_BW, H_FETCH_WAIT, H_PEER_BYTES,
     H_PEER_ROWS, H_WAVE_GAP, labeled)
@@ -283,6 +284,15 @@ class ExchangeReport:
     # the bytes it verified
     integrity: str = ""
     integrity_bytes: int = 0
+    # the exchange anatomy (utils/anatomy.py, folded at settlement when
+    # the tracer is on): wall ms per phase, swept so they do not
+    # overlap, whose sum plus ``dark_ms`` is ``anatomy_wall_ms``; the
+    # uncovered [start, end] ms into the wall (the first 16). Empty / 0
+    # with the tracer off
+    phases: Dict[str, float] = field(default_factory=dict)
+    dark_ms: float = 0.0
+    anatomy_wall_ms: float = 0.0
+    dark_intervals: List[List[float]] = field(default_factory=list)
     # the agreement rounds this process closed during the read (the
     # decision ledger's records since the read started): {rounds,
     # agree_ms, slowest_topic, divergent}; {} when none ran or the plane
@@ -1278,8 +1288,9 @@ class ShuffleManager:
     def _settle_report(self, rep: ExchangeReport, completed: bool) -> None:
         """The read's settlement, on every exit: the ``agreement``
         summary, the ``shuffle.exchange`` wall span (report start to
-        now), the tracer's drops as a counter, and the end of the read's
-        flight trace. Never raises."""
+        now), the exchange anatomy (:meth:`_settle_anatomy`), the
+        tracer's drops as a counter, and the end of the read's flight
+        trace. Never raises."""
         try:
             self._settle_agreement(rep)
             tracer = self.node.tracer
@@ -1289,11 +1300,40 @@ class ShuffleManager:
                     shuffle_id=rep.shuffle_id, trace=rep.trace_id,
                     tenant=rep.tenant or self._tenants.default_id,
                     completed=completed)
+                self._settle_anatomy(rep, completed)
                 tracer.publish_dropped(self.node.metrics)
         except Exception:
             log.debug("settlement of %s failed", rep.trace_id,
                       exc_info=True)
         self.node.flight.end_trace(rep.trace_id)
+
+    def _settle_anatomy(self, rep: ExchangeReport, completed: bool) -> None:
+        """Fold the tracer's ring into the read's phase ledger
+        (``utils/anatomy.py``) against the wall span just recorded and
+        stamp ``phases``, ``dark_ms``, ``dark_intervals`` (the first 16)
+        and ``anatomy_wall_ms`` on the report; a completed read also adds
+        its phase milliseconds to ``shuffle.phase.ms{phase=...}`` (a
+        failed one keeps its ledger as evidence and counts nothing). A
+        fold that fails leaves the report unannotated."""
+        try:
+            led = fold_tracer(self.node.tracer, rep.trace_id)
+        except Exception:
+            log.debug("anatomy fold of %s failed", rep.trace_id,
+                      exc_info=True)
+            return
+        if led is None:
+            return
+        rep.phases = {k: round(v, 3) for k, v in led.phases_ms.items()}
+        rep.dark_ms = round(led.dark_ms, 3)
+        rep.anatomy_wall_ms = round(led.wall_ms, 3)
+        rep.dark_intervals = [[round(a, 3), round(b, 3)]
+                              for a, b in led.dark_intervals[:16]]
+        if completed:
+            metrics = self.node.metrics
+            for ph, ms in led.phases_ms.items():
+                metrics.inc(labeled(C_PHASE_MS, phase=ph), ms)
+            if led.dark_ms > 0.0:
+                metrics.inc(labeled(C_PHASE_MS, phase=DARK), led.dark_ms)
 
     @staticmethod
     def _settle_agreement(rep: ExchangeReport) -> None:

@@ -280,13 +280,10 @@ def merge_timeline(docs: Iterable[Dict], anatomy: bool = False) -> Dict:
     fetch that waited on a straggler peer visibly overlaps that peer's
     late dispatch in the merged view.
 
-    ``anatomy=True`` (the JAX package's phase tracks from its exchange
-    anatomy) raises ``NotImplementedError``: the anatomy fold is not
-    ported yet (ROADMAP item 6b)."""
-    if anatomy:
-        raise NotImplementedError(
-            "merge_timeline(anatomy=True) needs the exchange anatomy "
-            "(utils/anatomy), which is not ported yet (ROADMAP item 6b)")
+    ``anatomy=True`` also renders each process's exchange ledgers
+    (``utils/anatomy.py``: the swept phase cover, dark segments included)
+    as child tracks under that process; off by default, so a plain
+    timeline carries exactly the recorded spans."""
     docs = dedupe_process_docs(docs)
     if not docs:
         raise ValueError("merge_timeline: no input docs")
@@ -320,6 +317,9 @@ def merge_timeline(docs: Iterable[Dict], anatomy: bool = False) -> Dict:
                 ev["ts"] = ev["ts"] + shift_us
             shifted.append(ev)
         events.extend(shifted)
+        if anatomy:
+            from sparkucx_tpu_torch.utils.anatomy import phase_track_events
+            events.extend(phase_track_events(shifted, pid=pid))
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "metadata": {"processes": len(docs),
                          "wall_epoch_zero": t0}}

@@ -132,8 +132,8 @@ WELL_KNOWN_HISTOGRAMS = (H_FETCH_WAIT, H_FETCH_FIRST, H_PEER_ROWS,
                          H_WAVE_GAP, H_BW)
 
 # wall ms per canonical exchange phase, labeled {phase=...} (the
-# anatomy fold, not ported yet), and the tracer ring's drops published
-# as a counter (utils/trace.Tracer.publish_dropped)
+# manager's anatomy settlement, utils/anatomy.py), and the tracer ring's
+# drops published as a counter (utils/trace.Tracer.publish_dropped)
 C_PHASE_MS = "shuffle.phase.ms"
 C_TRACE_DROPPED = "trace.spans.dropped"
 # device-memory gauges per device index (runtime/devmon.py), labeled

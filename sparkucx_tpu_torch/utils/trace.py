@@ -322,18 +322,15 @@ class Tracer:
         The capture records CPU activity, and CUDA activity when a card
         is present (the kernels with their host launches); host spans
         recorded inside also appear as ``record_function`` ranges when
-        ``annotate_device`` is set. Where the profiler cannot start, it
-        logs and records host spans only (:attr:`device_trace_path`
-        stays None)."""
+        ``annotate_device`` is set. Where the profiler cannot start (or
+        another session of the process is running: :func:
+        `start_profiler`), it logs and records host spans only
+        (:attr:`device_trace_path` stays None)."""
         import torch
         prof = None
         self.device_trace_path = None
         try:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.__enter__()
+            prof = start_profiler(cuda=torch.cuda.is_available())
         except Exception as e:
             log.warning("device trace unavailable (%s); host spans only", e)
             prof = None
@@ -349,6 +346,31 @@ class Tracer:
                             f"{self._device_traces}.json")
                 prof.export_chrome_trace(path)
                 self.device_trace_path = path
+
+
+# one torch.profiler session at a time in a process: a second session
+# opened (from any thread) while one runs ends the first one's, and the
+# first one's stop can then crash the process
+_PROFILER_LOCK = threading.Lock()
+
+
+def start_profiler(cuda: bool):
+    """Start and return a ``torch.profiler`` session recording CPU
+    activity, and CUDA activity with ``cuda``; raises ``RuntimeError``
+    while another session of this process is running. The caller stops
+    it with ``prof.__exit__(None, None, None)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with _PROFILER_LOCK:
+        if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+            raise RuntimeError("another torch.profiler session of this "
+                               "process is running")
+        acts = [ProfilerActivity.CPU]
+        if cuda:
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
 
 
 def _jsonable(v):

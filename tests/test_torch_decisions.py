@@ -21,9 +21,9 @@ other's ledger, and ``audit_round`` gives one verdict on ledgers either
 package wrote. The report's ``agreement`` summary is the ``-k
 decisions`` case of ``tests/test_torch_distributed.py`` (a real
 two-process world). The reference's doctor rules (``decision_split``,
-``slow_proposer``, the desync link), its live ``/decisions`` route, its
-anatomy phase, its collector and its ``decisions`` CLI wait for the
-modules they run on (ROADMAP item 6b).
+``slow_proposer``, the desync link) run in ``tests/test_torch_doctor.py``;
+its live ``/decisions`` route, its collector and its ``decisions`` CLI
+wait for the modules they run on (slice 21).
 
 Every comparison here is exact: digests and records are pure functions
 of the round's inputs."""

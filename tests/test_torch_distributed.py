@@ -721,7 +721,8 @@ def test_decisions_report_agreement_summary(decisions_world):
 def test_decisions_timeline_merges_both_workers(decisions_world):
     """``gather_spans`` plus the gathered clock anchors, through
     ``merge_timeline``: one document with one track a worker, each
-    holding that worker's read spans."""
+    holding that worker's read spans, and with ``anatomy=True`` the
+    phase child tracks of each worker's reads."""
     from sparkucx_tpu_torch.utils.export import merge_timeline
     results, _ = decisions_world
     spans = results[0]["spans"]
@@ -745,5 +746,8 @@ def test_decisions_timeline_merges_both_workers(decisions_world):
                   if e["name"] == "shuffle.exchange"}
         assert traces == {results[0]["waved_report"]["trace_id"],
                           results[0]["tiered_report"]["trace_id"]}
-    with pytest.raises(NotImplementedError, match="6b"):
-        merge_timeline(docs, anatomy=True)
+        # the anatomy's child tracks tile each of the worker's reads
+        tracks = [e for e in merge_timeline(docs, anatomy=True)
+                  ["traceEvents"] if e["pid"] == p
+                  and (e.get("args") or {}).get("anatomy")]
+        assert {e["args"]["trace"] for e in tracks} == traces

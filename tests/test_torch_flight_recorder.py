@@ -10,9 +10,7 @@ reference's: the ring's bound and event kinds, what triggers a dump, the
 dump's reason, its fault / retry / epoch / metric events, its counters,
 histograms and exchange reports (exact), and its span tracer's keys
 (the in-flight trace ids, the anchor, the span summary and chrome
-events: the same span names). The reference's dump also carries its
-doctor's findings; the doctor is not ported yet (``ROADMAP.md`` §A item
-6b), so that key is not compared."""
+events: the same span names) and its doctor's findings."""
 
 import json
 import sys
@@ -22,9 +20,11 @@ import numpy as np
 import pytest
 
 from sparkucx_tpu.runtime import failures as jf
+from sparkucx_tpu.utils import doctor as jdoctor
 from sparkucx_tpu.utils import metrics as jmetrics
 from sparkucx_tpu_torch import connect
 from sparkucx_tpu_torch.runtime import failures as tf
+from sparkucx_tpu_torch.utils import doctor as tdoctor
 from sparkucx_tpu_torch.utils import metrics as tmetrics
 
 BOTH = [pytest.param((jf, jmetrics), id="jax"),
@@ -57,6 +57,12 @@ def port_factory():
     yield make
     for svc in made:
         svc.stop()
+
+
+def _rediagnosed(doctor, doc) -> list:
+    """``doctor``'s findings on a dump, its own ``findings`` left out."""
+    return [f.to_dict() for f in doctor.diagnose(
+        {k: v for k, v in doc.items() if k != "findings"})]
 
 
 def _stage(mgr, sid: int, rows: int, seed: int):
@@ -143,7 +149,11 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
     the healthy one's completed report, with the fault events, the read
     counter and the read-wait histogram; the recorder turned the tracer
     on, so the dump carries the healthy read's chrome spans, and the
-    failing read (its fetch retried inside the read) is in flight."""
+    failing read (its fetch retried inside the read) is in flight; each
+    dump carries its package's doctor ``findings`` on itself, and the
+    reference's doctor finds the same in the port's dump. (The findings
+    themselves may differ: the reference's dump also holds its
+    process-global registry, which earlier reads of the process fed.)"""
     extra = {"spark.shuffle.tpu.failure.maxAttempts": "2",
              "spark.shuffle.tpu.failure.backoffMs": "1"}
     got = []
@@ -177,14 +187,19 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
             {"shuffle.dispatch", "shuffle.exchange", "shuffle.publish"}
             <= {e["name"] for e in doc["trace_events"]},
             sorted(set(doc["spans"]) - {"compile.step"}),
-            "wall_epoch" in doc["anchor"], doc["dropped_spans"]))
+            "wall_epoch" in doc["anchor"], doc["dropped_spans"],
+            doc["findings"] == _rediagnosed(jdoctor if side == "jax"
+                                            else tdoctor, doc)))
+        port_doc = doc
         node.tracer.enabled = False
         node.tracer.clear()
     assert got[0] == got[1]
     assert got[1][:7] == (True, [31, 32], [True], ["fetch", "fetch"],
                           [1, 2], 1.0, True)
     assert got[1][7] == ["s32.e0.x2"] and got[1][8:] == (
-        True, got[1][9], True, 0)
+        True, got[1][9], True, 0, True)
+    # the reference's doctor reads the port's dump as the port's does
+    assert _rediagnosed(jdoctor, port_doc) == port_doc["findings"]
 
 
 @pytest.mark.parametrize("mods", BOTH)

@@ -134,6 +134,13 @@ def test_scan_covers_the_telemetry_modules():
             "shuffle/decisions.py", "runtime/devmon.py"} <= names
 
 
+def test_scan_covers_the_diagnosis_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"utils/anatomy.py", "utils/slo.py", "utils/doctor.py",
+            "runtime/devmon.py", "runtime/node.py", "service.py"} <= names
+
+
 def test_scan_covers_the_attention_modules():
     names = {p.relative_to(PKG).as_posix() for p in _port_sources()
              if PKG in p.parents}

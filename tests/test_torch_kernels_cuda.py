@@ -1868,3 +1868,65 @@ def test_devmon_reads_the_card(card):
         assert svc.node.metrics.gauges()[labeled(
             G_HBM_IN_USE, device=card.index or 0)] == d["in_use"]
     del x
+
+
+def test_anatomy_conserves_on_card(card):
+    """With the tracer on, a plain ``pallas`` read and a combine read on
+    the card each stamp a ledger whose phases plus ``dark_ms`` equal
+    ``anatomy_wall_ms`` within the rounding of the stamped values, with
+    ``pack`` and ``transfer.ici`` (the completion wait) among the plain
+    read's phases; ``shuffle.phase.ms`` adds up to the reads' walls."""
+    from sparkucx_tpu_torch.utils.metrics import C_PHASE_MS
+    keys, vals = _failure_maps(61)
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+            "spark.shuffle.tpu.trace.enabled": "true"}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        h = _write_maps(svc, 1, keys, vals, 8, 16)
+        walls = []
+        for kw in ({}, {}, {"combine": "sum"}):      # the first warms
+            before = backend.launch_counts().get(ra.KERNEL_NAME, 0)
+            svc.read(h, **kw)
+            torch.cuda.synchronize(card)
+            rep = svc.report(1)
+            assert backend.launch_counts()[ra.KERNEL_NAME] == before + 1
+            total = sum(rep.phases.values()) + rep.dark_ms
+            assert abs(total - rep.anatomy_wall_ms) <= \
+                1e-3 * (len(rep.phases) + 2)
+            walls.append(rep.anatomy_wall_ms)
+            if not kw:
+                assert {"pack", "transfer.ici"} <= set(rep.phases)
+        counted = sum(v for k, v in svc.node.metrics.snapshot().items()
+                      if k.startswith(C_PHASE_MS + "{"))
+    assert abs(counted - sum(walls)) <= 3e-3
+
+
+def test_watcher_capture_holds_a_segment_move_on_card(card, tmp_path):
+    """A critical finding under reads on the card: the node's watcher
+    captures once, and its profiler window's Chrome trace holds at least
+    one segment-move kernel of the reads that went on meanwhile."""
+    import json
+    from sparkucx_tpu_torch.runtime.failures import BlockCorruptionError
+    keys, vals = _failure_maps(62)
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
+            "spark.shuffle.tpu.fault.corrupt.staged.failCount": "3",
+            "spark.shuffle.tpu.doctor.watchIntervalSecs": "0.2",
+            "spark.shuffle.tpu.doctor.captureMs": "200",
+            "spark.shuffle.tpu.doctor.captureDir": str(tmp_path)}
+    with connect(conf, num_shards=8, use_env=False) as svc:
+        w = svc.node.watcher
+        h = _write_maps(svc, 1, keys, vals, 8, 16)
+        for _ in range(3):
+            with pytest.raises(BlockCorruptionError):
+                svc.read(h)
+        deadline = time.time() + 30.0
+        while not w.captures:
+            assert time.time() < deadline, "the watcher never captured"
+            svc.read(h)
+            torch.cuda.synchronize(card)
+        assert w.check_once() == [] and len(w.captures) == 1
+        cap = w.captures[0]
+    assert (cap["rule"], cap["grade"]) == ("block_corruption", "critical")
+    with open(f"{cap['profile_dir']}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert [e for e in events if e.get("cat") == "kernel"
+            and "ragged_segment_copy" in str(e.get("name"))]

@@ -1216,7 +1216,7 @@ def test_report_fields_match_reference(case, managers):
 
 def test_report_public_fields_cover_the_ported_planes():
     """Every public field of the reference's report exists on the port's
-    but those whose planes are not ported yet."""
+    but the four of the XLA step cache, which the port has no use for."""
     import dataclasses
 
     from sparkucx_tpu.shuffle.manager import ExchangeReport as JRep
@@ -1225,11 +1225,12 @@ def test_report_public_fields_cover_the_ported_planes():
            if not f.name.startswith("_")}
     port = {f.name for f in dataclasses.fields(TRep)
             if not f.name.startswith("_")}
-    later = {"phases", "dark_ms", "dark_intervals", "anatomy_wall_ms",
-             "device_cost", "stepcache_hits", "stepcache_programs",
-             "plan_family"}
-    assert ref - port == later
-    assert {"trace_id", "agreement"} <= port
+    step_cache = {"device_cost", "stepcache_hits", "stepcache_programs",
+                  "plan_family"}
+    assert ref - port == step_cache
+    assert port - ref == {"device"}
+    assert {"trace_id", "agreement", "phases", "dark_ms", "dark_intervals",
+            "anatomy_wall_ms"} <= port
     assert {"tenant", "async_workers", "rows_local", "bytes_local",
             "peer_bytes", "bw_gbps", "effective_bw_gbps",
             "lossless_ratio"} <= port
