@@ -508,6 +508,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             ``torch.profiler`` trace holds a segment move and whose
             postmortem carries the finding and the doctor's findings;
             a second pass captures nothing).
+41. live — the network half of telemetry on main's records: a service
+            under ``metrics.httpPort=0`` (an ephemeral port; the phase
+            fails when the server did not bind), the tracer on, the
+            decision ledger on and ``slo.read.p99Ms`` set. One main-size
+            ``pallas`` read runs on a thread; while it is in flight
+            ``/healthz``, ``/metrics`` and ``/snapshot`` are fetched
+            (each 200, ``/healthz`` answered before the read settled,
+            ``/metrics`` through ``export.validate_exposition``); after
+            it settles ``/anatomy?trace=<its id>`` (its ledger's phases
+            and dark time conserve its wall, and equal the report's
+            stamped ledger), ``/doctor``, ``/slo`` (the objective) and
+            ``/decisions`` (the ledger on), each 200; the read's
+            partitions' digests equal main's. Then ``python -m
+            sparkucx_tpu_torch stats --live-url URL`` and ``doctor
+            --live-url URL`` run as subprocesses and must exit 0. The
+            line prints each route's scrape latency beside the card's
+            name and power limit.
+
+The distributed phase's world boots its nodes under
+``metrics.httpPort=0``, so each node's fleet registry holds both
+workers' URLs (one boot-time round); after the world's reads dist_fleet
+has worker 0 fetch ``/cluster/snapshot`` and ``/cluster/doctor`` from its
+node (``processes_answered`` 2, no missing peer), and a node pair on the
+same world booted with ``metrics.httpPort=0`` and a ``failure.ledgerDir``
+both workers share persists ``fleet_registry.json`` listing both of that
+pair's URLs (the world's own nodes take no ledger dir: it would seal
+every map commit of the dist_* reads to disk).
 
 They run in the order card, build, kernel, segreduce_kernel,
 merge_kernel, main (with its profiled read), kernel_at_main_shapes,
@@ -518,7 +545,8 @@ wire_reduce_at_main_shapes, default_conf, flash_kernels, ulysses_attention,
 ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
-dlpack, distributed, faults, integrity, tenancy, telemetry, diagnosis.
+dlpack, distributed, faults, integrity, tenancy, telemetry, diagnosis,
+live.
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -544,7 +572,8 @@ attempt of every combine read, the merge once a fold step of
 tenancy_overrides' waved reads; telemetry: the segment move, over the
 traced reads and the device trace's read; diagnosis: the segment move
 over the anatomy's plain reads and the segment move and the segment
-reduce over its combine read). The ``kernels`` line gives the
+reduce over its combine read; live: the segment move of its read). The
+``kernels`` line gives the
 launches in the faults phase (``faults_launches``) and in the integrity
 phase (``integrity_launches``) of the four kernels they drive (the
 segment move, the merge, the segment reduce and the quantize), and in
@@ -552,7 +581,8 @@ the tenancy phase (``tenancy_launches``) of the segment move, the merge
 and the segment reduce, and in the telemetry phase
 (``telemetry_launches``) of the segment move, and in the diagnosis
 phase (``diagnosis_launches``) of the segment move and the segment
-reduce; the others carry no such key. The
+reduce, and in the live phase (``live_launches``) of the segment move;
+the others carry no such key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
@@ -4871,6 +4901,10 @@ def dist_worker(ctx) -> dict:
     # dist_async: six read_async reads of two tenants on 4 workers, each
     # batch's order agreed and each read under its turnstile ticket
     out["dist_async"] = dist_async(ctx, dev)
+    # dist_fleet: the fleet view of the world's nodes, then a node pair
+    # that persists the registry
+    if "fleet_dir" in ctx.args:
+        out["dist_fleet"] = dist_fleet(ctx)
     # dist_one_armed: a fault on worker 0 only, on a node of its own under
     # the fence (its groups are left broken: no teardown at exit)
     from sparkucx_tpu_torch.runtime.failures import TransientError
@@ -4895,6 +4929,82 @@ def dist_worker(ctx) -> dict:
                              "wall_ms": (time.perf_counter() - t0) * 1e3,
                              "armed": ctx.rank == 0}
     return out
+
+
+def dist_fleet(ctx) -> dict:
+    """``dist_fleet`` in a worker, after the world's reads: this node's
+    fleet registry (both workers' URLs, from the boot round); worker 0
+    fetches ``/cluster/snapshot`` and ``/cluster/doctor`` from its node
+    while worker 1 waits at a barrier; then a node pair on the same world
+    boots under ``metrics.httpPort=0`` and the ``failure.ledgerDir`` both
+    workers share (``args["fleet_dir"]``) and persists
+    ``fleet_registry.json``."""
+    from sparkucx_tpu_torch.shuffle.distributed import (
+        allgather_blob, gather_fleet_registry)
+    node = ctx.svc.node
+    if node.live is None:
+        raise AssertionError(f"dist_fleet (worker {ctx.rank}): the world's "
+                             f"node has no live server")
+    out = {"url": node.live.url,
+           "registry": {str(p): u for p, u in node.fleet.peers().items()}}
+    # what the boot round costs a node: the same allgather once more
+    allgather_blob(np.zeros(1, dtype=np.int64), what="smoke barrier")
+    t0 = time.perf_counter()
+    gather_fleet_registry(node.fleet.entries.get(ctx.rank))
+    out["registry_round_ms"] = (time.perf_counter() - t0) * 1e3
+    if ctx.rank == 0:
+        for route in ("snapshot", "doctor"):
+            status, _, body, ms = scrape(f"{node.live.url}/cluster/{route}")
+            if status != 200:
+                raise AssertionError(f"dist_fleet: /cluster/{route} "
+                                     f"answered {status}: {body[:300]}")
+            doc = json.loads(body)
+            meta = doc if route == "snapshot" else doc["fleet"]
+            out[route] = {"ms": ms, **{k: meta[k] for k in (
+                "expected", "missing_peers", "processes_answered")}}
+        out["doctor"]["findings"] = [[f["rule"], f["grade"]]
+                                     for f in doc["findings"]]
+    allgather_blob(np.zeros(1, dtype=np.int64), what="smoke barrier")
+    t0 = time.perf_counter()
+    with ctx.connect({PFX + "metrics.httpPort": "0",
+                      PFX + "failure.ledgerDir": ctx.args["fleet_dir"]}) \
+            as pair:
+        out["pair_boot_s"] = time.perf_counter() - t0
+        out["pair_url"] = pair.node.live.url
+        # both saved at boot before either stops its server
+        allgather_blob(np.zeros(1, dtype=np.int64), what="smoke barrier")
+    return out
+
+
+def check_dist_fleet(results, fleet_dir: str) -> dict:
+    """The parent's half of ``dist_fleet``: both registries name both
+    workers' URLs, worker 0's scrape answered for both with no peer
+    missing, and the persisted registry lists the pair's two URLs."""
+    from sparkucx_tpu_torch.utils.collector import FleetRegistry
+    st = [res["dist_fleet"] for res in results]
+    urls = {str(i): s["url"] for i, s in enumerate(st)}
+    if any(s["registry"] != urls for s in st):
+        raise AssertionError(f"dist_fleet: registries "
+                             f"{[s['registry'] for s in st]}, URLs {urls}")
+    for route in ("snapshot", "doctor"):
+        got = st[0][route]
+        if not (got["processes_answered"] == 2
+                and got["missing_peers"] == [] and got["expected"] == [0, 1]):
+            raise AssertionError(f"dist_fleet: /cluster/{route} {got}")
+    saved = {str(p): u for p, u in FleetRegistry.load(fleet_dir)
+             .peers().items()}
+    pair = {str(i): s["pair_url"] for i, s in enumerate(st)}
+    if saved != pair:
+        raise AssertionError(f"dist_fleet: fleet_registry.json {saved}, "
+                             f"the pair's URLs {pair}")
+    return {"phase": "dist_fleet", "card": card_line(), "urls": urls,
+            "persisted": saved,
+            "cluster_snapshot_ms": st[0]["snapshot"]["ms"],
+            "cluster_doctor_ms": st[0]["doctor"]["ms"],
+            "processes_answered": st[0]["snapshot"]["processes_answered"],
+            "findings": st[0]["doctor"]["findings"],
+            "registry_round_ms": [s["registry_round_ms"] for s in st],
+            "pair_boot_s": [s["pair_boot_s"] for s in st], "ok": True}
 
 
 def blocked_shard(pid) -> np.ndarray:
@@ -4940,15 +5050,20 @@ def dist_phase(dev, main_digests: dict) -> dict:
     _empty_host_cache()
     t = time.perf_counter()
     hist_dir = tempfile.mkdtemp(prefix="chip_smoke_decisions_")
+    fleet_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
     try:
         run = run_cluster("chip_smoke:dist_worker", DIST_PROCS, SHARDS,
-                          conf=REPLAY_CONF, device=None,
-                          timeout_s=DIST_DEADLINE_S,
-                          args={"history_dir": hist_dir})
+                          conf={**REPLAY_CONF,
+                                PFX + "metrics.httpPort": "0"},
+                          device=None, timeout_s=DIST_DEADLINE_S,
+                          args={"history_dir": hist_dir,
+                                "fleet_dir": fleet_dir})
         results = run.results
         out["dist_decisions"] = check_dist_decisions(results, hist_dir)
+        out["dist_fleet"] = check_dist_fleet(results, fleet_dir)
     finally:
         shutil.rmtree(hist_dir, ignore_errors=True)
+        shutil.rmtree(fleet_dir, ignore_errors=True)
     out["world"] = {"seconds": time.perf_counter() - t,
                     "attempts": run.attempts,
                     "shards": [r["shards"] for r in results],
@@ -7298,6 +7413,165 @@ def diagnosis_phase(dev) -> dict:
             "diagnosis_launches": launches}
 
 
+# -- the network half of telemetry: the live server, the CLI against it -----
+LIVE_DURING = ("/healthz", "/metrics", "/snapshot")
+LIVE_AFTER = ("/anatomy?trace={trace}", "/doctor", "/slo", "/decisions")
+LIVE_CLI_S = 120.0             # each CLI subprocess's deadline
+
+
+def scrape(url: str, timeout: float = 60.0) -> tuple:
+    """One GET: (status, content type, body, ms). An error status is
+    returned, not raised."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            status, ctype, body = r.status, r.headers["Content-Type"], \
+                r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, body = e.code, e.headers["Content-Type"], e.read()
+    return status, ctype, body, (time.perf_counter() - t0) * 1e3
+
+
+def live_phase(dev, main_digests: dict) -> dict:
+    """Phase 41 on main's records: the live server's routes during and
+    after one main-size ``pallas`` read, and the CLI against it. The
+    launch counts are set to 0 at the phase's start and read at its end
+    (``live_launches``)."""
+    import threading
+
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.utils.export import validate_exposition
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    gen_s = time.perf_counter() - t
+    conf = {PFX + "a2a.impl": "pallas", PFX + "metrics.httpPort": "0",
+            PFX + "trace.enabled": "true", PFX + "decisions.enabled": "true",
+            PFX + "slo.read.p99Ms": "60000",
+            PFX + "history.windowSecs": "86400"}
+    out = {"phase": "live", "card": card_line(), "gen_s": gen_s}
+    backend.reset_launch_counts()
+    with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+        live = svc.node.live
+        if live is None:
+            raise AssertionError("live: the server did not bind "
+                                 "(metrics.httpPort=0)")
+        url = live.url
+        h = write_maps(svc, 740, keys, values, MAPS)
+        box = {}
+
+        def read():
+            try:
+                t0 = time.perf_counter()
+                res = svc.read(h)
+                torch.cuda.synchronize(dev)
+                box["read_ms"] = (time.perf_counter() - t0) * 1e3
+                box["parts"] = [res.partition(r) for r in range(PARTITIONS)]
+            except BaseException as e:      # re-raised below
+                box["error"] = e
+
+        reader = threading.Thread(target=read, name="live-read")
+        t_read = time.perf_counter()
+        reader.start()
+        during, bodies = {}, {}
+        for route in LIVE_DURING:
+            status, ctype, body, ms = scrape(url + route)
+            during[route] = {"status": status, "ms": ms,
+                             "in_flight": reader.is_alive(),
+                             "at_ms": (time.perf_counter() - t_read) * 1e3}
+            bodies[route] = (status, ctype, body)
+        reader.join()
+        if "error" in box:
+            raise box["error"]
+        rep = svc.report(740)
+        after = {}
+        for route in LIVE_AFTER:
+            path = route.format(trace=rep.trace_id)
+            status, ctype, body, ms = scrape(url + path)
+            after[route] = {"status": status, "ms": ms}
+            bodies[route] = (status, ctype, body)
+        # run from the checkout's root: ``-m`` finds the package there
+        here = os.path.dirname(os.path.abspath(__file__))
+        cli = {}
+        for cmd in (["stats", "--live-url", url],
+                    ["doctor", "--live-url", url]):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "sparkucx_tpu_torch",
+                                *cmd], cwd=here,
+                               capture_output=True, text=True,
+                               timeout=LIVE_CLI_S)
+            cli[cmd[0]] = {"rc": r.returncode,
+                           "seconds": time.perf_counter() - t0,
+                           "stdout_bytes": len(r.stdout)}
+            if r.returncode != 0:
+                raise AssertionError(f"live: python -m sparkucx_tpu_torch "
+                                     f"{' '.join(cmd)} exited "
+                                     f"{r.returncode}: {r.stderr[-2000:]}")
+        led = _ledger_check("live read", rep)
+        svc.unregister_shuffle(740)
+    out["live_launches"] = counted(KERNEL_NAME)
+    bad = {r: st for r, st in {**during, **after}.items()
+           if st["status"] != 200}
+    if bad:
+        raise AssertionError(f"live: routes answered {bad}")
+    if not during["/healthz"]["in_flight"]:
+        raise AssertionError(f"live: /healthz answered only after the read "
+                             f"settled ({during})")
+    status, ctype, body = bodies["/metrics"]
+    if not ctype.startswith("text/plain"):
+        raise AssertionError(f"live: /metrics content type {ctype!r}")
+    validate_exposition(body.decode())
+    snap = json.loads(bodies["/snapshot"][2])
+    if snap.get("process_id") != 0 or "counters" not in snap:
+        raise AssertionError("live: /snapshot is not a snapshot document")
+    an = json.loads(bodies["/anatomy?trace={trace}"][2])
+    ledgers = an["ledgers"]
+    if [lg["trace_id"] for lg in ledgers] != [rep.trace_id]:
+        raise AssertionError(f"live: /anatomy ledgers "
+                             f"{[lg['trace_id'] for lg in ledgers]} for "
+                             f"{rep.trace_id}")
+    # the route folds the snapshot's span ring; the report stamped the
+    # tracer's fold at settle: the same ledger within their rounding
+    lg = ledgers[0]
+    total = sum(lg["phases_ms"].values()) + lg["dark_ms"]
+    tol = 1e-3 * (len(lg["phases_ms"]) + 2)
+    mine = {k: v for k, v in lg["phases_ms"].items() if v}
+    stamped = {k: v for k, v in led["phases"].items() if v}
+    if abs(total - lg["wall_ms"]) > tol \
+            or abs(lg["wall_ms"] - led["anatomy_wall_ms"]) > tol \
+            or set(mine) != set(stamped) \
+            or any(abs(mine[k] - stamped[k]) > tol for k in mine):
+        raise AssertionError(f"live: /anatomy {lg} against the report's "
+                             f"{led}")
+    slo = json.loads(bodies["/slo"][2])
+    if [o["objective"] for o in slo["objectives"]] != ["slo.read.p99Ms"]:
+        raise AssertionError(f"live: /slo {slo}")
+    dec = json.loads(bodies["/decisions"][2])
+    if not dec["enabled"]:
+        raise AssertionError(f"live: /decisions {dec}")
+    json.loads(bodies["/doctor"][2])
+    got = partition_digests(box["parts"])
+    if got != main_digests:
+        bad = sorted(int(r) for r in main_digests
+                     if got.get(r) != main_digests[r])
+        raise AssertionError(f"live: partitions {bad[:8]} differ from "
+                             f"main's")
+    out.update(url=url, read_ms=box["read_ms"], trace_id=rep.trace_id,
+               during=during, after=after,
+               scrape_ms={**{r: st["ms"] for r, st in during.items()},
+                          **{r: st["ms"] for r, st in after.items()}},
+               anatomy={"wall_ms": lg["wall_ms"], "dark_ms": lg["dark_ms"],
+                        "phases_ms": lg["phases_ms"]},
+               metrics_bytes=len(bodies["/metrics"][2]),
+               snapshot_bytes=len(bodies["/snapshot"][2]),
+               decisions_total=dec["total"], cli=cli, ok=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_decisions(ctx, dev, keys, values, mine) -> dict:
     """``dist_decisions`` in a worker: a node of two slices (one a
     worker) under ``history.dir`` (shared by the workers) and the
@@ -7761,8 +8035,8 @@ def main() -> int:
                  "dist_int8",
                  "dist_int8_combine", "dist_hier",
                  "dist_waved_ordered_device", "dist_waved_ordered_host",
-                 "dist_decisions", "dist_async", "dist_one_armed",
-                 "dist_peer_loss"):
+                 "dist_decisions", "dist_fleet", "dist_async",
+                 "dist_one_armed", "dist_peer_loss"):
         print(json.dumps(di[name]), flush=True)
     print(json.dumps({"phase": "distributed",
                       "launches": di["dist_launches"],
@@ -7847,6 +8121,13 @@ def main() -> int:
                       "diagnosis_launches": diagnosis_launches,
                       "seconds": time.perf_counter() - t}), flush=True)
 
+    # -- the network half of telemetry: the live server's routes during
+    # and after main's read, and the CLI against it
+    t = time.perf_counter()
+    lv = live_phase(dev, main_digests)
+    print(json.dumps({**lv, "seconds": time.perf_counter() - t}),
+          flush=True)
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -7877,6 +8158,7 @@ def main() -> int:
         "tenancy_launches": tenancy_launches[KERNEL_NAME],
         "telemetry_launches": te["telemetry_launches"],
         "diagnosis_launches": diagnosis_launches[KERNEL_NAME],
+        "live_launches": lv["live_launches"],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {

@@ -27,9 +27,15 @@ and ``metrics.reportCapacity``; the tenancy plane's ``tenant.id``,
 (:meth:`ShuffleConf.tenant_policy`); the telemetry and decision planes'
 keys (:data:`TELEMETRY_KEYS`: ``trace.*``, ``metrics.dumpDir``,
 ``metrics.dumpIntervalSecs``, ``devmon.*``, ``history.*``,
-``decisions.*``) and the diagnosis plane's (``slo.*``, parsed by
-``utils/slo.py``, and ``doctor.*``). Byte sizes parse as the JAX package's do
+``decisions.*``), the diagnosis plane's (``slo.*``, parsed by
+``utils/slo.py``, and ``doctor.*``) and the network half of telemetry's
+(``metrics.httpPort``, ``metrics.httpHost``, ``metrics.httpAdvertiseHost``,
+read by ``utils/live.py`` and ``utils/collector.py``, and
+``fleet.scrapeTimeoutMs``). Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
+
+:meth:`ShuffleConf.describe_keys` is the table ``python -m
+sparkucx_tpu_torch keys`` prints: one row per key the port reads.
 """
 
 from __future__ import annotations
@@ -181,6 +187,67 @@ TELEMETRY_KEYS = {
                                        "finding key absent for N "
                                        "consecutive passes captures "
                                        "again on recurrence (default 3)"),
+    "metrics.httpPort": ("", "live telemetry server (utils/live.py): "
+                             "unset = off, 0 = auto-assign, else that "
+                             "port — serves /metrics /snapshot /doctor "
+                             "/healthz"),
+    "metrics.httpHost": ("127.0.0.1", "live telemetry server bind host "
+                                      "(default 127.0.0.1 — loopback "
+                                      "unless opted out)"),
+    "metrics.httpAdvertiseHost": ("", "host the fleet registry PUBLISHES "
+                                      "for peers to scrape (utils/"
+                                      "collector.py; default: the bind "
+                                      "host — warn-once when that is "
+                                      "loopback in a multi-process "
+                                      "world)"),
+    "fleet.scrapeTimeoutMs": ("2000", "per-peer deadline of a fleet "
+                                      "telemetry scrape (utils/"
+                                      "collector.py ClusterCollector; "
+                                      "default 2000) — a dead peer costs "
+                                      "one bounded timeout, never a "
+                                      "hang"),
+}
+
+# keys read where they are used (runtime/failures.py, service.py, the
+# planes of TELEMETRY_KEYS) and key families ("tenant.*"), with the
+# default the key table prints: blank where the description gives it, as
+# the JAX package's table does
+EXTERNAL_KEYS = {
+    **{k: ("", doc) for k, (_, doc) in TELEMETRY_KEYS.items()
+       if not k.startswith("slo.")},
+    "io.format": ("", "shuffle payload codec: raw is the one the port "
+                      "reads (service.py connect)"),
+    "metrics.reportCapacity": ("", "ExchangeReport ring size per manager "
+                                   "(default 64)"),
+    "tenant.*": ("", "multi-tenant service plane (shuffle/tenancy.py): "
+                     "tenant.id, tenant.priority (high|normal|batch), "
+                     "tenant.fairShare, tenant.asyncWorkers, "
+                     "tenant.asyncAgreedOrder and per-tenant overrides "
+                     "tenant.<id>.priority/.maxBytesInFlight/"
+                     ".maxInflightReads/.replayBudget/.integrity.verify/"
+                     ".waveDepth"),
+    "slo.*": ("", "SLO plane (utils/slo.py): slo.read.p99Ms, "
+                  "slo.read.target, slo.availability, slo.fastWindowSecs, "
+                  "slo.slowWindowSecs, slo.fastBurn, slo.slowBurn, "
+                  "slo.minEvents and per-tenant tenant.<id>.slo.*"),
+    "flightRecorder.enabled": ("", "flight recorder: bounded event ring "
+                                   "+ postmortem dump on an unhandled "
+                                   "exception, a spent retry budget or a "
+                                   "watchdog expiry (runtime/failures.py; "
+                                   "default off)"),
+    "flightRecorder.dir": ("", "where flight-recorder postmortems land "
+                               "(default: a per-process temp dir)"),
+    "flightRecorder.capacity": ("", "flight-recorder ring size (default "
+                                    "512)"),
+    "failure.maxAttempts": ("", "bounded retry attempts of a transient "
+                                "fault (runtime/failures.RetryPolicy)"),
+    "failure.backoffMs": ("", "backoff between failure-recovery "
+                              "attempts"),
+    "failure.maxBackoffMs": ("10000.0", "ceiling on any single retry "
+                                        "backoff sleep "
+                                        "(runtime/failures.RetryPolicy)"),
+    "fault.*": ("", "deterministic fault injection: fault.seed + per-site "
+                    "arming keys (runtime/failures.FaultInjector)"),
 }
 
 
@@ -279,7 +346,8 @@ class ShuffleConf:
                     "devmon_interval_ms", "history_window_secs",
                     "history_retain_windows", "decisions_enabled",
                     "decisions_retain", "doctor_watch_interval_secs",
-                    "doctor_capture_ms", "doctor_rearm_passes")
+                    "doctor_capture_ms", "doctor_rearm_passes",
+                    "fleet_scrape_timeout_ms")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -301,6 +369,45 @@ class ShuffleConf:
                 getattr(self, name)
             except ValueError as e:
                 raise ValueError(f"conf key for {name!r}: {e}") from e
+
+    @classmethod
+    def describe_keys(cls):
+        """One row per key the port reads, ``{key, default, property,
+        doc}``: the typed properties' keys with the defaults they read
+        (captured through ``_get``) and their docstrings' first
+        paragraph, then :data:`EXTERNAL_KEYS` (a typed key inside one of
+        them is listed there, once)."""
+        conf = cls({}, use_env=False)
+        families = tuple(k[:-1] for k in EXTERNAL_KEYS if k.endswith("*"))
+        rows, seen = [], set()
+        for name in cls._TYPED_PROPS:
+            captured = []
+            real_get = conf._get
+
+            def capture(short, default, _c=captured, _g=real_get):
+                _c.append((short, default))
+                return _g(short, default)
+
+            conf.__dict__["_get"] = capture
+            try:
+                getattr(conf, name)
+            except Exception:
+                pass
+            finally:
+                del conf.__dict__["_get"]
+            doc = (getattr(cls, name).__doc__ or "").strip()
+            doc = " ".join(doc.split("\n\n")[0].split())
+            for short, default in captured:
+                if short in seen or short in EXTERNAL_KEYS \
+                        or short.startswith(families):
+                    continue
+                seen.add(short)
+                rows.append({"key": PREFIX + short, "default": str(default),
+                             "property": name, "doc": doc})
+        for short, (default, doc) in EXTERNAL_KEYS.items():
+            rows.append({"key": PREFIX + short, "default": default,
+                         "property": "", "doc": doc})
+        return rows
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         if key in self._conf:
@@ -854,3 +961,22 @@ class ShuffleConf:
     @property
     def doctor_rearm_passes(self) -> int:
         return int(self._telemetry("doctor.rearmHealthyPasses"))
+
+    # -- the fleet plane (utils/collector.py) -------------------------------
+    @property
+    def fleet_scrape_timeout_ms(self) -> float:
+        """Per-peer deadline of a fleet scrape (``fleet.scrapeTimeoutMs``,
+        default 2000)."""
+        return float(self._telemetry("fleet.scrapeTimeoutMs"))
+
+
+def print_key_table() -> None:
+    """The key table of :meth:`ShuffleConf.describe_keys`, one row a key
+    (``python -m sparkucx_tpu_torch keys``)."""
+    rows = ShuffleConf.describe_keys()
+    w = max(len(r["key"]) for r in rows)
+    dw = max(len(r["default"]) for r in rows)
+    print(f"{'key':<{w}}  {'default':<{dw}}  description")
+    print("-" * (w + dw + 60))
+    for r in rows:
+        print(f"{r['key']:<{w}}  {r['default']:<{dw}}  {r['doc']}")

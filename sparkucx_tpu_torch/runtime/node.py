@@ -51,7 +51,19 @@ fast SLO burn, ``close`` or :meth:`Node.mark_unhealthy` turn it; each
 names its ``cause``), the doctor's seams (:attr:`Node.doctor_provider`
 and :attr:`Node.telemetry_provider`, which a service replaces with its
 own until it stops) and, under ``doctor.watchIntervalSecs``, the
-watcher (:attr:`Node.watcher`, ``runtime/devmon.DoctorWatcher``)."""
+watcher (:attr:`Node.watcher`, ``runtime/devmon.DoctorWatcher``).
+
+And the network half of telemetry: under ``metrics.httpPort`` the live
+server (:attr:`Node.live`, ``utils/live.py``; None when the key is unset
+or the bind fails) serves the providers above, the health verdict, the SLO
+verdict, the decision ledger and the fleet view; the fleet registry
+(:attr:`Node.fleet`, ``utils/collector.FleetRegistry``) holds every
+process's scrape URL, published through one boot-time allgather on a
+distributed node (unconditional: a node whose server is off publishes
+``{}``) and persisted as ``fleet_registry.json`` under
+``failure.ledgerDir``; while it has entries, :attr:`Node.collector`
+scrapes the fleet for ``/cluster/*`` and for the watchdog's expiry
+postmortem (``watchdog.peer_scrape``)."""
 
 from __future__ import annotations
 
@@ -84,8 +96,10 @@ from sparkucx_tpu_torch.shuffle import agreement, distributed
 from sparkucx_tpu_torch.shuffle.decisions import (NULL_DECISION_LEDGER,
                                                   DecisionLedger,
                                                   current_ledger, set_ledger)
+from sparkucx_tpu_torch.utils import collector
 from sparkucx_tpu_torch.utils.export import collect_snapshot
 from sparkucx_tpu_torch.utils.history import TelemetryHistory
+from sparkucx_tpu_torch.utils.live import start_from_conf
 from sparkucx_tpu_torch.utils.logging import get_logger
 from sparkucx_tpu_torch.utils.metrics import Metrics
 from sparkucx_tpu_torch.utils.slo import (BurnPolicy, evaluate,
@@ -319,6 +333,7 @@ class Node:
                                     timeout_ms=self.conf.connection_timeout_ms,
                                     flight=self.flight)
         self.watchdog = configure_from_conf(self.conf, health=self.health,
+                                            flight=self.flight,
                                             metrics=self.metrics)
         self.epochs = EpochManager()
         # a process that missed a remesh diverges typed in the next
@@ -373,6 +388,24 @@ class Node:
         self.telemetry_provider = self.telemetry_snapshot
         self.doctor_provider = self._default_doctor
         self._closed = False
+        self.fleet = None
+        self.collector = None
+        # the live server reads through the providers, so a service's
+        # swap reaches its routes too
+        self.live = start_from_conf(
+            c, lambda: self.telemetry_provider(),
+            lambda: self.doctor_provider(), self.health_status,
+            slo_fn=self.slo_verdict, cluster_fn=self._cluster_view,
+            decisions_fn=(self.decision_ledger
+                          if self.decisions.enabled else None))
+        # the fleet registry (one boot round on a distributed node) and
+        # its collector; like the clock anchors, never a reason to fail
+        # the boot
+        try:
+            self._init_fleet()
+        except Exception:
+            log.warning("fleet telemetry registry unavailable",
+                        exc_info=True)
         # the rolling doctor pass (doctor.watchIntervalSecs > 0): a new
         # critical finding triggers a profiler window and a postmortem
         self.watcher = None
@@ -499,6 +532,48 @@ class Node:
                     reason or "requested")
         return epoch
 
+    def _init_fleet(self) -> None:
+        """The fleet registry from this process's advertised URL (every
+        process's, through :func:`distributed.gather_fleet_registry`, on
+        a distributed node), persisted under ``failure.ledgerDir``; while
+        it has entries, the collector and the watchdog's expiry scrape."""
+        url = collector.advertised_url(self.conf, self.live,
+                                       multiprocess=self.is_distributed)
+        entry = None
+        if url is not None:
+            entry = collector.registry_entry(self.process_id, url,
+                                             self.tracer.anchor())
+        if self.is_distributed:
+            try:
+                entries = distributed.gather_fleet_registry(entry)
+            except Exception as e:
+                log.warning("fleet-registry allgather unavailable (%s); "
+                            "fleet view covers this process only", e)
+                entries = [entry] if entry else []
+        else:
+            entries = [entry] if entry else []
+        self.fleet = collector.FleetRegistry(entries)
+        root = self.conf.ledger_dir
+        if root and len(self.fleet):
+            try:
+                path = self.fleet.save(root)
+                log.info("fleet registry: %d peer(s) -> %s",
+                         len(self.fleet), path)
+            except OSError as e:
+                log.warning("fleet registry not persisted (%s): %s",
+                            root, e)
+        if len(self.fleet):
+            self.collector = collector.ClusterCollector(
+                self.fleet, self_id=self.process_id,
+                timeout_s=self.conf.fleet_scrape_timeout_ms / 1e3)
+            self.watchdog.peer_scrape = self.collector.postmortem
+
+    def _cluster_view(self):
+        """The ``/cluster/*`` provider: a fresh fleet scrape, or None
+        while no registry exists (the routes answer 404)."""
+        coll = self.collector
+        return None if coll is None else coll.scrape()
+
     def _gather_anchors(self) -> list:
         if self.is_distributed:
             return distributed.gather_clock_anchors(self.tracer,
@@ -515,8 +590,9 @@ class Node:
         span summary, events and fresh clock anchor, plus ``pool``,
         ``process_id``, ``cluster_anchors``, ``anchors`` (this process's
         start anchor) and ``anchor_skew_s`` (the wall clock's drift
-        since), the retained ``history_frames`` (``include_history``)
-        and the decision ledger's tail (``decisions``). ``reports``: the
+        since), ``fleet_registry`` (while the registry has entries), the
+        retained ``history_frames`` (``include_history``) and the
+        decision ledger's tail (``decisions``). ``reports``: the
         manager's exchange reports, when the caller has a manager."""
         pool_stats = self.pool.stats()
         self.publish_pool_gauges(pool_stats)
@@ -530,6 +606,9 @@ class Node:
             extra["anchor_skew_s"] = round(
                 self.tracer.anchor()["wall_epoch"]
                 - float(boot["wall_epoch"]), 6)
+        fleet = getattr(self, "fleet", None)
+        if fleet is not None and len(fleet):
+            extra["fleet_registry"] = fleet.to_doc()
         if include_history:
             frames = self.history.frames()
             if frames:
@@ -672,7 +751,12 @@ class Node:
         if self.watcher is not None:
             self.watcher.stop()
         self.devmon.stop()
+        if self.live is not None:
+            self.live.stop()
         self.reset_providers()
+        # a closed node's registry is not scraped through the watchdog
+        self.watchdog.peer_scrape = None
+        self.collector = None
         self.epochs.remove_listener(self._on_epoch_health)
         self.flight.remove_context_provider(self.slo_verdict)
         self.flight.remove_context_provider(self.decision_ledger)

@@ -6,11 +6,16 @@ A dead process can leave every survivor parked inside a collective of
 step on a watched thread and joins it against
 ``failure.collectiveTimeoutMs``; on expiry it probes the device through
 the :class:`~sparkucx_tpu_torch.runtime.failures.HealthMonitor`, counts
-``failure.peer_timeout.count`` and raises
+``failure.peer_timeout.count``, scrapes the fleet out of band when the
+node wired :attr:`Watchdog.peer_scrape` (``utils/collector.
+ClusterCollector.postmortem``: HTTP, never a collective), records a
+``peer_timeout`` event and dumps a flight-recorder postmortem tagged with
+the stuck exchange's trace id, and raises
 :class:`~sparkucx_tpu_torch.runtime.failures.PeerLostError` naming the
-section. The abandoned worker thread stays parked in the collective and
-is tracked (:meth:`Watchdog.leaked`); the process group it sits in is
-unusable, so recovery is a fresh world, not a retry into the old one.
+section and the trace. The abandoned worker thread stays parked in the
+collective and is tracked (:meth:`Watchdog.leaked`); the process group it
+sits in is unusable, so recovery is a fresh world, not a retry into the
+old one.
 
 The fence is process-global (:func:`set_global_watchdog` /
 :func:`current_watchdog`): the node installs its own at start
@@ -23,7 +28,8 @@ A wait on this process's own device work (``call(..., local=True)``:
 the completion wait of an exchange whose collectives already returned)
 takes part in no collective, so its expiry raises
 :class:`~sparkucx_tpu_torch.runtime.failures.DeviceUnhealthy` instead:
-no peer is blamed and ``failure.peer_timeout.count`` does not move.
+no peer is blamed, ``failure.peer_timeout.count`` does not move, no peer
+is scraped, and the postmortem's document is ``device_timeout``.
 
 The gloo transport often fails fast instead of hanging when a peer dies
 (a closed connection); ``shuffle/distributed.py`` maps that error, on a
@@ -37,7 +43,8 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from sparkucx_tpu_torch.runtime.failures import (DeviceUnhealthy,
+from sparkucx_tpu_torch.runtime.failures import (NULL_FLIGHT_RECORDER,
+                                                 DeviceUnhealthy,
                                                  PeerLostError,
                                                  ThreadLeakCensus)
 from sparkucx_tpu_torch.utils.logging import get_logger
@@ -54,10 +61,12 @@ class Watchdog:
     joins it with the deadline (a collective inside C code cannot be
     interrupted from Python)."""
 
-    def __init__(self, timeout_ms: float = 0.0, health=None, metrics=None,
+    def __init__(self, timeout_ms: float = 0.0, health=None,
+                 flight=NULL_FLIGHT_RECORDER, metrics=None,
                  name: str = "watchdog"):
         self.timeout_ms = float(timeout_ms)
         self.health = health          # runtime.failures.HealthMonitor
+        self.flight = flight
         self.metrics = metrics
         self.name = name
         self._lock = threading.Lock()
@@ -72,6 +81,12 @@ class Watchdog:
         self._probe_lock = threading.Lock()
         self._probe_thread: Optional[threading.Thread] = None
         self.expiries = 0
+        # the out-of-band fleet scrape at a collective's expiry
+        # (utils/collector.ClusterCollector.postmortem, wired by the node
+        # when its fleet registry has entries): called with (what=,
+        # trace=); its result lands in the postmortem as
+        # peer_timeout.peer_postmortem
+        self.peer_scrape: Optional[Callable[..., dict]] = None
 
     @property
     def enabled(self) -> bool:
@@ -79,7 +94,7 @@ class Watchdog:
 
     def armed(self) -> List[dict]:
         """The fenced sections running now, oldest first: ``{what,
-        deadline}`` each."""
+        trace, deadline}`` each."""
         with self._lock:
             return [dict(e) for e in self._armed]
 
@@ -89,16 +104,21 @@ class Watchdog:
         return self._leaked.count()
 
     def call(self, fn: Callable, *args, what: str = "collective",
+             trace: Optional[str] = None,
              timeout_ms: Optional[float] = None, local: bool = False,
              **kwargs):
         """``fn(*args, **kwargs)`` under the deadline (``timeout_ms``
         overrides the standing one for this call): its value, its
-        exception, or on expiry (after the probe) :class:`PeerLostError`,
-        or :class:`DeviceUnhealthy` when ``fn`` is a ``local`` wait on
-        this process's own device work."""
+        exception, or on expiry (after the probe and the postmortem)
+        :class:`PeerLostError`, or :class:`DeviceUnhealthy` when ``fn`` is
+        a ``local`` wait on this process's own device work. ``trace``
+        defaults to the flight recorder's newest in-flight exchange, the
+        id its report, spans and flight events carry."""
         limit = self.timeout_ms if timeout_ms is None else float(timeout_ms)
         if limit <= 0:
             return fn(*args, **kwargs)
+        if trace is None:
+            trace = self.flight.current_trace()
         box: dict = {}
         done = threading.Event()
 
@@ -110,7 +130,8 @@ class Watchdog:
             finally:
                 done.set()
 
-        entry = {"what": what, "deadline": time.monotonic() + limit / 1e3}
+        entry = {"what": what, "trace": trace or "",
+                 "deadline": time.monotonic() + limit / 1e3}
         t = threading.Thread(target=run, daemon=True,
                              name=f"sxt-fence-{what[:24]}")
         with self._lock:
@@ -119,7 +140,9 @@ class Watchdog:
             t.start()
             done.wait(limit / 1e3)
             if not done.is_set():
-                self._expired(what, t, limit, local)
+                # while the entry is still armed: the postmortem's
+                # stuck_sections name the section that expired
+                self._expired(what, trace, t, limit, local)
         finally:
             with self._lock:
                 try:
@@ -135,29 +158,63 @@ class Watchdog:
         if not done.is_set():
             raise PeerLostError(
                 f"collective deadline expired: {what!r} blocked "
-                f">{limit:.0f} ms — a peer is unreachable or dead "
-                f"(spark.shuffle.tpu.failure.collectiveTimeoutMs); remesh "
-                f"over the survivors and re-run on a fresh world")
+                f">{limit:.0f} ms"
+                + (f" in exchange {trace}" if trace else "")
+                + " — a peer is unreachable or dead "
+                "(spark.shuffle.tpu.failure.collectiveTimeoutMs); remesh "
+                "over the survivors and re-run on a fresh world")
         if "error" in box:
             raise box["error"]
         return box.get("result")
 
-    def _expired(self, what: str, t: threading.Thread, limit: float,
-                 local: bool) -> None:
-        """Count, track the parked thread and probe; nothing here may
-        raise past the caller's error."""
+    def _expired(self, what: str, trace: Optional[str], t: threading.Thread,
+                 limit: float, local: bool) -> None:
+        """Count, track the parked thread, probe, scrape the fleet, record
+        and dump; nothing here may raise past the caller's error."""
         self.expiries += 1
         if self.metrics is not None and not local:
             self.metrics.inc(C_PEER_TIMEOUT, 1.0)
-        self._leaked.add(str(id(t)), t)
+        n_leaked = self._leaked.add(str(id(t)), t)
+        with self._lock:
+            stuck = [dict(e) for e in self._armed]
         verdict = self._probe_once()
         dead = sorted(d for d, ok in (verdict or {}).items() if not ok)
         if dead and self.metrics is not None:
             self.metrics.inc(C_PROBE_DEAD, float(len(dead)))
-        log.error("%s deadline expired after %.0f ms at %s; probe "
-                  "verdict: %s", "local" if local else "collective",
-                  limit, what,
+        # the fleet's view over HTTP (a collective just proved dead; a
+        # local wait involves no peer), best-effort like the probe
+        postmortem = None
+        if self.peer_scrape is not None and not local:
+            try:
+                postmortem = self.peer_scrape(what=what, trace=trace or "")
+            except Exception:
+                log.debug("out-of-band peer scrape failed at expiry",
+                          exc_info=True)
+        log.error("%s deadline expired after %.0f ms at %s (trace %s); "
+                  "probe verdict: %s", "local" if local else "collective",
+                  limit, what, trace or "-",
                   verdict if verdict is not None else "unavailable")
+        if postmortem is not None:
+            for pid, cell in (postmortem.get("peers") or {}).items():
+                lk = cell.get("last_known") or {}
+                if cell.get("ok") and not lk.get("settled"):
+                    log.error(
+                        "peer %s is reachable but unsettled: last span "
+                        "%s (phase %s) ended %.1f s ago", pid,
+                        lk.get("last_span"), lk.get("phase"),
+                        lk.get("since_s") or -1.0)
+        kind = "device_timeout" if local else "peer_timeout"
+        doc = {"what": what, "trace": trace or "", "timeout_ms": limit,
+               "probe": verdict, "dead_devices": dead,
+               "stuck_sections": stuck, "leaked_threads": n_leaked}
+        if not local:
+            doc["peer_postmortem"] = postmortem
+        self.flight.record(kind, what=what, trace=trace or "",
+                           timeout_ms=limit, dead_devices=dead,
+                           leaked_threads=n_leaked)
+        self.flight.dump(
+            f"{'DeviceUnhealthy' if local else 'PeerLostError'}: {what} "
+            f"blocked >{limit:.0f} ms", extra={kind: doc})
 
     def _probe_once(self):
         """One bounded liveness probe; while an earlier probe is still
@@ -202,11 +259,12 @@ def current_watchdog() -> Watchdog:
     return _GLOBAL
 
 
-def configure_from_conf(conf, health=None, metrics=None) -> Watchdog:
+def configure_from_conf(conf, health=None, flight=NULL_FLIGHT_RECORDER,
+                        metrics=None) -> Watchdog:
     """Build the node's watchdog from ``failure.collectiveTimeoutMs`` and
     install it as the process-global fence (0 = a disabled instance, so
     call sites stay unconditional)."""
     wd = Watchdog(conf.collective_timeout_ms, health=health,
-                  metrics=metrics)
+                  flight=flight, metrics=metrics)
     set_global_watchdog(wd)
     return wd

@@ -201,6 +201,15 @@ def gather_clock_anchors(tracer=None, process_id: int = 0) -> list:
     return allgather_json(a)
 
 
+def gather_fleet_registry(entry) -> list:
+    """COLLECTIVE: every process's fleet-registry entry (its live
+    telemetry URL and boot anchor, ``utils/collector.registry_entry``),
+    in process order — the one boot-time round of the fleet plane. A
+    process whose live server is off still calls and publishes ``{}``;
+    after this round the plane scrapes over HTTP only."""
+    return allgather_json(entry if entry is not None else {})
+
+
 def allgather_sizes(local_vals, shard_ids: Sequence[int],
                     num_shards: int) -> np.ndarray:
     """COLLECTIVE: this process's per-shard values scattered into a

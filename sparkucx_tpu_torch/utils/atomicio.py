@@ -3,14 +3,18 @@ fsync, atomic ``os.replace``, then an fsync of the directory so the
 rename itself is durable. A reader of the final path sees either the old
 complete content or the new complete content, never a torn prefix. The
 spill files' ``.index`` sidecar is written this way
-(``shuffle/writer.SpillFiles.finish``)."""
+(``shuffle/writer.SpillFiles.finish``), and so are the fleet registry
+(``utils/collector.py``) and the CLI's output files."""
 
 from __future__ import annotations
 
+import json
 import os
 import threading
+from typing import Any
 
-__all__ = ["atomic_write_bytes", "atomic_write_text", "fsync_dir"]
+__all__ = ["atomic_write_bytes", "atomic_write_text", "atomic_write_json",
+           "fsync_dir"]
 
 
 def _tmp_name(path: str) -> str:
@@ -56,3 +60,9 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> str:
 
 def atomic_write_text(path: str, text: str, fsync: bool = True) -> str:
     return atomic_write_bytes(path, text.encode("utf-8"), fsync=fsync)
+
+
+def atomic_write_json(path: str, doc: Any, indent: int = 1,
+                      fsync: bool = True, **dump_kw) -> str:
+    return atomic_write_text(
+        path, json.dumps(doc, indent=indent, **dump_kw), fsync=fsync)

@@ -2,8 +2,8 @@
 anatomy.py``), the manager's settlement that stamps it on every report,
 and the Perfetto phase tracks of ``export.merge_timeline(anatomy=True)``.
 
-* The reference's cases: every case of ``tests/test_anatomy.py`` but the
-  three CLI cases and the live ``/anatomy`` route (slice 21), each run
+* The reference's cases: every case of ``tests/test_anatomy.py``, the
+  three CLI cases and the live ``/anatomy`` route among them, each run
   unchanged on both packages (``torch_ref_cases.port_view``); the
   end-to-end cases read through the port's manager on the CPU (dense,
   8 shards) and hold it to the reference's 95% attribution bar (their
@@ -33,10 +33,7 @@ from sparkucx_tpu_torch.utils import export as texp
 from torch_ref_cases import case_ids, port_view, run_case
 
 PFX = "spark.shuffle.tpu."
-EXCLUDED = {"test_cli_anatomy_text_json_and_gate",
-            "test_cli_anatomy_empty_input_exit2",
-            "test_cli_anatomy_out_writes_phase_tracks",
-            "test_live_anatomy_route"}
+EXCLUDED = set()
 REF = importlib.import_module("test_anatomy")
 # (side, case, params): the JAX side of the end-to-end cases is the
 # reference suite itself (tests/test_anatomy.py), not run twice

@@ -22,8 +22,9 @@ package wrote. The report's ``agreement`` summary is the ``-k
 decisions`` case of ``tests/test_torch_distributed.py`` (a real
 two-process world). The reference's doctor rules (``decision_split``,
 ``slow_proposer``, the desync link) run in ``tests/test_torch_doctor.py``;
-its live ``/decisions`` route, its collector and its ``decisions`` CLI
-wait for the modules they run on (slice 21).
+its live ``/decisions`` route is ``tests/test_torch_live.py``'s, its
+collector's ``last_known_decision`` ``tests/test_torch_fleet.py``'s and
+its ``decisions`` CLI ``tests/test_torch_cli.py``'s.
 
 Every comparison here is exact: digests and records are pure functions
 of the round's inputs."""

@@ -7,9 +7,10 @@ packages.
 The reference samples every local JAX device (eight virtual CPU devices
 here); the port samples the one torch device its shards live on. On a
 CPU node both land a sample with null device fields. The doctor
-watcher's cases are ``tests/test_torch_watcher.py``'s; the live server
-and the bench stage of that file wait for their modules (slice 21 and
-ROADMAP item 7; the step cache's cost capture is not applicable). Exposition text is compared exactly."""
+watcher's cases are ``tests/test_torch_watcher.py``'s and its live-server
+cases ``tests/test_torch_live.py``'s; its bench stage waits for its
+module (ROADMAP item 7; the step cache's cost capture is not
+applicable). Exposition text is compared exactly."""
 
 import re
 import time

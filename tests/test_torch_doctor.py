@@ -1,8 +1,9 @@
 """Port parity for the shuffle doctor (``sparkucx_tpu_torch/utils/
 doctor.py``) and its faces on the service, the node and the postmortem.
 
-* The reference's cases: every case of ``tests/test_doctor.py`` but the
-  three CLI cases, the v2 facade and the two ``regress`` cases, plus the
+* The reference's cases: every case of ``tests/test_doctor.py`` (its
+  three CLI cases on each package's CLI) but the v2 facade and the two
+  ``regress`` cases, plus the
   doctor cases of ``tests/test_decisions.py`` (``decision_split``,
   ``slow_proposer``, the desync link) and ``tests/test_fleet.py``
   (``peer_unresponsive``, ``clock_drift``), each run unchanged on both
@@ -39,13 +40,11 @@ from torch_ref_cases import case_ids, port_view, run_case
 
 PFX = "spark.shuffle.tpu."
 
-# reference cases not run here: the CLI (slice 21), the v2 facade and
-# bench's regress stage (later items), and the service case, which
-# builds the JAX facade by hand (test_service_doctor_on_skewed_workload
-# below runs it on both packages)
-EXCLUDED = {"test_cli_timeline_and_anchor_rejection",
-            "test_cli_empty_input_errors_not_healthy",
-            "test_cli_doctor_dumps_and_fail_on", "test_v2_facade_doctor",
+# reference cases not run here: the v2 facade and bench's regress stage
+# (later items), and the service case, which builds the JAX facade by
+# hand (test_service_doctor_on_skewed_workload below runs it on both
+# packages)
+EXCLUDED = {"test_v2_facade_doctor",
             "test_regress_compare_goldens",
             "test_regress_stage_writes_findings_doc",
             "test_service_doctor_on_skewed_workload"}

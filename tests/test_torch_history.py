@@ -6,7 +6,7 @@ the tick-only dumper and the dedupe of frames), each run on both
 packages, and ``history_p<rank>.jsonl`` adopted across the two.
 
 The reference's SLO objectives and burn rates are ``tests/
-test_torch_slo.py``'s (their live and CLI faces wait for slice 21); here
+test_torch_slo.py``'s (their live and CLI faces too); here
 a node turns history on with ``history.dir``. Window quantiles are estimates within half a
 bucket; they are held to numpy's within 12%, the reference's own
 tolerance. Counter deltas and frame contents are compared exactly."""

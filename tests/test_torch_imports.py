@@ -77,6 +77,37 @@ def test_no_jax_or_reference_import(path):
                 f"{path.name}:{node.lineno} imports {m}"
 
 
+def test_scan_covers_the_network_telemetry_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"utils/live.py", "utils/collector.py", "__main__.py",
+            "runtime/watchdog.py"} <= names
+
+
+def test_cli_and_network_modules_run_with_jax_blocked():
+    """The live server, the collector and the CLI import, and ``python -m
+    sparkucx_tpu_torch keys`` runs, with JAX and the JAX package
+    blocked."""
+    block = ("import sys\n"
+             "sys.modules['jax'] = None\n"
+             "sys.modules['sparkucx_tpu'] = None\n")
+    code = block + (
+        "import importlib\n"
+        "for n in ('sparkucx_tpu_torch.utils.live', "
+        "'sparkucx_tpu_torch.utils.collector', "
+        "'sparkucx_tpu_torch.__main__'):\n"
+        "    importlib.import_module(n)\n"
+        "import runpy\n"
+        "sys.argv = ['sparkucx_tpu_torch', 'keys']\n"
+        "runpy.run_module('sparkucx_tpu_torch', run_name='__main__')\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "spark.shuffle.tpu.metrics.httpPort" in r.stdout
+
+
 def test_connect_without_device_raises_on_cudaless_box(monkeypatch):
     from sparkucx_tpu_torch import connect
     from sparkucx_tpu_torch.runtime.node import Node

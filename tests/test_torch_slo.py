@@ -6,9 +6,10 @@ and its faces on the node and the service.
   clearing and budget re-accrual, the bucket boundary, availability over
   replays, ``test_whale_burn_does_not_move_minnow_budget`` through the
   port's manager and node) and its dumper cases, each run unchanged on
-  both packages (``torch_ref_cases.port_view``). Its history cases are
-  ``tests/test_torch_history.py``'s; the CLI, live-route and v2-facade
-  cases wait for their modules.
+  both packages (``torch_ref_cases.port_view``), with its facade-and-live
+  ``/slo`` case and its three CLI cases. Its history cases are
+  ``tests/test_torch_history.py``'s; the v2-facade case waits for its
+  module.
 * ``evaluate`` on the same seeded frames (global, per-tenant, latency and
   availability objectives, several policies): equal verdicts on both
   packages, exactly; ``render_verdict`` equal text; the objectives the
@@ -39,7 +40,11 @@ REF_CASES = ("test_objectives_from_conf_parse_and_overrides",
              "test_availability_objective_counts_replays",
              "test_whale_burn_does_not_move_minnow_budget",
              "test_tick_only_dumper_without_dump_dir",
-             "test_dumper_off_without_history_or_dump_dir")
+             "test_dumper_off_without_history_or_dump_dir",
+             "test_facade_slo_and_live_endpoint",
+             "test_cli_slo_replays_history_dir",
+             "test_cli_slo_rejects_anchorless_history",
+             "test_cli_slo_live_node_requires_node")
 REF = importlib.import_module("test_slo")
 CASES = [pytest.param(n, p, id=n) for n, p in case_ids(REF, REF_CASES)]
 

@@ -1,8 +1,9 @@
 """Port parity for the metrics plane's histograms and exporters
 (``sparkucx_tpu_torch/utils/metrics.py``, ``utils/export.py``), the
 exchange report's volume fields and ``service.stats``: the cases of
-``tests/test_telemetry.py`` but its two CLI cases (the port has no CLI
-yet: slice 21), each run on both packages.
+``tests/test_telemetry.py`` but its two CLI cases (``tests/
+test_torch_cli.py`` runs them on the port's CLI), each run on both
+packages.
 
 Cross-package, exactly: a :class:`Histogram`'s snapshot is byte-equal
 (as JSON) to the reference's for the same observations, and so are its

@@ -1,10 +1,14 @@
 """Port parity for the collective watchdog and the epoch plane
 (``runtime/watchdog.py``, ``runtime/failures.py``, ``Node.remesh``): the
 cases of ``tests/test_watchdog.py`` and ``tests/test_failures.py``'s
-``EpochManager`` and probe cases against the port (the JAX package's
-flight-recorder postmortem and ``RetryPolicy`` are not ported, so their
-cases are not here), the fence's split between a lost peer (a transport
-failure or an expired collective) and a wedged local wait, the
+``EpochManager`` and probe cases against the port, among them the
+expiry's flight-recorder postmortem (``peer_timeout``: the trace, the
+probe verdict, the stuck sections; ``test_expiry_dumps_postmortem_with_
+trace_and_verdict``) with telemetry that fails never masking the verdict
+(the fleet scrape's half, ``peer_postmortem``, is
+``tests/test_torch_fleet.py``'s), the fence's split between a lost peer
+(a transport failure or an expired collective) and a wedged local wait
+(its postmortem is ``device_timeout`` and scrapes no peer), the
 stale-epoch fence through the manager, and the drills on
 real CPU processes (``cluster.run_cluster``): a killed peer and a silent
 one each give the survivor ``PeerLostError`` within twice
@@ -12,6 +16,7 @@ one each give the survivor ``PeerLostError`` within twice
 handle and re-runs the map set on a fresh world of the survivors.
 Comparisons are exact; walls are held to the stated envelopes."""
 
+import json
 import threading
 import time
 
@@ -25,6 +30,7 @@ from sparkucx_tpu_torch.runtime import failures as failures_mod
 from sparkucx_tpu_torch.runtime.failures import (BlockCorruptionError,
                                                  DeviceUnhealthy,
                                                  EpochManager,
+                                                 FlightRecorder,
                                                  HealthMonitor,
                                                  PeerLostError,
                                                  StaleEpochError,
@@ -185,20 +191,94 @@ def test_stuck_probe_is_not_restacked():
         release.set()
 
 
-def test_telemetry_failure_does_not_mask_the_verdict():
+def test_expiry_dumps_postmortem_with_trace_and_verdict(tmp_path):
+    rec = FlightRecorder(out_dir=str(tmp_path))
+    health = _StubHealth({"cpu:0": False})
+    wd = Watchdog(100.0, health=health, flight=rec, metrics=Metrics())
+    rec.begin_trace("s7.e0.x3")
+    release = threading.Event()
+    try:
+        with pytest.raises(PeerLostError, match="s7.e0.x3"):
+            wd.call(release.wait, what="fenced allgather")
+    finally:
+        release.set()
+        rec.end_trace("s7.e0.x3")
+    assert len(rec.dumps) == 1
+    doc = json.loads(open(rec.dumps[0]).read())
+    pm = doc["peer_timeout"]
+    # the postmortem names which exchange was stuck and what the probe saw
+    assert pm["trace"] == "s7.e0.x3"
+    assert pm["what"] == "fenced allgather"
+    assert pm["dead_devices"] == ["cpu:0"]
+    assert pm["leaked_threads"] == 1
+    # the expired section itself is in the stuck snapshot (the expiry
+    # runs before the fence disarms)
+    assert [s["what"] for s in pm["stuck_sections"]] == ["fenced allgather"]
+    assert pm["stuck_sections"][0]["trace"] == "s7.e0.x3"
+    assert pm["peer_postmortem"] is None       # no fleet scrape wired
+    kinds = [e["kind"] for e in doc["events"]]
+    assert "peer_timeout" in kinds
+
+
+def test_telemetry_failure_does_not_mask_the_verdict(tmp_path):
+    """A broken probe and a broken fleet scrape still give
+    PeerLostError, and the flight recorder still dumps."""
     class _ExplodingHealth:
         timeout_ms = 100.0
 
         def probe(self):
             raise RuntimeError("probe plane down")
 
-    wd = Watchdog(100.0, health=_ExplodingHealth())
+    def explode(**kw):
+        raise RuntimeError("scrape plane down")
+
+    rec = FlightRecorder(out_dir=str(tmp_path))
+    wd = Watchdog(100.0, health=_ExplodingHealth(), flight=rec)
+    wd.peer_scrape = explode
     release = threading.Event()
     try:
         with pytest.raises(PeerLostError):
             wd.call(release.wait, what="broken telemetry")
     finally:
         release.set()
+    doc = json.loads(open(rec.dumps[0]).read())
+    assert doc["peer_timeout"]["probe"] is None
+    assert doc["peer_timeout"]["peer_postmortem"] is None
+
+
+def test_trace_defaults_to_the_newest_in_flight_exchange():
+    rec = FlightRecorder(out_dir=None)
+    wd = Watchdog(5_000.0, flight=rec)
+    seen = []
+    rec.begin_trace("s1.e0.x1")
+    rec.begin_trace("s2.e0.x2")
+    try:
+        wd.call(lambda: seen.append(wd.armed()))
+        wd.call(lambda: seen.append(wd.armed()), trace="s9.e0.x9")
+    finally:
+        rec.end_trace("s2.e0.x2")
+        rec.end_trace("s1.e0.x1")
+    assert [a[0]["trace"] for a in seen] == ["s2.e0.x2", "s9.e0.x9"]
+
+
+def test_local_expiry_dumps_a_device_timeout_and_scrapes_no_peer(tmp_path):
+    rec = FlightRecorder(out_dir=str(tmp_path))
+    wd = Watchdog(100.0, flight=rec)
+    scraped = []
+    wd.peer_scrape = lambda **kw: scraped.append(kw) or {}
+    release = threading.Event()
+    try:
+        with pytest.raises(DeviceUnhealthy):
+            wd.call(release.wait, what="exchange completion wait",
+                    local=True)
+    finally:
+        release.set()
+    assert scraped == []
+    doc = json.loads(open(rec.dumps[0]).read())
+    assert "peer_timeout" not in doc
+    assert doc["device_timeout"]["what"] == "exchange completion wait"
+    assert "peer_postmortem" not in doc["device_timeout"]
+    assert doc["reason"].startswith("DeviceUnhealthy")
 
 
 def test_configure_from_conf_installs_global():
@@ -243,6 +323,7 @@ def test_node_installs_and_close_uninstalls():
         assert current_watchdog() is node.watchdog
         assert node.watchdog.enabled
         assert node.watchdog.health is node.health
+        assert node.watchdog.flight is node.flight
     finally:
         svc.close()
     assert current_watchdog() is NULL_WATCHDOG

@@ -499,3 +499,34 @@ def decisions_suite(ctx) -> dict:
     out["spans"] = svc.manager.gather_spans()
     node.decisions.close()
     return out
+
+
+def fleet_suite(ctx) -> dict:
+    """The fleet plane on one world (the world's conf sets
+    ``metrics.httpPort`` and a shared ``failure.ledgerDir``): a plain read
+    of the float maps, then rank 0 scrapes ``/cluster/snapshot`` and
+    ``/cluster/doctor`` of its own node while every peer is still up (a
+    barrier after the scrape). Each process returns its live URL, its
+    registry and the snapshot's ``fleet_registry``."""
+    import json
+    import urllib.request
+
+    from sparkucx_tpu_torch.shuffle.distributed import allgather_blob
+    svc = ctx.svc
+    node = svc.node
+    h = write(svc.manager, 1, float_maps(), my_maps(ctx, MAPS))
+    out = {"rank": ctx.rank, "url": node.live.url, "read": dump(svc.read(h)),
+           "registry": {str(p): u for p, u in node.fleet.peers().items()},
+           "snapshot_registry": node.telemetry_snapshot()["fleet_registry"],
+           "scrape_hooked": node.watchdog.peer_scrape is not None}
+    svc.unregister_shuffle(1)
+    if ctx.rank == 0:
+        for route in ("snapshot", "doctor"):
+            with urllib.request.urlopen(f"{node.live.url}/cluster/{route}",
+                                        timeout=30) as r:
+                out[route] = json.loads(r.read().decode())
+        out["snapshot"] = {k: out["snapshot"][k] for k in (
+            "expected", "missing_peers", "processes_answered")}
+        out["doctor"] = out["doctor"]["fleet"]["processes_answered"]
+    allgather_blob(np.zeros(1, dtype=np.int64), what="fleet barrier")
+    return out

@@ -2,10 +2,13 @@
 
 ``port_view("test_doctor")`` loads ``tests/test_doctor.py`` a second
 time, as a module of its own, with its imports of the modules the port
-has (:data:`PORTED`) pointed at ``sparkucx_tpu_torch``; everything else it
-imports (the CLI, the live server, the fleet collector) stays the JAX
-package's. A case of that module then runs unchanged against the port:
-the same documents, calls and assertions.
+has (:data:`PORTED`: the telemetry and diagnosis planes, the live server,
+the fleet collector, the watchdog, the failure plane and the CLI) pointed
+at ``sparkucx_tpu_torch``, string literals included (a case's subprocess
+source boots the port's server); everything else it imports (the JAX
+node, service and manager) stays the JAX package's. A case of that module
+then runs unchanged against the port: the same documents, calls and
+assertions.
 
 ``run_case(module, name, request, fixtures)`` runs one case function of
 either module, taking its fixtures from pytest (``fixtures`` renames the
@@ -22,15 +25,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the JAX package's modules the port carries under the same names
 PORTED = ("utils.doctor", "utils.anatomy", "utils.slo", "utils.metrics",
-          "utils.export", "utils.history", "utils.trace",
-          "shuffle.decisions")
+          "utils.export", "utils.history", "utils.trace", "utils.live",
+          "utils.collector", "shuffle.decisions", "runtime.watchdog",
+          "runtime.failures", "__main__")
 
 _MODULE_RE = re.compile(
     r"\bsparkucx_tpu\.(" + "|".join(re.escape(m) for m in PORTED)
     + r")\b")
 _FROM_UTILS_RE = re.compile(
     r"\bfrom sparkucx_tpu\.utils import (doctor|anatomy|slo|metrics|"
-    r"export|history|trace)\b")
+    r"export|history|trace|live|collector)\b")
 _CONF_RE = re.compile(
     r"\bfrom sparkucx_tpu\.config import TpuShuffleConf\b")
 
