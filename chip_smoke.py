@@ -525,6 +525,37 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             --live-url URL`` run as subprocesses and must exit 0. The
             line prints each route's scrape latency beside the card's
             name and power limit.
+42. facades — the slice's phases on main's records, each counting its
+            own launches:
+            compat_v2: ``connect`` under ``compat.version=v2`` and
+            ``a2a.impl=pallas``; ``register(ShuffleDependency)``, every
+            map written by attempt 0 (map 0's attempt 0 superseded,
+            uncommitted, by attempt 1, whose stale handle must refuse to
+            publish; a retry of committed map 1 refused), four
+            ``reader(h, start, end)`` ranges over [0, 200): one segment
+            move for the four, ``shuffle.read.cached.count`` 3, every
+            partition's digest equal to main's; then ``read_device`` with
+            no D2H before ``host_view()`` and main's digests after it.
+            checkpoint: ``snapshot_shuffles`` of that service's committed
+            shuffle (1.05 GB of staged rows), the service closed, a
+            fresh one ``restore_shuffles`` and reads it (``pallas``;
+            main's digests); then the moe_train layer (raw wire) takes
+            two Adam steps, its parameters and Adam state go through a
+            ``TrainCheckpointer`` save, one more step follows; a fresh
+            layer restored from the save (bit for bit) takes the same
+            step and must land on the same parameters and loss.
+            kernelbench: ``python -m sparkucx_tpu_torch kernelbench
+            --rows-log2 20 --out <tmp>`` exits 0 with all five parity
+            grades ok and both kernels launched; the kernels' and the
+            twins' times per case.
+            workload_cli: ``python -m sparkucx_tpu_torch workload
+            terasort`` at the registry's defaults exits 0 with
+            ``oracle_ok``; ``{"phase": "arrow", "pyarrow": ...}`` says
+            whether pyarrow imports, and where it does main's shuffle
+            runs under ``io.format=arrow`` with main's digests.
+            compile_cache: a child process connects with
+            ``compile.cacheDir`` at the smoke's build directory and loads
+            the kernel library with no nvcc build; its load time.
 
 The distributed phase's world boots its nodes under
 ``metrics.httpPort=0``, so each node's fleet registry holds both
@@ -546,7 +577,8 @@ ulysses_attention_train, ring_attention, flash_at_main_shapes,
 workloads, earlier_phases_memory_planes, spill, admission, pipelines,
 moe_train, moe_dispatch, transformer_train, transformer_mesh2, hier,
 dlpack, distributed, faults, integrity, tenancy, telemetry, diagnosis,
-live.
+live, facades (compat_v2, checkpoint, kernelbench, workload_cli,
+compile_cache).
 
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel never launched fails (main and skew:
@@ -572,7 +604,10 @@ attempt of every combine read, the merge once a fold step of
 tenancy_overrides' waved reads; telemetry: the segment move, over the
 traced reads and the device trace's read; diagnosis: the segment move
 over the anatomy's plain reads and the segment move and the segment
-reduce over its combine read; live: the segment move of its read). The
+reduce over its combine read; live: the segment move of its read;
+compat_v2: the segment move once for the four readers; checkpoint: the
+segment move of the restored read; kernelbench: the segment reduce and
+the fused reduce in the child's cases). The
 ``kernels`` line gives the
 launches in the faults phase (``faults_launches``) and in the integrity
 phase (``integrity_launches``) of the four kernels they drive (the
@@ -581,8 +616,11 @@ the tenancy phase (``tenancy_launches``) of the segment move, the merge
 and the segment reduce, and in the telemetry phase
 (``telemetry_launches``) of the segment move, and in the diagnosis
 phase (``diagnosis_launches``) of the segment move and the segment
-reduce, and in the live phase (``live_launches``) of the segment move;
-the others carry no such key. The
+reduce, and in the live phase (``live_launches``) of the segment move,
+and in compat_v2 (``compat_launches``) and the checkpoint's restored read
+(``checkpoint_launches``) of the segment move, and in the kernelbench
+child (``kernelbench_launches``) of the segment reduce and the fused
+reduce; the others carry no such key. The
 last two lines of standard output
 are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
@@ -7686,6 +7724,344 @@ def check_dist_decisions(results, history_dir: str) -> dict:
             "seconds": [s["seconds"] for s in st], "ok": True}
 
 
+# -- the facades: compat v2, checkpoints, the CLI's two commands, the
+# -- kernel build cache (after every earlier phase) --------------------------
+V2_SID = 220
+V2_READERS = 4                 # range readers over [0, PARTITIONS)
+FACADE_CLI_S = 600.0           # each CLI subprocess's deadline
+
+
+def _report_line(rep) -> dict:
+    return {"plan_ms": rep.plan_ms, "pack_ms": rep.pack_ms,
+            "dispatch_ms": rep.dispatch_ms, "group_ms": rep.group_ms,
+            "phases": rep.phases, "impl": rep.impl}
+
+
+def compat_v2_phase(dev, keys, values, main_digests: dict,
+                    main_read2_ms: float):
+    """Main's shuffle through ``compat.version=v2``: every map written by
+    attempt 0 (map 0's first attempt superseded by attempt 1, uncommitted;
+    a retry of committed map 1 refused), then four range readers over
+    [0, 200) sharing one segment move, then one ``read_device`` with no
+    D2H before ``host_view()``. Returns (the line, the live service):
+    the checkpoint phase snapshots its committed shuffle."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.compat.v2 import (ShuffleDependency,
+                                              ShuffleServiceV2)
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    conf = {PFX + "compat.version": "v2", PFX + "a2a.impl": "pallas"}
+    svc = connect(conf, num_shards=SHARDS, use_env=False)
+    if not isinstance(svc, ShuffleServiceV2):
+        raise AssertionError(f"compat_v2: connect gave {type(svc)}")
+    out = {"phase": "compat_v2", "card": card_line(), "records": RECORDS,
+           "maps": MAPS, "partitions": PARTITIONS, "shards": SHARDS}
+    h = svc.register(ShuffleDependency(V2_SID, MAPS, PARTITIONS))
+    per = -(-keys.shape[0] // MAPS)
+    t = time.perf_counter()
+    stale = svc.writer(h, 0, attempt_id=0)
+    stale.write(keys[:per // 2], values[:per // 2])
+    for m in range(MAPS):
+        sl = slice(m * per, min((m + 1) * per, keys.shape[0]))
+        w = svc.writer(h, m, attempt_id=1 if m == 0 else 0)
+        w.write(keys[sl], values[sl])
+        w.commit()
+    out["write_s"] = time.perf_counter() - t
+    try:
+        stale.commit()
+        raise AssertionError("compat_v2: a superseded attempt published")
+    except RuntimeError as e:
+        if "released" not in str(e):
+            raise
+    try:
+        svc.writer(h, 1, attempt_id=1)
+        raise AssertionError("compat_v2: a committed map took a retry")
+    except RuntimeError as e:
+        if "first commit" not in str(e):
+            raise
+    cached0 = svc.node.metrics.get("shuffle.read.cached.count")
+    backend.reset_launch_counts()
+    t = time.perf_counter()
+    parts = {}
+    edges = [i * PARTITIONS // V2_READERS for i in range(V2_READERS + 1)]
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        for r, kv in svc.reader(h, lo, hi):
+            parts[r] = kv
+    torch.cuda.synchronize(dev)
+    out["read_ms"] = (time.perf_counter() - t) * 1e3
+    out["launches"] = counted(KERNEL_NAME)
+    out["cached_reads"] = int(svc.node.metrics.get(
+        "shuffle.read.cached.count") - cached0)
+    if out["launches"] != 1 or out["cached_reads"] != V2_READERS - 1:
+        raise AssertionError(f"compat_v2: {out['launches']} segment moves, "
+                             f"{out['cached_reads']} cached readers for "
+                             f"{V2_READERS} readers")
+    if partition_digests(parts) != main_digests:
+        raise AssertionError("compat_v2: partitions differ from main's")
+    out["report"] = _report_line(svc.report(V2_SID))
+    out["main_read2_ms"] = main_read2_ms
+    del parts
+    t = time.perf_counter()
+    res = svc.read_device(h)
+    torch.cuda.synchronize(dev)
+    out["read_device_ms"] = (time.perf_counter() - t) * 1e3
+    rep = svc.report(V2_SID)
+    out["read_device_d2h_before_host_view"] = rep.d2h_bytes
+    if rep.d2h_bytes != 0 or rep.sink != "device":
+        raise AssertionError(f"compat_v2: read_device sink {rep.sink}, "
+                             f"d2h {rep.d2h_bytes} before host_view")
+    view = res.host_view()
+    dparts = {r: view.partition(r) for r in range(PARTITIONS)}
+    out["read_device_d2h_after_host_view"] = svc.report(V2_SID).d2h_bytes
+    if partition_digests(dparts) != main_digests:
+        raise AssertionError("compat_v2: read_device partitions differ")
+    del dparts, view, res
+    out["ok"] = True
+    return out, svc
+
+
+def checkpoint_phase(dev, svc, main_digests: dict, root: str) -> dict:
+    """``snapshot_shuffles`` of the v2 service's committed shuffle (main's
+    records), the service closed, a fresh one restoring and reading it
+    (``pallas``); then a TrainCheckpointer round trip of the moe_train
+    layer's parameters and Adam state on the card."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    from sparkucx_tpu_torch.models import moe as tm
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    from sparkucx_tpu_torch.runtime.checkpoint import (TrainCheckpointer,
+                                                       restore_shuffles,
+                                                       snapshot_shuffles)
+    out = {"phase": "checkpoint", "card": card_line()}
+    snap = os.path.join(root, "snap")
+    t = time.perf_counter()
+    n = snapshot_shuffles(svc.manager, snap)
+    out["snapshot_write_s"] = time.perf_counter() - t
+    out["snapshot_bytes"] = sum(os.path.getsize(os.path.join(snap, f))
+                                for f in os.listdir(snap))
+    svc.stop()
+    if n != 1:
+        raise AssertionError(f"checkpoint: {n} shuffles snapshotted")
+    with connect({PFX + "a2a.impl": "pallas"}, num_shards=SHARDS,
+                 use_env=False) as fresh:
+        t = time.perf_counter()
+        handles = restore_shuffles(fresh.manager, snap)
+        out["restore_s"] = time.perf_counter() - t
+        backend.reset_launch_counts()
+        parts, read_ms, views_ms = drive_read(fresh, handles[V2_SID])
+        out["restored_launches"] = counted(KERNEL_NAME)
+        out["restored_read_ms"] = read_ms
+        if partition_digests(parts) != main_digests:
+            raise AssertionError("checkpoint: restored partitions differ "
+                                 "from main's")
+        del parts
+    # the moe_train layer (raw wire): two Adam steps, a save, one more
+    # step; then a fresh layer restored from the save takes the same step
+    cfg = moe_config("raw")
+    params0, x, y = moe_inputs(dev)
+    init, step = tm.make_train_step(cfg, MOE_DP, MOE_EP, lr=MOE_LR,
+                                    device=dev)
+    params, opt = init(params0)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, x, y)
+
+    def state_of(p, o):
+        return {"params": {k: p[k].detach() for k in tm.PARAM_NAMES},
+                "opt": o.state_dict()}
+
+    ck_dir = os.path.join(root, "train")
+    with TrainCheckpointer(ck_dir, keep=2) as ck:
+        t = time.perf_counter()
+        ck.save(2, state_of(params, opt))
+        out["train_save_s"] = time.perf_counter() - t
+        out["train_bytes"] = sum(os.path.getsize(os.path.join(ck_dir, f))
+                                 for f in os.listdir(ck_dir))
+        saved = {k: v.detach().clone() for k, v in params.items()}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            params, opt, loss_a = step(params, opt, x, y)
+            after_a = {k: v.detach().clone() for k, v in params.items()}
+            params2, opt2 = init(params0)
+            t = time.perf_counter()
+            got = ck.restore(target=state_of(params, opt))
+            torch.cuda.synchronize(dev)
+            out["train_restore_s"] = time.perf_counter() - t
+            for k in tm.PARAM_NAMES:
+                if not torch.equal(got["params"][k], saved[k]):
+                    raise AssertionError(f"checkpoint: parameter {k} not "
+                                         f"restored bit for bit")
+            with torch.no_grad():
+                for k in tm.PARAM_NAMES:
+                    params2[k].copy_(got["params"][k])
+            opt2.load_state_dict(got["opt"])
+            params2, opt2, loss_b = step(params2, opt2, x, y)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    diffs = {k: float((params2[k].detach() - after_a[k]).abs().max())
+             for k in tm.PARAM_NAMES}
+    out["train_step_max_abs_diff"] = max(diffs.values())
+    out["train_loss_after_save"] = float(loss_a)
+    out["train_loss_after_restore"] = float(loss_b)
+    if any(not torch.equal(params2[k].detach(), after_a[k])
+           for k in tm.PARAM_NAMES) or float(loss_a) != float(loss_b):
+        raise AssertionError(f"checkpoint: the step after the restore "
+                             f"differs from the step without one: {diffs}")
+    out["ok"] = True
+    return out
+
+
+def cli_run(args: list, timeout: float = FACADE_CLI_S) -> tuple:
+    """``python -m sparkucx_tpu_torch <args>`` from the checkout's root:
+    (return code, stdout, stderr, seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "sparkucx_tpu_torch", *args],
+                       cwd=here, capture_output=True, text=True,
+                       timeout=timeout)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t
+
+
+def kernelbench_phase(root: str) -> dict:
+    """The ported kernelbench through the CLI at 2^20 rows: exit 0, all
+    five parity grades ok, the kernels' and the twins' times per case."""
+    out_path = os.path.join(root, "kernelbench.json")
+    rc, stdout, stderr, secs = cli_run(["kernelbench", "--rows-log2", "20",
+                                        "--out", out_path])
+    if rc != 0:
+        if os.path.exists(out_path):
+            with open(out_path) as f:
+                doc = json.load(f)
+            stderr = json.dumps({"programs": doc["programs"], "parity": {
+                c["case"]: c["parity"] for c in doc["cases"]}})
+        raise AssertionError(f"kernelbench exited {rc}: {stderr[-2000:]}")
+    with open(out_path) as f:
+        doc = json.load(f)
+    cases = {c["case"]: {"cuda_ms": c["cuda"].get("wall_ms"),
+                         "torch_ms": c["torch"]["wall_ms"],
+                         "parity": c["parity"]} for c in doc["cases"]}
+    bad = [n for n, c in cases.items()
+           if c["parity"].get("status") != "ok" or not c["parity"]["ok"]]
+    if len(cases) != 5 or bad or not doc["native_cuda"]:
+        raise AssertionError(f"kernelbench: grades failed for {bad}")
+    from sparkucx_tpu_torch.ops.segmented import (KERNEL_NAME,
+                                                  WIRE_KERNEL_NAME)
+    silent = [k for k in (KERNEL_NAME, WIRE_KERNEL_NAME)
+              if doc["launches"].get(k, 0) <= 0]
+    if silent:
+        raise AssertionError(f"kernelbench: {silent} never launched: "
+                             f"{doc['launches']}")
+    return {"phase": "kernelbench", "card": card_line(), "seconds": secs,
+            "cases": cases, "programs": doc["programs"],
+            "launches": doc["launches"], "ok": True}
+
+
+def workload_cli_phase(dev, keys, values, main_digests: dict) -> dict:
+    """``python -m sparkucx_tpu_torch workload terasort`` at the
+    registry's defaults; then main's shuffle under ``io.format=arrow``
+    where pyarrow imports."""
+    rc, stdout, stderr, secs = cli_run(["workload", "terasort"])
+    if rc != 0:
+        raise AssertionError(f"workload terasort exited {rc}: "
+                             f"{stderr[-2000:]}")
+    rep = json.loads(stdout)
+    if not rep["oracle_ok"]:
+        raise AssertionError("workload terasort: oracle failed")
+    out = {"phase": "workload_cli", "card": card_line(), "seconds": secs,
+           "rows_in": rep["rows_in"], "wall_s": rep.get("wall_s"),
+           "phases": rep["phases"], "oracle_ok": True}
+    from sparkucx_tpu_torch.io.arrow import HAVE_ARROW
+    print(json.dumps({"phase": "arrow", "pyarrow": HAVE_ARROW}), flush=True)
+    if HAVE_ARROW:
+        import pyarrow as pa
+        from sparkucx_tpu_torch import connect
+        from sparkucx_tpu_torch.io.arrow import batch_to_kv
+        conf = {PFX + "a2a.impl": "pallas", PFX + "io.format": "arrow"}
+        with connect(conf, num_shards=SHARDS, use_env=False) as svc:
+            h = svc.register_shuffle(230, MAPS, PARTITIONS)
+            per = -(-keys.shape[0] // MAPS)
+            for m in range(MAPS):
+                sl = slice(m * per, min((m + 1) * per, keys.shape[0]))
+                cols = {"key": keys[sl]}
+                cols.update({f"v{j}": values[sl, j]
+                             for j in range(VALUE_WORDS)})
+                svc.write(h, m, pa.record_batch(cols))
+            t = time.perf_counter()
+            batches = svc.read(h)
+            out["arrow_read_ms"] = (time.perf_counter() - t) * 1e3
+            parts = {}
+            for b in batches:
+                k, v, _ = batch_to_kv(b, "key")
+                r = int(hash_pid(k[:1], PARTITIONS)[0])
+                parts[r] = (k, v)
+            for r in range(PARTITIONS):
+                parts.setdefault(r, (np.zeros(0, np.int64),
+                                     np.zeros((0, VALUE_WORDS), np.int32)))
+            if partition_digests(parts) != main_digests:
+                raise AssertionError("arrow: partitions differ from main's")
+    out["ok"] = True
+    return out
+
+
+def compile_cache_phase() -> dict:
+    """A fresh process with ``compile.cacheDir`` at the directory the
+    smoke's build went into: it loads the library without nvcc."""
+    from sparkucx_tpu_torch import backend
+    here = os.path.dirname(os.path.abspath(__file__))
+    cache = str(backend.build_dir())
+    code = (
+        "import json, time\n"
+        "from sparkucx_tpu_torch import backend, connect\n"
+        "from sparkucx_tpu_torch.runtime.compile_cache import "
+        "cache_entry_count\n"
+        f"svc = connect({{'{PFX}compile.cacheDir': {cache!r}}}, "
+        "num_shards=1, use_env=False)\n"
+        "t = time.perf_counter()\n"
+        "backend.kernel_library()\n"
+        "ms = (time.perf_counter() - t) * 1e3\n"
+        "svc.stop()\n"
+        "print(json.dumps({'builds': backend.build_count(), 'load_ms': ms,"
+        f" 'entries': cache_entry_count({cache!r})}}))\n")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=here,
+                       capture_output=True, text=True, timeout=FACADE_CLI_S)
+    secs = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"compile_cache: child exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    doc = json.loads(r.stdout.strip().splitlines()[-1])
+    if doc["builds"] != 0 or doc["entries"] < 1:
+        raise AssertionError(f"compile_cache: the child built {doc}")
+    return {"phase": "compile_cache", "card": card_line(), "dir": cache,
+            "seconds": secs, **doc, "ok": True}
+
+
+def facades_phase(dev, main_digests: dict, main_read2_ms: float) -> dict:
+    """The slice's phases in turn on main's records, each line printed as
+    its phase ends; each sets the launch counts to 0 before its path and
+    reads them after."""
+    t = time.perf_counter()
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    out = {"gen_s": time.perf_counter() - t}
+    root = tempfile.mkdtemp(prefix="chip_smoke_facades_")
+
+    def done(name: str, line: dict) -> None:
+        out[name] = line
+        print(json.dumps(line), flush=True)
+    try:
+        cv, svc = compat_v2_phase(dev, keys, values, main_digests,
+                                  main_read2_ms)
+        done("compat_v2", cv)
+        # the checkpoint phase closes the v2 service after its snapshot
+        done("checkpoint", checkpoint_phase(dev, svc, main_digests, root))
+        done("kernelbench", kernelbench_phase(root))
+        done("workload_cli", workload_cli_phase(dev, keys, values,
+                                                main_digests))
+        done("compile_cache", compile_cache_phase())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8128,6 +8504,14 @@ def main() -> int:
     print(json.dumps({**lv, "seconds": time.perf_counter() - t}),
           flush=True)
 
+    # -- the facades: compat v2, the checkpoints, the CLI's kernelbench
+    # and workload commands, the kernel build cache
+    t = time.perf_counter()
+    fc = facades_phase(dev, main_digests, read2_ms)
+    print(json.dumps({"phase": "facades", "gen_s": fc["gen_s"],
+                      "seconds": time.perf_counter() - t}), flush=True)
+    kb_launches = fc["kernelbench"]["launches"]
+
     flash_launches = {**ua["launches"], **{
         k: n for k, n in ut["launches"].items() if k != "flash_fwd"}}
     flash_entries = [{
@@ -8159,6 +8543,8 @@ def main() -> int:
         "telemetry_launches": te["telemetry_launches"],
         "diagnosis_launches": diagnosis_launches[KERNEL_NAME],
         "live_launches": lv["live_launches"],
+        "compat_launches": fc["compat_v2"]["launches"],
+        "checkpoint_launches": fc["checkpoint"]["restored_launches"],
         "max_abs_err": kt["max_abs_err"], "ms": kt["kernel_ms"],
         "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
         "bound_by": "bytes", "library_ms": kt["library_ms"]}, {
@@ -8172,6 +8558,7 @@ def main() -> int:
         "diagnosis_launches": diagnosis_launches[SEG_KERNEL],
         "workload_launches": wl_launches[SEG_KERNEL],
         "pipeline_launches": pl_launches[SEG_KERNEL],
+        "kernelbench_launches": kb_launches.get(SEG_KERNEL, 0),
         "max_abs_err": st["max_abs_err"], "ms": st["kernel_ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
         "bound_full_output_ms": st["bound_full_output_ms"],
@@ -8205,6 +8592,7 @@ def main() -> int:
         "replaces": SEG_TPU_KERNEL,
         "launches": i8_stats["launches"][WIRE_KERNEL],
         "dist_launches": dist_launches[WIRE_KERNEL],
+        "kernelbench_launches": kb_launches.get(WIRE_KERNEL, 0),
         "max_abs_err": wt["max_abs_err"], "ms": wt["kernel_ms"],
         "plain_ms": wt["plain_ms"], "bound_ms": wt["bound_ms"],
         "bound_full_output_ms": wt["bound_full_output_ms"],

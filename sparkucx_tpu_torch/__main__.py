@@ -60,8 +60,18 @@ Subcommands:
     decision rules' findings. Exit 2 when no ledger record reached the
     audit, 3 past ``--fail-on``.
 
-``workload`` and ``kernelbench``
-    Not ported yet: they print why and exit 2.
+``workload <name> [--scale S] [--budget-mb N] [--seed K] [--arrow]
+[--conf KEY=VALUE ...]``
+    Run one registered external-memory pipeline (``workloads.WORKLOADS``:
+    terasort, groupby, join) on the card and print its WorkloadReport
+    JSON. Exit 2 on an unknown name or a malformed ``--conf``, 4 when the
+    oracle fails.
+
+``kernelbench [--reps N] [--rows-log2 K] [--out PATH]``
+    The segment-reduce microbench (``ops/microbench.py``): the torch
+    twins timed everywhere, the CUDA kernels timed and graded against
+    them on the card (skipped with the reason elsewhere). Exit 2 when a
+    grade or the build count fails.
 """
 
 from __future__ import annotations
@@ -400,20 +410,48 @@ def _verdict_from_docs(docs) -> dict:
                              view.slo_policy))
 
 
-# commands of the JAX package's CLI whose modules the port does not carry
-# yet: listed in --help, refused with a reason
-NOT_PORTED = {
-    "kernelbench": "the blocked-kernel microbench (ops/pallas/"
-                   "microbench.py) is not ported yet",
-    "workload": "the workload command is not ported yet (from Python, "
-                "sparkucx_tpu_torch.workloads.run_workload runs a "
-                "pipeline)",
-}
+def _cmd_kernelbench(args) -> int:
+    """``kernelbench``: run the segment-reduce microbench
+    (``ops/microbench.py``) on the card (the twins alone elsewhere) and
+    print the artifact as one JSON document. Exit 0 only when every
+    parity grade that ran passed and the build count held (at most one
+    build on the first pass, none on the warm pass); a skipped ``cuda``
+    arm is a clean record, not a failure."""
+    from sparkucx_tpu_torch.ops.microbench import run_microbench
+    out = run_microbench(reps=args.reps, rows_log2=args.rows_log2)
+    if args.out:
+        from sparkucx_tpu_torch.utils.atomicio import atomic_write_json
+        atomic_write_json(args.out, out, indent=1)
+        out["artifact"] = args.out
+    print(json.dumps(out, indent=1))
+    return 0 if out["ok"] else 2
 
 
-def _cmd_not_ported(cmd: str) -> int:
-    print(f"{cmd}: {NOT_PORTED[cmd]}", file=sys.stderr)
-    return 2
+def _cmd_workload(args) -> int:
+    """``workload``: run one registered pipeline and print its
+    WorkloadReport JSON; exit 2 on an unknown name or a malformed
+    ``--conf``, 4 when the oracle fails."""
+    from sparkucx_tpu_torch import workloads
+    if args.name not in workloads.WORKLOADS:
+        print(f"unknown workload {args.name!r}; registered: "
+              f"{', '.join(sorted(workloads.WORKLOADS.keys()))}",
+              file=sys.stderr)
+        return 2
+    overrides = {}
+    for kv in args.conf or []:
+        if "=" not in kv:
+            print(f"--conf wants key=value, got {kv!r}", file=sys.stderr)
+            return 2
+        k, v = kv.split("=", 1)
+        overrides[k] = v
+    kwargs = {}
+    if args.arrow:
+        kwargs["arrow"] = True
+    rep = workloads.run_workload(args.name, budget_mb=args.budget_mb,
+                                 scale=args.scale, seed=args.seed,
+                                 conf_overrides=overrides, **kwargs)
+    print(rep.to_json())
+    return 0 if rep.oracle_ok else 4
 
 
 def _cmd_cluster(args) -> int:
@@ -694,13 +732,48 @@ def main(argv=None) -> int:
                        choices=("warn", "critical"),
                        help="exit 3 when a decision-plane finding of "
                             "this grade or worse fired (CI gate)")
-    for name, why in NOT_PORTED.items():
-        sub.add_parser(name, help=f"{why}; exits 2")
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        # refused before parsing, whatever arguments follow
-        return _cmd_not_ported(argv[0])
+    p_wl = sub.add_parser(
+        "workload",
+        help="run one registered analytics pipeline (terasort | "
+             "groupby | join) external-memory and print its "
+             "WorkloadReport JSON")
+    p_wl.add_argument("name",
+                      help="registry name (workloads.WORKLOADS)")
+    p_wl.add_argument("--budget-mb", type=float, default=16.0,
+                      help="pinned-pool memory budget in MiB; the "
+                           "dataset is 10 x budget x scale bytes "
+                           "(default 16)")
+    p_wl.add_argument("--scale", type=float, default=1.0,
+                      help="dataset multiplier over the 10x-budget "
+                           "baseline (default 1.0)")
+    p_wl.add_argument("--seed", type=int, default=0)
+    p_wl.add_argument("--arrow", action="store_true",
+                      help="route ingest/egress through the Arrow "
+                           "columnar path (io/arrow.py) where the "
+                           "workload supports it")
+    p_wl.add_argument("--conf", nargs="*", default=None,
+                      metavar="KEY=VALUE",
+                      help="extra spark.shuffle.tpu.* conf overrides "
+                           "(e.g. a2a.impl pins, workload.budgetMb)")
+    p_kb = sub.add_parser(
+        "kernelbench",
+        help="segment-reduce kernel microbench (ops/microbench.py): "
+             "the torch twins timed everywhere, the CUDA kernels timed "
+             "on the card and recorded as a skip with the reason "
+             "elsewhere, parity graded on the card, the kernel "
+             "library's builds gated in the artifact; prints one JSON "
+             "doc")
+    p_kb.add_argument("--reps", type=int, default=5,
+                      help="timed repetitions per case (default 5)")
+    p_kb.add_argument("--rows-log2", type=int, default=13,
+                      help="log2 rows for the bulk cases (default 13)")
+    p_kb.add_argument("--out", default=None,
+                      help="also write the artifact JSON here (atomic)")
     args = ap.parse_args(argv)
+    if args.cmd == "kernelbench":
+        return _cmd_kernelbench(args)
+    if args.cmd == "workload":
+        return _cmd_workload(args)
     if args.cmd == "stats":
         return _cmd_stats(args)
     if args.cmd == "trace":

@@ -9,10 +9,12 @@ Kernel build: the CUDA sources under ``csrc/`` have a plain C interface
 (no PyTorch headers — those push one ``nvcc`` run to minutes). At first
 use every source compiles to an object with its own ``nvcc`` process, all
 started together, for ``sm_90a``; the objects link into one shared library
-in ``_build/`` (named by a digest of sources and flags, so a stale build is
-never loaded) and load through ``ctypes``. A missing compiler, a failed
-build or a failed launch raises; there is no fallback to a kernel's plain
-version on a CUDA tensor.
+in the build directory (named by a digest of sources and flags, so a stale
+build is never loaded) and load through ``ctypes``. The build directory is
+the package's ``_build/`` unless ``runtime/compile_cache.py`` binds another
+(``compile.cacheDir``) or a private one (``compile.cacheEnabled=false``).
+A missing compiler, a failed build or a failed launch raises; there is no
+fallback to a kernel's plain version on a CUDA tensor.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` where it
 launches its kernel, so a run can show which kernels its main path went
@@ -26,17 +28,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
 
-from sparkucx_tpu_torch.config import validate_impl
+from sparkucx_tpu_torch.config import DEFAULT_BUILD_DIR, validate_impl
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(DEFAULT_BUILD_DIR)
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -85,6 +88,12 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log: List[str] = []          # nvcc output of this process's build
+# the build directory binding (runtime/compile_cache.py): the shared
+# directory, and whether builds stay private to this process
+_bound_dir: Path = BUILD_DIR
+_bound_private = False
+_private_dir: Optional[Path] = None
+_builds = 0                        # nvcc builds this process ran
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {}
@@ -194,7 +203,39 @@ def _run_all(cmds: List[List[str]]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
-def _build() -> Path:
+def private_build_dir() -> Path:
+    """This process's own build directory (made on first use, removed
+    at exit)."""
+    global _private_dir
+    if _private_dir is None:
+        _private_dir = Path(tempfile.mkdtemp(prefix="sxt_kernels_"))
+        import atexit
+        atexit.register(shutil.rmtree, str(_private_dir), True)
+    return _private_dir
+
+
+def bind_build_dir(path, private: bool = False) -> None:
+    """Where later builds go and load from: the shared directory
+    ``path``, or (``private``) this process's own. A library already
+    loaded stays loaded."""
+    global _bound_dir, _bound_private
+    with _lock:
+        _bound_dir = Path(path) if path is not None else BUILD_DIR
+        _bound_private = bool(private)
+
+
+def build_dir() -> Path:
+    """The directory the next build goes into and loads from."""
+    return private_build_dir() if _bound_private else _bound_dir
+
+
+def build_count() -> int:
+    """nvcc builds this process ran (0 when every load found a build)."""
+    return _builds
+
+
+def library_digest() -> str:
+    """Digest of the sources and flags that names the library file."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
@@ -202,19 +243,28 @@ def _build() -> Path:
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    digest = h.hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsxt_kernels_{digest}.so"
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    global _builds
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = library_digest()
+    name = f"libsxt_kernels_{digest}.so"
+    out_dir = build_dir()
+    lib_path = out_dir / name
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{digest}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in sources]
     _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
               for s, o in zip(sources, objs)])
-    tmp = BUILD_DIR / f"libsxt_kernels.{tag}.so"
+    tmp = out_dir / f"libsxt_kernels.{tag}.so"
     _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs),
                "-lcudart"]])
+    _builds += 1
     os.replace(tmp, lib_path)        # atomic: readers never see a partial
     for o in objs:
         o.unlink(missing_ok=True)
@@ -223,7 +273,7 @@ def _build() -> Path:
 
 def kernel_library() -> ctypes.CDLL:
     """The built kernel library (compiled on first call in this process
-    when ``_build/`` has no current build)."""
+    when the build directory has no current build)."""
     global _lib
     with _lock:
         if _lib is None:

@@ -31,7 +31,12 @@ keys (:data:`TELEMETRY_KEYS`: ``trace.*``, ``metrics.dumpDir``,
 ``utils/slo.py``, and ``doctor.*``) and the network half of telemetry's
 (``metrics.httpPort``, ``metrics.httpHost``, ``metrics.httpAdvertiseHost``,
 read by ``utils/live.py`` and ``utils/collector.py``, and
-``fleet.scrapeTimeoutMs``). Byte sizes parse as the JAX package's do
+``fleet.scrapeTimeoutMs``); ``a2a.sortStrips`` (validated, no effect:
+every read is one flat sort); the kernel build cache's ``compile.cacheEnabled``,
+``compile.cacheDir`` and ``compile.minCompileTimeSecs``
+(``runtime/compile_cache.py``); and the facade keys ``compat.version``,
+``io.format``, ``io.keyColumn`` and ``io.stringMaxBytes``, read by
+``service.connect`` and ``compat/``. Byte sizes parse as the JAX package's do
 (``'4m'``, ``'1k'``, ``'300'``, ``'2GiB'``).
 
 :meth:`ShuffleConf.describe_keys` is the table ``python -m
@@ -112,6 +117,15 @@ FAILURE_POLICIES = ("failfast", "replay")
 # shard's whole delivered prefix on its first touch; partition copies only
 # the touched partition's runs
 FETCH_GRANULARITIES = ("shard", "partition")
+
+# a2a.sortStrips bounds (the JAX package's STRIPS_RANGE; shuffle/plan.py
+# re-exports it)
+STRIPS_RANGE = (1, 4096)
+
+# where the kernel library is built and loaded from when
+# compile.cacheDir is unset (the package's own build directory)
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "_build")
 
 # most-recent ExchangeReports a manager keeps (metrics.reportCapacity)
 REPORT_CAPACITY = 64
@@ -215,8 +229,15 @@ TELEMETRY_KEYS = {
 EXTERNAL_KEYS = {
     **{k: ("", doc) for k, (_, doc) in TELEMETRY_KEYS.items()
        if not k.startswith("slo.")},
-    "io.format": ("", "shuffle payload codec: raw is the one the port "
-                      "reads (service.py connect)"),
+    "io.format": ("", "shuffle payload codec: raw | arrow (service.py "
+                      "connect; the port's default is raw)"),
+    "io.keyColumn": ("", "arrow format: which column is the shuffle key "
+                         "(default 'key')"),
+    "io.stringMaxBytes": ("", "arrow format: per-string byte cap of a "
+                              "string/binary column (varlen transport pad "
+                              "width, default 64)"),
+    "compat.version": ("", "host-adapter contract: v1 | v2 "
+                           "(compat/__init__.resolve_adapter)"),
     "metrics.reportCapacity": ("", "ExchangeReport ring size per manager "
                                    "(default 64)"),
     "tenant.*": ("", "multi-tenant service plane (shuffle/tenancy.py): "
@@ -347,7 +368,9 @@ class ShuffleConf:
                     "history_retain_windows", "decisions_enabled",
                     "decisions_retain", "doctor_watch_interval_secs",
                     "doctor_capture_ms", "doctor_rearm_passes",
-                    "fleet_scrape_timeout_ms")
+                    "fleet_scrape_timeout_ms", "sort_strips",
+                    "compile_cache_enabled", "compile_cache_dir",
+                    "compile_min_compile_time_secs")
 
     def __init__(self, conf: Optional[Mapping[str, str]] = None,
                  use_env: bool = True):
@@ -481,6 +504,23 @@ class ShuffleConf:
     def sort_impl(self) -> str:
         """Destination-sort order contract (see SORT_METHODS)."""
         return validate_sort_impl(self._get("a2a.sortImpl", "auto"))
+
+    @property
+    def sort_strips(self):
+        """The JAX package's one-shard strip count ('auto' or an int in
+        :data:`STRIPS_RANGE`), validated as it validates it. No value
+        changes a read: every destination sort is one flat ``torch.sort``,
+        since strips (a depth-bound sort network on the TPU) showed no
+        gain on the card."""
+        raw = self._get("a2a.sortStrips", "auto")
+        if raw == "auto":
+            return "auto"
+        v = int(raw)
+        if not STRIPS_RANGE[0] <= v <= STRIPS_RANGE[1]:
+            raise ValueError(
+                f"spark.shuffle.tpu.a2a.sortStrips={v}: want "
+                f"{STRIPS_RANGE[0]}..{STRIPS_RANGE[1]} or 'auto'")
+        return v
 
     @property
     def combine_compaction(self) -> str:
@@ -806,6 +846,32 @@ class ShuffleConf:
             raise ValueError(
                 f"spark.shuffle.tpu.io.fetchGranularity={v!r}: want "
                 f"shard|partition")
+        return v
+
+    @property
+    def compile_cache_enabled(self) -> bool:
+        """Shared kernel-library cache (runtime/compile_cache.py): on by
+        default, so a process loads the library an earlier process built
+        into ``compile.cacheDir`` instead of running nvcc again; off, a
+        process builds into a private directory of its own."""
+        return self.get_bool("compile.cacheEnabled", True)
+
+    @property
+    def compile_cache_dir(self) -> str:
+        """Directory the digest-keyed kernel library is built into and
+        loaded from (default: the package's ``_build/``)."""
+        return self._get("compile.cacheDir", DEFAULT_BUILD_DIR)
+
+    @property
+    def compile_min_compile_time_secs(self) -> float:
+        """Validated as the JAX package validates it, and not read: the
+        threshold is per XLA program, and the port has one library build
+        (runtime/compile_cache.py)."""
+        v = float(self._get("compile.minCompileTimeSecs", 1.0))
+        if v < 0:
+            raise ValueError(
+                f"spark.shuffle.tpu.compile.minCompileTimeSecs={v}: "
+                f"want >= 0")
         return v
 
     @property

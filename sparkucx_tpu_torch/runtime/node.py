@@ -294,6 +294,11 @@ class Node:
             raise ValueError(f"num_shards must be positive, got {num_shards}")
         self.conf = conf or ShuffleConf()
         self.device = resolve_device(device)
+        # where this process builds and loads the kernel library
+        # (compile.* keys); never fails the node
+        from sparkucx_tpu_torch.runtime.compile_cache import \
+            configure_compile_cache
+        self.compile_cache_dir = configure_compile_cache(self.conf)
         self.num_shards = int(num_shards)
         self.process_id = int(process_id)
         self.is_distributed = bool(distributed) \

@@ -2,11 +2,20 @@
 conf mapping, so an engine drives shuffles without touching any internal
 constructor.
 
-Only the raw IO format is ported: ``write`` takes int64 keys and optional
-value rows, ``read`` returns the partition view (plain, combined by key
-or key-ordered), or the device result under ``sink="device"``. A conf that names
-``spark.shuffle.tpu.io.format`` other than ``raw`` is refused (the Arrow
-codec is a later slice of the port).
+``spark.shuffle.tpu.io.format`` picks the codec. ``raw`` (the port's
+default): ``write`` takes int64 keys and optional value rows, ``read``
+returns the partition view (plain, combined by key or key-ordered), or
+the device result under ``sink="device"``. ``arrow``: ``write`` takes
+RecordBatches (the ``io.keyColumn`` column routes, the rest ride;
+``io.stringMaxBytes`` caps a string column) and ``read`` returns one
+RecordBatch per non-empty partition (``io/arrow.py``). The JAX package
+defaults to ``arrow``; the port keeps ``raw``, because pyarrow is an
+optional dependency the card's machine lacks.
+
+``spark.shuffle.tpu.compat.version`` picks the facade :func:`connect`
+returns: ``v1`` (this module's :class:`ShuffleService`, the default) or
+``v2`` (``compat/v2.py``: dependency-object registration, attempt-id
+writers, partition-range readers).
 
 ``read_async`` / ``submit_async`` run reads on the async plane
 (``shuffle/tenancy.AsyncShuffleExecutor``) and return a
@@ -41,7 +50,7 @@ from sparkucx_tpu_torch.utils.doctor import diagnose, render_findings
 from sparkucx_tpu_torch.utils.export import PeriodicDumper, render_prometheus
 from sparkucx_tpu_torch.utils.slo import render_verdict
 
-IO_FORMATS = ("raw",)
+IO_FORMATS = ("arrow", "raw")
 
 
 def _start_dumper(conf: ShuffleConf, stats_fn, node) -> Optional[
@@ -73,17 +82,30 @@ class ShuffleService:
 
     def __init__(self, conf: ShuffleConf, device=None,
                  num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
-                 process_id: int = 0):
+                 process_id: int = 0, metrics_reporter=None):
         self.conf = conf
-        fmt = (conf.get("spark.shuffle.tpu.io.format") or "raw") \
+        self.io_format = (conf.get("spark.shuffle.tpu.io.format") or "raw") \
             .strip().lower()
-        if fmt not in IO_FORMATS:
-            raise ValueError(f"io.format {fmt!r} is not ported; want one "
-                             f"of {IO_FORMATS}")
+        if self.io_format not in IO_FORMATS:
+            raise ValueError(f"unknown io.format {self.io_format!r}; want "
+                             f"{IO_FORMATS}")
+        if self.io_format == "arrow":
+            from sparkucx_tpu_torch.io.arrow import _require_arrow
+            _require_arrow()
+        self.key_column = conf.get("spark.shuffle.tpu.io.keyColumn", "key")
+        # per-record ceiling of a string/binary Arrow column (the varlen
+        # pad width, io/varlen.py): part of the shuffle's schema
+        self.string_max_bytes = int(conf.get(
+            "spark.shuffle.tpu.io.stringMaxBytes", "64"))
         self.node = Node.start(conf, device=device, num_shards=num_shards,
                                distributed=distributed,
                                process_id=process_id)
         self.manager = ShuffleManager(self.node, conf)
+        # the host engine's metrics seam: fn(name, value) sees every
+        # counter increment
+        self._metrics_reporter = metrics_reporter
+        if metrics_reporter is not None:
+            self.node.metrics.add_reporter(metrics_reporter)
         # the async plane (its worker pool starts on the first submit);
         # it shares the manager's tenant registry, and reports stamp its
         # effective width
@@ -112,15 +134,25 @@ class ShuffleService:
     def unregister_shuffle(self, shuffle_id: int) -> None:
         self.manager.unregister_shuffle(shuffle_id)
 
-    def write(self, handle: ShuffleHandle, map_id: int, keys,
+    def write(self, handle: ShuffleHandle, map_id: int, data,
               values: Optional[np.ndarray] = None) -> None:
-        """Stage and commit one map task's output."""
+        """Stage and commit one map task's output. raw: ``data`` is the
+        int64 keys (+ optional values); arrow: a RecordBatch or a list of
+        them."""
+        if self.io_format == "arrow":
+            from sparkucx_tpu_torch.io.arrow import write_batches
+            batches = data if isinstance(data, (list, tuple)) else [data]
+            write_batches(self.manager, handle, map_id, batches,
+                          self.key_column,
+                          string_max_bytes=self.string_max_bytes)
+            return
         w = self.manager.get_writer(handle, map_id)
-        w.write(np.asarray(keys), values)
+        w.write(np.asarray(data), values)
         w.commit(handle.num_partitions)
 
     def writer(self, handle: ShuffleHandle, map_id: int):
-        """Incremental writer for multi-batch map tasks."""
+        """Raw incremental writer for multi-batch map tasks (both formats;
+        arrow callers convert with ``io.arrow.batch_to_kv``)."""
         return self.manager.get_writer(handle, map_id)
 
     def read(self, handle: ShuffleHandle, timeout: Optional[float] = None,
@@ -128,7 +160,19 @@ class ShuffleService:
              combine_sum_words: int = 0, sink: Optional[str] = None):
         """The partition view, or with ``sink="device"`` the device result
         (see :meth:`ShuffleManager.read` for ``combine`` / ``ordered`` /
-        ``sink``)."""
+        ``sink``); under ``io.format=arrow`` one RecordBatch per
+        non-empty partition."""
+        if self.io_format == "arrow":
+            if sink == "device":
+                raise ValueError(
+                    "sink='device' requires io.format=raw: the Arrow "
+                    "egress materializes RecordBatches host-side by "
+                    "definition — the round-trip the device sink deletes")
+            from sparkucx_tpu_torch.io.arrow import read_batches
+            return read_batches(self.manager, handle,
+                                key_column=self.key_column, timeout=timeout,
+                                ordered=ordered, combine=combine,
+                                combine_sum_words=combine_sum_words)
         return self.manager.read(handle, timeout=timeout, combine=combine,
                                  ordered=ordered,
                                  combine_sum_words=combine_sum_words,
@@ -221,6 +265,9 @@ class ShuffleService:
             # its stop writes the final snapshot
             self._dumper.stop()
             self._dumper = None
+        if self._metrics_reporter is not None:
+            self.node.metrics.remove_reporter(self._metrics_reporter)
+            self._metrics_reporter = None
         # the watcher must not keep reading through a stopped manager
         self.node.reset_providers()
         self.manager.stop()
@@ -237,7 +284,8 @@ class ShuffleService:
 
 def connect(conf: Optional[Mapping[str, str]] = None, *, device=None,
             num_shards: int = DEFAULT_SHARDS, distributed: bool = False,
-            process_id: int = 0, use_env: bool = True) -> ShuffleService:
+            process_id: int = 0, use_env: bool = True,
+            metrics_reporter=None):
     """Build the stack purely from configuration. ``device`` defaults to
     the CUDA device and raises without one; ``device="cpu"`` is the only
     way to run without a GPU. ``num_shards`` is the number of logical
@@ -245,8 +293,16 @@ def connect(conf: Optional[Mapping[str, str]] = None, *, device=None,
     count, split evenly over the processes). ``distributed=True`` joins
     the cluster of ``numProcesses`` processes at ``coordinator.address``
     as process ``process_id``; its reads are collectives
-    (``shuffle/distributed.py``)."""
+    (``shuffle/distributed.py``). ``metrics_reporter`` — optional
+    ``fn(name, value)`` seeing every shuffle counter increment.
+    ``compat.version`` selects the facade class (``compat/``): ``v1``
+    (:class:`ShuffleService`, the default) or ``v2``; an unknown version
+    raises here."""
     tconf = conf if isinstance(conf, ShuffleConf) \
         else ShuffleConf(conf, use_env=use_env)
-    return ShuffleService(tconf, device=device, num_shards=num_shards,
-                          distributed=distributed, process_id=process_id)
+    from sparkucx_tpu_torch.compat import resolve_adapter
+    cls = resolve_adapter(
+        tconf.get("spark.shuffle.tpu.compat.version", "v1"))
+    return cls(tconf, device=device, num_shards=num_shards,
+               distributed=distributed, process_id=process_id,
+               metrics_reporter=metrics_reporter)

@@ -179,11 +179,14 @@ def groupby_pipeline(manager: ShuffleManager, *,
                      key_space: int = 20000, value_width: int = 4,
                      shuffle_id: int = 9300, seed: int = 0,
                      sink: str = "device", warm_reads: int = 1,
-                     chunk_rows: int = 65536) -> WorkloadReport:
+                     chunk_rows: int = 65536,
+                     arrow: bool = False) -> WorkloadReport:
     """External-memory group-by-aggregate at ten times the budget:
 
     * chunked ingest of (key, int32 value lanes) pairs, the pool valve
-      sealing staged bytes to spill files;
+      sealing staged bytes to spill files (``arrow=True`` routes every
+      chunk through the Arrow ingress, ``io/arrow.stage_batches`` on the
+      native int32 carrier);
     * one waved ``combine="sum"`` read: each wave combines on the device
       and the waves fold there (merge + segment reduce), landing one
       key-sorted row per distinct key on the device; the consumer moves
@@ -220,6 +223,9 @@ def groupby_pipeline(manager: ShuffleManager, *,
     try:
         with walls.phase("ingest"):
             per_map = total_rows // num_mappers
+            # threaded across every chunk of every mapper, so schema
+            # drift between chunks fails loudly
+            arrow_recipe = arrow_names = None
             for m in range(num_mappers):
                 m_rows = per_map if m < num_mappers - 1 else \
                     total_rows - per_map * (num_mappers - 1)
@@ -235,7 +241,18 @@ def groupby_pipeline(manager: ShuffleManager, *,
                         keys, weights=vals.sum(axis=1, dtype=np.int64),
                         minlength=key_space).astype(np.int64)
                     truth_sum += vals.sum(dtype=np.int64)
-                    writers[m].write(keys, vals)
+                    if arrow:
+                        from sparkucx_tpu_torch.io.arrow import (
+                            kv_to_batch, stage_batches)
+                        batch = kv_to_batch(
+                            keys, vals, key_column="key",
+                            value_columns=[f"v{i}" for i in
+                                           range(value_width)])
+                        arrow_recipe, arrow_names, _ = stage_batches(
+                            writers[m], [batch], "key",
+                            recipe=arrow_recipe, names=arrow_names)
+                    else:
+                        writers[m].write(keys, vals)
                     with walls.phase("spill"):
                         budget.maybe_spill(writers)
             for w in writers:
@@ -314,6 +331,7 @@ def groupby_pipeline(manager: ShuffleManager, *,
             "num_partitions": num_partitions,
             "forced_spills": budget.forced_spills,
             "forced_spill_bytes": budget.forced_bytes,
+            "arrow_ingress": bool(arrow),
         }
     finally:
         manager.unregister_shuffle(shuffle_id)

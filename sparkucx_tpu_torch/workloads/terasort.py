@@ -175,8 +175,12 @@ def terasort_pipeline(manager: ShuffleManager, *,
                       digest_stride: int = 16,
                       exact_threshold: int = 200_000,
                       chunk_rows: int = 65536,
-                      run_dir: Optional[str] = None) -> WorkloadReport:
-    """External-memory terasort (module docstring). Returns the
+                      run_dir: Optional[str] = None,
+                      arrow: bool = False) -> WorkloadReport:
+    """External-memory terasort (module docstring); ``arrow=True`` also
+    builds every emitted chunk into an Arrow RecordBatch
+    (``io/arrow.kv_to_batch``) and reports its buffer bytes as
+    ``extra["arrow_egress_bytes"]``. Returns the
     :class:`~sparkucx_tpu_torch.workloads.WorkloadReport` with the
     per-phase walls, the spill figures, the rounds and the oracle
     verdict."""
@@ -264,6 +268,7 @@ def terasort_pipeline(manager: ShuffleManager, *,
         # -- emit: the k-way merge of the sealed runs, checked as it streams
         rows_out = 0
         digest_out, digest_n_out = 0, 0
+        arrow_bytes = 0
         exact_keys: List[np.ndarray] = []
         prev_last = None
         boundary_ok = monotonic_ok = True
@@ -282,6 +287,13 @@ def terasort_pipeline(manager: ShuffleManager, *,
                     digest_out = (digest_out + d) & 0xFFFFFFFFFFFFFFFF
                     digest_n_out += n
                     rows_out += int(chunk.shape[0])
+                    if arrow:
+                        from sparkucx_tpu_torch.io.arrow import kv_to_batch
+                        batch = kv_to_batch(chunk, None,
+                                            key_column="key")
+                        arrow_bytes += sum(
+                            buf.size for col in batch.columns
+                            for buf in col.buffers() if buf is not None)
                     if rep.oracle == "exact":
                         exact_keys.append(chunk)
 
@@ -324,6 +336,8 @@ def terasort_pipeline(manager: ShuffleManager, *,
         "forced_spills": budget.forced_spills,
         "forced_spill_bytes": budget.forced_bytes,
     }
+    if arrow:
+        rep.extra["arrow_egress_bytes"] = arrow_bytes
     rep.finalize(total_rows)
     walls.publish(total_rows)
     return rep

@@ -204,3 +204,46 @@ def test_workload_runner_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     # FNV-1a 64 of b"a", as a signed int64
     assert int(r.stdout) == 0xAF63DC4C8601EC8C - (1 << 64)
+
+
+def test_scan_covers_the_facade_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _port_sources()
+             if PKG in p.parents}
+    assert {"compat/__init__.py", "compat/v2.py", "io/arrow.py",
+            "runtime/checkpoint.py", "runtime/compile_cache.py",
+            "ops/microbench.py", "ops/partition.py", "shuffle/plan.py",
+            "__main__.py"} <= names
+
+
+def test_facade_modules_run_with_jax_blocked():
+    """The facades import with JAX and the JAX package blocked; pyarrow
+    is not imported until an arrow call; a v2 service connects and reads
+    on the CPU; ``kernelbench`` runs."""
+    code = ("import sys, json, io, contextlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['sparkucx_tpu'] = None\n"
+            "import numpy as np\n"
+            "import sparkucx_tpu_torch.io.arrow as a\n"
+            "import sparkucx_tpu_torch.runtime.checkpoint\n"
+            "import sparkucx_tpu_torch.runtime.compile_cache\n"
+            "assert 'pyarrow' not in sys.modules and a.pa is None\n"
+            "from sparkucx_tpu_torch import connect\n"
+            "from sparkucx_tpu_torch.compat.v2 import ShuffleDependency\n"
+            "svc = connect({'spark.shuffle.tpu.compat.version': 'v2'}, "
+            "device='cpu', use_env=False)\n"
+            "h = svc.register(ShuffleDependency(1, 1, 4))\n"
+            "w = svc.writer(h, 0); w.write(np.arange(9)); w.commit()\n"
+            "n = sum(k.size for _, (k, _) in svc.reader(h))\n"
+            "svc.stop()\n"
+            "from sparkucx_tpu_torch.__main__ import main\n"
+            "out = io.StringIO()\n"
+            "with contextlib.redirect_stdout(out):\n"
+            "    rc = main(['kernelbench', '--reps', '1', '--rows-log2', "
+            "'7'])\n"
+            "print(n, rc, json.loads(out.getvalue())['ok'])\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["9", "0", "True"]

@@ -1930,3 +1930,43 @@ def test_watcher_capture_holds_a_segment_move_on_card(card, tmp_path):
         events = json.load(f)["traceEvents"]
     assert [e for e in events if e.get("cat") == "kernel"
             and "ragged_segment_copy" in str(e.get("name"))]
+
+
+# -- the kernelbench (ops/microbench.py) ----------------------------------------
+@pytest.mark.parametrize("rows_log2", [8, 13])
+def test_kernelbench_grades_every_case_on_card(card, rows_log2):
+    """The ported kernelbench on the card: every case's ``cuda`` arm
+    timed, every parity grade ok (bit-exact on the int32 and the
+    integer-valued float32 cases), the kernels launched, no build on the
+    warm pass."""
+    from sparkucx_tpu_torch.ops.microbench import run_microbench
+    from sparkucx_tpu_torch.ops.segmented import (KERNEL_NAME,
+                                                  WIRE_KERNEL_NAME)
+    out = run_microbench(reps=2, rows_log2=rows_log2, device=card)
+    assert out["ok"] and out["native_cuda"], out
+    for row in out["cases"]:
+        assert row["cuda"]["status"] == "ok" and row["cuda"]["wall_ms"] > 0
+        assert row["parity"]["status"] == "ok" and row["parity"]["ok"], row
+        if row["wire"] == "raw":
+            assert row["parity"]["bitexact"], row
+    assert out["programs"]["warm_recompiles"] == 0
+    assert out["launches"][KERNEL_NAME] >= 4
+    assert out["launches"][WIRE_KERNEL_NAME] >= 1
+
+
+def test_compile_cache_rebinds_later_builds_on_card(card, tmp_path):
+    """``compile.cacheDir`` on the card: a node bound to an empty
+    directory loads the already-loaded library (no rebuild in this
+    process), and a second node back on the package's directory rebinds
+    later builds there."""
+    from sparkucx_tpu_torch.config import DEFAULT_BUILD_DIR
+    backend.kernel_library()
+    builds = backend.build_count()
+    conf = {"spark.shuffle.tpu.compile.cacheDir": str(tmp_path)}
+    with connect(conf, num_shards=1, use_env=False) as svc:
+        assert svc.node.compile_cache_dir == str(tmp_path)
+        assert backend.build_dir() == tmp_path
+        backend.kernel_library()
+    with connect({}, num_shards=1, use_env=False) as svc:
+        assert str(backend.build_dir()) == DEFAULT_BUILD_DIR
+    assert backend.build_count() == builds
