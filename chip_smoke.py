@@ -626,6 +626,7 @@ are the ``kernels`` JSON object and the ``{"ok": true, "device": ...}``
 object.
 """
 
+import atexit
 import contextlib
 import json
 import math
@@ -959,6 +960,313 @@ def counted(name: str):
     if got < 1:
         raise AssertionError(f"the path never launched kernel {name}")
     return got
+
+
+# -- streaming: main's read in arrival order ---------------------------------
+# shard 0's copy is held behind a sleep this many times one shard's copy
+# (the contract asks for at least ten)
+STREAM_HOLD_COPIES = 30
+# CUDA multiplexes streams onto CUDA_DEVICE_MAX_CONNECTIONS hardware
+# queues (8 unless set before CUDA starts), and two streams on one queue
+# wait on each other: under the default, shards s and s + 4 of a read
+# shared one on the H100, so a held shard 0 also held shard 4. The proof
+# that a held shard holds up no other runs in a child under CUDA's most,
+# 32 queues; the smoke's own process keeps the default.
+STREAM_CHILD_CONNECTIONS = "32"
+STREAM_CHILD_S = 240
+
+
+def sleep_cycles(dev, ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that last at least ``ms`` at the
+    SM clock the device reports (its maximum: at a lower clock the sleep
+    only lasts longer)."""
+    import torch
+    khz = getattr(torch.cuda.get_device_properties(dev), "clock_rate", 0)
+    if not khz:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(dev.index or 0),
+             "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True)
+        khz = float(out.stdout.split()[0]) * 1e3
+    return int(math.ceil(ms * khz))
+
+
+def copy_ms(dev, rows: int, width: int) -> float:
+    """One D2H copy of ``rows`` x ``width`` int32 into page-locked memory,
+    on CUDA events (median of 5)."""
+    import torch
+    src = torch.empty((rows, width), dtype=torch.int32, device=dev)
+    dst = torch.empty((rows, width), dtype=torch.int32, pin_memory=True)
+    return median_ms(lambda: dst.copy_(src, non_blocking=True), reps=5)
+
+
+def ready_walk(res, on_first=None) -> dict:
+    """Consume ``res.partitions_ready()``: the partitions, their order,
+    the shards' order, and the ms to the first and the last yield."""
+    parts, order, shards = {}, [], []
+    t0 = time.perf_counter()
+    first_ms = None
+    for r, kv in res.partitions_ready():
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if on_first is not None:
+                on_first()
+        s = int(res._part_to_shard[r])
+        if not shards or shards[-1] != s:
+            shards.append(s)
+        order.append(r)
+        parts[r] = kv
+    return {"parts": parts, "order": order, "shards": shards,
+            "first_ms": first_ms,
+            "last_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def held_walk(res, cycles: int) -> dict:
+    """:func:`ready_walk` over ``res`` with shard 0's copy stream held
+    behind ``torch.cuda._sleep(cycles)`` (through the result's private
+    seams), and whether shard 0's copy was still pending at the first
+    yield (``pending_at_first``)."""
+    import torch
+    copies, pending = {}, []
+    real_stream, real_transfer = res._shard_stream, res._shard_transfer
+
+    def held_stream(shard, d):
+        stream = real_stream(shard, d)
+        if shard == 0:
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(cycles)
+        return stream
+
+    def captured(shard):
+        copies[shard] = real_transfer(shard)
+        return copies[shard]
+
+    res._shard_stream, res._shard_transfer = held_stream, captured
+    w = ready_walk(res, lambda: pending.append(not copies[0].query()))
+    w["pending_at_first"] = pending[0]
+    return w
+
+
+def held_read(svc, h, dev) -> dict:
+    """One read of ``h`` walked by :func:`held_walk` with shard 0's copy
+    held for STREAM_HOLD_COPIES of one shard's copy time: the walk, its
+    digests, the read's segment moves and the hold's figures."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    backend.reset_launch_counts()
+    t = time.perf_counter()
+    res = svc.read(h)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t) * 1e3
+    launches = backend.launch_counts().get(KERNEL_NAME, 0)
+    extents = [res._runs(s).extent for s in range(SHARDS)]
+    shard_copy_ms = copy_ms(dev, max(extents), 2 + VALUE_WORDS)
+    w = held_walk(res, sleep_cycles(dev, STREAM_HOLD_COPIES * shard_copy_ms))
+    return {"read_ms": read_ms, "launches": launches,
+            "shard_copy_ms": shard_copy_ms,
+            "hold_ms": STREAM_HOLD_COPIES * shard_copy_ms,
+            "first_ms": w["first_ms"], "last_ms": w["last_ms"],
+            "shard_order": w["shards"], "order": w["order"],
+            "pending_at_first": w["pending_at_first"],
+            "digests": partition_digests(w["parts"]),
+            "d2h": svc.report(h.shuffle_id).d2h_bytes,
+            "device_max_connections": os.environ.get(
+                "CUDA_DEVICE_MAX_CONNECTIONS", "default")}
+
+
+def held_child() -> int:
+    """The streaming phase's child (a :class:`HeldChild`): the CUDA
+    context and main's records first; at the first line on stdin, a
+    fresh node that writes them and reads them once; at the second,
+    :func:`held_read` of them, printed as the last line. Exits 3 when
+    stdin closes first (the smoke ended)."""
+    import torch
+    from sparkucx_tpu_torch import backend, connect
+    dev = card_device()
+    torch.zeros(1, device=dev)
+    keys, values = make_records(RECORDS, zipf=False, seed=SEED)
+    if not sys.stdin.readline():
+        return 3
+    backend.kernel_library()
+    with connect({"spark.shuffle.tpu.a2a.impl": "pallas"},
+                 num_shards=SHARDS, use_env=False) as svc:
+        h = write_maps(svc, 2, keys, values, MAPS)
+        del keys, values
+        # warms the step's torch ops and main's page-locked blocks, as the
+        # smoke's process holds them by its held read: a cold allocation
+        # of each shard's block on issue outlasts the hold
+        svc.read(h)._materialize()
+        if not sys.stdin.readline():
+            return 3
+        got = held_read(svc, h, dev)
+        svc.unregister_shuffle(2)
+    print(json.dumps({**got, "builds": backend.build_count()}), flush=True)
+    return 0
+
+
+class HeldChild:
+    """:func:`held_child` in a process of its own under
+    STREAM_CHILD_CONNECTIONS hardware queues. Started before the build,
+    so that its own start (the interpreter, the CUDA context, main's
+    records: no work on the card) is over by the streaming phase, which
+    releases it in two steps (:meth:`go`, then :meth:`result`)."""
+
+    def __init__(self):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self._err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.held_child())"],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self._err, text=True,
+            env={**os.environ,
+                 "CUDA_DEVICE_MAX_CONNECTIONS": STREAM_CHILD_CONNECTIONS})
+        atexit.register(self.close)
+
+    def go(self) -> None:
+        try:
+            self.proc.stdin.write("go\n")
+            self.proc.stdin.flush()
+        except BrokenPipeError:
+            pass                         # result() reports the exit
+
+    def result(self) -> dict:
+        try:
+            stdout, _ = self.proc.communicate("go\n", timeout=STREAM_CHILD_S)
+        except BrokenPipeError:
+            stdout = ""
+            self.proc.wait()
+        if self.proc.returncode != 0:
+            self._err.seek(0)
+            raise AssertionError(f"streaming: the held child exited "
+                                 f"{self.proc.returncode}: "
+                                 f"{self._err.read()[-3000:]}")
+        return json.loads(stdout.strip().splitlines()[-1])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._err.close()
+
+
+def streaming_phase(svc, h, dev, main_digests, index_d2h: int,
+                    child: HeldChild) -> dict:
+    """main's shuffle (still registered) read three more ways, and once
+    in ``child``:
+
+    * through ``partitions_ready()``: one segment move, main's digests,
+      ``index_d2h`` of D2H (an index-order walk's of the same read);
+    * the same with shard 0's copy stream held behind
+      ``torch.cuda._sleep`` for STREAM_HOLD_COPIES of one shard's copy
+      time, here under the process's CUDA default: main's digests, and
+      the shards' order as it came (under the default a held queue also
+      holds the shard that shares it);
+    * ``partition(0)`` alone pulls shard 0's extent and nothing more,
+      then the rest;
+    * the held read again in the child, under STREAM_CHILD_CONNECTIONS
+      queues (it writes main's records meanwhile): shard 0's partitions
+      come last, its copy still pending at the first yield, main's
+      digests."""
+    import torch
+    from sparkucx_tpu_torch import backend
+    from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
+    t_phase = time.perf_counter()
+    child.go()
+    sid, width = h.shuffle_id, 2 + VALUE_WORDS
+    out = {"phase": "streaming", "device_max_connections":
+           os.environ.get("CUDA_DEVICE_MAX_CONNECTIONS", "default")}
+    launches = 0
+
+    def read():
+        nonlocal launches
+        backend.reset_launch_counts()
+        t = time.perf_counter()
+        res = svc.read(h)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches += backend.launch_counts().get(KERNEL_NAME, 0)
+        return res, ms
+
+    # -- arrival order, then the index-order walk of the same read
+    res, out["ready_read_ms"] = read()
+    got = counted(KERNEL_NAME)
+    if got != 1:
+        raise AssertionError(f"streaming: {got} segment moves, want 1")
+    w = ready_walk(res)
+    if sorted(w["order"]) != list(range(PARTITIONS)):
+        raise AssertionError("streaming: a partition missing or repeated")
+    if partition_digests(w["parts"]) != main_digests:
+        raise AssertionError("streaming: partitions differ from main's")
+    ready_d2h = svc.report(sid).d2h_bytes
+    extents = [res._runs(s).extent for s in range(SHARDS)]
+    out.update({"ready_launches": got, "ready_first_ms": w["first_ms"],
+                "ready_last_ms": w["last_ms"],
+                "ready_shard_order": w["shards"], "ready_d2h": ready_d2h,
+                "index_d2h": index_d2h, "extents": extents})
+    del res, w
+    if ready_d2h != index_d2h or ready_d2h != sum(extents) * width * 4:
+        raise AssertionError(f"streaming: d2h {ready_d2h} (ready) against "
+                             f"{index_d2h} (index order), extents "
+                             f"{sum(extents) * width * 4}")
+
+    # -- shard 0's copy stream held behind a sleep, at the CUDA default
+    held = held_read(svc, h, dev)
+    launches += held["launches"]
+    out.update({f"default_held_{k}": held[k] for k in (
+        "read_ms", "shard_copy_ms", "hold_ms", "first_ms", "last_ms",
+        "shard_order", "pending_at_first")})
+    if sorted(held["order"]) != list(range(PARTITIONS)) \
+            or held["digests"] != main_digests:
+        raise AssertionError("streaming: held read differs from main's")
+
+    # -- partial touch: partition(0) pulls shard 0 alone
+    res, out["partial_read_ms"] = read()
+    res.partition(0)
+    out["partial_d2h_after_0"] = svc.report(sid).d2h_bytes
+    if out["partial_d2h_after_0"] != extents[0] * width * 4:
+        raise AssertionError(f"streaming: partition(0) pulled "
+                             f"{out['partial_d2h_after_0']} B, shard 0 "
+                             f"holds {extents[0] * width * 4}")
+    parts = [res.partition(r) for r in range(PARTITIONS)]
+    out["partial_d2h_after_all"] = svc.report(sid).d2h_bytes
+    if out["partial_d2h_after_all"] != ready_d2h \
+            or partition_digests(parts) != main_digests:
+        raise AssertionError("streaming: the rest of the partial walk "
+                             "differs")
+    del res, parts
+
+    # -- the held read in the child, each copy stream on a queue of its own
+    t = time.perf_counter()
+    held = child.result()
+    out["child_wait_s"] = time.perf_counter() - t
+    launches += held["launches"]
+    slow = list(range(PARTITIONS // SHARDS))        # shard 0's partitions
+    out.update({f"held_{k}": held[k] for k in (
+        "read_ms", "shard_copy_ms", "hold_ms", "first_ms", "last_ms",
+        "shard_order", "pending_at_first", "launches", "d2h",
+        "device_max_connections", "builds")})
+    out["held_last_partitions"] = held["order"][-len(slow):]
+    if held["launches"] != 1 or held["builds"] != 0:
+        raise AssertionError(f"streaming: the child made {held['launches']}"
+                             f" segment moves and {held['builds']} builds")
+    if not held["pending_at_first"]:
+        raise AssertionError(f"streaming: shard 0's copy had landed by the "
+                             f"first yield ({held['first_ms']} ms, hold "
+                             f"{held['hold_ms']} ms, shards "
+                             f"{held['shard_order']}); the hold did not "
+                             f"hold")
+    if held["order"][-len(slow):] != slow or held["shard_order"][-1] != 0:
+        raise AssertionError(f"streaming: shard 0's partitions not last: "
+                             f"shards {held['shard_order']}")
+    if sorted(held["order"]) != list(range(PARTITIONS)) \
+            or held["digests"] != main_digests or held["d2h"] != ready_d2h:
+        raise AssertionError("streaming: the child's held read differs "
+                             "from main's")
+    out.update({"launches": launches, "ok": True,
+                "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 # -- kernel at the main path's shapes ----------------------------------------
@@ -8090,6 +8398,10 @@ def main() -> int:
     dev = card_device()
     print(card_line(), flush=True)      # "<name>, <power limit>"
     backend.check_sm90(dev)
+    # the streaming phase's child gets its interpreter, CUDA context and
+    # records ready during the build; it does no work on the card before
+    # that phase
+    held_child_proc = HeldChild()
 
     t = time.perf_counter()
     backend.kernel_library()
@@ -8151,6 +8463,10 @@ def main() -> int:
         del parts2
         rep2 = svc.report(2)
         prof = profiled_read(svc, h)
+        # -- streaming: the same shuffle read in arrival order
+        stream = streaming_phase(svc, h, dev, main_digests,
+                                 rep2.d2h_bytes, held_child_proc)
+        held_child_proc.close()
         svc.unregister_shuffle(2)
     payload = rep.payload_bytes
     print(json.dumps({
@@ -8172,6 +8488,7 @@ def main() -> int:
         "gen_s": gen_s, "write_s": write_s, "oracle_s": check_s,
         "ok": True}), flush=True)
     print(json.dumps({"phase": "main_profile", **prof}), flush=True)
+    print(json.dumps(stream), flush=True)
 
     planes.cut("main")
     main_line = {"main_write_s": write_s, "main_read_ms": read_ms,
@@ -8534,6 +8851,7 @@ def main() -> int:
         "name": KERNEL_NAME, "route": "cuda",
         "source": "sparkucx_tpu_torch/csrc/ragged_a2a.cu",
         "replaces": TPU_KERNEL, "launches": launches,
+        "streaming_launches": stream["launches"],
         "workload_launches": wl_launches[KERNEL_NAME],
         "pipeline_launches": pl_launches[KERNEL_NAME],
         "moe_launches": md["pallas"]["launches"],

@@ -36,7 +36,8 @@ the fused dequant reduce (``ops/segmented.segment_reduce_wire_rows``).
 drained blocks (:meth:`LazyShuffleReaderResult.compress_host_blocks`).
 
 Sinks: a host read serves :class:`LazyShuffleReaderResult` (numpy views,
-one D2H on first touch); a device read (``plan.sink == "device"``) serves
+each shard pulled on its first touch, or all of them in arrival order by
+``partitions_ready()``); a device read (``plan.sink == "device"``) serves
 :class:`DeviceShuffleReaderResult`, whose partitions stay in device
 tensors until a consumer takes them (``consume``) or asks for the host
 view; every shard's delivered rows are a prefix of its buffer (under the
@@ -51,6 +52,7 @@ segment reduces) over the wave buffers.
 
 from __future__ import annotations
 
+import queue
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -620,21 +622,85 @@ class ShuffleReaderResult:
             if self.is_local(r):
                 yield r, self.partition(r)
 
+    def partitions_ready(self, poll_s: float = 0.002):
+        """Every partition this view holds, once each, in the order its
+        rows reach the host (the reference's deliver-blocks-as-they-arrive
+        iterator). Everything here is on the host already: index order.
+        ``poll_s`` is the JAX package's signature; nothing here polls."""
+        yield from self.partitions()
+
     def release_partition(self, r: int) -> None:
         """Drop partition r's cached dense block."""
         self._block_cache.pop(r, None)
 
 
-class LazyShuffleReaderResult(ShuffleReaderResult):
-    """Result view over device tensors. The first ``partition()`` call
-    pulls the seg matrix, then copies each shard's occupied prefix (the
-    runs' extent, not the whole receive capacity) into ONE page-locked
-    host buffer and drops the device tensors; later calls are host
-    slicing. On a CPU device the "copy" is a view.
+class _ShardCopy:
+    """One shard's pull to the host: the block it lands in (a numpy view
+    on the CPU, a page-locked tensor on the card) and, on the card, the
+    event recorded after the copy on the shard's own stream, with the
+    device rows the copy reads (kept alive until it lands).
+    :meth:`LazyShuffleReaderResult.partitions_ready` waits through
+    ``query()`` and ``synchronize()``."""
 
-    On a CUDA device the copies run on a side stream that waits only for
-    ``_ready_event`` (recorded after the step that made the tensors), or,
-    without one, for the work queued so far on the current stream.
+    __slots__ = ("host", "event", "src")
+
+    def __init__(self, host, event=None, src=None):
+        self.host = host
+        self.event = event
+        self.src = src
+
+    def query(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def synchronize(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+_LANDED = _ShardCopy(None)
+
+
+def _landed(copy) -> bool:
+    """A look at ``copy`` that never blocks; an error counts as landed,
+    so the shard's own ``partition()`` raises it."""
+    try:
+        return bool(copy.query())
+    except Exception:
+        return True
+
+
+def _post_when_landed(copy, shard: int, ready: "queue.Queue") -> None:
+    """A waiter thread's body: park in the copy's own wait, then post."""
+    try:
+        copy.synchronize()
+    except Exception:
+        pass                # raised again by the shard's own partition()
+    ready.put(shard)
+
+
+class LazyShuffleReaderResult(ShuffleReaderResult):
+    """Result view over device tensors, pulled to the host shard by
+    shard. The first ``partition()`` call pulls the seg matrix; each
+    ``partition(r)`` then pulls only the shard that holds r, and only its
+    occupied prefix (the runs' extent, not the whole receive capacity),
+    into a page-locked block of that shard's own. The device tensors
+    drop once every shard this view holds is on the host; later calls
+    are host slicing. On a CPU device the "copy" is a view.
+
+    On a CUDA device each shard's copy runs on a stream of its own
+    (:meth:`_shard_stream`) that waits only for ``_ready_event``
+    (recorded after the step that made the tensors), or, without one,
+    for the work queued so far on the current stream, and records an
+    event after itself: ``partition(r)`` waits for its shard's copy
+    alone, not for the other shards' nor, as the compute stream would,
+    for the exchanges queued after this result's (a waved read's later
+    waves).
+
+    One result may be read from several threads at once (compat v2
+    shares one per shuffle). ``_lock`` (re-entrant: the seg pull nests
+    in a shard's) guards the shard tables, so no shard is pulled twice
+    and the device rows are never read after they were dropped; no
+    thread waits on a copy while it holds the lock.
 
     ``fetch_granularity`` (``io.fetchGranularity``; the manager sets it
     on a single-shot host result): ``"shard"`` (default) as above;
@@ -655,31 +721,39 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         # valid-row bound (set by the pending handle)
         self._totals_dev: Optional[torch.Tensor] = None
         self._metrics = metrics
-        self._shards: Optional[list] = None
+        # ordinal -> host block (or LosslessBlock), once landed
+        self._shards: Dict[int, object] = {}
+        # ordinal -> _ShardCopy, issued and not landed yet
+        self._copies: Dict[int, _ShardCopy] = {}
+        self._num_held = int(rows_dev.shape[0])
         self.d2h_bytes = 0
         # the manager's hook onto the owning read's report (d2h bytes)
         self._d2h_cb = None
         self._ready_event: Optional["torch.cuda.Event"] = None
-        # fired once when the materialize drops the device rows (a device
-        # result's host_view() hands its admission release to it)
+        # fired once when the device rows drop (every shard, or every
+        # partition, on the host): a device result's host_view() hands
+        # its admission release to it
         self._on_device_free = None
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self.fetch_granularity = "shard"
         self._part_cache: Dict[int, np.ndarray] = {}
 
-    def _to_host(self, copy_into) -> None:
-        """Run ``copy_into()`` (non-blocking D2H copies) on a side stream
-        (from PyTorch's pool) once the tensors are ready, and wait for it
-        alone: on the compute stream the copy would also wait for every
-        exchange queued after this result's (a waved read's later
-        waves)."""
-        dev = self._rows_dev.device if self._rows_dev is not None \
-            else self._seg_dev.device
+    def _side_stream(self, dev: torch.device) -> "torch.cuda.Stream":
+        """A stream from PyTorch's pool that starts once the tensors are
+        ready."""
         stream = torch.cuda.Stream(dev)
         if self._ready_event is not None:
             stream.wait_event(self._ready_event)
         else:
             stream.wait_stream(torch.cuda.current_stream(dev))
+        return stream
+
+    def _to_host(self, copy_into) -> None:
+        """Run ``copy_into()`` (non-blocking D2H copies) on a side stream
+        and wait for it alone."""
+        dev = self._rows_dev.device if self._rows_dev is not None \
+            else self._seg_dev.device
+        stream = self._side_stream(dev)
         with torch.cuda.stream(stream):
             copy_into()
         stream.synchronize()
@@ -698,63 +772,165 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
                 self._seg_dev = None
         return super()._seg_matrix(shard)
 
-    def _materialize(self) -> list:
+    def _held(self) -> List[int]:
+        """The global shards this view holds, in ordinal order."""
+        return list(range(self._num_held)) if self._shard_ord is None \
+            else list(self._shard_ord)
+
+    def _shard_stream(self, shard: int,
+                      dev: torch.device) -> "torch.cuda.Stream":
+        """The stream global shard ``shard``'s copy runs on: one of its
+        own (a test or the smoke delays one shard's here)."""
+        return self._side_stream(dev)
+
+    def _shard_transfer(self, shard: int) -> _ShardCopy:
+        """Start the pull of global shard ``shard`` unless it started, and
+        return its copy: what :meth:`partitions_ready` waits through (a
+        test slows one shard here). :meth:`_land` files the copy this
+        method recorded, whatever a wrapper returns."""
+        ext = self._runs(shard).extent          # pulls the seg matrix once
+        j = self._ordinal(shard)
         with self._lock:
-            if self._shards is not None:
-                return self._shards
-        P = self._rows_dev.shape[0]
-        ext = [self._runs(g).extent for g in (
-            range(P) if self._shard_ord is None else self._shard_ord)]
-        with self._lock:
-            if self._shards is not None:
-                return self._shards
+            got = self._copies.get(j)
+            if got is not None:
+                return got
+            if j in self._shards:
+                return _LANDED
             dev = self._rows_dev
+            if dev is None:
+                raise RuntimeError(
+                    f"shard {shard}: the device rows of this view were "
+                    f"dropped before it was pulled (consumed, or every "
+                    f"partition fetched)")
+            src = dev[j, :ext]
             if dev.device.type == "cpu":
-                host = dev.numpy()
-                shards = [host[p, :ext[p]] for p in range(P)]
+                got = _ShardCopy(src.numpy())
             else:
-                width = dev.shape[2]
-                buf = torch.empty((sum(ext), width), dtype=dev.dtype,
-                                  pin_memory=True)
+                host = torch.empty(tuple(src.shape), dtype=src.dtype,
+                                   pin_memory=True)
+                stream = self._shard_stream(shard, dev.device)
+                with torch.cuda.stream(stream):
+                    host.copy_(src, non_blocking=True)
+                event = torch.cuda.Event(blocking=True)
+                event.record(stream)
+                got = _ShardCopy(host, event, src)
+            self._copies[j] = got
+        return got
 
-                def copy_into():
-                    off = 0
-                    for p in range(P):
-                        buf[off:off + ext[p]].copy_(dev[p, :ext[p]],
-                                                    non_blocking=True)
-                        off += ext[p]
-
-                self._to_host(copy_into)
-                host = buf.numpy()
-                shards, off = [], 0
-                for p in range(P):
-                    shards.append(host[off:off + ext[p]])
-                    off += ext[p]
-                nbytes = int(buf.numel()) * 4
-                self.d2h_bytes += nbytes
-                if self._metrics is not None:
-                    self._metrics.inc(C_D2H, float(nbytes))
-                if self._d2h_cb is not None:
-                    self._d2h_cb(nbytes)
-            self._shards = shards
-            self._rows_dev = None         # free the device buffer
-            freed, self._on_device_free = self._on_device_free, None
+    def _land(self, j: int):
+        """Wait (without the lock) for ordinal ``j``'s issued copy, then
+        file its block once: count its bytes, and drop the device rows
+        when it was the last shard of this view."""
+        with self._lock:
+            got = self._shards.get(j)
+            copy = self._copies.get(j)
+        if got is not None:
+            return got
+        copy.synchronize()
+        freed, nbytes = None, 0
+        with self._lock:
+            got = self._shards.get(j)
+            if got is not None:
+                return got                       # another thread filed it
+            host = copy.host
+            if not isinstance(host, np.ndarray):
+                nbytes = int(host.numel()) * host.element_size()
+                host = host.numpy()
+            self._shards[j] = got = host
+            del self._copies[j]
+            # an iterator's list or a waiter thread may still hold the
+            # copy: it must not keep the device rows (nor the block) alive
+            copy.host = copy.src = None
+            if len(self._shards) == self._num_held:
+                self._rows_dev = None         # free the device buffer
+                freed, self._on_device_free = self._on_device_free, None
+        if nbytes:
+            self.note_d2h(nbytes)
         if freed is not None:
             freed()
-        return shards
+        return got
+
+    def _materialize(self) -> None:
+        """Pull every shard this view holds: issue each copy not issued
+        yet, then wait for them all (a waved read's drain, a distributed
+        host view's settle, the lossless codec's input)."""
+        held = self._held()
+        for g in held:
+            self._shard_transfer(g)
+        for g in held:
+            self._land(self._ordinal(g))
+
+    def partitions_ready(self, poll_s: float = 0.002):
+        """Every partition this view holds, once each, shard by shard in
+        the order the shards' rows land on the host; within a shard,
+        index order. A shard whose copy is slow holds up no other shard
+        whose copy stream has a hardware queue of its own (below; the
+        reference's deliver-blocks-as-they-arrive iterator,
+        ``OnBlocksFetchCallback``).
+
+        On one card the exchange writes all P shards in one launch, so
+        what arrives in an order is each shard's D2H copy. Shards already
+        on the host come first; the copies of all the others are issued
+        at once, each on its own stream with its own event. One stream
+        per shard is the point: copies queued on one stream finish in
+        issue order, so one delayed shard would hold up every shard
+        behind it. The streams share the device's hardware queues
+        (``CUDA_DEVICE_MAX_CONNECTIONS``, 8 unless set before CUDA
+        starts), and two streams on one queue still wait on each other:
+        with PyTorch's pool under the default, shards s and s + 4 did on
+        the H100. A look that never blocks posts the shards that already
+        landed; each other shard gets a daemon thread parked in its
+        event's wait, which posts it to a queue the consumer blocks on.
+        An error seen by a waiter surfaces on that shard's
+        ``partition()``. ``poll_s`` is the JAX package's signature:
+        nothing here polls.
+
+        Index order when nothing is left to pull (the device rows were
+        dropped) and under ``fetch_granularity="partition"``, which pulls
+        per partition on demand."""
+        with self._lock:
+            dropped = self._rows_dev is None
+        if dropped or self.fetch_granularity == "partition":
+            yield from self.partitions()
+            return
+        held = self._held()
+        ready: "queue.Queue[int]" = queue.Queue()
+        waiting = []
+        for g in held:
+            with self._lock:
+                landed = self._ordinal(g) in self._shards
+            if landed:
+                ready.put(g)
+            else:
+                waiting.append(g)
+        copies = [(g, self._shard_transfer(g)) for g in waiting]
+        for g, copy in copies:
+            if _landed(copy):
+                ready.put(g)
+            else:
+                threading.Thread(target=_post_when_landed,
+                                 args=(copy, g, ready), daemon=True,
+                                 name=f"sxt-shard-wait-{g}").start()
+        for _ in held:
+            g = ready.get()
+            # the blocked map is sorted: shard g's partitions are a range
+            r_lo = int(np.searchsorted(self._part_to_shard, g, "left"))
+            r_hi = int(np.searchsorted(self._part_to_shard, g, "right"))
+            for r in range(r_lo, r_hi):
+                yield r, self.partition(r)
 
     def _partition_block(self, r: int, shard: int) -> np.ndarray:
         if self.fetch_granularity != "partition":
             return super()._partition_block(r, shard)
         runs = self._runs(shard).runs(r)         # the seg matrix, small
+        j = self._ordinal(shard)
         with self._lock:
             got = self._part_cache.get(r)
-            dev = None if got is not None or self._shards is not None \
-                or self._rows_dev is None \
-                else self._rows_dev[self._ordinal(shard)]
+            dev = None if got is not None or j in self._shards \
+                or self._rows_dev is None else self._rows_dev[j]
         if got is not None:
             return got
-        if dev is None:                  # the shards are on the host
+        if dev is None:                  # the shard is on the host
             return super()._partition_block(r, shard)
         block = self._fetch_runs(dev, runs)
         freed = None
@@ -850,17 +1026,19 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         return out
 
     def _shard_rows(self, shard: int) -> np.ndarray:
-        shards = self._materialize()
         j = self._ordinal(shard)
-        got = shards[j]
+        with self._lock:
+            got = self._shards.get(j)
+        if got is None:
+            self._shard_transfer(shard)
+            got = self._land(j)
         if isinstance(got, LosslessBlock):
             with self._lock:
-                got = shards[j]
+                got = self._shards[j]
                 if isinstance(got, LosslessBlock):
                     # a2a.wire=lossless parked this shard compressed; the
                     # first touch restores the exact bytes and keeps them
-                    got = decode_block(got)
-                    shards[j] = got
+                    got = self._shards[j] = decode_block(got)
         return got
 
     def compress_host_blocks(self, executor=None) -> Tuple[int, int]:
@@ -871,25 +1049,23 @@ class LazyShuffleReaderResult(ShuffleReaderResult):
         bytes) of what was encoded, (0, 0) when nothing is on the host
         yet."""
         with self._lock:
-            shards = self._shards
-            todo = [] if shards is None else [
-                (p, a) for p, a in enumerate(shards)
-                if isinstance(a, np.ndarray)]
+            todo = [(j, a) for j, a in self._shards.items()
+                    if isinstance(a, np.ndarray)]
         if not todo:
             return 0, 0
 
         def enc(item):
-            p, a = item
-            return p, encode_block(a)
+            j, a = item
+            return j, encode_block(a)
 
         done = list(executor.map(enc, todo)) if executor is not None \
             else [enc(t) for t in todo]
         raw = comp = 0
         with self._lock:
-            for p, blk in done:
+            for j, blk in done:
                 # a view a consumer already holds keeps its base alive;
                 # the block restores the same bytes on the next touch
-                shards[p] = blk
+                self._shards[j] = blk
                 raw += blk.raw_bytes
                 comp += blk.nbytes
         return raw, comp
@@ -1253,6 +1429,9 @@ class DeviceShuffleReaderResult:
             "read(sink='host')")
 
     def partitions(self):
+        self.partition(0)
+
+    def partitions_ready(self, poll_s: float = 0.002):
         self.partition(0)
 
     def close(self) -> None:

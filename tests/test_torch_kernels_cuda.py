@@ -1970,3 +1970,154 @@ def test_compile_cache_rebinds_later_builds_on_card(card, tmp_path):
     with connect({}, num_shards=1, use_env=False) as svc:
         assert str(backend.build_dir()) == DEFAULT_BUILD_DIR
     assert backend.build_count() == builds
+
+
+# -- the streaming read plane: per-shard D2H, partitions_ready() -------------
+def _stream_read(svc, sid: int, seed: int, R: int = 16):
+    keys, vals = _failure_maps(seed)
+    res = svc.read(_write_maps(svc, sid, keys, vals, 8, R))
+    return res, keys, vals, 2 + vals.shape[1]
+
+
+def test_partition_pulls_only_its_shard_on_card(card):
+    """A plain ``pallas`` read: ``partition(0)`` copies shard 0's extent and
+    nothing more; a full walk copies every shard's extent once, and the
+    partitions equal the oracle."""
+    R = 16
+    with connect(num_shards=8, use_env=False) as svc:
+        res, keys, vals, width = _stream_read(svc, 1, 61, R=R)
+        assert svc.report(1).impl == "pallas"
+        res.partition(0)
+        extents = [res._runs(s).extent for s in range(8)]
+        assert svc.report(1).d2h_bytes == extents[0] * width * 4
+        assert list(res._shards) == [0] and res._rows_dev is not None
+        _check_oracle(res, keys, vals, R)
+        assert svc.report(1).d2h_bytes == sum(extents) * width * 4
+        assert res._rows_dev is None
+
+
+# run in a child: CUDA_DEVICE_MAX_CONNECTIONS is read when CUDA starts
+HELD_CHILD = """
+import json
+import numpy as np
+import torch
+from chip_smoke import copy_ms, held_walk, sleep_cycles
+from sparkucx_tpu_torch import connect
+R, M = 16, 8
+rng = np.random.default_rng(62)
+keys = rng.integers(-(1 << 62), 1 << 62, size=M * 6000, dtype=np.int64)
+vals = rng.integers(-(1 << 31), 1 << 31, size=(M * 6000, 5)).astype(np.int32)
+dev = torch.device("cuda", 0)
+with connect(num_shards=8, use_env=False) as svc:
+    h = svc.register_shuffle(2, M, R)
+    for m in range(M):
+        svc.write(h, m, keys[m * 6000:(m + 1) * 6000],
+                  vals[m * 6000:(m + 1) * 6000])
+    res = svc.read(h)
+    extents = [res._runs(s).extent for s in range(8)]
+    cycles = sleep_cycles(dev, max(30 * copy_ms(dev, max(extents), 7), 20.0))
+    w = held_walk(res, cycles)
+    parts = {str(r): [k.tolist(), [bytes(x).hex() for x in v]]
+             for r, (k, v) in w["parts"].items()}
+    print(json.dumps({"order": w["order"], "pending": w["pending_at_first"],
+                      "p2s": np.asarray(res._part_to_shard).tolist(),
+                      "d2h": svc.report(2).d2h_bytes,
+                      "extents": extents, "parts": parts}))
+"""
+
+
+def test_partitions_ready_overtakes_a_delayed_shard_on_card(card):
+    """Shard 0's copy stream held behind ``torch.cuda._sleep`` for 30 of
+    its copy times (in a child whose 8 copy streams have hardware queues
+    of their own): its partitions come last, its event is still pending
+    at the first yield, every partition arrives once and matches the
+    oracle, and every shard's extent is copied once."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-c", HELD_CHILD], cwd=root, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "CUDA_DEVICE_MAX_CONNECTIONS": "32"})
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    R = 16
+    assert got["pending"] is True
+    slow = [r for r in range(R) if got["p2s"][r] == 0]
+    assert got["order"][-len(slow):] == slow
+    assert sorted(got["order"]) == list(range(R))
+    keys, vals = _failure_maps(62)
+    pid = (hash32_np(keys) % np.uint32(R)).astype(np.int64)
+    for r in range(R):
+        k, v = got["parts"][str(r)]
+        want = np.flatnonzero(pid == r)
+        assert sorted(zip(k, v)) == sorted(
+            zip(keys[want].tolist(), (bytes(x).hex() for x in vals[want])))
+    assert got["d2h"] == sum(got["extents"]) * 7 * 4
+
+
+def test_device_rows_drop_once_after_the_last_shard_on_card(card):
+    """``_on_device_free`` fires once, when the last of the 8 shards lands,
+    and the device rows go with it; a later ``partitions_ready()`` is
+    index order over the host blocks."""
+    R = 16
+    with connect(num_shards=8, use_env=False) as svc:
+        res, keys, vals, _ = _stream_read(svc, 3, 63, R=R)
+        freed = []
+        res._on_device_free = lambda: freed.append(1)
+        p2s = np.asarray(res._part_to_shard)
+        for s in range(7):
+            res.partition(int(np.flatnonzero(p2s == s)[0]))
+        assert freed == [] and res._rows_dev is not None
+        res.partition(R - 1)
+        assert freed == [1] and res._rows_dev is None
+        assert [r for r, _ in res.partitions_ready()] == list(range(R))
+        _check_oracle(res, keys, vals, R)
+        assert freed == [1]
+
+
+def test_device_rows_unreferenced_when_the_free_hook_fires_on_card(card):
+    """Under ``partitions_ready()``, whose copies (and their waiter
+    threads) outlive the landing: when the device-free hook fires,
+    nothing references the device rows any more."""
+    import gc
+    import weakref
+    R = 16
+    with connect(num_shards=8, use_env=False) as svc:
+        res, keys, vals, _ = _stream_read(svc, 5, 65, R=R)
+        rows = weakref.ref(res._rows_dev)
+        alive = []
+
+        def freed():
+            gc.collect()
+            alive.append(rows() is not None)
+
+        res._on_device_free = freed
+        assert sorted(r for r, _ in res.partitions_ready()) == list(range(R))
+        assert alive == [False]
+        _check_oracle(res, keys, vals, R)
+
+
+def test_host_view_drain_releases_admission_on_card(card):
+    """A device-sink read's ``host_view()`` walked through
+    ``partitions_ready()``: the reservation stays while a shard is on the
+    card and frees once the last one landed; a later close releases
+    nothing twice."""
+    R = 16
+    with connect({"spark.shuffle.tpu.a2a.maxBytesInFlight": "1g"},
+                 num_shards=8, use_env=False) as svc:
+        m = svc.manager
+        keys, vals = _failure_maps(64)
+        res = svc.read(_write_maps(svc, 4, keys, vals, 8, R), sink="device")
+        assert m._inflight_bytes > 0 and svc.report(4).d2h_bytes == 0
+        hv = res.host_view()
+        hv.partition(0)
+        assert m._inflight_bytes > 0
+        got = dict(hv.partitions_ready())
+        assert sorted(got) == list(range(R))
+        assert m._inflight_bytes == 0 and hv._rows_dev is None
+        res.close()
+        assert m._inflight_bytes == 0
+        _check_oracle(hv, keys, vals, R)

@@ -298,7 +298,7 @@ def test_partition_fetch_granularity(managers, mode):
         parts = {r: (k.tolist(), v.tolist()) for r, (k, v) in
                  res.partitions()}
         if port:
-            assert res._rows_dev is None and res._shards is None
+            assert res._rows_dev is None and not res._shards
         order = {r: sorted(zip(k, map(tuple, v)))
                  for r, (k, v) in parts.items()}
         got.append(order if not mode else parts)

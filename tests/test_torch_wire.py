@@ -329,7 +329,7 @@ def test_waved_lossless_blocks_decompress_on_touch(manager_factory, mode):
         h = _write(svc.manager, 961, maps, R)
         res = svc.read(h, **kw)
         rep = svc.report(961)
-        blocks = [b for w in res.wave_results() for b in w._shards
+        blocks = [b for w in res.wave_results() for b in w._shards.values()
                   if isinstance(b, LosslessBlock)]
         got = [res.partition(r) for r in range(R)]
     assert rep.wire == jrep.wire == "lossless" and rrep.wire == "raw"

@@ -530,3 +530,29 @@ def fleet_suite(ctx) -> dict:
         out["doctor"] = out["doctor"]["fleet"]["processes_answered"]
     allgather_blob(np.zeros(1, dtype=np.int64), what="fleet barrier")
     return out
+
+
+def streaming_suite(ctx) -> dict:
+    """``partitions_ready()`` on the two partial views of one plain read:
+    the host sink's (drained as the read settled) and the device sink's
+    ``host_view()`` (pulled shard by shard as the iterator goes). Each
+    process returns the order and the partitions of both."""
+    svc = ctx.svc
+    h = write(svc.manager, 1, float_maps(), my_maps(ctx, MAPS))
+    host = svc.read(h)
+    out = {"rank": ctx.rank, "shards": svc.node.local_shard_ids,
+           "host_order": [r for r, _ in host.partitions_ready()],
+           "host": dump(host)}
+    dres = svc.read(h, sink="device")
+    out["device_d2h_before"] = svc.report(1).d2h_bytes
+    view = dres.host_view()
+    parts = dict()
+    out["device_order"] = []
+    for r, kv in view.partitions_ready():
+        out["device_order"].append(r)
+        parts[r] = kv
+    out["device_shards_pulled"] = len(view._shards)
+    out["device"] = {str(r): [k.tobytes().hex(), v.tobytes().hex()]
+                     for r, (k, v) in parts.items()}
+    svc.unregister_shuffle(1)
+    return out
