@@ -464,11 +464,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
             telemetry_trace (main's committed shuffle, ``pallas``, 8
             shards: the warm read's median of 5 with the tracer off,
             then on; each traced read's spans named as the reference's
-            plain read names them and tagged with its report's
-            ``trace_id``; the span summary, each span's ms and share of
-            the read's ``shuffle.exchange`` wall; no dropped span; then
-            one read under ``trace.device`` inside
-            ``tracer.device_trace``: its ``torch.profiler`` Chrome trace
+            plain read names them, plus the port's staged
+            ``shuffle.verify``, and tagged
+            with its report's ``trace_id``; the span summary, each
+            span's ms and share of the read's ``shuffle.exchange``
+            wall; no dropped span; then one read inside
+            ``tracer.device_trace`` with the tracer off (the profiler
+            makes its spans live): its ``torch.profiler`` Chrome trace
             holds the segment move's kernel at least once and at most as
             often as the launch counter moved, each launched inside a
             ``shuffle.dispatch`` range), telemetry_devmon (one waved
@@ -7107,6 +7109,7 @@ TELEMETRY_READS = 5            # warm reads a median is taken over
 # package's manager names them (tests/test_torch_trace.py holds the port
 # to it read mode by read mode)
 PLAIN_READ_SPANS = {"shuffle.barrier": 1, "shuffle.plan": 2,
+                    "shuffle.verify": 1,
                     "shuffle.pack": 1, "shuffle.dispatch": 1,
                     "shuffle.submit": 1, "shuffle.exchange.wait": 1,
                     "shuffle.result": 1, "shuffle.settle": 1,
@@ -7150,13 +7153,14 @@ def _read_breakdown(spans, trace_id: str) -> dict:
 def telemetry_trace(dev, svc, h) -> dict:
     """(a) and (b) of the telemetry phase on main's committed shuffle:
     the warm read's median wall with the tracer off and on (5 reads
-    each, in turns); each traced
-    read's span names against the reference's and their trace id; the
-    span summary and the per-span breakdown; then one read inside
-    ``tracer.device_trace`` with ``trace.device`` on, whose Chrome trace
-    must hold the segment move's kernel, at most as often as its launch
-    counter moved, each launched from inside a ``shuffle.dispatch``
-    range."""
+    each, in turns); each traced read's span names against the
+    reference's (plus the port's staged ``shuffle.verify``) and their
+    trace id; the span summary and the per-span breakdown; then one
+    read inside ``tracer.device_trace``
+    with the tracer off (the profiler makes its spans live), whose
+    Chrome trace must hold the segment move's kernel, at most as often
+    as its launch counter moved, each launched from inside a
+    ``shuffle.dispatch`` range."""
     import torch
     from sparkucx_tpu_torch import backend
     from sparkucx_tpu_torch.ops.ragged_a2a import KERNEL_NAME
@@ -7214,10 +7218,10 @@ def telemetry_trace(dev, svc, h) -> dict:
                                         for b in breakdowns])),
         traced_launches=launches, trace_id=rep.trace_id)
     # (b) the device trace: spans as record_function ranges beside the
-    # kernels
+    # kernels, live under the profiler with the tracer off
     logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     try:
-        tracer.annotate_device = True
+        tracer.enabled = False
         tracer.clear()
         before = backend.launch_counts().get(KERNEL_NAME, 0)
         with tracer.device_trace(logdir):
@@ -7232,7 +7236,6 @@ def telemetry_trace(dev, svc, h) -> dict:
             events = json.load(f)["traceEvents"]
         trace_bytes = os.path.getsize(path)
     finally:
-        tracer.annotate_device = False
         tracer.enabled = False
         tracer.clear()
         shutil.rmtree(logdir, ignore_errors=True)

@@ -134,9 +134,6 @@ REPORT_CAPACITY = 64
 # the JAX package's defaults and descriptions
 TELEMETRY_KEYS = {
     "trace.enabled": ("false", "turn on the span tracer (utils/trace.py)"),
-    "trace.device": ("false", "also record device-time spans (a "
-                              "torch.profiler record_function range "
-                              "around every span)"),
     "trace.capacity": ("65536", "tracer ring-buffer size"),
     "metrics.dumpDir": ("", "periodic JSON metrics-snapshot dumps land "
                             "here (off when unset; utils/export.py)"),
@@ -362,7 +359,7 @@ class ShuffleConf:
                     "fetch_granularity", "report_capacity",
                     "tenant_id", "tenant_priority", "tenant_fair_share",
                     "tenant_async_workers", "tenant_async_agreed_order",
-                    "trace_enabled", "trace_device", "trace_capacity",
+                    "trace_enabled", "trace_capacity",
                     "metrics_dump_interval_secs", "devmon_enabled",
                     "devmon_interval_ms", "history_window_secs",
                     "history_retain_windows", "decisions_enabled",
@@ -966,10 +963,6 @@ class ShuffleConf:
     @property
     def trace_enabled(self) -> bool:
         return self.get_bool("trace.enabled", False)
-
-    @property
-    def trace_device(self) -> bool:
-        return self.get_bool("trace.device", False)
 
     @property
     def trace_capacity(self) -> int:

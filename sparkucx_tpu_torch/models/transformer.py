@@ -69,6 +69,7 @@ from sparkucx_tpu_torch.ops.attention import (NEG_INF, _block_update,
 from sparkucx_tpu_torch.ops.partition import counts_from_sorted
 from sparkucx_tpu_torch.parallel.ulysses import _ulysses_sharded
 from sparkucx_tpu_torch.shuffle.alltoall import exchange
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
 PARAM_NAMES = ("embed", "unembed", "ln1", "ln2", "wqkv", "wo", "router",
@@ -348,16 +349,18 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
         < recv_sizes.sum(dim=-1, keepdim=True)
 
     # one-hot expert batching: every received row through every local
-    # expert's product, the rows of other experts zeroed
-    oh = (le[..., None] == torch.arange(e_local, device=dev)) \
-        & rvalid[..., None]
-    oh = oh.to(recv.dtype)                              # [G, ep, cap, el]
-    xe = torch.einsum("gpce,gpcd->gpecd", oh, recv)     # [G, ep, el, cap, D]
-    w1 = lp["w1e"].permute(0, 3, 1, 2, 4)               # [ep, tp, el, D, Ft]
-    w2 = lp["w2e"].permute(0, 2, 1, 3, 4)               # [ep, tp, el, Ft, D]
-    h = F.gelu(torch.matmul(xe[:, :, None], w1), approximate="tanh")
-    ye = torch.matmul(h, w2)                  # [G, ep, tp, el, cap, D]
-    y = _tp_sum(torch.einsum("gpce,gpuecd->ugpcd", oh, ye))
+    # expert's product, the rows of other experts zeroed (the span times
+    # the forward and remat's re-forward, not the products' backward)
+    with GLOBAL_TRACER.span("moe.experts", device_time=dev):
+        oh = (le[..., None] == torch.arange(e_local, device=dev)) \
+            & rvalid[..., None]
+        oh = oh.to(recv.dtype)                          # [G, ep, cap, el]
+        xe = torch.einsum("gpce,gpcd->gpecd", oh, recv)  # [G,ep,el,cap,D]
+        w1 = lp["w1e"].permute(0, 3, 1, 2, 4)           # [ep, tp, el, D, Ft]
+        w2 = lp["w2e"].permute(0, 2, 1, 3, 4)           # [ep, tp, el, Ft, D]
+        h = F.gelu(torch.matmul(xe[:, :, None], w1), approximate="tanh")
+        ye = torch.matmul(h, w2)              # [G, ep, tp, el, cap, D]
+        y = _tp_sum(torch.einsum("gpce,gpuecd->ugpcd", oh, ye))
 
     back = exchange(y, recv_sizes, n, cfg.impl)         # [G, ep, n, D]
     return _rows(back, inv_order) * gate[..., None]
@@ -468,10 +471,11 @@ def make_train_step(mesh: ShardGrid, cfg: TransformerConfig,
         return params, opt
 
     def step(params, opt, tokens, targets):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, targets, mesh, cfg)
-        loss.backward()
-        opt.step()
+        with GLOBAL_TRACER.span("train.step"):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(params, tokens, targets, mesh, cfg)
+            loss.backward()
+            opt.step()
         return params, opt, loss.detach()
 
     return init, step

@@ -22,6 +22,7 @@ from sparkucx_tpu_torch.ops.flash_attention import flash_attention
 from sparkucx_tpu_torch.parallel.ring import (_check_consumer_rows,
                                               decode_qkv_rows, shard_seq,
                                               unshard_seq)
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 
 def _to_heads(x: torch.Tensor) -> torch.Tensor:
@@ -47,16 +48,18 @@ def _ulysses_sharded(q, k, v, causal: bool, scale: Optional[float],
                      block_q: int, block_k: int, impl: str) -> torch.Tensor:
     """q/k/v ``[P, B, H, t, D]`` sequence shards -> O in the same layout."""
     P, B, H, t, D = q.shape
-    qh, kh, vh = _to_heads(q), _to_heads(k), _to_heads(v)
 
     def heads_major(x):       # [P, B, H/P, T, D] -> [B, H, T, D]
         return x.transpose(0, 1).reshape(B, H, P * t, D)
 
-    oh = flash_attention(heads_major(qh), heads_major(kh), heads_major(vh),
-                         block_q=block_q, block_k=block_k, causal=causal,
-                         scale=scale, impl=impl)
-    oh = oh.reshape(B, P, H // P, P * t, D).transpose(0, 1)
-    return _to_seq(oh)
+    with GLOBAL_TRACER.span("ulysses.heads", device_time=q.device,
+                            trade="to_heads"):
+        qh, kh, vh = (heads_major(_to_heads(x)) for x in (q, k, v))
+    oh = flash_attention(qh, kh, vh, block_q=block_q, block_k=block_k,
+                         causal=causal, scale=scale, impl=impl)
+    with GLOBAL_TRACER.span("ulysses.heads", device_time=oh.device,
+                            trade="to_seq"):
+        return _to_seq(oh.reshape(B, P, H // P, P * t, D).transpose(0, 1))
 
 
 def _check_heads(heads: int, num_shards: int) -> None:
@@ -83,10 +86,13 @@ def ulysses_attention_consumer(num_shards: int, tokens_per_shard: int,
 
     def step(rows, totals):
         _check_consumer_rows(rows, num_shards)
-        q, k, v = decode_qkv_rows(rows, totals, tokens_per_shard, heads,
-                                  head_dim)
-        return unshard_seq(_ulysses_sharded(q, k, v, causal, scale, block_q,
-                                            block_k, impl))
+        with GLOBAL_TRACER.span("ulysses.decode", device_time=rows.device):
+            q, k, v = decode_qkv_rows(rows, totals, tokens_per_shard, heads,
+                                      head_dim)
+        o = _ulysses_sharded(q, k, v, causal, scale, block_q, block_k, impl)
+        with GLOBAL_TRACER.span("ulysses.heads", device_time=o.device,
+                                trade="unshard"):
+            return unshard_seq(o)
 
     return step
 

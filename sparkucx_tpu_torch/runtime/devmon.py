@@ -156,7 +156,7 @@ class DeviceMonitor:
         if trace is not None:
             node.flight.record("devmon", hbm_in_use=hbm_total,
                                pool_in_use=pool.get("in_use_bytes", 0))
-        if node.tracer.enabled:
+        if node.tracer.live:
             node.tracer.instant("devmon.sample", hbm_in_use=hbm_total,
                                 trace=trace or "")
 

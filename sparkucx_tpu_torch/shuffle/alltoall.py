@@ -47,6 +47,7 @@ from sparkucx_tpu_torch.config import (ALLOWED_IMPLS, ALLOWED_TOPOLOGIES,
                                        validate_impl, validate_topology)
 from sparkucx_tpu_torch.meta.segments import exchange_plan
 from sparkucx_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+from sparkucx_tpu_torch.utils.trace import GLOBAL_TRACER
 
 # the impls ragged_shuffle dispatches itself
 IMPLS = ("local", "dense", "gather")
@@ -324,20 +325,33 @@ def _poisoned(out: torch.Tensor, overflow: torch.Tensor) -> torch.Tensor:
     return out + torch.where(flag, nan, torch.zeros_like(nan))
 
 
+# the ``pass`` attr of the differentiable moves' ``moe.exchange`` spans
+_FORWARD = {"pass": "forward"}
+_BACKWARD = {"pass": "backward"}
+
+
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, sizes, out_capacity, impl):
-        out, recv, overflow = group_shuffle(data, sizes, out_capacity, impl)
+        with GLOBAL_TRACER.span("moe.exchange", device_time=data.device,
+                                **_FORWARD):
+            out, recv, overflow = group_shuffle(data, sizes, out_capacity,
+                                                impl)
+            if out.is_floating_point():
+                out = _poisoned(out, overflow)
         ctx.save_for_backward(recv)
         ctx.cap_in, ctx.impl = data.shape[2], impl
-        return _poisoned(out, overflow) if out.is_floating_point() else out
+        return out
 
     @staticmethod
     def backward(ctx, g):
         # the transposed plan: receiver p sends recv_sizes[p, s] rows back
         # to sender s, landing in the sender's original layout
         recv, = ctx.saved_tensors
-        gb, _, _ = group_shuffle(g.contiguous(), recv, ctx.cap_in, ctx.impl)
+        with GLOBAL_TRACER.span("moe.exchange", device_time=g.device,
+                                **_BACKWARD):
+            gb, _, _ = group_shuffle(g.contiguous(), recv, ctx.cap_in,
+                                     ctx.impl)
         return gb, None, None, None
 
 
@@ -393,8 +407,10 @@ def _quantized_move(data: torch.Tensor, sizes: torch.Tensor,
 class _ExchangeQuantized(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, sizes, seed, out_capacity, impl, uniforms):
-        out, recv = _quantized_move(data, sizes, out_capacity, impl, seed,
-                                    uniforms)
+        with GLOBAL_TRACER.span("moe.exchange", device_time=data.device,
+                                wire="int8", **_FORWARD):
+            out, recv = _quantized_move(data, sizes, out_capacity, impl,
+                                        seed, uniforms)
         ctx.save_for_backward(recv)
         ctx.cap_in, ctx.impl, ctx.seed = data.shape[2], impl, seed
         ctx.uniforms = uniforms
@@ -405,8 +421,11 @@ class _ExchangeQuantized(torch.autograd.Function):
         # straight-through: the cotangent takes the transposed int8 move,
         # on noise stream 3 of this move's seed
         recv, = ctx.saved_tensors
-        gb, _ = _quantized_move(g, recv, ctx.cap_in, ctx.impl,
-                                wire_noise_seed(ctx.seed, 3), ctx.uniforms)
+        with GLOBAL_TRACER.span("moe.exchange", device_time=g.device,
+                                wire="int8", **_BACKWARD):
+            gb, _ = _quantized_move(g, recv, ctx.cap_in, ctx.impl,
+                                    wire_noise_seed(ctx.seed, 3),
+                                    ctx.uniforms)
         return gb, None, None, None, None, None
 
 

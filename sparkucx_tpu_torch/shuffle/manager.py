@@ -1030,7 +1030,8 @@ class ShuffleManager:
         log.error(msg)
         return msg
 
-    def _verified_materialize(self, entry: ShuffleEntry, writers):
+    def _verified_materialize(self, entry: ShuffleEntry, writers,
+                              trace_id: str):
         """``[(map_id, keys, values, verified_bytes)]`` of the committed
         map outputs ``writers``, in map-id order, each checked against the
         record its commit published before any byte can enter the
@@ -1038,7 +1039,9 @@ class ShuffleManager:
         record (it does not count as verified). The folds run on the pack
         executor (``a2a.packThreads``); the verdict is the serial loop's:
         a mismatch raises ``BlockCorruptionError`` naming the lowest
-        failing map.
+        failing map. The folds and the verdict are the read's
+        ``shuffle.verify`` span (``level="staged"``, tagged
+        ``trace_id``).
 
         The ``corrupt.staged`` / ``corrupt.spill`` fault sites live here,
         consulted in map-id order until one fires, as the serial loop
@@ -1080,19 +1083,22 @@ class ShuffleManager:
 
             nbytes = sum(int(k.nbytes) + (0 if v is None else int(v.nbytes))
                          for _, k, v, _, _ in staged)
-            verdicts = list(self._executor().map(check, staged)) \
-                if len(staged) > 1 and nbytes >= (1 << 20) \
-                else [check(item) for item in staged]
-            out = []
-            for (map_id, keys, values, _, block), got in zip(staged,
-                                                             verdicts):
-                if isinstance(got, integ._StagedMismatch):
-                    raise BlockCorruptionError(self._note_corruption(
-                        entry.shuffle_id, f"map {map_id} ({block})",
-                        int(keys.nbytes) + (int(values.nbytes)
-                                            if values is not None else 0),
-                        str(got))) from None
-                out.append((map_id, keys, values, got))
+            with self.node.tracer.span("shuffle.verify", level="staged",
+                                       bytes=nbytes, trace=trace_id):
+                verdicts = list(self._executor().map(check, staged)) \
+                    if len(staged) > 1 and nbytes >= (1 << 20) \
+                    else [check(item) for item in staged]
+                out = []
+                for (map_id, keys, values, _, block), got in zip(staged,
+                                                                 verdicts):
+                    if isinstance(got, integ._StagedMismatch):
+                        raise BlockCorruptionError(self._note_corruption(
+                            entry.shuffle_id, f"map {map_id} ({block})",
+                            int(keys.nbytes) + (int(values.nbytes)
+                                                if values is not None
+                                                else 0),
+                            str(got))) from None
+                    out.append((map_id, keys, values, got))
             return out
         finally:
             for token in tokens:
@@ -1294,7 +1300,7 @@ class ShuffleManager:
         try:
             self._settle_agreement(rep)
             tracer = self.node.tracer
-            if tracer.enabled and rep._t_start:
+            if tracer.live and rep._t_start:
                 tracer.record_span(
                     "shuffle.exchange", rep._t_start,
                     shuffle_id=rep.shuffle_id, trace=rep.trace_id,
@@ -1743,7 +1749,7 @@ class ShuffleManager:
             try:
                 settle(result)
             finally:
-                if self.node.tracer.enabled:
+                if self.node.tracer.live:
                     self.node.tracer.record_span(
                         "shuffle.settle", t_settle, trace=rep.trace_id)
                 self._settle_report(rep, completed=result is not None)
@@ -2646,7 +2652,8 @@ class ShuffleManager:
         level = self._integrity_for(rep.tenant)
         verify = level != "off"
         if verify:
-            outputs = self._verified_materialize(entry, writers)
+            outputs = self._verified_materialize(entry, writers,
+                                                 rep.trace_id)
         else:
             outputs = [(m, *w.materialize(), -1)
                        for m, w in sorted(writers.items())]

@@ -317,11 +317,13 @@ def _pallas_step_body(plan: ShufflePlan):
             plan, payload, nvalid, seeds,
             unpack=not _fused_wire_reduce(plan, width))
         cap_eff = out.shape[1]
-        if plan.combine:
-            rows_out, pcounts = _reduce_side_combine(plan, out, pkey,
-                                                     cap_eff, width)
-        else:
-            _, rows_out, pcounts = keysort_rows(out, pkey, cap_eff, R)
+        with GLOBAL_TRACER.span("shuffle.keysort", device_time=out.device,
+                                stage="sort"):
+            if plan.combine:
+                rows_out, pcounts = _reduce_side_combine(plan, out, pkey,
+                                                         cap_eff, width)
+            else:
+                _, rows_out, pcounts = keysort_rows(out, pkey, cap_eff, R)
         # the total from pcounts: sentinel groups never count
         total = pcounts.sum(dim=1, dtype=torch.int32)
         return rows_out, pcounts.reshape(Pn, 1, R), total, ovf
@@ -377,16 +379,19 @@ def densified_receive(plan: ShufflePlan, payload: torch.Tensor,
     # row k belongs to the last segment whose aligned start is <= k (an
     # empty segment shares its start with the next), and is real iff it
     # lies inside that segment's real prefix
-    idx = torch.arange(cap_eff, dtype=torch.int32, device=out.device)
-    idx = idx.expand(Pn, cap_eff).contiguous()
-    seg_i = torch.clamp(
-        torch.searchsorted(recv_off.contiguous(), idx, right=True) - 1,
-        0, Pn - 1)
-    valid = (idx - torch.gather(recv_off, 1, seg_i)) \
-        < torch.gather(recv_real, 1, seg_i)
-    # (the partitioner reads only the key lanes, exact in wire rows too)
-    pkey = torch.where(valid, part_fn(out),
-                       torch.full_like(idx, R))
+    with GLOBAL_TRACER.span("shuffle.keysort", device_time=out.device,
+                            stage="densify"):
+        idx = torch.arange(cap_eff, dtype=torch.int32, device=out.device)
+        idx = idx.expand(Pn, cap_eff).contiguous()
+        seg_i = torch.clamp(
+            torch.searchsorted(recv_off.contiguous(), idx, right=True) - 1,
+            0, Pn - 1)
+        valid = (idx - torch.gather(recv_off, 1, seg_i)) \
+            < torch.gather(recv_real, 1, seg_i)
+        # (the partitioner reads only the key lanes, exact in wire rows
+        # too)
+        pkey = torch.where(valid, part_fn(out),
+                           torch.full_like(idx, R))
     return out, pkey, (total_al < 0).any()
 
 

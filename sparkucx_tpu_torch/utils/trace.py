@@ -2,19 +2,31 @@
 profiler hooks (the JAX package's ``sparkucx_tpu/utils/trace.py``).
 
 Nested wall-clock spans on the host, a Chrome ``chrome://tracing`` /
-Perfetto export, and, on the card, ``torch.profiler``: under
-``trace.device`` every span also opens a
-``torch.profiler.record_function`` range, so a :meth:`Tracer.
-device_trace` capture shows the host spans in the same timeline as the
-CUDA kernels they launched. Where the JAX package writes a TensorBoard
-profile through ``jax.profiler``, :meth:`Tracer.device_trace` writes
-``torch.profiler``'s Chrome trace (CPU activity, and CUDA activity when
-a card is present) into its ``logdir``.
+Perfetto export, and, on the card, ``torch.profiler``. Where the JAX
+package writes a TensorBoard profile through ``jax.profiler``,
+:meth:`Tracer.device_trace` writes ``torch.profiler``'s Chrome trace (CPU
+activity, and CUDA activity when a card is present) into its ``logdir``.
 
-* **Near-zero cost when disabled.** ``span()`` on a disabled tracer
-  returns one shared no-op context manager: no allocation, no clock
-  read. Enable with ``spark.shuffle.tpu.trace.enabled`` or
-  ``Tracer(enabled=True)``.
+* **Live when enabled or profiled.** A span records when the tracer is
+  enabled (``spark.shuffle.tpu.trace.enabled`` or
+  ``Tracer(enabled=True)``) and also whenever a ``torch.profiler``
+  session of the process is recording (:meth:`Tracer.device_trace`, the
+  benchmark's device trace, an operator's own ``profile``). While a
+  profiler records, every span also opens a
+  ``torch.profiler.record_function`` range of its name, so the profiler's
+  timeline shows each span around the kernels it launched, on the
+  profiler's own clock. Whatever keys off a live tracer follows too: a
+  profiler session also turns on the shuffle settlement's
+  ``shuffle.exchange`` wall span, its anatomy fold and the
+  ``shuffle.phase.ms`` counters that fold feeds, and fills the ring.
+* **Device time.** A span opened with ``device_time=<torch.device>``
+  records a CUDA event pair on that device's current stream when it is
+  live and the device is a CUDA one; :attr:`Span.device_ms` resolves
+  once the events have completed, and the Chrome export carries it as
+  ``device_ms``.
+* **Near-zero cost when not live.** ``span()`` then returns one shared
+  no-op context manager after a flag check: no allocation, no clock
+  read.
 * **Thread-safe, nesting-aware.** Spans nest per thread; each thread's
   spans carry its own ``tid`` (its own track in the export).
 * **Bounded memory.** A ring of ``capacity`` finished spans; drops are
@@ -31,6 +43,9 @@ import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from sparkucx_tpu_torch.utils.atomicio import atomic_write_text
 from sparkucx_tpu_torch.utils.logging import get_logger
@@ -58,14 +73,30 @@ class Span:
     tid: int
     depth: int
     attrs: Dict[str, Any] = field(default_factory=dict)
+    # a device-timed span's CUDA (start, end) events, until resolved
+    events: Optional[tuple] = field(default=None, repr=False,
+                                    compare=False)
+    _device_ms: Optional[float] = field(default=None, repr=False,
+                                        compare=False)
 
     @property
     def dur_ms(self) -> float:
         return self.dur_us / 1e3
 
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Device milliseconds between the span's CUDA events, once both
+        have completed; None for a span without events or while they
+        are pending."""
+        ev = self.events
+        if ev is not None and ev[1].query():
+            self._device_ms = float(ev[0].elapsed_time(ev[1]))
+            self.events = None
+        return self._device_ms
+
 
 class _NullSpan:
-    """Shared no-op context manager for the disabled path."""
+    """Shared no-op context manager for the path that is not live."""
 
     __slots__ = ()
 
@@ -83,13 +114,17 @@ _NULL_SPAN = _NullSpan()
 
 
 class _LiveSpan:
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_annot")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_annot", "_device",
+                 "_start", "_stream")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
+                 device_time=None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._annot = None
+        self._device = device_time
+        self._start = None
 
     def set(self, **attrs) -> "_LiveSpan":
         self.attrs.update(attrs)
@@ -98,17 +133,25 @@ class _LiveSpan:
     def __enter__(self) -> "_LiveSpan":
         tls = self._tracer._tls
         tls.depth = getattr(tls, "depth", 0) + 1
-        if self._tracer.annotate_device:
-            # a range in torch.profiler's trace, beside the kernels the
+        if _autograd_profiler._is_profiler_enabled:
+            # a range in the profiler's trace, beside the kernels the
             # span launches
-            import torch
             self._annot = torch.profiler.record_function(self.name)
             self._annot.__enter__()
+        if getattr(self._device, "type", None) == "cuda":
+            self._stream = torch.cuda.current_stream(self._device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(self._stream)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
+        events = None
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._stream)
+            events = (self._start, end)
         if self._annot is not None:
             self._annot.__exit__(*exc)
         tls = self._tracer._tls
@@ -121,21 +164,18 @@ class _LiveSpan:
             tid=threading.get_ident(),
             depth=depth - 1,
             attrs=self.attrs,
+            events=events,
         ))
         return False
 
 
 class Tracer:
-    """Span collector with Chrome-trace export.
+    """Span collector with Chrome-trace export. Spans record while the
+    tracer is :attr:`live`: enabled, or under a recording
+    ``torch.profiler`` session of the process."""
 
-    ``annotate_device=True`` also opens a ``torch.profiler.
-    record_function`` range around every span, so host spans line up
-    with the CUDA kernels inside a :meth:`device_trace` capture."""
-
-    def __init__(self, enabled: bool = False, capacity: int = 65536,
-                 annotate_device: bool = False):
+    def __init__(self, enabled: bool = False, capacity: int = 65536):
         self.enabled = enabled
-        self.annotate_device = annotate_device
         self._spans: deque = deque(maxlen=capacity)
         self._dropped = 0
         self._published_dropped = 0
@@ -146,16 +186,25 @@ class Tracer:
         self._device_traces = 0
         self.device_trace_path: Optional[str] = None
 
+    @property
+    def live(self) -> bool:
+        """Spans record now: the tracer is enabled or a profiler
+        session of the process is recording."""
+        return self.enabled or _autograd_profiler._is_profiler_enabled
+
     # -- recording --------------------------------------------------------
-    def span(self, name: str, **attrs):
-        """Context manager timing one region. No-op when disabled."""
-        if not self.enabled:
+    def span(self, name: str, device_time=None, **attrs):
+        """Context manager timing one region; no-op while not live.
+        ``device_time`` (a ``torch.device``) also times the region on
+        that device's current stream when it is a CUDA device
+        (:attr:`Span.device_ms`)."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
             return _NULL_SPAN
-        return _LiveSpan(self, name, attrs)
+        return _LiveSpan(self, name, attrs, device_time)
 
     def instant(self, name: str, **attrs) -> None:
         """Zero-duration marker event."""
-        if not self.enabled:
+        if not self.live:
             return
         self._record(Span(name, (time.perf_counter() - self._epoch) * 1e6,
                           0.0, threading.get_ident(), 0, attrs))
@@ -167,10 +216,11 @@ class Tracer:
         name/attrs) they'd be recorded. The exchange WALL span is the
         canonical user: ``ExchangeReport`` stamps its start inside
         ``submit()`` and the settlement callback closes it with the
-        trace id only once the read is fully notified. No-op when
-        disabled — ONE branch, so the disabled read path pays a single
-        attribute check per exchange."""
-        if not self.enabled:
+        trace id only once the read is fully notified. No-op while not
+        live — ONE branch, so the read path that is not traced pays a
+        single flag check per exchange. It opens no profiler range (the
+        region is over)."""
+        if not self.live:
             return
         if t1 is None:
             t1 = time.perf_counter()
@@ -286,7 +336,8 @@ class Tracer:
         """The span buffer as Chrome trace-event dicts (the 'X' events of
         a ``traceEvents`` list): the file export, the snapshot and the
         flight recorder's postmortem share it. Attrs that are not JSON
-        primitives are passed through :func:`_jsonable`."""
+        primitives are passed through :func:`_jsonable`; a device-timed
+        span whose events completed carries ``device_ms``."""
         out: List[Dict[str, Any]] = []
         prim = (str, int, float, bool)
         for s in self.spans():
@@ -296,6 +347,9 @@ class Tracer:
                 attrs = {k: _jsonable(v) for k, v in attrs.items()}
             else:
                 attrs = dict(attrs)    # events must not alias the span
+            dms = s.device_ms
+            if dms is not None:
+                attrs["device_ms"] = dms
             out.append({
                 "name": s.name, "ph": "X", "ts": s.start_us,
                 "dur": s.dur_us, "pid": 0, "tid": s.tid, "args": attrs})
@@ -320,13 +374,12 @@ class Tracer:
         it as a Chrome trace, ``device_trace_<pid>_<n>.json`` in
         ``logdir`` (its path is :attr:`device_trace_path` afterwards).
         The capture records CPU activity, and CUDA activity when a card
-        is present (the kernels with their host launches); host spans
-        recorded inside also appear as ``record_function`` ranges when
-        ``annotate_device`` is set. Where the profiler cannot start (or
+        is present (the kernels with their host launches); spans inside
+        record, enabled or not, and appear as ``record_function`` ranges
+        around them. Where the profiler cannot start (or
         another session of the process is running: :func:
         `start_profiler`), it logs and records host spans only
         (:attr:`device_trace_path` stays None)."""
-        import torch
         prof = None
         self.device_trace_path = None
         try:
@@ -359,10 +412,9 @@ def start_profiler(cuda: bool):
     activity, and CUDA activity with ``cuda``; raises ``RuntimeError``
     while another session of this process is running. The caller stops
     it with ``prof.__exit__(None, None, None)``."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     with _PROFILER_LOCK:
-        if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+        if _autograd_profiler._is_profiler_enabled:
             raise RuntimeError("another torch.profiler session of this "
                                "process is running")
         acts = [ProfilerActivity.CPU]
@@ -390,12 +442,11 @@ def configure_from_conf(conf) -> Tracer:
     """Wire the process-global tracer from conf keys (every node does
     at start, as the JAX package's does):
 
-    ``spark.shuffle.tpu.trace.enabled``   master switch (default off)
+    ``spark.shuffle.tpu.trace.enabled``   master switch (default off;
+                                          a recording profiler makes
+                                          spans live either way)
     ``spark.shuffle.tpu.trace.capacity``  span ring size (default 65536)
-    ``spark.shuffle.tpu.trace.device``    open a ``record_function``
-                                          range around every span
     """
     GLOBAL_TRACER.enabled = conf.trace_enabled
-    GLOBAL_TRACER.annotate_device = conf.trace_device
     GLOBAL_TRACER.resize(conf.trace_capacity)
     return GLOBAL_TRACER

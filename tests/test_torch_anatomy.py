@@ -208,15 +208,34 @@ def _check_conserves(rep):
 def test_live_read_phase_keys_and_conservation(mode, manager_factory,
                                                port_manager_factory):
     """The same read on both packages: each ledger conserves, and the
-    phase keys agree but for the JAX package's ``compile``."""
+    phase keys agree but for the JAX package's ``compile`` and the port's
+    ``verify`` (its staged verify has a span of its own; the reference's
+    lands in ``plan``)."""
     keys = []
-    for make in (manager_factory, port_manager_factory):
+    for make, own in ((manager_factory, set()),
+                      (port_manager_factory, {"verify"})):
         mgr = make({PFX + "trace.enabled": "true"})
         _read_once(mgr, 800, mode)           # warm (the JAX compile)
         rep = _read_once(mgr, 801, mode)
         _check_conserves(rep)
-        keys.append(set(rep.phases) - {"compile"})
+        assert all(rep.phases.get(ph, 0.0) > 0.0 for ph in own)
+        keys.append(set(rep.phases) - {"compile"} - own)
     assert keys[0] == keys[1]
+
+
+def test_staged_read_ledger_has_a_verify_phase(port_manager_factory):
+    """A read at the default ``integrity.verify=staged``: its
+    ``shuffle.verify`` span (``level="staged"``, the verified bytes, the
+    read's trace id) is the ledger's ``verify`` phase, above 0, and the
+    ledger still conserves."""
+    mgr = port_manager_factory({PFX + "trace.enabled": "true"})
+    rep = _read_once(mgr, 840, "plain")
+    _check_conserves(rep)
+    assert rep.integrity == "staged" and rep.phases["verify"] > 0.0
+    (sp,) = [s for s in mgr.node.tracer.spans("shuffle.verify")
+             if s.attrs["trace"] == rep.trace_id]
+    assert sp.attrs["level"] == "staged"
+    assert sp.attrs["bytes"] == rep.integrity_bytes > 0
 
 
 @pytest.mark.parametrize("conf", [
@@ -227,14 +246,17 @@ def test_live_read_phase_keys_and_conservation(mode, manager_factory,
 def test_live_read_ledgers_of_other_settlements(conf, manager_factory,
                                                 port_manager_factory):
     """Waved, two-tier and replayed reads settle their ledgers too, with
-    the same phase keys on both packages (``compile`` aside)."""
+    the same phase keys on both packages (``compile`` and the port's
+    ``verify`` aside)."""
     keys = []
-    for make in (manager_factory, port_manager_factory):
+    for make, own in ((manager_factory, set()),
+                      (port_manager_factory, {"verify"})):
         mgr = make({PFX + "trace.enabled": "true", **conf})
         _read_once(mgr, 810, "plain")
         rep = _read_once(mgr, 811, "plain")
         _check_conserves(rep)
-        keys.append(set(rep.phases) - {"compile"})
+        assert all(rep.phases.get(ph, 0.0) > 0.0 for ph in own)
+        keys.append(set(rep.phases) - {"compile"} - own)
     assert keys[0] == keys[1]
 
 

@@ -174,6 +174,10 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
         assert len(node.flight.dumps) == 1
         doc = _doc(node.flight.dumps[0])
         reports = doc["contexts"]["exchange_reports"]
+        # the port's own span (the staged verify): in its dump, and set
+        # aside for the comparison
+        own = {"shuffle.verify"} if side == "port" else set()
+        assert own <= set(doc["spans"])
         got.append((
             "retry budget exhausted after 2 attempts" in doc["reason"],
             sorted({r["shuffle_id"] for r in reports}),
@@ -186,7 +190,7 @@ def test_injected_fault_postmortem_contains_reports(manager_factory,
             doc["in_flight_traces"],
             {"shuffle.dispatch", "shuffle.exchange", "shuffle.publish"}
             <= {e["name"] for e in doc["trace_events"]},
-            sorted(set(doc["spans"]) - {"compile.step"}),
+            sorted(set(doc["spans"]) - {"compile.step"} - own),
             "wall_epoch" in doc["anchor"], doc["dropped_spans"],
             doc["findings"] == _rediagnosed(jdoctor if side == "jax"
                                             else tdoctor, doc)))

@@ -1805,14 +1805,13 @@ def test_segment_move_launches_once_per_attempt_under_contention(card):
 
 
 def test_device_trace_holds_the_segment_move_on_card(card, tmp_path):
-    """Under ``trace.device`` a read inside ``tracer.device_trace``
-    writes a Chrome trace that holds the segment move's kernel, each
-    launched from inside a ``shuffle.dispatch`` range, at most as often
-    as its launch counter moved."""
+    """A read inside ``tracer.device_trace``, the tracer disabled (the
+    profiler makes its spans live), writes a Chrome trace that holds the
+    segment move's kernel, each launched from inside a
+    ``shuffle.dispatch`` range, at most as often as its launch counter
+    moved."""
     import json
-    conf = {"spark.shuffle.tpu.a2a.impl": "pallas",
-            "spark.shuffle.tpu.trace.enabled": "true",
-            "spark.shuffle.tpu.trace.device": "true"}
+    conf = {"spark.shuffle.tpu.a2a.impl": "pallas"}
     with connect(conf, use_env=False) as svc:
         rng = np.random.default_rng(3)
         h = svc.register_shuffle(5, 8, 8)
@@ -1830,7 +1829,9 @@ def test_device_trace_holds_the_segment_move_on_card(card, tmp_path):
             svc.read(h)
             torch.cuda.synchronize(card)
         delta = backend.launch_counts()[ra.KERNEL_NAME] - before
-        tracer.enabled = tracer.annotate_device = False
+        assert not tracer.enabled and not tracer.live
+        assert tracer.spans("shuffle.dispatch")
+        tracer.clear()
         events = json.load(open(tracer.device_trace_path))["traceEvents"]
     xs = [e for e in events if e.get("ph") == "X"]
     kernels = [e for e in xs if e.get("cat") == "kernel"

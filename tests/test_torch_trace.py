@@ -7,8 +7,9 @@ names of each read mode and the reports' trace ids.
 The last cases drive the same seeded reads (plain, combine, ordered,
 waved, device sink; ``a2a.impl=dense``) through the JAX package's
 manager and the port's ``connect(device="cpu")`` with the tracer on and
-compare, read by read, the multiset of span names (exact) and the
-report's ``trace_id`` (byte-equal). ``compile.step`` and
+compare, read by read, the multiset of span names (exact, but for the
+port's own ``shuffle.verify``, once a read)
+and the report's ``trace_id`` (byte-equal). ``compile.step`` and
 ``shuffle.warmup`` belong to the JAX package's per-shape compiles and
 are left out; ``shuffle.merge`` is compared too. Where the reference's
 device trace is a TensorBoard profile from ``jax.profiler``, the port's
@@ -167,7 +168,9 @@ def test_configure_from_conf(mods):
     try:
         assert got is tr.GLOBAL_TRACER
         assert got.enabled and got._capacity == 128
-        assert not got.annotate_device
+        # the conf turns on the tracer and nothing else
+        assert {k for k, v in vars(got).items() if v is True} == \
+            {"enabled"}
     finally:
         got.enabled = False
         got.clear()
@@ -270,12 +273,15 @@ def test_format_trace_id_byte_equal():
 
 
 def test_port_device_trace_holds_the_annotated_spans(tmp_path):
-    """Under ``annotate_device`` every span opens a ``torch.profiler.
-    record_function`` range: the Chrome trace the port's device trace
-    writes holds each span as a range around the torch ops inside it."""
+    """Inside the port's device trace every span is live, enabled or
+    not: it records into the ring and opens a ``torch.profiler.
+    record_function`` range, so the Chrome trace holds each span as a
+    range around the torch ops inside it. After the trace, the disabled
+    tracer's ``span()`` is the shared no-op again."""
     import torch
-    t = ttr.Tracer(enabled=True, annotate_device=True)
+    t = ttr.Tracer(enabled=False)
     with t.device_trace(str(tmp_path / "dev")):
+        assert t.live
         with t.span("shuffle.dispatch", rows=3):
             torch.arange(16).sum()
     path = t.device_trace_path
@@ -289,6 +295,68 @@ def test_port_device_trace_holds_the_annotated_spans(tmp_path):
            and str(e.get("name", "")).startswith("aten::sum")]
     assert ops and all(lo <= e["ts"] <= hi for e in ops)
     assert t.spans("shuffle.dispatch")[0].attrs == {"rows": 3}
+    assert not t.live
+    assert t.span("after") is t.span("other")
+    with t.span("after"):
+        pass
+    t.instant("after")
+    t.record_span("after", 0.0)
+    assert [s.name for s in t.spans()] == ["shuffle.dispatch"]
+
+
+def test_device_timed_span_on_the_cpu_has_no_device_ms():
+    """A span opened with ``device_time`` on the CPU records no events
+    and no ``device_ms``, live or not; the export leaves the key out."""
+    import torch
+    cpu = torch.device("cpu")
+    t = ttr.Tracer(enabled=True)
+    with t.span("moe.exchange", device_time=cpu, **{"pass": "forward"}):
+        torch.ones(4).sum()
+    (span,) = t.spans()
+    assert span.events is None and span.device_ms is None
+    assert span.attrs == {"pass": "forward"}
+    assert "device_ms" not in t.chrome_events()[0]["args"]
+    t.enabled = False
+    with t.span("moe.experts", device_time=cpu):
+        pass
+    assert len(t.spans()) == 1
+
+
+def test_port_read_under_a_profiler_records_its_spans():
+    """A port read with the tracer disabled, under a CPU-only
+    ``torch.profiler`` session: its staged verify, pack and completion
+    wait are profiler ranges and ring spans, and the read settles its
+    wall and ledger. Once the session ends, ``span()`` is the shared
+    no-op again and a read records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    svc = connect({"spark.shuffle.tpu.a2a.impl": "dense"}, device="cpu",
+                  use_env=False)
+    tracer = svc.node.tracer
+    want = {"shuffle.verify", "shuffle.pack", "shuffle.exchange.wait"}
+    try:
+        assert not tracer.enabled
+        tracer.clear()
+        h = svc.register_shuffle(903, 4, 8)
+        rng = np.random.default_rng(5)
+        for m in range(4):
+            svc.write(h, m, rng.integers(0, 1 << 20, size=256),
+                      rng.standard_normal((256, 2)).astype(np.float32))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            svc.read(h).partition(0)
+        assert want <= {e.name for e in prof.events()}
+        assert want <= {s.name for s in tracer.spans()}
+        rep = svc.report(903)
+        assert tracer.spans("shuffle.exchange")[-1].attrs["trace"] == \
+            rep.trace_id
+        assert rep.phases["verify"] > 0.0
+        held = len(tracer.spans())
+        assert not tracer.live
+        assert tracer.span("a") is tracer.span("b")
+        svc.read(h).partition(0)
+        assert len(tracer.spans()) == held
+    finally:
+        tracer.clear()
+        svc.stop()
 
 
 def test_shuffle_read_emits_spans(manager_factory):
@@ -382,5 +450,9 @@ def test_read_spans_and_trace_ids_match_reference(mode, manager_factory):
     finally:
         svc.node.tracer.enabled = False
         svc.stop()
+    for names, _ in tgot:
+        # the port's own span, once a read: the staged verify (the
+        # reference's lands in its submit)
+        assert names.pop("shuffle.verify") == 1
     assert tgot == jgot
     assert [t for _, t in tgot] == ["s1.e0.x1", "s2.e0.x2", "s3.e0.x3"]
