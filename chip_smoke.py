@@ -4203,26 +4203,166 @@ def transformer_routing_check(got, want, gap_limit: float, rel: float,
     return out
 
 
-def one_hot_flops(cfg, mesh, tokens: int) -> dict:
-    """FLOPs of one forward's one-hot expert products (w1 and w2): every
-    received row through every local expert, ``L * M * 2 * (2 * G * ep *
-    e_local * cap * D * F)`` with ``G * ep`` shards of ``n`` rows a
-    microbatch and ``cap = max(8, n * capacity_factor)``; every token is
-    received by one shard, so ``tokens`` rows are real and the rest of
-    each expert's batch multiplies zero rows."""
+def expert_flops(cfg, mesh, tokens: int) -> dict:
+    """FLOPs of one forward's grouped expert products (w1 and w2): each
+    token's row through its own expert, ``L * tokens * 2 * 2 * D * F``."""
     from sparkucx_tpu_torch.models import transformer as tt
     g = tt.mesh_axis_sizes(mesh)
     shards = g["dp"] * g["sp"] * g["ep"]
-    n = tokens // (shards * cfg.microbatches)
-    e_local = cfg.num_experts // g["ep"]
-    cap = max(8, int(n * cfg.capacity_factor))
-    per_row = 2 * 2 * cfg.d_model * cfg.d_ff
-    total = cfg.num_layers * cfg.microbatches * shards * e_local * cap \
-        * per_row
-    useful = cfg.num_layers * tokens * per_row
-    return {"rows_per_shard": n, "recv_capacity": cap, "e_local": e_local,
-            "forward_flops": total, "useful_flops": useful,
-            "zero_row_share": 1 - useful / total}
+    n = tokens // (cfg.microbatches * shards)
+    return {"rows_per_shard": n,
+            "recv_capacity": max(8, int(n * cfg.capacity_factor)),
+            "e_local": cfg.num_experts // g["ep"],
+            "forward_flops": cfg.num_layers * tokens * 2 * 2 * cfg.d_model
+            * cfg.d_ff}
+
+
+GROUPED_TOL = 1e-5    # of max|plain|: float32 sums in another order pass,
+#                       a single TF32 product (about 1e-3) does not
+
+
+def grouped_captured_check(rows, wgrad) -> dict:
+    """The first captured ``grouped_rows_kernel`` launch of a step (the
+    first product with its GELU) and ``grouped_wgrad_kernel`` launch (a
+    weight gradient) against ``grouped_rows_plain`` and
+    ``grouped_wgrad_plain`` on the same card tensors; rows past the owned
+    ones are not written by the kernel and not compared."""
+    import torch
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    (a, b, counts, off, epi, pre, _), got = rows
+    live = int(counts.sum())
+    want = gf.grouped_rows_plain(a, b, counts, off, epi, pre)
+    got, want = (got, want) if epi == "gelu" else ((got,), (want,))
+    out = {"rows_shape": [list(a.shape), list(b.shape)], "live_rows": live,
+           "epilogue": epi, "tolerance": f"{GROUPED_TOL} of max|plain|"}
+    checks = [(f"rows_{n}", g[:live], w[:live])
+              for n, g, w in zip(("out", "pre"), got, want)]
+    (a, b, counts, off), got = wgrad
+    out["wgrad_shape"] = [list(a.shape), list(b.shape)]
+    checks.append(("wgrad", got, gf.grouped_wgrad_plain(a, b, counts, off)))
+    torch.cuda.synchronize()
+    for name, g, w in checks:
+        err, top = float((g - w).abs().max()), float(w.abs().max())
+        if not err <= GROUPED_TOL * top:
+            raise AssertionError(f"transformer_train: grouped {name} "
+                                 f"{err} > {GROUPED_TOL} * {top}")
+        out[name] = {"max_abs_err": err, "max_abs": top}
+    return out
+
+
+def grouped_at_cell_shapes(x, w1, counts, off, reps: int = 10) -> dict:
+    """One ``_moe_ffn`` call's expert products on a captured launch's rows
+    (``x`` sorted by expert, ``w1``, the counts and offsets; ``w2`` is w1
+    transposed, the cotangent seeded): CUDA-event medians of the kernels
+    (forward: x w1 with the GELU, then h w2; backward: dh w2^T with the
+    GELU's derivative, dpre w1^T, the two weight gradients and the two
+    weight transposes, as ``grouped_ffn`` runs them), of the plain
+    versions, and of the six products alone as one ``torch.matmul`` per
+    expert with host-side counts (cuBLAS, ``library_ms``). Bounds: the
+    owned rows' FLOPs at the split-TF32 rate (float32-accurate products
+    on the tensor cores) and at the float32 CUDA-core rate the kernels
+    use. Errors: each version's distance from float64 products over
+    max|float64|."""
+    import torch
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    w2 = w1.transpose(1, 2).contiguous()
+    dy = torch.randn(x.shape, device=x.device,
+                     generator=torch.Generator(x.device).manual_seed(SEED))
+    segs = [(j, o, n) for j, (o, n) in
+            enumerate(zip(off.tolist(), counts.tolist())) if n]
+    live = sum(n for _, _, n in segs)
+    D, Fd = w1.shape[1], w1.shape[2]
+    flops = 4.0 * live * D * Fd                 # a forward; backward twice
+
+    def versions(plain: bool):
+        rows = gf.grouped_rows_plain if plain else gf.grouped_rows_kernel
+        wgrad = gf.grouped_wgrad_plain if plain else gf.grouped_wgrad_kernel
+        extra = {} if plain else {"zero_tail": False}
+        state = {}
+
+        def forward():
+            state["h"], state["pre"] = rows(x, w1, counts, off, "gelu",
+                                            **extra)
+            return rows(state["h"], w2, counts, off)
+
+        def backward():
+            dpre = rows(dy, w2.transpose(1, 2).contiguous(), counts, off,
+                        "gelu_grad", state["pre"], **extra)
+            dx = rows(dpre, w1.transpose(1, 2).contiguous(), counts, off)
+            return (dx, wgrad(x, dpre, counts, off),
+                    wgrad(state["h"], dy, counts, off))
+        return forward, backward
+
+    def library():
+        for j, o, n in segs:
+            h = x[o:o + n] @ w1[j]
+            h @ w2[j]
+            g = dy[o:o + n] @ w2[j].T
+            g @ w1[j].T
+            x[o:o + n].T @ g
+            h.T @ dy[o:o + n]
+
+    # float64 products, expert by expert
+    x64, w164, w264, dy64 = (t.double() for t in (x, w1, w2, dy))
+    want = [torch.zeros_like(x64[:live]), torch.zeros_like(x64[:live]),
+            torch.zeros_like(w164), torch.zeros_like(w264)]
+    for j, o, n in segs:
+        xs, g = x64[o:o + n], dy64[o:o + n]
+        pre = xs @ w164[j]
+        h = torch.nn.functional.gelu(pre, approximate="tanh")
+        want[0][o:o + n] = h @ w264[j]
+        dpre = torch.ops.aten.gelu_backward(g @ w264[j].T, pre,
+                                            approximate="tanh")
+        want[1][o:o + n] = dpre @ w164[j].T
+        want[2][j] = xs.T @ dpre
+        want[3][j] = h.T @ g
+    del x64, w164, w264, dy64
+    out = {"rows": x.shape[0], "live_rows": live, "experts": w1.shape[0],
+           "D": D, "F": Fd, "dtype": str(x.dtype).split(".")[-1],
+           "bound_ms": {"forward": flops / SPLIT_TF32_FLOPS_PER_S * 1e3,
+                        "backward": 2 * flops / SPLIT_TF32_FLOPS_PER_S
+                        * 1e3},
+           "bound_fp32_simt_ms": {"forward": flops / FP32_FLOPS_PER_S * 1e3,
+                                  "backward": 2 * flops / FP32_FLOPS_PER_S
+                                  * 1e3}}
+    for name, plain in (("kernel", False), ("plain", True)):
+        forward, backward = versions(plain)
+        ms = {"forward": median_ms(forward, reps),
+              "backward": median_ms(backward, reps)}
+        got = (forward(),) + backward()
+        out[f"{name}_ms"] = ms
+        out[f"{name}_tflops"] = {"forward": flops / ms["forward"] / 1e9,
+                                 "backward": 2 * flops / ms["backward"]
+                                 / 1e9}
+        out[f"{name}_float64_err"] = {
+            k: float((g[:w.shape[0]].double() - w).abs().max()
+                     / w.abs().max())
+            for k, g, w in zip(("y", "dx", "dw1", "dw2"), got, want)}
+        del got
+    out["library_ms"] = median_ms(library, reps)
+    return out
+
+
+def grouped_kernel_entry(tf: dict) -> dict:
+    """The ``kernels`` line's ``grouped_ffn`` entry from the transformer
+    phase: its launches, the captured launches' largest distance from the
+    plain versions, and one ``_moe_ffn`` call's six products (forward and
+    backward summed) timed on the captured rows. It replaces no TPU
+    kernel: XLA runs the JAX package's one-hot einsums."""
+    gr, gc = tf["grouped"], tf["captured_grouped"]
+    return {
+        "name": "grouped_ffn", "route": "cuda",
+        "source": "sparkucx_tpu_torch/csrc/grouped_ffn.cu",
+        "replaces": None, "launches": tf["launches"]["grouped_ffn"],
+        "transformer_launches_per_step":
+            tf["launches_per_step"]["grouped_ffn"],
+        "max_abs_err": max(gc[k]["max_abs_err"]
+                           for k in ("rows_out", "rows_pre", "wgrad")),
+        "ms": sum(gr["kernel_ms"].values()),
+        "plain_ms": sum(gr["plain_ms"].values()),
+        "bound_ms": sum(gr["bound_ms"].values()), "bound_by": "operations",
+        "bound_fp32_simt_ms": sum(gr["bound_fp32_simt_ms"].values()),
+        "library_ms": gr["library_ms"]}
 
 
 def transformer_train_phase(dev) -> dict:
@@ -4231,14 +4371,15 @@ def transformer_train_phase(dev) -> dict:
     ``make_mesh(8)`` (dp 1, pp 2, sp 2, tp 1, ep 2). (a) The forward
     through the flash kernels against the same forward through their
     plain versions; (b) five Adam steps, losses finite and falling; (c)
-    the flash launches of each step; (d) the first captured flash_dq and
-    flash_dkv launch of a step against the plain backward; then the walls,
-    the peak device bytes, one profiled step and the one-hot products'
-    FLOPs."""
+    the flash and grouped expert product launches of each step; (d) the
+    first captured flash_dq and flash_dkv launch of a step against the
+    plain backward; then the walls, the peak device bytes, one profiled
+    step and the expert products' FLOPs."""
     import torch
     from sparkucx_tpu_torch import backend
     from sparkucx_tpu_torch.models import transformer as tt
     from sparkucx_tpu_torch.ops import flash_attention as tfa
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
     cfg = transformer_config(TF_LAYERS, "ulysses")
     mesh = tt.make_mesh(8)
     g = tt.mesh_axis_sizes(mesh)
@@ -4273,8 +4414,9 @@ def transformer_train_phase(dev) -> dict:
     init, step = tt.make_train_step(mesh, cfg, lr=TF_LR, device=dev)
     params, opt = init(params0)
     captured = {}
-    saved = [(name, getattr(tfa, name)) for name in
-             ("flash_dq_kernel", "flash_dkv_kernel")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             ((tfa, "flash_dq_kernel"), (tfa, "flash_dkv_kernel"),
+              (gf, "grouped_rows_kernel"), (gf, "grouped_wgrad_kernel"))]
 
     def capturing(name, orig):
         def launch(*args):
@@ -4284,8 +4426,8 @@ def transformer_train_phase(dev) -> dict:
             return got
         return launch
 
-    for name, orig in saved:
-        setattr(tfa, name, capturing(name, orig))
+    for mod, name, orig in saved:
+        setattr(mod, name, capturing(name, orig))
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4298,8 +4440,8 @@ def transformer_train_phase(dev) -> dict:
         counts = backend.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
-        for name, orig in saved:
-            setattr(tfa, name, orig)
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
     # remat: the forward, then each layer's recompute in backward
     per_step = {"flash_fwd": 2 * L * M, "flash_dq": L * M,
                 "flash_dkv": L * M}
@@ -4307,6 +4449,13 @@ def transformer_train_phase(dev) -> dict:
             k: n * TF_STEPS for k, n in per_step.items()}:
         raise AssertionError(f"transformer_train: flash launches {counts} "
                              f"in {TF_STEPS} steps, want {per_step} a step")
+    # the grouped expert products: two launches a forward and re-forward,
+    # four a backward, per layer and microbatch
+    per_step["grouped_ffn"] = 8 * L * M
+    if counts.get("grouped_ffn", 0) != per_step["grouped_ffn"] * TF_STEPS:
+        raise AssertionError(f"transformer_train: grouped_ffn launches "
+                             f"{counts} in {TF_STEPS} steps, want "
+                             f"{per_step['grouped_ffn']} a step")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"transformer_train: losses {losses}")
     # (d) the captured backward launches against the plain versions
@@ -4332,7 +4481,13 @@ def transformer_train_phase(dev) -> dict:
     if list(q.shape) != out["flash_shape"]:
         raise AssertionError(f"transformer_train: flash at {list(q.shape)}"
                              f", want {out['flash_shape']}")
-    del captured, q, k, v, gg, lse, delta, kdq, kdk, kdv, pdq, pdk, pdv
+    del q, k, v, gg, lse, delta, kdq, kdk, kdv, pdq, pdk, pdv
+    rows = captured.pop("grouped_rows_kernel")
+    wgrad = captured.pop("grouped_wgrad_kernel")
+    out["captured_grouped"] = grouped_captured_check(rows, wgrad)
+    del wgrad, captured
+    out["grouped"] = grouped_at_cell_shapes(*rows[0][:4])
+    del rows
     # one more step under device-activity tracing
     with device_profile(cpu=False) as prof:
         _, prof_ms = _timed(lambda: step(params, opt, x, y))
@@ -4341,7 +4496,7 @@ def transformer_train_phase(dev) -> dict:
         "losses": losses, "step_walls_ms": walls,
         "step_ms": float(np.median(walls)), "peak_device_bytes": peak,
         "launches_per_step": per_step, "launches": counts,
-        "one_hot": one_hot_flops(cfg, mesh, TF_BATCH * TF_SEQ),
+        "expert_products": expert_flops(cfg, mesh, TF_BATCH * TF_SEQ),
         "profiled_step": {
             "wall_ms": prof_ms, **device_busy(prof, prof_ms),
             "flash_device_ms": {n: {"launches": len(v), "sum_ms": sum(v)}
@@ -8919,7 +9074,7 @@ def main() -> int:
         "bound_full_output_ms": wt["bound_full_output_ms"],
         "emit_ms": wt["emit_ms"], "tail_ms": wt["tail_ms"],
         "bound_by": "bytes", "library_ms": wt["library_ms"]},
-        *flash_entries]}), flush=True)
+        *flash_entries, grouped_kernel_entry(tf)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -47,6 +47,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C symbol -> (restype, argtypes). Pointers and the stream are c_void_p
 # (a bare Python int would be passed as a 32-bit int and cut).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # q, k, v, o, lse, BH, T, D, causal, scale, stream -> cudaError_t
     "sxt_flash_fwd": (ctypes.c_int, [_P] * 5 + [_I] * 4 + [_F, _P]),
@@ -82,6 +83,14 @@ SIGNATURES = {
     # a_rows, a_part, b_rows, b_part, out_rows, out_part, splits, P, ca,
     # cb, out_cap, width, stream -> cudaError_t
     "sxt_merge_path": (ctypes.c_int, [_P] * 7 + [_I] * 5 + [_P]),
+    # a, lda, b, b_group, ldb, c, ldc, pre, ldp, counts, offsets, groups,
+    # row_tiles, K, N, epilogue, bf16, stream -> cudaError_t
+    "sxt_grouped_rows": (ctypes.c_int, [_P, _L, _P, _L, _L, _P, _L, _P, _L,
+                                        _P, _P] + [_I] * 6 + [_P]),
+    # a, lda, b, ldb, c, counts, offsets, groups, M, N, bf16, stream
+    # -> cudaError_t
+    "sxt_grouped_wgrad": (ctypes.c_int, [_P, _L, _P, _L, _P, _P, _P]
+                          + [_I] * 4 + [_P]),
     "sxt_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -64,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from sparkucx_tpu_torch import backend
 from sparkucx_tpu_torch.models.moe import router_logits
+from sparkucx_tpu_torch.ops import grouped_ffn as gf
 from sparkucx_tpu_torch.ops.attention import (NEG_INF, _block_update,
                                               _finalize, make_block_bias)
 from sparkucx_tpu_torch.ops.partition import counts_from_sorted
@@ -312,6 +313,36 @@ def _tp_sum(parts):
     return out
 
 
+def _grouped_experts(lp, recv, rexpert, rvalid, e_local: int):
+    """Every local expert's FFN on the rows it received: ``recv [G, ep,
+    cap, D]``, ``rexpert`` each row's expert id as it travelled,
+    ``rvalid`` the rows received. The rows of all ``G * ep`` receiving
+    shards are sorted by global expert (rows past a shard's received count
+    and rows of another shard's expert last) in one stable sort, so each
+    expert's rows are one contiguous segment and its weight gradient one
+    reduction over it;
+    :func:`~sparkucx_tpu_torch.ops.grouped_ffn.grouped_ffn` runs the
+    products with the counts and offsets on the device. Returns ``[G, ep,
+    cap, D]``, zero past the received rows; a received row whose expert
+    id no local expert owns (a poisoned exchange on the card) comes back
+    NaN, so the loss shows it."""
+    G, ep, cap, D = recv.shape
+    E, dev = ep * e_local, recv.device
+    shard = torch.arange(ep, dtype=rexpert.dtype, device=dev).view(1, ep, 1)
+    owned = rvalid & (torch.div(rexpert, e_local, rounding_mode="floor")
+                      == shard)
+    skey, perm = torch.sort(torch.where(owned, rexpert, E).flatten(),
+                            stable=True)
+    counts, offsets = gf.segments_from_sorted(skey, E)
+    w1 = lp["w1e"].reshape(E, D, -1)                 # [E, D, F], tp-major F
+    w2 = lp["w2e"].reshape(E, -1, D)                 # [E, F, D]
+    ys = gf.grouped_ffn(recv.reshape(-1, D).index_select(0, perm), w1, w2,
+                        counts, lp["w1e"].shape[-2], offsets)
+    y = torch.empty_like(ys).index_copy_(0, perm, ys).view(G, ep, cap, D)
+    # owned rows are received rows, so the xor is the received unowned ones
+    return y.masked_fill((rvalid ^ owned)[..., None], float("nan"))
+
+
 def _moe_ffn(lp, x, cfg: TransformerConfig):
     """Expert FFN on ``x [G, ep, n, D]`` (G = sp*dp exchange groups of ep
     shards, ``n`` local rows a shard). Dispatch and combine are exchanges
@@ -342,25 +373,17 @@ def _moe_ffn(lp, x, cfg: TransformerConfig):
     recv = exchange(xid, counts, cap_out, cfg.impl)    # [G, ep, cap, D+1]
     rexpert = recv[..., -1].to(torch.int32)
     recv = recv[..., :-1]
-    shard = torch.arange(ep, device=dev).view(1, ep, 1)
-    le = rexpert - shard * e_local
     recv_sizes = counts.transpose(1, 2).contiguous()   # [g, receiver, sender]
     rvalid = torch.arange(cap_out, device=dev) \
         < recv_sizes.sum(dim=-1, keepdim=True)
 
-    # one-hot expert batching: every received row through every local
-    # expert's product, the rows of other experts zeroed (the span times
-    # the forward and remat's re-forward, not the products' backward)
-    with GLOBAL_TRACER.span("moe.experts", device_time=dev):
-        oh = (le[..., None] == torch.arange(e_local, device=dev)) \
-            & rvalid[..., None]
-        oh = oh.to(recv.dtype)                          # [G, ep, cap, el]
-        xe = torch.einsum("gpce,gpcd->gpecd", oh, recv)  # [G,ep,el,cap,D]
-        w1 = lp["w1e"].permute(0, 3, 1, 2, 4)           # [ep, tp, el, D, Ft]
-        w2 = lp["w2e"].permute(0, 2, 1, 3, 4)           # [ep, tp, el, Ft, D]
-        h = F.gelu(torch.matmul(xe[:, :, None], w1), approximate="tanh")
-        ye = torch.matmul(h, w2)              # [G, ep, tp, el, cap, D]
-        y = _tp_sum(torch.einsum("gpce,gpuecd->ugpcd", oh, ye))
+    # grouped expert products: the received rows sorted by expert on the
+    # device, each expert's rows through its own weights only (the span
+    # times the forward and remat's re-forward; the products' backward
+    # opens moe.experts.backward)
+    with GLOBAL_TRACER.span("moe.experts", device_time=dev,
+                            impl=gf.impl_for(dev)):
+        y = _grouped_experts(lp, recv, rexpert, rvalid, e_local)
 
     back = exchange(y, recv_sizes, n, cfg.impl)         # [G, ep, n, D]
     return _rows(back, inv_order) * gate[..., None]

@@ -20,6 +20,8 @@ from sparkucx_tpu_torch import backend, connect
 from sparkucx_tpu_torch.ops import ragged_a2a as ra
 from sparkucx_tpu_torch.ops.partition import blocked_partition_map
 from sparkucx_tpu_torch.shuffle.writer import hash32_np
+from torch_grouped_cases import CELL as GROUPED_CELL
+from torch_grouped_cases import grouped_case
 from torch_attention_cases import (FLASH_BH, FLASH_D, FLASH_T,
                                    flash_inputs, flash_seed, float64_grads,
                                    grad_tolerance, lse_tolerance,
@@ -1368,8 +1370,9 @@ def test_transformer_forward_on_card_matches_plain(card):
 def test_transformer_train_step_counts_flash_launches(card, remat):
     """One training step on the card: flash_fwd once a layer and
     microbatch (twice under remat: the recompute), flash_dq and flash_dkv
-    once; the loss and every gradient within 1e-4 of the same step on the
-    CPU (the blockwise scan there)."""
+    once, the grouped expert products two launches a forward and four a
+    backward; the loss and every gradient within 1e-4 of the same step on
+    the CPU (the blockwise scan and the plain products there)."""
     import dataclasses
     tt, cfg, cpu_params, _, x, y = _transformer_case(card)
     cfg = dataclasses.replace(cfg, remat=remat)
@@ -1386,14 +1389,193 @@ def test_transformer_train_step_counts_flash_launches(card, remat):
         out[dev.type] = (float(loss), {k: v.grad.cpu() for k, v in
                                        p.items()},
                          {k: after.get(k, 0) - before.get(k, 0)
-                          for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+                          for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                                    "grouped_ffn")})
     LM = cfg.num_layers * cfg.microbatches
     assert out["cuda"][2] == {"flash_fwd": (2 if remat else 1) * LM,
-                              "flash_dq": LM, "flash_dkv": LM}
-    assert out["cpu"][2] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+                              "flash_dq": LM, "flash_dkv": LM,
+                              "grouped_ffn": (2 * (2 if remat else 1) + 4)
+                              * LM}
+    assert out["cpu"][2] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                             "grouped_ffn": 0}
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
     for k, want in out["cpu"][1].items():
         _moe_close(out["cuda"][1][k], want, 1e-4)
+
+
+# -- the grouped expert products (ops/grouped_ffn.py) ------------------------
+# float32: another summation order than cuBLAS's float32 (TF32 would be
+# about 1e-3); bfloat16: one bf16 rounding (2**-8) at other points
+GROUPED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _grouped_run(x, w1, w2, counts, dy, plain: bool):
+    """(y, dx, dw1, dw2): the kernels through grouped_ffn's autograd, or
+    the same six products through the plain versions."""
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    if not plain:
+        xs, a, b = (t.clone().requires_grad_() for t in (x, w1, w2))
+        y = gf.grouped_ffn(xs, a, b, counts)
+        y.backward(dy)
+        return y.detach(), xs.grad, a.grad, b.grad
+    off = gf.segment_offsets(counts)
+    h, pre = gf.grouped_rows_plain(x, w1, counts, off, "gelu")
+    y = gf.grouped_rows_plain(h, w2, counts, off)
+    dpre = gf.grouped_rows_plain(dy, w2.transpose(1, 2).contiguous(), counts,
+                                 off, "gelu_grad", pre)
+    dx = gf.grouped_rows_plain(dpre, w1.transpose(1, 2).contiguous(), counts,
+                               off)
+    return (y, dx, gf.grouped_wgrad_plain(x, dpre, counts, off),
+            gf.grouped_wgrad_plain(h, dy, counts, off))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["even", "random", "one_expert", "empty"])
+def test_grouped_ffn_kernels_match_plain(card, kind, dtype):
+    """At the training cell's shapes (32,768 sorted rows, 16,384 owned by
+    8 experts, D 768, F 3,072): the kernels' forward and backward against
+    the plain versions on the card, for near-even, uneven (two experts
+    empty), skewed (one expert owns every row) and empty segments; rows
+    past the owned ones come back zero."""
+    c = GROUPED_CELL
+    x, w1, w2, counts = (t.to(card) for t in grouped_case(
+        kind, c["R"], c["E"], c["D"], c["Fd"], c["live"], dtype=dtype,
+        seed=5))
+    dy = torch.randn(x.shape, generator=torch.Generator(card).manual_seed(6),
+                     device=card).to(dtype)
+    got = _grouped_run(x, w1, w2, counts, dy, plain=False)
+    want = _grouped_run(x, w1, w2, counts, dy, plain=True)
+    for name, g, w in zip(("y", "dx", "dw1", "dw2"), got, want):
+        assert g.dtype == dtype, name
+        _moe_close(g.float().cpu(), w.float().cpu(), GROUPED_TOL[dtype])
+    live = int(counts.sum())
+    assert not got[0][live:].any() and not got[1][live:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,live,D,Fd", [(1000, 700, 36, 88),
+                                         (8192, 6000, 768, 3072)])
+def test_grouped_ffn_kernels_tp2_and_ragged_edges(card, R, live, D, Fd,
+                                                  dtype):
+    """tp = 2 (the second product as two launches over strided halves of
+    the hidden dim, summed in tp order) at widths off every tile edge (K
+    not a multiple of the 16-deep stage, N not of the 128-wide tile) and at
+    the cell's: the kernels against the plain versions, forward and
+    backward."""
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    x, w1, w2, counts = (t.to(card) for t in grouped_case(
+        "random", R, 6, D, Fd, live, dtype=dtype, seed=8))
+    dy = torch.randn(x.shape, generator=torch.Generator(card).manual_seed(2),
+                     device=card).to(dtype)
+    xs, a, b = (t.clone().requires_grad_() for t in (x, w1, w2))
+    y = gf.grouped_ffn(xs, a, b, counts, tp=2)
+    y.backward(dy)
+    off = gf.segment_offsets(counts)
+    h, pre = gf.grouped_rows_plain(x, w1, counts, off, "gelu")
+    ft = Fd // 2
+    want = gf.grouped_rows_plain(h[:, :ft], w2[:, :ft], counts, off) \
+        + gf.grouped_rows_plain(h[:, ft:], w2[:, ft:], counts, off)
+    dpre = gf.grouped_rows_plain(dy, w2.transpose(1, 2).contiguous(), counts,
+                                 off, "gelu_grad", pre)
+    for got, w in ((y, want),
+                   (xs.grad, gf.grouped_rows_plain(
+                       dpre, w1.transpose(1, 2).contiguous(), counts, off)),
+                   (a.grad, gf.grouped_wgrad_plain(x, dpre, counts, off)),
+                   (b.grad, gf.grouped_wgrad_plain(h, dy, counts, off))):
+        _moe_close(got.float().cpu(), w.float().cpu(), GROUPED_TOL[dtype])
+
+
+def _received_on_card(card, G=2, ep=2, e_local=4, cap=8192, D=768, Fd=3072,
+                      seed=7):
+    """The cell's received rows: ``[G, ep, cap, D]``, each shard's expert
+    ids among its own experts, half of each shard's slots received."""
+    g = torch.Generator(card).manual_seed(seed)
+    recv = torch.randn((G, ep, cap, D), generator=g, device=card)
+    shard = torch.arange(ep, device=card).view(1, ep, 1)
+    rexpert = (shard * e_local + torch.randint(
+        0, e_local, (G, ep, cap), generator=g, device=card)).to(torch.int32)
+    rvalid = torch.arange(cap, device=card) < cap // 2
+    rvalid = rvalid.expand(G, ep, cap)
+    lp = {"w1e": torch.randn((ep, e_local, D, 1, Fd), generator=g,
+                             device=card) * D ** -0.5,
+          "w2e": torch.randn((ep, e_local, 1, Fd, D), generator=g,
+                             device=card) * Fd ** -0.5}
+    return lp, recv, rexpert, rvalid, e_local
+
+
+def test_grouped_experts_add_no_host_sync(card):
+    """At the cell's shapes the transformer's grouping (the sort, the
+    counts, the gathers) and the grouped products' forward and backward
+    run under torch.cuda.set_sync_debug_mode("error"): nothing waits on
+    the host. The wrapper counts six launches (two forward, four
+    backward)."""
+    from sparkucx_tpu_torch.models import transformer as tt
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    lp, recv, rexpert, rvalid, e_local = _received_on_card(card)
+    w1 = lp["w1e"].requires_grad_()
+    w2 = lp["w2e"].requires_grad_()
+    recv.requires_grad_()
+    dy = torch.randn(recv.shape, device=card)
+    backend.kernel_library()
+    torch.cuda.synchronize()
+    before = backend.launch_counts().get(gf.KERNEL_NAME, 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = tt._grouped_experts({"w1e": w1, "w2e": w2}, recv, rexpert,
+                                rvalid, e_local)
+        y.backward(dy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert backend.launch_counts().get(gf.KERNEL_NAME, 0) - before == 6
+    assert torch.isfinite(y).all() and not y[~rvalid].any()
+    assert w1.grad.abs().sum() > 0 and w2.grad.abs().sum() > 0
+
+
+def test_grouped_experts_poison_unowned_id_on_card(card):
+    """A received row whose expert id no local expert owns comes back NaN
+    on the card, and the exchange overflow of capacity_factor 0.25 makes
+    the transformer's loss NaN there."""
+    import dataclasses
+    from sparkucx_tpu_torch.models import transformer as tt
+    lp, recv, rexpert, rvalid, e_local = _received_on_card(
+        card, cap=256, D=64, Fd=128)
+    rexpert = rexpert.clone()
+    rexpert[0, 0, 3] = e_local           # shard 1's first expert
+    rexpert[1, 1, 5] = 1000
+    y = tt._grouped_experts(lp, recv, rexpert, rvalid, e_local)
+    bad = torch.zeros(rvalid.shape, dtype=torch.bool, device=card)
+    bad[0, 0, 3] = bad[1, 1, 5] = True
+    assert torch.isnan(y[bad]).all() and torch.isfinite(y[~bad]).all()
+    _, cfg, _, params, x, yt = _transformer_case(card)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.25)
+    loss = tt.loss_fn(params, x.to(card), yt.to(card), tt.make_mesh(8), cfg)
+    assert torch.isnan(loss)
+
+
+def test_expert_spans_say_grouped_on_card(card, monkeypatch):
+    """On the card a training step's ``moe.experts`` spans (forward and
+    remat re-forward) and ``moe.experts.backward`` spans say
+    ``impl="grouped"`` and carry device times."""
+    from sparkucx_tpu_torch.models import transformer as tt
+    from sparkucx_tpu_torch.ops import grouped_ffn as gf
+    from sparkucx_tpu_torch.utils.trace import Tracer
+    t = Tracer(enabled=True)
+    monkeypatch.setattr(tt, "GLOBAL_TRACER", t)
+    monkeypatch.setattr(gf, "GLOBAL_TRACER", t)
+    _, cfg, _, params, x, y = _transformer_case(card)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    tt.loss_fn(params, x.to(card), y.to(card), tt.make_mesh(8),
+               cfg).backward()
+    torch.cuda.synchronize()
+    LM = cfg.num_layers * cfg.microbatches
+    fwd, bwd = t.spans("moe.experts"), t.spans("moe.experts.backward")
+    assert len(fwd) == 2 * LM and len(bwd) == LM
+    assert {s.attrs["impl"] for s in fwd + bwd} == {"grouped"}
+    assert all(s.device_ms is not None and s.device_ms > 0
+               for s in fwd + bwd)
 
 
 # -- the two-tier topology plane and io/dlpack on the card --------------------
